@@ -1,0 +1,53 @@
+"""Offline tokenizers (port of ``llmtrain_tpu/data/tokenizers.py``).
+
+This slice carries the byte-level tokenizer the headline preset uses
+(``model.extra.tokenizer: "byte"``): 256-symbol vocabulary, UTF-8 bytes
+as token ids. ``gpt2`` needs tiktoken's downloaded BPE files and raises
+here as it would offline; ``bpe:`` and ``hf:`` vocabularies are not yet
+ported (ROADMAP.md queue A).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+class ByteTokenizer:
+    """UTF-8 byte-level tokenizer: token id == byte value, vocab 256."""
+
+    n_vocab = 256
+
+    def encode(self, text: str) -> list[int]:
+        return list(text.encode("utf-8"))
+
+    def decode(self, ids) -> str:
+        arr = np.asarray(ids, dtype=np.int64)
+        if arr.size and (arr.min() < 0 or arr.max() > 255):
+            raise ValueError("byte tokenizer ids must be in [0, 255]")
+        return bytes(arr.astype(np.uint8).tolist()).decode("utf-8", errors="replace")
+
+
+def build_tokenizer(name: str):
+    """Resolve a tokenizer by config name: ``"byte"`` here; ``"gpt2"``
+    raises (its BPE files need a download); ``bpe:``/``hf:`` raise as not
+    yet ported; anything else is unknown."""
+    if name == "byte":
+        return ByteTokenizer()
+    if name == "gpt2":
+        raise RuntimeError(
+            "the gpt2 tokenizer needs tiktoken's BPE files, which are "
+            "downloaded on first use; use model.extra.tokenizer: \"byte\" "
+            "or set model.vocab_size and pass prompt ids"
+        )
+    if name.startswith(("bpe:", "hf:")):
+        raise NotImplementedError(
+            f"tokenizer {name!r} is not yet ported to llmtrain_tpu_torch "
+            "(ROADMAP.md queue A); use \"byte\""
+        )
+    raise ValueError(
+        f"unknown tokenizer {name!r}; expected 'gpt2', 'byte', 'bpe:<path>', "
+        "or 'hf:<tokenizer.json>'"
+    )
+
+
+__all__ = ["ByteTokenizer", "build_tokenizer"]

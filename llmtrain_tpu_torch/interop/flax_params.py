@@ -1,0 +1,96 @@
+"""JAX GPT parameter tree → the port's ``state_dict``.
+
+Input is the flax GPT's ``params`` as nested dicts of arrays — what
+``flax.serialization.to_state_dict`` gives and what a checkpoint payload
+holds (training/checkpoint.py reads it without flax). The layout
+transforms are those of ``llmtrain_tpu/interop/torch_interop.py:83``,
+extended to grouped-query attention:
+
+* flax Dense kernels are (in, out); torch Linear weights are (out, in);
+* the fused ``qkv_proj`` kernel is (D, 3, H, Dh) and ``kv_proj`` is
+  (D, 2, Hkv, Dh): flattened in C order they give output features in the
+  (qkv, head, dim) order the port's attention splits;
+* ``q_proj`` is (D, H, Dh); ``out_proj`` is (H, Dh, D) and contracts in
+  the same C order as the port's (B, T, H·Dh) attention output.
+
+Floating leaves keep their dtype; ``load_state_dict`` casts them into the
+model's parameter dtype.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+Params = Any  # nested dict of numpy arrays or torch tensors
+
+
+def _tensor(x: Any) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.from_numpy(np.array(x))  # owned, writable copy
+
+
+def _kernel(x: Any) -> torch.Tensor:
+    """(in, *out) flax kernel → (prod(out), in) torch weight."""
+    t = _tensor(x)
+    return t.reshape(t.shape[0], -1).T.contiguous()
+
+
+def flax_gpt_params_to_state_dict(params: Params) -> dict[str, torch.Tensor]:
+    """The port's GPT ``state_dict`` from the JAX GPT's param tree."""
+    if "base" in params and "lora" in params:
+        raise NotImplementedError(
+            "LoRA checkpoints are not yet ported to llmtrain_tpu_torch "
+            "(ROADMAP.md queue A: model zoo); merge or export the base first"
+        )
+    if ("qkv_kernel" in params or "q_kernel" in params) and "block_0" not in params:
+        raise NotImplementedError(
+            "pipeline (stacked-layer) checkpoints are not yet ported to "
+            "llmtrain_tpu_torch (ROADMAP.md queue A: parallelism)"
+        )
+    for required in ("token_embedding", "position_embedding", "ln_f", "block_0"):
+        if required not in params:
+            raise ValueError(
+                f"params have no {required!r}; only the dense GPT tree "
+                "(llmtrain_tpu/models/gpt.py) is supported"
+            )
+    sd: dict[str, torch.Tensor] = {
+        "token_embedding.weight": _tensor(params["token_embedding"]["embedding"]),
+        "position_embedding.weight": _tensor(params["position_embedding"]["embedding"]),
+        "ln_f.weight": _tensor(params["ln_f"]["scale"]),
+        "ln_f.bias": _tensor(params["ln_f"]["bias"]),
+    }
+    i = 0
+    while f"block_{i}" in params:
+        p, pre = params[f"block_{i}"], f"blocks.{i}"
+        if "moe_mlp" in p:
+            raise NotImplementedError(
+                "Mixture-of-Experts checkpoints are not yet ported to "
+                "llmtrain_tpu_torch (ROADMAP.md queue A: model zoo)"
+            )
+        for ln in ("ln_1", "ln_2"):
+            sd[f"{pre}.{ln}.weight"] = _tensor(p[ln]["scale"])
+            sd[f"{pre}.{ln}.bias"] = _tensor(p[ln]["bias"])
+        att = p["attn"]
+        for proj in ("qkv_proj", "q_proj", "kv_proj"):
+            if proj in att:
+                sd[f"{pre}.attn.{proj}.weight"] = _kernel(att[proj]["kernel"])
+                if "bias" in att[proj]:
+                    sd[f"{pre}.attn.{proj}.bias"] = _tensor(att[proj]["bias"]).reshape(-1)
+        out_k = _tensor(att["out_proj"]["kernel"])
+        sd[f"{pre}.attn.out_proj.weight"] = out_k.reshape(-1, out_k.shape[-1]).T.contiguous()
+        if "bias" in att["out_proj"]:
+            sd[f"{pre}.attn.out_proj.bias"] = _tensor(att["out_proj"]["bias"])
+        for mlp in ("mlp_fc", "mlp_proj"):
+            sd[f"{pre}.{mlp}.weight"] = _kernel(p[mlp]["kernel"])
+            sd[f"{pre}.{mlp}.bias"] = _tensor(p[mlp]["bias"])
+        i += 1
+    if "lm_head" in params:
+        sd["lm_head.weight"] = _kernel(params["lm_head"]["kernel"])
+    return sd
+
+
+__all__ = ["flax_gpt_params_to_state_dict"]

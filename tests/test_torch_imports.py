@@ -1,0 +1,40 @@
+"""The port stands alone: no module of llmtrain_tpu_torch, and not
+chip_smoke.py, imports jax, flax, optax or the JAX package (the card's
+machine has no JAX)."""
+
+from __future__ import annotations
+
+import ast
+from pathlib import Path
+
+import pytest
+
+_ROOT = Path(__file__).resolve().parents[1]
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "llmtrain_tpu")
+_FILES = sorted((_ROOT / "llmtrain_tpu_torch").rglob("*.py")) + [_ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(encoding="utf-8"), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", _FILES, ids=lambda p: str(p.relative_to(_ROOT)))
+def test_module_imports_no_jax(path: Path) -> None:
+    assert not (_imported_roots(path) & set(_FORBIDDEN)), path
+
+
+def test_walk_covers_the_package() -> None:
+    names = {p.name for p in _FILES}
+    assert {"gpt.py", "flash_attention.py", "http.py", "cli.py", "chip_smoke.py"} <= names
+
+
+def test_forbidden_import_is_detected(tmp_path: Path) -> None:
+    bad = tmp_path / "bad.py"
+    bad.write_text("import os\nfrom llmtrain_tpu.ops import rope\n")
+    assert "llmtrain_tpu" in _imported_roots(bad)
