@@ -3,11 +3,16 @@
 Same subcommands, flags, JSON shapes and exit codes as the JAX CLI
 (``llmtrain_tpu/cli.py``) for the surface this slice ports:
 
+* ``train`` — config → run directory (``config.yaml``, ``meta.json``,
+  ``logs/``, ``checkpoints/``) → the trainer (training/trainer.py), with
+  ``--run-id``, ``--dry-run``, ``--json``, ``-v``, ``--resume`` and
+  ``--auto-resume``; the run summary on stdout;
 * ``generate`` — checkpoint → ``generate()`` (KV-cache or re-forward branch);
 * ``serve`` — checkpoint → simple-mode HTTP server (serving/http.py);
 * ``validate`` / ``print-config`` — the config loader.
 
-Exit codes: 0 ok, 1 failure, 2 config error. Flags whose feature is not
+Exit codes: 0 ok, 1 failure, 2 config error (a feature that is not yet
+ported counts as a config error). Flags whose feature is not
 yet ported (``--ema``, ``--draft-*``, ``--quantize int8``, continuous
 mode, the router, ``--trace-dir``) and LoRA or pipeline checkpoints exit
 2 with a message naming the ROADMAP.md item. ``run.device`` (default
@@ -39,10 +44,27 @@ _NOT_PORTED = "is not yet ported to llmtrain_tpu_torch"
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="llmtrain_tpu_torch",
-        description="PyTorch/CUDA port of llmtrain_tpu: generation and serving",
+        description="PyTorch/CUDA port of llmtrain_tpu: training, generation and serving",
     )
     parser.add_argument("--version", action="version", version=__version__)
     sub = parser.add_subparsers(dest="command", required=True)
+
+    train = sub.add_parser("train", help="run a training job")
+    train.add_argument("--config", required=True, help="path to the YAML run config")
+    train.add_argument("--run-id", default=None, help="override the generated run id")
+    train.add_argument("--dry-run", action="store_true", help="forward-only sanity check")
+    train.add_argument("--json", action="store_true", help="emit the run summary as JSON")
+    train.add_argument("-v", "--verbose", action="store_true", help="DEBUG logging")
+    resume_group = train.add_mutually_exclusive_group()
+    resume_group.add_argument(
+        "--resume", default=None,
+        help="checkpoint file, checkpoint dir, or run id to resume from",
+    )
+    resume_group.add_argument(
+        "--auto-resume", action="store_true",
+        help="reuse the run dir for --run-id if it exists and resume from its "
+        "latest checkpoint (fresh start otherwise); for preemptible pods",
+    )
 
     gen = sub.add_parser("generate", help="sample completions from a trained checkpoint")
     gen.add_argument("--config", required=True, help="path to the YAML run config")
@@ -187,7 +209,100 @@ def _unported_inference_flags(args: argparse.Namespace, cfg) -> str | None:
 
 
 def _exit_code(exc: BaseException) -> int:
-    return EXIT_CONFIG_ERROR if isinstance(exc, NotImplementedError) else EXIT_FAILURE
+    from .training.trainer import TopologyMismatchError
+
+    config_errors = (NotImplementedError, TopologyMismatchError)
+    return EXIT_CONFIG_ERROR if isinstance(exc, config_errors) else EXIT_FAILURE
+
+
+def _handle_train(args: argparse.Namespace) -> int:
+    """The JAX ``_handle_train`` on one process: run dir, config copy,
+    meta.json, logging, then the trainer or the dry run, then the summary."""
+    from .registry import RegistryError, get_data_module, get_model_adapter, initialize_registries
+    from .utils.logging import configure_logging, get_logger
+    from .utils.metadata import generate_meta, write_meta_json
+    from .utils.run_dir import create_run_directory, write_resolved_config
+    from .utils.run_id import generate_run_id
+    from .utils.summary import format_run_summary
+
+    try:
+        cfg, _, resolved = load_and_validate_config(args.config)
+    except ConfigLoadError as exc:
+        _emit_error(exc.message, details=exc.details, errors=exc.errors)
+        return EXIT_CONFIG_ERROR
+    logger = get_logger()
+    try:
+        run_id = args.run_id or cfg.output.run_id
+        if args.auto_resume and run_id is None:
+            _emit_error(
+                "--auto-resume requires a stable run id (--run-id or output.run_id): "
+                "a generated id is fresh on every restart"
+            )
+            return EXIT_CONFIG_ERROR
+        if run_id is None:
+            run_id = generate_run_id(cfg.run.name, cfg.output.root_dir)
+        resume_spec = args.resume
+        try:
+            run_dir = create_run_directory(cfg.output.root_dir, run_id)
+        except FileExistsError:
+            if not args.auto_resume:
+                _emit_error(
+                    f"run directory already exists for run id {run_id!r}",
+                    details="pass a fresh --run-id or let the run id be generated",
+                )
+                return EXIT_FAILURE
+            from .training.checkpoint import CheckpointManager
+
+            run_dir = Path(cfg.output.root_dir) / run_id
+            (run_dir / "logs").mkdir(parents=True, exist_ok=True)
+            if CheckpointManager(run_dir / "checkpoints").latest_checkpoint() is not None:
+                resume_spec = str(run_dir / "checkpoints")
+
+        log_file = None
+        if cfg.logging.log_to_file:
+            log_file = run_dir / "logs" / cfg.logging.file_name
+        level = "DEBUG" if args.verbose else cfg.logging.level
+        configure_logging(level=level, json_output=cfg.logging.json_output, log_file=log_file)
+        if cfg.output.save_config_copy:
+            write_resolved_config(run_dir, resolved)
+        if cfg.output.save_meta_json:
+            meta = generate_meta(
+                run_id=run_id, run_name=cfg.run.name, config_path=args.config,
+                resolved_config_path=run_dir / "config.yaml",
+            )
+            write_meta_json(run_dir, meta)
+
+        initialize_registries()
+        _warn_unknown_extras(cfg)
+        try:
+            get_model_adapter(cfg.model.name)
+            get_data_module(cfg.data.name)
+        except RegistryError as exc:
+            _emit_error(str(exc))
+            return EXIT_CONFIG_ERROR
+
+        if args.dry_run:
+            from .training.dry_run import run_dry_run
+
+            summary = format_run_summary(
+                cfg, run_id=run_id, run_dir=str(run_dir), dry_run=True,
+                dry_run_result=run_dry_run(cfg), as_json=args.json,
+            )
+        else:
+            from .training.trainer import Trainer
+
+            result = Trainer(cfg, run_dir).fit(resume_from=resume_spec)
+            summary = format_run_summary(
+                cfg, run_id=run_id, run_dir=str(run_dir), dry_run=False,
+                train_result=result, as_json=args.json,
+            )
+        print(json.dumps(summary) if args.json else summary)
+        return EXIT_OK
+    except Exception as exc:  # noqa: BLE001 — CLI boundary
+        code = _exit_code(exc)
+        logger.exception("training failed: %s", exc)
+        _emit_error(f"training failed: {exc} (exit {code})")
+        return code
 
 
 def _build_decode_stack(cfg, device, logger):
@@ -492,6 +607,7 @@ def _handle_print_config(args: argparse.Namespace) -> int:
 
 
 _HANDLERS = {
+    "train": _handle_train,
     "generate": _handle_generate,
     "serve": _handle_serve,
     "validate": _handle_validate,

@@ -1,0 +1,425 @@
+// Flash-attention backward for Hopper (sm_90a), written by hand: two
+// kernels, dQ and dK/dV.
+//
+// Replaces the TPU kernels of `pallas_flash_attention_bwd`
+// (llmtrain_tpu/ops/pallas_attention.py:468): `_bwd_dq_kernel` (:278,
+// pallas_call :531) and `_bwd_dkdv_kernel` (:358, pallas_call :573).
+// FlashAttention-2's recompute scheme: the forward saved the per-row
+// logsumexp L, and each kernel recomputes P = exp(S - L) tile by tile, so
+// nothing of shape (T, T) is ever stored.
+//
+//   S  = (q * scale) k^T            (q is scaled in f32 before the dot)
+//   P  = exp(S - L)                 (dead logits hold the finite -1e30)
+//   dP = dO v^T
+//   dS = P * (dP - delta)           delta = rowsum(dO * O), computed by the
+//                                   caller in f32 (as JAX computes it in
+//                                   XLA outside the Pallas call)
+//   dQ = scale * dS k               (the one factor of scale, at the end)
+//   dV = P^T dO
+//   dK = dS^T (q * scale)           (already carries scale through q)
+//
+// Layouts (all contiguous): q, dO, dQ (B, T, H, D); k, v, dK, dV
+// (B, T, Hkv, D) with H % Hkv == 0 (query head h reads kv head
+// h / (H / Hkv)); L and delta (B*H, T) f32; mask (B, T) int32 segment ids,
+// optional (a key is live for a query iff its id is nonzero and equal to
+// the query's). dQ comes back in q's dtype, dK/dV in k's dtype. Any
+// T >= 1: ragged tails are masked in-tile. Rows with no live key carry
+// finite garbage in L; the model zeroes their output, so their dO and
+// delta are zero and they contribute nothing here, as on the TPU.
+//
+// Design, and where it leaves the TPU's. The TPU runs the dK/dV grid
+// (B*Hkv, T/BK, G) in order on one core and accumulates the G query
+// heads of a kv head into one f32 output block that the grid revisits
+// (pallas_attention.py:578, :457-465). Blocks on the GPU run in no order,
+// so that sequential grid axis becomes a loop INSIDE the block: one block
+// per (64-key tile, b*hkv) walks the G query heads of its group and,
+// for each, the 64-row q tiles from the causal diagonal down (to the end
+// of the sequence or of the window), accumulating dK and dV in f32
+// registers and writing each once. No atomics, no f32 scratch in HBM, and
+// the sums run in a fixed order, so the result is deterministic. The dQ
+// kernel is gridded like the forward: one block per (64-row q tile, b*h),
+// looping over the K/V tiles from the window's start to the diagonal.
+//
+// Both kernels use the forward kernel's thread layout: 256 threads, four
+// threads per tile row, thread c of a row owning tile columns j*4+c for
+// the dot products and output dims j*4+c for the accumulators; tiles are
+// staged in shared memory as f32, rows padded by one float so the reads
+// are free of bank conflicts; P and dS go through shared memory between
+// the two products of a tile.
+//
+// What bounds it at the training shape (64, 512, 12, 64) bf16 causal: the
+// bytes it must move (q, k, v, dO once and dQ, dK, dV once, L and delta)
+// are ~0.4 GB, ~0.12 ms at 3.35 TB/s, against ~6.5e10 flop of the live
+// causal pairs, ~0.07 ms of bf16 tensor-core time: the bound is memory.
+// This first version is deliberately simple and right rather than fast:
+// f32 FMA from shared memory, no tensor cores, no TMA, so it sits far from
+// that bound. mma/wgmma tiles are later work.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kTile = 64;                    // rows (queries or keys) per tile
+constexpr int kThreadsPerRow = 4;
+constexpr int kThreads = kTile * kThreadsPerRow;  // 256
+constexpr int kColsPerThread = kTile / kThreadsPerRow;  // 16
+constexpr int kPStride = kTile + 1;
+constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Live iff the key exists, is not above the diagonal, is inside the
+// window and shares the query's (nonzero) segment.
+__device__ __forceinline__ bool is_live(int qpos, int kpos, int seq_len, int causal,
+                                        int window, bool masked, int q_seg, int k_seg) {
+  bool live = kpos < seq_len && qpos < seq_len;
+  if (causal) live = live && kpos <= qpos;
+  if (window > 0) live = live && (qpos - kpos) < window;
+  if (masked) live = live && k_seg != 0 && k_seg == q_seg;
+  return live;
+}
+
+// Stage a (64, D) tile of rows [p0, p0+64) of a (.., T, heads, D) tensor
+// into shared memory as f32 times `mul`; rows past the end read as zero.
+template <int D, typename T>
+__device__ __forceinline__ void stage_tile(float* dst, const T* base, int64_t row_stride,
+                                           int p0, int seq_len, float mul) {
+  for (int idx = threadIdx.x; idx < kTile * D; idx += kThreads) {
+    const int r = idx / D, d = idx % D;
+    const int p = p0 + r;
+    dst[r * (D + 1) + d] = p < seq_len ? to_float(base[(int64_t)p * row_stride + d]) * mul : 0.0f;
+  }
+}
+
+constexpr size_t dq_smem_bytes(int d) {
+  // q (scaled), dO, k, v: (64, D+1) f32 each; dS (64, 65) f32; key segment ids.
+  return sizeof(float) * (4 * kTile * (d + 1) + kTile * kPStride) + sizeof(int) * kTile;
+}
+
+constexpr size_t dkdv_smem_bytes(int d) {
+  // k, v, q (scaled), dO: (64, D+1) f32 each; P and dS (64, 65) f32 each;
+  // L and delta of the q tile; query segment ids.
+  return sizeof(float) * (4 * kTile * (d + 1) + 2 * kTile * kPStride + 2 * kTile) +
+         sizeof(int) * kTile;
+}
+
+template <int D, typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    const int* __restrict__ mask, T* __restrict__ dq, int seq_len,
+                    int n_heads, int n_kv_heads, float scale, int causal, int window) {
+  constexpr int kStride = D + 1;
+  constexpr int kDimsPerThread = D / kThreadsPerRow;
+  extern __shared__ float smem[];
+  float* s_q = smem;
+  float* s_do = s_q + kTile * kStride;
+  float* s_k = s_do + kTile * kStride;
+  float* s_v = s_k + kTile * kStride;
+  float* s_ds = s_v + kTile * kStride;
+  int* s_seg = reinterpret_cast<int*>(s_ds + kTile * kPStride);
+
+  const int tid = threadIdx.x;
+  const int row = tid / kThreadsPerRow;
+  const int col = tid % kThreadsPerRow;
+  const int m0 = blockIdx.x * kTile;
+  const int bh = blockIdx.y;
+  const int b = bh / n_heads;
+  const int h = bh % n_heads;
+  const int hkv = h / (n_heads / n_kv_heads);
+  const int qpos = m0 + row;
+  const bool row_valid = qpos < seq_len;
+
+  const int64_t q_row_stride = (int64_t)n_heads * D;
+  const int64_t kv_row_stride = (int64_t)n_kv_heads * D;
+  const int64_t q_off = ((int64_t)b * seq_len) * q_row_stride + (int64_t)h * D;
+  const int64_t kv_off = ((int64_t)b * seq_len) * kv_row_stride + (int64_t)hkv * D;
+  const int* seg_base = mask ? mask + (int64_t)b * seq_len : nullptr;
+
+  stage_tile<D>(s_q, q + q_off, q_row_stride, m0, seq_len, scale);
+  stage_tile<D>(s_do, dout + q_off, q_row_stride, m0, seq_len, 1.0f);
+  const float row_lse = row_valid ? lse[(int64_t)bh * seq_len + qpos] : 0.0f;
+  const float row_delta = row_valid ? delta[(int64_t)bh * seq_len + qpos] : 0.0f;
+  const int q_seg = (seg_base && row_valid) ? seg_base[qpos] : 0;
+
+  int kv_end = seq_len;
+  if (causal) kv_end = min(seq_len, m0 + kTile);
+  int kv_start = 0;
+  if (window > 0) kv_start = max(0, m0 - window + 1);
+  const int tile_begin = kv_start / kTile;
+  const int tile_end = (kv_end + kTile - 1) / kTile;
+
+  float acc[kDimsPerThread];
+#pragma unroll
+  for (int j = 0; j < kDimsPerThread; ++j) acc[j] = 0.0f;
+
+  for (int tile = tile_begin; tile < tile_end; ++tile) {
+    const int n0 = tile * kTile;
+    __syncthreads();  // the previous tile's s_k/s_v/s_ds reads are done
+    stage_tile<D>(s_k, k + kv_off, kv_row_stride, n0, seq_len, 1.0f);
+    stage_tile<D>(s_v, v + kv_off, kv_row_stride, n0, seq_len, 1.0f);
+    if (seg_base && tid < kTile) {
+      const int p = n0 + tid;
+      s_seg[tid] = p < seq_len ? seg_base[p] : 0;
+    }
+    __syncthreads();
+
+    float s[kColsPerThread], dp[kColsPerThread];
+#pragma unroll
+    for (int j = 0; j < kColsPerThread; ++j) s[j] = dp[j] = 0.0f;
+    for (int d = 0; d < D; ++d) {
+      const float qd = s_q[row * kStride + d];
+      const float dod = s_do[row * kStride + d];
+#pragma unroll
+      for (int j = 0; j < kColsPerThread; ++j) {
+        const int key = (j * kThreadsPerRow + col) * kStride + d;
+        s[j] = fmaf(qd, s_k[key], s[j]);
+        dp[j] = fmaf(dod, s_v[key], dp[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kColsPerThread; ++j) {
+      const int n = j * kThreadsPerRow + col;
+      const bool live = is_live(qpos, n0 + n, seq_len, causal, window, seg_base != nullptr,
+                                q_seg, seg_base ? s_seg[n] : 0);
+      const float p = row_valid ? expf((live ? s[j] : kNegInf) - row_lse) : 0.0f;
+      s_ds[row * kPStride + n] = p * (dp[j] - row_delta);
+    }
+    __syncthreads();  // dS of the tile complete for every row
+
+    for (int n = 0; n < kTile; ++n) {
+      const float ds = s_ds[row * kPStride + n];
+#pragma unroll
+      for (int j = 0; j < kDimsPerThread; ++j)
+        acc[j] = fmaf(ds, s_k[n * kStride + j * kThreadsPerRow + col], acc[j]);
+    }
+  }
+
+  if (!row_valid) return;
+  T* dq_row = dq + q_off + (int64_t)qpos * q_row_stride;
+#pragma unroll
+  for (int j = 0; j < kDimsPerThread; ++j)
+    dq_row[j * kThreadsPerRow + col] = from_float<T>(acc[j] * scale);
+}
+
+template <int D, typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      const int* __restrict__ mask, T* __restrict__ dk, T* __restrict__ dv,
+                      int seq_len, int n_heads, int n_kv_heads, float scale, int causal,
+                      int window) {
+  constexpr int kStride = D + 1;
+  constexpr int kDimsPerThread = D / kThreadsPerRow;
+  extern __shared__ float smem[];
+  float* s_k = smem;
+  float* s_v = s_k + kTile * kStride;
+  float* s_q = s_v + kTile * kStride;
+  float* s_do = s_q + kTile * kStride;
+  float* s_p = s_do + kTile * kStride;
+  float* s_ds = s_p + kTile * kPStride;
+  float* s_lse = s_ds + kTile * kPStride;
+  float* s_delta = s_lse + kTile;
+  int* s_qseg = reinterpret_cast<int*>(s_delta + kTile);
+
+  const int tid = threadIdx.x;
+  const int row = tid / kThreadsPerRow;  // key row inside the tile
+  const int col = tid % kThreadsPerRow;
+  const int n0 = blockIdx.x * kTile;
+  const int bkv = blockIdx.y;
+  const int b = bkv / n_kv_heads;
+  const int hkv = bkv % n_kv_heads;
+  const int group = n_heads / n_kv_heads;
+  const int kpos = n0 + row;
+  const bool key_valid = kpos < seq_len;
+
+  const int64_t q_row_stride = (int64_t)n_heads * D;
+  const int64_t kv_row_stride = (int64_t)n_kv_heads * D;
+  const int64_t kv_off = ((int64_t)b * seq_len) * kv_row_stride + (int64_t)hkv * D;
+  const int* seg_base = mask ? mask + (int64_t)b * seq_len : nullptr;
+  const int k_seg = (seg_base && key_valid) ? seg_base[kpos] : 0;
+
+  stage_tile<D>(s_k, k + kv_off, kv_row_stride, n0, seq_len, 1.0f);
+  stage_tile<D>(s_v, v + kv_off, kv_row_stride, n0, seq_len, 1.0f);
+
+  // Query tiles that can see this key tile: from the diagonal down, to
+  // the sequence end or the last query inside the window.
+  const int n_q_tiles = (seq_len + kTile - 1) / kTile;
+  const int qt_begin = causal ? n0 / kTile : 0;
+  int qt_end = n_q_tiles;
+  if (window > 0) qt_end = min(qt_end, (n0 + kTile - 1 + window - 1) / kTile + 1);
+
+  float acc_k[kDimsPerThread], acc_v[kDimsPerThread];
+#pragma unroll
+  for (int j = 0; j < kDimsPerThread; ++j) acc_k[j] = acc_v[j] = 0.0f;
+
+  for (int g = 0; g < group; ++g) {
+    const int h = hkv * group + g;
+    const int64_t bh = (int64_t)b * n_heads + h;
+    const int64_t q_off = ((int64_t)b * seq_len) * q_row_stride + (int64_t)h * D;
+    for (int qt = qt_begin; qt < qt_end; ++qt) {
+      const int m0 = qt * kTile;
+      __syncthreads();  // the previous q tile's reads are done
+      stage_tile<D>(s_q, q + q_off, q_row_stride, m0, seq_len, scale);
+      stage_tile<D>(s_do, dout + q_off, q_row_stride, m0, seq_len, 1.0f);
+      if (tid < kTile) {
+        const int p = m0 + tid;
+        const bool valid = p < seq_len;
+        s_lse[tid] = valid ? lse[bh * seq_len + p] : 0.0f;
+        s_delta[tid] = valid ? delta[bh * seq_len + p] : 0.0f;
+        s_qseg[tid] = (seg_base && valid) ? seg_base[p] : 0;
+      }
+      __syncthreads();
+
+      float s[kColsPerThread], dp[kColsPerThread];
+#pragma unroll
+      for (int j = 0; j < kColsPerThread; ++j) s[j] = dp[j] = 0.0f;
+      for (int d = 0; d < D; ++d) {
+        const float kd = s_k[row * kStride + d];
+        const float vd = s_v[row * kStride + d];
+#pragma unroll
+        for (int j = 0; j < kColsPerThread; ++j) {
+          const int qi = (j * kThreadsPerRow + col) * kStride + d;
+          s[j] = fmaf(kd, s_q[qi], s[j]);
+          dp[j] = fmaf(vd, s_do[qi], dp[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kColsPerThread; ++j) {
+        const int qi = j * kThreadsPerRow + col;
+        const int qpos = m0 + qi;
+        const bool live = is_live(qpos, kpos, seq_len, causal, window, seg_base != nullptr,
+                                  s_qseg[qi], k_seg);
+        const float p = qpos < seq_len ? expf((live ? s[j] : kNegInf) - s_lse[qi]) : 0.0f;
+        s_p[row * kPStride + qi] = p;
+        s_ds[row * kPStride + qi] = p * (dp[j] - s_delta[qi]);
+      }
+      __syncthreads();  // P and dS of the tile complete for every key
+
+      for (int qi = 0; qi < kTile; ++qi) {
+        const float p = s_p[row * kPStride + qi];
+        const float ds = s_ds[row * kPStride + qi];
+#pragma unroll
+        for (int j = 0; j < kDimsPerThread; ++j) {
+          const int idx = qi * kStride + j * kThreadsPerRow + col;
+          acc_v[j] = fmaf(p, s_do[idx], acc_v[j]);
+          acc_k[j] = fmaf(ds, s_q[idx], acc_k[j]);
+        }
+      }
+    }
+  }
+
+  if (!key_valid) return;
+  const int64_t out = kv_off + (int64_t)kpos * kv_row_stride;
+#pragma unroll
+  for (int j = 0; j < kDimsPerThread; ++j) {
+    dk[out + j * kThreadsPerRow + col] = from_float<T>(acc_k[j]);
+    dv[out + j * kThreadsPerRow + col] = from_float<T>(acc_v[j]);
+  }
+}
+
+// The shared-memory opt-in is a per-device function attribute: set it
+// once per device the first time that device launches an instance.
+template <typename Kernel>
+cudaError_t configure_smem(Kernel kernel, size_t smem, bool* configured) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 64 && configured[device]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && device < 64) configured[device] = true;
+  return err;
+}
+
+template <int D, typename T>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, const void* mask, void* dq, int batch, int seq_len,
+              int n_heads, int n_kv_heads, float scale, int causal, int window,
+              cudaStream_t stream) {
+  constexpr size_t smem = dq_smem_bytes(D);
+  static bool configured[64] = {};
+  cudaError_t err = configure_smem(flash_bwd_dq_kernel<D, T>, smem, configured);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((seq_len + kTile - 1) / kTile, batch * n_heads);
+  flash_bwd_dq_kernel<D, T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const int*>(mask), static_cast<T*>(dq),
+      seq_len, n_heads, n_kv_heads, scale, causal, window);
+  return (int)cudaGetLastError();
+}
+
+template <int D, typename T>
+int launch_dkdv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                const void* delta, const void* mask, void* dk, void* dv, int batch,
+                int seq_len, int n_heads, int n_kv_heads, float scale, int causal, int window,
+                cudaStream_t stream) {
+  constexpr size_t smem = dkdv_smem_bytes(D);
+  static bool configured[64] = {};
+  cudaError_t err = configure_smem(flash_bwd_dkdv_kernel<D, T>, smem, configured);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((seq_len + kTile - 1) / kTile, batch * n_kv_heads);
+  flash_bwd_dkdv_kernel<D, T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const int*>(mask), static_cast<T*>(dk),
+      static_cast<T*>(dv), seq_len, n_heads, n_kv_heads, scale, causal, window);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16. Each returns the cudaError_t of its
+// launch (0 on success); -1 for a head_dim or dtype it does not take.
+int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                           const void* lse, const void* delta, const void* mask, void* dq,
+                           int batch, int seq_len, int n_heads, int n_kv_heads, int head_dim,
+                           int dtype, int causal, int window, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DQ_DISPATCH(DIM, TYPE)                                                         \
+  return launch_dq<DIM, TYPE>(q, k, v, dout, lse, delta, mask, dq, batch, seq_len,     \
+                              n_heads, n_kv_heads, scale, causal, window, s)
+  if (dtype == 0 && head_dim == 64) DQ_DISPATCH(64, float);
+  if (dtype == 0 && head_dim == 128) DQ_DISPATCH(128, float);
+  if (dtype == 1 && head_dim == 64) DQ_DISPATCH(64, __nv_bfloat16);
+  if (dtype == 1 && head_dim == 128) DQ_DISPATCH(128, __nv_bfloat16);
+#undef DQ_DISPATCH
+  return -1;
+}
+
+int flash_attention_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
+                             const void* lse, const void* delta, const void* mask, void* dk,
+                             void* dv, int batch, int seq_len, int n_heads, int n_kv_heads,
+                             int head_dim, int dtype, int causal, int window, float scale,
+                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DKDV_DISPATCH(DIM, TYPE)                                                          \
+  return launch_dkdv<DIM, TYPE>(q, k, v, dout, lse, delta, mask, dk, dv, batch, seq_len, \
+                                n_heads, n_kv_heads, scale, causal, window, s)
+  if (dtype == 0 && head_dim == 64) DKDV_DISPATCH(64, float);
+  if (dtype == 0 && head_dim == 128) DKDV_DISPATCH(128, float);
+  if (dtype == 1 && head_dim == 64) DKDV_DISPATCH(64, __nv_bfloat16);
+  if (dtype == 1 && head_dim == 128) DKDV_DISPATCH(128, __nv_bfloat16);
+#undef DKDV_DISPATCH
+  return -1;
+}
+
+const char* flash_attention_bwd_error_string(int code) {
+  if (code == -1) return "unsupported head_dim or dtype";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

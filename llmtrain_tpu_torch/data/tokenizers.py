@@ -20,6 +20,10 @@ class ByteTokenizer:
     def encode(self, text: str) -> list[int]:
         return list(text.encode("utf-8"))
 
+    def encode_np(self, text: str) -> np.ndarray:
+        """Vectorized encode, the fast path for corpus preprocessing."""
+        return np.frombuffer(text.encode("utf-8"), dtype=np.uint8).astype(np.int32)
+
     def decode(self, ids) -> str:
         arr = np.asarray(ids, dtype=np.int64)
         if arr.size and (arr.min() < 0 or arr.max() > 255):
@@ -50,4 +54,14 @@ def build_tokenizer(name: str):
     )
 
 
-__all__ = ["ByteTokenizer", "build_tokenizer"]
+def tokenizer_cache_id(tokenizer) -> str:
+    """Identity string for token-cache keys (data/local_text.py): class,
+    vocab size and content fingerprint, as in JAX, so a cache built by
+    either package for the same tokenizer is the same file."""
+    return (
+        f"{type(tokenizer).__name__}{getattr(tokenizer, 'n_vocab', 'x')}"
+        f"{getattr(tokenizer, 'fingerprint', '')}"
+    )
+
+
+__all__ = ["ByteTokenizer", "build_tokenizer", "tokenizer_cache_id"]

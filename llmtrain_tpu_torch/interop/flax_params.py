@@ -1,4 +1,4 @@
-"""JAX GPT parameter tree → the port's ``state_dict``.
+"""JAX GPT parameter tree ↔ the port's ``state_dict``.
 
 Input is the flax GPT's ``params`` as nested dicts of arrays — what
 ``flax.serialization.to_state_dict`` gives and what a checkpoint payload
@@ -14,7 +14,9 @@ extended to grouped-query attention:
   the same C order as the port's (B, T, H·Dh) attention output.
 
 Floating leaves keep their dtype; ``load_state_dict`` casts them into the
-model's parameter dtype.
+model's parameter dtype. :func:`state_dict_to_flax_gpt_params` is the
+inverse: the port's trained parameters back to flax names and layout, so
+the JAX package's checkpoint readers take a checkpoint the port wrote.
 """
 
 from __future__ import annotations
@@ -93,4 +95,59 @@ def flax_gpt_params_to_state_dict(params: Params) -> dict[str, torch.Tensor]:
     return sd
 
 
-__all__ = ["flax_gpt_params_to_state_dict"]
+def _flax_kernel(w: torch.Tensor, *out_shape: int) -> torch.Tensor:
+    """(prod(out), in) torch weight → (in, *out) flax kernel."""
+    return w.detach().T.contiguous().reshape(w.shape[1], *out_shape)
+
+
+def state_dict_to_flax_gpt_params(
+    sd: dict[str, torch.Tensor], *, n_heads: int, n_kv_heads: int | None = None
+) -> Params:
+    """The JAX GPT's param tree (nested dicts of CPU tensors, flax shapes)
+    from the port's GPT ``state_dict``: the inverse of
+    :func:`flax_gpt_params_to_state_dict`."""
+    sd = {k: v.detach().cpu() for k, v in sd.items()}
+    d_model = sd["token_embedding.weight"].shape[1]
+    head_dim = d_model // n_heads
+    kv = n_kv_heads or n_heads
+    params: dict[str, Any] = {
+        "token_embedding": {"embedding": sd["token_embedding.weight"].clone()},
+        "position_embedding": {"embedding": sd["position_embedding.weight"].clone()},
+        "ln_f": {"scale": sd["ln_f.weight"].clone(), "bias": sd["ln_f.bias"].clone()},
+    }
+    i = 0
+    while f"blocks.{i}.ln_1.weight" in sd:
+        pre = f"blocks.{i}"
+        block: dict[str, Any] = {
+            ln: {"scale": sd[f"{pre}.{ln}.weight"].clone(), "bias": sd[f"{pre}.{ln}.bias"].clone()}
+            for ln in ("ln_1", "ln_2")
+        }
+        att: dict[str, Any] = {}
+        shapes = {"qkv_proj": (3, n_heads, head_dim), "q_proj": (n_heads, head_dim),
+                  "kv_proj": (2, kv, head_dim)}
+        for proj, shape in shapes.items():
+            if f"{pre}.attn.{proj}.weight" in sd:
+                att[proj] = {"kernel": _flax_kernel(sd[f"{pre}.attn.{proj}.weight"], *shape)}
+                if f"{pre}.attn.{proj}.bias" in sd:
+                    att[proj]["bias"] = sd[f"{pre}.attn.{proj}.bias"].reshape(shape).clone()
+        att["out_proj"] = {
+            "kernel": _flax_kernel(sd[f"{pre}.attn.out_proj.weight"], d_model).reshape(
+                n_heads, head_dim, d_model
+            )
+        }
+        if f"{pre}.attn.out_proj.bias" in sd:
+            att["out_proj"]["bias"] = sd[f"{pre}.attn.out_proj.bias"].clone()
+        block["attn"] = att
+        for mlp in ("mlp_fc", "mlp_proj"):
+            w = sd[f"{pre}.{mlp}.weight"]
+            block[mlp] = {"kernel": _flax_kernel(w, w.shape[0]),
+                          "bias": sd[f"{pre}.{mlp}.bias"].clone()}
+        params[f"block_{i}"] = block
+        i += 1
+    if "lm_head.weight" in sd:
+        w = sd["lm_head.weight"]
+        params["lm_head"] = {"kernel": _flax_kernel(w, w.shape[0])}
+    return params
+
+
+__all__ = ["flax_gpt_params_to_state_dict", "state_dict_to_flax_gpt_params"]

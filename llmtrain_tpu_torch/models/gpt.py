@@ -17,15 +17,26 @@ Attention (``attention``):
 * ``dense`` — full-matrix attention with an f32 softmax
   (:func:`dense_attention`, the JAX ``dense_attention``).
 
+Training mode: ``deterministic=False`` applies dropout where flax does
+(embeddings, attention probabilities on the dense path, the attention
+and MLP outputs), drawing from an explicit ``torch.Generator``;
+``fused_norm`` runs ``ln_1`` and ``ln_2`` of every block through the
+fused add+LayerNorm kernels (ops/fused_norm.py) with the same parameter
+names as the unfused path, and is left out of the KV-cache decode path as
+JAX clears it on decode clones. The adapter computes the LM loss
+(models/base.py) with ``loss_impl`` resolved as in JAX and an optional
+z-loss.
+
 Grouped-query attention (``n_kv_heads`` < ``n_heads``) uses ``q_proj`` +
 ``kv_proj`` in place of the fused ``qkv_proj``. Decoding goes through
 :meth:`GPT.for_decoding`: a per-layer KV cache written at a cursor and
 read with the GQA broadcast, in plain torch (the JAX decode path is plain
 XLA, no Pallas kernel).
 
-Not yet ported, each raising at build time: ``fused_norm``,
-``matmul_precision`` other than f32, ring/ulysses attention, the rolling
-sliding-window decode cache and the int8 KV cache (ROADMAP.md queue A).
+Not yet ported, each raising: ``matmul_precision`` other than f32 and
+ring/ulysses attention (at build time), the rolling sliding-window decode
+cache and the int8 KV cache (at decode), ``chunked_ce``/``fused_ce``
+losses (at loss time) (ROADMAP.md queue A).
 """
 
 from __future__ import annotations
@@ -40,11 +51,26 @@ from torch import nn
 
 from ..config.schemas import RunConfig
 from ..ops import flash_attention as flash_ops
+from ..ops import fused_norm as fused_norm_ops
 from ..registry.models import register_model
-from .base import ModelAdapter
+from .base import Batch, ModelAdapter, lm_loss_components
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _INIT_STD = 0.02
+LOSS_IMPLS = ("dense", "chunked_ce", "fused_ce")
+
+
+def apply_dropout(x: torch.Tensor, rate: float, deterministic: bool,
+                  generator: torch.Generator | None) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 - rate and scale the
+    kept values by 1/(1 - rate), drawing from ``generator``."""
+    if rate == 0.0 or deterministic:
+        return x
+    if generator is None:
+        raise ValueError("dropout with deterministic=False needs a torch.Generator")
+    keep = 1.0 - rate
+    kept = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(kept, x / keep, torch.zeros_like(x))
 
 
 def _dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
@@ -101,10 +127,13 @@ def dense_attention(
     *,
     attention_mask: torch.Tensor | None,
     window: int = 0,
+    dropout_rate: float = 0.0,
+    deterministic: bool = True,
+    generator: torch.Generator | None = None,
 ) -> torch.Tensor:
     """Full-matrix causal attention (the JAX ``dense_attention``): scores
-    in the compute dtype, softmax in f32, segment-id masking. q/k/v are
-    (B, T, H, Dh) at full head width."""
+    in the compute dtype, softmax in f32, segment-id masking, dropout on
+    the probabilities. q/k/v are (B, T, H, Dh) at full head width."""
     head_dim, seqlen = q.shape[-1], q.shape[1]
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(head_dim))
     scores = scores.float()
@@ -119,6 +148,7 @@ def dense_attention(
         seg_live = (seg != 0)[:, None, None, :] & (seg[:, None, :, None] == seg[:, None, None, :])
         scores = scores.masked_fill(~seg_live, big_neg)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    probs = apply_dropout(probs, dropout_rate, deterministic, generator)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
@@ -137,8 +167,10 @@ class CausalSelfAttention(nn.Module):
         rope: bool = False,
         rope_theta: float = 10000.0,
         sliding_window: int = 0,
+        dropout: float = 0.0,
     ) -> None:
         super().__init__()
+        self.dropout = dropout
         self.n_heads = n_heads
         self.head_dim = d_model // n_heads
         self.kv_heads = n_kv_heads or n_heads
@@ -169,6 +201,9 @@ class CausalSelfAttention(nn.Module):
         x: torch.Tensor,
         attention_mask: torch.Tensor | None = None,
         cache: LayerKVCache | None = None,
+        *,
+        deterministic: bool = True,
+        generator: torch.Generator | None = None,
     ) -> torch.Tensor:
         b, t, _ = x.shape
         h, hd, hkv = self.n_heads, self.head_dim, self.kv_heads
@@ -198,7 +233,8 @@ class CausalSelfAttention(nn.Module):
                 k = k.repeat_interleave(h // hkv, dim=2)
                 v = v.repeat_interleave(h // hkv, dim=2)
             out = dense_attention(q, k, v, attention_mask=attention_mask,
-                                  window=self.sliding_window)
+                                  window=self.sliding_window, dropout_rate=self.dropout,
+                                  deterministic=deterministic, generator=generator)
         else:
             raise NotImplementedError(
                 f"attention={self.attention!r} is not yet ported to llmtrain_tpu_torch "
@@ -206,6 +242,7 @@ class CausalSelfAttention(nn.Module):
             )
 
         out = _dense(out.reshape(b, t, h * hd), self.out_proj, self.dtype)
+        out = apply_dropout(out, self.dropout, deterministic, generator)
         if attention_mask is not None:
             # Zero padded rows (the mask may carry segment ids > 1).
             out = out * (attention_mask != 0)[:, :, None].to(out.dtype)
@@ -249,13 +286,22 @@ class CausalSelfAttention(nn.Module):
 
 
 class TransformerBlock(nn.Module):
+    """Pre-norm block. With ``fused_norm`` (and no decode cache), ``ln_1``
+    is :func:`fused_layer_norm` of the block input and ``ln_2`` is
+    :func:`fused_add_layer_norm`, which also returns the residual sum
+    (JAX ``FusedLayerNorm``); the parameters are the same ``ln_*``
+    weight/bias either way."""
+
     def __init__(self, d_model: int, n_heads: int, d_ff: int, *, dtype: torch.dtype,
-                 param_dtype: torch.dtype, **attn_kw: Any) -> None:
+                 param_dtype: torch.dtype, dropout: float = 0.0, fused_norm: bool = False,
+                 **attn_kw: Any) -> None:
         super().__init__()
         self.dtype = dtype
+        self.dropout = dropout
+        self.fused_norm = fused_norm
         self.ln_1 = LayerNorm(d_model, dtype=dtype, param_dtype=param_dtype)
         self.attn = CausalSelfAttention(d_model, n_heads, dtype=dtype,
-                                        param_dtype=param_dtype, **attn_kw)
+                                        param_dtype=param_dtype, dropout=dropout, **attn_kw)
         self.ln_2 = LayerNorm(d_model, dtype=dtype, param_dtype=param_dtype)
         self.mlp_fc = nn.Linear(d_model, d_ff, dtype=param_dtype)
         self.mlp_proj = nn.Linear(d_ff, d_model, dtype=param_dtype)
@@ -265,11 +311,24 @@ class TransformerBlock(nn.Module):
         x: torch.Tensor,
         attention_mask: torch.Tensor | None = None,
         cache: LayerKVCache | None = None,
+        *,
+        deterministic: bool = True,
+        generator: torch.Generator | None = None,
     ) -> torch.Tensor:
-        x = x + self.attn(self.ln_1(x), attention_mask, cache)
-        h = _dense(self.ln_2(x), self.mlp_fc, self.dtype)
-        h = F.gelu(h, approximate="none")
-        return x + _dense(h, self.mlp_proj, self.dtype)
+        attn_kw = dict(deterministic=deterministic, generator=generator)
+        if self.fused_norm and cache is None:
+            x = x.to(self.dtype)
+            h = fused_norm_ops.fused_layer_norm(x, self.ln_1.weight, self.ln_1.bias,
+                                                self.ln_1.eps)
+            attn_out = self.attn(h, attention_mask, cache, **attn_kw)
+            h, x = fused_norm_ops.fused_add_layer_norm(attn_out, x, self.ln_2.weight,
+                                                       self.ln_2.bias, self.ln_2.eps)
+        else:
+            x = x + self.attn(self.ln_1(x), attention_mask, cache, **attn_kw)
+            h = self.ln_2(x)
+        h = F.gelu(_dense(h, self.mlp_fc, self.dtype), approximate="none")
+        h = _dense(h, self.mlp_proj, self.dtype)
+        return x + apply_dropout(h, self.dropout, deterministic, generator)
 
 
 class GPT(nn.Module):
@@ -294,8 +353,16 @@ class GPT(nn.Module):
         kv_cache_dtype: str = "model",
         rope: bool = False,
         rope_theta: float = 10000.0,
+        dropout: float = 0.0,
+        fused_norm: bool = False,
+        loss_impl: str = "dense",
+        z_loss: float = 0.0,
     ) -> None:
         super().__init__()
+        self.dropout = dropout
+        self.fused_norm = fused_norm
+        self.loss_impl = loss_impl
+        self.z_loss = z_loss
         self.vocab_size = vocab_size
         self.block_size = block_size
         self.d_model = d_model
@@ -315,6 +382,7 @@ class GPT(nn.Module):
                 d_model, n_heads, d_ff, dtype=dtype, param_dtype=param_dtype,
                 attention=attention, n_kv_heads=n_kv_heads, assume_packed=assume_packed,
                 sliding_window=sliding_window, rope=rope, rope_theta=rope_theta,
+                dropout=dropout, fused_norm=fused_norm,
             )
             for _ in range(n_layers)
         )
@@ -346,7 +414,11 @@ class GPT(nn.Module):
         attention_mask: torch.Tensor | None = None,
         *,
         cache: KVCache | None = None,
+        deterministic: bool = True,
+        generator: torch.Generator | None = None,
     ) -> torch.Tensor:
+        """Logits (B, T, V) in the compute dtype. ``deterministic=False``
+        applies dropout from ``generator``."""
         _, seqlen = input_ids.shape
         if seqlen > self.block_size:
             raise ValueError(
@@ -360,8 +432,10 @@ class GPT(nn.Module):
         pos = torch.arange(start, start + seqlen, device=input_ids.device)
         x = (F.embedding(input_ids, self.token_embedding.weight).to(self.dtype)
              + F.embedding(pos, self.position_embedding.weight).to(self.dtype)[None])
+        x = apply_dropout(x, self.dropout, deterministic, generator)
         for i, block in enumerate(self.blocks):
-            x = block(x, attention_mask, cache.layers[i] if cache is not None else None)
+            x = block(x, attention_mask, cache.layers[i] if cache is not None else None,
+                      deterministic=deterministic, generator=generator)
         x = self.ln_f(x)
         if self.tie_embeddings:
             return F.linear(x, self.token_embedding.weight.to(self.dtype))
@@ -440,11 +514,17 @@ class GPTAdapter(ModelAdapter):
             if not isinstance(tokenizer_vocab_size, int) or tokenizer_vocab_size <= 0:
                 raise ValueError("GPT tokenizer must expose a positive integer n_vocab.")
             vocab_size = tokenizer_vocab_size
-        if bool(m.extra.get("fused_norm", False)):
-            raise NotImplementedError(
-                "model.extra.fused_norm is not yet ported to llmtrain_tpu_torch "
-                "(ROADMAP.md queue B: fused_norm kernels); drop it to serve"
-            )
+        loss_impl = resolve_loss_impl(
+            m.extra.get("loss_impl"),
+            vocab_size=vocab_size,
+            ce_auto_vocab=self._positive_extra(cfg, "ce_auto_vocab", 32768),
+        )
+        for key, default in (("ce_chunk", 8192), ("fused_ce_block_t", 256),
+                             ("fused_ce_block_v", 512)):
+            self._positive_extra(cfg, key, default)
+        z_loss = float(m.extra.get("z_loss", 0.0))
+        if z_loss < 0.0:
+            raise ValueError(f"model.extra.z_loss must be >= 0, got {z_loss}")
         precision = str(m.extra.get("matmul_precision", "f32"))
         if precision != "f32":
             raise NotImplementedError(
@@ -494,6 +574,10 @@ class GPTAdapter(ModelAdapter):
             assume_packed=bool(m.extra.get("assume_packed", False)),
             sliding_window=sliding_window,
             kv_cache_dtype=kv_cache_dtype,
+            dropout=m.dropout,
+            fused_norm=bool(m.extra.get("fused_norm", False)),
+            loss_impl=loss_impl,
+            z_loss=z_loss,
         )
         if device is not None:
             model = model.to(device)
@@ -508,6 +592,40 @@ class GPTAdapter(ModelAdapter):
 
         return build_tokenizer(cfg.model.extra.get("tokenizer", "gpt2"))
 
+    def compute_loss_components(
+        self,
+        model: GPT,
+        batch: Batch,
+        *,
+        generator: torch.Generator | None = None,
+        deterministic: bool = True,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Per-example ``(loss_sum, token_count)`` through the dense loss
+        (the loss of ``loss_impl: dense``); the streamed losses raise."""
+        if model.loss_impl != "dense":
+            raise NotImplementedError(
+                f"loss_impl={model.loss_impl!r} is not yet ported to llmtrain_tpu_torch "
+                "(ROADMAP.md queue A: slice 3, fused lm-head cross-entropy); set "
+                "model.extra.loss_impl: dense"
+            )
+        return lm_loss_components(model, batch, generator=generator,
+                                  deterministic=deterministic)
+
+
+def resolve_loss_impl(requested: str | None, *, vocab_size: int, ce_auto_vocab: int) -> str:
+    """``model.extra.loss_impl`` as JAX's ``resolve_loss_impl``
+    (llmtrain_tpu/ops/fused_ce.py:73) resolves it on its kernels' device:
+    an explicit value wins (unknown raises); unset picks the fused
+    lm-head CE at ``vocab_size >= ce_auto_vocab``, else ``dense``."""
+    if requested is not None:
+        if requested not in LOSS_IMPLS:
+            raise ValueError(
+                f"model.extra.loss_impl {requested!r} unknown; "
+                f"expected one of {', '.join(LOSS_IMPLS)}"
+            )
+        return requested
+    return "fused_ce" if vocab_size >= ce_auto_vocab else "dense"
+
 
 __all__ = [
     "GPT",
@@ -518,5 +636,7 @@ __all__ = [
     "LayerKVCache",
     "LayerNorm",
     "TransformerBlock",
+    "apply_dropout",
     "dense_attention",
+    "resolve_loss_impl",
 ]

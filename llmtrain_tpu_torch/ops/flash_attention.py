@@ -1,26 +1,31 @@
-"""Flash attention forward: the hand-written CUDA kernel, its plain version,
-and the dispatch the GPT calls.
+"""Flash attention: the hand-written CUDA kernels, their plain versions,
+and the differentiable dispatch the GPT calls.
 
-Counterpart of ``llmtrain_tpu/ops/flash_attention.py`` (dispatch) and of
-``pallas_flash_attention_fwd`` in ``llmtrain_tpu/ops/pallas_attention.py``
-(the TPU kernel). The kernel source is ``csrc/flash_attention_fwd.cu``;
-it is compiled with ``nvcc`` for ``sm_90a`` on first use and called
-through a plain C interface (ops/kernel_build.py).
+Counterpart of ``llmtrain_tpu/ops/flash_attention.py`` (dispatch and
+``jax.custom_vjp``) and of ``pallas_flash_attention_fwd`` /
+``pallas_flash_attention_bwd`` in ``llmtrain_tpu/ops/pallas_attention.py``
+(the TPU kernels). The kernel sources are ``csrc/flash_attention_fwd.cu``
+(forward) and ``csrc/flash_attention_bwd.cu`` (dQ and dK/dV); each is
+compiled with ``nvcc`` for ``sm_90a`` on first use and called through a
+plain C interface (ops/kernel_build.py).
 
-* :func:`flash_attention_fwd` is the wrapper: a CUDA tensor goes to the
-  kernel or raises, a CPU tensor goes to the plain version. There is no
-  fallback from the kernel to the plain version.
-* :func:`flash_attention_fwd_reference` is the plain PyTorch version with
-  the kernel's arithmetic: f32 upcast, q scaled before the dot, the finite
-  -1e30 for dead logits, segment-id masking. The CPU tests hold it against
-  the Pallas kernel in interpret mode; ``chip_smoke.py`` holds the kernel
-  against it on the card.
-* :func:`flash_attention` is the model-facing dispatch (same signature as
-  the JAX one).
-
-This slice is forward only: a gradient through the CUDA path raises
-``NotImplementedError`` (the backward kernels are ROADMAP.md's training
-slice).
+* :func:`flash_attention_fwd`, :func:`flash_attention_bwd_dq` and
+  :func:`flash_attention_bwd_dkdv` are the kernels' wrappers: a CUDA
+  tensor goes to the kernel or raises, a CPU tensor goes to the plain
+  version. There is no fallback from a kernel to its plain version. Each
+  counts its kernel launches in ``.launches``.
+* :func:`flash_attention_fwd_reference` and
+  :func:`flash_attention_bwd_reference` are the plain PyTorch versions
+  with the kernels' arithmetic: f32 upcast, q scaled before the dot, the
+  finite -1e30 for dead logits, segment-id masking, P recomputed from the
+  saved logsumexp, delta = rowsum(dO * O) in f32, the query group summed
+  into narrow dK/dV. The CPU tests hold them against the Pallas kernels in
+  interpret mode; ``chip_smoke.py`` holds the kernels against them on the
+  card.
+* :func:`flash_attention` is the model-facing dispatch (the JAX
+  signature): one ``torch.autograd.Function`` whose forward saves
+  ``(q, k, v, out, lse)`` and whose backward runs
+  :func:`flash_attention_bwd`, on either device.
 """
 
 from __future__ import annotations
@@ -33,7 +38,8 @@ import torch
 NEG_INF = -1e30  # finite, as in the Pallas kernel (pallas_attention.py:48)
 SUPPORTED_HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_SOURCE = "flash_attention_fwd.cu"
+_FWD_SOURCE = "flash_attention_fwd.cu"
+_BWD_SOURCE = "flash_attention_bwd.cu"
 
 
 def _check_operands(
@@ -65,6 +71,23 @@ def _check_operands(
     return b, t, h, hkv, d
 
 
+def _live(t: int, mask: torch.Tensor | None, causal: bool, window: int,
+          device: torch.device) -> torch.Tensor:
+    """(B or 1, 1, 1, T, T) bool: key s is live for query q."""
+    pos = torch.arange(t, device=device)
+    live = torch.ones((t, t), dtype=torch.bool, device=device)
+    if causal:
+        live &= pos[None, :] <= pos[:, None]
+    if window:
+        live &= (pos[:, None] - pos[None, :]) < window
+    live = live[None, None, None]
+    if mask is not None:
+        seg = mask.to(torch.int32)
+        seg_live = (seg != 0)[:, None, :] & (seg[:, :, None] == seg[:, None, :])
+        live = live & seg_live[:, None, None]
+    return live
+
+
 def flash_attention_fwd_reference(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -74,7 +97,7 @@ def flash_attention_fwd_reference(
     causal: bool = True,
     window: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel: ``(out, lse)``.
+    """Plain PyTorch version of the forward kernel: ``(out, lse)``.
 
     ``out`` is (B, T, H, D) in q's dtype, ``lse`` (B*H, T) f32. K/V heads
     are grouped against query heads (query head h reads kv head
@@ -85,18 +108,7 @@ def flash_attention_fwd_reference(
     g = h // hkv
     qg = (q.float() * (1.0 / math.sqrt(d))).reshape(b, t, hkv, g, d)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
-    pos = torch.arange(t, device=q.device)
-    live = torch.ones((t, t), dtype=torch.bool, device=q.device)
-    if causal:
-        live &= pos[None, :] <= pos[:, None]
-    if window:
-        live &= (pos[:, None] - pos[None, :]) < window
-    live = live[None, None, None]
-    if mask is not None:
-        seg = mask.to(torch.int32)
-        seg_live = (seg != 0)[:, None, :] & (seg[:, :, None] == seg[:, None, :])
-        live = live & seg_live[:, None, None]
-    s = torch.where(live, s, torch.full_like(s, NEG_INF))
+    s = torch.where(_live(t, mask, causal, window, q.device), s, torch.full_like(s, NEG_INF))
     row_max = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - row_max)
     row_sum = p.sum(dim=-1, keepdim=True)
@@ -106,23 +118,128 @@ def flash_attention_fwd_reference(
     return out.reshape(b, t, h, d).to(q.dtype), lse
 
 
-def _library() -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared (ctypes
+def attention_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in f32, (B*H, T): the backward's one
+    reduction outside the kernels (pallas_attention.py:510)."""
+    b, t, h, _ = out.shape
+    delta = (dout.float() * out.float()).sum(dim=-1)  # (B, T, H)
+    return delta.permute(0, 2, 1).reshape(b * h, t).contiguous()
+
+
+def _bwd_reference_from_delta(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    dout: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    mask: torch.Tensor | None,
+    causal: bool,
+    window: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    b, t, h, hkv, d = _check_operands(q, k, v, mask, causal, window)
+    g = h // hkv
+    scale = 1.0 / math.sqrt(d)
+    qs = (q.float() * scale).reshape(b, t, hkv, g, d)
+    dof = dout.float().reshape(b, t, hkv, g, d)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qs, kf)
+    s = torch.where(_live(t, mask, causal, window, q.device), s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - lse.reshape(b, hkv, g, t, 1))
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
+    ds = p * (dp - delta.reshape(b, hkv, g, t, 1))
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qs)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
+    return dq.reshape(b, t, h, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    dout: torch.Tensor,
+    mask: torch.Tensor | None = None,
+    *,
+    causal: bool = True,
+    window: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the two backward kernels: ``(dq, dk, dv)``.
+
+    The arithmetic of ``pallas_flash_attention_bwd``: q pre-scaled, dead
+    logits at the finite -1e30, P = exp(S - lse), delta = rowsum(dO * O)
+    in f32, dQ scaled once at the end, the G query heads of each kv head
+    summed into (B, T, Hkv, D) dK/dV; dq in q's dtype, dk/dv in k's.
+    """
+    delta = attention_delta(out, dout)
+    return _bwd_reference_from_delta(q, k, v, dout, lse, delta, mask, causal, window)
+
+
+def _library(source: str) -> ctypes.CDLL:
+    """A built kernel library with its C signatures declared (ctypes
     would otherwise pass each pointer as a 32-bit int)."""
     from .kernel_build import load_library
 
-    lib = load_library(_SOURCE)
-    if lib.flash_attention_fwd.argtypes is None:
+    lib = load_library(source)
+    if source == _FWD_SOURCE and lib.flash_attention_fwd.argtypes is None:
         lib.flash_attention_fwd.argtypes = (
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
         )
         lib.flash_attention_fwd.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
+    if source == _BWD_SOURCE and lib.flash_attention_bwd_dq.argtypes is None:
+        lib.flash_attention_bwd_dq.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+        )
+        lib.flash_attention_bwd_dq.restype = ctypes.c_int
+        lib.flash_attention_bwd_dkdv.argtypes = (
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+        )
+        lib.flash_attention_bwd_dkdv.restype = ctypes.c_int
+        lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch_kernel(
+def _check_kernel_operands(
+    tensors: dict[str, torch.Tensor | None],
+    mask: torch.Tensor | None,
+    dtype: torch.dtype,
+    d: int,
+) -> torch.Tensor | None:
+    """What every kernel wrapper checks before a launch; returns the int32
+    segment ids (or None)."""
+    device = tensors["q"].device
+    for name, x in (*tensors.items(), ("mask", mask)):
+        if x is not None and x.device != device:
+            raise ValueError(f"{name} is on {x.device}, q on {device}")
+    if dtype not in _DTYPE_CODES or any(
+        x.dtype != dtype for n, x in tensors.items() if n in ("q", "k", "v", "dout")
+    ):
+        raise TypeError(
+            "flash kernels take float32 or bfloat16 q/k/v/dout of one dtype, got "
+            + "/".join(str(x.dtype) for n, x in tensors.items() if n in ("q", "k", "v", "dout"))
+        )
+    for name in ("lse", "delta"):
+        if name in tensors and tensors[name].dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {tensors[name].dtype}")
+    if d not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"flash kernels take head_dim in {SUPPORTED_HEAD_DIMS}, got {d}")
+    if not all(x.is_contiguous() for x in tensors.values()):
+        raise ValueError("flash kernels need contiguous operands")
+    return None if mask is None else mask.to(torch.int32).contiguous()
+
+
+def _raise_on_error(lib: ctypes.CDLL, rc: int, error_fn: str, name: str) -> None:
+    if rc != 0:
+        message = getattr(lib, error_fn)(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {message}")
+
+
+def _launch_fwd(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
@@ -131,22 +248,8 @@ def _launch_kernel(
     window: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     b, t, h, hkv, d = _check_operands(q, k, v, mask, causal, window)
-    for name, x in (("k", k), ("v", v)) + ((("mask", mask),) if mask is not None else ()):
-        if x.device != q.device:
-            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(
-            f"flash kernel takes float32 or bfloat16 q/k/v of one dtype, got "
-            f"{q.dtype}/{k.dtype}/{v.dtype}"
-        )
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head_dim in {SUPPORTED_HEAD_DIMS}, got {d}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash kernel needs contiguous q, k, v")
-    seg = None
-    if mask is not None:
-        seg = mask.to(torch.int32).contiguous()
-    lib = _library()
+    seg = _check_kernel_operands({"q": q, "k": k, "v": v}, mask, q.dtype, d)
+    lib = _library(_FWD_SOURCE)
     out = torch.empty_like(q)
     lse = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -158,26 +261,15 @@ def _launch_kernel(
             b, t, h, hkv, d, _DTYPE_CODES[q.dtype], int(causal), int(window),
             1.0 / math.sqrt(d), stream,
         )
-    if rc != 0:
-        message = lib.flash_attention_error_string(rc).decode()
-        raise RuntimeError(f"flash_attention_fwd launch failed: {message}")
+    _raise_on_error(lib, rc, "flash_attention_error_string", "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     return out, lse
 
 
-class _ForwardOnly(torch.autograd.Function):
-    """Carries the kernel's forward; its backward is the training slice."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, mask, causal, window):  # noqa: ANN001 — autograd API
-        return _launch_kernel(q, k, v, mask, causal, window)
-
-    @staticmethod
-    def backward(ctx, *grads):  # noqa: ANN001 — autograd API
-        raise NotImplementedError(
-            "flash attention backward on CUDA is not ported yet: the dq and "
-            "dk/dv kernels are ROADMAP.md queue A's training slice"
-        )
+def _device_kind(q: torch.Tensor) -> str:
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash attention runs on cuda or cpu tensors, not {q.device}")
+    return q.device.type
 
 
 def flash_attention_fwd(
@@ -193,18 +285,147 @@ def flash_attention_fwd(
 
     CUDA tensors launch the kernel (and add one to
     ``flash_attention_fwd.launches``); CPU tensors take the plain
-    version; anything else raises.
+    version; anything else raises. Not differentiable by itself:
+    :func:`flash_attention` carries the gradient.
     """
-    if q.device.type == "cpu":
+    if _device_kind(q) == "cpu":
         return flash_attention_fwd_reference(q, k, v, mask, causal=causal, window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash attention runs on cuda or cpu tensors, not {q.device}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return _ForwardOnly.apply(q, k, v, mask, causal, window)
-    return _launch_kernel(q, k, v, mask, causal, window)
+    return _launch_fwd(q, k, v, mask, causal, window)
 
 
 flash_attention_fwd.launches = 0
+
+
+def flash_attention_bwd_dq(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    dout: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    mask: torch.Tensor | None = None,
+    *,
+    causal: bool = True,
+    window: int = 0,
+) -> torch.Tensor:
+    """dQ (B, T, H, D) in q's dtype from the saved ``lse`` and ``delta``
+    (:func:`attention_delta`): the dq kernel for CUDA tensors (counted in
+    ``flash_attention_bwd_dq.launches``), its plain version for CPU ones."""
+    if _device_kind(q) == "cpu":
+        return _bwd_reference_from_delta(q, k, v, dout, lse, delta, mask, causal, window)[0]
+    b, t, h, hkv, d = _check_operands(q, k, v, mask, causal, window)
+    seg = _check_kernel_operands(
+        {"q": q, "k": k, "v": v, "dout": dout, "lse": lse, "delta": delta}, mask, q.dtype, d
+    )
+    lib = _library(_BWD_SOURCE)
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), seg.data_ptr() if seg is not None else None, dq.data_ptr(),
+            b, t, h, hkv, d, _DTYPE_CODES[q.dtype], int(causal), int(window),
+            1.0 / math.sqrt(d), stream,
+        )
+    _raise_on_error(lib, rc, "flash_attention_bwd_error_string", "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkdv(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    dout: torch.Tensor,
+    lse: torch.Tensor,
+    delta: torch.Tensor,
+    mask: torch.Tensor | None = None,
+    *,
+    causal: bool = True,
+    window: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV), (B, T, Hkv, D) in k's dtype, summed over each kv head's
+    query group: the dk/dv kernel for CUDA tensors (counted in
+    ``flash_attention_bwd_dkdv.launches``), its plain version for CPU
+    ones."""
+    if _device_kind(q) == "cpu":
+        return _bwd_reference_from_delta(q, k, v, dout, lse, delta, mask, causal, window)[1:]
+    b, t, h, hkv, d = _check_operands(q, k, v, mask, causal, window)
+    seg = _check_kernel_operands(
+        {"q": q, "k": k, "v": v, "dout": dout, "lse": lse, "delta": delta}, mask, q.dtype, d
+    )
+    lib = _library(_BWD_SOURCE)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention_bwd_dkdv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), seg.data_ptr() if seg is not None else None, dk.data_ptr(),
+            dv.data_ptr(), b, t, h, hkv, d, _DTYPE_CODES[q.dtype], int(causal), int(window),
+            1.0 / math.sqrt(d), stream,
+        )
+    _raise_on_error(lib, rc, "flash_attention_bwd_error_string", "flash_attention_bwd_dkdv")
+    flash_attention_bwd_dkdv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkdv.launches = 0
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    dout: torch.Tensor,
+    mask: torch.Tensor | None = None,
+    *,
+    causal: bool = True,
+    window: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash attention backward: ``(dq, dk, dv)`` for (B, T, H, D) q.
+
+    delta = rowsum(dO * O) is one torch reduction, as JAX leaves it to XLA
+    outside the Pallas calls; then the dq and dk/dv kernels on CUDA
+    tensors, or the plain version on CPU tensors.
+    """
+    if _device_kind(q) == "cpu":
+        return flash_attention_bwd_reference(
+            q, k, v, out, lse, dout, mask, causal=causal, window=window
+        )
+    delta = attention_delta(out, dout)
+    dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, mask, causal=causal, window=window)
+    dk, dv = flash_attention_bwd_dkdv(
+        q, k, v, dout, lse, delta, mask, causal=causal, window=window
+    )
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``_flash``/``_flash_masked`` of the JAX dispatch: the forward saves
+    (q, k, v, out, lse) and the backward runs :func:`flash_attention_bwd`
+    (kernels on the card, plain version on the CPU). The mask gets no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, causal, window):  # noqa: ANN001 — autograd API
+        out, lse = flash_attention_fwd(q, k, v, mask, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, out, lse, mask)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):  # noqa: ANN001 — autograd API
+        q, k, v, out, lse, mask = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, lse, dout.contiguous(), mask, causal=ctx.causal, window=ctx.window
+        )
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(
@@ -216,13 +437,15 @@ def flash_attention(
     causal: bool = True,
     window: int = 0,
 ) -> torch.Tensor:
-    """Attention over (B, T, H, Dh) through the flash forward.
+    """Attention over (B, T, H, Dh), differentiable.
 
     ``k``/``v`` may be grouped-query narrow (B, T, Hkv, Dh).
     ``attention_mask`` (B, T) holds segment ids (nonzero = real token,
     equal ids = same document). ``window`` > 0 keeps each query's
     trailing ``window`` keys (requires ``causal``).
     """
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, attention_mask, causal, window)
     out, _ = flash_attention_fwd(q, k, v, attention_mask, causal=causal, window=window)
     return out
 
@@ -230,7 +453,12 @@ def flash_attention(
 __all__ = [
     "NEG_INF",
     "SUPPORTED_HEAD_DIMS",
+    "attention_delta",
     "flash_attention",
+    "flash_attention_bwd",
+    "flash_attention_bwd_dkdv",
+    "flash_attention_bwd_dq",
+    "flash_attention_bwd_reference",
     "flash_attention_fwd",
     "flash_attention_fwd_reference",
 ]

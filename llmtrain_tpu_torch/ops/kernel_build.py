@@ -69,28 +69,58 @@ def _library_path(source: Path) -> Path:
     return BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:16]}.so"
 
 
-def build_library(source: Path) -> BuildResult:
-    """Compile ``source`` unless an up-to-date library exists, and return
-    its :class:`BuildResult`. Raises with the compiler's output when the
-    build fails."""
+def _start_build(source: Path) -> tuple[Path, subprocess.Popen | None, Path, float]:
+    """Start ``nvcc`` for ``source`` unless an up-to-date library exists:
+    (library, process or None, temporary output, start time)."""
     lib = _library_path(source)
-    report = lib.with_suffix(".ptxas.txt")
     if lib.is_file():
-        return BuildResult(source, lib, report.read_text() if report.is_file() else "", 0.0)
+        return lib, None, lib, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
+    proc = subprocess.Popen(
         [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, check=False,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
+    return lib, proc, tmp, time.perf_counter()
+
+
+def _finish_build(source: Path, started: tuple) -> BuildResult:
+    lib, proc, tmp, t0 = started
+    report = lib.with_suffix(".ptxas.txt")
+    if proc is None:
+        return BuildResult(source, lib, report.read_text() if report.is_file() else "", 0.0)
+    output, _ = proc.communicate()
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {source.name}:\n{proc.stdout}")
+        raise RuntimeError(f"nvcc failed for {source.name}:\n{output}")
     tmp.replace(lib)
-    report.write_text(proc.stdout)
-    return BuildResult(source, lib, proc.stdout, seconds)
+    report.write_text(output)
+    return BuildResult(source, lib, output, seconds)
+
+
+def build_libraries(sources: list[Path]) -> list[BuildResult]:
+    """Compile every source that has no up-to-date library, one ``nvcc``
+    per source, all started together; each result's ``seconds`` runs from
+    its start until its output is collected, in source order. Raises with
+    the compiler's output when a build fails (after every started build
+    has ended)."""
+    started = [(source, _start_build(source)) for source in sources]
+    results, failures = [], []
+    for source, handle in started:
+        try:
+            results.append(_finish_build(source, handle))
+        except RuntimeError as exc:
+            failures.append(str(exc))
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return results
+
+
+def build_library(source: Path) -> BuildResult:
+    """Compile ``source`` unless an up-to-date library exists, and return
+    its :class:`BuildResult`."""
+    return build_libraries([source])[0]
 
 
 def load_library(source_name: str) -> ctypes.CDLL:
@@ -105,4 +135,12 @@ def load_library(source_name: str) -> ctypes.CDLL:
         return lib
 
 
-__all__ = ["BUILD_DIR", "BuildResult", "CSRC_DIR", "build_library", "find_nvcc", "load_library"]
+__all__ = [
+    "BUILD_DIR",
+    "BuildResult",
+    "CSRC_DIR",
+    "build_libraries",
+    "build_library",
+    "find_nvcc",
+    "load_library",
+]

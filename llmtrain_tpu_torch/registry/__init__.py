@@ -1,14 +1,15 @@
-"""Plugin registry with deterministic initialization (port of
-``llmtrain_tpu/registry/__init__.py``). This slice registers the dense
-GPT only; the data registry comes with the training slice."""
+"""Plugin registries with deterministic initialization (port of
+``llmtrain_tpu/registry/__init__.py``): the dense GPT and the
+``local_text`` data module are ported so far."""
 
 from __future__ import annotations
 
 import importlib
 
+from .data import get_data_module, register_data_module
 from .models import RegistryError, get_model_adapter, register_model
 
-_PLUGIN_MODULES = ("llmtrain_tpu_torch.models.gpt",)
+_PLUGIN_MODULES = ("llmtrain_tpu_torch.models.gpt", "llmtrain_tpu_torch.data.local_text")
 
 
 def initialize_registries() -> None:
@@ -19,6 +20,8 @@ def initialize_registries() -> None:
 
 __all__ = [
     "RegistryError",
+    "get_data_module",
+    "register_data_module",
     "get_model_adapter",
     "initialize_registries",
     "register_model",

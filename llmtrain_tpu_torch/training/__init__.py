@@ -1,1 +1,2 @@
-"""Training-side modules; this slice ports the checkpoint read side only."""
+"""Training-side modules: the optimizer, the train and eval steps, the
+trainer, the forward-only dry run, and checkpoints (read and write)."""

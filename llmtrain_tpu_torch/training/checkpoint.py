@@ -1,4 +1,4 @@
-"""Checkpoint read side (port of ``llmtrain_tpu/training/checkpoint.py``).
+"""Checkpoints (port of ``llmtrain_tpu/training/checkpoint.py``).
 
 The JAX trainer writes one ``step_NNNNNN.ckpt`` per saved step: a flax
 msgpack payload (``checkpoint_version``, ``step``, ``params``,
@@ -17,14 +17,25 @@ size and digest. This module reads that layout without flax:
   stored config differs from the current one, and loads the params into a
   model through the weight carry-over (interop/flax_params.py).
 
-Read-only: where JAX adopts an unmanifested legacy checkpoint by writing
-its manifest, this reader selects it without writing anything.
+Write side: :meth:`CheckpointManager.save_host` stages the payload and
+its sidecar (tmp write, fsync, rename), then publishes the manifest by
+atomic rename (the commit point), then prunes to the last k steps (never
+the newest verified one), sweeping dead stages and adopting complete
+unmanifested payloads as JAX does. :func:`msgpack_serialize` writes
+flax's msgpack layout without flax, and the params go back to flax names
+and shapes (interop/flax_params.py), so the JAX package's
+``CheckpointManager.load`` and ``load_inference_params`` read what the
+port writes. ``opt_state`` carries the port's own layout
+(training/optimizer.py). Saves are synchronous (JAX overlaps the write
+with the next steps on a thread). Selection on the read path
+(:meth:`CheckpointManager.latest_valid_checkpoint`) writes nothing.
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
+import os
 import re
 from pathlib import Path
 from typing import Any
@@ -37,6 +48,9 @@ _STEP_RE = re.compile(r"^step_(\d{6,})\.ckpt$")
 _MANIFEST_RE = re.compile(r"^step_(\d{6,})\.manifest\.json$")
 _REQUIRED_KEYS = {"checkpoint_version", "step", "params", "opt_state", "config_yaml"}
 _EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
+CHECKPOINT_VERSION = 1
+MANIFEST_VERSION = 1
+MAX_CHUNK_SIZE = 2**30  # flax splits array leaves above this many bytes
 
 
 class CheckpointError(Exception):
@@ -79,6 +93,57 @@ def _unchunk(tree: Any) -> Any:
 def msgpack_restore(blob: bytes) -> Any:
     """Decode a ``flax.serialization.msgpack_serialize`` payload."""
     return _unchunk(msgpack.unpackb(blob, ext_hook=_ext_hook, raw=False))
+
+
+def _array_bytes(shape: tuple[int, ...], dtype_name: str, buffer: bytes) -> bytes:
+    return msgpack.packb((tuple(shape), dtype_name, buffer), use_bin_type=True)
+
+
+def _ext_pack(x: Any) -> Any:
+    if isinstance(x, torch.Tensor):
+        t = x.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            buffer = t.view(torch.int16).numpy().tobytes()
+            return msgpack.ExtType(_EXT_NDARRAY, _array_bytes(t.shape, "bfloat16", buffer))
+        return _ext_pack(t.numpy())
+    if isinstance(x, np.ndarray):
+        return msgpack.ExtType(
+            _EXT_NDARRAY, _array_bytes(x.shape, x.dtype.name, x.tobytes("C"))
+        )
+    if isinstance(x, np.generic):
+        arr = np.asarray(x)
+        return msgpack.ExtType(
+            _EXT_NPSCALAR, _array_bytes(arr.shape, arr.dtype.name, arr.tobytes("C"))
+        )
+    if isinstance(x, complex):
+        return msgpack.ExtType(_EXT_COMPLEX, msgpack.packb((x.real, x.imag)))
+    return x
+
+
+def _chunk_large(tree: Any) -> Any:
+    """flax's chunking of array leaves above MAX_CHUNK_SIZE bytes, with
+    dict keys in sorted order as flax's tree copy leaves them."""
+    if isinstance(tree, dict):
+        return {k: _chunk_large(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, torch.Tensor) and tree.dtype != torch.bfloat16:
+        tree = tree.detach().cpu().numpy()
+    if isinstance(tree, np.ndarray) and tree.size * tree.dtype.itemsize > MAX_CHUNK_SIZE:
+        size = max(1, MAX_CHUNK_SIZE // tree.dtype.itemsize)
+        flat = tree.reshape(-1)
+        chunks = [flat[i : i + size] for i in range(0, flat.size, size)]
+        return {
+            "__msgpack_chunked_array__": True,
+            "shape": {str(i): n for i, n in enumerate(tree.shape)},
+            "chunks": {str(i): c for i, c in enumerate(chunks)},
+        }
+    return tree
+
+
+def msgpack_serialize(pytree: Any) -> bytes:
+    """Encode nested dicts of arrays (numpy, or torch tensors including
+    bfloat16) and Python scalars as ``flax.serialization.msgpack_serialize``
+    does, so flax's ``msgpack_restore`` reads them back."""
+    return msgpack.packb(_chunk_large(pytree), default=_ext_pack, strict_types=True)
 
 
 def sidecar_path(ckpt: Path) -> Path:
@@ -137,6 +202,34 @@ def _manifest_files_ok(directory: Path, manifest: dict[str, Any]) -> bool:
     return True
 
 
+def _fsync_file(path: Path) -> None:
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def _fsync_dir(path: Path) -> None:
+    """Durably record renames in the directory itself (best effort)."""
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass
+    finally:
+        os.close(fd)
+
+
+def _file_entry(path: Path) -> tuple[str, int, str]:
+    """(name, size, sha256) manifest entry for an existing file."""
+    blob = path.read_bytes()
+    return (path.name, len(blob), hashlib.sha256(blob).hexdigest())
+
+
 def _verify_file(path: Path) -> bool:
     """Sidecar digest when present, deep parse otherwise."""
     try:
@@ -154,10 +247,158 @@ def _verify_file(path: Path) -> bool:
 
 
 class CheckpointManager:
-    """Read side of the JAX checkpoint directory: selection and loading."""
+    """A checkpoint directory in the JAX layout: save with the atomic
+    commit protocol, prune, select and load."""
 
-    def __init__(self, directory: str | Path) -> None:
+    def __init__(self, directory: str | Path, *, keep_last_k: int = 3) -> None:
         self._dir = Path(directory)
+        self._keep_last_k = max(1, keep_last_k)
+
+    @property
+    def directory(self) -> Path:
+        return self._dir
+
+    def save_host(
+        self,
+        step: int,
+        host_state: dict[str, Any],
+        resolved_config: dict[str, Any],
+        *,
+        resilience: dict[str, Any] | None = None,
+        manifest_extra: dict[str, Any] | None = None,
+    ) -> Path:
+        """Stage and atomically commit one step: payload, then sidecar
+        (each tmp write → fsync → rename), then the manifest publish, which
+        is the commit point; then prune. ``host_state`` holds ``params``
+        (flax tree) and ``opt_state``."""
+        import yaml
+
+        self._dir.mkdir(parents=True, exist_ok=True)
+        payload = {
+            "checkpoint_version": CHECKPOINT_VERSION,
+            "step": np.int64(step),
+            "params": host_state["params"],
+            "opt_state": host_state["opt_state"],
+            "config_yaml": yaml.safe_dump(resolved_config, sort_keys=False),
+        }
+        if resilience:
+            payload["resilience"] = {k: np.asarray(v) for k, v in resilience.items()}
+        target = self._dir / f"step_{step:06d}.ckpt"
+        blob = msgpack_serialize(payload)
+        digest = hashlib.sha256(blob).hexdigest()
+        # Re-saving a step: withdraw the old one, payload first, so a crash
+        # mid-rewrite leaves the step unselectable rather than mixed.
+        target.unlink(missing_ok=True)
+        sidecar_path(target).unlink(missing_ok=True)
+        manifest_path(target).unlink(missing_ok=True)
+        tmp = target.with_suffix(".ckpt.tmp")
+        tmp.write_bytes(blob)
+        _fsync_file(tmp)
+        tmp.replace(target)
+        side = sidecar_path(target)
+        side_tmp = side.with_name(side.name + ".tmp")
+        side_tmp.write_text(f"{digest}  {target.name}\n", encoding="utf-8")
+        _fsync_file(side_tmp)
+        side_tmp.replace(side)
+        self._publish_manifest(
+            target, [(target.name, len(blob), digest), _file_entry(side)], manifest_extra
+        )
+        self._prune()
+        return target
+
+    def _publish_manifest(
+        self,
+        target: Path,
+        files: list[tuple[str, int, str]],
+        manifest_extra: dict[str, Any] | None,
+        *,
+        synthesized: bool = False,
+    ) -> Path:
+        """Atomic-rename publish of the commit record for ``target``."""
+        step = int(_STEP_RE.match(target.name).group(1))
+        manifest: dict[str, Any] = {
+            "manifest_version": MANIFEST_VERSION,
+            "step": step,
+            "files": [{"name": n, "bytes": size, "sha256": d} for n, size, d in files],
+        }
+        if synthesized:
+            manifest["synthesized"] = True
+        if manifest_extra:
+            manifest.update(manifest_extra)
+        mpath = manifest_path(target)
+        mtmp = mpath.with_name(mpath.name + ".tmp")
+        mtmp.write_text(json.dumps(manifest, indent=1, sort_keys=False), encoding="utf-8")
+        _fsync_file(mtmp)
+        mtmp.replace(mpath)
+        _fsync_dir(self._dir)
+        return mpath
+
+    def _prune(self) -> None:
+        """Keep the last k checkpoints by step, but never delete the newest
+        verified one; sweep dead commit stages first."""
+        self._collect_orphans()
+        ckpts = self.all_checkpoints()
+        doomed = ckpts[: -self._keep_last_k]
+        if not doomed:
+            return
+        newest_valid = next((p for p in reversed(ckpts) if _verify_file(p)), None)
+        for path in doomed:
+            if path == newest_valid:
+                continue
+            path.unlink(missing_ok=True)
+            sidecar_path(path).unlink(missing_ok=True)
+            manifest_path(path).unlink(missing_ok=True)
+
+    def _collect_orphans(self) -> None:
+        """Delete leftover ``*.tmp`` stages and manifests whose payload is
+        gone; adopt an unmanifested payload that verifies (synthesized
+        manifest), delete one that does not."""
+        if not self._dir.is_dir():
+            return
+        from ..utils.logging import get_logger
+
+        manifested = {
+            int(m.group(1)) for p in self._dir.iterdir() if (m := _MANIFEST_RE.match(p.name))
+        }
+        if not manifested:
+            return
+        for path in list(self._dir.iterdir()):
+            if path.name.endswith(".tmp"):
+                path.unlink(missing_ok=True)
+                continue
+            mm = _MANIFEST_RE.match(path.name)
+            if mm and not (self._dir / f"step_{int(mm.group(1)):06d}.ckpt").is_file():
+                path.unlink(missing_ok=True)
+                continue
+            m = _STEP_RE.match(path.name)
+            if not m or int(m.group(1)) in manifested:
+                continue
+            if _verify_file(path):
+                self.synthesize_manifest(path)
+                get_logger().warning(
+                    "adopted unmanifested checkpoint %s (complete payload whose commit "
+                    "was interrupted): synthesized its manifest",
+                    path.name,
+                )
+            else:
+                get_logger().warning(
+                    "garbage-collecting torn uncommitted checkpoint stage %s", path.name
+                )
+                path.unlink(missing_ok=True)
+                sidecar_path(path).unlink(missing_ok=True)
+
+    def synthesize_manifest(self, ckpt: str | Path) -> Path:
+        """Write a commit manifest for an existing payload (adoption)."""
+        ckpt = Path(ckpt)
+        files = [_file_entry(ckpt)]
+        if sidecar_path(ckpt).is_file():
+            files.append(_file_entry(sidecar_path(ckpt)))
+        return self._publish_manifest(ckpt, files, None, synthesized=True)
+
+    def latest_checkpoint(self) -> Path | None:
+        """The newest payload by step, verified or not."""
+        ckpts = self.all_checkpoints()
+        return ckpts[-1] if ckpts else None
 
     def all_manifests(self) -> list[Path]:
         """Committed steps' payload paths, oldest first."""
@@ -316,6 +557,7 @@ __all__ = [
     "load_inference_params",
     "manifest_path",
     "msgpack_restore",
+    "msgpack_serialize",
     "read_manifest",
     "resolve_resume_path",
     "sidecar_path",

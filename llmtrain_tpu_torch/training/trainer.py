@@ -1,0 +1,543 @@
+"""Step-based trainer on one device (port of the part of
+``llmtrain_tpu/training/trainer.py`` that single-device training reaches).
+
+Same loop as JAX: a 1-indexed step loop over batches from the
+deterministic sampler (assembled ahead by the prefetcher), gradient
+accumulation inside the step, interval metrics logged every
+``log_every_steps`` (loss, lr, tokens/s, step time, MFU against the H100
+peak, data wait, host dispatch, peak device memory), token-weighted eval
+every ``eval_every_steps``, checkpoints through the manifest commit
+protocol every ``save_every_steps`` and at the last step, resume from a
+checkpoint with the config-mismatch warning and a topology check, and the
+non-finite guard with its consecutive-skip abort.
+
+A config that switches on a part of the JAX trainer the port does not run
+yet raises ``NotImplementedError`` at construction, naming the ROADMAP.md
+item (:func:`refuse_unported`). The JAX trainer's telemetry (timeline,
+report, Prometheus textfile) is not written: the run directory holds
+``config.yaml``, ``meta.json``, ``logs/`` and ``checkpoints/``.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Any
+
+import numpy as np
+import torch
+import yaml
+
+from ..config.schemas import RunConfig
+from ..data.prefetch import BatchPrefetcher
+from ..data.sampler import DeterministicSampler
+from ..distributed import resolve_device
+from ..interop.flax_params import flax_gpt_params_to_state_dict, state_dict_to_flax_gpt_params
+from ..registry import get_data_module, get_model_adapter, initialize_registries
+from ..utils.hw import mfu as compute_mfu
+from ..utils.hw import peak_flops, peak_memory_bytes
+from ..utils.logging import get_logger
+from .checkpoint import (
+    CheckpointManager,
+    read_manifest,
+    resolve_resume_path,
+    warn_on_config_mismatch,
+)
+from .optimizer import build_optimizer, lr_schedule
+from .train_step import TrainState, make_eval_step, make_train_step
+
+logger = get_logger()
+
+_NOT_PORTED = "is not yet ported to llmtrain_tpu_torch"
+
+
+@dataclass(frozen=True)
+class TrainResult:
+    """Final outcome of a training run (the JAX ``TrainResult``)."""
+
+    final_step: int
+    final_loss: float
+    final_val_loss: float | None
+    total_time: float
+    peak_memory: float
+    val_metrics: dict[str, float] | None
+    first_step_loss: float | None
+    resumed_from_step: int | None
+    parameter_count: int
+    trainable_parameter_count: int
+    total_tokens: int = 0
+    preempted: bool = False
+    rollbacks: int = 0
+
+
+class NonFiniteLossError(RuntimeError):
+    """Raised when the guard skipped too many consecutive updates."""
+
+
+class TopologyMismatchError(ValueError):
+    """The checkpoint's recorded batch layout differs from this run's."""
+
+
+def refuse_unported(cfg: RunConfig) -> None:
+    """Raise ``NotImplementedError`` for a config that switches on a part
+    of the JAX trainer the port does not run yet."""
+    res = cfg.resilience
+    checks = [
+        (res.spike_detection, "resilience.spike_detection (loss-spike rollback)",
+         "10. Resilience"),
+        (res.watchdog.enabled, "resilience.watchdog (hang watchdog)", "10. Resilience"),
+        (res.faults.model_dump() != type(res.faults)().model_dump(),
+         "resilience.faults (fault injection)", "10. Resilience"),
+        (int(cfg.trainer.extra.get("profile_start_step", 0)) > 0,
+         "trainer.extra.profile_start_step (step profiler)", "11. Telemetry"),
+        (cfg.telemetry.prometheus, "telemetry.prometheus (metrics endpoint)", "11. Telemetry"),
+        (cfg.mlflow.enabled, "mlflow.enabled (a tracker other than the null one)",
+         "11. Telemetry"),
+        (cfg.distributed.enabled, "distributed.enabled (data parallel over NCCL)",
+         "A. slice 2 deferrals"),
+        (any(v > 1 for v in cfg.distributed.mesh.model_dump().values()),
+         "distributed.mesh larger than one device", "9. Parallelism"),
+        (cfg.trainer.zero.enabled, "trainer.zero (sharded optimizer state)", "9. Parallelism"),
+        (cfg.model.remat or cfg.model.extra.get("activation_tiers") is not None,
+         "model.remat / model.extra.activation_tiers", "9. Parallelism"),
+        (cfg.model.extra.get("lora") is not None, "LoRA models (model.extra.lora)",
+         "8. Model zoo"),
+    ]
+    for on, what, item in checks:
+        if on:
+            raise NotImplementedError(f"{what} {_NOT_PORTED} (ROADMAP.md queue {item})")
+
+
+def _topology(cfg: RunConfig) -> dict[str, Any]:
+    """The topology block every manifest records (JAX ``describe_topology``
+    for a one-device mesh)."""
+    mesh = {k: 1 for k in cfg.distributed.mesh.model_dump()}
+    return {
+        "mesh": mesh,
+        "data_parallel": 1,
+        "global_micro_batch": int(cfg.trainer.micro_batch_size),
+        "micro_batch_size": int(cfg.trainer.micro_batch_size),
+        "grad_accum_steps": int(cfg.trainer.grad_accum_steps),
+        "num_processes": 1,
+    }
+
+
+class Trainer:
+    def __init__(self, cfg: RunConfig, run_dir: Path | None) -> None:
+        refuse_unported(cfg)
+        self._cfg = cfg
+        self._run_dir = run_dir
+        self._device = resolve_device(cfg.run.device)
+        initialize_registries()
+        self._adapter = get_model_adapter(cfg.model.name)()
+        self._data_module = get_data_module(cfg.data.name)()
+        tokenizer = None
+        try:
+            tokenizer = self._adapter.build_tokenizer(cfg)
+        except Exception as exc:  # noqa: BLE001 — offline environments: tokenizer optional
+            logger.warning("build_tokenizer failed (%s); continuing without one", exc)
+        self._data_module.setup(cfg, tokenizer)
+        self._model = self._adapter.build_model(cfg, self._device)
+        self._global_micro = cfg.trainer.micro_batch_size
+        optimizer = build_optimizer(cfg.trainer, list(self._model.named_parameters()))
+        self._schedule = lr_schedule(cfg.trainer)
+        self._ckpt_mgr: CheckpointManager | None = None
+        if run_dir is not None:
+            keep_last_k = int(cfg.trainer.extra.get("keep_last_k", 3))
+            self._ckpt_mgr = CheckpointManager(Path(run_dir) / "checkpoints",
+                                               keep_last_k=keep_last_k)
+        guard = cfg.resilience.nonfinite_guard
+        self._state = TrainState(step=0, model=self._model, optimizer=optimizer,
+                                 nonfinite_count=0 if guard else None)
+        self._train_step_fn = make_train_step(
+            self._adapter, self._model,
+            grad_accum_steps=cfg.trainer.grad_accum_steps,
+            use_dropout=cfg.model.dropout > 0.0,
+            seed=cfg.run.seed,
+            nonfinite_guard=guard,
+        )
+        self._eval_step_fn = make_eval_step(self._adapter, self._model)
+        self._param_count = sum(p.numel() for p in self._model.parameters())
+        self._trainable_count = self._param_count
+        self._peak_flops = peak_flops(self._device)
+        self._train_seqlen = cfg.model.block_size
+        self._data_offset = 0
+        self._resume_count = 0
+        self._sampler: DeterministicSampler | None = None
+        self._dataset_specs: dict[int, tuple[tuple[str, ...], int]] = {}
+
+    @property
+    def state(self) -> TrainState:
+        return self._state
+
+    @property
+    def model(self) -> torch.nn.Module:
+        return self._model
+
+    # ------------------------------------------------------------------ data
+
+    def _dataset_spec(self, dataset) -> tuple[tuple[str, ...], int]:
+        """Cached (batch keys, sequence length) of a dataset."""
+        cached = self._dataset_specs.get(id(dataset))
+        if cached is None:
+            probe = dataset.get_examples(np.asarray([0]))
+            cached = (tuple(probe), probe["input_ids"].shape[1])
+            self._dataset_specs[id(dataset)] = cached
+        return cached
+
+    def _to_device(self, arrays: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self._device)
+                for k, v in arrays.items()}
+
+    def global_batch(self, sampler: DeterministicSampler, dataset, step: int) -> dict:
+        """The (A, B, T) batch of optimizer step ``step`` on the device."""
+        accum = self._cfg.trainer.grad_accum_steps
+        base_index = (step - 1) * accum + self._data_offset
+        rows = [dataset.get_examples(sampler.batch_indices(base_index + a)) for a in range(accum)]
+        return self._to_device({k: np.stack([r[k] for r in rows]) for k in rows[0]})
+
+    def _eval_batch(self, dataset, indices: np.ndarray, *, n_pad: int = 0) -> dict:
+        """(B, T) batch from example indices, always with an attention
+        mask; the last ``n_pad`` rows are zero-masked padding."""
+        examples = dataset.get_examples(indices)
+        if "attention_mask" not in examples:
+            examples["attention_mask"] = np.ones_like(examples["input_ids"])
+        if n_pad:
+            examples["attention_mask"] = examples["attention_mask"].copy()
+            examples["attention_mask"][len(indices) - n_pad:] = 0
+        return self._to_device(examples)
+
+    # ------------------------------------------------------------------ fit
+
+    def fit(
+        self, max_steps_override: int | None = None, resume_from: str | None = None
+    ) -> TrainResult:
+        cfg = self._cfg
+        max_steps = max_steps_override or cfg.trainer.max_steps
+        accum = cfg.trainer.grad_accum_steps
+        log_every = cfg.trainer.log_every_steps
+        eval_every = cfg.trainer.eval_every_steps
+        save_every = cfg.trainer.save_every_steps
+
+        train_ds = self._data_module.train_dataset()
+        sampler = DeterministicSampler(
+            num_examples=len(train_ds),
+            batch_size=self._global_micro,
+            seed=cfg.run.seed,
+            shuffle=not cfg.run.deterministic,
+        )
+        self._sampler = sampler
+        self._data_offset = 0
+        self._resume_count = 0
+
+        resumed_from_step: int | None = None
+        if resume_from is not None:
+            resumed_from_step = self._restore(resume_from)
+        start_step = (resumed_from_step or 0) + 1
+        if start_step > max_steps:
+            logger.warning(
+                "resume step %d >= max_steps %d; no training steps will run",
+                start_step - 1, max_steps,
+            )
+
+        self._train_seqlen = self._dataset_spec(train_ds)[1]
+        tokens_per_step = accum * self._global_micro * self._train_seqlen
+        if self._device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(self._device)
+
+        first_step_loss: float | None = None
+        final_val_loss: float | None = None
+        final_val_metrics: dict[str, float] | None = None
+        step_loss_dev = None
+        past_end_loss: float | None = None
+        total_tokens = (start_step - 1) * tokens_per_step
+        interval_losses: list[torch.Tensor] = []
+        interval_tokens = 0
+        interval_data_wait = 0.0
+        interval_dispatch = 0.0
+        nonfinite = None
+        interval_start = time.perf_counter()
+        start_time = time.perf_counter()
+
+        prefetcher: BatchPrefetcher | None = None
+        if cfg.trainer.prefetch_depth > 0 and start_step <= max_steps:
+            prefetcher = BatchPrefetcher(
+                lambda s: self.global_batch(sampler, train_ds, s),
+                depth=cfg.trainer.prefetch_depth,
+                start_step=start_step,
+            )
+        try:
+            if start_step > max_steps and resumed_from_step:
+                past_end_loss = self._restored_step_loss(sampler, train_ds, resumed_from_step)
+            step = start_step - 1
+            while step < max_steps:
+                step += 1
+                t_fetch = time.perf_counter()
+                if prefetcher is not None:
+                    batch = prefetcher.get(step)
+                else:
+                    batch = self.global_batch(sampler, train_ds, step)
+                t_dispatch = time.perf_counter()
+                metrics = self._train_step_fn(self._state, batch)
+                t_done = time.perf_counter()
+                interval_data_wait += t_dispatch - t_fetch
+                interval_dispatch += t_done - t_dispatch
+
+                step_loss_dev = metrics["loss"]
+                nonfinite = metrics.get("nonfinite_count")
+                interval_losses.append(metrics["loss"])
+                interval_tokens += tokens_per_step
+                total_tokens += tokens_per_step
+                if step == 1:
+                    first_step_loss = float(metrics["loss"])
+
+                if step % save_every == 0 or step == max_steps:
+                    self._save_checkpoint(step)
+
+                if step % log_every == 0 or step == max_steps:
+                    # Sync on the interval's losses before stamping the end
+                    # time, so queued device work is charged to the interval.
+                    losses_host = torch.stack(interval_losses).float().cpu().numpy()
+                    self._check_nonfinite_guard(nonfinite, losses_host, step)
+                    self._log_train_interval(
+                        step=step,
+                        max_steps=max_steps,
+                        losses_host=losses_host,
+                        interval_tokens=interval_tokens,
+                        interval_time=time.perf_counter() - interval_start,
+                        total_tokens=total_tokens,
+                        interval_data_wait=interval_data_wait,
+                        interval_dispatch=interval_dispatch,
+                    )
+                    interval_losses = []
+                    interval_tokens = 0
+                    interval_data_wait = 0.0
+                    interval_dispatch = 0.0
+                    interval_start = time.perf_counter()
+
+                if step % eval_every == 0 or step == max_steps:
+                    val_metrics = self._evaluate(step, max_steps)
+                    if val_metrics:
+                        final_val_metrics = val_metrics
+                        final_val_loss = val_metrics.get("val/loss", final_val_loss)
+        finally:
+            if prefetcher is not None:
+                prefetcher.close()
+        total_time = time.perf_counter() - start_time
+        final_loss = float(step_loss_dev) if step_loss_dev is not None else 0.0
+        final_step = max_steps
+        if start_step > max_steps:
+            final_step = resumed_from_step or 0
+            if past_end_loss is not None:
+                final_loss = past_end_loss
+        return TrainResult(
+            final_step=final_step,
+            final_loss=final_loss,
+            final_val_loss=final_val_loss,
+            total_time=total_time,
+            peak_memory=peak_memory_bytes(self._device),
+            val_metrics=final_val_metrics,
+            first_step_loss=first_step_loss,
+            resumed_from_step=resumed_from_step,
+            parameter_count=self._param_count,
+            trainable_parameter_count=self._trainable_count,
+            total_tokens=total_tokens,
+        )
+
+    def _restored_step_loss(self, sampler: DeterministicSampler, dataset, step: int) -> float:
+        """Token-weighted forward loss over the batch of training step
+        ``step`` (resume at or past max_steps reports a measured loss)."""
+        accum = self._cfg.trainer.grad_accum_steps
+        base = (step - 1) * accum
+        total_loss = total_tok = 0.0
+        for a in range(accum):
+            loss_sum, tokens = self._eval_step_fn(
+                self._eval_batch(dataset, sampler.batch_indices(base + a))
+            )
+            total_loss += float(loss_sum.sum())
+            total_tok += float(tokens.sum())
+        return total_loss / max(total_tok, 1.0)
+
+    # ------------------------------------------------------------------ guard
+
+    def _check_nonfinite_guard(self, nonfinite: int | None, losses_host: np.ndarray,
+                               step: int) -> None:
+        """Warn about updates the guard skipped in the interval; abort once
+        the consecutive-skip cap is reached."""
+        if nonfinite is None:
+            return
+        consecutive = int(nonfinite)
+        skipped = max(int(np.count_nonzero(~np.isfinite(losses_host))),
+                      min(consecutive, len(losses_host)))
+        if skipped:
+            logger.warning(
+                "non-finite loss/grads: %d optimizer update(s) skipped by the "
+                "guard in the last %d step(s)", skipped, len(losses_host),
+            )
+        cap = self._cfg.resilience.max_consecutive_nonfinite
+        if consecutive >= cap:
+            raise NonFiniteLossError(
+                f"aborting at step {step}: {consecutive} consecutive optimizer "
+                f"updates were non-finite (cap {cap}) — the run has diverged; "
+                "params/opt_state are untouched since the last finite step and "
+                "the newest checkpoint remains restorable"
+            )
+
+    # ------------------------------------------------------------------ checkpoints
+
+    def _manifest_extra(self, step: int) -> dict[str, Any]:
+        consumed = step * self._cfg.trainer.grad_accum_steps + self._data_offset
+        data = {
+            **self._sampler.progress(consumed),
+            "data_offset": int(self._data_offset),
+            "prefetch_depth": int(self._cfg.trainer.prefetch_depth),
+            "prefetch_generation": 0,
+        }
+        return {"topology": _topology(self._cfg), "data": data}
+
+    def _resilience_payload(self) -> dict[str, Any] | None:
+        out: dict[str, Any] = {}
+        if self._state.nonfinite_count is not None:
+            out["nonfinite_count"] = int(self._state.nonfinite_count)
+        if self._resume_count:
+            out["resume_count"] = self._resume_count
+        return out or None
+
+    def host_state(self) -> dict[str, Any]:
+        """Params in the flax layout and the optimizer state, on the host."""
+        m = self._cfg.model
+        n_kv = int(m.extra.get("n_kv_heads", 0))
+        return {
+            "params": state_dict_to_flax_gpt_params(
+                self._model.state_dict(), n_heads=m.n_heads, n_kv_heads=n_kv
+            ),
+            "opt_state": self._state.optimizer.state_dict(),
+        }
+
+    def _save_checkpoint(self, step: int) -> None:
+        if self._ckpt_mgr is None:
+            return
+        self._ckpt_mgr.save_host(
+            step,
+            self.host_state(),
+            self._cfg.model_dump(),
+            resilience=self._resilience_payload(),
+            manifest_extra=self._manifest_extra(step),
+        )
+
+    def _restore(self, resume_spec: str) -> int:
+        """Load a checkpoint into the live model and optimizer; returns the
+        restored step. A checkpoint whose recorded batch layout differs from
+        this run's raises :class:`TopologyMismatchError`."""
+        path = resolve_resume_path(resume_spec, self._cfg.output.root_dir)
+        manifest = read_manifest(path) or {}
+        saved = manifest.get("topology")
+        current = _topology(self._cfg)
+        if saved is None:
+            logger.warning(
+                "checkpoint %s carries no saved topology: topology validation SKIPPED",
+                path.name,
+            )
+        else:
+            changed = [k for k in ("global_micro_batch", "grad_accum_steps")
+                       if int(saved.get(k, -1)) != current[k]]
+            if changed:
+                raise TopologyMismatchError(
+                    f"checkpoint {path.name} was saved with "
+                    + ", ".join(f"{k}={saved.get(k)}" for k in changed)
+                    + f"; this run has " + ", ".join(f"{k}={current[k]}" for k in changed)
+                    + " — the data stream would not continue the saved run's "
+                    "(elastic resume is not yet ported, ROADMAP.md queue A)"
+                )
+        payload = CheckpointManager.load(path)
+        warn_on_config_mismatch(
+            payload, yaml.safe_dump(self._cfg.model_dump(), sort_keys=False), path
+        )
+        step = int(payload["step"])
+        self._model.load_state_dict(flax_gpt_params_to_state_dict(payload["params"]),
+                                    strict=True)
+        self._state.optimizer.load_state_dict(payload["opt_state"])
+        self._state.step = step
+        resil = payload.get("resilience") or {}
+        if self._state.nonfinite_count is not None:
+            self._state.nonfinite_count = int(resil.get("nonfinite_count", 0))
+        self._resume_count = int(resil.get("resume_count", 0)) + 1
+        consumed = (manifest.get("data") or {}).get("consumed_micro_batches")
+        if consumed is not None:
+            self._data_offset = int(consumed) - step * self._cfg.trainer.grad_accum_steps
+        logger.info("resumed from %s at step %d", path, step)
+        return step
+
+    # ------------------------------------------------------------------ metrics
+
+    def _log_train_interval(
+        self,
+        *,
+        step: int,
+        max_steps: int,
+        losses_host: np.ndarray,
+        interval_tokens: int,
+        interval_time: float,
+        total_tokens: int,
+        interval_data_wait: float,
+        interval_dispatch: float,
+    ) -> None:
+        steps = len(losses_host)
+        avg_loss = float(losses_host.mean())
+        avg_step_time = interval_time / steps if steps else 0.0
+        tokens_per_sec = interval_tokens / interval_time if interval_time > 0 else 0.0
+        data_wait_ms = interval_data_wait / steps * 1e3 if steps else 0.0
+        host_dispatch_ms = interval_dispatch / steps * 1e3 if steps else 0.0
+        current_lr = self._schedule(step - 1)
+        interval_mfu = compute_mfu(
+            tokens_per_sec,
+            n_params=self._param_count,
+            n_layers=self._cfg.model.n_layers,
+            seq_len=self._train_seqlen,
+            d_model=self._cfg.model.d_model,
+            peak_flops=self._peak_flops,
+            n_trainable_params=self._trainable_count,
+        )
+        peak_mem = peak_memory_bytes(self._device)
+        logger.info(
+            "step=%d/%d  loss=%.4f  lr=%.6e  tokens_per_sec=%.1f  step_time=%.4fs  "
+            "mfu=%.4f  data_wait=%.2fms  host_dispatch=%.2fms  peak_mem=%.2fGiB",
+            step, max_steps, avg_loss, current_lr, tokens_per_sec, avg_step_time,
+            interval_mfu, data_wait_ms, host_dispatch_ms, peak_mem / 2**30,
+        )
+
+    # ------------------------------------------------------------------ eval
+
+    def _evaluate(self, step: int, max_steps: int) -> dict[str, float] | None:
+        """Token-weighted loss over the whole validation split; the last
+        batch is padded with zero-masked rows (exact under the weighting)."""
+        val_ds = self._data_module.val_dataset()
+        if val_ds is None:
+            return None
+        n = len(val_ds)
+        eval_bs = min(max(self._global_micro, 1), n)
+        loss_total = torch.zeros((), dtype=torch.float32, device=self._device)
+        tok_total = torch.zeros((), dtype=torch.float32, device=self._device)
+        for b in range(math.ceil(n / eval_bs)):
+            real = np.arange(b * eval_bs, min((b + 1) * eval_bs, n))
+            pad = eval_bs - len(real)
+            indices = np.concatenate([real, np.zeros(pad, dtype=np.int64)])
+            loss_sum, tokens = self._eval_step_fn(self._eval_batch(val_ds, indices, n_pad=pad))
+            loss_total += loss_sum.sum()
+            tok_total += tokens.sum()
+        val_loss = float(loss_total) / max(float(tok_total), 1.0)
+        metrics = {"val/loss": val_loss}
+        parts = "  ".join(f"{k}={v:.4f}" for k, v in sorted(metrics.items()))
+        logger.info("val_step=%d/%d  %s", step, max_steps, parts)
+        return metrics
+
+
+__all__ = [
+    "NonFiniteLossError",
+    "TopologyMismatchError",
+    "TrainResult",
+    "Trainer",
+    "refuse_unported",
+]

@@ -179,7 +179,7 @@ def test_unported_options_raise() -> None:
         "trainer": {"max_steps": 1, "warmup_steps": 0},
     }
     for model_over in (
-        {"extra": {"fused_norm": True}},
+        {"attention": "ulysses"},
         {"extra": {"matmul_precision": "int8"}},
         {"attention": "ring"},
     ):

@@ -32,6 +32,20 @@ def test_module_imports_no_jax(path: Path) -> None:
 def test_walk_covers_the_package() -> None:
     names = {p.name for p in _FILES}
     assert {"gpt.py", "flash_attention.py", "http.py", "cli.py", "chip_smoke.py"} <= names
+    assert {"fused_norm.py", "trainer.py", "train_step.py", "optimizer.py", "dry_run.py",
+            "local_text.py", "sampler.py", "prefetch.py", "hw.py", "summary.py"} <= names
+
+
+def test_kernel_modules_import_triton_only_inside_functions() -> None:
+    """This machine has no Triton: the kernel modules import it lazily."""
+    for name in ("fused_norm.py", "flash_attention.py"):
+        path = _ROOT / "llmtrain_tpu_torch" / "ops" / name
+        tree = ast.parse(path.read_text(encoding="utf-8"))
+        top = {alias.name.split(".")[0] for node in tree.body if isinstance(node, ast.Import)
+               for alias in node.names}
+        top |= {node.module.split(".")[0] for node in tree.body
+                if isinstance(node, ast.ImportFrom) and node.module}
+        assert "triton" not in top, name
 
 
 def test_forbidden_import_is_detected(tmp_path: Path) -> None:
