@@ -8,9 +8,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 Phases, each fatal on failure (exit code 1, no result line):
 
 1. Device: nvidia-smi name and power limit, torch/CUDA versions; TF32 off.
-2. Build: both CUDA sources (llmtrain_tpu_torch/csrc/flash_attention_fwd.cu
-   and flash_attention_bwd.cu) with nvcc for sm_90a, one nvcc each, started
-   together; register and spill report from ptxas.
+2. Build: the three CUDA sources (llmtrain_tpu_torch/csrc/flash_attention_fwd.cu,
+   flash_attention_bwd.cu and fused_ce.cu) with nvcc for sm_90a, one nvcc
+   each, started together; register and spill report from ptxas.
 3. Kernels vs their plain versions on the card, each case with a control
    broken on purpose that must land above the tolerance:
    a. flash forward at the serving and training shapes and around them
@@ -24,14 +24,23 @@ Phases, each fatal on failure (exit code 1, no result line):
    c. fused add+LayerNorm forward and backward (Triton, first compile
       timed) at the training path's 32768 x 768 tokens, f32 and bf16, a
       ragged count, with and without the residual (LN_RTOL and friends;
-      controls: bias left out, the mean(dxhat) term left out).
+      controls: bias left out, the mean(dxhat) term left out);
+   d. fused lm-head CE forward, dh and dW at the CE training path's shape
+      (32768, 768, 50257) bf16 with and without z-loss, f32, ragged N with
+      V below one tile, d 64, and a cotangent with zeros (CE_LOSS_RTOL,
+      CE_DH_RTOL, CE_DW_RTOL; controls: the label logit read from column
+      label + 1, the one-hot term left out of dlogit, the z-loss factor left
+      out of g_lse).
 4. Timing: CUDA events over back-to-back launches after warm-up, inputs
    warm in L2 as the ops that produce them leave them; each kernel, its
    plain version, and one PyTorch call as a yardstick never called by the
-   port (SDPA forward/backward, F.layer_norm forward/backward); the bound
-   from the shapes against the H100 SXM peaks. Forward at the serving
-   shape (1, 512, 12, 64) and the training shape (64, 512, 12, 64),
-   backward at the training shape, LayerNorm at (32768, 768) bf16.
+   port (SDPA forward/backward, F.layer_norm forward/backward; no single
+   call computes the fused CE, so its yardstick is the composite F.linear
+   -> F.cross_entropy forward/backward, reported as composite_ms);
+   the bound from the shapes against the H100 SXM peaks. Forward at the
+   serving shape (1, 512, 12, 64) and the training shape (64, 512, 12,
+   64), backward at the training shape, LayerNorm at (32768, 768) bf16,
+   fused CE at (32768, 768, 50257) bf16.
 5. Model: the GPT of configs/presets/gpt_pycorpus_tpu.yaml at full width
    and depth (768 x 12 layers, 12 heads, block 512, byte vocab), seeded
    init, params cast to bf16 as serving does. One T=512 forward through
@@ -70,6 +79,16 @@ Phases, each fatal on failure (exit code 1, no result line):
    launches 24 forward and 24 backward (+ 24 reduce) per step.
 11. Profile: torch.profiler over one warmed-up training step: wall,
    device kernel time and busy share, top kernels. Measurement only.
+12. CE train: the slice-3 configuration, phase 9's config with
+   model.vocab_size 50257 and loss_impl unset, which must resolve to
+   fused_ce, CE_STEPS steps with one eval and a save at the end: losses
+   finite and falling by LOSS_DROP_MIN; launch counts (fused CE forward =
+   steps + eval batches, dh = dW = steps, flash 12 per forward and per
+   backward; counts reset just before the call and read just after);
+   then the same run with loss_impl: dense: per-step losses within
+   CE_ATOL, and peak memory at least the bf16 logits (3.07 GiB) above the
+   fused run's.
+13. Profile: one warmed-up CE training step, as phase 11.
 
 Then it prints the kernels line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
@@ -92,7 +111,7 @@ H100_PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PATH_SHAPE = (1, 512, 12, 12, 64)  # B, T, H, Hkv, D at the serving path
 TRAIN_SHAPE = (64, 512, 12, 12, 64)  # B, T, H, Hkv, D at the training path
 LN_TOKENS, LN_DIM = 64 * 512, 768  # tokens and width at the training path
-CUDA_SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu")
+CUDA_SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "fused_ce.cu")
 ATOL_O = {"bfloat16": 2e-2, "float32": 1e-4}
 ATOL_LSE = 1e-4
 LOGITS_ATOL = 0.1
@@ -488,6 +507,195 @@ def phase_norm_timing(torch, smi: str) -> dict:
     }
 
 
+# ------------------------------------------------------- fused lm-head CE
+CE_SHAPE = (64 * 512, 768, 50257)  # N tokens, d, V at the CE training path
+# Fused CE tolerances, relative to the largest magnitude of the plain
+# version's output. lse and the per-token loss are f32 sums over d in
+# another order (cuBLAS f32 in the plain version, FMA chains in the
+# kernel): 1e-5. dh: one bf16 rounding on each side of f32 sums over V in
+# another order, so two bf16 ulps of the largest element (2^-7); in f32,
+# summation order over V only (1e-4). dW is always f32, summed over N in
+# another order (1e-4).
+CE_LOSS_RTOL = 1e-5
+CE_DH_RTOL = {"bfloat16": 2**-7, "float32": 1e-4}
+CE_DW_RTOL = 1e-4
+
+
+def _ce_inputs(torch, gen, n, d, v, dtype, g_zero_every=0):
+    """h ~ N(0, 1) (LayerNorm output scale), W ~ N(0, 49/d): logits of
+    std ~7 at every d, a softmax peaked enough that the z-loss factor
+    shows in the gradients (on the H100 that control lands at 2.4e-2 or
+    more against the 2^-7 limit). Labels uniform over [0, V)
+    and the first eight in the last tile, which is ragged; a non-uniform
+    cotangent g, zero on every g_zero_every-th token (masked tokens) when
+    asked."""
+    h = torch.randn(n, d, device="cuda", generator=gen).to(dtype)
+    w = (7.0 / math.sqrt(d) * torch.randn(v, d, device="cuda", generator=gen)).to(dtype)
+    labels = torch.randint(0, v, (n,), device="cuda", generator=gen, dtype=torch.int32)
+    labels[:8] = torch.arange(v - 8, v, device="cuda", dtype=torch.int32).clamp_min(0)
+    g = torch.randn(n, device="cuda", generator=gen)
+    if g_zero_every:
+        g[::g_zero_every] = 0.0
+    return h, w, labels, g
+
+
+def phase_ce_checks(torch) -> dict:
+    """Kernels 6-8 (fused lm-head CE forward, dh, dW) against their plain
+    versions, each case with three controls broken on purpose in the plain
+    version: the label logit read from column label + 1 (per-token loss),
+    the one-hot term left out of dlogit (dh and dW), and, where z_loss > 0,
+    the z-loss factor left out of g_lse (dh and dW). Every control must
+    land above its tolerance."""
+    from llmtrain_tpu_torch.ops import fused_ce as fc
+
+    n, d, v = CE_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    cases = [
+        ("slice shape", (n, d, v), torch.bfloat16, 0.0, 0),
+        ("slice shape z-loss", (n, d, v), torch.bfloat16, 1e-3, 0),
+        ("f32 small", (1000, 256, 3001), torch.float32, 1e-3, 0),
+        ("ragged N, V < tile", (777, 768, 100), torch.bfloat16, 1e-3, 0),
+        ("d 64", (4096, 64, 5000), torch.bfloat16, 1e-3, 0),
+        ("g with zeros", (4096, 768, 10007), torch.bfloat16, 1e-3, 3),
+    ]
+    errors = {}
+    for name, (cn, cd, cv), dtype, z_loss, g_zero in cases:
+        h, w, labels, g = _ce_inputs(torch, gen, cn, cd, cv, dtype, g_zero)
+        t0 = time.perf_counter()
+        lse, ll = fc.fused_ce_fwd(h, w, labels)
+        g_lse = fc.g_lse_from(g, lse, z_loss)
+        dh = fc.fused_ce_bwd_dh(h, w, labels, lse, g_lse, g)
+        dw = fc.fused_ce_bwd_dw(h, w, labels, lse, g_lse, g)
+        torch.cuda.synchronize()
+        kernel_s = time.perf_counter() - t0
+        r_lse, r_ll = fc.fused_ce_fwd_reference(h, w, labels)
+        r_dh, r_dw = fc.fused_ce_bwd_reference(h, w, labels, r_lse, fc.g_lse_from(g, r_lse, z_loss),
+                                               g)
+        per_token = lse - ll + z_loss * lse.square()
+        r_per_token = r_lse - r_ll + z_loss * r_lse.square()
+        dt_name = str(dtype).replace("torch.", "")
+        errs = {
+            "lse": (_rel_err(torch, lse, r_lse), CE_LOSS_RTOL),
+            "loss": (_rel_err(torch, per_token, r_per_token), CE_LOSS_RTOL),
+            "dh": (_rel_err(torch, dh, r_dh), CE_DH_RTOL[dt_name]),
+            "dw": (_rel_err(torch, dw, r_dw), CE_DW_RTOL),
+        }
+        # Controls, each from the plain version broken on purpose.
+        shifted = fc.fused_ce_fwd_reference(h, w, labels + 1)[1]
+        ctrl = {"loss, label+1": (_rel_err(torch, per_token, r_lse - shifted
+                                           + z_loss * r_lse.square()), CE_LOSS_RTOL)}
+        no_hot = fc.fused_ce_bwd_reference(h, w, labels, r_lse, fc.g_lse_from(g, r_lse, z_loss),
+                                           torch.zeros_like(g))
+        ctrl["dh, no one-hot"] = (_rel_err(torch, dh, no_hot[0]), CE_DH_RTOL[dt_name])
+        ctrl["dw, no one-hot"] = (_rel_err(torch, dw, no_hot[1]), CE_DW_RTOL)
+        del no_hot
+        if z_loss > 0.0:
+            no_z = fc.fused_ce_bwd_reference(h, w, labels, r_lse, g, g)
+            ctrl["dh, no z-loss"] = (_rel_err(torch, dh, no_z[0]), CE_DH_RTOL[dt_name])
+            ctrl["dw, no z-loss"] = (_rel_err(torch, dw, no_z[1]), CE_DW_RTOL)
+            del no_z
+        finite = all(torch.isfinite(x).all().item() for x in (lse, ll, dh, dw))
+        zero_rows_ok = True
+        if g_zero:
+            # A masked token adds nothing: its dh row is zero.
+            zero_rows_ok = bool((dh[::g_zero] == 0).all().item())
+        ok = (finite and zero_rows_ok and all(e <= lim for e, lim in errs.values())
+              and all(e > lim for e, lim in ctrl.values()))
+        log(f"[ce] {name:20s} N{cn} d{cd} V{cv} {dt_name:8s} z={z_loss:g} kernels {kernel_s:.2f}s "
+            + " ".join(f"{k} {e:.2e}/{lim:g}" for k, (e, lim) in errs.items())
+            + "; controls " + ", ".join(f"{k} {e:.2e}" for k, (e, _) in ctrl.items())
+            + f"{'' if zero_rows_ok else ' (masked dh rows not zero)'}  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"fused CE kernels disagree with their plain versions: {name}")
+        errors[name] = {"fwd": max((lse - r_lse).abs().max().item(),
+                                   (per_token - r_per_token).abs().max().item()),
+                        "dh": (dh.float() - r_dh).abs().max().item(),
+                        "dw": (dw - r_dw).abs().max().item()}
+        del h, w, dh, dw, r_dh, r_dw
+        torch.cuda.empty_cache()
+    return errors
+
+
+def ce_bounds(n, d, v, elt_bytes, dtype_name):
+    """(fwd, dh, dw) bounds as (bytes, flop, ms, bound_by). Each kernel
+    reads h, W and the labels once; the forward writes lse and the label
+    logit (f32) and does 2*N*V*d flop; the backward kernels also read lse,
+    g_lse and g, recompute the logits and contract them once more (4*N*V*d
+    flop each); dh writes (N, d) in the operands' dtype, dW (V, d) f32."""
+    reads = (n * d + v * d) * elt_bytes + 4 * n
+    out = []
+    for moved, flops in ((reads + 2 * 4 * n, 2 * n * v * d),
+                         (reads + 3 * 4 * n + n * d * elt_bytes, 4 * n * v * d),
+                         (reads + 3 * 4 * n + v * d * 4, 4 * n * v * d)):
+        t_bytes = moved / H100_HBM_BYTES_PER_S * 1e3
+        t_ops = flops / H100_PEAK_FLOPS[dtype_name] * 1e3
+        out.append((moved, flops, max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"))
+    return out
+
+
+def phase_ce_timing(torch, smi: str) -> dict:
+    """CUDA-event ms of kernels 6-8 at the CE training path's shape
+    (32768, 768, 50257) bf16, the plain versions, and a composite
+    yardstick the port never calls: F.linear -> .float() ->
+    F.cross_entropy(reduction="none"), forward, and its backward (dh and
+    dW together). No single PyTorch call computes the fused function."""
+    import torch.nn.functional as F
+
+    from llmtrain_tpu_torch.ops import fused_ce as fc
+
+    n, d, v = CE_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    h, w, labels, g = _ce_inputs(torch, gen, n, d, v, torch.bfloat16)
+    lse, _ = fc.fused_ce_fwd(h, w, labels)
+    with torch.no_grad():
+        fwd_ms = _time_ms(torch, lambda: fc.fused_ce_fwd(h, w, labels), iters=3, warmup=1)
+        dh_ms = _time_ms(torch, lambda: fc.fused_ce_bwd_dh(h, w, labels, lse, g, g),
+                         iters=3, warmup=1)
+        dw_ms = _time_ms(torch, lambda: fc.fused_ce_bwd_dw(h, w, labels, lse, g, g),
+                         iters=3, warmup=1)
+        plain_fwd = _time_ms(torch, lambda: fc.fused_ce_fwd_reference(h, w, labels),
+                             iters=1, warmup=1)
+        plain_bwd = _time_ms(torch, lambda: fc.fused_ce_bwd_reference(h, w, labels, lse, g, g),
+                             iters=1, warmup=1)
+        comp_fwd = _time_ms(torch, lambda: F.cross_entropy(F.linear(h, w).float(), labels.long(),
+                                                           reduction="none"), iters=3, warmup=1)
+    hr = h.detach().requires_grad_(True)
+    wr = w.detach().requires_grad_(True)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    loss = F.cross_entropy(F.linear(hr, wr).float(), labels.long(), reduction="none")
+    comp_bwd = _time_ms(torch, lambda: torch.autograd.grad(loss, (hr, wr), g, retain_graph=True),
+                        iters=3, warmup=1)
+    comp_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    del loss, hr, wr
+    torch.cuda.empty_cache()
+    (fb, ff, f_bound, f_by), (hb, hf, h_bound, h_by), (wb, wf, w_bound, w_by) = ce_bounds(
+        n, d, v, 2, "bfloat16")
+    log(f"[timing] fused lm-head CE at (N, d, V) = ({n}, {d}, {v}) bf16 on {smi}:")
+    log(f"[timing]   fwd kernel {fwd_ms:.3f} ms (bound {f_bound:.4f} ms by {f_by}: {fb} bytes, "
+        f"{ff} flop; {ff / fwd_ms / 1e9:.1f} TFLOP/s)  plain {plain_fwd:.3f} ms  composite "
+        f"F.linear+cross_entropy fwd (yardstick) {comp_fwd:.3f} ms")
+    log(f"[timing]   dh kernel {dh_ms:.3f} ms (bound {h_bound:.4f} ms by {h_by}: {hb} bytes, {hf} "
+        f"flop; {hf / dh_ms / 1e9:.1f} TFLOP/s)  dW kernel {dw_ms:.3f} ms (bound {w_bound:.4f} ms "
+        f"by {w_by}: {wb} bytes; {wf / dw_ms / 1e9:.1f} TFLOP/s)")
+    log(f"[timing]   plain backward (dh and dW) {plain_bwd:.3f} ms  composite backward (dh and "
+        f"dW, yardstick) {comp_bwd:.3f} ms; the composite's autograd graph held "
+        f"{comp_peak:.2f} GiB above its inputs")
+    # library_ms stays null: no single PyTorch call computes the fused
+    # function; the composite yardstick has its own keys.
+    composite = "F.linear -> .float() -> F.cross_entropy(reduction='none')"
+    return {
+        "fwd": dict(ms=fwd_ms, plain_ms=plain_fwd, library_ms=None, bound_ms=f_bound,
+                    bound_by=f_by, composite_ms=comp_fwd, composite=composite + ", forward"),
+        "dh": dict(ms=dh_ms, plain_ms=plain_bwd, library_ms=None, bound_ms=h_bound,
+                   bound_by=h_by, composite_ms=comp_bwd,
+                   composite=composite + ", backward (dh and dW)"),
+        "dw": dict(ms=dw_ms, plain_ms=plain_bwd, library_ms=None, bound_ms=w_bound,
+                   bound_by=w_by, composite_ms=comp_bwd,
+                   composite=composite + ", backward (dh and dW)"),
+    }
+
+
 def build_path_model(torch):
     from llmtrain_tpu_torch.cli import prepare_decode_model
     from llmtrain_tpu_torch.config import load_and_validate_config
@@ -780,16 +988,19 @@ def _logged_steps(run_dir: Path) -> dict[int, dict]:
 
 def _reset_counts() -> None:
     from llmtrain_tpu_torch.ops import flash_attention as fa
+    from llmtrain_tpu_torch.ops import fused_ce as fc
     from llmtrain_tpu_torch.ops import fused_norm as fn
 
     for fn_ in (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkdv,
-                fn.fused_norm_fwd, fn.fused_norm_bwd):
+                fn.fused_norm_fwd, fn.fused_norm_bwd, fc.fused_ce_fwd, fc.fused_ce_bwd_dh,
+                fc.fused_ce_bwd_dw):
         fn_.launches = 0
     fn.fused_norm_bwd.reduce_launches = 0
 
 
 def _read_counts() -> dict:
     from llmtrain_tpu_torch.ops import flash_attention as fa
+    from llmtrain_tpu_torch.ops import fused_ce as fc
     from llmtrain_tpu_torch.ops import fused_norm as fn
 
     return {
@@ -799,10 +1010,16 @@ def _read_counts() -> dict:
         "fused_norm_fwd": fn.fused_norm_fwd.launches,
         "fused_norm_bwd": fn.fused_norm_bwd.launches,
         "fused_norm_bwd_reduce": fn.fused_norm_bwd.reduce_launches,
+        "fused_ce_fwd": fc.fused_ce_fwd.launches,
+        "fused_ce_bwd_dh": fc.fused_ce_bwd_dh.launches,
+        "fused_ce_bwd_dw": fc.fused_ce_bwd_dw.launches,
     }
 
 
 def _check_counts(name: str, got: dict, want: dict) -> None:
+    """Every count not in ``want`` must be 0 (that path launches no such
+    kernel)."""
+    want = {**{k: 0 for k in got}, **want}
     log(f"[{name}] kernel launches {got}")
     bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
     if bad:
@@ -938,6 +1155,123 @@ def phase_fused_train(torch, smi: str, tmp: Path, train: dict) -> dict:
     return dict(counts=counts)
 
 
+# ------------------------------------------------ CE train (GPT-2 vocabulary)
+# The slice's configuration: _smoke_config (gpt_pycorpus_tpu at full width,
+# micro batch 64 x 512) with model.vocab_size 50257, the GPT-2 tokenizer's
+# n_vocab, and loss_impl unset, so it resolves to fused_ce as in JAX. The
+# labels stay byte ids (< 256); the lm-head and the loss still run over
+# all 50257 columns. Cuts: CE_STEPS steps (warmup TRAIN_WARMUP), one eval
+# and one save, at the end.
+CE_VOCAB = 50257
+CE_STEPS = 16
+# Per-step |fused_ce - dense| over the CE_STEPS steps, same init, batches
+# and learning rates: the dense path rounds the logits to bf16 before its
+# f32 loss, the fused path keeps them in f32, and both sum in other orders;
+# the difference compounds through the updates. On the H100 the first run
+# read 0 at steps 1-3, at most 5e-4 through the warmup and 1.8e-3 at step
+# 12, as the two trajectories separate at the peak learning rate
+# (PERF.md); the limit leaves 2.8x of that.
+CE_ATOL = 5e-3
+# The fused run's peak memory must sit below the dense run's by at least
+# the bf16 logits of one micro batch (N x V x 2 bytes, 3.07 GiB).
+CE_LOGITS_BYTES = CE_SHAPE[0] * CE_VOCAB * 2
+
+
+def _ce_config(tmp: Path, name: str, **extra_model) -> Path:
+    import yaml
+
+    path = _smoke_config(tmp, name, **extra_model)
+    raw = yaml.safe_load(path.read_text())
+    raw["model"]["vocab_size"] = CE_VOCAB
+    raw["trainer"].update(max_steps=CE_STEPS, save_every_steps=CE_STEPS, eval_every_steps=CE_STEPS)
+    path.write_text(yaml.safe_dump(raw, sort_keys=False))
+    return path
+
+
+def phase_ce_train(torch, smi: str, tmp: Path, eval_batches: int) -> dict:
+    """`train` on the slice's configuration through the fused CE kernels,
+    then the same run with loss_impl: dense: resolution, launch counts,
+    finite and falling losses, per-step agreement with the dense run, and
+    the peak memory the kernels save."""
+    import numpy as np
+
+    from llmtrain_tpu_torch.config import load_and_validate_config
+    from llmtrain_tpu_torch.distributed import resolve_device
+    from llmtrain_tpu_torch.registry import get_model_adapter, initialize_registries
+
+    cfg_path = _ce_config(tmp, "gpt_pycorpus_smoke_ce")
+    cfg, _, _ = load_and_validate_config(cfg_path)
+    initialize_registries()
+    built = get_model_adapter(cfg.model.name)().build_model(cfg, resolve_device(cfg.run.device))
+    resolved = built.loss_impl
+    del built
+    torch.cuda.empty_cache()
+    log(f"[ce-train] vocab {cfg.model.vocab_size}, loss_impl unset in the config -> resolved "
+        f"{resolved!r}")
+    if resolved != "fused_ce":
+        raise RuntimeError(f"loss_impl resolved to {resolved!r}, not fused_ce")
+
+    _reset_counts()  # the CE training path's counts start here
+    t0 = time.perf_counter()
+    code, out = _run_cli(["train", "--config", str(cfg_path), "--run-id", "ce", "--json"])
+    wall = time.perf_counter() - t0
+    counts = _read_counts()  # and end here
+    if code != 0:
+        raise RuntimeError(f"CE train exited {code}")
+    summary = json.loads(out)["train_result"]
+    steps = _logged_steps(Path(cfg.output.root_dir) / "ce")
+    losses = [steps[i]["loss"] for i in sorted(steps)]
+    log(f"[ce-train] {CE_STEPS} steps in {wall:.1f}s (command wall, data setup included); losses "
+        f"{' '.join(f'{x:.4f}' for x in losses)}; val {summary['final_val_loss']:.4f}; "
+        f"peak memory {summary['peak_memory'] / 2**30:.2f} GiB")
+    layers = cfg.model.n_layers
+    _check_counts("ce-train", counts, {
+        "flash_attention_fwd": layers * (CE_STEPS + eval_batches),
+        "flash_attention_bwd_dq": layers * CE_STEPS,
+        "flash_attention_bwd_dkdv": layers * CE_STEPS,
+        "fused_norm_fwd": 0, "fused_norm_bwd": 0, "fused_norm_bwd_reduce": 0,
+        "fused_ce_fwd": CE_STEPS + eval_batches,
+        "fused_ce_bwd_dh": CE_STEPS,
+        "fused_ce_bwd_dw": CE_STEPS,
+    })
+    if len(losses) != CE_STEPS or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"CE losses are not {CE_STEPS} finite values: {losses}")
+    if not losses[-1] <= losses[0] - LOSS_DROP_MIN:
+        raise RuntimeError(f"CE loss did not fall by {LOSS_DROP_MIN}: {losses[0]} -> {losses[-1]}")
+    steady = [steps[i] for i in sorted(steps) if i > 5]
+    step_ms = float(np.median([x["step_time"] for x in steady])) * 1e3
+    tok_s = float(np.median([x["tokens_per_sec"] for x in steady]))
+    mfu = float(np.median([x["mfu"] for x in steady]))
+    log(f"[ce-train] steady state (median of steps 6-{CE_STEPS}) on {smi}: step {step_ms:.1f} ms, "
+        f"{tok_s:.0f} tokens/s, MFU {mfu:.4f} (989 TFLOP/s bf16 peak)")
+
+    dense_path = _ce_config(tmp, "gpt_pycorpus_smoke_ce_dense", loss_impl="dense")
+    code, out = _run_cli(["train", "--config", str(dense_path), "--run-id", "ce_dense", "--json"])
+    if code != 0:
+        raise RuntimeError(f"dense CE-vocab train exited {code}")
+    dense = json.loads(out)["train_result"]
+    d_steps = _logged_steps(Path(cfg.output.root_dir) / "ce_dense")
+    diffs = {i: abs(steps[i]["loss"] - d_steps[i]["loss"]) for i in sorted(steps)}
+    saved = (dense["peak_memory"] - summary["peak_memory"]) / 2**30
+    dense_losses = [d_steps[i]["loss"] for i in sorted(d_steps)]
+    d_steady = [d_steps[i] for i in sorted(d_steps) if i > 5]
+    log(f"[ce-train] dense run losses {' '.join(f'{x:.4f}' for x in dense_losses)}; steady "
+        f"state (median of steps 6-{CE_STEPS}) step "
+        f"{float(np.median([x['step_time'] for x in d_steady])) * 1e3:.1f} ms, "
+        f"{float(np.median([x['tokens_per_sec'] for x in d_steady])):.0f} tokens/s")
+    log(f"[ce-train] per-step |fused - dense| max {max(diffs.values()):.2e} (atol {CE_ATOL}): "
+        + " ".join(f"{x:.1e}" for x in diffs.values()))
+    log(f"[ce-train] peak memory fused {summary['peak_memory'] / 2**30:.2f} GiB, dense "
+        f"{dense['peak_memory'] / 2**30:.2f} GiB: {saved:.2f} GiB saved (at least "
+        f"{CE_LOGITS_BYTES / 2**30:.2f} GiB required, the bf16 logits)")
+    if len(diffs) != CE_STEPS or max(diffs.values()) > CE_ATOL:
+        raise RuntimeError("the fused-CE run does not agree with the dense run")
+    if dense["peak_memory"] - summary["peak_memory"] < CE_LOGITS_BYTES:
+        raise RuntimeError("the fused-CE run does not save the logits' memory")
+    return dict(cfg_path=cfg_path, counts=counts, step_ms=step_ms, tokens_per_sec=tok_s, mfu=mfu,
+                summary=summary, dense=dense)
+
+
 def phase_train_profile(torch, smi: str, cfg_path: Path) -> None:
     """torch.profiler over one warmed-up training step (same config, the
     Trainer built directly): wall, device kernel time, busy share, top
@@ -989,10 +1323,12 @@ def main() -> int:
     fwd_errs = phase_kernel_checks(torch)
     bwd_errs = phase_bwd_checks(torch)
     norm_errs = phase_norm_checks(torch)
+    ce_errs = phase_ce_checks(torch)
     timing = phase_timing(torch, smi)
     train_timing = phase_timing(torch, smi, TRAIN_SHAPE, iters=20)
     bwd_timing = phase_bwd_timing(torch, smi)
     norm_timing = phase_norm_timing(torch, smi)
+    ce_timing = phase_ce_timing(torch, smi)
     cfg, _, model = build_path_model(torch)
     phase_model(torch, model)
     from llmtrain_tpu_torch.ops.flash_attention import flash_attention_fwd
@@ -1010,17 +1346,13 @@ def main() -> int:
         train = phase_train(torch, smi, Path(tmp))
         fused = phase_fused_train(torch, smi, Path(tmp), train)
         phase_train_profile(torch, smi, train["cfg_path"])
-    launches = {
-        "flash_attention_fwd": serve_launches + train["counts"]["flash_attention_fwd"]
-        + fused["counts"]["flash_attention_fwd"],
-        "flash_attention_bwd_dq": train["counts"]["flash_attention_bwd_dq"]
-        + fused["counts"]["flash_attention_bwd_dq"],
-        "flash_attention_bwd_dkdv": train["counts"]["flash_attention_bwd_dkdv"]
-        + fused["counts"]["flash_attention_bwd_dkdv"],
-        "fused_norm_fwd": fused["counts"]["fused_norm_fwd"],
-        "fused_norm_bwd": fused["counts"]["fused_norm_bwd"],
-    }
-    log(f"[main path] launches over serve + generate, train, fused-norm train: {launches}")
+        ce = phase_ce_train(torch, smi, Path(tmp), train["eval_batches"])
+        phase_train_profile(torch, smi, ce["cfg_path"])
+    paths = (train["counts"], fused["counts"], ce["counts"])
+    launches = {name: sum(c[name] for c in paths) for name in paths[0]}
+    launches["flash_attention_fwd"] += serve_launches
+    log(f"[main path] launches over serve + generate, train, fused-norm train, CE train: "
+        f"{launches}")
     for name, n in launches.items():
         if n == 0:
             raise RuntimeError(f"the main path never launched {name}")
@@ -1046,11 +1378,23 @@ def main() -> int:
         dict(name="fused_norm_bwd", route="triton", source="llmtrain_tpu_torch/ops/fused_norm.py",
              replaces="llmtrain_tpu/ops/fused_norm.py:158",
              max_abs_err=max(e["bwd"] for e in norm_errs.values()), **norm_timing["bwd"]),
+        dict(name="fused_ce_fwd", route="cuda", source=csrc + "fused_ce.cu",
+             replaces="llmtrain_tpu/ops/fused_ce.py:146",
+             max_abs_err=max(e["fwd"] for e in ce_errs.values()), **ce_timing["fwd"]),
+        dict(name="fused_ce_bwd_dh", route="cuda", source=csrc + "fused_ce.cu",
+             replaces="llmtrain_tpu/ops/fused_ce.py:194",
+             max_abs_err=max(e["dh"] for e in ce_errs.values()), **ce_timing["dh"]),
+        dict(name="fused_ce_bwd_dw", route="cuda", source=csrc + "fused_ce.cu",
+             replaces="llmtrain_tpu/ops/fused_ce.py:212",
+             max_abs_err=max(e["dw"] for e in ce_errs.values()), **ce_timing["dw"]),
     ]
     for k in kernels:
         k["launches"] = launches[k["name"]]
     log(f"[train] step {train['step_ms']:.1f} ms, {train['tokens_per_sec']:.0f} tokens/s, "
         f"MFU {train['mfu']:.4f}, peak memory {train['summary']['peak_memory'] / 2**30:.2f} GiB")
+    log(f"[ce-train] step {ce['step_ms']:.1f} ms, {ce['tokens_per_sec']:.0f} tokens/s, "
+        f"MFU {ce['mfu']:.4f}, peak memory {ce['summary']['peak_memory'] / 2**30:.2f} GiB "
+        f"(dense {ce['dense']['peak_memory'] / 2**30:.2f} GiB)")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

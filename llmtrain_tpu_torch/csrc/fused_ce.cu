@@ -1,0 +1,542 @@
+// Fused lm-head + cross-entropy for Hopper (sm_90a), written by hand:
+// forward, dhidden and dW. The logits never reach device memory.
+//
+// Replaces the three TPU kernels of llmtrain_tpu/ops/fused_ce.py:
+//   fused_ce_fwd_kernel    <- `_forward` (:260), kernel `_fwd_kernel` (:146),
+//                             pallas_call at :265
+//   fused_ce_bwd_dh_kernel <- `_bwd` dhidden, kernel `_bwd_dh_kernel` (:194),
+//                             pallas_call at :330 (tile helper `_dlogit_tile` :180)
+//   fused_ce_bwd_dw_kernel <- `_bwd` dW, kernel `_bwd_dw_kernel` (:212),
+//                             pallas_call at :347
+//
+// Layouts (all contiguous, row-major):
+//   h      (N, d)  f32 or bf16 (the compute dtype)
+//   w      (V, d)  same dtype as h (the wrapper casts the f32 parameter)
+//   labels (N,)    int32; -1 (or any id outside [0, V)) hits no column
+//   lse, ll        (N,) f32: logsumexp over the V columns and the label
+//                  logit (ll must be zeroed by the caller; a row whose
+//                  label hits no column keeps 0, as in the Pallas kernel)
+//   glse, g        (N,) f32: d(loss)/d(lse) and d(loss)/d(label logit)
+//                  with its sign flipped, as `_bwd` computes them
+//   dh_f32  (N, d) f32: dhidden, or the f32 accumulator when dh_bf16 is
+//                  given, which then receives the final bf16 values
+//   dw      (V, d) f32
+//
+// Semantics kept from the Pallas kernels: logits = h . w^T with every
+// product accumulated in f32; columns >= V get the FINITE -1e30 (so they
+// add exp(-1e30 - m) == 0 and never match a label); the online max/sum
+// over vocab tiles; dlogit = exp(logit - lse) * glse - onehot(label) * g;
+// dh sums dlogit . w over vocab tiles in order, dW sums dlogit^T . h over
+// token tiles in order. No atomics: every output element is owned by one
+// thread of one block, so the results are deterministic.
+//
+// What bounds it at the training shape, N = 32768, d = 768, V = 50257:
+// the forward does 2*N*V*d = 2.53e12 flop against ~128 MB of reads
+// (2.56 ms at 989 TFLOP/s bf16 vs 0.04 ms at 3.35 TB/s); dh and dW each
+// recompute the logits and contract them again, 5.06e12 flop. All three
+// are bound by operations. This first version is simple and right rather
+// than fast: plain f32 FMA from shared memory (no tensor cores, no TMA),
+// so it cannot pass the 67 TFLOP/s f32 rate; tensor-core tiles (mma.sync,
+// then wgmma) are later work.
+//
+// Design. The TPU keeps a (256 x d) dh block and a (512 x d) dW block in
+// VMEM while a sequential grid axis revisits it; a Hopper block has 227 KB
+// of shared memory, and blocks run in no order. So:
+//   * The revisited grid axis becomes a loop inside the block. The
+//     forward and dh take one block per 128-token tile looping over
+//     128-column vocab tiles; dW takes one block per 128-row vocab tile
+//     looping over 128-token tiles.
+//   * Each tile product is a register-blocked SGEMM: 256 threads, each
+//     owning an 8 x 8 sub-tile (rows ty*4+{0..3} and 64+ty*4+{0..3},
+//     columns likewise with tx), operands staged through shared memory in
+//     32-deep chunks of d, k-major, read as float4 (conflict-free).
+//   * The f32 accumulators of dh and dW do not fit on chip, so they live
+//     in the output buffer in device memory: after each tile the block
+//     adds its (128 x d) contribution there, 128 columns at a time. Each
+//     thread reads and writes only its own elements, so no ordering is
+//     needed, and the last tile writes the final dtype.
+//   * The dlogit tile of the backward goes to shared memory (128 x 128
+//     f32), k-major, and is the A operand of the second product; it is
+//     never written to device memory, and dh and dW each recompute it.
+//   * Ragged N, V and d are masked, never padded: rows past N or V read as
+//     zero and are not written, columns past V get -1e30 in the forward
+//     and a zero dlogit in the backward, and W rows past V are never read.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kTile = 128;             // rows and columns of a logits tile
+constexpr int kDepth = 32;             // d (or tile) chunk staged per step
+constexpr int kLd = kTile + 4;         // padded row of a staged operand
+constexpr int kThreads = 256;
+constexpr float kNegInf = -1e30f;
+// Shared memory: two staged operands, then the labels (forward) or the
+// dlogit tile and the per-token vectors (backward).
+constexpr int kStageFloats = 2 * kDepth * kLd;
+constexpr size_t kFwdSmem = sizeof(float) * kStageFloats + sizeof(int) * kTile;
+constexpr size_t kBwdSmem =
+    sizeof(float) * (kStageFloats + kTile * kLd + 3 * kTile) + sizeof(int) * kTile;
+
+template <typename T> struct Vec;
+template <> struct Vec<float> { static constexpr int kWidth = 4; };
+template <> struct Vec<__nv_bfloat16> { static constexpr int kWidth = 8; };
+
+// 16 bytes of T at p (16-byte aligned) as floats.
+__device__ __forceinline__ void load16(const float* p, float* out) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* pairs = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(pairs[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+// Rows [row0, row0 + 128) of a row-major (n_rows, k_dim) matrix, columns
+// [k0, k0 + 32), into dst[k][row] (k-major). Rows past n_rows are zero.
+template <typename T>
+__device__ __forceinline__ void stage_kmajor(float* dst, const T* __restrict__ src,
+                                             int64_t row0, int64_t n_rows, int k_dim,
+                                             int k0) {
+  constexpr int kVec = Vec<T>::kWidth;
+  constexpr int kPerRow = kDepth / kVec;
+  for (int idx = threadIdx.x; idx < kTile * kPerRow; idx += kThreads) {
+    const int r = idx / kPerRow;
+    const int kk = (idx % kPerRow) * kVec;
+    float vals[kVec];
+    const int64_t row = row0 + r;
+    if (row < n_rows) {
+      load16(src + row * k_dim + k0 + kk, vals);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) vals[e] = 0.0f;
+    }
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) dst[(kk + e) * kLd + r] = vals[e];
+  }
+}
+
+// Rows [row0, row0 + 32) of a row-major (n_rows, n_cols) matrix, columns
+// [c0, c0 + 128), into dst[row][col] (already k-major for the second
+// product). Rows past n_rows and columns past n_cols are zero.
+template <typename T>
+__device__ __forceinline__ void stage_rowmajor(float* dst, const T* __restrict__ src,
+                                               int64_t row0, int64_t n_rows, int n_cols,
+                                               int c0) {
+  constexpr int kVec = Vec<T>::kWidth;
+  constexpr int kPerRow = kTile / kVec;
+  for (int idx = threadIdx.x; idx < kDepth * kPerRow; idx += kThreads) {
+    const int k = idx / kPerRow;
+    const int c = (idx % kPerRow) * kVec;
+    float vals[kVec];
+    const int64_t row = row0 + k;
+    // n_cols is a multiple of 32 and c0 + c of kVec, so a vector is whole.
+    if (row < n_rows && c0 + c < n_cols) {
+      load16(src + row * n_cols + c0 + c, vals);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) vals[e] = 0.0f;
+    }
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) dst[k * kLd + c + e] = vals[e];
+  }
+}
+
+// Local row (or column) of a thread's i-th (or j-th) element.
+__device__ __forceinline__ int sub(int lane_group, int i) {
+  return (i < 4 ? 0 : 64) + lane_group * 4 + (i & 3);
+}
+
+// acc[i][j] += sum_k a[k][sub(ty, i)] * b[k][sub(tx, j)] over one chunk.
+__device__ __forceinline__ void fma_chunk(const float* a, const float* b, float (&acc)[8][8],
+                                          int ty, int tx) {
+#pragma unroll 8
+  for (int k = 0; k < kDepth; ++k) {
+    float av[8], bv[8];
+    load16(a + k * kLd + ty * 4, av);
+    load16(a + k * kLd + 64 + ty * 4, av + 4);
+    load16(b + k * kLd + tx * 4, bv);
+    load16(b + k * kLd + 64 + tx * 4, bv + 4);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// acc = rows [a0, a0+128) of a  .  rows [b0, b0+128) of b ^T, contracted
+// over all d columns: the logits tile (or its transpose, for dW).
+template <typename T>
+__device__ __forceinline__ void tile_logits(float* s_a, float* s_b, const T* __restrict__ a,
+                                            int64_t a0, int64_t a_rows,
+                                            const T* __restrict__ b, int64_t b0,
+                                            int64_t b_rows, int d, float (&acc)[8][8],
+                                            int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  for (int k0 = 0; k0 < d; k0 += kDepth) {
+    __syncthreads();  // the previous chunk's reads are done
+    stage_kmajor(s_a, a, a0, a_rows, d, k0);
+    stage_kmajor(s_b, b, b0, b_rows, d, k0);
+    __syncthreads();
+    fma_chunk(s_a, s_b, acc, ty, tx);
+  }
+}
+
+// out[own rows, :] (+)= P . x[x0 .. x0+128, :], with P the dlogit tile in
+// s_p (k-major: s_p[k][own row]). The block's own rows start at out_row0;
+// out is (out_rows, d) f32. first: store instead of add. last: write the
+// final values to out_bf16 (when given) instead of out.
+template <typename T>
+__device__ __forceinline__ void accumulate_product(
+    float* s_b, const float* s_p, const T* __restrict__ x, int64_t x0, int64_t x_rows,
+    float* __restrict__ out, __nv_bfloat16* __restrict__ out_bf16, int64_t out_row0,
+    int64_t out_rows, int d, bool first, bool last, int ty, int tx) {
+  for (int n0 = 0; n0 < d; n0 += kTile) {
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    for (int k0 = 0; k0 < kTile; k0 += kDepth) {
+      __syncthreads();
+      stage_rowmajor(s_b, x, x0 + k0, x_rows, d, n0);
+      __syncthreads();
+      fma_chunk(s_p + k0 * kLd, s_b, acc, ty, tx);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int64_t row = out_row0 + sub(ty, i);
+      if (row >= out_rows) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int col = n0 + half * 64 + tx * 4;
+        if (col >= d) continue;  // d is a multiple of 32: four columns are whole
+        float* dst = out + row * d + col;
+        float4 v = make_float4(acc[i][half * 4], acc[i][half * 4 + 1], acc[i][half * 4 + 2],
+                               acc[i][half * 4 + 3]);
+        if (!first) {
+          const float4 old = *reinterpret_cast<const float4*>(dst);
+          v.x += old.x; v.y += old.y; v.z += old.z; v.w += old.w;
+        }
+        if (last && out_bf16 != nullptr) {
+          __nv_bfloat16* o = out_bf16 + row * d + col;
+          o[0] = __float2bfloat16(v.x);
+          o[1] = __float2bfloat16(v.y);
+          o[2] = __float2bfloat16(v.z);
+          o[3] = __float2bfloat16(v.w);
+        } else {
+          *reinterpret_cast<float4*>(dst) = v;
+        }
+      }
+    }
+  }
+}
+
+// Token vectors of tokens [t0, t0 + 128) into shared memory (zero, and
+// label -1, past N).
+__device__ __forceinline__ void stage_tokens(float* s_lse, float* s_glse, float* s_g,
+                                             int* s_lab, const float* __restrict__ lse,
+                                             const float* __restrict__ glse,
+                                             const float* __restrict__ g,
+                                             const int* __restrict__ labels, int64_t t0,
+                                             int64_t n) {
+  for (int r = threadIdx.x; r < kTile; r += kThreads) {
+    const int64_t t = t0 + r;
+    const bool ok = t < n;
+    s_lse[r] = ok ? lse[t] : 0.0f;
+    s_glse[r] = ok ? glse[t] : 0.0f;
+    s_g[r] = ok ? g[t] : 0.0f;
+    s_lab[r] = ok ? labels[t] : -1;
+  }
+}
+
+// dlogit of one element: exp(logit - lse) * glse - [label hit] * g.
+__device__ __forceinline__ float dlogit(float logit, float lse, float glse, float g, bool hit) {
+  return expf(logit - lse) * glse - (hit ? g : 0.0f);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+fused_ce_fwd_kernel(const T* __restrict__ h, const T* __restrict__ w,
+                    const int* __restrict__ labels, float* __restrict__ lse,
+                    float* __restrict__ ll, int n, int v, int d) {
+  extern __shared__ float smem[];
+  float* s_a = smem;
+  float* s_b = s_a + kDepth * kLd;
+  int* s_lab = reinterpret_cast<int*>(s_b + kDepth * kLd);
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;  // the 16 threads of one ty are adjacent lanes
+  const int64_t t0 = (int64_t)blockIdx.x * kTile;
+  for (int r = threadIdx.x; r < kTile; r += kThreads) s_lab[r] = t0 + r < n ? labels[t0 + r] : -1;
+  // (tile_logits starts with a barrier, so the labels are visible.)
+
+  float m[8], s[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = kNegInf;
+    s[i] = 0.0f;
+  }
+  float acc[8][8];
+  for (int c0 = 0; c0 < v; c0 += kTile) {
+    tile_logits(s_a, s_b, h, t0, n, w, c0, v, d, acc, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int lab = s_lab[sub(ty, i)];
+      float tile_max = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = c0 + sub(tx, j);
+        if (col >= v) acc[i][j] = kNegInf;
+        tile_max = fmaxf(tile_max, acc[i][j]);
+        if (col < v && col == lab) ll[t0 + sub(ty, i)] = acc[i][j];
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)
+        tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, off));
+      const float new_max = fmaxf(m[i], tile_max);
+      float p_sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) p_sum += expf(acc[i][j] - new_max);
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)
+        p_sum += __shfl_xor_sync(0xffffffffu, p_sum, off);
+      s[i] = s[i] * expf(m[i] - new_max) + p_sum;
+      m[i] = new_max;
+    }
+  }
+  if (tx != 0) return;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int64_t t = t0 + sub(ty, i);
+    if (t < n) lse[t] = m[i] + logf(s[i]);
+  }
+}
+
+// Shared-memory carve-up of the backward kernels.
+struct BwdSmem {
+  float* a;
+  float* b;
+  float* p;
+  float* lse;
+  float* glse;
+  float* g;
+  int* lab;
+};
+
+__device__ __forceinline__ BwdSmem carve(float* smem) {
+  BwdSmem s;
+  s.a = smem;
+  s.b = s.a + kDepth * kLd;
+  s.p = s.b + kDepth * kLd;
+  s.lse = s.p + kTile * kLd;
+  s.glse = s.lse + kTile;
+  s.g = s.glse + kTile;
+  s.lab = reinterpret_cast<int*>(s.g + kTile);
+  return s;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+fused_ce_bwd_dh_kernel(const T* __restrict__ h, const T* __restrict__ w,
+                       const int* __restrict__ labels, const float* __restrict__ lse,
+                       const float* __restrict__ glse, const float* __restrict__ g,
+                       float* __restrict__ dh, __nv_bfloat16* __restrict__ dh_bf16, int n,
+                       int v, int d) {
+  extern __shared__ float smem[];
+  const BwdSmem sm = carve(smem);
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int64_t t0 = (int64_t)blockIdx.x * kTile;
+  stage_tokens(sm.lse, sm.glse, sm.g, sm.lab, lse, glse, g, labels, t0, n);
+  // (tile_logits starts with a barrier, so the token vectors are visible.)
+
+  float acc[8][8];
+  for (int c0 = 0; c0 < v; c0 += kTile) {
+    // Rows: tokens of this block; columns: vocab c0 .. c0+127.
+    tile_logits(sm.a, sm.b, h, t0, n, w, c0, v, d, acc, ty, tx);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = sub(tx, j);
+      const int col = c0 + c;
+      float p[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = sub(ty, i);
+        p[i] = (col < v && t0 + r < n)
+                   ? dlogit(acc[i][j], sm.lse[r], sm.glse[r], sm.g[r], col == sm.lab[r])
+                   : 0.0f;
+      }
+      // s_p[vocab][token]: the A operand of dh += P . W_tile.
+      *reinterpret_cast<float4*>(sm.p + c * kLd + ty * 4) = make_float4(p[0], p[1], p[2], p[3]);
+      *reinterpret_cast<float4*>(sm.p + c * kLd + 64 + ty * 4) =
+          make_float4(p[4], p[5], p[6], p[7]);
+    }
+    // (accumulate_product starts with a barrier, so s_p is complete.)
+    accumulate_product(sm.b, sm.p, w, c0, v, dh, dh_bf16, t0, n, d, c0 == 0,
+                       c0 + kTile >= v, ty, tx);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+fused_ce_bwd_dw_kernel(const T* __restrict__ h, const T* __restrict__ w,
+                       const int* __restrict__ labels, const float* __restrict__ lse,
+                       const float* __restrict__ glse, const float* __restrict__ g,
+                       float* __restrict__ dw, int n, int v, int d) {
+  extern __shared__ float smem[];
+  const BwdSmem sm = carve(smem);
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int64_t v0 = (int64_t)blockIdx.x * kTile;
+
+  float acc[8][8];
+  for (int64_t t0 = 0; t0 < n; t0 += kTile) {
+    // The previous tile's last reads of the token vectors came before the
+    // barriers of its accumulate_product, so they may be overwritten now.
+    stage_tokens(sm.lse, sm.glse, sm.g, sm.lab, lse, glse, g, labels, t0, n);
+    // Rows: vocab of this block; columns: tokens t0 .. t0+127 (logits^T).
+    tile_logits(sm.a, sm.b, w, v0, v, h, t0, n, d, acc, ty, tx);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = sub(tx, j);  // token within the tile
+      float p[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int64_t vocab = v0 + sub(ty, i);
+        p[i] = (vocab < v && t0 + c < n)
+                   ? dlogit(acc[i][j], sm.lse[c], sm.glse[c], sm.g[c], vocab == sm.lab[c])
+                   : 0.0f;
+      }
+      // s_p[token][vocab]: the A operand of dW += P^T . h_tile.
+      *reinterpret_cast<float4*>(sm.p + c * kLd + ty * 4) = make_float4(p[0], p[1], p[2], p[3]);
+      *reinterpret_cast<float4*>(sm.p + c * kLd + 64 + ty * 4) =
+          make_float4(p[4], p[5], p[6], p[7]);
+    }
+    accumulate_product(sm.b, sm.p, h, t0, n, dw, static_cast<__nv_bfloat16*>(nullptr), v0, v,
+                       d, t0 == 0, false, ty, tx);
+  }
+}
+
+// The shared-memory opt-in is a per-device function attribute: set it once
+// per device the first time that device launches the instance.
+template <typename Kernel>
+cudaError_t opt_in(Kernel kernel, size_t smem, bool* configured) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 64 && configured[device]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && device < 64) configured[device] = true;
+  return err;
+}
+
+template <typename T>
+int launch_fwd(const void* h, const void* w, const int* labels, float* lse, float* ll, int n,
+               int v, int d, cudaStream_t stream) {
+  dim3 grid((n + kTile - 1) / kTile);
+  fused_ce_fwd_kernel<T><<<grid, kThreads, kFwdSmem, stream>>>(
+      static_cast<const T*>(h), static_cast<const T*>(w), labels, lse, ll, n, v, d);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_dh(const void* h, const void* w, const int* labels, const float* lse,
+              const float* glse, const float* g, float* dh, void* dh_bf16, int n, int v, int d,
+              cudaStream_t stream) {
+  static bool configured[64] = {};
+  cudaError_t err = opt_in(fused_ce_bwd_dh_kernel<T>, kBwdSmem, configured);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((n + kTile - 1) / kTile);
+  fused_ce_bwd_dh_kernel<T><<<grid, kThreads, kBwdSmem, stream>>>(
+      static_cast<const T*>(h), static_cast<const T*>(w), labels, lse, glse, g, dh,
+      static_cast<__nv_bfloat16*>(dh_bf16), n, v, d);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_dw(const void* h, const void* w, const int* labels, const float* lse,
+              const float* glse, const float* g, float* dw, int n, int v, int d,
+              cudaStream_t stream) {
+  static bool configured[64] = {};
+  cudaError_t err = opt_in(fused_ce_bwd_dw_kernel<T>, kBwdSmem, configured);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((v + kTile - 1) / kTile);
+  fused_ce_bwd_dw_kernel<T><<<grid, kThreads, kBwdSmem, stream>>>(
+      static_cast<const T*>(h), static_cast<const T*>(w), labels, lse, glse, g, dw, n, v, d);
+  return (int)cudaGetLastError();
+}
+
+bool shape_ok(int n, int v, int d) { return n >= 1 && v >= 1 && d >= 32 && d % 32 == 0; }
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16. Each returns the cudaError_t of the
+// launch (0 on success), -1 for a dtype it does not take, -2 for a shape.
+
+int fused_ce_fwd(const void* h, const void* w, const void* labels, void* lse, void* ll, int n,
+                 int v, int d, int dtype, void* stream) {
+  if (!shape_ok(n, v, d)) return -2;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* lab = static_cast<const int*>(labels);
+  float* lse_f = static_cast<float*>(lse);
+  float* ll_f = static_cast<float*>(ll);
+  if (dtype == 0) return launch_fwd<float>(h, w, lab, lse_f, ll_f, n, v, d, s);
+  if (dtype == 1) return launch_fwd<__nv_bfloat16>(h, w, lab, lse_f, ll_f, n, v, d, s);
+  return -1;
+}
+
+// dh_bf16 may be null: then dh (f32) is the output. Otherwise dh is the f32
+// accumulator and dh_bf16 receives dhidden in bf16.
+int fused_ce_bwd_dh(const void* h, const void* w, const void* labels, const void* lse,
+                    const void* glse, const void* g, void* dh, void* dh_bf16, int n, int v,
+                    int d, int dtype, void* stream) {
+  if (!shape_ok(n, v, d)) return -2;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* lab = static_cast<const int*>(labels);
+  const float* lse_f = static_cast<const float*>(lse);
+  const float* glse_f = static_cast<const float*>(glse);
+  const float* g_f = static_cast<const float*>(g);
+  float* dh_f = static_cast<float*>(dh);
+  if (dtype == 0)
+    return launch_dh<float>(h, w, lab, lse_f, glse_f, g_f, dh_f, dh_bf16, n, v, d, s);
+  if (dtype == 1)
+    return launch_dh<__nv_bfloat16>(h, w, lab, lse_f, glse_f, g_f, dh_f, dh_bf16, n, v, d, s);
+  return -1;
+}
+
+int fused_ce_bwd_dw(const void* h, const void* w, const void* labels, const void* lse,
+                    const void* glse, const void* g, void* dw, int n, int v, int d, int dtype,
+                    void* stream) {
+  if (!shape_ok(n, v, d)) return -2;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* lab = static_cast<const int*>(labels);
+  const float* lse_f = static_cast<const float*>(lse);
+  const float* glse_f = static_cast<const float*>(glse);
+  const float* g_f = static_cast<const float*>(g);
+  float* dw_f = static_cast<float*>(dw);
+  if (dtype == 0) return launch_dw<float>(h, w, lab, lse_f, glse_f, g_f, dw_f, n, v, d, s);
+  if (dtype == 1)
+    return launch_dw<__nv_bfloat16>(h, w, lab, lse_f, glse_f, g_f, dw_f, n, v, d, s);
+  return -1;
+}
+
+const char* fused_ce_error_string(int code) {
+  if (code == -1) return "unsupported dtype (float32 or bfloat16)";
+  if (code == -2) return "unsupported shape (N >= 1, V >= 1, d a positive multiple of 32)";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -23,9 +23,14 @@ and MLP outputs), drawing from an explicit ``torch.Generator``;
 ``fused_norm`` runs ``ln_1`` and ``ln_2`` of every block through the
 fused add+LayerNorm kernels (ops/fused_norm.py) with the same parameter
 names as the unfused path, and is left out of the KV-cache decode path as
-JAX clears it on decode clones. The adapter computes the LM loss
-(models/base.py) with ``loss_impl`` resolved as in JAX and an optional
-z-loss.
+JAX clears it on decode clones.
+
+The loss (``loss_impl``, resolved as in JAX by ops/fused_ce.py, with an
+optional z-loss): ``dense`` computes the (B, T, V) logits and
+``masked_ce_components`` (models/base.py); ``fused_ce`` (the hand-written
+CUDA kernels of ops/fused_ce.py on the card) and ``chunked_ce`` (plain
+torch, ops/chunked_ce.py) contract ``forward(..., return_hidden=True)``
+against the (V, d) vocab matrix, so no (B, T, V) tensor is made.
 
 Grouped-query attention (``n_kv_heads`` < ``n_heads``) uses ``q_proj`` +
 ``kv_proj`` in place of the fused ``qkv_proj``. Decoding goes through
@@ -35,8 +40,7 @@ XLA, no Pallas kernel).
 
 Not yet ported, each raising: ``matmul_precision`` other than f32 and
 ring/ulysses attention (at build time), the rolling sliding-window decode
-cache and the int8 KV cache (at decode), ``chunked_ce``/``fused_ce``
-losses (at loss time) (ROADMAP.md queue A).
+cache and the int8 KV cache (at decode) (ROADMAP.md queue A).
 """
 
 from __future__ import annotations
@@ -52,12 +56,19 @@ from torch import nn
 from ..config.schemas import RunConfig
 from ..ops import flash_attention as flash_ops
 from ..ops import fused_norm as fused_norm_ops
+from ..ops.chunked_ce import DEFAULT_CHUNK, chunked_ce_components
+from ..ops.fused_ce import (
+    DEFAULT_BLOCK_T,
+    DEFAULT_BLOCK_V,
+    LOSS_IMPLS,
+    fused_ce_components,
+    resolve_loss_impl,
+)
 from ..registry.models import register_model
-from .base import Batch, ModelAdapter, lm_loss_components
+from .base import Batch, ModelAdapter, lm_loss_components, validate_lm_batch
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _INIT_STD = 0.02
-LOSS_IMPLS = ("dense", "chunked_ce", "fused_ce")
 
 
 def apply_dropout(x: torch.Tensor, rate: float, deterministic: bool,
@@ -357,12 +368,18 @@ class GPT(nn.Module):
         fused_norm: bool = False,
         loss_impl: str = "dense",
         z_loss: float = 0.0,
+        ce_chunk: int = DEFAULT_CHUNK,
+        fused_ce_block_t: int = DEFAULT_BLOCK_T,
+        fused_ce_block_v: int = DEFAULT_BLOCK_V,
     ) -> None:
         super().__init__()
         self.dropout = dropout
         self.fused_norm = fused_norm
         self.loss_impl = loss_impl
         self.z_loss = z_loss
+        self.ce_chunk = ce_chunk
+        self.fused_ce_block_t = fused_ce_block_t
+        self.fused_ce_block_v = fused_ce_block_v
         self.vocab_size = vocab_size
         self.block_size = block_size
         self.d_model = d_model
@@ -416,9 +433,12 @@ class GPT(nn.Module):
         cache: KVCache | None = None,
         deterministic: bool = True,
         generator: torch.Generator | None = None,
+        return_hidden: bool = False,
     ) -> torch.Tensor:
         """Logits (B, T, V) in the compute dtype. ``deterministic=False``
-        applies dropout from ``generator``."""
+        applies dropout from ``generator``. ``return_hidden`` returns
+        ``ln_f``'s output (B, T, d) without the lm-head, for the streamed
+        losses that contract it against :meth:`vocab_matrix` themselves."""
         _, seqlen = input_ids.shape
         if seqlen > self.block_size:
             raise ValueError(
@@ -437,9 +457,17 @@ class GPT(nn.Module):
             x = block(x, attention_mask, cache.layers[i] if cache is not None else None,
                       deterministic=deterministic, generator=generator)
         x = self.ln_f(x)
+        if return_hidden:
+            return x
+        return F.linear(x, self.vocab_matrix().to(self.dtype))
+
+    def vocab_matrix(self) -> torch.Tensor:
+        """The (V, d) output-projection parameter: the tied
+        ``token_embedding.weight`` or the untied ``lm_head.weight`` (torch
+        keeps both as (V, d); JAX transposes its untied kernel)."""
         if self.tie_embeddings:
-            return F.linear(x, self.token_embedding.weight.to(self.dtype))
-        return F.linear(x, self.lm_head.weight.to(self.dtype))
+            return self.token_embedding.weight
+        return self.lm_head.weight
 
     def for_decoding(self, cache_len: int | None = None) -> GPTDecoder:
         """KV-cache decoding view of this model (JAX ``for_decoding``):
@@ -519,9 +547,9 @@ class GPTAdapter(ModelAdapter):
             vocab_size=vocab_size,
             ce_auto_vocab=self._positive_extra(cfg, "ce_auto_vocab", 32768),
         )
-        for key, default in (("ce_chunk", 8192), ("fused_ce_block_t", 256),
-                             ("fused_ce_block_v", 512)):
-            self._positive_extra(cfg, key, default)
+        ce_chunk = self._positive_extra(cfg, "ce_chunk", DEFAULT_CHUNK)
+        block_t = self._positive_extra(cfg, "fused_ce_block_t", DEFAULT_BLOCK_T)
+        block_v = self._positive_extra(cfg, "fused_ce_block_v", DEFAULT_BLOCK_V)
         z_loss = float(m.extra.get("z_loss", 0.0))
         if z_loss < 0.0:
             raise ValueError(f"model.extra.z_loss must be >= 0, got {z_loss}")
@@ -578,6 +606,9 @@ class GPTAdapter(ModelAdapter):
             fused_norm=bool(m.extra.get("fused_norm", False)),
             loss_impl=loss_impl,
             z_loss=z_loss,
+            ce_chunk=ce_chunk,
+            fused_ce_block_t=block_t,
+            fused_ce_block_v=block_v,
         )
         if device is not None:
             model = model.to(device)
@@ -600,31 +631,57 @@ class GPTAdapter(ModelAdapter):
         generator: torch.Generator | None = None,
         deterministic: bool = True,
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Per-example ``(loss_sum, token_count)`` through the dense loss
-        (the loss of ``loss_impl: dense``); the streamed losses raise."""
+        """Per-example ``(loss_sum, token_count)``, dispatched on the
+        model's ``loss_impl`` as JAX's adapter does: the streamed losses
+        through :meth:`_chunked_loss_components`, ``dense`` through the
+        full logits."""
+        if model.loss_impl in ("chunked_ce", "fused_ce"):
+            return self._chunked_loss_components(model, batch, generator=generator,
+                                                 deterministic=deterministic)
         if model.loss_impl != "dense":
-            raise NotImplementedError(
-                f"loss_impl={model.loss_impl!r} is not yet ported to llmtrain_tpu_torch "
-                "(ROADMAP.md queue A: slice 3, fused lm-head cross-entropy); set "
-                "model.extra.loss_impl: dense"
+            raise ValueError(
+                f"loss_impl {model.loss_impl!r} unknown; expected one of {', '.join(LOSS_IMPLS)}"
             )
         return lm_loss_components(model, batch, generator=generator,
                                   deterministic=deterministic)
 
+    # The (V, d) output-projection matrix of a model (JAX ``vocab_matrix``).
+    vocab_matrix = staticmethod(GPT.vocab_matrix)
 
-def resolve_loss_impl(requested: str | None, *, vocab_size: int, ce_auto_vocab: int) -> str:
-    """``model.extra.loss_impl`` as JAX's ``resolve_loss_impl``
-    (llmtrain_tpu/ops/fused_ce.py:73) resolves it on its kernels' device:
-    an explicit value wins (unknown raises); unset picks the fused
-    lm-head CE at ``vocab_size >= ce_auto_vocab``, else ``dense``."""
-    if requested is not None:
-        if requested not in LOSS_IMPLS:
-            raise ValueError(
-                f"model.extra.loss_impl {requested!r} unknown; "
-                f"expected one of {', '.join(LOSS_IMPLS)}"
+    @classmethod
+    def chunked_components_from_hidden(
+        cls,
+        model: GPT,
+        hidden: torch.Tensor,
+        labels: torch.Tensor,
+        attention_mask: torch.Tensor | None,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Streamed or fused CE components from ``ln_f``'s output:
+        ``fused_ce`` runs the fused kernels (ops/fused_ce.py), anything
+        else the chunked stream (ops/chunked_ce.py)."""
+        if model.loss_impl == "fused_ce":
+            return fused_ce_components(
+                hidden, cls.vocab_matrix(model), labels, attention_mask,
+                block_t=model.fused_ce_block_t, block_v=model.fused_ce_block_v,
+                z_loss=model.z_loss,
             )
-        return requested
-    return "fused_ce" if vocab_size >= ce_auto_vocab else "dense"
+        return chunked_ce_components(hidden, cls.vocab_matrix(model), labels, attention_mask,
+                                     chunk=model.ce_chunk, z_loss=model.z_loss)
+
+    @classmethod
+    def _chunked_loss_components(
+        cls,
+        model: GPT,
+        batch: Batch,
+        *,
+        generator: torch.Generator | None,
+        deterministic: bool,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The dense path's loss, without the (B, T, V) logits."""
+        input_ids, labels, attention_mask = validate_lm_batch(batch)
+        hidden = model(input_ids.long(), attention_mask, deterministic=deterministic,
+                       generator=generator, return_hidden=True)
+        return cls.chunked_components_from_hidden(model, hidden, labels, attention_mask)
 
 
 __all__ = [
@@ -634,6 +691,7 @@ __all__ = [
     "CausalSelfAttention",
     "KVCache",
     "LayerKVCache",
+    "LOSS_IMPLS",
     "LayerNorm",
     "TransformerBlock",
     "apply_dropout",

@@ -34,11 +34,12 @@ def test_walk_covers_the_package() -> None:
     assert {"gpt.py", "flash_attention.py", "http.py", "cli.py", "chip_smoke.py"} <= names
     assert {"fused_norm.py", "trainer.py", "train_step.py", "optimizer.py", "dry_run.py",
             "local_text.py", "sampler.py", "prefetch.py", "hw.py", "summary.py"} <= names
+    assert {"fused_ce.py", "chunked_ce.py"} <= names
 
 
 def test_kernel_modules_import_triton_only_inside_functions() -> None:
     """This machine has no Triton: the kernel modules import it lazily."""
-    for name in ("fused_norm.py", "flash_attention.py"):
+    for name in ("fused_norm.py", "flash_attention.py", "fused_ce.py", "chunked_ce.py"):
         path = _ROOT / "llmtrain_tpu_torch" / "ops" / name
         tree = ast.parse(path.read_text(encoding="utf-8"))
         top = {alias.name.split(".")[0] for node in tree.body if isinstance(node, ast.Import)

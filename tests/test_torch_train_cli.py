@@ -157,3 +157,22 @@ def test_diverged_run_exits_1_after_the_guard_cap(tmp_path, capsys, monkeypatch)
                                "resilience.max_consecutive_nonfinite": 2})
     assert run_cli(port_main, ["train", "--config", str(cfg), "--run-id", "nan"]) == 1
     assert "consecutive optimizer updates were non-finite" in capsys.readouterr().err
+
+
+def test_dense_checkpoint_resumes_under_fused_ce(tmp_path, capsys) -> None:
+    """JAX lets a run change ``loss_impl`` between a checkpoint and its
+    resume: the parameter tree is the same. A dense run's step-2
+    checkpoint resumed under ``loss_impl: fused_ce`` (the kernels' plain
+    versions on the CPU) continues to the end of the dense run, with the
+    same final loss up to summation order."""
+    cfg = _config(tmp_path)
+    assert run_cli(port_main, ["train", "--config", str(cfg), "--run-id", "dense", "--json"]) == 0
+    dense = json.loads(capsys.readouterr().out)["train_result"]
+    ckpt = tmp_path / "runs" / "dense" / "checkpoints" / "step_000002.ckpt"
+    cfg = _config(tmp_path, **{"model.extra.loss_impl": "fused_ce"})
+    assert run_cli(port_main, ["train", "--config", str(cfg), "--run-id", "flipped",
+                               "--resume", str(ckpt), "--json"]) == 0
+    flipped = json.loads(capsys.readouterr().out)["train_result"]
+    assert flipped["resumed_from_step"] == 2 and flipped["final_step"] == 4
+    assert flipped["final_loss"] == pytest.approx(dense["final_loss"], abs=1e-4)
+    assert flipped["final_val_loss"] == pytest.approx(dense["final_val_loss"], abs=1e-4)

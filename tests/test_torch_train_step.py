@@ -4,7 +4,11 @@ A 2-layer GPT carries the same weights into both packages
 (interop/flax_params.py); batches are seeded numpy. Bands (ROADMAP.md's
 parity bands): loss and gradients atol 1e-5, rtol 1e-4 (f32, summation
 order only), with ``fused_norm`` on (JAX's Pallas kernel in interpret
-mode, the port's plain version) and off; the optimizer trajectory over 4
+mode, the port's plain version) and off, and with the streamed losses
+``fused_ce`` (JAX's Pallas kernels in interpret mode, the port's plain
+versions) and ``chunked_ce``, tied and untied, at a vocab (61) that is
+not a multiple of their tiles; one AdamW step with ``fused_ce``; the
+optimizer trajectory over 4
 AdamW steps with clipping and the warmup-cosine schedule, against JAX's
 ``make_train_step`` with optax, atol 3e-5, rtol 1e-3. Gradients map to
 the port's parameter names through the same carry-over function as the
@@ -22,7 +26,6 @@ from flax import serialization
 from torch_port_helpers import TINY, jax_gpt, port_gpt, seeded_ids
 
 from llmtrain_tpu.config.schemas import TrainerConfig as JaxTrainerConfig
-from llmtrain_tpu.models.base import lm_loss_components as jax_lm_loss_components
 from llmtrain_tpu.models.gpt import GPTAdapter as JaxGPTAdapter
 from llmtrain_tpu.training.optimizer import build_optimizer as jax_build_optimizer
 from llmtrain_tpu.training.train_step import TrainState as JaxTrainState
@@ -47,11 +50,15 @@ def _batch(seed: int, shape: tuple[int, ...], masked: bool) -> dict[str, np.ndar
     return {"input_ids": ids, "labels": labels, "attention_mask": mask}
 
 
-def _port_model(jm, params, fused_norm: bool):
+def _port_model(jm, params, fused_norm: bool = False):
+    """The port's GPT with the JAX model's weights, fused-norm flag and
+    loss knobs."""
     tm = port_gpt(jm, params)
     tm.fused_norm = fused_norm
     for block in tm.blocks:
         block.fused_norm = fused_norm
+    for knob in _LOSS_KNOBS:
+        setattr(tm, knob, getattr(jm, knob))
     return tm
 
 
@@ -59,26 +66,37 @@ def _torch_batch(batch: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
 
 
+# Streamed-loss knobs: tiles that do not divide the vocab (61) or the
+# tokens (2 x 24).
+FUSED_CE = dict(loss_impl="fused_ce", fused_ce_block_t=16, fused_ce_block_v=16,
+                pallas_interpret=True)
+CHUNKED_CE = dict(loss_impl="chunked_ce", ce_chunk=16)
+_LOSS_KNOBS = ("loss_impl", "z_loss", "fused_ce_block_t", "fused_ce_block_v", "ce_chunk")
+
+
 @pytest.mark.parametrize(
     "fused_norm, extra",
-    [(False, {}), (True, {}), (False, dict(z_loss=1e-3, n_kv_heads=2, tie_embeddings=False))],
-    ids=["unfused", "fused_norm", "zloss-gqa-untied"],
+    [(False, {}), (True, {}), (False, dict(z_loss=1e-3, n_kv_heads=2, tie_embeddings=False)),
+     (False, FUSED_CE), (False, dict(FUSED_CE, z_loss=1e-3, tie_embeddings=False)),
+     (False, CHUNKED_CE), (False, dict(CHUNKED_CE, z_loss=1e-3, tie_embeddings=False))],
+    ids=["unfused", "fused_norm", "zloss-gqa-untied", "fused_ce-tied", "fused_ce-zloss-untied",
+         "chunked_ce-tied", "chunked_ce-zloss-untied"],
 )
 def test_loss_and_grads_match_jax(fused_norm: bool, extra: dict) -> None:
     """Through the whole model with a padded tail: the segment mask reaches
     the attention (no assume_packed) and the output mask zeroes the padded
     rows, whose cotangent the backward must then ignore."""
-    jm, params = jax_gpt(seed=5, attention="flash", fused_norm=fused_norm,
-                         pallas_interpret=fused_norm, **extra)
+    extra = {"pallas_interpret": fused_norm, **extra}
+    jm, params = jax_gpt(seed=5, attention="flash", fused_norm=fused_norm, **extra)
     batch = _batch(6, (2, 24), masked=True)
 
     def jax_loss(p):
-        loss_sum, tokens = jax_lm_loss_components(jm, p, {k: jnp.asarray(v) for k, v in batch.items()})
+        loss_sum, tokens = JaxGPTAdapter().compute_loss_components(
+            jm, p, {k: jnp.asarray(v) for k, v in batch.items()})
         return jnp.sum(loss_sum) / jnp.maximum(jnp.sum(tokens), 1.0)
 
     j_loss, j_grads = jax.value_and_grad(jax_loss)(params)
     tm = _port_model(jm, params, fused_norm)
-    tm.z_loss = extra.get("z_loss", 0.0)
     loss_sum, tokens = GPTAdapter().compute_loss_components(tm, _torch_batch(batch))
     loss = loss_sum.sum() / tokens.sum()
     loss.backward()
@@ -114,8 +132,36 @@ def test_adamw_trajectory_matches_optax() -> None:
         np.testing.assert_allclose(metrics["grad_norm"].item(), float(j_metrics["grad_norm"]),
                                    atol=TRAJ_ATOL, rtol=TRAJ_RTOL)
     assert state.step == int(j_state.step) == 4 and optimizer.count == 4
-    expected = flax_gpt_params_to_state_dict(serialization.to_state_dict(j_state.params))
     lr_sum = sum(lr_schedule(TrainerConfig(**TRAINER))(c) for c in range(4))
+    _assert_params_match(tm, j_state.params, lr_sum)
+
+
+def test_adamw_step_with_fused_ce_matches_optax() -> None:
+    """One optimizer step (2 micro-batches, clipping, no warmup) with the
+    loss through the fused lm-head CE: JAX's Pallas kernels in interpret
+    mode, the port's plain versions."""
+    trainer = {**TRAINER, "warmup_steps": 0}
+    jm, params = jax_gpt(seed=8, attention="flash", **FUSED_CE)
+    tm = _port_model(jm, params)
+    tx = jax_build_optimizer(JaxTrainerConfig(**trainer))
+    j_step = jax.jit(jax_make_train_step(JaxGPTAdapter(), jm, tx, grad_accum_steps=2,
+                                         use_dropout=False))
+    j_state = JaxTrainState(step=jnp.zeros((), jnp.int32), params=params, opt_state=tx.init(params))
+    state = TrainState(step=0, model=tm, optimizer=AdamW(list(tm.named_parameters()),
+                                                         TrainerConfig(**trainer)))
+    step_fn = make_train_step(GPTAdapter(), tm, grad_accum_steps=2, use_dropout=False, seed=0)
+    batch = _batch(25, (2, 2, 16), masked=False)
+    j_state, j_metrics = j_step(j_state, {k: jnp.asarray(v) for k, v in batch.items()},
+                                jax.random.key(0))
+    metrics = step_fn(state, _torch_batch(batch))
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(metrics[key].item(), float(j_metrics[key]), atol=TRAJ_ATOL,
+                                   rtol=TRAJ_RTOL)
+    _assert_params_match(tm, j_state.params, lr_schedule(TrainerConfig(**trainer))(0))
+
+
+def _assert_params_match(tm, j_params, lr_sum: float) -> None:
+    expected = flax_gpt_params_to_state_dict(serialization.to_state_dict(j_params))
     d = TINY["d_model"]
     for name, p in tm.named_parameters():
         got, want = p.detach().numpy(), np.asarray(expected[name])
@@ -208,6 +254,10 @@ def test_dropout_draws_from_the_generator_and_is_off_when_deterministic() -> Non
 
 
 def test_loss_impl_resolves_as_in_jax_and_streamed_losses_raise() -> None:
+    """Resolution as in JAX; the streamed losses (``fused_ce``,
+    ``chunked_ce``) now run and equal the dense loss and its gradients;
+    what still raises is a ``loss_impl`` outside the three, whether in
+    the config or set on a built model."""
     from llmtrain_tpu.ops.fused_ce import resolve_loss_impl as jax_resolve
     from llmtrain_tpu_torch.models.gpt import resolve_loss_impl
 
@@ -218,7 +268,20 @@ def test_loss_impl_resolves_as_in_jax_and_streamed_losses_raise() -> None:
     with pytest.raises(ValueError, match="unknown"):
         resolve_loss_impl("sparse_ce", vocab_size=256, ce_auto_vocab=32768)
     jm, params = jax_gpt(seed=13)
-    tm = port_gpt(jm, params)
-    tm.loss_impl = "fused_ce"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        GPTAdapter().compute_loss_components(tm, _torch_batch(_batch(50, (1, 8), masked=False)))
+    batch = _torch_batch(_batch(50, (2, 12), masked=True))
+    results = {}
+    for impl in ("dense", "fused_ce", "chunked_ce"):
+        tm = port_gpt(jm, params)
+        tm.loss_impl, tm.fused_ce_block_v, tm.ce_chunk = impl, 16, 16
+        loss_sum, tokens = GPTAdapter().compute_loss_components(tm, batch)
+        (loss_sum.sum() / tokens.sum()).backward()
+        results[impl] = (loss_sum.detach(), tokens, [p.grad for p in tm.parameters()])
+    dense_sum, dense_tokens, dense_grads = results.pop("dense")
+    for impl, (loss_sum, tokens, grads) in results.items():
+        torch.testing.assert_close(loss_sum, dense_sum, atol=2e-5, rtol=1e-5, msg=impl)
+        assert torch.equal(tokens, dense_tokens)
+        for g, dg in zip(grads, dense_grads):
+            torch.testing.assert_close(g, dg, atol=GRAD_ATOL, rtol=GRAD_RTOL, msg=impl)
+    tm.loss_impl = "sparse_ce"
+    with pytest.raises(ValueError, match="unknown"):
+        GPTAdapter().compute_loss_components(tm, batch)
