@@ -8,7 +8,7 @@
 // logsumexp L, and each kernel recomputes P = exp(S - L) tile by tile, so
 // nothing of shape (T, T) is ever stored.
 //
-//   S  = (q * scale) k^T            (q is scaled in f32 before the dot)
+//   S  = scale * q k^T              (the scale in f32)
 //   P  = exp(S - L)                 (dead logits hold the finite -1e30)
 //   dP = dO v^T
 //   dS = P * (dP - delta)           delta = rowsum(dO * O), computed by the
@@ -16,9 +16,9 @@
 //                                   XLA outside the Pallas call)
 //   dQ = scale * dS k               (the one factor of scale, at the end)
 //   dV = P^T dO
-//   dK = dS^T (q * scale)           (already carries scale through q)
+//   dK = scale * dS^T q
 //
-// Layouts (all contiguous): q, dO, dQ (B, T, H, D); k, v, dK, dV
+// Layouts (all contiguous, 16-byte aligned): q, dO, dQ (B, T, H, D); k, v, dK, dV
 // (B, T, Hkv, D) with H % Hkv == 0 (query head h reads kv head
 // h / (H / Hkv)); L and delta (B*H, T) f32; mask (B, T) int32 segment ids,
 // optional (a key is live for a query iff its id is nonzero and equal to
@@ -36,28 +36,51 @@
 // for each, the 64-row q tiles from the causal diagonal down (to the end
 // of the sequence or of the window), accumulating dK and dV in f32
 // registers and writing each once. No atomics, no f32 scratch in HBM, and
-// the sums run in a fixed order, so the result is deterministic. The dQ
+// the sums run in a fixed order, so reruns are bit-identical. The dQ
 // kernel is gridded like the forward: one block per (64-row q tile, b*h),
 // looping over the K/V tiles from the window's start to the diagonal.
 //
-// Both kernels use the forward kernel's thread layout: 256 threads, four
-// threads per tile row, thread c of a row owning tile columns j*4+c for
-// the dot products and output dims j*4+c for the accumulators; tiles are
-// staged in shared memory as f32, rows padded by one float so the reads
-// are free of bank conflicts; P and dS go through shared memory between
-// the two products of a tile.
+// What bounds dK/dV at the training shape (64, 512, 12, 64) bf16 causal:
+// the bytes it must move (q, k, v, dO, L and delta read once, dK and dV
+// written once), 0.305 GB, 0.0911 ms at 3.35 TB/s, against 5.2e10 flop
+// of the live causal pairs (four products), 0.052 ms of bf16 tensor-core
+// time: bytes.
 //
-// What bounds it at the training shape (64, 512, 12, 64) bf16 causal: the
-// bytes it must move (q, k, v, dO once and dQ, dK, dV once, L and delta)
-// are ~0.4 GB, ~0.12 ms at 3.35 TB/s, against ~6.5e10 flop of the live
-// causal pairs, ~0.07 ms of bf16 tensor-core time: the bound is memory.
-// This first version is deliberately simple and right rather than fast:
-// f32 FMA from shared memory, no tensor cores, no TMA, so it sits far from
-// that bound. mma/wgmma tiles are later work.
+// The bf16 dK/dV instances (the main path's: training computes in bf16)
+// run on the tensor cores with mma.sync.m16n8k16 (bf16 x bf16 -> f32)
+// fed by ldmatrix; not wgmma/TMA. Four warps, 16 keys per warp:
+//   * K and V stay in shared memory for the block's life; Q, dO, L, delta
+//     and the query segment ids of each q tile arrive by cp.async into a
+//     ring of two stages, so tile j + 1 loads while tile j is computed,
+//     with one __syncthreads() per q tile. Tiles are bf16, as in device
+//     memory, in the swizzled layout of tile_mma.cuh (ldmatrix without
+//     bank conflicts).
+//   * S^T = K Q^T and dP^T = V dO^T are MMAs with the keys as rows; P^T
+//     and dS^T are formed in the accumulator registers and, rounded to
+//     bf16 in place (the standard FlashAttention-2 rounding points), are
+//     the A fragments of dV += P^T dO and dK += dS^T Q: nothing of P or dS
+//     goes through shared memory. S^T is scaled in f32 after the product,
+//     and dK takes its factor of scale on the f32 sums at the end.
+//   * At D = 64 each warp holds S^T and dP^T for the whole 64-query tile;
+//     at D = 128, where the dK/dV accumulators take 128 registers a
+//     thread, for 32 queries at a time, which keeps ptxas free of spills.
+//   * dK and dV are staged through the warp's own rows of the K and V
+//     tiles and written in 16-byte stores.
+// The f32 dK/dV instances and every dQ instance keep the first version's
+// plain f32 FMA code (tensor cores would mean TF32, outside the f32 limit
+// of 1e-4; dQ is later work): 256 threads, four threads per tile row,
+// tiles staged in shared memory as f32 with rows padded by one float, P
+// and dS through shared memory between the two products of a tile, q
+// scaled in f32 before the dot as Pallas does. Their bound at the
+// training shape is the same kind (dQ: 0.0761 ms, bytes).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "tile_mma.cuh"
 
 namespace {
 
@@ -67,6 +90,9 @@ constexpr int kThreads = kTile * kThreadsPerRow;  // 256
 constexpr int kColsPerThread = kTile / kThreadsPerRow;  // 16
 constexpr int kPStride = kTile + 1;
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+using tile_mma::bf16;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -105,10 +131,21 @@ constexpr size_t dq_smem_bytes(int d) {
   return sizeof(float) * (4 * kTile * (d + 1) + kTile * kPStride) + sizeof(int) * kTile;
 }
 
-constexpr size_t dkdv_smem_bytes(int d) {
+template <typename T>
+constexpr bool kTensorCores = std::is_same<T, bf16>::value;
+
+template <typename T>
+constexpr int threads_for() { return kTensorCores<T> ? tile_mma::kThreads : kThreads; }
+
+template <int D, typename T>
+constexpr size_t dkdv_smem_bytes() {
+  if (kTensorCores<T>)
+    // k, v (64, D) bf16; q, dO (64, D) bf16 two stages each; L, delta and
+    // query segment ids of the q tile, two stages.
+    return sizeof(bf16) * 6 * kTile * D + (2 * sizeof(float) + sizeof(int)) * 2 * kTile;
   // k, v, q (scaled), dO: (64, D+1) f32 each; P and dS (64, 65) f32 each;
   // L and delta of the q tile; query segment ids.
-  return sizeof(float) * (4 * kTile * (d + 1) + 2 * kTile * kPStride + 2 * kTile) +
+  return sizeof(float) * (4 * kTile * (D + 1) + 2 * kTile * kPStride + 2 * kTile) +
          sizeof(int) * kTile;
 }
 
@@ -213,13 +250,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <int D, typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
-                      const float* __restrict__ lse, const float* __restrict__ delta,
-                      const int* __restrict__ mask, T* __restrict__ dk, T* __restrict__ dv,
-                      int seq_len, int n_heads, int n_kv_heads, float scale, int causal,
-                      int window) {
+__device__ __forceinline__ void flash_bwd_dkdv_fma(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    const int* __restrict__ mask, T* __restrict__ dk, T* __restrict__ dv, int seq_len,
+    int n_heads, int n_kv_heads, float scale, int causal, int window) {
   constexpr int kStride = D + 1;
   constexpr int kDimsPerThread = D / kThreadsPerRow;
   extern __shared__ float smem[];
@@ -329,6 +364,187 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+template <int D>
+__device__ __forceinline__ void flash_bwd_dkdv_mma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, const int* __restrict__ mask, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int seq_len, int n_heads, int n_kv_heads, float scale, int causal,
+    int window) {
+  using namespace tile_mma;
+  constexpr int kTileElems = kTile * D;
+  constexpr int kDT = D / 8;   // n8 tiles of dK/dV over d
+  constexpr int kKS = D / 16;  // k16 steps of S^T/dP^T over d
+  // Queries per chunk of S^T and dP^T held in registers: the whole tile at
+  // D = 64; at D = 128, where dK and dV take 128 registers a thread, 32,
+  // one chunk at a time (unrolled, the chunks' loads interleave and ptxas
+  // spills at 255 registers; rolled, it needs 251 and spills nothing).
+  constexpr int kChunk = D == 64 ? 64 : 32;
+  constexpr int kNT = kChunk / 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* s_k = reinterpret_cast<bf16*>(smem_raw);
+  bf16* s_v = s_k + kTileElems;
+  bf16* s_q = s_v + kTileElems;        // two stages
+  bf16* s_do = s_q + 2 * kTileElems;   // two stages
+  float* s_lse = reinterpret_cast<float*>(s_do + 2 * kTileElems);  // two stages of 64
+  float* s_delta = s_lse + 2 * kTile;
+  int* s_qseg = reinterpret_cast<int*>(s_delta + 2 * kTile);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * kTile;
+  const int bkv = blockIdx.y;
+  const int b = bkv / n_kv_heads;
+  const int hkv = bkv % n_kv_heads;
+  const int group = n_heads / n_kv_heads;
+
+  const int64_t q_row_stride = (int64_t)n_heads * D;
+  const int64_t kv_row_stride = (int64_t)n_kv_heads * D;
+  const int64_t kv_off = ((int64_t)b * seq_len) * kv_row_stride + (int64_t)hkv * D;
+  const int* seg_base = mask ? mask + (int64_t)b * seq_len : nullptr;
+
+  // Query tiles that can see this key tile: from the diagonal down, to
+  // the sequence end or the last query inside the window.
+  const int n_q_tiles = (seq_len + kTile - 1) / kTile;
+  const int qt_begin = causal ? n0 / kTile : 0;
+  int qt_end = n_q_tiles;
+  if (window > 0) qt_end = min(qt_end, (n0 + kTile - 1 + window - 1) / kTile + 1);
+  const int n_qt = qt_end - qt_begin;
+  const int steps = group * n_qt;  // (query head, q tile) pairs, in this order
+
+  auto load_q = [&](int step, int stage) {
+    const int h = hkv * group + step / n_qt;
+    const int m0 = (qt_begin + step % n_qt) * kTile;
+    const int64_t q_off = ((int64_t)b * seq_len) * q_row_stride + (int64_t)h * D;
+    load_tile<D>(s_q + stage * kTileElems, q + q_off, q_row_stride, m0, seq_len);
+    load_tile<D>(s_do + stage * kTileElems, dout + q_off, q_row_stride, m0, seq_len);
+    if (tid < kTile) {
+      const int p = m0 + tid;
+      const bool live = p < seq_len;
+      const int64_t row = ((int64_t)b * n_heads + h) * seq_len + (live ? p : 0);
+      cp_async_4(smem_addr(s_lse + stage * kTile + tid), lse + row, live);
+      cp_async_4(smem_addr(s_delta + stage * kTile + tid), delta + row, live);
+      if (seg_base)
+        cp_async_4(smem_addr(s_qseg + stage * kTile + tid), seg_base + (live ? p : 0), live);
+    }
+  };
+  load_tile<D>(s_k, k + kv_off, kv_row_stride, n0, seq_len);
+  load_tile<D>(s_v, v + kv_off, kv_row_stride, n0, seq_len);
+  load_q(0, 0);
+  cp_async_commit();
+
+  // This thread's two key rows: g and g + 8 of the warp's 16.
+  const int row0 = warp * 16;
+  const int kpos[2] = {n0 + row0 + g, n0 + row0 + g + 8};
+  int k_seg[2] = {0, 0};
+  if (seg_base) {
+    for (int i = 0; i < 2; ++i) k_seg[i] = kpos[i] < seq_len ? seg_base[kpos[i]] : 0;
+  }
+
+  float acc_k[kDT][4], acc_v[kDT][4];
+#pragma unroll
+  for (int dt = 0; dt < kDT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[dt][e] = acc_v[dt][e] = 0.0f;
+
+  for (int step = 0; step < steps; ++step) {
+    const int stage = step & 1;
+    cp_async_wait_all();
+    __syncthreads();  // this step's tiles are in; every warp is done with the other stage
+    if (step + 1 < steps) load_q(step + 1, stage ^ 1);
+    cp_async_commit();
+    const int m0 = (qt_begin + step % n_qt) * kTile;
+    const bf16* q_s = s_q + stage * kTileElems;
+    const bf16* do_s = s_do + stage * kTileElems;
+    const float* lse_s = s_lse + stage * kTile;
+    const float* delta_s = s_delta + stage * kTile;
+    const int* qseg_s = s_qseg + stage * kTile;
+    const bool masked = seg_base || m0 + kTile > seq_len || n0 + kTile > seq_len ||
+                        (causal && m0 < n0 + kTile - 1) ||
+                        (window > 0 && m0 + kTile - 1 - n0 >= window);
+
+#pragma unroll 1
+    for (int c = 0; c < kTile / kChunk; ++c) {
+      // S^T = K Q^T and dP^T = V dO^T over this chunk's queries.
+      float s[kNT][4], dp[kNT][4];
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.0f;
+#pragma unroll
+      for (int ks = 0; ks < kKS; ++ks) {
+        uint32_t ka[4], va[4];
+        load_a<D>(ka, s_k, row0, ks);
+        load_a<D>(va, s_v, row0, ks);
+#pragma unroll
+        for (int np = 0; np < kNT / 2; ++np) {
+          uint32_t bq[4], bo[4];
+          load_b_rows<D>(bq, q_s, c * kChunk + np * 16, ks);
+          load_b_rows<D>(bo, do_s, c * kChunk + np * 16, ks);
+          mma(s[2 * np], ka, bq[0], bq[1]);
+          mma(s[2 * np + 1], ka, bq[2], bq[3]);
+          mma(dp[2 * np], va, bo[0], bo[1]);
+          mma(dp[2 * np + 1], va, bo[2], bo[3]);
+        }
+      }
+      // P^T = exp(S^T * scale - L) and dS^T = P^T (dP^T - delta), in place.
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = c * kChunk + nt * 8 + 2 * t + (e & 1);
+          float x = s[nt][e] * scale;
+          if (masked && !is_live(m0 + qi, kpos[e >> 1], seq_len, causal, window,
+                                 seg_base != nullptr, seg_base ? qseg_s[qi] : 0, k_seg[e >> 1]))
+            x = kNegInf;
+          const float p = exp2f((x - lse_s[qi]) * kLog2e);
+          s[nt][e] = p;
+          dp[nt][e] = p * (dp[nt][e] - delta_s[qi]);
+        }
+      }
+      // dV += P^T dO and dK += dS^T Q, P^T and dS^T straight from registers.
+#pragma unroll
+      for (int kk = 0; kk < kChunk / 16; ++kk) {
+        uint32_t pa[4], da[4];
+        c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+        c_to_a(da, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+        for (int dpair = 0; dpair < D / 16; ++dpair) {
+          uint32_t bo[4], bq[4];
+          load_b_cols<D>(bo, do_s, c * kChunk + kk * 16, dpair);
+          load_b_cols<D>(bq, q_s, c * kChunk + kk * 16, dpair);
+          mma(acc_v[2 * dpair], pa, bo[0], bo[1]);
+          mma(acc_v[2 * dpair + 1], pa, bo[2], bo[3]);
+          mma(acc_k[2 * dpair], da, bq[0], bq[1]);
+          mma(acc_k[2 * dpair + 1], da, bq[2], bq[3]);
+        }
+      }
+    }
+  }
+
+  // The warp's own rows of the K and V tiles are free now; dK takes its
+  // one factor of scale here, on the f32 sums.
+  store_rows<D>(s_k, acc_k, scale, scale, row0, dk + kv_off, kv_row_stride, n0, seq_len);
+  store_rows<D>(s_v, acc_v, 1.0f, 1.0f, row0, dv + kv_off, kv_row_stride, n0, seq_len);
+}
+
+template <int D, typename T>
+__global__ void __launch_bounds__(threads_for<T>())
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      const int* __restrict__ mask, T* __restrict__ dk, T* __restrict__ dv,
+                      int seq_len, int n_heads, int n_kv_heads, float scale, int causal,
+                      int window) {
+  if constexpr (kTensorCores<T>)
+    flash_bwd_dkdv_mma<D>(q, k, v, dout, lse, delta, mask, dk, dv, seq_len, n_heads, n_kv_heads,
+                          scale, causal, window);
+  else
+    flash_bwd_dkdv_fma<D, T>(q, k, v, dout, lse, delta, mask, dk, dv, seq_len, n_heads,
+                             n_kv_heads, scale, causal, window);
+}
+
 // The shared-memory opt-in is a per-device function attribute: set it
 // once per device the first time that device launches an instance.
 template <typename Kernel>
@@ -365,12 +581,12 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dout, c
                 const void* delta, const void* mask, void* dk, void* dv, int batch,
                 int seq_len, int n_heads, int n_kv_heads, float scale, int causal, int window,
                 cudaStream_t stream) {
-  constexpr size_t smem = dkdv_smem_bytes(D);
+  constexpr size_t smem = dkdv_smem_bytes<D, T>();
   static bool configured[64] = {};
   cudaError_t err = configure_smem(flash_bwd_dkdv_kernel<D, T>, smem, configured);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((seq_len + kTile - 1) / kTile, batch * n_kv_heads);
-  flash_bwd_dkdv_kernel<D, T><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_dkdv_kernel<D, T><<<grid, threads_for<T>(), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const int*>(mask), static_cast<T*>(dk),

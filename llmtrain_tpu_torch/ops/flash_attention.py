@@ -230,6 +230,8 @@ def _check_kernel_operands(
         raise ValueError(f"flash kernels take head_dim in {SUPPORTED_HEAD_DIMS}, got {d}")
     if not all(x.is_contiguous() for x in tensors.values()):
         raise ValueError("flash kernels need contiguous operands")
+    if any(x.data_ptr() % 16 for n, x in tensors.items() if n in ("q", "k", "v", "dout")):
+        raise ValueError("flash kernels need q/k/v/dout at 16-byte aligned addresses")
     return None if mask is None else mask.to(torch.int32).contiguous()
 
 

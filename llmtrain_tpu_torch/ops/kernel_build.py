@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` file is a plain C interface (no PyTorch headers), so
 ``nvcc`` compiles it in seconds into a shared library under
 ``build/kernels/`` at the checkout root. The library's file name carries
-a hash of the source and the flags, so an edited source rebuilds and an
-unchanged one loads the existing library.
+a hash of the source, the shared headers beside it (``csrc/*.cuh``) and
+the flags, so an edited source or header rebuilds and an unchanged one
+loads the existing library.
 
 Nothing here runs at import time: the CPU tests import every module of
 the package on a machine with neither ``nvcc`` nor a card.
@@ -66,6 +67,8 @@ def find_nvcc() -> str:
 
 def _library_path(source: Path) -> Path:
     digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(source.parent.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:16]}.so"
 
 

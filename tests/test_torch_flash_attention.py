@@ -129,3 +129,16 @@ def test_non_cpu_non_cuda_tensor_raises() -> None:
     q = torch.empty((1, 4, 2, 64), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         flash_ops.flash_attention_fwd(q, q, q)
+
+
+def test_kernel_operands_must_be_16_byte_aligned() -> None:
+    """The kernels copy q/k/v/dO rows in 16-byte cp.async chunks; a
+    contiguous view that starts off a 16-byte boundary is refused before
+    any launch."""
+    buf = torch.zeros(1 + 64 * 2 * 64, dtype=torch.bfloat16)
+    q = buf[1:].view(1, 64, 2, 64)  # contiguous, 2 bytes past the allocation
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    ok = torch.zeros(1, 64, 2, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_ops._check_kernel_operands({"q": q, "k": ok, "v": ok}, None, q.dtype, 64)
+    assert flash_ops._check_kernel_operands({"q": ok, "k": ok, "v": ok}, None, ok.dtype, 64) is None
