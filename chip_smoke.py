@@ -12,9 +12,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    flash_attention_bwd.cu and fused_ce.cu) with nvcc for sm_90a, one nvcc
    each, started together; register and spill report from ptxas; then
    cuobjdump -sass of the built libraries: the count of HMMA/HGMMA
-   (tensor-core) instructions of flash_fwd_kernel<64|128, bf16> and
-   flash_bwd_dkdv_kernel<64|128, bf16> with their registers and spills,
-   failing if any of the four has none.
+   (tensor-core) instructions of the seven bf16 instances in
+   TENSOR_CORE_KERNELS (flash_fwd_kernel, flash_bwd_dq_kernel and
+   flash_bwd_dkdv_kernel at head dims 64 and 128, fused_ce_bwd_dw_kernel)
+   with their registers and spills, failing if any has no tensor-core
+   instruction or spills.
 3. Kernels vs their plain versions on the card, each case with a control
    broken on purpose that must land above the tolerance:
    a. flash forward at the serving and training shapes and around them
@@ -28,17 +30,18 @@ Phases, each fatal on failure (exit code 1, no result line):
       row's K/V) above the O limit. bf16 cases run twice: bit-identical;
    b. flash backward, dq and dk/dv kernels, at the training shape and the
       same cases (BWD_RTOL; control: delta left out, lse off by log 2;
-      bf16 dk/dv run twice: bit-identical);
+      bf16 dq and dk/dv run twice: bit-identical);
    c. fused add+LayerNorm forward and backward (Triton, first compile
       timed) at the training path's 32768 x 768 tokens, f32 and bf16, a
       ragged count, with and without the residual (LN_RTOL and friends;
       controls: bias left out, the mean(dxhat) term left out);
    d. fused lm-head CE forward, dh and dW at the CE training path's shape
       (32768, 768, 50257) bf16 with and without z-loss, f32, ragged N with
-      V below one tile, d 64, and a cotangent with zeros (CE_LOSS_RTOL,
-      CE_DH_RTOL, CE_DW_RTOL; controls: the label logit read from column
-      label + 1, the one-hot term left out of dlogit, the z-loss factor left
-      out of g_lse).
+      V below one tile, d 64, a cotangent with zeros, and d 96 with N and V
+      ragged against the bf16 dW kernel's tiles (CE_LOSS_RTOL, CE_DH_RTOL,
+      CE_DW_RTOL; controls: the label logit read from column label + 1, the
+      one-hot term left out of dlogit, the z-loss factor left out of g_lse;
+      bf16 dW run twice: bit-identical).
 4. Timing: CUDA events over back-to-back launches after warm-up, inputs
    warm in L2 as the ops that produce them leave them; each kernel, its
    plain version, and one PyTorch call as a yardstick never called by the
@@ -149,12 +152,25 @@ def phase_device(torch) -> str:
     return smi
 
 
-# The redesigned kernels' bf16 instances (mangled names), which must run
-# on the tensor cores: HMMA (mma.sync) or HGMMA (wgmma) in their SASS.
+# The redesigned kernels' bf16 instances, which must run on the tensor
+# cores: HMMA (mma.sync) or HGMMA (wgmma) in their SASS. Per source, each
+# kernel with the int template arguments of its instances (head dims for
+# the flash kernels; none for the fused CE dW).
 TENSOR_CORE_KERNELS = {
-    "flash_attention_fwd.cu": ("flash_fwd_kernel", (64, 128)),
-    "flash_attention_bwd.cu": ("flash_bwd_dkdv_kernel", (64, 128)),
+    "flash_attention_fwd.cu": [("flash_fwd_kernel", (64,)), ("flash_fwd_kernel", (128,))],
+    "flash_attention_bwd.cu": [
+        ("flash_bwd_dq_kernel", (64,)), ("flash_bwd_dq_kernel", (128,)),
+        ("flash_bwd_dkdv_kernel", (64,)), ("flash_bwd_dkdv_kernel", (128,)),
+    ],
+    "fused_ce.cu": [("fused_ce_bwd_dw_kernel", ())],
 }
+
+
+def tensor_core_instance(kernel: str, dims: tuple[int, ...]) -> tuple[str, str]:
+    """(label, mangled-name fragment) of ``kernel<dims..., __nv_bfloat16>``."""
+    args = "".join(f"Li{d}E" for d in dims)
+    label = ", ".join([*(str(d) for d in dims), "bf16"])
+    return f"{kernel}<{label}>", f"{len(kernel)}{kernel}I{args}13__nv_bfloat16E"
 
 
 def find_cuobjdump() -> str:
@@ -211,7 +227,10 @@ def ptxas_resources(report: str) -> dict[str, str]:
 
 def phase_build() -> None:
     """One nvcc per CUDA source, all started together; then the SASS of
-    the redesigned bf16 kernels must hold tensor-core instructions."""
+    the redesigned bf16 kernels must hold tensor-core instructions, and
+    ptxas must report no spills for them."""
+    import re
+
     from llmtrain_tpu_torch.ops.kernel_build import CSRC_DIR, build_libraries
 
     t0 = time.perf_counter()
@@ -224,20 +243,20 @@ def phase_build() -> None:
     for r in results:
         if r.source.name not in TENSOR_CORE_KERNELS:
             continue
-        kernel, dims = TENSOR_CORE_KERNELS[r.source.name]
         sass = subprocess.run([find_cuobjdump(), "-sass", str(r.library)], capture_output=True,
                               text=True, check=True, timeout=300).stdout
         counts = sass_mma_counts(sass)
         resources = ptxas_resources(r.ptxas_report)
-        for d in dims:
-            tag = f"{len(kernel)}{kernel}ILi{d}E13__nv_bfloat16E"
+        for kernel, dims in TENSOR_CORE_KERNELS[r.source.name]:
+            label, tag = tensor_core_instance(kernel, dims)
             names = [n for n in counts if tag in n]
             n_mma = sum(counts[n] for n in names)
             regs = "; ".join(resources.get(n, "no ptxas line") for n in names)
-            log(f"[build] {kernel}<{d}, bf16>: {n_mma} HMMA/HGMMA instructions in SASS; "
-                f"ptxas: {regs}")
+            log(f"[build] {label}: {n_mma} HMMA/HGMMA instructions in SASS; ptxas: {regs}")
             if not names or n_mma == 0:
-                raise RuntimeError(f"{kernel}<{d}, bf16> has no tensor-core instruction")
+                raise RuntimeError(f"{label} has no tensor-core instruction")
+            if re.search(r"\b[1-9]\d* bytes spill", regs):
+                raise RuntimeError(f"{label} spills registers: {regs}")
 
 
 def _qkv(torch, gen, b, t, h, hkv, d, dtype):
@@ -414,8 +433,8 @@ def phase_bwd_checks(torch) -> dict:
     """Kernels 2 and 3 (dq, dk/dv) against their plain version, on the
     forward kernel's (out, lse); a control per case: the plain version
     broken on purpose, delta left out and lse off by log 2 (P halved),
-    must land above the tolerance on dq, dk and dv. bf16 cases launch the
-    dk/dv kernel twice: dK and dV must be bit-identical. At T = 1 the
+    must land above the tolerance on dq, dk and dv. bf16 cases launch
+    both kernels twice: dQ, dK and dV must be bit-identical. At T = 1 the
     exact dq and dk are 0 (a softmax over one key has no gradient in its
     logit), so both sides are rounding noise; there dq and dk are held,
     with the same tolerance, relative to the largest |dV| of the plain
@@ -440,8 +459,9 @@ def phase_bwd_checks(torch) -> dict:
         dk, dv = fa.flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, mask, window=window)
         same = True
         if dtype == torch.bfloat16:
+            dq2 = fa.flash_attention_bwd_dq(q, k, v, dout, lse, delta, mask, window=window)
             dk2, dv2 = fa.flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, mask, window=window)
-            same = torch.equal(dk, dk2) and torch.equal(dv, dv2)
+            same = torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
         torch.cuda.synchronize()
         ref = fa._bwd_reference_from_delta(q, k, v, dout, lse, delta, mask, True, window)
         broken = fa._bwd_reference_from_delta(
@@ -461,7 +481,7 @@ def phase_bwd_checks(torch) -> dict:
             + " ".join(f"{n} {e:.2e}" for n, e in errs.items())
             + f" (rtol {tol:g}{', dq/dk relative to max |dV|' if t == 1 else ''}); control "
             + " ".join(f"{n} {e:.2e}" for n, e in ctrl.items())
-            + f"{'  dk/dv rerun bit-identical' if dtype == torch.bfloat16 and same else ''}"
+            + f"{'  dq, dk/dv rerun bit-identical' if dtype == torch.bfloat16 and same else ''}"
             + f"{'' if same else '  RERUN DIFFERS'}  {'ok' if ok else 'FAIL'}")
         if not ok:
             raise RuntimeError(f"flash backward kernels disagree with their plain version: {name}")
@@ -685,7 +705,8 @@ def phase_ce_checks(torch) -> dict:
     version: the label logit read from column label + 1 (per-token loss),
     the one-hot term left out of dlogit (dh and dW), and, where z_loss > 0,
     the z-loss factor left out of g_lse (dh and dW). Every control must
-    land above its tolerance."""
+    land above its tolerance. bf16 cases launch the dW kernel twice: dW
+    must be bit-identical."""
     from llmtrain_tpu_torch.ops import fused_ce as fc
 
     n, d, v = CE_SHAPE
@@ -697,6 +718,7 @@ def phase_ce_checks(torch) -> dict:
         ("ragged N, V < tile", (777, 768, 100), torch.bfloat16, 1e-3, 0),
         ("d 64", (4096, 64, 5000), torch.bfloat16, 1e-3, 0),
         ("g with zeros", (4096, 768, 10007), torch.bfloat16, 1e-3, 3),
+        ("d 96, ragged N and V", (1500, 96, 3001), torch.bfloat16, 0.0, 0),
     ]
     errors = {}
     for name, (cn, cd, cv), dtype, z_loss, g_zero in cases:
@@ -708,6 +730,9 @@ def phase_ce_checks(torch) -> dict:
         dw = fc.fused_ce_bwd_dw(h, w, labels, lse, g_lse, g)
         torch.cuda.synchronize()
         kernel_s = time.perf_counter() - t0
+        same = True
+        if dtype == torch.bfloat16:
+            same = torch.equal(dw, fc.fused_ce_bwd_dw(h, w, labels, lse, g_lse, g))
         r_lse, r_ll = fc.fused_ce_fwd_reference(h, w, labels)
         r_dh, r_dw = fc.fused_ce_bwd_reference(h, w, labels, r_lse, fc.g_lse_from(g, r_lse, z_loss),
                                                g)
@@ -739,11 +764,13 @@ def phase_ce_checks(torch) -> dict:
         if g_zero:
             # A masked token adds nothing: its dh row is zero.
             zero_rows_ok = bool((dh[::g_zero] == 0).all().item())
-        ok = (finite and zero_rows_ok and all(e <= lim for e, lim in errs.values())
+        ok = (finite and zero_rows_ok and same and all(e <= lim for e, lim in errs.values())
               and all(e > lim for e, lim in ctrl.values()))
         log(f"[ce] {name:20s} N{cn} d{cd} V{cv} {dt_name:8s} z={z_loss:g} kernels {kernel_s:.2f}s "
             + " ".join(f"{k} {e:.2e}/{lim:g}" for k, (e, lim) in errs.items())
             + "; controls " + ", ".join(f"{k} {e:.2e}" for k, (e, _) in ctrl.items())
+            + f"{'  dW rerun bit-identical' if dtype == torch.bfloat16 and same else ''}"
+            + f"{'' if same else '  RERUN DIFFERS'}"
             + f"{'' if zero_rows_ok else ' (masked dh rows not zero)'}  {'ok' if ok else 'FAIL'}")
         if not ok:
             raise RuntimeError(f"fused CE kernels disagree with their plain versions: {name}")

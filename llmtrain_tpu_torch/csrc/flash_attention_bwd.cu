@@ -35,26 +35,30 @@
 // per (64-key tile, b*hkv) walks the G query heads of its group and,
 // for each, the 64-row q tiles from the causal diagonal down (to the end
 // of the sequence or of the window), accumulating dK and dV in f32
-// registers and writing each once. No atomics, no f32 scratch in HBM, and
-// the sums run in a fixed order, so reruns are bit-identical. The dQ
-// kernel is gridded like the forward: one block per (64-row q tile, b*h),
-// looping over the K/V tiles from the window's start to the diagonal.
+// registers and writing each once. The dQ kernel keeps the TPU's schedule
+// (pallas_attention.py:531), the forward's: one block per (64-row q tile,
+// b*h), looping over the K/V tiles from the window's start to the
+// diagonal, dQ in f32 registers, written once. No atomics, no f32 scratch
+// in HBM, and the sums run in a fixed order, so reruns are bit-identical.
 //
-// What bounds dK/dV at the training shape (64, 512, 12, 64) bf16 causal:
-// the bytes it must move (q, k, v, dO, L and delta read once, dK and dV
-// written once), 0.305 GB, 0.0911 ms at 3.35 TB/s, against 5.2e10 flop
-// of the live causal pairs (four products), 0.052 ms of bf16 tensor-core
-// time: bytes.
+// What bounds them at the training shape (64, 512, 12, 64) bf16 causal:
+// the bytes each must move (q, k, v, dO, L and delta read once, its
+// outputs written once). dK/dV: 0.305 GB, 0.0911 ms at 3.35 TB/s, against
+// 5.2e10 flop of the live causal pairs (four products), 0.052 ms of bf16
+// tensor-core time. dQ: 0.255 GB, 0.0761 ms, against 3.9e10 flop (three
+// products: S, dP, dQ), 0.039 ms. Both: bytes.
 //
-// The bf16 dK/dV instances (the main path's: training computes in bf16)
-// run on the tensor cores with mma.sync.m16n8k16 (bf16 x bf16 -> f32)
-// fed by ldmatrix; not wgmma/TMA. Four warps, 16 keys per warp:
+// The bf16 instances (the main path's: training computes in bf16) run on
+// the tensor cores with mma.sync.m16n8k16 (bf16 x bf16 -> f32) fed by
+// ldmatrix; not wgmma/TMA. Four warps, 16 rows (keys for dK/dV, queries
+// for dQ) per warp; tiles are bf16, as in device memory, in the swizzled
+// layout of tile_mma.cuh (ldmatrix without bank conflicts, plain or
+// .trans).
+//   dK/dV:
 //   * K and V stay in shared memory for the block's life; Q, dO, L, delta
 //     and the query segment ids of each q tile arrive by cp.async into a
 //     ring of two stages, so tile j + 1 loads while tile j is computed,
-//     with one __syncthreads() per q tile. Tiles are bf16, as in device
-//     memory, in the swizzled layout of tile_mma.cuh (ldmatrix without
-//     bank conflicts).
+//     with one __syncthreads() per q tile.
 //   * S^T = K Q^T and dP^T = V dO^T are MMAs with the keys as rows; P^T
 //     and dS^T are formed in the accumulator registers and, rounded to
 //     bf16 in place (the standard FlashAttention-2 rounding points), are
@@ -64,15 +68,28 @@
 //   * At D = 64 each warp holds S^T and dP^T for the whole 64-query tile;
 //     at D = 128, where the dK/dV accumulators take 128 registers a
 //     thread, for 32 queries at a time, which keeps ptxas free of spills.
-//   * dK and dV are staged through the warp's own rows of the K and V
-//     tiles and written in 16-byte stores.
-// The f32 dK/dV instances and every dQ instance keep the first version's
-// plain f32 FMA code (tensor cores would mean TF32, outside the f32 limit
-// of 1e-4; dQ is later work): 256 threads, four threads per tile row,
-// tiles staged in shared memory as f32 with rows padded by one float, P
-// and dS through shared memory between the two products of a tile, q
-// scaled in f32 before the dot as Pallas does. Their bound at the
-// training shape is the same kind (dQ: 0.0761 ms, bytes).
+//   dQ:
+//   * Q and dO stay in shared memory for the block's life; K, V and the
+//     key segment ids of each K/V tile arrive by cp.async into a ring of
+//     two stages, one __syncthreads() per tile.
+//   * S = Q K^T and dP = dO V^T are MMAs with the queries as rows (K and
+//     V read by plain ldmatrix); dS = P (dP - delta) is formed in the f32
+//     accumulator registers, rounded to bf16 in place, and is the A
+//     fragment of dQ += dS K with K read by ldmatrix.trans: nothing goes
+//     through shared memory. S is scaled in f32 after the product (not q
+//     in bf16 before it), and dQ takes its factor of scale on the f32
+//     sums at the end. L and delta of the thread's two rows stay in
+//     registers.
+//   * At D = 64 each warp holds S and dP for the whole 64-key tile; at
+//     D = 128, where dQ takes 64 registers a thread, for 32 keys at a
+//     time, as dK/dV does.
+//   * Both kernels write their outputs through the warp's own rows of a
+//     tile it no longer reads (K/V, Q), in 16-byte stores.
+// The f32 instances keep the first version's plain f32 FMA code (tensor
+// cores would mean TF32, outside the f32 limit of 1e-4): 256 threads, four
+// threads per tile row, tiles staged in shared memory as f32 with rows
+// padded by one float, P and dS through shared memory between the two
+// products of a tile, q scaled in f32 before the dot as Pallas does.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -126,16 +143,21 @@ __device__ __forceinline__ void stage_tile(float* dst, const T* base, int64_t ro
   }
 }
 
-constexpr size_t dq_smem_bytes(int d) {
-  // q (scaled), dO, k, v: (64, D+1) f32 each; dS (64, 65) f32; key segment ids.
-  return sizeof(float) * (4 * kTile * (d + 1) + kTile * kPStride) + sizeof(int) * kTile;
-}
-
 template <typename T>
 constexpr bool kTensorCores = std::is_same<T, bf16>::value;
 
 template <typename T>
 constexpr int threads_for() { return kTensorCores<T> ? tile_mma::kThreads : kThreads; }
+
+template <int D, typename T>
+constexpr size_t dq_smem_bytes() {
+  if (kTensorCores<T>)
+    // q, dO (64, D) bf16; k, v (64, D) bf16 two stages each; key segment
+    // ids, two stages.
+    return sizeof(bf16) * 6 * kTile * D + sizeof(int) * 2 * kTile;
+  // q (scaled), dO, k, v: (64, D+1) f32 each; dS (64, 65) f32; key segment ids.
+  return sizeof(float) * (4 * kTile * (D + 1) + kTile * kPStride) + sizeof(int) * kTile;
+}
 
 template <int D, typename T>
 constexpr size_t dkdv_smem_bytes() {
@@ -150,12 +172,11 @@ constexpr size_t dkdv_smem_bytes() {
 }
 
 template <int D, typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    const int* __restrict__ mask, T* __restrict__ dq, int seq_len,
-                    int n_heads, int n_kv_heads, float scale, int causal, int window) {
+__device__ __forceinline__ void flash_bwd_dq_fma(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    const int* __restrict__ mask, T* __restrict__ dq, int seq_len, int n_heads, int n_kv_heads,
+    float scale, int causal, int window) {
   constexpr int kStride = D + 1;
   constexpr int kDimsPerThread = D / kThreadsPerRow;
   extern __shared__ float smem[];
@@ -247,6 +268,173 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int j = 0; j < kDimsPerThread; ++j)
     dq_row[j * kThreadsPerRow + col] = from_float<T>(acc[j] * scale);
+}
+
+template <int D>
+__device__ __forceinline__ void flash_bwd_dq_mma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, const int* __restrict__ mask, bf16* __restrict__ dq,
+    int seq_len, int n_heads, int n_kv_heads, float scale, int causal, int window) {
+  using namespace tile_mma;
+  constexpr int kTileElems = kTile * D;
+  constexpr int kDT = D / 8;   // n8 tiles of dQ over d
+  constexpr int kKS = D / 16;  // k16 steps of S/dP over d
+  // Keys per chunk of S and dP held in registers: the whole tile at D = 64;
+  // at D = 128, where dQ takes 64 registers a thread, 32 at a time (loop
+  // rolled), as the dK/dV kernel does.
+  constexpr int kChunk = D == 64 ? 64 : 32;
+  constexpr int kNT = kChunk / 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* s_q = reinterpret_cast<bf16*>(smem_raw);
+  bf16* s_do = s_q + kTileElems;
+  bf16* s_k = s_do + kTileElems;       // two stages
+  bf16* s_v = s_k + 2 * kTileElems;    // two stages
+  int* s_seg = reinterpret_cast<int*>(s_v + 2 * kTileElems);  // two stages of 64
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = blockIdx.x * kTile;
+  const int bh = blockIdx.y;
+  const int b = bh / n_heads;
+  const int h = bh % n_heads;
+  const int hkv = h / (n_heads / n_kv_heads);
+
+  const int64_t q_row_stride = (int64_t)n_heads * D;
+  const int64_t kv_row_stride = (int64_t)n_kv_heads * D;
+  const int64_t q_off = ((int64_t)b * seq_len) * q_row_stride + (int64_t)h * D;
+  const int64_t kv_off = ((int64_t)b * seq_len) * kv_row_stride + (int64_t)hkv * D;
+  const int* seg_base = mask ? mask + (int64_t)b * seq_len : nullptr;
+
+  // Key tiles this q tile can see: from the window's start to the diagonal.
+  int kv_end = seq_len;
+  if (causal) kv_end = min(seq_len, m0 + kTile);
+  int kv_start = 0;
+  if (window > 0) kv_start = max(0, m0 - window + 1);
+  const int tile_begin = kv_start / kTile;
+  const int tile_end = (kv_end + kTile - 1) / kTile;
+
+  auto load_kv = [&](int tile, int stage) {
+    const int n0 = tile * kTile;
+    load_tile<D>(s_k + stage * kTileElems, k + kv_off, kv_row_stride, n0, seq_len);
+    load_tile<D>(s_v + stage * kTileElems, v + kv_off, kv_row_stride, n0, seq_len);
+    if (seg_base && tid < kTile) {
+      const int p = n0 + tid;
+      cp_async_4(smem_addr(s_seg + stage * kTile + tid), seg_base + (p < seq_len ? p : 0),
+                 p < seq_len);
+    }
+  };
+  load_tile<D>(s_q, q + q_off, q_row_stride, m0, seq_len);
+  load_tile<D>(s_do, dout + q_off, q_row_stride, m0, seq_len);
+  load_kv(tile_begin, 0);
+  cp_async_commit();
+
+  // This thread's two query rows: g and g + 8 of the warp's 16.
+  const int row0 = warp * 16;
+  int qpos[2], q_seg[2];
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    qpos[i] = m0 + row0 + g + 8 * i;
+    const bool valid = qpos[i] < seq_len;
+    row_lse[i] = valid ? lse[(int64_t)bh * seq_len + qpos[i]] : 0.0f;
+    row_delta[i] = valid ? delta[(int64_t)bh * seq_len + qpos[i]] : 0.0f;
+    q_seg[i] = (seg_base && valid) ? seg_base[qpos[i]] : 0;
+  }
+
+  float acc[kDT][4];
+#pragma unroll
+  for (int dt = 0; dt < kDT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.0f;
+
+  for (int tile = tile_begin; tile < tile_end; ++tile) {
+    const int stage = (tile - tile_begin) & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile `tile` is in; every warp is done with the other stage
+    if (tile + 1 < tile_end) load_kv(tile + 1, stage ^ 1);
+    cp_async_commit();
+    const bf16* k_s = s_k + stage * kTileElems;
+    const bf16* v_s = s_v + stage * kTileElems;
+    const int* seg_s = s_seg + stage * kTile;
+    const int n0 = tile * kTile;
+    const bool masked = seg_base || n0 + kTile > seq_len || (causal && n0 + kTile - 1 > m0) ||
+                        (window > 0 && m0 + kTile - 1 - n0 >= window);
+
+#pragma unroll 1
+    for (int c = 0; c < kTile / kChunk; ++c) {
+      // S = Q K^T and dP = dO V^T over this chunk's keys.
+      float s[kNT][4], dp[kNT][4];
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.0f;
+#pragma unroll
+      for (int ks = 0; ks < kKS; ++ks) {
+        uint32_t qa[4], oa[4];
+        load_a<D>(qa, s_q, row0, ks);
+        load_a<D>(oa, s_do, row0, ks);
+#pragma unroll
+        for (int np = 0; np < kNT / 2; ++np) {
+          uint32_t bk[4], bv[4];
+          load_b_rows<D>(bk, k_s, c * kChunk + np * 16, ks);
+          load_b_rows<D>(bv, v_s, c * kChunk + np * 16, ks);
+          mma(s[2 * np], qa, bk[0], bk[1]);
+          mma(s[2 * np + 1], qa, bk[2], bk[3]);
+          mma(dp[2 * np], oa, bv[0], bv[1]);
+          mma(dp[2 * np + 1], oa, bv[2], bv[3]);
+        }
+      }
+      // dS = P (dP - delta), P = exp(S * scale - L), in place of S.
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const int n = c * kChunk + nt * 8 + 2 * t + (e & 1);
+          float x = s[nt][e] * scale;
+          if (masked && !is_live(qpos[i], n0 + n, seq_len, causal, window, seg_base != nullptr,
+                                 q_seg[i], seg_base ? seg_s[n] : 0))
+            x = kNegInf;
+          const float p = exp2f((x - row_lse[i]) * kLog2e);
+          s[nt][e] = p * (dp[nt][e] - row_delta[i]);
+        }
+      }
+      // dQ += dS K, dS straight from registers, K read transposed.
+#pragma unroll
+      for (int kk = 0; kk < kChunk / 16; ++kk) {
+        uint32_t da[4];
+        c_to_a(da, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+        for (int dpair = 0; dpair < D / 16; ++dpair) {
+          uint32_t bk[4];
+          load_b_cols<D>(bk, k_s, c * kChunk + kk * 16, dpair);
+          mma(acc[2 * dpair], da, bk[0], bk[1]);
+          mma(acc[2 * dpair + 1], da, bk[2], bk[3]);
+        }
+      }
+    }
+  }
+
+  // The warp's own rows of the Q tile are free now; dQ takes its one
+  // factor of scale here, on the f32 sums.
+  store_rows<D>(s_q, acc, scale, scale, row0, dq + q_off, q_row_stride, m0, seq_len);
+}
+
+template <int D, typename T>
+__global__ void __launch_bounds__(threads_for<T>())
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    const int* __restrict__ mask, T* __restrict__ dq, int seq_len,
+                    int n_heads, int n_kv_heads, float scale, int causal, int window) {
+  if constexpr (kTensorCores<T>)
+    flash_bwd_dq_mma<D>(q, k, v, dout, lse, delta, mask, dq, seq_len, n_heads, n_kv_heads, scale,
+                        causal, window);
+  else
+    flash_bwd_dq_fma<D, T>(q, k, v, dout, lse, delta, mask, dq, seq_len, n_heads, n_kv_heads,
+                           scale, causal, window);
 }
 
 template <int D, typename T>
@@ -450,7 +638,7 @@ __device__ __forceinline__ void flash_bwd_dkdv_mma(
 
   for (int step = 0; step < steps; ++step) {
     const int stage = step & 1;
-    cp_async_wait_all();
+    cp_async_wait<0>();
     __syncthreads();  // this step's tiles are in; every warp is done with the other stage
     if (step + 1 < steps) load_q(step + 1, stage ^ 1);
     cp_async_commit();
@@ -563,12 +751,12 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
               const void* delta, const void* mask, void* dq, int batch, int seq_len,
               int n_heads, int n_kv_heads, float scale, int causal, int window,
               cudaStream_t stream) {
-  constexpr size_t smem = dq_smem_bytes(D);
+  constexpr size_t smem = dq_smem_bytes<D, T>();
   static bool configured[64] = {};
   cudaError_t err = configure_smem(flash_bwd_dq_kernel<D, T>, smem, configured);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((seq_len + kTile - 1) / kTile, batch * n_heads);
-  flash_bwd_dq_kernel<D, T><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_dq_kernel<D, T><<<grid, threads_for<T>(), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const int*>(mask), static_cast<T*>(dq),

@@ -311,7 +311,7 @@ __device__ __forceinline__ void flash_fwd_mma(const bf16* __restrict__ q,
 
   for (int tile = tile_begin; tile < tile_end; ++tile) {
     const int stage = (tile - tile_begin) & 1;
-    cp_async_wait_all();
+    cp_async_wait<0>();
     __syncthreads();  // tile `tile` is in; every warp is done with the other stage
     if (tile + 1 < tile_end) load_kv(tile + 1, stage ^ 1);
     cp_async_commit();

@@ -34,17 +34,16 @@
 // the forward does 2*N*V*d = 2.53e12 flop against ~128 MB of reads
 // (2.56 ms at 989 TFLOP/s bf16 vs 0.04 ms at 3.35 TB/s); dh and dW each
 // recompute the logits and contract them again, 5.06e12 flop. All three
-// are bound by operations. This first version is simple and right rather
-// than fast: plain f32 FMA from shared memory (no tensor cores, no TMA),
-// so it cannot pass the 67 TFLOP/s f32 rate; tensor-core tiles (mma.sync,
-// then wgmma) are later work.
+// are bound by operations.
 //
-// Design. The TPU keeps a (256 x d) dh block and a (512 x d) dW block in
-// VMEM while a sequential grid axis revisits it; a Hopper block has 227 KB
-// of shared memory, and blocks run in no order. So:
+// Forward, dh and the f32 dW: plain f32 FMA from shared memory, simple
+// and right rather than fast (no tensor cores: they cannot pass the
+// 67 TFLOP/s f32 rate). The TPU keeps a (256 x d) dh block and a (512 x d)
+// dW block in VMEM while a sequential grid axis revisits it; a Hopper
+// block has 227 KB of shared memory, and blocks run in no order. So:
 //   * The revisited grid axis becomes a loop inside the block. The
 //     forward and dh take one block per 128-token tile looping over
-//     128-column vocab tiles; dW takes one block per 128-row vocab tile
+//     128-column vocab tiles; the f32 dW one block per 128-row vocab tile
 //     looping over 128-token tiles.
 //   * Each tile product is a register-blocked SGEMM: 256 threads, each
 //     owning an 8 x 8 sub-tile (rows ty*4+{0..3} and 64+ty*4+{0..3},
@@ -58,13 +57,63 @@
 //   * The dlogit tile of the backward goes to shared memory (128 x 128
 //     f32), k-major, and is the A operand of the second product; it is
 //     never written to device memory, and dh and dW each recompute it.
-//   * Ragged N, V and d are masked, never padded: rows past N or V read as
-//     zero and are not written, columns past V get -1e30 in the forward
-//     and a zero dlogit in the backward, and W rows past V are never read.
+//
+// The bf16 dW (the main path's: training computes in bf16) runs both of
+// its products on the tensor cores: mma.sync.m16n8k16 bf16 x bf16 -> f32
+// fed by ldmatrix from swizzled tiles (tile_mma.cuh), cp.async into a
+// ring of three stages, one __syncthreads() per stage; not wgmma/TMA. One
+// block of eight warps per 64-row vocab tile (786 blocks at V = 50257,
+// one per SM: 5.95 waves on 132 SMs) walks the tokens in tiles of 512:
+//   * logits^T (64 x 512) = W h^T in four passes of 128 tokens, the W and
+//     h chunks (64 columns of d each) streamed through the ring. Each
+//     64-column chunk is summed on the tensor cores from zero and added to
+//     the f32 logits by an FADD, so no tensor-core sum (whose additions
+//     need not round to nearest) runs over more than 64 products.
+//   * dlogit is formed in f32 from the accumulator registers and kept to
+//     about 16 bits of precision as two bf16 terms, hi = bf16(x) and
+//     lo = bf16(x - hi), in two (64 x 512) tiles in shared memory (128
+//     KB). Why the split: dW must stay within 1e-4 of the f32 version,
+//     and one bf16 rounding of dlogit lands at 1.8e-3 to 2.9e-3 (the CPU
+//     rehearsal, tests/test_torch_fused_ce_rounding.py), the split at
+//     3.5e-6 to 4.9e-6. It costs a third product: 7.6e12 flop instead of
+//     5.06e12.
+//   * dW (64 x 128 columns at a time) += hi^T h + lo^T h over the 512
+//     tokens, h streamed through the ring as (64-token x 128) tiles; the
+//     accumulator is in registers (32 a thread), summed from zero, and
+//     added to the f32 output in device memory once per 512 tokens, each
+//     element by its own thread in token order: deterministic, no
+//     atomics. That read-modify-write moves 2 x 4 bytes x V x d per 512
+//     tokens, ~20 GB at the training shape, against ~79 GB for the f32
+//     FMA version's once per 128 tokens; its 192 KB per block stays in L2
+//     while the block works, and the old values are loaded at the start
+//     of the pass, so their latency hides behind its eight stages.
+//   * h is staged once per product (each 512-token tile is read twice,
+//     once for the logits and once for dW); W once per 128-token pass.
+//     The loads run two stages ahead, their addresses kept by counters.
+// Timed on an H100 SXM (700 W) at the training shape by
+// tools/fused_ce_dw_variants.py, all variants in one process: this design
+// 35.1-35.4 ms (240 registers, no spills); without the per-chunk
+// promotion of the logits 33.4 ms, but 3.7e-5 from the f32 version
+// instead of 6.2e-6; with 256-token logits passes and two stages 34.0 ms
+// at 255 registers (not kept: no register left); and the f32 accumulator
+// of 64 rows in shared memory instead (tools/fused_ce_dw_smem_acc.cu:
+// 64-token tiles, dlogit kept in registers, 35 KB left for a two-stage
+// operand ring, W streamed again for every token tile) 54.0 ms. Taking
+// one piece out of this design at a time (results wrong, timing only):
+// no loads 27.4 ms, no logits MMAs 29.3, no dW MMAs 29.5, no old dw
+// values 31.9, no expf 34.6: no one piece dominates.
+//
+// Ragged N, V and d are masked, never padded: rows past N or V read as
+// zero and are not written, columns past V get -1e30 in the forward and a
+// zero dlogit in the backward, d columns past d read as zero.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "tile_mma.cuh"
 
 namespace {
 
@@ -389,11 +438,12 @@ fused_ce_bwd_dh_kernel(const T* __restrict__ h, const T* __restrict__ w,
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
-fused_ce_bwd_dw_kernel(const T* __restrict__ h, const T* __restrict__ w,
-                       const int* __restrict__ labels, const float* __restrict__ lse,
-                       const float* __restrict__ glse, const float* __restrict__ g,
-                       float* __restrict__ dw, int n, int v, int d) {
+__device__ __forceinline__ void bwd_dw_fma(const T* __restrict__ h, const T* __restrict__ w,
+                                           const int* __restrict__ labels,
+                                           const float* __restrict__ lse,
+                                           const float* __restrict__ glse,
+                                           const float* __restrict__ g, float* __restrict__ dw,
+                                           int n, int v, int d) {
   extern __shared__ float smem[];
   const BwdSmem sm = carve(smem);
   const int tx = threadIdx.x % 16;
@@ -426,6 +476,290 @@ fused_ce_bwd_dw_kernel(const T* __restrict__ h, const T* __restrict__ w,
     accumulate_product(sm.b, sm.p, h, t0, n, dw, static_cast<__nv_bfloat16*>(nullptr), v0, v,
                        d, t0 == 0, false, ty, tx);
   }
+}
+
+// ----------------------------------------------- dW, bf16, on the tensor cores
+namespace dw_mma {
+
+using tile_mma::bf16;
+
+constexpr int kRows = 64;       // vocab rows per block
+constexpr int kTokens = 512;    // tokens per pass of the f32 sums into dw
+constexpr int kPass = 128;      // tokens per logits product
+constexpr int kWarpTokens = kPass / 4;  // of them per warp (four warps along the tokens)
+constexpr int kNT = kWarpTokens / 8;    // n8 tiles of a warp's logits
+constexpr int kDChunk = 64;     // d columns per stage of the logits product
+constexpr int kOutCols = 128;   // d columns per dW accumulator pass
+constexpr int kKTokens = 64;    // tokens per stage of the dW product
+constexpr int kStages = 3;
+constexpr int kStageElems = kRows * kDChunk + kPass * kDChunk;  // a W and an h chunk
+constexpr int kDlElems = kRows * kTokens;
+constexpr size_t kSmem = sizeof(bf16) * (2 * kDlElems + kStages * kStageElems) +
+                         (3 * sizeof(float) + sizeof(int)) * kTokens;
+static_assert(kKTokens * kOutCols <= kStageElems, "a dW stage fits a ring slot");
+
+__device__ __forceinline__ void bwd_dw(const bf16* __restrict__ h, const bf16* __restrict__ w,
+                                       const int* __restrict__ labels,
+                                       const float* __restrict__ lse,
+                                       const float* __restrict__ glse,
+                                       const float* __restrict__ g, float* __restrict__ dw,
+                                       int n, int v, int d) {
+  using tile_mma::cp_async_16;
+  using tile_mma::load_a;
+  using tile_mma::load_b_cols;
+  using tile_mma::load_b_rows;
+  using tile_mma::mma;
+  using tile_mma::smem_addr;
+  using tile_mma::swizzle;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* s_hi = reinterpret_cast<bf16*>(smem_raw);  // dlogit^T (vocab, token), hi part
+  bf16* s_lo = s_hi + kDlElems;                     // and lo part
+  bf16* s_ring = s_lo + kDlElems;
+  float* s_lse = reinterpret_cast<float*>(s_ring + kStages * kStageElems);
+  float* s_glse = s_lse + kTokens;
+  float* s_g = s_glse + kTokens;
+  int* s_lab = reinterpret_cast<int*>(s_g + kTokens);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int64_t v0 = (int64_t)blockIdx.x * kRows;
+  const int n_dc = (d + kDChunk - 1) / kDChunk;    // logits stages per pass
+  const int n_oc = (d + kOutCols - 1) / kOutCols;  // dW accumulator passes
+  constexpr int kKSteps = kTokens / kKTokens;      // dW stages per accumulator pass
+  const int n_tiles = (n + kTokens - 1) / kTokens;
+
+  // The loads run kStages - 1 steps ahead of the compute along the same
+  // fixed schedule: per 512-token tile, the W and h chunks of the logits
+  // passes (pass, dc), then the h tiles of the dW passes (oc, kt). Counters
+  // track the position (no division per step); this thread copies the
+  // 16-byte chunk lc of rows lr + 32 j of a logits stage and chunk pc of
+  // rows pr + 16 j of a dW stage; rows past V or N and columns past d are
+  // zero-filled.
+  const int lr = tid >> 3, lc = tid & 7;
+  const int pr = tid >> 4, pc = tid & 15;
+  int ld_tile = 0, ld_phase = 0, ld_a = 0, ld_b = 0, ld_slot = 0;
+  auto issue_next = [&]() {
+    if (ld_tile < n_tiles) {
+      bf16* dst = s_ring + ld_slot * kStageElems;
+      const int64_t t0 = (int64_t)ld_tile * kTokens;
+      if (ld_phase == 0) {
+        const int col = ld_b * kDChunk + 8 * lc;
+#pragma unroll
+        for (int j = 0; j < kRows / 32; ++j) {
+          const int r = lr + 32 * j;
+          const int64_t row = v0 + r;
+          const bool ok = col < d && row < v;
+          cp_async_16(smem_addr(dst + swizzle<kDChunk>(r, lc)), ok ? w + row * d + col : w, ok);
+        }
+#pragma unroll
+        for (int j = 0; j < kPass / 32; ++j) {
+          const int r = lr + 32 * j;
+          const int64_t row = t0 + ld_a * kPass + r;
+          const bool ok = col < d && row < n;
+          cp_async_16(smem_addr(dst + kRows * kDChunk + swizzle<kDChunk>(r, lc)),
+                      ok ? h + row * d + col : h, ok);
+        }
+        if (++ld_b == n_dc) {
+          ld_b = 0;
+          if (++ld_a == kTokens / kPass) ld_a = 0, ld_phase = 1;
+        }
+      } else {
+        const int col = ld_a * kOutCols + 8 * pc;
+#pragma unroll
+        for (int j = 0; j < kKTokens / 16; ++j) {
+          const int r = pr + 16 * j;
+          const int64_t row = t0 + ld_b * kKTokens + r;
+          const bool ok = col < d && row < n;
+          cp_async_16(smem_addr(dst + swizzle<kOutCols>(r, pc)), ok ? h + row * d + col : h, ok);
+        }
+        if (++ld_b == kKSteps) {
+          ld_b = 0;
+          if (++ld_a == n_oc) ld_a = 0, ld_phase = 0, ++ld_tile;
+        }
+      }
+      ld_slot = ld_slot + 1 == kStages ? 0 : ld_slot + 1;
+    }
+    tile_mma::cp_async_commit();
+  };
+  // One barrier per step: it publishes this step's slot and retires the
+  // slot that the load issued next overwrites.
+  int slot = 0;
+  auto advance = [&]() -> const bf16* {
+    tile_mma::cp_async_wait<kStages - 2>();
+    __syncthreads();
+    issue_next();
+    const bf16* stage = s_ring + slot * kStageElems;
+    slot = slot + 1 == kStages ? 0 : slot + 1;
+    return stage;
+  };
+  for (int i = 0; i < kStages - 1; ++i) issue_next();
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int64_t t0 = (int64_t)tile * kTokens;
+    // The previous tile's last reads of the token vectors came before the
+    // barriers of its dW passes.
+    for (int i = tid; i < kTokens; i += kThreads) {
+      const int64_t t = t0 + i;
+      const bool ok = t < n;
+      s_lse[i] = ok ? lse[t] : 0.0f;
+      s_glse[i] = ok ? glse[t] : 0.0f;
+      s_g[i] = ok ? g[t] : 0.0f;
+      s_lab[i] = ok ? labels[t] : -1;
+    }
+
+    // logits^T = W h^T, 64 vocab rows x kPass tokens per pass; warp
+    // (wv, wt) owns rows 32 wv .. +32 and kWarpTokens tokens from
+    // kWarpTokens * wt. Each 64-column chunk of d is summed on the tensor
+    // cores from zero and added to the f32 logits with an FADD, so no MMA
+    // sum runs longer than 64 products.
+    const int wv = warp & 1, wt = warp >> 1;
+    for (int pass = 0; pass < kTokens / kPass; ++pass) {
+      float logit[2][kNT][4];
+      for (int dc = 0; dc < n_dc; ++dc) {
+        const bf16* w_s = advance();
+        const bf16* h_s = w_s + kRows * kDChunk;
+        float part[2][kNT][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) part[mt][nt][e] = 0.0f;
+#pragma unroll
+        for (int ks = 0; ks < kDChunk / 16; ++ks) {
+          uint32_t a[2][4];
+          load_a<kDChunk>(a[0], w_s, 32 * wv, ks);
+          load_a<kDChunk>(a[1], w_s, 32 * wv + 16, ks);
+#pragma unroll
+          for (int np = 0; np < kNT / 2; ++np) {
+            uint32_t b[4];
+            load_b_rows<kDChunk>(b, h_s, kWarpTokens * wt + 16 * np, ks);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              mma(part[mt][2 * np], a[mt], b[0], b[1]);
+              mma(part[mt][2 * np + 1], a[mt], b[2], b[3]);
+            }
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              logit[mt][nt][e] = dc == 0 ? part[mt][nt][e] : logit[mt][nt][e] + part[mt][nt][e];
+      }
+      // dlogit in f32, split into hi = bf16(x) and lo = bf16(x - hi), into
+      // the (vocab, token) tiles that feed the dW product.
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          const int tok = pass * kPass + kWarpTokens * wt + 8 * nt + 2 * tq;  // even
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int row = 32 * wv + 16 * mt + gq + 8 * half;
+            const int64_t vocab = v0 + row;
+            float x[2];
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const int ts = tok + j;
+              x[j] = (vocab < v && t0 + ts < n)
+                         ? dlogit(logit[mt][nt][2 * half + j], s_lse[ts], s_glse[ts], s_g[ts],
+                                  vocab == s_lab[ts])
+                         : 0.0f;
+            }
+            const __nv_bfloat162 hi = __floats2bfloat162_rn(x[0], x[1]);
+            const float2 hf = __bfloat1622float2(hi);
+            const int off = swizzle<kTokens>(row, tok >> 3) + (tok & 7);
+            *reinterpret_cast<__nv_bfloat162*>(s_hi + off) = hi;
+            *reinterpret_cast<__nv_bfloat162*>(s_lo + off) =
+                __floats2bfloat162_rn(x[0] - hf.x, x[1] - hf.y);
+          }
+        }
+      }
+    }
+
+    // dW[rows, 128-column pass] (+)= dlogit^T h over the tile's 512
+    // tokens, hi and lo parts into one f32 accumulator; warp (wr, wd) owns
+    // rows 16 wr .. +16 and columns 64 wd .. +64 of the pass. (The first
+    // advance() below publishes the dlogit tiles.)
+    const int wr = warp & 3, wd = warp >> 2;
+    for (int oc = 0; oc < n_oc; ++oc) {
+      float acc[8][4];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
+      float2 old[8][2];
+      for (int kt = 0; kt < kKSteps; ++kt) {
+        const bf16* h_s = advance();
+        if (kt == 0) {
+          // The earlier tiles' sums of this thread's elements, loaded now
+          // and added at the end of the pass: the loads fly meanwhile.
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+            const int col = oc * kOutCols + 64 * wd + 8 * nt + 2 * tq;
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const int64_t row = v0 + 16 * wr + gq + 8 * half;
+              old[nt][half] = (tile > 0 && col < d && row < v)
+                                  ? *reinterpret_cast<const float2*>(dw + row * d + col)
+                                  : make_float2(0.0f, 0.0f);
+            }
+          }
+        }
+#pragma unroll
+        for (int ks = 0; ks < kKTokens / 16; ++ks) {
+          uint32_t ah[4], al[4];
+          load_a<kTokens>(ah, s_hi, 16 * wr, kt * (kKTokens / 16) + ks);
+          load_a<kTokens>(al, s_lo, 16 * wr, kt * (kKTokens / 16) + ks);
+#pragma unroll
+          for (int dp = 0; dp < 4; ++dp) {
+            uint32_t b[4];
+            load_b_cols<kOutCols>(b, h_s, 16 * ks, 4 * wd + dp);
+            mma(acc[2 * dp], ah, b[0], b[1]);
+            mma(acc[2 * dp + 1], ah, b[2], b[3]);
+            mma(acc[2 * dp], al, b[0], b[1]);
+            mma(acc[2 * dp + 1], al, b[2], b[3]);
+          }
+        }
+      }
+      // Add this tile's sums into dw in f32: each element is this thread's
+      // alone, and the tiles come in token order.
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int col = oc * kOutCols + 64 * wd + 8 * nt + 2 * tq;
+        if (col >= d) continue;  // d is a multiple of 32: both columns are in
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int64_t row = v0 + 16 * wr + gq + 8 * half;
+          if (row >= v) continue;
+          *reinterpret_cast<float2*>(dw + row * d + col) =
+              make_float2(old[nt][half].x + acc[nt][2 * half],
+                          old[nt][half].y + acc[nt][2 * half + 1]);
+        }
+      }
+    }
+  }
+}
+
+}  // namespace dw_mma
+
+template <typename T>
+constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kTensorCores<T> ? 1 : 2)
+fused_ce_bwd_dw_kernel(const T* __restrict__ h, const T* __restrict__ w,
+                       const int* __restrict__ labels, const float* __restrict__ lse,
+                       const float* __restrict__ glse, const float* __restrict__ g,
+                       float* __restrict__ dw, int n, int v, int d) {
+  if constexpr (kTensorCores<T>)
+    dw_mma::bwd_dw(h, w, labels, lse, glse, g, dw, n, v, d);
+  else
+    bwd_dw_fma<T>(h, w, labels, lse, glse, g, dw, n, v, d);
 }
 
 // The shared-memory opt-in is a per-device function attribute: set it once
@@ -468,11 +802,13 @@ template <typename T>
 int launch_dw(const void* h, const void* w, const int* labels, const float* lse,
               const float* glse, const float* g, float* dw, int n, int v, int d,
               cudaStream_t stream) {
+  constexpr size_t smem = kTensorCores<T> ? dw_mma::kSmem : kBwdSmem;
+  constexpr int rows = kTensorCores<T> ? dw_mma::kRows : kTile;
   static bool configured[64] = {};
-  cudaError_t err = opt_in(fused_ce_bwd_dw_kernel<T>, kBwdSmem, configured);
+  cudaError_t err = opt_in(fused_ce_bwd_dw_kernel<T>, smem, configured);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((v + kTile - 1) / kTile);
-  fused_ce_bwd_dw_kernel<T><<<grid, kThreads, kBwdSmem, stream>>>(
+  dim3 grid((v + rows - 1) / rows);
+  fused_ce_bwd_dw_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(h), static_cast<const T*>(w), labels, lse, glse, g, dw, n, v, d);
   return (int)cudaGetLastError();
 }

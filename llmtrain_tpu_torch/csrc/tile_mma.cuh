@@ -1,7 +1,7 @@
-// Tensor-core building blocks shared by the flash-attention kernels
-// (flash_attention_fwd.cu, flash_attention_bwd.cu): cp.async copies into
-// swizzled bf16 tiles in shared memory, ldmatrix fragment loads and the
-// m16n8k16 bf16 MMA with f32 accumulators.
+// Tensor-core building blocks shared by the hand-written kernels
+// (flash_attention_fwd.cu, flash_attention_bwd.cu, fused_ce.cu): cp.async
+// copies into swizzled bf16 tiles in shared memory, ldmatrix fragment
+// loads and the m16n8k16 bf16 MMA with f32 accumulators.
 //
 // Fragment layout of mma.sync.m16n8k16 (lane = 4 * g + t):
 //   A (16 x 16, row-major)  a0 (g, 2t..2t+1)    a1 (g+8, 2t..2t+1)
@@ -12,10 +12,11 @@
 // exactly the A fragment of a k16 step: a product's f32 result feeds the
 // next product from registers.
 //
-// Tiles are (rows, D) bf16 with D in {64, 128}: each row is D / 8 chunks
-// of 16 bytes, and chunk c of row r lives at chunk c ^ (r & 7), so the
-// eight 16-byte rows that one ldmatrix phase reads fall in eight distinct
-// bank groups (no conflicts, with or without .trans).
+// Tiles are (rows, D) bf16 with D a multiple of 64 (64 and 128 for the
+// attention head dims, 512 for the fused CE's dlogit tile): each row is
+// D / 8 chunks of 16 bytes, and chunk c of row r lives at chunk c ^ (r & 7),
+// so the eight 16-byte rows that one ldmatrix phase reads fall in eight
+// distinct bank groups (no conflicts, with or without .trans).
 
 #pragma once
 
@@ -57,8 +58,11 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// Waits until at most `kPending` of the most recent groups are in flight
+// (0: every copy issued so far has landed).
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 // Rows [p0, p0 + 64) of a (.., T, heads, D) tensor (`base` at row 0 of

@@ -1,21 +1,22 @@
 """The rounding points of the bf16 tensor-core flash kernels, rehearsed on the CPU.
 
-The bf16 instances of the forward and dK/dV CUDA kernels
+The bf16 instances of the forward, dQ and dK/dV CUDA kernels
 (``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``) run
 their products on the tensor cores: bf16 operands, f32 sums. Beside the
-bf16 inputs and outputs, that adds two roundings the f32 plain version
-does not have: P is rounded to bf16 before P V (forward, per 64-key tile,
-relative to the running row max) and P and dS are rounded to bf16 before
-dV = P^T dO and dK = scale * dS^T q (backward). S is scaled in f32 after
-the product, dK's scale is applied to the f32 sums at the end, and the
-row sum is taken from the f32 P.
+bf16 inputs and outputs, that adds roundings the f32 plain version does
+not have: P is rounded to bf16 before P V (forward, per 64-key tile,
+relative to the running row max), P and dS are rounded to bf16 before
+dV = P^T dO and dK = scale * dS^T q, and dS before dQ = scale * dS k
+(backward). S is scaled in f32 after the product (the plain version, as
+Pallas does, scales q before it), dK's and dQ's scale is applied to the
+f32 sums at the end, and the row sum is taken from the f32 P.
 
-``_kernel_forward`` and ``_kernel_dkdv`` below repeat the kernels'
-arithmetic at those points in plain torch; the tests hold them against the
-f32 plain version (``flash_attention_fwd_reference``,
+``_kernel_forward``, ``_kernel_dkdv`` and ``_kernel_dq`` below repeat the
+kernels' arithmetic at those points in plain torch; the tests hold them
+against the f32 plain version (``flash_attention_fwd_reference``,
 ``flash_attention_bwd_reference``) with the limits ``chip_smoke.py`` holds
 the kernels to on the card: O within 2e-2 on live rows, lse within 1e-4,
-dK and dV within 2^-7 of the largest magnitude. The same f32 plain version
+dQ, dK and dV within 2^-7 of the largest magnitude. The same f32 plain version
 is held against the JAX Pallas kernels in interpret mode at 1e-5 (f32,
 summation order only), as tests/test_torch_flash_attention.py and
 tests/test_torch_flash_attention_bwd.py do at a smaller size.
@@ -119,6 +120,21 @@ def _kernel_dkdv(q, k, v, dout, lse, delta, mask, window):
     return _bf16(dk * (1.0 / math.sqrt(d))), _bf16(dv)
 
 
+def _kernel_dq(q, k, v, dout, lse, delta, mask, window):
+    """The dQ kernel's arithmetic: S = q k^T scaled in f32 after the
+    product, P = exp(S - lse) and dS = P (dP - delta) in f32, dS rounded to
+    bf16 before dS k, the scale on the f32 sum, dQ rounded to bf16."""
+    b, t, h, d = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    s = _scores(q, k, mask, window)
+    p = torch.exp(s - lse.reshape(b, hkv, g, t, 1))
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dout.reshape(b, t, hkv, g, d), v)
+    ds = p * (dp - delta.reshape(b, hkv, g, t, 1))
+    dq = torch.einsum("bkgqs,bskd->bqkgd", _bf16(ds), k)
+    return _bf16(dq * (1.0 / math.sqrt(d))).reshape(b, t, h, d)
+
+
 def _live_rows(mask):
     return torch.ones(B, T, dtype=torch.bool) if mask is None else mask != 0
 
@@ -152,6 +168,21 @@ def test_kernel_rounding_points_fit_the_limits(d: int, case: str) -> None:
 
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("case", CASES)
+def test_dq_rounding_points_fit_the_limit(d: int, case: str) -> None:
+    q, k, v, g, mask, window = _inputs(d, case, seed=2)
+    ref_out, ref_lse = flash_ops.flash_attention_fwd_reference(q, k, v, mask, window=window)
+    ref_dq, _, _ = flash_ops.flash_attention_bwd_reference(
+        q, k, v, ref_out, ref_lse, g, mask, window=window
+    )
+    # The kernel side takes the forward kernel's (out, lse), as on the card.
+    out, lse = _kernel_forward(q, k, v, mask, window)
+    dq = _kernel_dq(q, k, v, g, lse, flash_ops.attention_delta(out, g), mask, window)
+    assert _rel(dq, ref_dq) <= BWD_RTOL
+    assert _rel(dq, ref_dq) > 0.0
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", CASES)
 def test_plain_version_matches_pallas_at_the_kernel_shape(d: int, case: str) -> None:
     q, k, v, g, mask, window = _inputs(d, case, seed=1)
     jmask = None if mask is None else jnp.asarray(mask.numpy())
@@ -178,8 +209,37 @@ def test_plain_version_matches_pallas_at_the_kernel_shape(d: int, case: str) -> 
 
 def test_smoke_counts_tensor_core_instructions_per_kernel() -> None:
     """chip_smoke.py's build phase reads cuobjdump's SASS and ptxas's
-    report per kernel; a kernel without HMMA/HGMMA counts 0."""
+    report per kernel; a kernel without HMMA/HGMMA counts 0. It checks seven
+    bf16 instances, each found by a fragment of its mangled name that the
+    f32 instance of the same kernel does not contain."""
     import chip_smoke
+
+    instances = {
+        label: tag
+        for kernels in chip_smoke.TENSOR_CORE_KERNELS.values()
+        for label, tag in (chip_smoke.tensor_core_instance(k, dims) for k, dims in kernels)
+    }
+    assert sorted(instances) == sorted([
+        "flash_fwd_kernel<64, bf16>", "flash_fwd_kernel<128, bf16>",
+        "flash_bwd_dq_kernel<64, bf16>", "flash_bwd_dq_kernel<128, bf16>",
+        "flash_bwd_dkdv_kernel<64, bf16>", "flash_bwd_dkdv_kernel<128, bf16>",
+        "fused_ce_bwd_dw_kernel<bf16>",
+    ])
+    mangled = {
+        "flash_bwd_dq_kernel<64, bf16>": (
+            "_ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi64E13__nv_bfloat16EEvPKT0_",
+            "_ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi64EfEEvPKT0_",
+        ),
+        "fused_ce_bwd_dw_kernel<bf16>": (
+            "_ZN44_GLOBAL__N__3a0583f4_11_fused_ce_cu_935e5b8622fused_ce_bwd_dw_kernel"
+            "I13__nv_bfloat16EEvPKT_S4_PKiPKfS8_S8_Pfiii",
+            "_ZN44_GLOBAL__N__3a0583f4_11_fused_ce_cu_935e5b8622fused_ce_bwd_dw_kernel"
+            "IfEEvPKT_S3_PKiPKfS7_S7_Pfiii",
+        ),
+    }
+    for label, (bf16_name, f32_name) in mangled.items():
+        assert instances[label] in bf16_name
+        assert instances[label] not in f32_name
 
     fwd = "_ZN12_GLOBAL__N_116flash_fwd_kernelILi64E13__nv_bfloat16EEvPKT0_"
     dq = "_ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi64EfEEvPKT0_"
