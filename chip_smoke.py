@@ -12,9 +12,10 @@ Phases, each fatal on failure (exit code 1, no result line):
    flash_attention_bwd.cu and fused_ce.cu) with nvcc for sm_90a, one nvcc
    each, started together; register and spill report from ptxas; then
    cuobjdump -sass of the built libraries: the count of HMMA/HGMMA
-   (tensor-core) instructions of the seven bf16 instances in
+   (tensor-core) instructions of the nine bf16 instances in
    TENSOR_CORE_KERNELS (flash_fwd_kernel, flash_bwd_dq_kernel and
-   flash_bwd_dkdv_kernel at head dims 64 and 128, fused_ce_bwd_dw_kernel)
+   flash_bwd_dkdv_kernel at head dims 64 and 128, fused_ce_fwd_kernel,
+   fused_ce_bwd_dh_kernel and fused_ce_bwd_dw_kernel)
    with their registers and spills, failing if any has no tensor-core
    instruction or spills.
 3. Kernels vs their plain versions on the card, each case with a control
@@ -41,7 +42,7 @@ Phases, each fatal on failure (exit code 1, no result line):
       ragged against the bf16 dW kernel's tiles (CE_LOSS_RTOL, CE_DH_RTOL,
       CE_DW_RTOL; controls: the label logit read from column label + 1, the
       one-hot term left out of dlogit, the z-loss factor left out of g_lse;
-      bf16 dW run twice: bit-identical).
+      bf16 forward, dh and dW run twice: bit-identical).
 4. Timing: CUDA events over back-to-back launches after warm-up, inputs
    warm in L2 as the ops that produce them leave them; each kernel, its
    plain version, and one PyTorch call as a yardstick never called by the
@@ -155,14 +156,15 @@ def phase_device(torch) -> str:
 # The redesigned kernels' bf16 instances, which must run on the tensor
 # cores: HMMA (mma.sync) or HGMMA (wgmma) in their SASS. Per source, each
 # kernel with the int template arguments of its instances (head dims for
-# the flash kernels; none for the fused CE dW).
+# the flash kernels; none for the fused CE forward, dh and dW).
 TENSOR_CORE_KERNELS = {
     "flash_attention_fwd.cu": [("flash_fwd_kernel", (64,)), ("flash_fwd_kernel", (128,))],
     "flash_attention_bwd.cu": [
         ("flash_bwd_dq_kernel", (64,)), ("flash_bwd_dq_kernel", (128,)),
         ("flash_bwd_dkdv_kernel", (64,)), ("flash_bwd_dkdv_kernel", (128,)),
     ],
-    "fused_ce.cu": [("fused_ce_bwd_dw_kernel", ())],
+    "fused_ce.cu": [("fused_ce_fwd_kernel", ()), ("fused_ce_bwd_dh_kernel", ()),
+                    ("fused_ce_bwd_dw_kernel", ())],
 }
 
 
@@ -671,8 +673,9 @@ def phase_norm_timing(torch, smi: str) -> dict:
 CE_SHAPE = (64 * 512, 768, 50257)  # N tokens, d, V at the CE training path
 # Fused CE tolerances, relative to the largest magnitude of the plain
 # version's output. lse and the per-token loss are f32 sums over d in
-# another order (cuBLAS f32 in the plain version, FMA chains in the
-# kernel): 1e-5. dh: one bf16 rounding on each side of f32 sums over V in
+# another order (cuBLAS f32 in the plain version; FMA chains in the f32
+# kernel, tensor-core sums of 64-column chunks added in f32 in the bf16
+# one): 1e-5. dh: one bf16 rounding on each side of f32 sums over V in
 # another order, so two bf16 ulps of the largest element (2^-7); in f32,
 # summation order over V only (1e-4). dW is always f32, summed over N in
 # another order (1e-4).
@@ -705,8 +708,8 @@ def phase_ce_checks(torch) -> dict:
     version: the label logit read from column label + 1 (per-token loss),
     the one-hot term left out of dlogit (dh and dW), and, where z_loss > 0,
     the z-loss factor left out of g_lse (dh and dW). Every control must
-    land above its tolerance. bf16 cases launch the dW kernel twice: dW
-    must be bit-identical."""
+    land above its tolerance. bf16 cases launch each kernel twice: lse, the
+    label logit, dh and dW must be bit-identical."""
     from llmtrain_tpu_torch.ops import fused_ce as fc
 
     n, d, v = CE_SHAPE
@@ -732,7 +735,11 @@ def phase_ce_checks(torch) -> dict:
         kernel_s = time.perf_counter() - t0
         same = True
         if dtype == torch.bfloat16:
-            same = torch.equal(dw, fc.fused_ce_bwd_dw(h, w, labels, lse, g_lse, g))
+            lse2, ll2 = fc.fused_ce_fwd(h, w, labels)
+            same = (torch.equal(lse, lse2) and torch.equal(ll, ll2)
+                    and torch.equal(dh, fc.fused_ce_bwd_dh(h, w, labels, lse, g_lse, g))
+                    and torch.equal(dw, fc.fused_ce_bwd_dw(h, w, labels, lse, g_lse, g)))
+            del lse2, ll2
         r_lse, r_ll = fc.fused_ce_fwd_reference(h, w, labels)
         r_dh, r_dw = fc.fused_ce_bwd_reference(h, w, labels, r_lse, fc.g_lse_from(g, r_lse, z_loss),
                                                g)
@@ -769,7 +776,7 @@ def phase_ce_checks(torch) -> dict:
         log(f"[ce] {name:20s} N{cn} d{cd} V{cv} {dt_name:8s} z={z_loss:g} kernels {kernel_s:.2f}s "
             + " ".join(f"{k} {e:.2e}/{lim:g}" for k, (e, lim) in errs.items())
             + "; controls " + ", ".join(f"{k} {e:.2e}" for k, (e, _) in ctrl.items())
-            + f"{'  dW rerun bit-identical' if dtype == torch.bfloat16 and same else ''}"
+            + f"{'  reruns bit-identical' if dtype == torch.bfloat16 and same else ''}"
             + f"{'' if same else '  RERUN DIFFERS'}"
             + f"{'' if zero_rows_ok else ' (masked dh rows not zero)'}  {'ok' if ok else 'FAIL'}")
         if not ok:

@@ -192,7 +192,7 @@ def _load_config(path: str):
 def _unported_inference_flags(args: argparse.Namespace, cfg) -> str | None:
     """Message for the first requested feature this slice does not run."""
     if args.ema:
-        return f"--ema (EMA shadow weights) {_NOT_PORTED} (ROADMAP.md queue A: training slice)"
+        return f"--ema (EMA shadow weights) {_NOT_PORTED} (ROADMAP.md queue A: slice 2 deferrals)"
     if args.draft_config is not None or args.draft_from is not None:
         return (
             f"--draft-config/--draft-from (speculative decoding) {_NOT_PORTED} "

@@ -34,74 +34,88 @@
 // the forward does 2*N*V*d = 2.53e12 flop against ~128 MB of reads
 // (2.56 ms at 989 TFLOP/s bf16 vs 0.04 ms at 3.35 TB/s); dh and dW each
 // recompute the logits and contract them again, 5.06e12 flop. All three
-// are bound by operations.
+// are bound by operations. What feeds the tensor cores is L2: every
+// block re-reads its own rows once per 128-row pass and the whole other
+// operand once, ~59 GB from L2 per call at the forward's 64-token blocks.
 //
-// Forward, dh and the f32 dW: plain f32 FMA from shared memory, simple
-// and right rather than fast (no tensor cores: they cannot pass the
-// 67 TFLOP/s f32 rate). The TPU keeps a (256 x d) dh block and a (512 x d)
-// dW block in VMEM while a sequential grid axis revisits it; a Hopper
-// block has 227 KB of shared memory, and blocks run in no order. So:
-//   * The revisited grid axis becomes a loop inside the block. The
-//     forward and dh take one block per 128-token tile looping over
-//     128-column vocab tiles; the f32 dW one block per 128-row vocab tile
-//     looping over 128-token tiles.
+// The f32 instances (off the main path: training computes in bf16) are
+// plain f32 FMA from shared memory, simple and right rather than fast.
+// The TPU keeps a (256 x d) dh block and a (512 x d) dW block in VMEM
+// while a sequential grid axis revisits it; a Hopper block has 227 KB of
+// shared memory, and blocks run in no order. So:
+//   * The revisited grid axis becomes a loop inside the block: one block
+//     per 128-token tile looping over 128-column vocab tiles (forward,
+//     dh), or per 128-row vocab tile looping over 128-token tiles (dW).
 //   * Each tile product is a register-blocked SGEMM: 256 threads, each
-//     owning an 8 x 8 sub-tile (rows ty*4+{0..3} and 64+ty*4+{0..3},
-//     columns likewise with tx), operands staged through shared memory in
-//     32-deep chunks of d, k-major, read as float4 (conflict-free).
-//   * The f32 accumulators of dh and dW do not fit on chip, so they live
-//     in the output buffer in device memory: after each tile the block
-//     adds its (128 x d) contribution there, 128 columns at a time. Each
-//     thread reads and writes only its own elements, so no ordering is
-//     needed, and the last tile writes the final dtype.
-//   * The dlogit tile of the backward goes to shared memory (128 x 128
-//     f32), k-major, and is the A operand of the second product; it is
-//     never written to device memory, and dh and dW each recompute it.
+//     owning an 8 x 8 sub-tile, operands staged through shared memory in
+//     32-deep chunks of d, k-major, read as float4.
+//   * The f32 accumulators of dh and dW live in the output buffer in
+//     device memory; after each tile the block adds its (128 x d)
+//     contribution there, each thread to its own elements, and the last
+//     tile writes the final dtype. The dlogit tile (128 x 128 f32) is the
+//     A operand of the second product and never reaches device memory.
 //
-// The bf16 dW (the main path's: training computes in bf16) runs both of
-// its products on the tensor cores: mma.sync.m16n8k16 bf16 x bf16 -> f32
-// fed by ldmatrix from swizzled tiles (tile_mma.cuh), cp.async into a
-// ring of three stages, one __syncthreads() per stage; not wgmma/TMA. One
-// block of eight warps per 64-row vocab tile (786 blocks at V = 50257,
-// one per SM: 5.95 waves on 132 SMs) walks the tokens in tiles of 512:
-//   * logits^T (64 x 512) = W h^T in four passes of 128 tokens, the W and
-//     h chunks (64 columns of d each) streamed through the ring. Each
-//     64-column chunk is summed on the tensor cores from zero and added to
-//     the f32 logits by an FADD, so no tensor-core sum (whose additions
-//     need not round to nearest) runs over more than 64 products.
-//   * dlogit is formed in f32 from the accumulator registers and kept to
-//     about 16 bits of precision as two bf16 terms, hi = bf16(x) and
-//     lo = bf16(x - hi), in two (64 x 512) tiles in shared memory (128
-//     KB). Why the split: dW must stay within 1e-4 of the f32 version,
-//     and one bf16 rounding of dlogit lands at 1.8e-3 to 2.9e-3 (the CPU
-//     rehearsal, tests/test_torch_fused_ce_rounding.py), the split at
-//     3.5e-6 to 4.9e-6. It costs a third product: 7.6e12 flop instead of
-//     5.06e12.
-//   * dW (64 x 128 columns at a time) += hi^T h + lo^T h over the 512
-//     tokens, h streamed through the ring as (64-token x 128) tiles; the
-//     accumulator is in registers (32 a thread), summed from zero, and
-//     added to the f32 output in device memory once per 512 tokens, each
-//     element by its own thread in token order: deterministic, no
-//     atomics. That read-modify-write moves 2 x 4 bytes x V x d per 512
-//     tokens, ~20 GB at the training shape, against ~79 GB for the f32
-//     FMA version's once per 128 tokens; its 192 KB per block stays in L2
-//     while the block works, and the old values are loaded at the start
-//     of the pass, so their latency hides behind its eight stages.
-//   * h is staged once per product (each 512-token tile is read twice,
-//     once for the logits and once for dW); W once per 128-token pass.
-//     The loads run two stages ahead, their addresses kept by counters.
+// The bf16 instances (the main path's) run every product on the tensor
+// cores: mma.sync.m16n8k16 bf16 x bf16 -> f32 fed by ldmatrix from
+// swizzled tiles (tile_mma.cuh), cp.async into a ring of three stages, one
+// __syncthreads() per stage; not wgmma/TMA. All three are one walk,
+// ce_mma::run, with the roles of tokens and vocabulary swapped between
+// them: a block of eight warps owns 64 rows of one operand (64 tokens of h
+// for the forward and dh: 512 blocks at N = 32768, 3.88 waves on 132 SMs;
+// 64 vocab rows of W for dW: 786 blocks, 5.95 waves; one block per SM)
+// and streams the other operand's rows in tiles of 512:
+//   * logits (64 own x 128 streamed rows per pass, four passes per tile)
+//     from 64-column chunks of d streamed through the ring. Each chunk is
+//     summed on the tensor cores from zero and added to the f32 logits by
+//     an FADD, so no tensor-core sum (whose additions need not round to
+//     nearest) runs over more than 64 products: summing all of d = 768 in
+//     one chain put dW 3.7e-5 from the f32 version, the chunks 6.2e-6.
+//   * Forward: straight from the accumulator registers, each thread keeps
+//     a running max and sum of exp(x - max) over the columns it holds (the
+//     exponent as (x - m) log2(e) and exp2f, columns past V at -1e30); the
+//     one thread whose fragment holds col == label writes the label logit.
+//     The pairs are merged once, at the end: across the four lanes of a
+//     quad by shuffles, across the four warps of a row through shared
+//     memory. No barrier per vocab tile beyond the ring's.
+//   * dh and dW: dlogit is formed in f32 from the accumulator registers
+//     and written as bf16 into a (64 x 512) tile in shared memory, then
+//     out (64 own rows x 128 columns of d at a time) += dlogit . streamed
+//     rows over the tile's 512 rows, the streamed (64 x 128) tiles read
+//     with ldmatrix.trans. The f32 sum is in registers (32 a thread),
+//     summed from zero and added to the f32 output in device memory once
+//     per 512-row tile, each element by its own thread in order:
+//     deterministic, no atomics; the old values are loaded at the start of
+//     the pass, so their latency hides behind its eight stages. That
+//     read-modify-write moves 2 x 4 bytes x (rows x d) per 512 streamed
+//     rows, ~20 GB at the training shape against ~79 GB for the f32 FMA
+//     version's once per 128; its 192 KB per block stays in L2. dh's last
+//     tile writes the bf16 output instead.
+//   * dW keeps about 16 bits of dlogit as two bf16 terms, hi = bf16(x) and
+//     lo = bf16(x - hi) (a second 64 x 512 tile, a third product: 7.6e12
+//     flop instead of 5.06e12): dW must stay within 1e-4 of the f32
+//     version, and one bf16 rounding of dlogit lands at 1.8e-3 to 2.9e-3
+//     (the CPU rehearsal, tests/test_torch_fused_ce_rounding.py), the
+//     split at 3.5e-6 to 4.9e-6. dh rounds dlogit once: it is held to
+//     2^-7 (two bf16 ulps of its largest element), and one rounding lands
+//     at 3.1e-3 to 4.1e-3 on the rehearsal, a margin of 1.9x.
+//   * Each operand is staged once per product: the streamed tile twice
+//     (once for the logits, once for the second product), the own rows
+//     once per 128-row pass. The loads run two stages ahead, their
+//     addresses kept by counters.
 // Timed on an H100 SXM (700 W) at the training shape by
-// tools/fused_ce_dw_variants.py, all variants in one process: this design
-// 35.1-35.4 ms (240 registers, no spills); without the per-chunk
-// promotion of the logits 33.4 ms, but 3.7e-5 from the f32 version
-// instead of 6.2e-6; with 256-token logits passes and two stages 34.0 ms
-// at 255 registers (not kept: no register left); and the f32 accumulator
-// of 64 rows in shared memory instead (tools/fused_ce_dw_smem_acc.cu:
-// 64-token tiles, dlogit kept in registers, 35 KB left for a two-stage
-// operand ring, W streamed again for every token tile) 54.0 ms. Taking
-// one piece out of this design at a time (results wrong, timing only):
-// no loads 27.4 ms, no logits MMAs 29.3, no dW MMAs 29.5, no old dw
-// values 31.9, no expf 34.6: no one piece dominates.
+// tools/fused_ce_dw_variants.py, all variants in one process: forward
+// 15.3-15.6 ms (164 registers), dh 32.2-32.4 ms (231), dW 35.3 ms (240),
+// no spills. Not kept: the forward at two blocks per SM, 12.8 ms, spills
+// at 128 registers; 256-column logits passes with two stages, forward
+// 13.4, dh 31.1, dW 34.3 ms, leaves dh at 255 registers; without the
+// per-chunk promotion, forward 14.2, dh 31.0, dW 33.2 ms, dW 3.6e-5 from
+// the f32 version. dW with its f32 accumulator in shared memory
+// (tools/fused_ce_dw_smem_acc.cu) 54.1 ms. Taking one piece out at a time
+// (results wrong, timing only): no loads, forward 11.9 / dh 24.3 / dW
+// 27.4 ms; no logits MMAs 6.7 / 26.4 / 29.3; no second-product MMAs
+// dh 27.2 / dW 29.5; no old output values 30.0 / 31.8; no expf in dlogit
+// 31.9 / 34.4: in the backward no one piece dominates, the forward waits
+// on its logits MMAs.
 //
 // Ragged N, V and d are masked, never padded: rows past N or V read as
 // zero and are not written, columns past V get -1e30 in the forward and a
@@ -316,10 +330,9 @@ __device__ __forceinline__ float dlogit(float logit, float lse, float glse, floa
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
-fused_ce_fwd_kernel(const T* __restrict__ h, const T* __restrict__ w,
-                    const int* __restrict__ labels, float* __restrict__ lse,
-                    float* __restrict__ ll, int n, int v, int d) {
+__device__ __forceinline__ void fwd_fma(const T* __restrict__ h, const T* __restrict__ w,
+                                        const int* __restrict__ labels, float* __restrict__ lse,
+                                        float* __restrict__ ll, int n, int v, int d) {
   extern __shared__ float smem[];
   float* s_a = smem;
   float* s_b = s_a + kDepth * kLd;
@@ -396,12 +409,13 @@ __device__ __forceinline__ BwdSmem carve(float* smem) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
-fused_ce_bwd_dh_kernel(const T* __restrict__ h, const T* __restrict__ w,
-                       const int* __restrict__ labels, const float* __restrict__ lse,
-                       const float* __restrict__ glse, const float* __restrict__ g,
-                       float* __restrict__ dh, __nv_bfloat16* __restrict__ dh_bf16, int n,
-                       int v, int d) {
+__device__ __forceinline__ void bwd_dh_fma(const T* __restrict__ h, const T* __restrict__ w,
+                                           const int* __restrict__ labels,
+                                           const float* __restrict__ lse,
+                                           const float* __restrict__ glse,
+                                           const float* __restrict__ g, float* __restrict__ dh,
+                                           __nv_bfloat16* __restrict__ dh_bf16, int n, int v,
+                                           int d) {
   extern __shared__ float smem[];
   const BwdSmem sm = carve(smem);
   const int tx = threadIdx.x % 16;
@@ -478,32 +492,62 @@ __device__ __forceinline__ void bwd_dw_fma(const T* __restrict__ h, const T* __r
   }
 }
 
-// ----------------------------------------------- dW, bf16, on the tensor cores
-namespace dw_mma {
+// ------------------------------------- forward, dh and dW, bf16, on the tensor cores
+namespace ce_mma {
 
 using tile_mma::bf16;
 
-constexpr int kRows = 64;       // vocab rows per block
-constexpr int kTokens = 512;    // tokens per pass of the f32 sums into dw
-constexpr int kPass = 128;      // tokens per logits product
-constexpr int kWarpTokens = kPass / 4;  // of them per warp (four warps along the tokens)
-constexpr int kNT = kWarpTokens / 8;    // n8 tiles of a warp's logits
-constexpr int kDChunk = 64;     // d columns per stage of the logits product
-constexpr int kOutCols = 128;   // d columns per dW accumulator pass
-constexpr int kKTokens = 64;    // tokens per stage of the dW product
-constexpr int kStages = 3;
-constexpr int kStageElems = kRows * kDChunk + kPass * kDChunk;  // a W and an h chunk
-constexpr int kDlElems = kRows * kTokens;
-constexpr size_t kSmem = sizeof(bf16) * (2 * kDlElems + kStages * kStageElems) +
-                         (3 * sizeof(float) + sizeof(int)) * kTokens;
-static_assert(kKTokens * kOutCols <= kStageElems, "a dW stage fits a ring slot");
+// Which of the three functions a block computes. A block owns kRows rows
+// of one operand (tokens of h for the forward and dh, vocab rows of W for
+// dW) and streams the other operand's rows (vocab rows for the forward and
+// dh, tokens for dW) in tiles of kCols.
+enum class Kind { kFwd, kDh, kDw };
 
-__device__ __forceinline__ void bwd_dw(const bf16* __restrict__ h, const bf16* __restrict__ w,
-                                       const int* __restrict__ labels,
-                                       const float* __restrict__ lse,
-                                       const float* __restrict__ glse,
-                                       const float* __restrict__ g, float* __restrict__ dw,
-                                       int n, int v, int d) {
+constexpr int kRows = 64;       // own rows per block
+constexpr int kCols = 512;      // streamed rows per tile (per f32 sum into the output)
+constexpr int kPass = 128;      // streamed rows per logits product
+constexpr int kWarpCols = kPass / 4;  // of them per warp (four warps along the streamed rows)
+constexpr int kNT = kWarpCols / 8;    // n8 tiles of a warp's logits
+constexpr int kDChunk = 64;     // d columns per stage of the logits product
+constexpr int kOutCols = 128;   // d columns per accumulator pass of the second product
+constexpr int kKRows = 64;      // streamed rows per stage of the second product
+constexpr int kStages = 3;
+constexpr int kStageElems = kRows * kDChunk + kPass * kDChunk;  // an own and a streamed chunk
+constexpr int kDlElems = kRows * kCols;
+static_assert(kKRows * kOutCols <= kStageElems, "a second-product stage fits a ring slot");
+constexpr float kLog2e = 1.4426950408889634f;
+
+// dlogit tiles in shared memory: hi and lo for dW, hi alone for dh.
+template <Kind K>
+constexpr int kDlTiles = K == Kind::kDw ? 2 : K == Kind::kDh ? 1 : 0;
+// Entries of the token vectors in shared memory: a streamed tile's tokens
+// for dW, the block's own tokens otherwise.
+template <Kind K>
+constexpr int kVecs = K == Kind::kDw ? kCols : kRows;
+template <Kind K>
+constexpr size_t kSmem = sizeof(bf16) * (kDlTiles<K> * kDlElems + kStages * kStageElems) +
+                         (3 * sizeof(float) + sizeof(int)) * kVecs<K> +
+                         (K == Kind::kFwd ? sizeof(float2) * 4 * kRows : 0);
+
+// Merges the running (max, sum) pair (m_b, s_b) into (m, s); sums are of
+// exp(x - max), a max of -1e30 marks columns that were all dead.
+__device__ __forceinline__ void merge_lse(float& m, float& s, float m_b, float s_b) {
+  const float mx = fmaxf(m, m_b);
+  s = s * exp2f((m - mx) * kLog2e) + s_b * exp2f((m_b - mx) * kLog2e);
+  m = mx;
+}
+
+// The forward (lse and the label logit), dh (out = dh in f32, out_bf16 the
+// final bf16 values when given) or dW (out = dw). lse_out and ll are the
+// forward's outputs; lse, glse and g the backward's inputs.
+template <Kind K>
+__device__ __forceinline__ void run(const bf16* __restrict__ h, const bf16* __restrict__ w,
+                                    const int* __restrict__ labels,
+                                    const float* __restrict__ lse,
+                                    const float* __restrict__ glse,
+                                    const float* __restrict__ g, float* __restrict__ out,
+                                    bf16* __restrict__ out_bf16, float* __restrict__ lse_out,
+                                    float* __restrict__ ll, int n, int v, int d) {
   using tile_mma::cp_async_16;
   using tile_mma::load_a;
   using tile_mma::load_b_cols;
@@ -511,30 +555,50 @@ __device__ __forceinline__ void bwd_dw(const bf16* __restrict__ h, const bf16* _
   using tile_mma::mma;
   using tile_mma::smem_addr;
   using tile_mma::swizzle;
+  constexpr bool kDw = K == Kind::kDw;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* s_hi = reinterpret_cast<bf16*>(smem_raw);  // dlogit^T (vocab, token), hi part
-  bf16* s_lo = s_hi + kDlElems;                     // and lo part
-  bf16* s_ring = s_lo + kDlElems;
+  bf16* s_hi = reinterpret_cast<bf16*>(smem_raw);  // dlogit (own, streamed), hi part
+  bf16* s_lo = s_hi + kDlElems;                     // and lo part (dW only)
+  bf16* s_ring = s_hi + kDlTiles<K> * kDlElems;
   float* s_lse = reinterpret_cast<float*>(s_ring + kStages * kStageElems);
-  float* s_glse = s_lse + kTokens;
-  float* s_g = s_glse + kTokens;
-  int* s_lab = reinterpret_cast<int*>(s_g + kTokens);
+  float* s_glse = s_lse + kVecs<K>;
+  float* s_g = s_glse + kVecs<K>;
+  int* s_lab = reinterpret_cast<int*>(s_g + kVecs<K>);
 
+  const bf16* own = kDw ? w : h;
+  const bf16* str = kDw ? h : w;
+  const int own_n = kDw ? v : n;
+  const int str_n = kDw ? n : v;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, tq = lane & 3;
-  const int64_t v0 = (int64_t)blockIdx.x * kRows;
+  const int64_t r0 = (int64_t)blockIdx.x * kRows;
   const int n_dc = (d + kDChunk - 1) / kDChunk;    // logits stages per pass
-  const int n_oc = (d + kOutCols - 1) / kOutCols;  // dW accumulator passes
-  constexpr int kKSteps = kTokens / kKTokens;      // dW stages per accumulator pass
-  const int n_tiles = (n + kTokens - 1) / kTokens;
+  const int n_oc = (d + kOutCols - 1) / kOutCols;  // second-product accumulator passes
+  constexpr int kKSteps = kCols / kKRows;          // stages per accumulator pass
+  const int n_tiles = (str_n + kCols - 1) / kCols;
+
+  // The token vectors of tokens [t0, t0 + kVecs), zero (label -1) past N.
+  auto stage_vectors = [&](int64_t t0) {
+    for (int i = tid; i < kVecs<K>; i += kThreads) {
+      const int64_t t = t0 + i;
+      const bool ok = t < n;
+      if constexpr (K != Kind::kFwd) {
+        s_lse[i] = ok ? lse[t] : 0.0f;
+        s_glse[i] = ok ? glse[t] : 0.0f;
+        s_g[i] = ok ? g[t] : 0.0f;
+      }
+      s_lab[i] = ok ? labels[t] : -1;
+    }
+  };
 
   // The loads run kStages - 1 steps ahead of the compute along the same
-  // fixed schedule: per 512-token tile, the W and h chunks of the logits
-  // passes (pass, dc), then the h tiles of the dW passes (oc, kt). Counters
-  // track the position (no division per step); this thread copies the
-  // 16-byte chunk lc of rows lr + 32 j of a logits stage and chunk pc of
-  // rows pr + 16 j of a dW stage; rows past V or N and columns past d are
+  // fixed schedule: per streamed tile, the own and streamed chunks of the
+  // logits passes (pass, dc), then (dh and dW) the streamed tiles of the
+  // second product's passes (oc, kt). Counters track the position (no
+  // division per step); this thread copies the 16-byte chunk lc of rows
+  // lr + 32 j of a logits stage and chunk pc of rows pr + 16 j of a
+  // second-product stage; rows past their count and columns past d are
   // zero-filled.
   const int lr = tid >> 3, lc = tid & 7;
   const int pr = tid >> 4, pc = tid & 15;
@@ -542,36 +606,44 @@ __device__ __forceinline__ void bwd_dw(const bf16* __restrict__ h, const bf16* _
   auto issue_next = [&]() {
     if (ld_tile < n_tiles) {
       bf16* dst = s_ring + ld_slot * kStageElems;
-      const int64_t t0 = (int64_t)ld_tile * kTokens;
+      const int64_t c0 = (int64_t)ld_tile * kCols;
       if (ld_phase == 0) {
         const int col = ld_b * kDChunk + 8 * lc;
 #pragma unroll
         for (int j = 0; j < kRows / 32; ++j) {
           const int r = lr + 32 * j;
-          const int64_t row = v0 + r;
-          const bool ok = col < d && row < v;
-          cp_async_16(smem_addr(dst + swizzle<kDChunk>(r, lc)), ok ? w + row * d + col : w, ok);
+          const int64_t row = r0 + r;
+          const bool ok = col < d && row < own_n;
+          cp_async_16(smem_addr(dst + swizzle<kDChunk>(r, lc)), ok ? own + row * d + col : own,
+                      ok);
         }
 #pragma unroll
         for (int j = 0; j < kPass / 32; ++j) {
           const int r = lr + 32 * j;
-          const int64_t row = t0 + ld_a * kPass + r;
-          const bool ok = col < d && row < n;
+          const int64_t row = c0 + ld_a * kPass + r;
+          const bool ok = col < d && row < str_n;
           cp_async_16(smem_addr(dst + kRows * kDChunk + swizzle<kDChunk>(r, lc)),
-                      ok ? h + row * d + col : h, ok);
+                      ok ? str + row * d + col : str, ok);
         }
         if (++ld_b == n_dc) {
           ld_b = 0;
-          if (++ld_a == kTokens / kPass) ld_a = 0, ld_phase = 1;
+          if (++ld_a == kCols / kPass) {
+            ld_a = 0;
+            if constexpr (K == Kind::kFwd)
+              ++ld_tile;
+            else
+              ld_phase = 1;
+          }
         }
       } else {
         const int col = ld_a * kOutCols + 8 * pc;
 #pragma unroll
-        for (int j = 0; j < kKTokens / 16; ++j) {
+        for (int j = 0; j < kKRows / 16; ++j) {
           const int r = pr + 16 * j;
-          const int64_t row = t0 + ld_b * kKTokens + r;
-          const bool ok = col < d && row < n;
-          cp_async_16(smem_addr(dst + swizzle<kOutCols>(r, pc)), ok ? h + row * d + col : h, ok);
+          const int64_t row = c0 + ld_b * kKRows + r;
+          const bool ok = col < d && row < str_n;
+          cp_async_16(smem_addr(dst + swizzle<kOutCols>(r, pc)), ok ? str + row * d + col : str,
+                      ok);
         }
         if (++ld_b == kKSteps) {
           ld_b = 0;
@@ -593,32 +665,34 @@ __device__ __forceinline__ void bwd_dw(const bf16* __restrict__ h, const bf16* _
     slot = slot + 1 == kStages ? 0 : slot + 1;
     return stage;
   };
+  // The forward and dh read the own tokens' vectors; the first advance()
+  // publishes them.
+  if constexpr (!kDw) stage_vectors(r0);
   for (int i = 0; i < kStages - 1; ++i) issue_next();
 
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int64_t t0 = (int64_t)tile * kTokens;
-    // The previous tile's last reads of the token vectors came before the
-    // barriers of its dW passes.
-    for (int i = tid; i < kTokens; i += kThreads) {
-      const int64_t t = t0 + i;
-      const bool ok = t < n;
-      s_lse[i] = ok ? lse[t] : 0.0f;
-      s_glse[i] = ok ? glse[t] : 0.0f;
-      s_g[i] = ok ? g[t] : 0.0f;
-      s_lab[i] = ok ? labels[t] : -1;
-    }
+  // The forward's running max and sum of exp(logit - max) of this thread's
+  // four rows (mt, half) over the columns it holds.
+  float run_m[2][2], run_s[2][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) run_m[i >> 1][i & 1] = kNegInf, run_s[i >> 1][i & 1] = 0.0f;
 
-    // logits^T = W h^T, 64 vocab rows x kPass tokens per pass; warp
-    // (wv, wt) owns rows 32 wv .. +32 and kWarpTokens tokens from
-    // kWarpTokens * wt. Each 64-column chunk of d is summed on the tensor
-    // cores from zero and added to the f32 logits with an FADD, so no MMA
-    // sum runs longer than 64 products.
-    const int wv = warp & 1, wt = warp >> 1;
-    for (int pass = 0; pass < kTokens / kPass; ++pass) {
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int64_t c0 = (int64_t)tile * kCols;
+    // (dW) The previous tile's last reads of the token vectors came before
+    // the barriers of its second-product passes.
+    if constexpr (kDw) stage_vectors(c0);
+
+    // logits (own x streamed), kRows x kPass per pass; warp (wo, ws) owns
+    // rows 32 wo .. +32 and kWarpCols streamed rows from kWarpCols * ws.
+    // Each 64-column chunk of d is summed on the tensor cores from zero and
+    // added to the f32 logits with an FADD, so no MMA sum runs longer than
+    // 64 products.
+    const int wo = warp & 1, ws = warp >> 1;
+    for (int pass = 0; pass < kCols / kPass; ++pass) {
       float logit[2][kNT][4];
       for (int dc = 0; dc < n_dc; ++dc) {
-        const bf16* w_s = advance();
-        const bf16* h_s = w_s + kRows * kDChunk;
+        const bf16* own_s = advance();
+        const bf16* str_s = own_s + kRows * kDChunk;
         float part[2][kNT][4];
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt)
@@ -629,12 +703,12 @@ __device__ __forceinline__ void bwd_dw(const bf16* __restrict__ h, const bf16* _
 #pragma unroll
         for (int ks = 0; ks < kDChunk / 16; ++ks) {
           uint32_t a[2][4];
-          load_a<kDChunk>(a[0], w_s, 32 * wv, ks);
-          load_a<kDChunk>(a[1], w_s, 32 * wv + 16, ks);
+          load_a<kDChunk>(a[0], own_s, 32 * wo, ks);
+          load_a<kDChunk>(a[1], own_s, 32 * wo + 16, ks);
 #pragma unroll
           for (int np = 0; np < kNT / 2; ++np) {
             uint32_t b[4];
-            load_b_rows<kDChunk>(b, h_s, kWarpTokens * wt + 16 * np, ks);
+            load_b_rows<kDChunk>(b, str_s, kWarpCols * ws + 16 * np, ks);
 #pragma unroll
             for (int mt = 0; mt < 2; ++mt) {
               mma(part[mt][2 * np], a[mt], b[0], b[1]);
@@ -650,42 +724,73 @@ __device__ __forceinline__ void bwd_dw(const bf16* __restrict__ h, const bf16* _
             for (int e = 0; e < 4; ++e)
               logit[mt][nt][e] = dc == 0 ? part[mt][nt][e] : logit[mt][nt][e] + part[mt][nt][e];
       }
-      // dlogit in f32, split into hi = bf16(x) and lo = bf16(x - hi), into
-      // the (vocab, token) tiles that feed the dW product.
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) {
-          const int tok = pass * kPass + kWarpTokens * wt + 8 * nt + 2 * tq;  // even
+        for (int half = 0; half < 2; ++half) {
+          const int row = 32 * wo + 16 * mt + gq + 8 * half;
+          const bool own_ok = r0 + row < own_n;
+          if constexpr (K == Kind::kFwd) {
+            // Online max and sum over this thread's columns; columns past V
+            // get -1e30. The one thread holding col == label writes it.
+            float x[kNT][2];
+            float tile_max = kNegInf;
 #pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int row = 32 * wv + 16 * mt + gq + 8 * half;
-            const int64_t vocab = v0 + row;
-            float x[2];
+            for (int nt = 0; nt < kNT; ++nt) {
 #pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              const int ts = tok + j;
-              x[j] = (vocab < v && t0 + ts < n)
-                         ? dlogit(logit[mt][nt][2 * half + j], s_lse[ts], s_glse[ts], s_g[ts],
-                                  vocab == s_lab[ts])
-                         : 0.0f;
+              for (int j = 0; j < 2; ++j) {
+                const int64_t col = c0 + pass * kPass + kWarpCols * ws + 8 * nt + 2 * tq + j;
+                x[nt][j] = col < v ? logit[mt][nt][2 * half + j] : kNegInf;
+                tile_max = fmaxf(tile_max, x[nt][j]);
+                if (col < v && col == s_lab[row] && own_ok) ll[r0 + row] = x[nt][j];
+              }
             }
-            const __nv_bfloat162 hi = __floats2bfloat162_rn(x[0], x[1]);
-            const float2 hf = __bfloat1622float2(hi);
-            const int off = swizzle<kTokens>(row, tok >> 3) + (tok & 7);
-            *reinterpret_cast<__nv_bfloat162*>(s_hi + off) = hi;
-            *reinterpret_cast<__nv_bfloat162*>(s_lo + off) =
-                __floats2bfloat162_rn(x[0] - hf.x, x[1] - hf.y);
+            const float mx = fmaxf(run_m[mt][half], tile_max);
+            float p = 0.0f;
+#pragma unroll
+            for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+              for (int j = 0; j < 2; ++j) p += exp2f((x[nt][j] - mx) * kLog2e);
+            run_s[mt][half] = run_s[mt][half] * exp2f((run_m[mt][half] - mx) * kLog2e) + p;
+            run_m[mt][half] = mx;
+          } else {
+            // dlogit in f32, rounded to bf16 (dW: split into hi = bf16(x)
+            // and lo = bf16(x - hi)), into the (own, streamed) tiles that
+            // feed the second product.
+#pragma unroll
+            for (int nt = 0; nt < kNT; ++nt) {
+              const int sc = pass * kPass + kWarpCols * ws + 8 * nt + 2 * tq;  // even
+              float x[2];
+#pragma unroll
+              for (int j = 0; j < 2; ++j) {
+                const int vi = kDw ? sc + j : row;  // token vector entry
+                const int64_t vocab = kDw ? r0 + row : c0 + sc + j;
+                x[j] = (own_ok && c0 + sc + j < str_n)
+                           ? dlogit(logit[mt][nt][2 * half + j], s_lse[vi], s_glse[vi], s_g[vi],
+                                    vocab == s_lab[vi])
+                           : 0.0f;
+              }
+              const __nv_bfloat162 hi = __floats2bfloat162_rn(x[0], x[1]);
+              const int off = swizzle<kCols>(row, sc >> 3) + (sc & 7);
+              *reinterpret_cast<__nv_bfloat162*>(s_hi + off) = hi;
+              if constexpr (kDw) {
+                const float2 hf = __bfloat1622float2(hi);
+                *reinterpret_cast<__nv_bfloat162*>(s_lo + off) =
+                    __floats2bfloat162_rn(x[0] - hf.x, x[1] - hf.y);
+              }
+            }
           }
         }
       }
     }
+    if constexpr (K == Kind::kFwd) continue;
 
-    // dW[rows, 128-column pass] (+)= dlogit^T h over the tile's 512
-    // tokens, hi and lo parts into one f32 accumulator; warp (wr, wd) owns
-    // rows 16 wr .. +16 and columns 64 wd .. +64 of the pass. (The first
-    // advance() below publishes the dlogit tiles.)
+    // out[own rows, 128-column pass] (+)= dlogit . streamed over the tile's
+    // 512 streamed rows (dW: hi and lo parts into one f32 accumulator);
+    // warp (wr, wd) owns rows 16 wr .. +16 and columns 64 wd .. +64 of the
+    // pass. (The first advance() below publishes the dlogit tiles.)
     const int wr = warp & 3, wd = warp >> 2;
+    const bool last = tile + 1 == n_tiles && out_bf16 != nullptr;
     for (int oc = 0; oc < n_oc; ++oc) {
       float acc[8][4];
 #pragma unroll
@@ -694,7 +799,7 @@ __device__ __forceinline__ void bwd_dw(const bf16* __restrict__ h, const bf16* _
         for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
       float2 old[8][2];
       for (int kt = 0; kt < kKSteps; ++kt) {
-        const bf16* h_s = advance();
+        const bf16* str_s = advance();
         if (kt == 0) {
           // The earlier tiles' sums of this thread's elements, loaded now
           // and added at the end of the pass: the loads fly meanwhile.
@@ -703,52 +808,112 @@ __device__ __forceinline__ void bwd_dw(const bf16* __restrict__ h, const bf16* _
             const int col = oc * kOutCols + 64 * wd + 8 * nt + 2 * tq;
 #pragma unroll
             for (int half = 0; half < 2; ++half) {
-              const int64_t row = v0 + 16 * wr + gq + 8 * half;
-              old[nt][half] = (tile > 0 && col < d && row < v)
-                                  ? *reinterpret_cast<const float2*>(dw + row * d + col)
+              const int64_t row = r0 + 16 * wr + gq + 8 * half;
+              old[nt][half] = (tile > 0 && col < d && row < own_n)
+                                  ? *reinterpret_cast<const float2*>(out + row * d + col)
                                   : make_float2(0.0f, 0.0f);
             }
           }
         }
 #pragma unroll
-        for (int ks = 0; ks < kKTokens / 16; ++ks) {
+        for (int ks = 0; ks < kKRows / 16; ++ks) {
           uint32_t ah[4], al[4];
-          load_a<kTokens>(ah, s_hi, 16 * wr, kt * (kKTokens / 16) + ks);
-          load_a<kTokens>(al, s_lo, 16 * wr, kt * (kKTokens / 16) + ks);
+          load_a<kCols>(ah, s_hi, 16 * wr, kt * (kKRows / 16) + ks);
+          if constexpr (kDw) load_a<kCols>(al, s_lo, 16 * wr, kt * (kKRows / 16) + ks);
 #pragma unroll
           for (int dp = 0; dp < 4; ++dp) {
             uint32_t b[4];
-            load_b_cols<kOutCols>(b, h_s, 16 * ks, 4 * wd + dp);
+            load_b_cols<kOutCols>(b, str_s, 16 * ks, 4 * wd + dp);
             mma(acc[2 * dp], ah, b[0], b[1]);
             mma(acc[2 * dp + 1], ah, b[2], b[3]);
-            mma(acc[2 * dp], al, b[0], b[1]);
-            mma(acc[2 * dp + 1], al, b[2], b[3]);
+            if constexpr (kDw) {
+              mma(acc[2 * dp], al, b[0], b[1]);
+              mma(acc[2 * dp + 1], al, b[2], b[3]);
+            }
           }
         }
       }
-      // Add this tile's sums into dw in f32: each element is this thread's
-      // alone, and the tiles come in token order.
+      // Add this tile's sums into out in f32: each element is this
+      // thread's alone, and the tiles come in order. The last tile of dh
+      // writes the bf16 output instead.
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
         const int col = oc * kOutCols + 64 * wd + 8 * nt + 2 * tq;
         if (col >= d) continue;  // d is a multiple of 32: both columns are in
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          const int64_t row = v0 + 16 * wr + gq + 8 * half;
-          if (row >= v) continue;
-          *reinterpret_cast<float2*>(dw + row * d + col) =
-              make_float2(old[nt][half].x + acc[nt][2 * half],
-                          old[nt][half].y + acc[nt][2 * half + 1]);
+          const int64_t row = r0 + 16 * wr + gq + 8 * half;
+          if (row >= own_n) continue;
+          const float2 sum = make_float2(old[nt][half].x + acc[nt][2 * half],
+                                         old[nt][half].y + acc[nt][2 * half + 1]);
+          if (last)
+            *reinterpret_cast<__nv_bfloat162*>(out_bf16 + row * d + col) =
+                __floats2bfloat162_rn(sum.x, sum.y);
+          else
+            *reinterpret_cast<float2*>(out + row * d + col) = sum;
         }
       }
     }
   }
+
+  if constexpr (K == Kind::kFwd) {
+    // Merge the running pairs: the four lanes of a quad hold one row's
+    // columns within a warp, the four warps ws its column ranges.
+    float2* s_part = reinterpret_cast<float2*>(s_lab + kVecs<K>);  // [ws][row]
+    const int wo = warp & 1, ws = warp >> 1;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float& m = run_m[i >> 1][i & 1];
+      float& s = run_s[i >> 1][i & 1];
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1)
+        merge_lse(m, s, __shfl_xor_sync(0xffffffffu, m, off),
+                  __shfl_xor_sync(0xffffffffu, s, off));
+      if (tq == 0) s_part[ws * kRows + 32 * wo + 16 * (i >> 1) + gq + 8 * (i & 1)] =
+          make_float2(m, s);
+    }
+    __syncthreads();
+    if (tid < kRows && r0 + tid < n) {
+      float m = kNegInf, s = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) merge_lse(m, s, s_part[j * kRows + tid].x, s_part[j * kRows + tid].y);
+      lse_out[r0 + tid] = m + logf(s);
+    }
+  }
 }
 
-}  // namespace dw_mma
+}  // namespace ce_mma
 
+// The bf16 instances run on the tensor cores (ce_mma), the f32 ones the
+// FMA code above.
 template <typename T>
 constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kTensorCores<T> ? 1 : 2)
+fused_ce_fwd_kernel(const T* __restrict__ h, const T* __restrict__ w,
+                    const int* __restrict__ labels, float* __restrict__ lse,
+                    float* __restrict__ ll, int n, int v, int d) {
+  if constexpr (kTensorCores<T>)
+    ce_mma::run<ce_mma::Kind::kFwd>(h, w, labels, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                     lse, ll, n, v, d);
+  else
+    fwd_fma<T>(h, w, labels, lse, ll, n, v, d);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kTensorCores<T> ? 1 : 2)
+fused_ce_bwd_dh_kernel(const T* __restrict__ h, const T* __restrict__ w,
+                       const int* __restrict__ labels, const float* __restrict__ lse,
+                       const float* __restrict__ glse, const float* __restrict__ g,
+                       float* __restrict__ dh, __nv_bfloat16* __restrict__ dh_bf16, int n,
+                       int v, int d) {
+  if constexpr (kTensorCores<T>)
+    ce_mma::run<ce_mma::Kind::kDh>(h, w, labels, lse, glse, g, dh, dh_bf16, nullptr, nullptr, n,
+                                    v, d);
+  else
+    bwd_dh_fma<T>(h, w, labels, lse, glse, g, dh, dh_bf16, n, v, d);
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, kTensorCores<T> ? 1 : 2)
@@ -757,7 +922,8 @@ fused_ce_bwd_dw_kernel(const T* __restrict__ h, const T* __restrict__ w,
                        const float* __restrict__ glse, const float* __restrict__ g,
                        float* __restrict__ dw, int n, int v, int d) {
   if constexpr (kTensorCores<T>)
-    dw_mma::bwd_dw(h, w, labels, lse, glse, g, dw, n, v, d);
+    ce_mma::run<ce_mma::Kind::kDw>(h, w, labels, lse, glse, g, dw, nullptr, nullptr, nullptr, n,
+                                    v, d);
   else
     bwd_dw_fma<T>(h, w, labels, lse, glse, g, dw, n, v, d);
 }
@@ -775,11 +941,22 @@ cudaError_t opt_in(Kernel kernel, size_t smem, bool* configured) {
   return err;
 }
 
+// Shared memory and own rows per block of each instance.
+template <typename T, ce_mma::Kind K>
+constexpr size_t kSmemOf = kTensorCores<T> ? ce_mma::kSmem<K>
+                           : K == ce_mma::Kind::kFwd ? kFwdSmem : kBwdSmem;
+template <typename T>
+constexpr int kRowsOf = kTensorCores<T> ? ce_mma::kRows : kTile;
+
 template <typename T>
 int launch_fwd(const void* h, const void* w, const int* labels, float* lse, float* ll, int n,
                int v, int d, cudaStream_t stream) {
-  dim3 grid((n + kTile - 1) / kTile);
-  fused_ce_fwd_kernel<T><<<grid, kThreads, kFwdSmem, stream>>>(
+  constexpr size_t smem = kSmemOf<T, ce_mma::Kind::kFwd>;
+  static bool configured[64] = {};
+  cudaError_t err = opt_in(fused_ce_fwd_kernel<T>, smem, configured);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((n + kRowsOf<T> - 1) / kRowsOf<T>);
+  fused_ce_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(h), static_cast<const T*>(w), labels, lse, ll, n, v, d);
   return (int)cudaGetLastError();
 }
@@ -788,11 +965,12 @@ template <typename T>
 int launch_dh(const void* h, const void* w, const int* labels, const float* lse,
               const float* glse, const float* g, float* dh, void* dh_bf16, int n, int v, int d,
               cudaStream_t stream) {
+  constexpr size_t smem = kSmemOf<T, ce_mma::Kind::kDh>;
   static bool configured[64] = {};
-  cudaError_t err = opt_in(fused_ce_bwd_dh_kernel<T>, kBwdSmem, configured);
+  cudaError_t err = opt_in(fused_ce_bwd_dh_kernel<T>, smem, configured);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((n + kTile - 1) / kTile);
-  fused_ce_bwd_dh_kernel<T><<<grid, kThreads, kBwdSmem, stream>>>(
+  dim3 grid((n + kRowsOf<T> - 1) / kRowsOf<T>);
+  fused_ce_bwd_dh_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(h), static_cast<const T*>(w), labels, lse, glse, g, dh,
       static_cast<__nv_bfloat16*>(dh_bf16), n, v, d);
   return (int)cudaGetLastError();
@@ -802,12 +980,11 @@ template <typename T>
 int launch_dw(const void* h, const void* w, const int* labels, const float* lse,
               const float* glse, const float* g, float* dw, int n, int v, int d,
               cudaStream_t stream) {
-  constexpr size_t smem = kTensorCores<T> ? dw_mma::kSmem : kBwdSmem;
-  constexpr int rows = kTensorCores<T> ? dw_mma::kRows : kTile;
+  constexpr size_t smem = kSmemOf<T, ce_mma::Kind::kDw>;
   static bool configured[64] = {};
   cudaError_t err = opt_in(fused_ce_bwd_dw_kernel<T>, smem, configured);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((v + rows - 1) / rows);
+  dim3 grid((v + kRowsOf<T> - 1) / kRowsOf<T>);
   fused_ce_bwd_dw_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(h), static_cast<const T*>(w), labels, lse, glse, g, dw, n, v, d);
   return (int)cudaGetLastError();

@@ -19,8 +19,8 @@ batches, so the loop's ``get(step)`` normally returns immediately.
   consumed, so the run fails at the step the synchronous path would.
 
 The JAX prefetcher's rollback ``reseek``, timeline spans and fault hooks
-serve features the port has not ported (ROADMAP.md queue A) and are left
-out.
+serve features the port has not ported (ROADMAP.md queue A: resilience,
+telemetry) and are left out.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ This slice carries the byte-level tokenizer the headline preset uses
 (``model.extra.tokenizer: "byte"``): 256-symbol vocabulary, UTF-8 bytes
 as token ids. ``gpt2`` needs tiktoken's downloaded BPE files and raises
 here as it would offline; ``bpe:`` and ``hf:`` vocabularies are not yet
-ported (ROADMAP.md queue A).
+ported (ROADMAP.md queue A: model zoo).
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ def build_tokenizer(name: str):
     if name.startswith(("bpe:", "hf:")):
         raise NotImplementedError(
             f"tokenizer {name!r} is not yet ported to llmtrain_tpu_torch "
-            "(ROADMAP.md queue A); use \"byte\""
+            "(ROADMAP.md queue A: model zoo); use \"byte\""
         )
     raise ValueError(
         f"unknown tokenizer {name!r}; expected 'gpt2', 'byte', 'bpe:<path>', "

@@ -40,7 +40,8 @@ XLA, no Pallas kernel).
 
 Not yet ported, each raising: ``matmul_precision`` other than f32 and
 ring/ulysses attention (at build time), the rolling sliding-window decode
-cache and the int8 KV cache (at decode) (ROADMAP.md queue A).
+cache and the int8 KV cache (at decode) (ROADMAP.md queue A: parallelism for
+the first two, continuous serving for the caches).
 """
 
 from __future__ import annotations
@@ -557,7 +558,7 @@ class GPTAdapter(ModelAdapter):
         if precision != "f32":
             raise NotImplementedError(
                 f"model.extra.matmul_precision={precision!r} is not yet ported to "
-                "llmtrain_tpu_torch (ROADMAP.md queue A); use 'f32'"
+                "llmtrain_tpu_torch (ROADMAP.md queue A: parallelism); use 'f32'"
             )
         n_kv_heads = int(m.extra.get("n_kv_heads", 0))
         if n_kv_heads < 0:

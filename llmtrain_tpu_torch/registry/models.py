@@ -38,6 +38,6 @@ def get_model_adapter(name: str) -> type[ModelAdapter]:
         raise RegistryError(
             f"Unknown model adapter {name!r}. Available in llmtrain_tpu_torch: "
             f"{sorted(_MODEL_ADAPTERS)} (other families are not yet ported, "
-            "ROADMAP.md queue A)"
+            "ROADMAP.md queue A: model zoo)"
         ) from None
 

@@ -15,7 +15,7 @@ KV-cache branch of ``generate()``; the sliding-window re-forward branch,
 which runs the flash kernel, is reached through ``generate()`` itself and
 the ``generate`` CLI. The continuous-batching backend, overload control,
 request tracing and ``POST /reload`` are not yet ported (ROADMAP.md
-queue A); ``/reload`` answers 404 as a JAX server without a reloader does.
+queue A: continuous serving); ``/reload`` answers 404 as a JAX server without a reloader does.
 
 Thread discipline: ``ThreadingHTTPServer`` runs one handler thread per
 connection, so every cross-request mutable lives in :class:`ServerStats`

@@ -9,7 +9,9 @@ peak, data wait, host dispatch, peak device memory), token-weighted eval
 every ``eval_every_steps``, checkpoints through the manifest commit
 protocol every ``save_every_steps`` and at the last step, resume from a
 checkpoint with the config-mismatch warning and a topology check, and the
-non-finite guard with its consecutive-skip abort.
+non-finite guard with its consecutive-skip abort, and preemption: SIGTERM
+saves a checkpoint at the step it lands in and returns with
+``preempted=True``, so ``train --auto-resume`` continues from there.
 
 A config that switches on a part of the JAX trainer the port does not run
 yet raises ``NotImplementedError`` at construction, naming the ROADMAP.md
@@ -21,6 +23,8 @@ report, Prometheus textfile) is not written: the run directory holds
 from __future__ import annotations
 
 import math
+import signal
+import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -85,29 +89,28 @@ def refuse_unported(cfg: RunConfig) -> None:
     of the JAX trainer the port does not run yet."""
     res = cfg.resilience
     checks = [
-        (res.spike_detection, "resilience.spike_detection (loss-spike rollback)",
-         "10. Resilience"),
-        (res.watchdog.enabled, "resilience.watchdog (hang watchdog)", "10. Resilience"),
+        (res.spike_detection, "resilience.spike_detection (loss-spike rollback)", "resilience"),
+        (res.watchdog.enabled, "resilience.watchdog (hang watchdog)", "resilience"),
         (res.faults.model_dump() != type(res.faults)().model_dump(),
-         "resilience.faults (fault injection)", "10. Resilience"),
+         "resilience.faults (fault injection)", "resilience"),
         (int(cfg.trainer.extra.get("profile_start_step", 0)) > 0,
-         "trainer.extra.profile_start_step (step profiler)", "11. Telemetry"),
-        (cfg.telemetry.prometheus, "telemetry.prometheus (metrics endpoint)", "11. Telemetry"),
+         "trainer.extra.profile_start_step (step profiler)", "slice 2 deferrals"),
+        (cfg.telemetry.prometheus, "telemetry.prometheus (metrics endpoint)", "telemetry"),
         (cfg.mlflow.enabled, "mlflow.enabled (a tracker other than the null one)",
-         "11. Telemetry"),
+         "telemetry"),
         (cfg.distributed.enabled, "distributed.enabled (data parallel over NCCL)",
-         "A. slice 2 deferrals"),
+         "slice 2 deferrals"),
         (any(v > 1 for v in cfg.distributed.mesh.model_dump().values()),
-         "distributed.mesh larger than one device", "9. Parallelism"),
-        (cfg.trainer.zero.enabled, "trainer.zero (sharded optimizer state)", "9. Parallelism"),
+         "distributed.mesh larger than one device", "parallelism"),
+        (cfg.trainer.zero.enabled, "trainer.zero (sharded optimizer state)", "parallelism"),
         (cfg.model.remat or cfg.model.extra.get("activation_tiers") is not None,
-         "model.remat / model.extra.activation_tiers", "9. Parallelism"),
+         "model.remat / model.extra.activation_tiers", "parallelism"),
         (cfg.model.extra.get("lora") is not None, "LoRA models (model.extra.lora)",
-         "8. Model zoo"),
+         "model zoo"),
     ]
     for on, what, item in checks:
         if on:
-            raise NotImplementedError(f"{what} {_NOT_PORTED} (ROADMAP.md queue {item})")
+            raise NotImplementedError(f"{what} {_NOT_PORTED} (ROADMAP.md queue A: {item})")
 
 
 def _topology(cfg: RunConfig) -> dict[str, Any]:
@@ -261,6 +264,34 @@ class Trainer:
         interval_start = time.perf_counter()
         start_time = time.perf_counter()
 
+        # Preemption (the JAX trainer's single-process contract): SIGTERM only
+        # latches a flag; after the step it lands in, the loop saves a
+        # checkpoint at that step and returns cleanly, so --auto-resume
+        # continues where the evicted run stopped. A multi-process run
+        # would need JAX's all-gather consensus, which waits for data
+        # parallel (refused above).
+        preempted = False
+        # Distinct sentinel, not `old_term is None`: signal.signal() returns
+        # None when the previous handler was installed by C code.
+        handler_installed = False
+        old_term = None
+
+        def _on_sigterm(signum, frame):
+            nonlocal preempted
+            preempted = True
+
+        if threading.current_thread() is threading.main_thread():
+            old_term = signal.signal(signal.SIGTERM, _on_sigterm)
+            handler_installed = True
+        else:
+            logger.warning(
+                "Trainer.fit is running off the main thread: SIGTERM "
+                "preemption handling is DISABLED for this run (no "
+                "checkpoint-on-eviction; the process default handler "
+                "applies)"
+            )
+        final_step_override: int | None = None
+
         prefetcher: BatchPrefetcher | None = None
         if cfg.trainer.prefetch_depth > 0 and start_step <= max_steps:
             prefetcher = BatchPrefetcher(
@@ -293,8 +324,25 @@ class Trainer:
                 if step == 1:
                     first_step_loss = float(metrics["loss"])
 
-                if step % save_every == 0 or step == max_steps:
+                # A signal during the very last step changes nothing: the
+                # run completes and reports an un-preempted result.
+                stop_now = preempted and step < max_steps
+                if step % save_every == 0 or step == max_steps or stop_now:
                     self._save_checkpoint(step)
+                if stop_now:
+                    if self._ckpt_mgr is not None:
+                        logger.warning(
+                            "SIGTERM received: preemption checkpoint saved at step %d; "
+                            "stopping cleanly (resume with --resume)", step,
+                        )
+                    else:
+                        logger.warning(
+                            "SIGTERM received: stopping cleanly at step %d WITHOUT a "
+                            "checkpoint (no run dir / checkpoint manager on this process)",
+                            step,
+                        )
+                    final_step_override = step
+                    break
 
                 if step % log_every == 0 or step == max_steps:
                     # Sync on the interval's losses before stamping the end
@@ -325,9 +373,14 @@ class Trainer:
         finally:
             if prefetcher is not None:
                 prefetcher.close()
+            if handler_installed:
+                # SIG_DFL where the previous handler came from C code: it
+                # cannot be re-installed, and SIGTERM must stay lethal.
+                signal.signal(signal.SIGTERM,
+                              old_term if old_term is not None else signal.SIG_DFL)
         total_time = time.perf_counter() - start_time
         final_loss = float(step_loss_dev) if step_loss_dev is not None else 0.0
-        final_step = max_steps
+        final_step = final_step_override or max_steps
         if start_step > max_steps:
             final_step = resumed_from_step or 0
             if past_end_loss is not None:
@@ -344,6 +397,7 @@ class Trainer:
             parameter_count=self._param_count,
             trainable_parameter_count=self._trainable_count,
             total_tokens=total_tokens,
+            preempted=final_step_override is not None,
         )
 
     def _restored_step_loss(self, sampler: DeterministicSampler, dataset, step: int) -> float:
@@ -449,7 +503,7 @@ class Trainer:
                     + ", ".join(f"{k}={saved.get(k)}" for k in changed)
                     + f"; this run has " + ", ".join(f"{k}={current[k]}" for k in changed)
                     + " — the data stream would not continue the saved run's "
-                    "(elastic resume is not yet ported, ROADMAP.md queue A)"
+                    "(elastic resume is not yet ported, ROADMAP.md queue A: slice 2 deferrals)"
                 )
         payload = CheckpointManager.load(path)
         warn_on_config_mismatch(

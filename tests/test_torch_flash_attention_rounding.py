@@ -209,7 +209,7 @@ def test_plain_version_matches_pallas_at_the_kernel_shape(d: int, case: str) -> 
 
 def test_smoke_counts_tensor_core_instructions_per_kernel() -> None:
     """chip_smoke.py's build phase reads cuobjdump's SASS and ptxas's
-    report per kernel; a kernel without HMMA/HGMMA counts 0. It checks seven
+    report per kernel; a kernel without HMMA/HGMMA counts 0. It checks nine
     bf16 instances, each found by a fragment of its mangled name that the
     f32 instance of the same kernel does not contain."""
     import chip_smoke
@@ -223,9 +223,22 @@ def test_smoke_counts_tensor_core_instructions_per_kernel() -> None:
         "flash_fwd_kernel<64, bf16>", "flash_fwd_kernel<128, bf16>",
         "flash_bwd_dq_kernel<64, bf16>", "flash_bwd_dq_kernel<128, bf16>",
         "flash_bwd_dkdv_kernel<64, bf16>", "flash_bwd_dkdv_kernel<128, bf16>",
+        "fused_ce_fwd_kernel<bf16>", "fused_ce_bwd_dh_kernel<bf16>",
         "fused_ce_bwd_dw_kernel<bf16>",
     ])
     mangled = {
+        "fused_ce_fwd_kernel<bf16>": (
+            "_ZN44_GLOBAL__N__3a0583f4_11_fused_ce_cu_935e5b8619fused_ce_fwd_kernel"
+            "I13__nv_bfloat16EEvPKT_S4_PKiPfS7_iii",
+            "_ZN44_GLOBAL__N__3a0583f4_11_fused_ce_cu_935e5b8619fused_ce_fwd_kernel"
+            "IfEEvPKT_S3_PKiPfS6_iii",
+        ),
+        "fused_ce_bwd_dh_kernel<bf16>": (
+            "_ZN44_GLOBAL__N__3a0583f4_11_fused_ce_cu_935e5b8622fused_ce_bwd_dh_kernel"
+            "I13__nv_bfloat16EEvPKT_S4_PKiPKfS8_S8_PfPS1_iii",
+            "_ZN44_GLOBAL__N__3a0583f4_11_fused_ce_cu_935e5b8622fused_ce_bwd_dh_kernel"
+            "IfEEvPKT_S3_PKiPKfS7_S7_PfP13__nv_bfloat16iii",
+        ),
         "flash_bwd_dq_kernel<64, bf16>": (
             "_ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi64E13__nv_bfloat16EEvPKT0_",
             "_ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi64EfEEvPKT0_",

@@ -12,6 +12,7 @@ from the run's checkpoints; ``--dry-run`` runs forward only.
 from __future__ import annotations
 
 import json
+import re
 from pathlib import Path
 
 import numpy as np
@@ -21,6 +22,8 @@ from torch_port_helpers import run_cli
 
 from llmtrain_tpu.cli import main as jax_main
 from llmtrain_tpu_torch.cli import main as port_main
+from llmtrain_tpu_torch.config import load_and_validate_config
+from llmtrain_tpu_torch.training.trainer import refuse_unported
 
 
 def _config(tmp_path: Path, **overrides) -> Path:
@@ -176,3 +179,38 @@ def test_dense_checkpoint_resumes_under_fused_ce(tmp_path, capsys) -> None:
     assert flipped["resumed_from_step"] == 2 and flipped["final_step"] == 4
     assert flipped["final_loss"] == pytest.approx(dense["final_loss"], abs=1e-4)
     assert flipped["final_val_loss"] == pytest.approx(dense["final_val_loss"], abs=1e-4)
+
+
+# ROADMAP.md's stable item names (the top of its "Open items"): a refusal
+# cites one of them, never a numbered queue item.
+STABLE_ITEMS = ("slice 2 deferrals", "continuous serving", "model zoo", "parallelism",
+                "resilience", "telemetry")
+_CITES_STABLE_ITEM = re.compile(r"\(ROADMAP\.md queue A: (" + "|".join(STABLE_ITEMS) + r")\)")
+
+
+@pytest.mark.parametrize(
+    "override",
+    [{"resilience.spike_detection": True}, {"resilience.watchdog.enabled": True},
+     {"resilience.faults.nan_loss_at_step": 4}, {"trainer.extra": {"profile_start_step": 2}},
+     {"telemetry.prometheus": True}, {"mlflow.enabled": True}, {"distributed.enabled": True},
+     {"distributed.mesh.data": 2}, {"trainer.zero.enabled": True}, {"model.remat": True},
+     {"model.extra.lora": {"rank": 4}}],
+    ids=["spike-rollback", "watchdog", "faults", "profiler", "prometheus", "tracker",
+         "data-parallel", "mesh", "zero", "remat", "lora"],
+)
+def test_refusals_cite_a_stable_roadmap_item(tmp_path, override) -> None:
+    cfg, _, _ = load_and_validate_config(_config(tmp_path, **override))
+    with pytest.raises(NotImplementedError) as excinfo:
+        refuse_unported(cfg)
+    assert _CITES_STABLE_ITEM.search(str(excinfo.value)), str(excinfo.value)
+
+
+def test_ema_refusal_cites_a_stable_roadmap_item(tmp_path, capsys) -> None:
+    cfg = _config(tmp_path)
+    assert run_cli(port_main, ["generate", "--config", str(cfg), "--from", str(tmp_path),
+                               "--prompt", "x", "--ema"]) == 2
+    err = capsys.readouterr().err
+    assert _CITES_STABLE_ITEM.search(err) and "slice 2 deferrals" in err, err
+    roadmap = (Path(__file__).resolve().parents[1] / "ROADMAP.md").read_text().lower()
+    for item in STABLE_ITEMS:
+        assert f"**{item}" in roadmap, item

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time variants of the fused lm-head CE's bf16 dW kernel on one H100.
+"""Time variants of the fused lm-head CE's bf16 kernels on one H100.
 
 Run from the root of a checkout on a machine with the card:
 
@@ -7,17 +7,20 @@ Run from the root of a checkout on a machine with the card:
 
 It writes copies of ``llmtrain_tpu_torch/csrc/fused_ce.cu`` under
 ``build/dw_variants/``, each changed by text substitution, builds them and
-``tools/fused_ce_dw_smem_acc.cu`` (the f32 accumulator in shared memory)
-with one nvcc each, all started together, and times ``fused_ce_bwd_dw``
-of each at chip_smoke's training shape (32768, 768, 50257) bf16 with CUDA
-events, in turns within one process (the unchanged kernel first and
-last). Per variant it prints ptxas's registers and spills, the time, and
-max |dW - plain| / max |plain| against the plain version. The variants:
-the kernel as it is; without the per-chunk promotion of the logits (the
-tensor cores sum all of d); 256-token logits passes with two stages; and,
-for timing only (their results are wrong), the kernel without its loads,
-without the logits MMAs, without the dW MMAs, without reading the old dw
-values, and without expf.
+``tools/fused_ce_dw_smem_acc.cu`` (dW with its f32 accumulator in shared
+memory) with one nvcc each, all started together, and times the forward,
+dh and dW of each at chip_smoke's training shape (32768, 768, 50257) bf16
+with CUDA events, in turns within one process (the unchanged kernels
+first and last). Per variant it prints ptxas's registers and spills of
+the three bf16 instances, and per kernel the time and max |out - plain| /
+max |plain| against the plain version. The forward, dh and dW share one
+tensor-core walk (``ce_mma::run``), so a substitution in it changes all
+three. The variants: the kernels as they are; without the per-chunk
+promotion of the logits (the tensor cores sum all of d); 256-column
+logits passes with two stages; the forward at two blocks per SM; and, for
+timing only (their results are wrong), the kernels without their loads,
+without the logits MMAs, without the second product's MMAs, without
+reading the old output values, and without expf in dlogit.
 """
 
 from __future__ import annotations
@@ -40,17 +43,24 @@ VARIANTS = {
         ("logit[mt][nt][e] = dc == 0 ? part[mt][nt][e] : logit[mt][nt][e] + part[mt][nt][e];",
          "(void)0;"),
     ],
-    "256-token passes, 2 stages": [
+    "256-column passes, 2 stages": [
         ("constexpr int kPass = 128;", "constexpr int kPass = 256;"),
         ("constexpr int kStages = 3;", "constexpr int kStages = 2;"),
     ],
+    "forward at 2 blocks per SM": [
+        ("__launch_bounds__(kThreads, kTensorCores<T> ? 1 : 2)\nfused_ce_fwd_kernel",
+         "__launch_bounds__(kThreads, 2)\nfused_ce_fwd_kernel"),
+    ],
     "no loads": [("    if (ld_tile < n_tiles) {\n      bf16* dst", "    if (false) {\n      bf16* dst")],
     "no logits MMAs": [("mma(part[", "if (false) mma(part[")],
-    "no dW MMAs": [("mma(acc[2 * dp", "if (false) mma(acc[2 * dp")],
-    "no old dw values": [("(tile > 0 && col < d && row < v)", "(false)")],
+    "no second-product MMAs": [("mma(acc[2 * dp", "if (false) mma(acc[2 * dp")],
+    "no old output values": [("(tile > 0 && col < d && row < own_n)", "(false)")],
     "no expf": [("return expf(logit - lse) * glse", "return (logit - lse) * glse")],
 }
-SMEM_ACC = "f32 accumulator in shared memory"
+SMEM_ACC = "dW: f32 accumulator in shared memory"
+KERNELS = ("fwd", "dh", "dw")
+# Fragments of the bf16 instances' mangled names.
+TAGS = {"fwd": "fwd_kernelI13", "dh": "dh_kernelI13", "dw": "dw_kernelI13"}
 
 
 def main() -> int:
@@ -89,33 +99,56 @@ def main() -> int:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name!r}:\n{log}")
-        regs = [r for k, r in cs.ptxas_resources(log).items()
-                if "dw_kernelI13" in k or name == SMEM_ACC]
-        print(f"[ptxas] {name}: {'; '.join(regs)}", flush=True)
+        resources = cs.ptxas_resources(log)
         lib = ctypes.CDLL(str(d / "lib.so"))
-        fn = lib.dw_option_b if name == SMEM_ACC else lib.fused_ce_bwd_dw
-        fn.argtypes = [p] * 7 + [i32] * (3 if name == SMEM_ACC else 4) + [p]
-        libs[name] = fn
+        if name == SMEM_ACC:
+            print(f"[ptxas] {name}: {'; '.join(resources.values())}", flush=True)
+            lib.dw_option_b.argtypes = [p] * 7 + [i32] * 3 + [p]
+            libs[name] = {"dw": lib.dw_option_b}
+            continue
+        for k in KERNELS:
+            regs = [r for m, r in resources.items() if TAGS[k] in m]
+            print(f"[ptxas] {name} {k}: {'; '.join(regs)}", flush=True)
+        lib.fused_ce_fwd.argtypes = [p] * 5 + [i32] * 4 + [p]
+        lib.fused_ce_bwd_dh.argtypes = [p] * 8 + [i32] * 4 + [p]
+        lib.fused_ce_bwd_dw.argtypes = [p] * 7 + [i32] * 4 + [p]
+        libs[name] = {"fwd": lib.fused_ce_fwd, "dh": lib.fused_ce_bwd_dh,
+                      "dw": lib.fused_ce_bwd_dw}
 
     smi = cs.phase_device(torch)
     n, d, v = cs.CE_SHAPE
     gen = torch.Generator(device="cuda").manual_seed(21)
     h, w, labels, g = cs._ce_inputs(torch, gen, n, d, v, torch.bfloat16)
     lse, _ = fc.fused_ce_fwd(h, w, labels)
-    plain = fc.fused_ce_bwd_reference(h, w, labels, lse, g, g)[1]
+    plain = {}
+    plain["fwd"] = fc.fused_ce_fwd_reference(h, w, labels)[0]
+    plain["dh"], plain["dw"] = fc.fused_ce_bwd_reference(h, w, labels, lse, g, g)
     stream = torch.cuda.current_stream().cuda_stream
     for name in ["as is", *[k for k in libs if k != "as is"], "as is"]:
-        dw = torch.empty(v, d, device="cuda")
-        args = [x.data_ptr() for x in (h, w, labels, lse, g, g, dw)] + [n, v, d]
-        args += [stream] if name == SMEM_ACC else [1, stream]
-        rc = libs[name](*args)
-        torch.cuda.synchronize()
-        if rc != 0:
-            raise RuntimeError(f"{name!r} launch returned {rc}")
-        ms = cs._time_ms(torch, lambda: libs[name](*args), iters=3, warmup=1)
-        err = ((dw - plain).abs().max() / plain.abs().max()).item()
-        print(f"[dw variant] {name:34s} {ms:8.3f} ms  max |dW - plain| / max |plain| {err:.2e}  "
-              f"on {smi}", flush=True)
+        for k, fn in libs[name].items():
+            lse_out, ll = torch.empty(n, device="cuda"), torch.zeros(n, device="cuda")
+            dh_f32 = torch.empty(n, d, device="cuda")
+            dh = torch.empty(n, d, device="cuda", dtype=torch.bfloat16)
+            dw = torch.empty(v, d, device="cuda")
+            ptrs = lambda *xs: [x.data_ptr() for x in xs]  # noqa: E731
+            if k == "fwd":
+                args, got = ptrs(h, w, labels, lse_out, ll) + [n, v, d, 1], lse_out
+            elif k == "dh":
+                args, got = ptrs(h, w, labels, lse, g, g, dh_f32, dh) + [n, v, d, 1], dh
+            elif name == SMEM_ACC:
+                args, got = ptrs(h, w, labels, lse, g, g, dw) + [n, v, d], dw
+            else:
+                args, got = ptrs(h, w, labels, lse, g, g, dw) + [n, v, d, 1], dw
+            args.append(stream)
+            rc = fn(*args)
+            torch.cuda.synchronize()
+            if rc != 0:
+                raise RuntimeError(f"{name!r} {k} launch returned {rc}")
+            ms = cs._time_ms(torch, lambda: fn(*args), iters=3, warmup=1)
+            ref = plain[k]
+            err = ((got.float() - ref).abs().max() / ref.abs().max()).item()
+            print(f"[variant] {name:30s} {k:3s} {ms:8.3f} ms  max |out - plain| / max |plain| "
+                  f"{err:.2e}  on {smi}", flush=True)
     return 0
 
 
