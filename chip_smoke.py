@@ -8,9 +8,10 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 Phases, each fatal on failure (exit code 1, no result line):
 
 1. Device: nvidia-smi name and power limit, torch/CUDA versions; TF32 off.
-2. Build: the three CUDA sources (llmtrain_tpu_torch/csrc/flash_attention_fwd.cu,
-   flash_attention_bwd.cu and fused_ce.cu) with nvcc for sm_90a, one nvcc
-   each, started together; register and spill report from ptxas; then
+2. Build: the four CUDA sources (llmtrain_tpu_torch/csrc/flash_attention_fwd.cu,
+   flash_attention_bwd.cu, fused_ce.cu and fused_norm_bwd.cu) with nvcc for
+   sm_90a, one nvcc each, started together; register and spill report from
+   ptxas, failing on a spill in any instance of fused_norm_bwd.cu; then
    cuobjdump -sass of the built libraries: the count of HMMA/HGMMA
    (tensor-core) instructions of the nine bf16 instances in
    TENSOR_CORE_KERNELS (flash_fwd_kernel, flash_bwd_dq_kernel and
@@ -32,10 +33,13 @@ Phases, each fatal on failure (exit code 1, no result line):
    b. flash backward, dq and dk/dv kernels, at the training shape and the
       same cases (BWD_RTOL; control: delta left out, lse off by log 2;
       bf16 dq and dk/dv run twice: bit-identical);
-   c. fused add+LayerNorm forward and backward (Triton, first compile
-      timed) at the training path's 32768 x 768 tokens, f32 and bf16, a
-      ragged count, with and without the residual (LN_RTOL and friends;
-      controls: bias left out, the mean(dxhat) term left out);
+   c. fused add+LayerNorm forward (Triton, first compile timed) and
+      backward (CUDA) over NORM_CASES: the training path's 32768 x 768
+      tokens, f32 and bf16, ragged counts, one row, d 384, d 100 and 2048,
+      with and without the residual, the backward with and without the
+      residual's gradient gs (LN_RTOL and friends; controls: bias left
+      out, the mean(dxhat) term left out; bf16 backward run twice:
+      bit-identical);
    d. fused lm-head CE forward, dh and dW at the CE training path's shape
       (32768, 768, 50257) bf16 with and without z-loss, f32, ragged N with
       V below one tile, d 64, a cotangent with zeros, and d 96 with N and V
@@ -49,7 +53,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    port (SDPA forward/backward, F.layer_norm forward/backward; no single
    call computes the fused CE, so its yardstick is the composite F.linear
    -> F.cross_entropy forward/backward, reported as composite_ms);
-   the bound from the shapes against the H100 SXM peaks. Forward at the
+   the bound from the shapes against the H100 SXM peaks; the LayerNorm
+   kernels also by device time (torch.profiler). Forward at the
    serving shape (1, 512, 12, 64) and the training shape (64, 512, 12,
    64), backward at the training shape, LayerNorm at (32768, 768) bf16,
    fused CE at (32768, 768, 50257) bf16.
@@ -89,10 +94,12 @@ Phases, each fatal on failure (exit code 1, no result line):
 10. Fused-norm train: the same config with model.extra.fused_norm: true,
    same init, batches and learning rates, FUSED_STEPS steps: losses
    within FUSED_ATOL of the unfused run's at each step; LayerNorm
-   launches 24 forward and 24 backward (+ 24 reduce) per step.
-11. Profile: torch.profiler over one warmed-up training step: wall,
-   device kernel time and busy share, top kernels, the flash kernels'
-   device time and share. Measurement only.
+   launches 24 forward and 24 backward per step; median step time,
+   tokens/s and peak memory.
+11. Profile: torch.profiler over one warmed-up training step, of phase
+   9's config and of phase 10's: wall, device kernel time and busy share,
+   top kernels, the flash kernels' device time and share, and in the
+   fused-norm step the LayerNorm kernels'. Measurement only.
 12. CE train: the slice-3 configuration, phase 9's config with
    model.vocab_size 50257 and loss_impl unset, which must resolve to
    fused_ce, CE_STEPS steps with one eval and a save at the end: losses
@@ -125,7 +132,8 @@ H100_PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PATH_SHAPE = (1, 512, 12, 12, 64)  # B, T, H, Hkv, D at the serving path
 TRAIN_SHAPE = (64, 512, 12, 12, 64)  # B, T, H, Hkv, D at the training path
 LN_TOKENS, LN_DIM = 64 * 512, 768  # tokens and width at the training path
-CUDA_SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "fused_ce.cu")
+CUDA_SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "fused_ce.cu",
+                "fused_norm_bwd.cu")
 ATOL_O = {"bfloat16": 2e-2, "float32": 1e-4}
 ATOL_LSE = 1e-4
 LOGITS_ATOL = 0.1
@@ -166,6 +174,11 @@ TENSOR_CORE_KERNELS = {
     "fused_ce.cu": [("fused_ce_fwd_kernel", ()), ("fused_ce_bwd_dh_kernel", ()),
                     ("fused_ce_bwd_dw_kernel", ())],
 }
+
+
+# Sources without tensor-core instructions whose every instance must
+# still fit its registers: the build fails on a spill in any of them.
+NO_SPILL_SOURCES = ("fused_norm_bwd.cu",)
 
 
 def tensor_core_instance(kernel: str, dims: tuple[int, ...]) -> tuple[str, str]:
@@ -230,7 +243,8 @@ def ptxas_resources(report: str) -> dict[str, str]:
 def phase_build() -> None:
     """One nvcc per CUDA source, all started together; then the SASS of
     the redesigned bf16 kernels must hold tensor-core instructions, and
-    ptxas must report no spills for them."""
+    ptxas must report no spills for them or for any instance of the
+    NO_SPILL_SOURCES."""
     import re
 
     from llmtrain_tpu_torch.ops.kernel_build import CSRC_DIR, build_libraries
@@ -243,6 +257,14 @@ def phase_build() -> None:
             log(f"[build]   {name}: {resources}")
     log(f"[build] all CUDA sources in {time.perf_counter() - t0:.2f}s wall")
     for r in results:
+        if r.source.name in NO_SPILL_SOURCES:
+            resources = ptxas_resources(r.ptxas_report)
+            spilled = {n: x for n, x in resources.items()
+                       if re.search(r"\b[1-9]\d* bytes spill", x)}
+            log(f"[build] {r.source.name}: {len(resources)} instances (bf16 and f32), "
+                f"{len(spilled)} spill")
+            if not resources or spilled:
+                raise RuntimeError(f"{r.source.name}: no ptxas report or spills: {spilled}")
         if r.source.name not in TENSOR_CORE_KERNELS:
             continue
         sass = subprocess.run([find_cuobjdump(), "-sass", str(r.library)], capture_output=True,
@@ -493,46 +515,75 @@ def phase_bwd_checks(torch) -> dict:
     return errors
 
 
+# Cases of the LayerNorm check phase: (name, tokens, width, dtype name,
+# residual or not, mean of the cotangent gy). The training path's (32768,
+# 768) and around it: a ragged count, one row, the width of d_model 384,
+# and widths the backward kernel takes on its general path (d = 100 in
+# bf16, not whole 16-byte vectors; d = 2048, above its register path) or
+# with masked lanes (d = 100 in f32: 25 vectors of four). The one row's gy
+# has mean 1: with zero-mean noise one row's mean(dxhat) is ~0.04, and the
+# control that leaves it out falls under 2^-7 for 40% of seeds.
+NORM_CASES = [
+    ("train tokens, residual", LN_TOKENS, LN_DIM, "bfloat16", True, 0.0),
+    ("train tokens", LN_TOKENS, LN_DIM, "bfloat16", False, 0.0),
+    ("f32, residual", LN_TOKENS, LN_DIM, "float32", True, 0.0),
+    ("ragged 32731, residual", LN_TOKENS - 37, LN_DIM, "bfloat16", True, 0.0),
+    ("ragged 1001 f32", 1001, LN_DIM, "float32", False, 0.0),
+    ("d 384, residual", LN_TOKENS, 384, "bfloat16", True, 0.0),
+    ("d 100 f32", 1001, 100, "float32", False, 0.0),
+    ("d 100 (general path)", 4099, 100, "bfloat16", True, 0.0),
+    ("d 2048 (general path)", 3000, 2048, "bfloat16", False, 0.0),
+    ("n = 1", 1, LN_DIM, "bfloat16", True, 1.0),
+]
+
+
 def phase_norm_checks(torch) -> dict:
-    """Kernels 4 and 5 (fused add+LayerNorm forward and backward) against
-    their plain versions at the training path's tokens, f32 and bf16, a
-    ragged token count, with and without the residual. Controls: the
-    forward without its bias and the backward without its mean(dxhat)
-    term must land above the tolerances. The first call also compiles the
-    Triton kernels (timed)."""
+    """Kernels 4 and 5 (fused add+LayerNorm forward, Triton, and backward,
+    CUDA) against their plain versions over NORM_CASES; the backward both
+    without and with the residual stream's gradient gs (dx = ds + gs with
+    the two roundings of ``(ds + gs).to(dtype)``). Controls: the forward
+    without its bias and the backward without its mean(dxhat) term must
+    land above the tolerances. bf16 cases run the backward twice: ds, dx,
+    dscale and dbias must be bit-identical. The first call also compiles
+    the Triton forward (timed)."""
     from llmtrain_tpu_torch.ops import fused_norm as fn
 
     gen = torch.Generator(device="cuda").manual_seed(11)
-    cases = [
-        ("train tokens, residual", LN_TOKENS, torch.bfloat16, True),
-        ("train tokens", LN_TOKENS, torch.bfloat16, False),
-        ("f32, residual", LN_TOKENS, torch.float32, True),
-        ("ragged 32731, residual", LN_TOKENS - 37, torch.bfloat16, True),
-        ("ragged 1001 f32", 1001, torch.float32, False),
-    ]
+    gen_gs = torch.Generator(device="cuda").manual_seed(14)
     errors = {}
-    for i, (name, n, dtype, with_res) in enumerate(cases):
-        x = (torch.randn(n, LN_DIM, device="cuda", generator=gen) * 2 + 0.5).to(dtype)
-        res = torch.randn(n, LN_DIM, device="cuda", generator=gen).to(dtype) if with_res else None
-        scale = 1 + 0.1 * torch.randn(LN_DIM, device="cuda", generator=gen)
-        bias = 0.5 * torch.randn(LN_DIM, device="cuda", generator=gen)
-        gy = torch.randn(n, LN_DIM, device="cuda", generator=gen).to(dtype)
+    for i, (name, n, d, dt_name, with_res, gy_mean) in enumerate(NORM_CASES):
+        dtype = getattr(torch, dt_name)
+        x = (torch.randn(n, d, device="cuda", generator=gen) * 2 + 0.5).to(dtype)
+        res = torch.randn(n, d, device="cuda", generator=gen).to(dtype) if with_res else None
+        scale = 1 + 0.1 * torch.randn(d, device="cuda", generator=gen)
+        bias = 0.5 * torch.randn(d, device="cuda", generator=gen)
+        gy = (torch.randn(n, d, device="cuda", generator=gen) + gy_mean).to(dtype)
+        gs = torch.randn(n, d, device="cuda", generator=gen_gs).to(dtype)
         t0 = time.perf_counter()
         y, s, mean, rstd = fn.fused_norm_fwd(x, res, scale, bias)
         ds, dscale, dbias = fn.fused_norm_bwd(s, scale, mean, rstd, gy)
+        dx, dscale_gs, dbias_gs = fn.fused_norm_bwd(s, scale, mean, rstd, gy, gs)
         torch.cuda.synchronize()
         if i == 0:
-            log(f"[norm] first calls (Triton compile of the three kernels): "
+            log(f"[norm] first calls (Triton compile of the forward): "
                 f"{time.perf_counter() - t0:.2f}s")
+        same = True
+        if dtype == torch.bfloat16:
+            again = (*fn.fused_norm_bwd(s, scale, mean, rstd, gy),
+                     *fn.fused_norm_bwd(s, scale, mean, rstd, gy, gs))
+            same = all(torch.equal(a, b) for a, b in zip(
+                again, (ds, dscale, dbias, dx, dscale_gs, dbias_gs)))
         ry, rs, rmean, rrstd = fn.fused_norm_fwd_reference(x, res, scale, bias)
         rds, rdscale, rdbias = fn.fused_norm_bwd_reference(s, scale, mean, rstd, gy)
-        tol = LN_RTOL[str(dtype).replace("torch.", "")]
+        rdx = fn.fused_norm_bwd_reference(s, scale, mean, rstd, gy, gs)[0]
+        tol = LN_RTOL[dt_name]
         errs = {
             "y": (_rel_err(torch, y, ry), tol),
             "s": (_rel_err(torch, s, rs), tol),
             "mean": ((mean - rmean).abs().max().item() / rmean.abs().max().item(), LN_STATS_RTOL),
             "rstd": (_rel_err(torch, rstd, rrstd), LN_STATS_RTOL),
             "ds": (_rel_err(torch, ds, rds), tol),
+            "dx": (_rel_err(torch, dx, rdx), tol),
             "dscale": (_rel_err(torch, dscale, rdscale), LN_PARAM_GRAD_RTOL),
             "dbias": (_rel_err(torch, dbias, rdbias), LN_PARAM_GRAD_RTOL),
         }
@@ -542,18 +593,35 @@ def phase_norm_checks(torch) -> dict:
         dxhat = gy.float() * scale
         no_m1 = rstd[:, None] * (dxhat - xhat * (dxhat * xhat).mean(1, keepdim=True))
         ctrl = {"y": _rel_err(torch, y, no_bias), "ds": _rel_err(torch, ds, no_m1)}
-        finite = all(torch.isfinite(t).all().item() for t in (y, s, ds, dscale, dbias))
-        ok = (finite and all(e <= lim for e, lim in errs.values())
+        finite = all(torch.isfinite(t).all().item() for t in (y, s, ds, dx, dscale, dbias))
+        # With gs the parameter gradients are the same sums.
+        params_same = torch.equal(dscale, dscale_gs) and torch.equal(dbias, dbias_gs)
+        ok = (finite and same and params_same and all(e <= lim for e, lim in errs.values())
               and ctrl["y"] > tol and ctrl["ds"] > tol)
-        log(f"[norm] {name:24s} ({n}, {LN_DIM}) {str(dtype)[6:]:8s} "
+        log(f"[norm] {name:24s} ({n}, {d}) {dt_name:8s} "
             + " ".join(f"{k} {e:.2e}/{lim:g}" for k, (e, lim) in errs.items())
             + f"; control y-without-bias {ctrl['y']:.2e}, ds-without-mean(dxhat) "
-            f"{ctrl['ds']:.2e}  {'ok' if ok else 'FAIL'}")
+            f"{ctrl['ds']:.2e}"
+            f"{'  reruns bit-identical' if dtype == torch.bfloat16 and same else ''}"
+            f"{'' if same else '  RERUN DIFFERS'}"
+            f"{'' if params_same else '  DSCALE/DBIAS DIFFER WITH GS'}  {'ok' if ok else 'FAIL'}")
         if not ok:
             raise RuntimeError(f"fused norm kernels disagree with their plain versions: {name}")
         errors[name] = {"fwd": (y.float() - ry.float()).abs().max().item(),
-                        "bwd": (ds.float() - rds.float()).abs().max().item()}
+                        "bwd": max((ds.float() - rds.float()).abs().max().item(),
+                                   (dx.float() - rdx.float()).abs().max().item(),
+                                   (dscale - rdscale).abs().max().item(),
+                                   (dbias - rdbias).abs().max().item())}
     return errors
+
+
+def norm_bwd_bounds(n, d, elt_bytes):
+    """(bytes, ms) of the LayerNorm backward without and with the residual's
+    gradient: s and dy in, dx out, scale, mean/rstd and dscale/dbias once;
+    the gs flavour reads one more (n, d) tensor. Bound by bytes."""
+    moved = 3 * n * d * elt_bytes + d * 4 + 2 * n * 4 + 2 * d * 4
+    with_gs = moved + n * d * elt_bytes
+    return tuple((b, b / H100_HBM_BYTES_PER_S * 1e3) for b in (moved, with_gs))
 
 
 def bwd_bounds(b, t, h, hkv, d, elt_bytes, dtype_name):
@@ -618,11 +686,31 @@ def phase_bwd_timing(torch, smi: str) -> dict:
     }
 
 
+def _device_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
+    """Device time per call of ``fn``: torch.profiler over ``iters`` calls,
+    the sum of the CUDA durations of the kernels they launched, over
+    ``iters``. For kernels short enough that the host may set their event
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    return sum(e.self_device_time_total for e in kernels) / 1e3 / iters
+
+
 def phase_norm_timing(torch, smi: str) -> dict:
-    """CUDA-event ms of kernels 4 and 5 at the training path's tokens
-    (32768, 768) bf16, without the residual (the function F.layer_norm
-    computes, timed beside it as the yardstick) and with it (ln_2's
-    variant); the plain versions; bounds from the bytes each must move."""
+    """Kernels 4 and 5 at the training path's tokens (32768, 768) bf16:
+    CUDA-event ms over back-to-back calls and device ms (profiler), without
+    the residual (the function F.layer_norm computes, timed beside it as
+    the yardstick) and with it (ln_2's variant: the forward adds the
+    residual, the backward adds its gradient gs); the plain versions;
+    bounds from the bytes each must move."""
     import torch.nn.functional as F
 
     from llmtrain_tpu_torch.ops import fused_norm as fn
@@ -634,13 +722,20 @@ def phase_norm_timing(torch, smi: str) -> dict:
     scale = torch.ones(d, device="cuda")
     bias = torch.zeros(d, device="cuda")
     gy = torch.randn(n, d, device="cuda", generator=gen).to(torch.bfloat16)
+    gs = torch.randn(n, d, device="cuda", generator=gen).to(torch.bfloat16)
     with torch.no_grad():
-        fwd_ms = _time_ms(torch, lambda: fn.fused_norm_fwd(x, None, scale, bias))
+        fwd = lambda: fn.fused_norm_fwd(x, None, scale, bias)  # noqa: E731
+        fwd_ms, fwd_dev = _time_ms(torch, fwd), _device_ms(torch, fwd)
         fwd_res_ms = _time_ms(torch, lambda: fn.fused_norm_fwd(x, res, scale, bias))
         _, s, mean, rstd = fn.fused_norm_fwd(x, None, scale, bias)
-        bwd_ms = _time_ms(torch, lambda: fn.fused_norm_bwd(s, scale, mean, rstd, gy))
+        bwd = lambda: fn.fused_norm_bwd(s, scale, mean, rstd, gy)  # noqa: E731
+        bwd_gs = lambda: fn.fused_norm_bwd(s, scale, mean, rstd, gy, gs)  # noqa: E731
+        bwd_ms, bwd_dev = _time_ms(torch, bwd), _device_ms(torch, bwd)
+        gs_ms, gs_dev = _time_ms(torch, bwd_gs), _device_ms(torch, bwd_gs)
         fwd_plain = _time_ms(torch, lambda: fn.fused_norm_fwd_reference(x, None, scale, bias))
         bwd_plain = _time_ms(torch, lambda: fn.fused_norm_bwd_reference(s, scale, mean, rstd, gy))
+        gs_plain = _time_ms(torch, lambda: fn.fused_norm_bwd_reference(s, scale, mean, rstd, gy,
+                                                                        gs))
         lib_fwd = _time_ms(torch, lambda: F.layer_norm(x, (d,), scale.to(x.dtype),
                                                         bias.to(x.dtype), 1e-6))
     xr = x.detach().requires_grad_(True)
@@ -649,23 +744,27 @@ def phase_norm_timing(torch, smi: str) -> dict:
     y_lib = F.layer_norm(xr, (d,), w, bb, 1e-6)
     lib_bwd = _time_ms(torch, lambda: torch.autograd.grad(y_lib, (xr, w, bb), gy,
                                                           retain_graph=True))
-    elt = 2
-    fwd_bytes = 2 * n * d * elt + 2 * d * 4 + 2 * n * 4  # x in, y out, params, mean/rstd out
-    bwd_bytes = 3 * n * d * elt + d * 4 + 2 * n * 4 + 2 * d * 4  # s, dy in, dx out, stats
+    fwd_bytes = 2 * n * d * 2 + 2 * d * 4 + 2 * n * 4  # x in, y out, params, mean/rstd out
     fwd_bound = fwd_bytes / H100_HBM_BYTES_PER_S * 1e3
-    bwd_bound = bwd_bytes / H100_HBM_BYTES_PER_S * 1e3
+    (bwd_bytes, bwd_bound), (gs_bytes, gs_bound) = norm_bwd_bounds(n, d, 2)
     log(f"[timing] fused LayerNorm at ({n}, {d}) bf16 on {smi}:")
-    log(f"[timing]   fwd kernel {fwd_ms:.4f} ms (with residual {fwd_res_ms:.4f} ms)  plain "
-        f"{fwd_plain:.4f} ms  F.layer_norm (yardstick) {lib_fwd:.4f} ms  bound {fwd_bound:.4f} ms "
-        f"by bytes ({fwd_bytes} bytes)")
-    log(f"[timing]   bwd kernel + reduce {bwd_ms:.4f} ms  plain {bwd_plain:.4f} ms  "
-        f"F.layer_norm backward (yardstick) {lib_bwd:.4f} ms  bound {bwd_bound:.4f} ms by bytes "
-        f"({bwd_bytes} bytes)")
+    log(f"[timing]   fwd kernel {fwd_ms:.4f} ms, device {fwd_dev:.4f} ms (with residual "
+        f"{fwd_res_ms:.4f} ms)  plain {fwd_plain:.4f} ms  F.layer_norm (yardstick) {lib_fwd:.4f} ms"
+        f"  bound {fwd_bound:.4f} ms by bytes ({fwd_bytes} bytes)")
+    log(f"[timing]   bwd kernel {bwd_ms:.4f} ms, device {bwd_dev:.4f} ms (bound {bwd_bound:.4f} ms "
+        f"by bytes, {bwd_bytes} bytes; {bwd_bound / bwd_ms:.1%} of it by event, "
+        f"{bwd_bound / bwd_dev:.1%} by device)  plain {bwd_plain:.4f} ms  F.layer_norm backward "
+        f"(yardstick) {lib_bwd:.4f} ms")
+    log(f"[timing]   bwd kernel with gs {gs_ms:.4f} ms, device {gs_dev:.4f} ms (bound "
+        f"{gs_bound:.4f} ms by bytes, {gs_bytes} bytes; {gs_bound / gs_ms:.1%} of it by event, "
+        f"{gs_bound / gs_dev:.1%} by device)  plain {gs_plain:.4f} ms")
     return {
-        "fwd": dict(ms=fwd_ms, plain_ms=fwd_plain, library_ms=lib_fwd, bound_ms=fwd_bound,
-                    bound_by="bytes", ms_with_residual=fwd_res_ms),
-        "bwd": dict(ms=bwd_ms, plain_ms=bwd_plain, library_ms=lib_bwd, bound_ms=bwd_bound,
-                    bound_by="bytes"),
+        "fwd": dict(ms=fwd_ms, device_ms=fwd_dev, plain_ms=fwd_plain, library_ms=lib_fwd,
+                    bound_ms=fwd_bound, bound_by="bytes", ms_with_residual=fwd_res_ms),
+        "bwd": dict(ms=bwd_ms, device_ms=bwd_dev, plain_ms=bwd_plain, library_ms=lib_bwd,
+                    bound_ms=bwd_bound, bound_by="bytes", ms_with_gs=gs_ms,
+                    device_ms_with_gs=gs_dev, plain_ms_with_gs=gs_plain,
+                    bound_ms_with_gs=gs_bound),
     }
 
 
@@ -1051,11 +1150,14 @@ def phase_generate(torch, model, smi: str) -> None:
         raise RuntimeError("the re-forward branch did not go through the flash kernel")
 
 
-def _attention_share(events, device_ms: float) -> str:
-    """Device time of the three flash kernels in a profile, by kernel and
-    as a share of all device kernel time."""
+def _kernel_share(events, device_ms: float,
+                     names=("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                            "flash_bwd_dkdv_kernel")) -> str:
+    """Device time of the named kernels (by default the three flash
+    kernels) in a profile, by kernel and as a share of all device kernel
+    time."""
     parts, total = [], 0.0
-    for name in ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel"):
+    for name in names:
         hits = [e for e in events if name in e.key]
         ms = sum(e.self_device_time_total for e in hits) / 1e3
         total += ms
@@ -1089,7 +1191,7 @@ def phase_profile(torch, model, smi: str) -> None:
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:6d}  "
             f"{e.key[:90]}")
-    log(f"[profile] attention kernels: {_attention_share(events, device_ms)}")
+    log(f"[profile] attention kernels: {_kernel_share(events, device_ms)}")
 
 
 
@@ -1182,7 +1284,6 @@ def _reset_counts() -> None:
                 fn.fused_norm_fwd, fn.fused_norm_bwd, fc.fused_ce_fwd, fc.fused_ce_bwd_dh,
                 fc.fused_ce_bwd_dw):
         fn_.launches = 0
-    fn.fused_norm_bwd.reduce_launches = 0
 
 
 def _read_counts() -> dict:
@@ -1196,7 +1297,6 @@ def _read_counts() -> dict:
         "flash_attention_bwd_dkdv": fa.flash_attention_bwd_dkdv.launches,
         "fused_norm_fwd": fn.fused_norm_fwd.launches,
         "fused_norm_bwd": fn.fused_norm_bwd.launches,
-        "fused_norm_bwd_reduce": fn.fused_norm_bwd.reduce_launches,
         "fused_ce_fwd": fc.fused_ce_fwd.launches,
         "fused_ce_bwd_dh": fc.fused_ce_bwd_dh.launches,
         "fused_ce_bwd_dw": fc.fused_ce_bwd_dw.launches,
@@ -1256,7 +1356,7 @@ def phase_train(torch, smi: str, tmp: Path) -> dict:
         "flash_attention_fwd": layers * (TRAIN_STEPS + n_evals * eval_batches),
         "flash_attention_bwd_dq": layers * TRAIN_STEPS,
         "flash_attention_bwd_dkdv": layers * TRAIN_STEPS,
-        "fused_norm_fwd": 0, "fused_norm_bwd": 0, "fused_norm_bwd_reduce": 0,
+        "fused_norm_fwd": 0, "fused_norm_bwd": 0,
     })
     if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
         raise RuntimeError(f"logged losses are not {TRAIN_STEPS} finite values: {losses}")
@@ -1305,7 +1405,9 @@ def phase_fused_train(torch, smi: str, tmp: Path, train: dict) -> dict:
     """The same config with model.extra.fused_norm: true (same init,
     batches and learning rates) through `train` for FUSED_STEPS steps:
     losses per step within FUSED_ATOL of the unfused run's; LN launches
-    24 fwd + 24 bwd (+ 24 reduce) per step, 24 fwd per eval batch."""
+    24 fwd + 24 bwd per step, 24 fwd per eval batch. Logs the median step
+    time from step 6 on, tokens/s and peak memory."""
+    import numpy as np
     import yaml
 
     from llmtrain_tpu_torch.config import load_and_validate_config
@@ -1321,6 +1423,7 @@ def phase_fused_train(torch, smi: str, tmp: Path, train: dict) -> dict:
     counts = _read_counts()  # and end here
     if code != 0:
         raise RuntimeError(f"fused-norm train exited {code}")
+    summary = json.loads(out)["train_result"]
     steps = _logged_steps(Path(cfg.output.root_dir) / "fused")
     diffs = {i: abs(steps[i]["loss"] - train["steps"][i]["loss"]) for i in sorted(steps)}
     fused_losses = [steps[i]["loss"] for i in sorted(steps)]
@@ -1335,11 +1438,19 @@ def phase_fused_train(torch, smi: str, tmp: Path, train: dict) -> dict:
         "flash_attention_bwd_dkdv": layers * FUSED_STEPS,
         "fused_norm_fwd": 2 * layers * forwards,
         "fused_norm_bwd": 2 * layers * FUSED_STEPS,
-        "fused_norm_bwd_reduce": 2 * layers * FUSED_STEPS,
     })
     if len(diffs) != FUSED_STEPS or max(diffs.values()) > FUSED_ATOL:
         raise RuntimeError("the fused-norm run does not agree with the unfused one")
-    return dict(counts=counts)
+    steady = [steps[i] for i in sorted(steps) if i > 5]
+    step_ms = float(np.median([x["step_time"] for x in steady])) * 1e3
+    tok_s = float(np.median([x["tokens_per_sec"] for x in steady]))
+    unfused_ms = float(np.median([train["steps"][i]["step_time"] for i in sorted(steps)
+                                  if i > 5])) * 1e3
+    log(f"[fused] steady state (median of steps 6-{FUSED_STEPS}) on {smi}: step {step_ms:.1f} ms, "
+        f"{tok_s:.0f} tokens/s, peak memory {summary['peak_memory'] / 2**30:.2f} GiB; the "
+        f"unfused run's same steps {unfused_ms:.1f} ms")
+    return dict(cfg_path=cfg_path, counts=counts, step_ms=step_ms, tokens_per_sec=tok_s,
+                summary=summary)
 
 
 # ------------------------------------------------ CE train (GPT-2 vocabulary)
@@ -1416,7 +1527,7 @@ def phase_ce_train(torch, smi: str, tmp: Path, eval_batches: int) -> dict:
         "flash_attention_fwd": layers * (CE_STEPS + eval_batches),
         "flash_attention_bwd_dq": layers * CE_STEPS,
         "flash_attention_bwd_dkdv": layers * CE_STEPS,
-        "fused_norm_fwd": 0, "fused_norm_bwd": 0, "fused_norm_bwd_reduce": 0,
+        "fused_norm_fwd": 0, "fused_norm_bwd": 0,
         "fused_ce_fwd": CE_STEPS + eval_batches,
         "fused_ce_bwd_dh": CE_STEPS,
         "fused_ce_bwd_dw": CE_STEPS,
@@ -1489,7 +1600,10 @@ def phase_train_profile(torch, smi: str, cfg_path: Path) -> None:
         f"{sum(e.count for e in events)} kernel launches")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:5d}  {e.key[:90]}")
-    log(f"[profile] attention kernels: {_attention_share(events, device_ms)}")
+    log(f"[profile] attention kernels: {_kernel_share(events, device_ms)}")
+    if cfg.model.extra.get("fused_norm"):
+        log(f"[profile] LayerNorm kernels: "
+            f"{_kernel_share(events, device_ms, ('ln_fwd', 'fused_norm_bwd_kernel'))}")
 
 
 def main() -> int:
@@ -1534,6 +1648,7 @@ def main() -> int:
         train = phase_train(torch, smi, Path(tmp))
         fused = phase_fused_train(torch, smi, Path(tmp), train)
         phase_train_profile(torch, smi, train["cfg_path"])
+        phase_train_profile(torch, smi, fused["cfg_path"])
         ce = phase_ce_train(torch, smi, Path(tmp), train["eval_batches"])
         phase_train_profile(torch, smi, ce["cfg_path"])
     paths = (train["counts"], fused["counts"], ce["counts"])
@@ -1563,7 +1678,7 @@ def main() -> int:
         dict(name="fused_norm_fwd", route="triton", source="llmtrain_tpu_torch/ops/fused_norm.py",
              replaces="llmtrain_tpu/ops/fused_norm.py:110",
              max_abs_err=max(e["fwd"] for e in norm_errs.values()), **norm_timing["fwd"]),
-        dict(name="fused_norm_bwd", route="triton", source="llmtrain_tpu_torch/ops/fused_norm.py",
+        dict(name="fused_norm_bwd", route="cuda", source=csrc + "fused_norm_bwd.cu",
              replaces="llmtrain_tpu/ops/fused_norm.py:158",
              max_abs_err=max(e["bwd"] for e in norm_errs.values()), **norm_timing["bwd"]),
         dict(name="fused_ce_fwd", route="cuda", source=csrc + "fused_ce.cu",
@@ -1580,6 +1695,8 @@ def main() -> int:
         k["launches"] = launches[k["name"]]
     log(f"[train] step {train['step_ms']:.1f} ms, {train['tokens_per_sec']:.0f} tokens/s, "
         f"MFU {train['mfu']:.4f}, peak memory {train['summary']['peak_memory'] / 2**30:.2f} GiB")
+    log(f"[fused] step {fused['step_ms']:.1f} ms, {fused['tokens_per_sec']:.0f} tokens/s, "
+        f"peak memory {fused['summary']['peak_memory'] / 2**30:.2f} GiB")
     log(f"[ce-train] step {ce['step_ms']:.1f} ms, {ce['tokens_per_sec']:.0f} tokens/s, "
         f"MFU {ce['mfu']:.4f}, peak memory {ce['summary']['peak_memory'] / 2**30:.2f} GiB "
         f"(dense {ce['dense']['peak_memory'] / 2**30:.2f} GiB)")

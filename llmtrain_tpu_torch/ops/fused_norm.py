@@ -1,5 +1,6 @@
-"""Fused residual-add + LayerNorm: hand-written Triton kernels (forward and
-backward), their plain versions, and the autograd functions the GPT calls.
+"""Fused residual-add + LayerNorm: the hand-written kernels (forward in
+Triton, backward in CUDA C++), their plain versions, and the autograd
+functions the GPT calls.
 
 Counterpart of ``llmtrain_tpu/ops/fused_norm.py``: the TPU kernels
 ``_run_forward`` (``_fwd_kernel``, pallas_call at :142) and
@@ -12,30 +13,24 @@ Counterpart of ``llmtrain_tpu/ops/fused_norm.py``: the TPU kernels
     ds    = rstd * (dxhat - mean_d(dxhat) - xhat * mean_d(dxhat * xhat))
     dscale = sum_tokens(dy * xhat),  dbias = sum_tokens(dy)
 
-Why Triton and not CUDA C++: each kernel is one pass over rows of d (768)
-values with a row reduction, the fused elementwise-plus-reduction work
-Triton's block model serves as well as hand-written CUDA, and the port's
-rules allow it for these two kernels. What bounds them is bytes: the
-forward reads x (and the residual) once and writes y (and s) once, the
-backward reads s and dy and writes dx, at 3.35 TB/s; the arithmetic is a
-few operations per byte.
+With ``gs``, the cotangent of the returned sum (the residual stream), the
+backward writes ``dx = (ds + gs)`` with the two roundings of
+``(ds + gs).to(dtype)``, which JAX runs after its pallas_call.
 
-Design, and where it leaves the TPU's. The forward is one program per
-token row (the TPU tiles 256 tokens per grid step because VMEM is large;
-here a row of 768 values fits one program's registers and 32768 rows
-keep every SM busy). The TPU backward sums dscale/dbias across the whole
-token grid in one output block that every grid step revisits
-(``_bwd_kernel``, :80-100); GPU programs run in no order, so each
-backward program takes a fixed run of 32 rows, writes its partial sums
-into an f32 (n_programs, 2, d) buffer, and a second launch reduces that
-buffer over programs. No atomics, so the result is deterministic.
+The forward is a Triton kernel, one program per token row: a pass over
+768 values with a row reduction, bound by bytes. The backward is CUDA
+C++, ``csrc/fused_norm_bwd.cu``, compiled with ``nvcc`` for ``sm_90a`` on
+first use and called through a plain C interface (ops/kernel_build.py):
+a warp owns a row and reduces it with shuffles, a block of eight warps
+owns a fixed run of rows, and the blocks' dscale/dbias partials are
+summed in a fixed order (blocks within groups, then the groups) by the
+last blocks to finish, in the same launch (the note at the head of the
+source says why). :func:`_bwd_grid` picks that split on the host.
 
 * :func:`fused_norm_fwd` / :func:`fused_norm_bwd` are the kernels'
-  wrappers: CUDA tensors launch the Triton kernel (counted in
-  ``.launches``; the backward's reduce launch in
-  ``fused_norm_bwd.reduce_launches``) or raise, CPU tensors take the
-  plain versions :func:`fused_norm_fwd_reference` /
-  :func:`fused_norm_bwd_reference`.
+  wrappers: CUDA tensors launch the kernel (counted in ``.launches``) or
+  raise, CPU tensors take the plain versions
+  :func:`fused_norm_fwd_reference` / :func:`fused_norm_bwd_reference`.
 * :func:`fused_layer_norm` (returns y) and :func:`fused_add_layer_norm`
   (returns ``(y, s)``) are the JAX public functions, as
   ``torch.autograd.Function``s that save ``s``, ``mean`` and ``rstd``.
@@ -43,21 +38,37 @@ buffer over programs. No atomics, so the result is deterministic.
 Divergence kept on purpose: JAX's ``resolve_fused_norm`` quietly falls
 back to the unfused LayerNorm off the TPU. The port does not: on the card
 it runs the kernels or raises, on the CPU it runs the plain versions.
-Triton is imported inside the launching functions only (the CPU tests
-import this module on a machine without Triton).
+Triton is imported, and the CUDA source built, inside the launching
+functions only (the CPU tests import this module on a machine with
+neither).
 """
 
 from __future__ import annotations
 
+import ctypes
+import math
 import threading
 from typing import Any
 
 import torch
 
 DEFAULT_EPS = 1e-6
-BWD_ROWS_PER_PROGRAM = 32
 _KERNELS: dict[str, Any] = {}
 _KERNELS_LOCK = threading.Lock()
+_BWD_SOURCE = "fused_norm_bwd.cu"
+_BWD_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The backward's grid (csrc/fused_norm_bwd.cu): blocks of BWD_WARPS warps
+# (the kernel's kWarps), at most BWD_CTAS_PER_SM blocks per SM, each owning
+# at least BWD_MIN_CTA_ELEMENTS elements (32 rows at d = 768), so that a
+# small input runs on few blocks; BWD_COUNTERS ticket counters per (device,
+# stream), the kernel's kMaxCounters.
+BWD_WARPS = 8
+BWD_CTAS_PER_SM = 1
+BWD_MIN_CTA_ELEMENTS = 32 * 768
+BWD_COUNTERS = 64
+_BWD_MAX_FAST_D = 1024
+_BWD_STATE: dict[tuple[int | None, int], tuple[int, torch.Tensor]] = {}
+_BWD_LOCK = threading.Lock()
 
 
 def _check(x: torch.Tensor, residual: torch.Tensor | None, scale: torch.Tensor,
@@ -96,9 +107,13 @@ def fused_norm_bwd_reference(
     mean: torch.Tensor,
     rstd: torch.Tensor,
     gy: torch.Tensor,
+    gs: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of the backward kernels: ``(ds, dscale, dbias)``;
-    ds in gy's dtype and shape, dscale/dbias f32 sums over all tokens."""
+    """Plain version of the backward kernel: ``(ds, dscale, dbias)``; ds
+    in gy's dtype and shape, dscale/dbias f32 sums over all tokens. With
+    ``gs`` (the cotangent of the returned sum) the first output is
+    ``dx = (ds + gs)``, rounded as ``(ds + gs).to(gy.dtype)`` rounds it:
+    ds to gy's dtype first, then the f32 sum."""
     n, d = _check(s, None, scale, None)
     sf = s.float().reshape(n, d)
     gyf = gy.float().reshape(n, d)
@@ -106,13 +121,15 @@ def fused_norm_bwd_reference(
     dxhat = gyf * scale.float()
     m1 = dxhat.mean(dim=1, keepdim=True)
     m2 = (dxhat * xhat).mean(dim=1, keepdim=True)
-    ds = rstd[:, None] * (dxhat - m1 - xhat * m2)
-    return ds.to(gy.dtype).reshape(gy.shape), (gyf * xhat).sum(dim=0), gyf.sum(dim=0)
+    ds = (rstd[:, None] * (dxhat - m1 - xhat * m2)).to(gy.dtype)
+    if gs is not None:
+        ds = (ds.float() + gs.float().reshape(n, d)).to(gy.dtype)
+    return ds.reshape(gy.shape), (gyf * xhat).sum(dim=0), gyf.sum(dim=0)
 
 
 def _triton_kernels() -> dict[str, Any]:
-    """The three Triton kernels, defined (and Triton imported) on first
-    use; Triton compiles each on its first launch."""
+    """The Triton forward kernel, defined (and Triton imported) on first
+    use; Triton compiles it on its first launch."""
     with _KERNELS_LOCK:
         if _KERNELS:
             return _KERNELS
@@ -141,51 +158,7 @@ def _triton_kernels() -> dict[str, Any]:
             tl.store(MEAN + row, mean)
             tl.store(RSTD + row, rstd)
 
-        @triton.jit
-        def ln_bwd(S, W, MEAN, RSTD, GY, DX, PART, n_rows, n_cols,
-                   ROWS: tl.constexpr, BLOCK_D: tl.constexpr):
-            pid = tl.program_id(0).to(tl.int64)
-            cols = tl.arange(0, BLOCK_D)
-            m = cols < n_cols
-            w = tl.load(W + cols, mask=m, other=0.0).to(tl.float32)
-            dw = tl.zeros([BLOCK_D], dtype=tl.float32)
-            db = tl.zeros([BLOCK_D], dtype=tl.float32)
-            for i in range(ROWS):
-                row = pid * ROWS + i
-                valid = row < n_rows
-                rm = m & valid
-                off = row * n_cols + cols
-                s = tl.load(S + off, mask=rm, other=0.0).to(tl.float32)
-                gy = tl.load(GY + off, mask=rm, other=0.0).to(tl.float32)
-                mean = tl.load(MEAN + row, mask=valid, other=0.0)
-                rstd = tl.load(RSTD + row, mask=valid, other=0.0)
-                xhat = tl.where(rm, (s - mean) * rstd, 0.0)
-                dxhat = gy * w
-                m1 = tl.sum(dxhat, axis=0) / n_cols
-                m2 = tl.sum(dxhat * xhat, axis=0) / n_cols
-                dx = rstd * (dxhat - m1 - xhat * m2)
-                tl.store(DX + off, dx.to(DX.dtype.element_ty), mask=rm)
-                dw += gy * xhat
-                db += gy
-            base = pid * 2 * n_cols
-            tl.store(PART + base + cols, dw, mask=m)
-            tl.store(PART + base + n_cols + cols, db, mask=m)
-
-        @triton.jit
-        def sum_parts(PART, OUT, n_parts, width, BLOCK_P: tl.constexpr, BLOCK_W: tl.constexpr):
-            pid = tl.program_id(0)
-            cols = pid * BLOCK_W + tl.arange(0, BLOCK_W)
-            cm = cols < width
-            acc = tl.zeros([BLOCK_W], dtype=tl.float32)
-            for p0 in range(0, n_parts, BLOCK_P):
-                rows = p0 + tl.arange(0, BLOCK_P)
-                tile = tl.load(PART + rows[:, None].to(tl.int64) * width + cols[None, :],
-                               mask=(rows < n_parts)[:, None] & cm[None, :], other=0.0)
-                acc += tl.sum(tile, axis=0)
-            tl.store(OUT + cols, acc, mask=cm)
-
-        _KERNELS.update(ln_fwd=ln_fwd, ln_bwd=ln_bwd, sum_parts=sum_parts,
-                        next_power_of_2=triton.next_power_of_2)
+        _KERNELS.update(ln_fwd=ln_fwd, next_power_of_2=triton.next_power_of_2)
         return _KERNELS
 
 
@@ -249,48 +222,136 @@ def fused_norm_fwd(
 fused_norm_fwd.launches = 0
 
 
+def _bwd_grid(n: int, d: int, sm_count: int) -> tuple[int, int, int]:
+    """``(blocks, rows per block, group)`` of the backward kernel for n
+    rows of width d: block c owns rows [c * rows, min(n, (c + 1) * rows)),
+    and its warp w takes rows w, w + BWD_WARPS, ... of that run. At most
+    BWD_CTAS_PER_SM blocks per SM, each with at least BWD_MIN_CTA_ELEMENTS
+    elements, and every block owns at least one row. The blocks' partial
+    sums are added in groups of ``group`` blocks (the square root of the
+    grid, rounded up), then the group sums in group order. The order of
+    every sum the kernel takes depends only on (n, d, sm_count)."""
+    if n < 1 or d < 1 or sm_count < 1:
+        raise ValueError(f"need n, d and the SM count >= 1, got {n}, {d}, {sm_count}")
+    min_rows = max(BWD_WARPS, -(-BWD_MIN_CTA_ELEMENTS // d))
+    ctas = max(1, min(sm_count * BWD_CTAS_PER_SM, -(-n // min_rows)))
+    rows = -(-n // ctas)
+    ctas = -(-n // rows)
+    return ctas, rows, math.isqrt(ctas - 1) + 1
+
+
+def _bwd_takes_register_path(d: int, dtype: torch.dtype, *tensors: torch.Tensor) -> bool:
+    """The kernel's register path: rows of whole 16-byte vectors up to
+    1024 wide, 16-byte aligned operands; anything else takes its general
+    path (csrc/fused_norm_bwd.cu)."""
+    per_vector = 16 // dtype.itemsize
+    return (d % per_vector == 0 and d <= _BWD_MAX_FAST_D
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def _bwd_library() -> ctypes.CDLL:
+    """The built backward library with its C signatures declared (ctypes
+    would otherwise pass each pointer as a 32-bit int)."""
+    from .kernel_build import load_library
+
+    lib = load_library(_BWD_SOURCE)
+    if lib.fused_norm_bwd.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.fused_norm_bwd.argtypes = [p] * 10 + [i] * 8 + [p]
+        lib.fused_norm_bwd.restype = ctypes.c_int
+        lib.fused_norm_bwd_error_string.argtypes = [i]
+        lib.fused_norm_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _bwd_state(device: torch.device, stream: int) -> tuple[int, torch.Tensor]:
+    """The device's SM count and the zeroed ticket counters of (device,
+    stream); the kernel leaves them zeroed after each launch."""
+    key = (device.index, stream)
+    state = _BWD_STATE.get(key)
+    if state is None:
+        with _BWD_LOCK:
+            state = _BWD_STATE.get(key)
+            if state is None:
+                sm_count = torch.cuda.get_device_properties(device).multi_processor_count
+                counters = torch.zeros(BWD_COUNTERS, dtype=torch.int32, device=device)
+                state = _BWD_STATE[key] = (sm_count, counters)
+    return state
+
+
+def _launch_bwd(lib: Any, s: torch.Tensor, scale: torch.Tensor, mean: torch.Tensor,
+                rstd: torch.Tensor, gy: torch.Tensor, gs: torch.Tensor | None,
+                sm_count: int, counters: torch.Tensor, stream: int) -> tuple[torch.Tensor, ...]:
+    """One launch of ``lib.fused_norm_bwd`` on checked operands:
+    ``(ds or dx, dscale, dbias)``."""
+    d = s.shape[-1]
+    n = s.numel() // d
+    ds = torch.empty_like(gy)
+    ctas, rows, group = _bwd_grid(n, d, sm_count)
+    operands = (s, gy, ds) if gs is None else (s, gy, gs, ds)
+    general = not _bwd_takes_register_path(d, s.dtype, *operands)
+    partials = ctas + -(-ctas // group) + (ctas * BWD_WARPS if general else 0)
+    workspace = torch.empty(partials * 2 * d, dtype=torch.float32, device=s.device)
+    sums = torch.empty(2 * d, dtype=torch.float32, device=s.device)
+    rc = lib.fused_norm_bwd(
+        s.data_ptr(), gy.data_ptr(), gs.data_ptr() if gs is not None else None, scale.data_ptr(),
+        mean.data_ptr(), rstd.data_ptr(), ds.data_ptr(), workspace.data_ptr(),
+        counters.data_ptr(), sums.data_ptr(), n, d, ctas, rows, group, BWD_WARPS, int(general),
+        _BWD_DTYPE_CODES[s.dtype], stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"fused_norm_bwd launch failed: "
+                           f"{lib.fused_norm_bwd_error_string(rc).decode()}")
+    return ds, sums[:d], sums[d:]
+
+
 def fused_norm_bwd(
     s: torch.Tensor,
     scale: torch.Tensor,
     mean: torch.Tensor,
     rstd: torch.Tensor,
     gy: torch.Tensor,
+    gs: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(ds, dscale, dbias)``: the Triton backward kernel for CUDA tensors
-    (``fused_norm_bwd.launches``) and its reduce of the per-program
-    dscale/dbias partials (``fused_norm_bwd.reduce_launches``); the plain
-    version for CPU ones. dscale/dbias come back f32."""
+    """``(ds, dscale, dbias)``, or ``(dx, dscale, dbias)`` with ``gs``: the
+    CUDA backward kernel for CUDA tensors (one launch per call, counted in
+    ``fused_norm_bwd.launches``), the plain version for CPU ones.
+    dscale/dbias come back f32. s, gy and gs share one dtype (float32 or
+    bfloat16); scale is taken in f32."""
     if s.device.type == "cpu":
-        return fused_norm_bwd_reference(s, scale, mean, rstd, gy)
+        return fused_norm_bwd_reference(s, scale, mean, rstd, gy, gs)
     if s.device.type != "cuda":
         raise ValueError(f"fused norm runs on cuda or cpu tensors, not {s.device}")
     n, d = _check(s, None, scale, None)
-    if gy.shape != s.shape:
-        raise ValueError(f"gy shape {tuple(gy.shape)} != s {tuple(s.shape)}")
-    _check_cuda({"s": s, "scale": scale, "mean": mean, "rstd": rstd, "gy": gy})
-    kernels = _triton_kernels()
-    ds = torch.empty_like(gy)
-    n_parts = max(1, -(-n // BWD_ROWS_PER_PROGRAM))
-    parts = torch.empty((n_parts, 2, d), dtype=torch.float32, device=s.device)
-    sums = torch.empty(2 * d, dtype=torch.float32, device=s.device)
-    block, warps = _block_and_warps(d, kernels)
-    width = 2 * d
-    with torch.cuda.device(s.device):
-        kernels["ln_bwd"][(n_parts,)](
-            s, scale, mean, rstd, gy, ds, parts, n, d,
-            ROWS=BWD_ROWS_PER_PROGRAM, BLOCK_D=block, num_warps=warps,
-        )
-        fused_norm_bwd.launches += 1
-        block_w = 64
-        kernels["sum_parts"][(-(-width // block_w),)](
-            parts, sums, n_parts, width, BLOCK_P=64, BLOCK_W=block_w, num_warps=4,
-        )
-        fused_norm_bwd.reduce_launches += 1
-    return ds, sums[:d], sums[d:]
+    operands = {"s": s, "scale": scale, "mean": mean, "rstd": rstd, "gy": gy}
+    for name, t in (("gy", gy), ("gs", gs)):
+        if t is None:
+            continue
+        operands[name] = t
+        if t.shape != s.shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != s {tuple(s.shape)}")
+        if t.dtype != s.dtype:
+            raise TypeError(f"{name} dtype {t.dtype} != s dtype {s.dtype}")
+    _check_cuda(operands)
+    for name, t in (("mean", mean), ("rstd", rstd)):
+        if t.dtype != torch.float32 or t.shape != (n,):
+            raise TypeError(f"{name} must be float32 ({n},), got {t.dtype} {tuple(t.shape)}")
+    scale = scale.float()
+    if n == 0:
+        zeros = torch.zeros(2 * d, dtype=torch.float32, device=s.device)
+        return torch.empty_like(gy), zeros[:d], zeros[d:]
+    lib = _bwd_library()
+    device = s.device
+    if device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return fused_norm_bwd(s, scale, mean, rstd, gy, gs)
+    stream = torch.cuda.current_stream().cuda_stream
+    out = _launch_bwd(lib, s, scale, mean, rstd, gy, gs, *_bwd_state(device, stream), stream)
+    fused_norm_bwd.launches += 1
+    return out
 
 
 fused_norm_bwd.launches = 0
-fused_norm_bwd.reduce_launches = 0
 
 
 class _FusedLayerNorm(torch.autograd.Function):
@@ -317,10 +378,11 @@ class _FusedAddLayerNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, gs):  # noqa: ANN001 — autograd API
         s, scale, mean, rstd = ctx.saved_tensors
-        ds, dscale, dbias = fused_norm_bwd(s, scale, mean, rstd, gy.contiguous())
         # The returned sum is the residual stream: its gradient flows
-        # straight through the add to both inputs.
-        dx = (ds + gs).to(gy.dtype)
+        # straight through the add to both inputs, added to ds in the
+        # kernel.
+        dx, dscale, dbias = fused_norm_bwd(s, scale, mean, rstd, gy.contiguous(),
+                                           gs.contiguous())
         return dx, dx, dscale.to(scale.dtype), dbias.to(scale.dtype), None
 
 
@@ -345,7 +407,6 @@ def fused_add_layer_norm(
 
 
 __all__ = [
-    "BWD_ROWS_PER_PROGRAM",
     "DEFAULT_EPS",
     "fused_add_layer_norm",
     "fused_layer_norm",

@@ -74,8 +74,7 @@ def test_add_layer_norm_values_and_grads_match_pallas(shape) -> None:
 def test_plain_versions_are_what_the_cpu_wrappers_run() -> None:
     x, res, scale, bias, gy, _ = _inputs((4, 24), seed=2)
     tx, tr, ts, tb, tg = (torch.from_numpy(a) for a in (x, res, scale, bias, gy))
-    before = (fn.fused_norm_fwd.launches, fn.fused_norm_bwd.launches,
-              fn.fused_norm_bwd.reduce_launches)
+    before = (fn.fused_norm_fwd.launches, fn.fused_norm_bwd.launches)
     got = fn.fused_norm_fwd(tx, tr, ts, tb)
     want = fn.fused_norm_fwd_reference(tx, tr, ts, tb)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
@@ -87,8 +86,7 @@ def test_plain_versions_are_what_the_cpu_wrappers_run() -> None:
                                rtol=1e-5)
     bwd = fn.fused_norm_bwd(s, ts, mean, rstd, tg)
     assert all(torch.equal(a, b) for a, b in zip(bwd, fn.fused_norm_bwd_reference(s, ts, mean, rstd, tg)))
-    after = (fn.fused_norm_fwd.launches, fn.fused_norm_bwd.launches,
-             fn.fused_norm_bwd.reduce_launches)
+    after = (fn.fused_norm_fwd.launches, fn.fused_norm_bwd.launches)
     assert after == before
 
 
