@@ -110,6 +110,28 @@ Phases, each fatal on failure (exit code 1, no result line):
    CE_ATOL, and peak memory at least the bf16 logits (3.07 GiB) above the
    fused run's.
 13. Profile: one warmed-up CE training step, as phase 11.
+14. Continuous serving of phase 9's final checkpoint at full width, the
+   preset's serving defaults (8 slots, 16-token blocks, the default pool
+   and buckets): (a) in-process `serve-bench --verify-parity`, greedy,
+   CONT_REQUESTS requests of CONT_PROMPTS tokens + CONT_NEW_TOKENS on a
+   Poisson open loop at CONT_RATE_RPS; (b) the same sampled (temperature
+   0.8, top-k 40) with serving.prefix_cache, serving.prefill_chunk
+   CONT_CHUNK and CONT_SHARED_PREFIX shared prefixes. Gates: exit 0,
+   parity bitwise_identical, shapes within the bucket budget, every
+   request completed, mean occupancy >= CONT_MIN_OCCUPANCY, the prefix
+   cache hit. Then torch.profiler over CONT_PROFILE_STEPS decode steps at
+   batch 8 (launches and device time per step; measurement only); then
+   (c) `python -m llmtrain_tpu_torch serve --mode continuous` child
+   processes on 127.0.0.1:0: 8 concurrent greedy requests all 200 with
+   the simple-mode server's tokens, /healthz with the scheduler's stats,
+   /metrics, POST /reload answered 200 while CONT_RELOAD_REQUESTS requests
+   are in flight (they complete; the first with generate()'s tokens), and
+   a server with
+   serving.overload queue_cap 1 answering a burst with 429 +
+   Retry-After. Kernel launch counts are reset before and read after:
+   the paged path launches none of the eight kernels. Prints output
+   tokens/s, TTFT and per-token p50/p99, occupancy, the prefix hit rate
+   and peak memory.
 
 Then it prints the kernels line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
@@ -1037,14 +1059,19 @@ def phase_model(torch, model) -> None:
                            "kernel's rounding")
 
 
-def _post(url: str, body: object, timeout: float = 600.0) -> tuple[int, dict]:
+def _post_h(url: str, body: object, timeout: float = 600.0) -> tuple[int, dict, dict]:
+    """POST JSON (or raw bytes); (status, payload, headers)."""
     data = body if isinstance(body, bytes) else json.dumps(body).encode()
     req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
     try:
         with urllib.request.urlopen(req, timeout=timeout) as resp:
-            return resp.status, json.loads(resp.read())
+            return resp.status, json.loads(resp.read()), dict(resp.headers)
     except urllib.error.HTTPError as exc:
-        return exc.code, json.loads(exc.read() or b"{}")
+        return exc.code, json.loads(exc.read() or b"{}"), dict(exc.headers)
+
+
+def _post(url: str, body: object, timeout: float = 600.0) -> tuple[int, dict]:
+    return _post_h(url, body, timeout)[:2]
 
 
 def _get(url: str) -> tuple[int, bytes]:
@@ -1397,8 +1424,9 @@ def phase_train(torch, smi: str, tmp: Path) -> dict:
         f"{gen['text']!r}")
     if len(ids) != 48 or not all(0 <= i < 256 for i in ids):
         raise RuntimeError(f"generate from the trained checkpoint returned {ids}")
-    return dict(cfg_path=cfg_path, steps=steps, counts=counts, eval_batches=eval_batches,
-                step_ms=step_ms, tokens_per_sec=tok_s, mfu=mfu, summary=summary)
+    return dict(cfg_path=cfg_path, run_dir=run_dir, steps=steps, counts=counts,
+                eval_batches=eval_batches, step_ms=step_ms, tokens_per_sec=tok_s, mfu=mfu,
+                summary=summary)
 
 
 def phase_fused_train(torch, smi: str, tmp: Path, train: dict) -> dict:
@@ -1606,6 +1634,321 @@ def phase_train_profile(torch, smi: str, cfg_path: Path) -> None:
             f"{_kernel_share(events, device_ms, ('ln_fwd', 'fused_norm_bwd_kernel'))}")
 
 
+# ------------------------------------------------------- continuous serving
+# Phase 14 serves phase 9's final checkpoint at the preset's serving
+# defaults (max_batch_slots 8, block_tokens 16, the default pool of
+# 1 + 8 x 32 blocks and power-of-two buckets). The arrival rate is past
+# what 8 slots serve at this width (each request holds a slot for 64
+# decode steps of 12-27 ms on the H100, PERF.md: 5-10 requests/s), so the
+# batch stays full whatever the host's speed and the queue holds the rest.
+CONT_REQUESTS = 48
+CONT_PROMPTS = (16, 256)
+CONT_NEW_TOKENS = 64
+CONT_RATE_RPS = 16.0
+CONT_MIN_OCCUPANCY = 6.0
+CONT_SHARED_PREFIX = (128, 4)  # tokens, distinct prefixes
+CONT_CHUNK = 64
+CONT_HTTP_REQUESTS = 8
+# Requests kept in flight across POST /reload: a batch of this many, each
+# as long as the context allows after a CONT_PROMPTS[0]-token prompt.
+CONT_RELOAD_REQUESTS = 8
+CONT_RELOAD_NEW_TOKENS = 512 - CONT_PROMPTS[0]
+CONT_PROFILE_STEPS = 20
+CONT_PROFILE_PROMPT = 64
+CONT_SERVER_START_SEC = 300
+
+
+def _serving_config(tmp: Path, name: str, **serving) -> Path:
+    """Phase 9's config (same model, same output root) with serving
+    overrides."""
+    import yaml
+
+    path = _smoke_config(tmp, name)
+    raw = yaml.safe_load(path.read_text())
+    raw["serving"] = {**raw.get("serving", {}), **serving}
+    path.write_text(yaml.safe_dump(raw, sort_keys=False))
+    return path
+
+
+def _serve_bench(cfg_path: Path, ckpt: Path, smi: str, name: str, *extra: str) -> dict:
+    """One in-process `serve-bench --verify-parity` run at the phase's
+    population; its gates: exit 0, bitwise parity with generate(), shapes
+    within the bucket budget, every request completed, the batch full."""
+    argv = ["serve-bench", "--config", str(cfg_path), "--from", str(ckpt),
+            "--requests", str(CONT_REQUESTS), "--rate-rps", str(CONT_RATE_RPS),
+            "--seed", "14", "--prompt-tokens-min", str(CONT_PROMPTS[0]),
+            "--prompt-tokens-max", str(CONT_PROMPTS[1]),
+            "--max-new-tokens", str(CONT_NEW_TOKENS), "--verify-parity", *extra]
+    t0 = time.perf_counter()
+    code, out = _run_cli(argv)
+    wall = time.perf_counter() - t0
+    summary = json.loads(out)
+    block = summary["serving"]
+    slo, tput, occ = block["slo"], block["throughput"], block["occupancy"]
+    log(f"[continuous] {name}: exit {code}, {CONT_REQUESTS} requests at {CONT_RATE_RPS} rps "
+        f"Poisson open loop on {smi}: {tput['tokens_per_sec']} output tokens/s over "
+        f"{tput['wall_sec']} s (command {wall:.1f} s with parity); TTFT p50 "
+        f"{slo['ttft_ms']['p50']} p99 {slo['ttft_ms']['p99']} ms; per-token p50 "
+        f"{slo['per_token_ms']['p50']} p99 {slo['per_token_ms']['p99']} ms; occupancy mean "
+        f"{occ['mean']} peak {occ['peak']} of {occ['max_batch_slots']}")
+    log(f"[continuous] {name}: requests {block['requests']}; parity {block['parity']}; "
+        f"shapes {block['compile']}")
+    if "prefix_cache" in block:
+        log(f"[continuous] {name}: prefix cache {block['prefix_cache']}")
+    ok = (code == 0 and summary["ok"] and block["parity"]["bitwise_identical"]
+          and block["compile"]["within_budget"] and block["requests"]["failed"] == 0
+          and block["requests"]["timed_out"] == 0
+          and block["requests"]["completed"] == CONT_REQUESTS)
+    if not ok:
+        raise RuntimeError(f"serve-bench {name} failed its gates: {summary.get('failures')}")
+    if occ["mean"] < CONT_MIN_OCCUPANCY:
+        raise RuntimeError(f"serve-bench {name}: mean occupancy {occ['mean']} below "
+                           f"{CONT_MIN_OCCUPANCY}; the rate does not fill the batch")
+    return block
+
+
+def _decode_profile(torch, cfg_path: Path, ckpt: Path, smi: str) -> None:
+    """torch.profiler over CONT_PROFILE_STEPS scheduler steps with 8 rows
+    decoding (the engine of serve-bench, built in-process): launches,
+    device time and wall per decode step. Measurement only."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from llmtrain_tpu_torch import cli
+    from llmtrain_tpu_torch.config import load_and_validate_config
+    from llmtrain_tpu_torch.distributed import resolve_device
+    from llmtrain_tpu_torch.serving import (
+        ContinuousBatchingScheduler,
+        PagedDecodeEngine,
+        ServeRequest,
+    )
+    from llmtrain_tpu_torch.utils.logging import get_logger
+
+    cfg, _, _ = load_and_validate_config(cfg_path)
+    _, _, model = cli._build_decode_stack(cfg, resolve_device(cfg.run.device), get_logger())
+    model, _, _ = cli._load_decode_params(cfg, model, str(ckpt), "compute", get_logger())
+    scheduler = ContinuousBatchingScheduler(PagedDecodeEngine(model, max_batch_slots=8))
+    rng = np.random.default_rng(15)
+    for i in range(8):
+        scheduler.submit(ServeRequest(prompt_ids=rng.integers(0, 256, CONT_PROFILE_PROMPT)
+                                      .astype(np.int32),
+                                      max_new_tokens=CONT_PROFILE_STEPS + 8, seed=i))
+    for _ in range(3):  # admits all 8, then two warm decode steps
+        scheduler.step()
+    if scheduler.stats()["active_sequences"] != 8:
+        raise RuntimeError("the profiled decode steps do not hold 8 rows")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        for _ in range(CONT_PROFILE_STEPS):
+            scheduler.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    launches = sum(e.count for e in events)
+    n = CONT_PROFILE_STEPS
+    log(f"[continuous] decode step at batch 8, {n} steps profiled on {smi}: wall "
+        f"{wall_ms / n:.2f} ms, device kernel time {device_ms / n:.2f} ms "
+        f"({device_ms / wall_ms:.1%} busy), {launches / n:.0f} kernel launches per step")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"[continuous]   {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:6d}  "
+            f"{e.key[:90]}")
+
+
+def _start_server(cfg_path: Path, ckpt: Path, log_path: Path):
+    """`python -m llmtrain_tpu_torch serve --mode continuous --port 0` as a
+    child process; (process, base url) once its ready line arrives."""
+    root = Path(__file__).resolve().parent
+    err = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "llmtrain_tpu_torch", "serve", "--config", str(cfg_path),
+         "--from", str(ckpt), "--mode", "continuous", "--port", "0"],
+        cwd=root, stdout=subprocess.PIPE, stderr=err, text=True,
+    )
+    err.close()
+    timer = threading.Timer(CONT_SERVER_START_SEC, proc.kill)
+    timer.start()
+    line = proc.stdout.readline()
+    timer.cancel()
+    if not line:
+        proc.kill()
+        raise RuntimeError(f"serve --mode continuous did not start: "
+                           f"{log_path.read_text()[-2000:]}")
+    return proc, f"http://127.0.0.1:{json.loads(line)['port']}"
+
+
+def _stop_server(proc) -> None:
+    import signal
+
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def _http_phase(torch, tmp: Path, cfg_path: Path, ckpt: Path, smi: str) -> None:
+    """`serve --mode continuous`: 8 concurrent greedy requests equal to the
+    simple-mode server's answers, /healthz and /metrics, POST /reload with
+    a request in flight; a second server with overload control
+    (queue_cap 1) answers a burst with at least one 429 + Retry-After."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from llmtrain_tpu_torch import cli
+    from llmtrain_tpu_torch.config import load_and_validate_config
+    from llmtrain_tpu_torch.distributed import resolve_device
+    from llmtrain_tpu_torch.serving import ServerState, make_server
+    from llmtrain_tpu_torch.utils.logging import get_logger
+
+    over_path = _serving_config(tmp, "gpt_pycorpus_overload",
+                                overload={"enabled": True, "queue_cap": 1})
+    t0 = time.perf_counter()
+    servers = []
+    try:
+        with ThreadPoolExecutor(2) as ex:
+            started = [ex.submit(_start_server, path, ckpt, tmp / f"{name}.log")
+                       for path, name in ((cfg_path, "serve"), (over_path, "overload"))]
+            for f in started:
+                servers.append(f.result())
+        (proc, base), (_, over_base) = servers
+        log(f"[http] two `serve --mode continuous` servers ready in "
+            f"{time.perf_counter() - t0:.1f} s")
+        rng = np.random.default_rng(16)
+        bodies = [{"prompt_ids": [int(x) for x in rng.integers(0, 256, n)],
+                   "max_new_tokens": CONT_NEW_TOKENS // 2, "temperature": 0}
+                  for n in np.linspace(*CONT_PROMPTS, CONT_HTTP_REQUESTS).astype(int)]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(CONT_HTTP_REQUESTS) as ex:
+            answers = list(ex.map(lambda b: _post_h(f"{base}/v1/generate", b), bodies))
+        wall = time.perf_counter() - t0
+        codes = [a[0] for a in answers]
+        log(f"[http] {CONT_HTTP_REQUESTS} concurrent greedy requests: HTTP {codes} in "
+            f"{wall * 1e3:.0f} ms on {smi}")
+        if codes != [200] * CONT_HTTP_REQUESTS:
+            raise RuntimeError(f"concurrent requests were not all answered 200: {answers}")
+
+        # The simple-mode server's answers for the same bodies.
+        cfg, _, _ = load_and_validate_config(cfg_path)
+        _, tokenizer, model = cli._build_decode_stack(cfg, resolve_device(cfg.run.device),
+                                                      get_logger())
+        model, path, step = cli._load_decode_params(cfg, model, str(ckpt), "compute",
+                                                    get_logger())
+        state = ServerState(model=model, tokenizer=tokenizer, step=step, checkpoint=str(path))
+        httpd = make_server(state, "127.0.0.1", 0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        try:
+            simple = [_post_h(f"http://127.0.0.1:{httpd.server_address[1]}/v1/generate", b)
+                      for b in bodies]
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=30)
+        same = [a[1]["completion_ids"] == s[1]["completion_ids"]
+                for a, s in zip(answers, simple)]
+        log(f"[http] tokens equal to the simple-mode server's: {same}")
+        if not all(same):
+            raise RuntimeError("continuous answers differ from the simple-mode server's")
+
+        code, raw = _get(f"{base}/healthz")
+        sched = json.loads(raw)["scheduler"]
+        log(f"[http] /healthz {code}: requests_finished {sched['requests_finished']}, "
+            f"kv_pool {sched['kv_pool']}, shapes {sched['compile']}")
+        code_m, metrics = _get(f"{base}/metrics")
+        if (code != 200 or sched["requests_finished"] < CONT_HTTP_REQUESTS
+                or code_m != 200 or b"llmtrain_serve_kv_pool_utilization" not in metrics):
+            raise RuntimeError("/healthz or /metrics do not show the scheduler")
+
+        long_bodies = [{"prompt_ids": [int(x) for x in rng.integers(0, 256, CONT_PROMPTS[0])],
+                        "max_new_tokens": CONT_RELOAD_NEW_TOKENS, "temperature": 0}
+                       for _ in range(CONT_RELOAD_REQUESTS)]
+        with ThreadPoolExecutor(CONT_RELOAD_REQUESTS) as ex:
+            pending = [ex.submit(_post_h, f"{base}/v1/generate", b) for b in long_bodies]
+            deadline = time.monotonic() + 120
+            while (json.loads(_get(f"{base}/healthz")[1])["scheduler"]["active_sequences"]
+                   < CONT_RELOAD_REQUESTS):
+                if time.monotonic() > deadline or any(f.done() for f in pending):
+                    raise RuntimeError("the long requests never went in flight together")
+                time.sleep(0.01)
+            t0 = time.perf_counter()
+            r_code, r_resp, _ = _post_h(f"{base}/reload", {})
+            reload_ms = (time.perf_counter() - t0) * 1e3
+            still_in_flight = sum(not f.done() for f in pending)
+            answers = [f.result() for f in pending]
+        while True:  # the swap applies between scheduler steps
+            params = json.loads(_get(f"{base}/healthz")[1])["scheduler"]["params"]
+            if params["hot_swaps"] or time.monotonic() > deadline:
+                break
+            time.sleep(0.01)
+        log(f"[http] POST /reload with {CONT_RELOAD_REQUESTS} requests in flight: HTTP {r_code} "
+            f"{r_resp} in {reload_ms:.0f} ms on {smi}, {still_in_flight} requests still in "
+            f"flight when it answered; params after it {params}; the requests: HTTP "
+            f"{[a[0] for a in answers]}, {[len(a[1].get('completion_ids', [])) for a in answers]} "
+            f"tokens")
+        from llmtrain_tpu_torch.generation import generate
+
+        first = long_bodies[0]["prompt_ids"]
+        want = generate(model, np.asarray([first], np.int32), max_new_tokens=CONT_RELOAD_NEW_TOKENS,
+                        temperature=0.0)[0, len(first):]
+        if (r_code != 200 or still_in_flight != CONT_RELOAD_REQUESTS or params["hot_swaps"] != 1
+                or any(a[0] != 200 or len(a[1]["completion_ids"]) != CONT_RELOAD_NEW_TOKENS
+                       for a in answers)
+                or answers[0][1]["completion_ids"] != [int(t) for t in want]):
+            raise RuntimeError("the reload or the requests in flight across it failed")
+
+        burst = [{"prompt_ids": b["prompt_ids"], "max_new_tokens": CONT_NEW_TOKENS // 4,
+                  "temperature": 0}
+                 for b in bodies * 2]
+        with ThreadPoolExecutor(len(burst)) as ex:
+            over = list(ex.map(lambda b: _post_h(f"{over_base}/v1/generate", b), burst))
+        rejected = [(c, p.get("reason"), h.get("Retry-After")) for c, p, h in over if c == 429]
+        log(f"[http] overload server (queue_cap 1), burst of {len(burst)}: HTTP "
+            f"{[c for c, _, _ in over]}; 429s (reason, Retry-After): {rejected}")
+        if not rejected or not all(ra for _, _, ra in rejected) or \
+                any(c not in (200, 429) for c, _, _ in over):
+            raise RuntimeError("the overload server did not answer the burst with 429 + "
+                               "Retry-After")
+    finally:
+        for proc_, _ in servers:
+            _stop_server(proc_)
+
+
+def phase_continuous(torch, smi: str, tmp: Path, train: dict) -> dict:
+    """Phase 14: continuous serving of phase 9's final checkpoint: (a)
+    greedy serve-bench, (b) sampled serve-bench with the prefix cache and
+    chunked prefill, both with --verify-parity; the decode step profiled;
+    (c) serve --mode continuous over HTTP."""
+    ckpt = train["run_dir"] / "checkpoints"
+    greedy_path = _serving_config(tmp, "gpt_pycorpus_continuous",
+                                  max_new_tokens_cap=CONT_RELOAD_NEW_TOKENS)
+    sampled_path = _serving_config(tmp, "gpt_pycorpus_continuous_prefix",
+                                   prefix_cache=True, prefill_chunk=CONT_CHUNK)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()  # the continuous-serving path's counts start here
+    t0 = time.perf_counter()
+    greedy = _serve_bench(greedy_path, ckpt, smi, "greedy", "--temperature", "0")
+    sampled = _serve_bench(sampled_path, ckpt, smi, "sampled, prefix cache, chunked prefill",
+                           "--temperature", "0.8", "--top-k", "40",
+                           "--shared-prefix-tokens", str(CONT_SHARED_PREFIX[0]),
+                           "--shared-prefix-count", str(CONT_SHARED_PREFIX[1]))
+    peak = torch.cuda.max_memory_allocated()
+    _decode_profile(torch, greedy_path, ckpt, smi)
+    _http_phase(torch, tmp, greedy_path, ckpt, smi)
+    counts = _read_counts()  # and end here
+    log(f"[continuous] phase 14 in {time.perf_counter() - t0:.1f} s; peak device memory of the "
+        f"in-process runs {peak / 2**30:.2f} GiB on {smi}")
+    _check_counts("continuous", counts, {})  # the paged path runs none of the kernels
+    if sampled["prefix_cache"]["hit_rate"] <= 0:
+        raise RuntimeError("the shared-prefix run never hit the prefix cache")
+    return dict(greedy=greedy, sampled=sampled, counts=counts, peak_memory=peak)
+
+
 def main() -> int:
     import tempfile
 
@@ -1651,6 +1994,7 @@ def main() -> int:
         phase_train_profile(torch, smi, fused["cfg_path"])
         ce = phase_ce_train(torch, smi, Path(tmp), train["eval_batches"])
         phase_train_profile(torch, smi, ce["cfg_path"])
+        phase_continuous(torch, smi, Path(tmp), train)
     paths = (train["counts"], fused["counts"], ce["counts"])
     launches = {name: sum(c[name] for c in paths) for name in paths[0]}
     launches["flash_attention_fwd"] += serve_launches

@@ -86,7 +86,13 @@ def _generate_cached(
     with_logprobs: bool,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     b, tp = prompt.shape
-    decoder = model.for_decoding(cache_len=tp + max_new_tokens)
+    # The cache spans block_size, as the paged engine's window does, so a
+    # served request's attention runs at generate()'s shapes. A sliding
+    # window shorter than block_size keeps the exact length (its rolling
+    # cache is not ported, and the paged engine refuses such models).
+    window = getattr(model, "sliding_window", 0)
+    cache_len = tp + max_new_tokens if window and window < model.block_size else model.block_size
+    decoder = model.for_decoding(cache_len=cache_len)
     cache = decoder.init_cache(b)
     sample = dict(temperature=temperature, top_k=top_k, top_p=top_p)
 

@@ -33,15 +33,22 @@ torch, ops/chunked_ce.py) contract ``forward(..., return_hidden=True)``
 against the (V, d) vocab matrix, so no (B, T, V) tensor is made.
 
 Grouped-query attention (``n_kv_heads`` < ``n_heads``) uses ``q_proj`` +
-``kv_proj`` in place of the fused ``qkv_proj``. Decoding goes through
-:meth:`GPT.for_decoding`: a per-layer KV cache written at a cursor and
-read with the GQA broadcast, in plain torch (the JAX decode path is plain
-XLA, no Pallas kernel).
+``kv_proj`` in place of the fused ``qkv_proj``. Decoding, in plain torch
+as JAX's decode paths are plain XLA, goes through :meth:`GPT.for_decoding`
+(a per-layer KV cache written at a cursor, which ``generate()`` uses) or
+:meth:`GPT.for_paged_decoding` (a pool of fixed-size blocks shared by
+every sequence, addressed through per-row block tables, with per-row
+positions: the continuous-batching engine's cache). Both run
+:meth:`GPT.decode_forward`, whose row-wise ops (LayerNorm, projections,
+lm-head) always take DECODE_ROWS rows and whose attention takes each
+row's queries DECODE_ROWS at a time over a window of the same length, so
+a token's logits do not depend on the batch, the bucket or the chunk it
+was computed in.
 
 Not yet ported, each raising: ``matmul_precision`` other than f32 and
 ring/ulysses attention (at build time), the rolling sliding-window decode
 cache and the int8 KV cache (at decode) (ROADMAP.md queue A: parallelism for
-the first two, continuous serving for the caches).
+the first two; rolling sliding-window cache and int8 quantization).
 """
 
 from __future__ import annotations
@@ -70,6 +77,13 @@ from .base import Batch, ModelAdapter, lm_loss_components, validate_lm_batch
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _INIT_STD = 0.02
+# Rows per call of each row-wise op on the decode paths, and query rows per
+# attention product. cuBLAS and PyTorch's reductions pick their algorithm
+# (tile, split of the sum) by shape, so without a fixed row count a token's
+# bits would depend on how many rows it shared a call with: a prompt
+# padded to a bucket, a decode batch of 8, a prefill chunk, all against
+# generate()'s exact lengths and batch of one.
+DECODE_ROWS = 64
 
 
 def apply_dropout(x: torch.Tensor, rate: float, deterministic: bool,
@@ -164,6 +178,74 @@ def dense_attention(
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def _row_blocks(fn: Any, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` over consecutive blocks of DECODE_ROWS rows of ``x`` (N, ...),
+    N a multiple of DECODE_ROWS."""
+    if x.shape[0] == DECODE_ROWS:
+        return fn(x)
+    return torch.cat([fn(x[i : i + DECODE_ROWS]) for i in range(0, x.shape[0], DECODE_ROWS)])
+
+
+def cached_attention(
+    q: torch.Tensor,
+    keys: torch.Tensor,
+    values: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    window: int = 0,
+    rows: int | None = None,
+) -> torch.Tensor:
+    """Causal attention of each row's queries over its own cached window
+    (JAX ``_decode_attention`` and ``_paged_decode_attention``).
+
+    q (B, t, H, Dh); keys/values (B, S, Hkv, Dh), index j of row b holding
+    position j; positions (B, t), the queries' absolute positions. Scores
+    in the compute dtype with the grouped-query read, then f32, masked by
+    col <= position with finfo(f32).min, softmaxed. Each row's queries go
+    DECODE_ROWS at a time (the last block padded with fully masked rows)
+    through one product per row and block, so every product has the same
+    shape whatever the batch; the elementwise steps and the softmax, whose
+    per-row arithmetic does not depend on the row count, run once over all
+    rows. Only the first ``rows`` rows are computed (default all); the rest
+    come back zero.
+    """
+    b, t, n_heads, head_dim = q.shape
+    s, kv_width = keys.shape[1], keys.shape[2]
+    g = n_heads // kv_width
+    r = DECODE_ROWS
+    tq = -(-t // r) * r
+    nblk = tq // r
+    if tq != t:
+        q = F.pad(q, (0, 0, 0, 0, 0, tq - t))
+        positions = F.pad(positions, (0, tq - t), value=-1)
+    n = b if rows is None else rows
+    # Each (row, block) as Hkv matrices of (G x r) queries, group-major;
+    # each row's keys as (Hkv, Dh, S) and values as (Hkv, S, Dh).
+    qm = (q[:n].reshape(n, nblk, r, kv_width, g, head_dim).permute(0, 1, 3, 4, 2, 5)
+          .reshape(n * nblk, kv_width, g * r, head_dim).unbind(0))
+    kts = keys[:n].permute(0, 2, 3, 1).unbind(0)
+    vts = values[:n].permute(0, 2, 1, 3).unbind(0)
+    scores = q.new_empty(n * nblk, kv_width, g * r, s)
+    for ij, (qb, out_ij) in enumerate(zip(qm, scores.unbind(0))):
+        torch.bmm(qb, kts[ij // nblk], out=out_ij)
+    col = torch.arange(s, device=q.device)
+    dead = col[None, None, :] > positions[:n, :, None]  # (n, tq, S)
+    if window:
+        dead = dead | (positions[:n, :, None] - col[None, None, :] >= window)
+    scores = (scores * (1.0 / math.sqrt(head_dim))).float()
+    scores = scores.view(n, nblk, kv_width, g, r, s).masked_fill(
+        dead.view(n, nblk, 1, 1, r, s), torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype).view(n * nblk, kv_width, g * r, s)
+    out = q.new_empty(n * nblk, kv_width, g * r, head_dim)
+    for ij, (pb, out_ij) in enumerate(zip(probs.unbind(0), out.unbind(0))):
+        torch.bmm(pb, vts[ij // nblk], out=out_ij)
+    out = (out.view(n, nblk, kv_width, g, r, head_dim).permute(0, 1, 4, 2, 3, 5)
+           .reshape(n, tq, n_heads, head_dim))
+    if n != b:
+        out = F.pad(out, (0, 0, 0, 0, 0, 0, 0, b - n))
+    return out[:, :t]
+
+
 class CausalSelfAttention(nn.Module):
     def __init__(
         self,
@@ -219,13 +301,7 @@ class CausalSelfAttention(nn.Module):
     ) -> torch.Tensor:
         b, t, _ = x.shape
         h, hd, hkv = self.n_heads, self.head_dim, self.kv_heads
-        if hkv == h:
-            qkv = _dense(x, self.qkv_proj, self.dtype).view(b, t, 3, h, hd)
-            q, k, v = qkv.unbind(dim=2)
-        else:
-            q = _dense(x, self.q_proj, self.dtype).view(b, t, h, hd)
-            kv = _dense(x, self.kv_proj, self.dtype).view(b, t, 2, hkv, hd)
-            k, v = kv.unbind(dim=2)
+        q, k, v = self._split_qkv(*self._project(x, lambda f: f(x)), b, t)
         if self.rope and cache is None:
             from ..ops.rope import apply_rope
 
@@ -260,49 +336,80 @@ class CausalSelfAttention(nn.Module):
             out = out * (attention_mask != 0)[:, :, None].to(out.dtype)
         return out
 
+    def _project(self, x: torch.Tensor, apply: Any) -> tuple[torch.Tensor, ...]:
+        """The input projections, each through ``apply`` (called with the
+        function of one block of rows): (qkv,) fused or (q, kv) under GQA."""
+        if self.kv_heads == self.n_heads:
+            return (apply(lambda r: _dense(r, self.qkv_proj, self.dtype)),)
+        return (apply(lambda r: _dense(r, self.q_proj, self.dtype)),
+                apply(lambda r: _dense(r, self.kv_proj, self.dtype)))
+
+    def _split_qkv(self, *parts: Any) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """q (B, T, H, Dh), k and v (B, T, Hkv, Dh) from the projections of
+        B x T rows."""
+        *proj, b, t = parts
+        h, hd, hkv = self.n_heads, self.head_dim, self.kv_heads
+        if hkv == h:
+            return proj[0].reshape(b, t, 3, h, hd).unbind(dim=2)
+        k, v = proj[1].reshape(b, t, 2, hkv, hd).unbind(dim=2)
+        return proj[0].reshape(b, t, h, hd), k, v
+
     def _decode_attention(
         self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache: LayerKVCache
     ) -> torch.Tensor:
-        """Write this call's K/V at the cursor, attend over the filled
-        prefix (JAX ``_decode_attention``, linear cache). The cache stays
-        at n_kv_heads; queries are grouped against it at read."""
-        batch, t, n_heads, head_dim = q.shape
+        """Write this call's K/V at the cursor, attend over the cache (JAX
+        ``_decode_attention``, linear cache). The cache stays at
+        n_kv_heads; queries are grouped against it at read."""
+        batch, t = q.shape[:2]
         cap = cache.key.shape[1]
         idx = cache.index
         if idx + t > cap:
             raise ValueError(f"decode cache overflow: {idx} + {t} > capacity {cap}")
+        positions = (idx + torch.arange(t, device=q.device)).expand(batch, t)
         if self.rope:
             from ..ops.rope import apply_rope
 
-            q, k = apply_rope(
-                q, k, idx + torch.arange(t, device=q.device), theta=self.rope_theta
-            )
+            q, k = apply_rope(q, k, positions, theta=self.rope_theta)
         cache.key[:, idx : idx + t] = k.to(cache.key.dtype)
         cache.value[:, idx : idx + t] = v.to(cache.value.dtype)
         cache.index = idx + t
+        return cached_attention(q, cache.key, cache.value, positions, window=self.sliding_window)
 
-        kv_width = cache.key.shape[2]
-        g = n_heads // kv_width
-        qg = q.reshape(batch, t, kv_width, g, head_dim)
-        scores = torch.einsum("bqkgd,bskd->bkgqs", qg, cache.key) * (1.0 / math.sqrt(head_dim))
-        scores = scores.float()
-        row = (idx + torch.arange(t, device=q.device))[:, None]
-        col = torch.arange(cap, device=q.device)[None, :]
-        live = col <= row
-        if self.sliding_window:
-            live = live & (row - col < self.sliding_window)
-        scores = scores.masked_fill(~live, torch.finfo(torch.float32).min)
-        probs = torch.softmax(scores, dim=-1).to(q.dtype)
-        out = torch.einsum("bkgqs,bskd->bqkgd", probs, cache.value)
-        return out.reshape(batch, t, n_heads, head_dim)
+    def decode_rows(
+        self,
+        h: torch.Tensor,
+        shape: tuple[int, int],
+        positions: torch.Tensor,
+        write_read: Any,
+        rows: int | None,
+    ) -> torch.Tensor:
+        """The attention sublayer on the decode paths: ``h`` holds the
+        B x T tokens' normed rows, padded to a multiple of DECODE_ROWS;
+        ``write_read(k, v)`` stores this call's K/V and returns every row's
+        window. Returns the output projection, padded alike."""
+        b, t = shape
+        n = b * t
+        q, k, v = self._split_qkv(
+            *(p[:n] for p in self._project(h, lambda f: _row_blocks(f, h))), b, t
+        )
+        if self.rope:
+            from ..ops.rope import apply_rope
+
+            q, k = apply_rope(q, k, positions, theta=self.rope_theta)
+        keys, values = write_read(k, v)
+        out = cached_attention(q, keys, values, positions, window=self.sliding_window, rows=rows)
+        out = F.pad(out.reshape(n, -1), (0, 0, 0, h.shape[0] - n))
+        return _row_blocks(lambda r: _dense(r, self.out_proj, self.dtype), out)
 
 
 class TransformerBlock(nn.Module):
-    """Pre-norm block. With ``fused_norm`` (and no decode cache), ``ln_1``
-    is :func:`fused_layer_norm` of the block input and ``ln_2`` is
+    """Pre-norm block. With ``fused_norm``, ``ln_1`` is
+    :func:`fused_layer_norm` of the block input and ``ln_2`` is
     :func:`fused_add_layer_norm`, which also returns the residual sum
     (JAX ``FusedLayerNorm``); the parameters are the same ``ln_*``
-    weight/bias either way."""
+    weight/bias either way. The decode paths (:meth:`decode_rows`) always
+    run the unfused LayerNorm, as JAX clears ``fused_norm`` on decode
+    clones."""
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int, *, dtype: torch.dtype,
                  param_dtype: torch.dtype, dropout: float = 0.0, fused_norm: bool = False,
@@ -322,25 +429,34 @@ class TransformerBlock(nn.Module):
         self,
         x: torch.Tensor,
         attention_mask: torch.Tensor | None = None,
-        cache: LayerKVCache | None = None,
         *,
         deterministic: bool = True,
         generator: torch.Generator | None = None,
     ) -> torch.Tensor:
         attn_kw = dict(deterministic=deterministic, generator=generator)
-        if self.fused_norm and cache is None:
+        if self.fused_norm:
             x = x.to(self.dtype)
             h = fused_norm_ops.fused_layer_norm(x, self.ln_1.weight, self.ln_1.bias,
                                                 self.ln_1.eps)
-            attn_out = self.attn(h, attention_mask, cache, **attn_kw)
+            attn_out = self.attn(h, attention_mask, **attn_kw)
             h, x = fused_norm_ops.fused_add_layer_norm(attn_out, x, self.ln_2.weight,
                                                        self.ln_2.bias, self.ln_2.eps)
         else:
-            x = x + self.attn(self.ln_1(x), attention_mask, cache, **attn_kw)
+            x = x + self.attn(self.ln_1(x), attention_mask, **attn_kw)
             h = self.ln_2(x)
+        return x + apply_dropout(self._mlp(h), self.dropout, deterministic, generator)
+
+    def _mlp(self, h: torch.Tensor) -> torch.Tensor:
         h = F.gelu(_dense(h, self.mlp_fc, self.dtype), approximate="none")
-        h = _dense(h, self.mlp_proj, self.dtype)
-        return x + apply_dropout(h, self.dropout, deterministic, generator)
+        return _dense(h, self.mlp_proj, self.dtype)
+
+    def decode_rows(self, x: torch.Tensor, shape: tuple[int, int], positions: torch.Tensor,
+                    write_read: Any, rows: int | None) -> torch.Tensor:
+        """The block on the decode paths, over rows padded to a multiple of
+        DECODE_ROWS (see :meth:`CausalSelfAttention.decode_rows`)."""
+        h = _row_blocks(self.ln_1, x)
+        x = x + self.attn.decode_rows(h, shape, positions, write_read, rows)
+        return x + _row_blocks(self._mlp, _row_blocks(self.ln_2, x))
 
 
 class GPT(nn.Module):
@@ -440,27 +556,56 @@ class GPT(nn.Module):
         applies dropout from ``generator``. ``return_hidden`` returns
         ``ln_f``'s output (B, T, d) without the lm-head, for the streamed
         losses that contract it against :meth:`vocab_matrix` themselves."""
-        _, seqlen = input_ids.shape
+        batch, seqlen = input_ids.shape
         if seqlen > self.block_size:
             raise ValueError(
                 f"Input sequence length {seqlen} exceeds block size {self.block_size}."
             )
-        start = 0
         if cache is not None:
             # Positions continue from the cache cursor across calls.
             start = cache.position_index
             cache.position_index += seqlen
-        pos = torch.arange(start, start + seqlen, device=input_ids.device)
+            positions = torch.arange(start, start + seqlen, device=input_ids.device)
+            return self.decode_forward(input_ids, positions.expand(batch, seqlen),
+                                       _LinearWriteRead(cache, seqlen))
+        pos = torch.arange(seqlen, device=input_ids.device)
         x = (F.embedding(input_ids, self.token_embedding.weight).to(self.dtype)
              + F.embedding(pos, self.position_embedding.weight).to(self.dtype)[None])
         x = apply_dropout(x, self.dropout, deterministic, generator)
-        for i, block in enumerate(self.blocks):
-            x = block(x, attention_mask, cache.layers[i] if cache is not None else None,
-                      deterministic=deterministic, generator=generator)
+        for block in self.blocks:
+            x = block(x, attention_mask, deterministic=deterministic, generator=generator)
         x = self.ln_f(x)
         if return_hidden:
             return x
         return F.linear(x, self.vocab_matrix().to(self.dtype))
+
+    def decode_forward(
+        self,
+        input_ids: torch.Tensor,
+        positions: torch.Tensor,
+        write_read: Any,
+        *,
+        rows: int | None = None,
+    ) -> torch.Tensor:
+        """Logits (B, T, V) of the decode paths. ``positions`` (B, T) are
+        the tokens' absolute positions (a position past the model's last,
+        which only a padded token has, reads the last position embedding);
+        ``write_read(layer)`` gives the layer's ``(k, v) -> (keys, values)``
+        that stores this call's K/V and returns every row's window. The
+        B x T token rows are padded to a multiple of DECODE_ROWS and every
+        row-wise op runs DECODE_ROWS rows at a time; attention is computed
+        for the first ``rows`` rows only (default all)."""
+        b, t = input_ids.shape
+        n = b * t
+        pos = positions.clamp(max=self.block_size - 1)
+        x = (F.embedding(input_ids, self.token_embedding.weight).to(self.dtype)
+             + F.embedding(pos, self.position_embedding.weight).to(self.dtype))
+        x = F.pad(x.reshape(n, -1), (0, 0, 0, -(-n // DECODE_ROWS) * DECODE_ROWS - n))
+        for i, block in enumerate(self.blocks):
+            x = block.decode_rows(x, (b, t), positions, write_read(i), rows)
+        x = _row_blocks(self.ln_f, x)
+        w = self.vocab_matrix().to(self.dtype)
+        return _row_blocks(lambda r: F.linear(r, w), x)[:n].view(b, t, -1)
 
     def vocab_matrix(self) -> torch.Tensor:
         """The (V, d) output-projection parameter: the tied
@@ -478,6 +623,28 @@ class GPT(nn.Module):
             cache_len = self.block_size
         return GPTDecoder(self, min(cache_len, self.block_size))
 
+    def for_paged_decoding(self, *, num_blocks: int, block_tokens: int) -> GPTPagedDecoder:
+        """Paged-KV decoding view of this model (JAX ``for_paged_decoding``):
+        same parameters, a pool of ``num_blocks`` blocks of ``block_tokens``
+        positions shared by every in-flight sequence; block 0 is the null
+        block padded table entries point at, so the pool holds at least 2.
+        The sliding-window and int8 caches are refused, as in JAX."""
+        if num_blocks < 2:
+            raise ValueError(f"num_blocks must be >= 2 (got {num_blocks})")
+        if block_tokens < 1:
+            raise ValueError(f"block_tokens must be >= 1 (got {block_tokens})")
+        if self.sliding_window:
+            raise ValueError(
+                "paged decode does not support sliding_window models yet; "
+                "use for_decoding() (rolling-ring cache)"
+            )
+        if self.kv_cache_dtype != "model":
+            raise ValueError(
+                "paged decode does not support kv_cache_dtype="
+                f"{self.kv_cache_dtype!r} yet; use for_decoding()"
+            )
+        return GPTPagedDecoder(self, num_blocks, block_tokens)
+
 
 @dataclass
 class GPTDecoder:
@@ -494,13 +661,13 @@ class GPTDecoder:
         if self.model.kv_cache_dtype != "model":
             raise NotImplementedError(
                 "kv_cache_dtype='int8' is not yet ported to llmtrain_tpu_torch "
-                "(ROADMAP.md queue A: continuous serving)"
+                "(ROADMAP.md queue A: int8 quantization)"
             )
         window = self.model.sliding_window
         if window and window < self.cache_len:
             raise NotImplementedError(
                 "the rolling sliding-window decode cache is not yet ported to "
-                "llmtrain_tpu_torch (ROADMAP.md queue A: continuous serving)"
+                "llmtrain_tpu_torch (ROADMAP.md queue A: rolling sliding-window cache)"
             )
 
     def init_cache(self, batch: int) -> KVCache:
@@ -520,6 +687,109 @@ class GPTDecoder:
 
     def __call__(self, input_ids: torch.Tensor, cache: KVCache) -> torch.Tensor:
         return self.model(input_ids, cache=cache)
+
+
+class _LinearWriteRead:
+    """``write_read`` of :meth:`GPT.decode_forward` over a linear
+    :class:`KVCache`: K/V written at the layer's cursor."""
+
+    def __init__(self, cache: KVCache, t: int) -> None:
+        self.cache, self.t = cache, t
+
+    def __call__(self, layer: int) -> Any:
+        c = self.cache.layers[layer]
+
+        def write_read(k: torch.Tensor, v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+            idx = c.index
+            if idx + self.t > c.key.shape[1]:
+                raise ValueError(
+                    f"decode cache overflow: {idx} + {self.t} > capacity {c.key.shape[1]}"
+                )
+            c.key[:, idx : idx + self.t] = k.to(c.key.dtype)
+            c.value[:, idx : idx + self.t] = v.to(c.value.dtype)
+            c.index = idx + self.t
+            return c.key, c.value
+
+        return write_read
+
+
+@dataclass
+class PagedKVCache:
+    """The paged decode cache: per layer, key and value pools of shape
+    (num_blocks, block_tokens, Hkv, Dh) in the compute dtype. Shared by
+    every sequence and every batch size; block 0 is the null block."""
+
+    key: list[torch.Tensor]
+    value: list[torch.Tensor]
+
+    def zero_(self) -> None:
+        for t in (*self.key, *self.value):
+            t.zero_()
+
+
+@dataclass
+class GPTPagedDecoder:
+    """Paged-KV decoding over a :class:`GPT` (JAX's paged decode clone):
+    rows at different depths in one call, each with its own positions and
+    block table (serving/engine.py drives it)."""
+
+    model: GPT
+    num_blocks: int
+    block_tokens: int
+
+    def init_pool(self) -> PagedKVCache:
+        m = self.model
+        shape = (self.num_blocks, self.block_tokens, m.n_kv_heads, m.d_model // m.n_heads)
+        dev = m.token_embedding.weight.device
+
+        def zeros() -> list[torch.Tensor]:
+            return [torch.zeros(shape, dtype=m.dtype, device=dev) for _ in range(m.n_layers)]
+
+        return PagedKVCache(zeros(), zeros())
+
+    def __call__(
+        self,
+        input_ids: torch.Tensor,  # (B, T)
+        positions: torch.Tensor,  # (B,) absolute position of input_ids[:, 0]
+        block_tables: torch.Tensor,  # (B, ceil(block_size / block_tokens)) block ids
+        pool: PagedKVCache,
+        *,
+        true_len: torch.Tensor | None = None,  # (B,) real tokens per row
+        rows: int | None = None,
+    ) -> torch.Tensor:
+        """Logits (B, T, V). Token t of row b writes its K/V at
+        ``pool[table[b, p // bt], p % bt]`` with p = positions[b] + t, then
+        every row attends its window gathered through its table (the
+        first ``block_size`` positions) masked by col <= p. Tokens past
+        ``true_len`` (padding) write into the null block; the attention of
+        rows past ``rows`` (padded rows) is not computed."""
+        b, t = input_ids.shape
+        bt = self.block_tokens
+        dev = input_ids.device
+        pos = positions[:, None] + torch.arange(t, device=dev)[None, :]
+        blocks = block_tables.gather(1, (pos // bt).clamp(max=block_tables.shape[1] - 1))
+        if true_len is not None:
+            real = torch.arange(t, device=dev)[None, :] < true_len[:, None]
+            blocks = torch.where(real, blocks, torch.zeros_like(blocks))
+        # Pool rows (block * bt + slot) written by this call, and those of
+        # each row's window, in order.
+        written = (blocks * bt + pos % bt).reshape(-1)
+        window = self.model.block_size
+        read = (block_tables[:, :, None] * bt + torch.arange(bt, device=dev)).reshape(b, -1)
+        read = read[:, :window].reshape(-1)
+
+        def write_read(layer: int) -> Any:
+            pk, pv = (p.view(-1, *p.shape[2:]) for p in (pool.key[layer], pool.value[layer]))
+
+            def wr(k: torch.Tensor, v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                pk.index_copy_(0, written, k.reshape(-1, *pk.shape[1:]).to(pk.dtype))
+                pv.index_copy_(0, written, v.reshape(-1, *pv.shape[1:]).to(pv.dtype))
+                return (pk.index_select(0, read).view(b, window, *pk.shape[1:]),
+                        pv.index_select(0, read).view(b, window, *pv.shape[1:]))
+
+            return wr
+
+        return self.model.decode_forward(input_ids, pos, write_read, rows=rows)
 
 
 @register_model("gpt")
@@ -689,13 +959,17 @@ __all__ = [
     "GPT",
     "GPTAdapter",
     "GPTDecoder",
+    "GPTPagedDecoder",
     "CausalSelfAttention",
+    "DECODE_ROWS",
     "KVCache",
     "LayerKVCache",
     "LOSS_IMPLS",
     "LayerNorm",
+    "PagedKVCache",
     "TransformerBlock",
     "apply_dropout",
+    "cached_attention",
     "dense_attention",
     "resolve_loss_impl",
 ]

@@ -1,21 +1,29 @@
-"""HTTP surface of the inference server, simple mode (port of
+"""HTTP surface of the inference server (port of
 ``llmtrain_tpu/serving/http.py``; stdlib only).
 
-* ``GET /healthz`` — liveness + model/checkpoint metadata and request stats.
+* ``GET /healthz`` — liveness + model/checkpoint metadata and request
+  stats, with the scheduler, KV-pool and shape stats when the
+  continuous-batching backend is attached; 503 when its loop is dead or
+  its beacon is stale.
 * ``GET /metrics`` — Prometheus exposition of the serving registry
-  (``llmtrain_serve_*``): the request counter, latency percentiles from the
-  :class:`ServerStats` reservoir, and the latency histogram.
-* ``POST /v1/generate`` — validate, then one ``generate()`` call behind the
-  device lock (one decode at a time), with a ``torch.Generator`` seeded
-  from the request's ``seed``.
+  (``llmtrain_serve_*``): the scheduler's gauges, counters, latency
+  percentiles from the :class:`ServerStats` reservoir, and histograms.
+* ``POST /v1/generate`` — validate, then either SUBMIT to the continuous
+  batch and wait on the request's completion (N handler threads → N
+  in-flight sequences; 429 with the reason and ``Retry-After`` when
+  overload control says no; 503 and abandonment on timeout; 500 for a
+  failed request while the scheduler keeps running), or, in simple mode,
+  one ``generate()`` call behind the device lock with a
+  ``torch.Generator`` seeded from the request's ``seed``.
+* ``POST /reload`` — zero-downtime checkpoint hot swap through the CLI's
+  reloader (continuous mode); 404 without one.
 
 As in the JAX server, a request whose prompt + ``max_new_tokens`` exceeds
 ``block_size`` is answered with 400, so a served request always takes the
 KV-cache branch of ``generate()``; the sliding-window re-forward branch,
 which runs the flash kernel, is reached through ``generate()`` itself and
-the ``generate`` CLI. The continuous-batching backend, overload control,
-request tracing and ``POST /reload`` are not yet ported (ROADMAP.md
-queue A: continuous serving); ``/reload`` answers 404 as a JAX server without a reloader does.
+the ``generate`` CLI. Request tracing is not yet ported (ROADMAP.md queue
+A: telemetry).
 
 Thread discipline: ``ThreadingHTTPServer`` runs one handler thread per
 connection, so every cross-request mutable lives in :class:`ServerStats`
@@ -36,10 +44,14 @@ import torch
 
 from ..telemetry.stats import percentile as _nearest_rank_percentile
 
+_TTFT_BUCKETS_MS = (
+    5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 500.0, 1000.0, 2500.0, 5000.0,
+)
 _LATENCY_BUCKETS_MS = (
     10.0, 25.0, 50.0, 100.0, 250.0, 500.0, 1000.0, 2500.0, 5000.0,
     10000.0, 30000.0,
 )
+_PER_TOKEN_BUCKETS_MS = (1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0)
 
 
 class ServerStats:
@@ -55,6 +67,7 @@ class ServerStats:
         self._tokens_out = 0
         self._latency_sum_ms = 0.0
         self._latencies_ms: list[float] = []
+        self._ttft_ms: list[float] = []
         self._per_token_ms: list[float] = []
 
     @staticmethod
@@ -63,13 +76,23 @@ class ServerStats:
         if len(reservoir) > ServerStats._RESERVOIR:
             del reservoir[: -ServerStats._RESERVOIR]
 
-    def record(self, *, latency_ms: float, tokens: int) -> None:
+    def record(
+        self, *, latency_ms: float, tokens: int, ttft_ms: float | None = None
+    ) -> None:
         with self._lock:
             self._requests += 1
             self._tokens_out += tokens
             self._latency_sum_ms += latency_ms
             self._push(self._latencies_ms, latency_ms)
-            if tokens > 0:
+            if ttft_ms is not None:
+                self._push(self._ttft_ms, ttft_ms)
+                # Per-token decode latency: time AFTER the first token over
+                # the remaining tokens, not diluted by prefill.
+                if tokens > 1:
+                    self._push(
+                        self._per_token_ms, (latency_ms - ttft_ms) / (tokens - 1)
+                    )
+            elif tokens > 0:
                 self._push(self._per_token_ms, latency_ms / tokens)
 
     def record_error(self) -> None:
@@ -91,6 +114,7 @@ class ServerStats:
         with self._lock:
             n = self._requests
             lat = sorted(self._latencies_ms)
+            ttft = sorted(self._ttft_ms)
             return {
                 "requests_served": n,
                 "errors": self._errors,
@@ -100,9 +124,9 @@ class ServerStats:
                 "p95_latency_ms": (
                     round(self._percentile(lat, 0.95), 3) if lat else None
                 ),
-                # Simple mode decodes a request in one call: no time to
-                # first token is observed (the key keeps the JAX shape).
-                "p50_ttft_ms": None,
+                # Simple mode decodes a request in one call: only the
+                # continuous backend observes a time to first token.
+                "p50_ttft_ms": round(ttft[len(ttft) // 2], 3) if ttft else None,
             }
 
     def prometheus_gauges(self) -> dict[str, float]:
@@ -111,6 +135,7 @@ class ServerStats:
         with self._lock:
             series = {
                 "serve/latency_ms": sorted(self._latencies_ms),
+                "serve/ttft_ms": sorted(self._ttft_ms),
                 "serve/per_token_ms": sorted(self._per_token_ms),
             }
         gauges: dict[str, float] = {}
@@ -133,11 +158,25 @@ class ServerState:
     eos_token_id: int | None = None
     max_new_tokens_cap: int = 256
     default_max_new_tokens: int = 48
-    # One decode at a time behind the device lock.
+    # Simple mode only — one decode at a time behind the device lock. The
+    # continuous backend replaces the lock with its admission queue.
     lock: threading.Lock = field(default_factory=threading.Lock)
     stats: ServerStats = field(default_factory=ServerStats)
+    # Continuous-batching backend (serving/scheduler.py); None = simple.
+    scheduler: Any | None = None
     # Telemetry registry served on GET /metrics (llmtrain_serve_*).
     registry: Any | None = None
+    request_timeout_sec: float = 120.0
+    # POST /reload calls this with the request body; it loads the
+    # checkpoint, hot-swaps the scheduler and returns the response dict
+    # (the CLI builds the closure). None = 404.
+    reloader: Any | None = None
+    # /healthz turns 503 when the scheduler loop's beacon is older than
+    # this (serving.liveness_stale_sec).
+    liveness_stale_sec: float = 30.0
+    # Per-client token buckets at the HTTP boundary (overload.ClientRateGate,
+    # keyed by X-Client-Id). None = no per-client rate limiting.
+    client_gate: Any | None = None
 
     @property
     def requests_served(self) -> int:
@@ -176,6 +215,9 @@ def _generate_request_inner(
 
     if not isinstance(body, dict):
         return _bad_request("request body must be a JSON object")
+    rid = _header(headers, "X-Request-Id")
+    echo: dict[str, Any] = {"request_id": rid} if rid else {}
+    deadline_ms: float | None = None
     raw_deadline = _header(headers, "X-Deadline-Ms")
     if raw_deadline is not None:
         try:
@@ -183,7 +225,23 @@ def _generate_request_inner(
         except (TypeError, ValueError):
             deadline_ms = -1.0
         if deadline_ms <= 0:
-            return _bad_request("X-Deadline-Ms must be a positive number")
+            return 400, {"error": "X-Deadline-Ms must be a positive number", **echo}
+    priority = _header(headers, "X-Priority") or "interactive"
+
+    if state.client_gate is not None:
+        client = _header(headers, "X-Client-Id") or "_anon"
+        wait = state.client_gate.check(client)
+        if wait is not None:
+            if state.registry is not None:
+                from .overload import REASON_RATE_LIMITED, rejected_counter
+
+                state.registry.inc(rejected_counter(REASON_RATE_LIMITED))
+            return 429, {
+                "error": f"client {client!r} is over its request rate",
+                "reason": "rate_limited",
+                "retry_after": round(wait, 3),
+                **echo,
+            }
     unknown = set(body) - {
         "prompt", "prompt_ids", "max_new_tokens", "temperature",
         "top_k", "top_p", "seed", "eos_token_id",
@@ -228,6 +286,13 @@ def _generate_request_inner(
             f"prompt ({ids.size}) + max_new_tokens ({max_new}) exceeds the "
             f"model block_size ({block_size})"
         )
+    engine = getattr(state.scheduler, "engine", None)
+    if engine is not None:
+        # Paged-backend bounds (prompt bucket, pool capacity): reject at
+        # the HTTP boundary as a 400, not a late 500 from inside prefill.
+        reason = engine.validate_request(int(ids.size), int(max_new))
+        if reason is not None:
+            return _bad_request(reason)
     temperature = body.get("temperature", 1.0)
     if not isinstance(temperature, (int, float)) or isinstance(temperature, bool):
         return _bad_request("'temperature' must be a number")
@@ -247,27 +312,75 @@ def _generate_request_inner(
         return _bad_request("'eos_token_id' must be an int")
 
     t0 = time.monotonic()
-    with state.lock:
-        generator = torch.Generator(device=state.device)
-        generator.manual_seed(seed)
-        out = generate(
-            state.model,
-            ids[None, :],
+    extra: dict[str, Any] = {}
+    if state.scheduler is not None:
+        # Continuous batching: enqueue and wait; the scheduler thread
+        # joins this sequence into the in-flight batch.
+        from .scheduler import ServeRequest
+
+        req = ServeRequest(
+            prompt_ids=ids,
             max_new_tokens=max_new,
-            temperature=temperature,
+            temperature=float(temperature),
             top_k=top_k,
             top_p=top_p,
+            seed=seed,
             eos_token_id=eos,
-            generator=generator,
+            deadline_ms=deadline_ms,
+            priority=priority,
+            rid=rid,
         )
-    completion = [int(t) for t in out[0, ids.size :]]
-    if eos is not None and eos in completion:
-        completion = completion[: completion.index(eos) + 1]
+        state.scheduler.submit(req)
+        if not req.done.wait(timeout=state.request_timeout_sec):
+            # Tell the scheduler this waiter is gone, so the device does
+            # not keep decoding for nobody.
+            req.abandon()
+            state.stats.record_error()
+            return 503, {"error": "request timed out in the serving queue", **echo}
+        if req.finish_reason in ("rejected", "shed"):
+            # Overload control said no — fast 429 with the reason and a
+            # Retry-After hint (do_POST lifts it into the header).
+            payload: dict[str, Any] = {
+                "error": f"request {req.finish_reason} by overload control",
+                "reason": req.reject_reason,
+                "finish_reason": req.finish_reason,
+                **echo,
+            }
+            if req.retry_after_sec is not None:
+                payload["retry_after"] = round(req.retry_after_sec, 3)
+            return 429, payload
+        if req.error is not None:
+            state.stats.record_error()
+            return 500, {"error": f"generation failed: {req.error}", **echo}
+        completion = list(req.tokens)
+        if req.ttft_ms is not None:
+            extra["ttft_ms"] = round(req.ttft_ms, 3)
+        extra["finish_reason"] = req.finish_reason
+    else:
+        with state.lock:
+            generator = torch.Generator(device=state.device)
+            generator.manual_seed(seed)
+            out = generate(
+                state.model,
+                ids[None, :],
+                max_new_tokens=max_new,
+                temperature=temperature,
+                top_k=top_k,
+                top_p=top_p,
+                eos_token_id=eos,
+                generator=generator,
+            )
+        completion = [int(t) for t in out[0, ids.size :]]
+        if eos is not None and eos in completion:
+            completion = completion[: completion.index(eos) + 1]
     latency_ms = (time.monotonic() - t0) * 1000.0
-    state.stats.record(latency_ms=latency_ms, tokens=len(completion))
+    ttft_ms = extra.get("ttft_ms")
+    state.stats.record(latency_ms=latency_ms, tokens=len(completion), ttft_ms=ttft_ms)
     if state.registry is not None:
-        state.registry.observe("serve/latency_ms", latency_ms, buckets=_LATENCY_BUCKETS_MS)
-        state.registry.inc("serve/requests")
+        _observe_histograms(state.registry, latency_ms, len(completion), ttft_ms)
+        if state.scheduler is None:
+            # The scheduler counts its own requests.
+            state.registry.inc("serve/requests")
 
     text = None
     if state.tokenizer is not None:
@@ -280,11 +393,46 @@ def _generate_request_inner(
         "text": text,
         "prompt_tokens": int(ids.size),
         "latency_ms": round(latency_ms, 3),
+        **extra,
+        **echo,
     }
 
 
+def _observe_histograms(
+    registry: Any, latency_ms: float, tokens: int, ttft_ms: float | None
+) -> None:
+    """Feed the /metrics histograms (latency; TTFT and per-token decode
+    latency where the backend measured a first token)."""
+    registry.observe("serve/latency_ms", latency_ms, buckets=_LATENCY_BUCKETS_MS)
+    if ttft_ms is not None:
+        registry.observe("serve/ttft_ms", ttft_ms, buckets=_TTFT_BUCKETS_MS)
+        if tokens > 1:
+            registry.observe("serve/per_token_ms", (latency_ms - ttft_ms) / (tokens - 1),
+                             buckets=_PER_TOKEN_BUCKETS_MS)
+
+
+def _handle_reload(state: ServerState, body: Any) -> tuple[int, dict]:
+    """POST /reload — zero-downtime checkpoint hot swap. The heavy work
+    (checkpoint resolve, param load, scheduler.hot_swap) lives in the CLI's
+    reloader closure; in-flight requests keep decoding on their admitted
+    weights throughout."""
+    if state.reloader is None:
+        return 404, {"error": "this server has no reloader attached"}
+    if body is None:
+        body = {}
+    if not isinstance(body, dict):
+        return _bad_request("request body must be a JSON object (or empty)")
+    try:
+        out = state.reloader(body)
+    except Exception as exc:  # noqa: BLE001 — a bad checkpoint must not 500
+        # the serving loop: the old weights keep serving.
+        return 409, {"error": f"reload failed (still serving old params): {exc}"}
+    return 200, {"status": "ok", **(out or {})}
+
+
 def _handle_health(state: ServerState) -> tuple[int, dict]:
-    return 200, {
+    """Liveness + stats: a dead or wedged scheduler loop answers 503."""
+    payload: dict[str, Any] = {
         "status": "ok",
         "model": type(state.model).__name__,
         "step": state.step,
@@ -292,6 +440,12 @@ def _handle_health(state: ServerState) -> tuple[int, dict]:
         "requests_served": state.stats.requests_served,
         "stats": state.stats.snapshot(),
     }
+    if state.scheduler is not None:
+        payload["scheduler"] = state.scheduler.stats()
+        if not state.scheduler.alive(state.liveness_stale_sec):
+            payload["status"] = "unhealthy"
+            return 503, payload
+    return 200, payload
 
 
 def _handle_metrics(state: ServerState) -> tuple[int, str]:
@@ -300,7 +454,10 @@ def _handle_metrics(state: ServerState) -> tuple[int, str]:
         return 404, "no metrics registry attached\n"
     from ..telemetry.prometheus import render_prometheus
 
-    gauges = {name: (value, None) for name, value in state.stats.prometheus_gauges().items()}
+    gauges = dict(state.registry.latest())
+    # Live SLO percentiles from the stats reservoir, computed at scrape time.
+    for name, value in state.stats.prometheus_gauges().items():
+        gauges[name] = (value, None)
     return 200, render_prometheus(
         gauges,
         state.registry.counters(),
@@ -313,20 +470,38 @@ class _Handler(BaseHTTPRequestHandler):
     # Set by make_server().
     state: ServerState = None  # type: ignore[assignment]
 
-    def _respond(self, code: int, payload: dict) -> None:
+    def _respond(
+        self, code: int, payload: dict, headers: dict[str, str] | None = None
+    ) -> None:
         data = json.dumps(payload).encode("utf-8")
         self.send_response(code)
         self.send_header("Content-Type", "application/json")
         self.send_header("Content-Length", str(len(data)))
-        rid = payload.get("request_id") if isinstance(payload, dict) else None
-        if rid:
-            self.send_header("X-Request-Id", str(rid))
+        for name, value in (headers or {}).items():
+            self.send_header(name, value)
         self.end_headers()
         self.wfile.write(data)
 
+    @staticmethod
+    def _slo_headers(code: int, payload: dict) -> dict[str, str]:
+        """429/503 carry Retry-After (integer seconds, >= 1 per RFC 9110),
+        and X-Request-Id echoes back whenever the request carried one."""
+        out: dict[str, str] = {}
+        retry_after = payload.get("retry_after") if isinstance(payload, dict) else None
+        if code in (429, 503) and isinstance(retry_after, (int, float)):
+            out["Retry-After"] = str(max(1, int(-(-float(retry_after) // 1))))
+        rid = payload.get("request_id") if isinstance(payload, dict) else None
+        if rid:
+            out["X-Request-Id"] = str(rid)
+        return out
+
     def do_GET(self) -> None:  # noqa: N802 — BaseHTTPRequestHandler API
         if self.path == "/healthz":
-            self._respond(*_handle_health(self.state))
+            code, payload = _handle_health(self.state)
+            headers = {}
+            if code == 503:
+                headers["Retry-After"] = str(max(1, int(self.state.liveness_stale_sec)))
+            self._respond(code, payload, headers)
         elif self.path.split("?")[0] == "/metrics":
             code, text = _handle_metrics(self.state)
             body = text.encode("utf-8")
@@ -349,10 +524,11 @@ class _Handler(BaseHTTPRequestHandler):
             self._respond(400, {"error": "body is not valid JSON"})
             return
         if self.path == "/reload":
-            self._respond(404, {"error": "this server has no reloader attached"})
+            self._respond(*_handle_reload(self.state, body))
             return
         try:
-            self._respond(*_handle_generate_request(self.state, body, self.headers))
+            code, payload = _handle_generate_request(self.state, body, self.headers)
+            self._respond(code, payload, self._slo_headers(code, payload))
         except Exception as exc:  # noqa: BLE001 — server must not die
             self.state.stats.record_error()
             self._respond(500, {"error": f"generation failed: {exc}"})

@@ -1,10 +1,11 @@
 """MetricsRegistry: the publish surface serving reads ``/metrics`` from.
 
-Port of ``llmtrain_tpu/telemetry/registry.py`` reduced to what simple-mode
-serving uses: monotonic counters (:meth:`inc`) and fixed-bucket
-histograms (:meth:`observe`). The tracker flush and run history come with the
-training slice. Every method is thread-safe: HTTP handler threads record
-while the scrape handler reads.
+Port of ``llmtrain_tpu/telemetry/registry.py`` reduced to what serving
+uses: live gauges (:meth:`publish`, read by :meth:`latest`), monotonic
+counters (:meth:`inc`) and fixed-bucket histograms (:meth:`observe`). The
+tracker flush and run history are not ported (ROADMAP.md queue A:
+telemetry). Every method is thread-safe: the scheduler and HTTP handler
+threads record while the scrape handler reads.
 """
 
 from __future__ import annotations
@@ -20,8 +21,16 @@ class MetricsRegistry:
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
+        self._latest: dict[str, tuple[float, int | None]] = {}
         self._counters: dict[str, float] = {}
         self._histograms: dict[str, Histogram] = {}
+
+    def publish(self, metrics: dict[str, float]) -> None:
+        """Set live gauge values (last write wins; no step: serving gauges
+        are not per training step)."""
+        with self._lock:
+            for key, value in metrics.items():
+                self._latest[key] = (float(value), None)
 
     def inc(self, name: str, by: float = 1.0) -> None:
         """Monotonic event counter."""
@@ -44,6 +53,10 @@ class MetricsRegistry:
             if hist is None:
                 hist = self._histograms[name] = Histogram(buckets)
         hist.observe(value, trace_id=trace_id, unix_time=unix_time)
+
+    def latest(self) -> dict[str, tuple[float, int | None]]:
+        with self._lock:
+            return dict(self._latest)
 
     def counters(self) -> dict[str, float]:
         with self._lock:

@@ -26,9 +26,16 @@ from __future__ import annotations
 import math
 import threading
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Iterable, Sequence
 
-__all__ = ["Exemplar", "Histogram", "percentile"]
+__all__ = ["Exemplar", "Histogram", "percentile", "percentiles"]
+
+DEFAULT_QUANTILES: tuple[tuple[float, str], ...] = (
+    (0.50, "p50"),
+    (0.95, "p95"),
+    (0.99, "p99"),
+)
+
 
 def percentile(sorted_samples: Sequence[float], q: float) -> float:
     """Nearest-rank percentile of an ALREADY SORTED sequence.
@@ -42,6 +49,25 @@ def percentile(sorted_samples: Sequence[float], q: float) -> float:
         raise ValueError("percentile of empty sequence")
     rank = math.ceil(q * n)
     return float(sorted_samples[min(n - 1, max(0, rank - 1))])
+
+
+def percentiles(
+    samples: Iterable[float],
+    quantiles: tuple[tuple[float, str], ...] = DEFAULT_QUANTILES,
+    *,
+    round_to: int | None = 3,
+) -> dict[str, float]:
+    """Nearest-rank summary (p50/p95/p99 + mean/max) of raw samples;
+    ``{}`` on no samples."""
+    s = sorted(float(x) for x in samples)
+    if not s:
+        return {}
+    out = {label: percentile(s, q) for q, label in quantiles}
+    out["mean"] = sum(s) / len(s)
+    out["max"] = s[-1]
+    if round_to is not None:
+        out = {k: round(v, round_to) for k, v in out.items()}
+    return out
 
 
 @dataclass

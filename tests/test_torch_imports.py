@@ -35,6 +35,7 @@ def test_walk_covers_the_package() -> None:
     assert {"fused_norm.py", "trainer.py", "train_step.py", "optimizer.py", "dry_run.py",
             "local_text.py", "sampler.py", "prefetch.py", "hw.py", "summary.py"} <= names
     assert {"fused_ce.py", "chunked_ce.py"} <= names
+    assert {"engine.py", "scheduler.py", "paged_kv.py", "overload.py", "loadgen.py"} <= names
 
 
 def test_kernel_modules_import_triton_only_inside_functions() -> None:

@@ -154,7 +154,10 @@ def test_unported_generate_flags_exit_2(trained, capsys, extra) -> None:
 
 
 def test_continuous_serve_exits_2(trained, capsys) -> None:
+    """Continuous mode runs (tests/test_torch_serve_bench.py); what it
+    does not run yet still exits 2: the replica router in front of it."""
     cfg_path, ckpt_path, _, _ = trained
-    argv = ["serve", "--config", str(cfg_path), "--from", str(ckpt_path), "--mode", "continuous"]
+    argv = ["serve", "--config", str(cfg_path), "--from", str(ckpt_path), "--mode", "continuous",
+            "--router"]
     assert run_cli(cli.main, argv) == 2
     assert "not yet ported" in capsys.readouterr().err

@@ -183,8 +183,9 @@ def test_dense_checkpoint_resumes_under_fused_ce(tmp_path, capsys) -> None:
 
 # ROADMAP.md's stable item names (the top of its "Open items"): a refusal
 # cites one of them, never a numbered queue item.
-STABLE_ITEMS = ("slice 2 deferrals", "continuous serving", "model zoo", "parallelism",
-                "resilience", "telemetry")
+STABLE_ITEMS = ("slice 2 deferrals", "continuous serving", "speculative decoding",
+                "replica router", "int8 quantization", "rolling sliding-window cache",
+                "model zoo", "parallelism", "resilience", "telemetry")
 _CITES_STABLE_ITEM = re.compile(r"\(ROADMAP\.md queue A: (" + "|".join(STABLE_ITEMS) + r")\)")
 
 
@@ -203,6 +204,56 @@ def test_refusals_cite_a_stable_roadmap_item(tmp_path, override) -> None:
     with pytest.raises(NotImplementedError) as excinfo:
         refuse_unported(cfg)
     assert _CITES_STABLE_ITEM.search(str(excinfo.value)), str(excinfo.value)
+
+
+@pytest.mark.parametrize(
+    "argv, item",
+    [(["serve", "--mode", "continuous", "--router"], "replica router"),
+     (["serve", "--replicas", "2"], "replica router"),
+     (["serve", "--draft-config", "d.yaml", "--draft-from", "d"], "speculative decoding"),
+     (["serve", "--quantize", "int8"], "int8 quantization"),
+     (["serve", "--mode", "continuous", "--trace-dir", "t"], "telemetry"),
+     (["serve-bench", "--router"], "replica router"),
+     (["serve-bench", "--quantize", "int8"], "int8 quantization"),
+     (["generate", "--prompt", "x", "--draft-config", "d.yaml", "--draft-from", "d"],
+      "speculative decoding")],
+    ids=["serve-router", "serve-replicas", "serve-draft", "serve-int8", "serve-trace-dir",
+         "bench-router", "bench-int8", "generate-draft"],
+)
+def test_serving_refusals_cite_a_stable_roadmap_item(tmp_path, capsys, argv, item) -> None:
+    cfg = _config(tmp_path)
+    assert run_cli(port_main, [argv[0], "--config", str(cfg), "--from", str(tmp_path),
+                               *argv[1:]]) == 2
+    err = capsys.readouterr().err
+    assert _CITES_STABLE_ITEM.search(err) and f"queue A: {item})" in err, err
+
+
+def test_serving_module_refusals_cite_a_stable_roadmap_item() -> None:
+    """The engine's and the scheduler's refusals (speculative verify and
+    policy, the cost profile, request tracing) and the decode caches'."""
+    from llmtrain_tpu_torch.models.gpt import GPT
+    from llmtrain_tpu_torch.serving import ContinuousBatchingScheduler, PagedDecodeEngine
+
+    model = GPT(vocab_size=17, block_size=16, d_model=32, n_layers=1, n_heads=2, d_ff=64)
+    engine = PagedDecodeEngine(model, block_tokens=4, max_batch_slots=2)
+    calls = {
+        "speculative decoding": (lambda: engine.verify([], width=2),
+                                 lambda: ContinuousBatchingScheduler(engine,
+                                                                     policy="speculative")),
+        "telemetry": (engine.cost_profile,
+                      lambda: ContinuousBatchingScheduler(engine, tracer=object())),
+        "int8 quantization": (lambda: GPT(vocab_size=17, block_size=16, d_model=32, n_layers=1,
+                                          n_heads=2, d_ff=64, kv_cache_dtype="int8")
+                              .for_decoding(),),
+        "rolling sliding-window cache": (lambda: GPT(vocab_size=17, block_size=16, d_model=32,
+                                                     n_layers=1, n_heads=2, d_ff=64,
+                                                     sliding_window=4).for_decoding(),),
+    }
+    for item, fns in calls.items():
+        for fn in fns:
+            with pytest.raises(NotImplementedError) as excinfo:
+                fn()
+            assert f"(ROADMAP.md queue A: {item})" in str(excinfo.value)
 
 
 def test_ema_refusal_cites_a_stable_roadmap_item(tmp_path, capsys) -> None:
