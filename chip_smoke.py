@@ -24,9 +24,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    a. flash forward at the serving and training shapes and around them
       (FLASH_CASES: f32 and bf16 GQA 12q/4kv, segment mask with padding,
       ragged T=200; bf16 T=1, T=65, sliding window, head_dim 128 alone,
-      with GQA+segments and with a window). O on live query rows within
-      2e-2 for bf16 inputs (one bf16 rounding of outputs of magnitude ~1)
-      and 1e-4 for f32 (summation order only); lse (always f32) within
+      with GQA+segments and with a window; phase 15's two shapes, the
+      rolling cache's windowed reference and the int8 logits' forward).
+      O on live query rows within 2e-2 for bf16 inputs (one bf16
+      rounding of outputs of magnitude ~1) and 1e-4 for f32 (summation
+      order only); lse (always f32) within
       1e-4 on every row whose query has a live key. Control: the plain
       version non-causal (window cases: window off; T=1: the other batch
       row's K/V) above the O limit. bf16 cases run twice: bit-identical;
@@ -132,6 +134,27 @@ Phases, each fatal on failure (exit code 1, no result line):
    the paged path launches none of the eight kernels. Prints output
    tokens/s, TTFT and per-token p50/p99, occupancy, the prefix hit rate
    and peak memory.
+15. Speculative decoding, int8 serving and the rolling cache on phase 9's
+   checkpoint: a draft (the preset at DRAFT_MODEL, DRAFT_STEPS steps)
+   trained through `train`; then, launch counts reset just before and
+   read just after: (a) `generate --draft-config ... --gamma SPEC_GAMMA`
+   greedy on SPEC_PROMPTS x SPEC_NEW_TOKENS equal to plain greedy
+   generate(), ms per token with and without the draft, acceptance rate
+   and tokens per target call (not gated), and the target as its own
+   draft accepting every draft (ceil(128 / (gamma + 1)) target calls a
+   prompt); (c) int8 weights: quant_stats, the per-position cosine of
+   int8 against bf16 logits on 4 prompts > INT8_LOGIT_COSINE, `generate
+   --quantize int8` equal to generate() on the same quantized weights;
+   (d) phase 9's weights with sliding_window WINDOW: WINDOW_SEQ tokens
+   teacher-forced through the rolling cache, last-position logits within
+   LOGITS_ATOL of the windowed flash forward (the kernel, one launch per
+   layer), the same with kv_cache_dtype int8 at a cosine > INT8_CACHE_COSINE,
+   and speculative greedy on the rolling target equal to plain greedy;
+   (b) phase 14's greedy traffic through `serve-bench --verify-parity`
+   with the draft (batched draft-and-verify): bitwise, none failed, verify
+   shapes within the budget, the batch full, the acceptance rate printed;
+   (c) the same with --quantize int8, its peak memory beside phase 14's. Then the
+   windowed instance timed at (1, WINDOW_SEQ, 12, 64) beside its bound.
 
 Then it prints the kernels line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
@@ -320,6 +343,13 @@ def _segments(torch, b, t):
     return mask
 
 
+# Phase 15's shapes that launch the flash forward: the rolling cache's
+# reference, the windowed forward over WINDOW_SEQ tokens, and the int8
+# logits' two full forwards over INT8_LOGIT_IDS (batch, tokens).
+WINDOW = 128
+WINDOW_SEQ = 384
+INT8_LOGIT_IDS = (4, 256)
+
 # Cases of the flash check phases: (name, (B, T, H, Hkv, D), dtype,
 # segment mask or not, window). The bf16 ones run the tensor-core
 # instances of the forward and dk/dv kernels, the f32 ones the FMA
@@ -339,6 +369,8 @@ FLASH_CASES = [
     ("head_dim 128", (2, 256, 8, 8, 128), "bfloat16", False, 0),
     ("d128 gqa+segments", (2, 200, 8, 2, 128), "bfloat16", True, 0),
     ("d128 window 100", (1, 300, 8, 8, 128), "bfloat16", False, 100),
+    ("rolling reference", (1, WINDOW_SEQ, 12, 12, 64), "bfloat16", False, WINDOW),
+    ("int8 logits", (*INT8_LOGIT_IDS, 12, 12, 64), "bfloat16", False, 0),
 ]
 
 
@@ -413,17 +445,24 @@ def _time_ms(torch, fn, iters: int = 100, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def flash_bound(b, t, h, hkv, d, elt_bytes, dtype_name, causal=True):
-    """Least time for the work: (bytes moved, flops, bound ms, bound_by)."""
+def flash_bound(b, t, h, hkv, d, elt_bytes, dtype_name, causal=True, window=0):
+    """Least time for the work: (bytes moved, flops, bound ms, bound_by).
+    A sliding window counts only the (query, key) pairs inside it."""
     moved = (2 * b * t * h * d + 2 * b * t * hkv * d) * elt_bytes + 4 * b * h * t
-    pairs = t * (t + 1) // 2 if causal else t * t
+    if window:
+        pairs = sum(min(i + 1, window) for i in range(t))
+    else:
+        pairs = t * (t + 1) // 2 if causal else t * t
     flops = 4 * d * pairs * b * h
     t_bytes = moved / H100_HBM_BYTES_PER_S * 1e3
     t_ops = flops / H100_PEAK_FLOPS[dtype_name] * 1e3
     return moved, flops, max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def phase_timing(torch, smi: str, shape=PATH_SHAPE, iters: int = 100) -> dict:
+def phase_timing(torch, smi: str, shape=PATH_SHAPE, iters: int = 100, window: int = 0) -> dict:
+    """Kernel 1 against its plain version, SDPA and the bound at ``shape``,
+    causal, or with a sliding ``window`` (SDPA then takes the band as a
+    boolean mask)."""
     import torch.nn.functional as F
 
     from llmtrain_tpu_torch.ops.flash_attention import (
@@ -435,16 +474,26 @@ def phase_timing(torch, smi: str, shape=PATH_SHAPE, iters: int = 100) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1)
     q, k, v = _qkv(torch, gen, b, t, h, hkv, d, torch.bfloat16)
     with torch.inference_mode():
-        ms = _time_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=True), iters=iters)
-        plain_ms = _time_ms(torch, lambda: flash_attention_fwd_reference(q, k, v, causal=True),
-                            iters=max(5, iters // 10), warmup=2)
+        ms = _time_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=True, window=window),
+                      iters=iters)
+        plain_ms = _time_ms(
+            torch, lambda: flash_attention_fwd_reference(q, k, v, causal=True, window=window),
+            iters=max(5, iters // 10), warmup=2)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        library_ms = _time_ms(
-            torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
-            iters=iters,
-        )
-    moved, flops, bound_ms, bound_by = flash_bound(b, t, h, hkv, d, 2, "bfloat16")
-    log(f"[timing] flash_attention_fwd at (B,T,H,D)=({b},{t},{h},{d}) bf16 causal on {smi}:")
+        if window:
+            pos = torch.arange(t, device="cuda")
+            band = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < window)
+            library_ms = _time_ms(
+                torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band),
+                iters=iters)
+        else:
+            library_ms = _time_ms(
+                torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+                iters=iters,
+            )
+    moved, flops, bound_ms, bound_by = flash_bound(b, t, h, hkv, d, 2, "bfloat16", window=window)
+    mask = f"window {window}" if window else "causal"
+    log(f"[timing] flash_attention_fwd at (B,T,H,D)=({b},{t},{h},{d}) bf16 {mask} on {smi}:")
     log(f"[timing]   kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
         f"sdpa (yardstick) {library_ms:.4f} ms")
     log(f"[timing]   bound {bound_ms:.6f} ms by {bound_by} ({moved} bytes at 3.35 TB/s, "
@@ -1673,14 +1722,37 @@ def _serving_config(tmp: Path, name: str, **serving) -> Path:
 def _serve_bench(cfg_path: Path, ckpt: Path, smi: str, name: str, *extra: str) -> dict:
     """One in-process `serve-bench --verify-parity` run at the phase's
     population; its gates: exit 0, bitwise parity with generate(), shapes
-    within the bucket budget, every request completed, the batch full."""
+    within the bucket budget, every request completed, the batch full
+    (mean occupancy >= CONT_MIN_OCCUPANCY). The block gains the
+    scheduler's own ``stats()`` under ``scheduler_stats`` and, under
+    ``resident_bytes``, the device memory the serving backend holds once
+    built (its weights and pools: allocated then, less allocated before
+    the command)."""
+    import gc
+    from unittest import mock
+
+    import torch
+
+    from llmtrain_tpu_torch import cli
+
     argv = ["serve-bench", "--config", str(cfg_path), "--from", str(ckpt),
             "--requests", str(CONT_REQUESTS), "--rate-rps", str(CONT_RATE_RPS),
             "--seed", "14", "--prompt-tokens-min", str(CONT_PROMPTS[0]),
             "--prompt-tokens-max", str(CONT_PROMPTS[1]),
             "--max-new-tokens", str(CONT_NEW_TOKENS), "--verify-parity", *extra]
+    built = []
+    original = cli._build_serving_backend
+
+    def keep(*args, **kwargs):
+        built.append((*original(*args, **kwargs), torch.cuda.memory_allocated() - base))
+        return built[-1][:2]
+
+    gc.collect()  # what earlier runs left for the collector is not this run's
+    base = torch.cuda.memory_allocated()
+
     t0 = time.perf_counter()
-    code, out = _run_cli(argv)
+    with mock.patch.object(cli, "_build_serving_backend", keep):
+        code, out = _run_cli(argv)
     wall = time.perf_counter() - t0
     summary = json.loads(out)
     block = summary["serving"]
@@ -1690,7 +1762,8 @@ def _serve_bench(cfg_path: Path, ckpt: Path, smi: str, name: str, *extra: str) -
         f"{tput['wall_sec']} s (command {wall:.1f} s with parity); TTFT p50 "
         f"{slo['ttft_ms']['p50']} p99 {slo['ttft_ms']['p99']} ms; per-token p50 "
         f"{slo['per_token_ms']['p50']} p99 {slo['per_token_ms']['p99']} ms; occupancy mean "
-        f"{occ['mean']} peak {occ['peak']} of {occ['max_batch_slots']}")
+        f"{occ['mean']} peak {occ['peak']} of {occ['max_batch_slots']}; device memory the "
+        f"backend holds once built {built[0][2] / 2**30:.3f} GiB")
     log(f"[continuous] {name}: requests {block['requests']}; parity {block['parity']}; "
         f"shapes {block['compile']}")
     if "prefix_cache" in block:
@@ -1704,6 +1777,8 @@ def _serve_bench(cfg_path: Path, ckpt: Path, smi: str, name: str, *extra: str) -
     if occ["mean"] < CONT_MIN_OCCUPANCY:
         raise RuntimeError(f"serve-bench {name}: mean occupancy {occ['mean']} below "
                            f"{CONT_MIN_OCCUPANCY}; the rate does not fill the batch")
+    block["scheduler_stats"] = built[0][0].stats()
+    block["resident_bytes"] = built[0][2]
     return block
 
 
@@ -1929,6 +2004,10 @@ def phase_continuous(torch, smi: str, tmp: Path, train: dict) -> dict:
                                   max_new_tokens_cap=CONT_RELOAD_NEW_TOKENS)
     sampled_path = _serving_config(tmp, "gpt_pycorpus_continuous_prefix",
                                    prefix_cache=True, prefill_chunk=CONT_CHUNK)
+    import gc
+
+    gc.collect()
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()  # the continuous-serving path's counts start here
     t0 = time.perf_counter()
@@ -1946,7 +2025,258 @@ def phase_continuous(torch, smi: str, tmp: Path, train: dict) -> dict:
     _check_counts("continuous", counts, {})  # the paged path runs none of the kernels
     if sampled["prefix_cache"]["hit_rate"] <= 0:
         raise RuntimeError("the shared-prefix run never hit the prefix cache")
-    return dict(greedy=greedy, sampled=sampled, counts=counts, peak_memory=peak)
+    return dict(greedy=greedy, sampled=sampled, counts=counts, peak_memory=peak,
+                peak_above_base=peak - base, resident_bytes=greedy["resident_bytes"])
+
+
+# Phase 15: speculative decoding, int8 serving and the rolling cache on
+# phase 9's checkpoint. The draft is the preset cut to 2 layers of 256
+# (same byte vocabulary and block), trained DRAFT_STEPS steps.
+DRAFT_MODEL = dict(n_layers=2, d_model=256, n_heads=4, d_ff=1024)
+DRAFT_STEPS = 200
+SPEC_GAMMA = 4
+SPEC_PROMPTS = ("def ", "class Config:", "import numpy as np", "    for i in range(")
+SPEC_NEW_TOKENS = 128
+INT8_LOGIT_COSINE = 0.99  # JAX's band, tests/test_quant.py::test_gpt_logits_track_full_precision
+INT8_CACHE_COSINE = 0.999  # JAX's band, tests/test_quant.py::test_decode_logits_track_full_forward
+WINDOW_PREFILL = 128  # the whole ring: every prefilled key kept
+WINDOW_SPEC = (2, 64, 128)  # prompts, prompt tokens, new tokens: the ring wraps
+
+
+def _draft_config(tmp: Path) -> Path:
+    import yaml
+
+    path = _smoke_config(tmp, "gpt_pycorpus_draft")
+    raw = yaml.safe_load(path.read_text())
+    raw["model"].update(DRAFT_MODEL)
+    raw["trainer"].update(max_steps=DRAFT_STEPS, eval_every_steps=DRAFT_STEPS,
+                          save_every_steps=DRAFT_STEPS)
+    path.write_text(yaml.safe_dump(raw, sort_keys=False))
+    return path
+
+
+def _decode_model(cfg_path: Path, ckpt: Path, quantize: str = "none", **extra_model):
+    """The `generate` CLI's model: the checkpoint's weights, cast for
+    decode, with ``quantize``; ``extra_model`` overrides model.extra."""
+    from llmtrain_tpu_torch import cli
+    from llmtrain_tpu_torch.config import load_and_validate_config
+    from llmtrain_tpu_torch.distributed import resolve_device
+    from llmtrain_tpu_torch.utils.logging import get_logger
+
+    cfg, _, _ = load_and_validate_config(cfg_path)
+    cfg.model.extra.update(extra_model)
+    _, _, model = cli._build_decode_stack(cfg, resolve_device(cfg.run.device), get_logger())
+    model, _, _ = cli._load_decode_params(cfg, model, str(ckpt), "compute", get_logger(),
+                                          quantize=quantize)
+    return model
+
+
+def _cli_completions(argv: list[str]) -> list[list[int]]:
+    code, out = _run_cli(argv)
+    if code != 0:
+        raise RuntimeError(f"{argv[0]} {' '.join(argv[5:])} exited {code}")
+    return [r["output_ids"] for r in json.loads(out)["results"]]
+
+
+def _cosine(a, b):
+    """Per-row cosine of two (..., V) logit tensors, in f64."""
+    a, b = a.double().flatten(0, -2), b.double().flatten(0, -2)
+    return (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))
+
+
+def phase_speculative(torch, smi: str, tmp: Path, train: dict, cont: dict) -> dict:
+    """Phase 15: (a) a draft trained through `train`, then `generate
+    --draft-config` greedy against plain greedy, and the self-draft
+    control; (c) the int8 logits' cosine and `generate --quantize int8`;
+    (d) the rolling and int8 decode caches against the windowed flash
+    kernel, and speculative greedy on the rolling target; (b) speculative
+    `serve-bench --verify-parity`; (c) int8 `serve-bench --verify-parity`
+    with its peak memory. Launch counts reset after the draft's training
+    and read after the last serve-bench: the int8 logits' two forwards and
+    the windowed reference launch the flash forward, one per layer each."""
+    import gc
+    import math
+
+    import numpy as np
+
+    from llmtrain_tpu_torch.data.tokenizers import ByteTokenizer
+    from llmtrain_tpu_torch.generation import generate
+    from llmtrain_tpu_torch.ops.flash_attention import flash_attention_fwd
+    from llmtrain_tpu_torch.ops.quant import model_tree, quant_stats
+    from llmtrain_tpu_torch.speculative import speculative_generate
+
+    t_phase = time.perf_counter()
+    cfg_path, ckpt = train["cfg_path"], train["run_dir"] / "checkpoints"
+    draft_cfg = _draft_config(tmp)
+    t0 = time.perf_counter()
+    code, out = _run_cli(["train", "--config", str(draft_cfg), "--run-id", "draft", "--json"])
+    if code != 0:
+        raise RuntimeError(f"train of the draft exited {code}")
+    draft_result = json.loads(out)["train_result"]
+    draft_ckpt = tmp / "runs" / "draft" / "checkpoints"
+    log(f"[spec] draft {DRAFT_MODEL} trained {DRAFT_STEPS} steps in "
+        f"{time.perf_counter() - t0:.1f} s: final loss {draft_result['final_loss']:.4f}, val "
+        f"{draft_result['final_val_loss']:.4f} (the target's "
+        f"{train['summary']['final_val_loss']:.4f})")
+
+    _reset_counts()  # phase 15's path counts start here
+    # ---- (a) speculative generate against plain generate, greedy.
+    prompts_file = tmp / "spec_prompts.txt"
+    prompts_file.write_text("\n".join(SPEC_PROMPTS) + "\n")
+    gen_argv = ["generate", "--config", str(cfg_path), "--from", str(ckpt), "--prompts-file",
+                str(prompts_file), "--max-new-tokens", str(SPEC_NEW_TOKENS), "--temperature",
+                "0", "--json"]
+    draft_argv = ["--draft-config", str(draft_cfg), "--draft-from", str(draft_ckpt),
+                  "--gamma", str(SPEC_GAMMA)]
+    spec_ids = _cli_completions(gen_argv + draft_argv)
+    model, draft = _decode_model(cfg_path, ckpt), _decode_model(draft_cfg, draft_ckpt)
+    layers, dev = model.n_layers, next(model.parameters()).device
+    tok = ByteTokenizer()
+    prompts = [np.asarray([tok.encode(p)], np.int32) for p in SPEC_PROMPTS]
+    plain_ids, plain_s, spec_s, stats = [], 0.0, 0.0, []
+    speculative_generate(model, draft, prompts[0], max_new_tokens=8, gamma=SPEC_GAMMA)  # warm
+    for ids in prompts:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = generate(model, ids, max_new_tokens=SPEC_NEW_TOKENS, temperature=0.0)
+        torch.cuda.synchronize()
+        plain_s += time.perf_counter() - t0
+        plain_ids.append([int(t) for t in plain[0]])
+        t0 = time.perf_counter()
+        out, st = speculative_generate(model, draft, ids, max_new_tokens=SPEC_NEW_TOKENS,
+                                       gamma=SPEC_GAMMA, return_stats=True)
+        torch.cuda.synchronize()
+        spec_s += time.perf_counter() - t0
+        stats.append(st)
+        if [int(t) for t in out[0]] != plain_ids[-1]:
+            raise RuntimeError("speculative_generate() differs from greedy generate()")
+    same = [a == b for a, b in zip(spec_ids, plain_ids)]
+    n_tok = len(prompts) * SPEC_NEW_TOKENS
+    calls = sum(st["target_forwards"] for st in stats)
+    accepted = sum(st["mean_accepted"] * st["target_forwards"] for st in stats) / calls
+    log(f"[spec] (a) `generate --draft-config ... --gamma {SPEC_GAMMA}` greedy, {len(prompts)} "
+        f"prompts x {SPEC_NEW_TOKENS}: ids equal to plain greedy generate(): {same}")
+    log(f"[spec] (a) on {smi}: plain {plain_s * 1e3 / n_tok:.2f} ms/token, speculative "
+        f"{spec_s * 1e3 / n_tok:.2f} ms/token; {calls} target calls for {n_tok} tokens "
+        f"({n_tok / calls:.3f} tokens per target call), acceptance rate "
+        f"{accepted / SPEC_GAMMA:.4f} ({accepted:.3f} of {SPEC_GAMMA} drafts per call)")
+    if not all(same):
+        raise RuntimeError("speculative generate differs from plain greedy generate")
+    want_calls = math.ceil(SPEC_NEW_TOKENS / (SPEC_GAMMA + 1))
+    self_calls = [speculative_generate(model, model, ids, max_new_tokens=SPEC_NEW_TOKENS,
+                                       gamma=SPEC_GAMMA, return_stats=True)[1]["target_forwards"]
+                  for ids in prompts]
+    log(f"[spec] (a) control, the target as its own draft: target calls per prompt "
+        f"{self_calls} (every draft accepted: {want_calls} each)")
+    if self_calls != [want_calls] * len(prompts):
+        raise RuntimeError("the self-draft did not accept every draft")
+    del draft
+
+    # ---- (c) int8 weights: logits against bf16, then generate.
+    q_model = _decode_model(cfg_path, ckpt, quantize="int8")
+    qstats = quant_stats(model_tree(q_model))
+    gen = torch.Generator(device=dev).manual_seed(15)
+    ids = torch.randint(0, 256, INT8_LOGIT_IDS, device=dev, generator=gen)
+    with torch.inference_mode():
+        cos = _cosine(q_model(ids).float(), model(ids).float())
+    log(f"[int8] quant_stats: {qstats['quantized_params']}/{qstats['total_params']} params "
+        f"quantized in {qstats['quantized_leaves']} leaves, {qstats['bytes']} bytes against "
+        f"{qstats['bytes_dense']} ({qstats['compression']:.3f}x compression)")
+    log(f"[int8] logits of int8 against bf16 weights, {INT8_LOGIT_IDS[0]} x "
+        f"{INT8_LOGIT_IDS[1]} positions: cosine min "
+        f"{cos.min().item():.6f} mean {cos.mean().item():.6f} (> {INT8_LOGIT_COSINE})")
+    if cos.min().item() <= INT8_LOGIT_COSINE:
+        raise RuntimeError("int8 logits do not track the bf16 logits")
+    q_ids = _cli_completions(gen_argv + ["--quantize", "int8"])
+    q_ref = [[int(t) for t in generate(q_model, p, max_new_tokens=SPEC_NEW_TOKENS,
+                                        temperature=0.0)[0]] for p in prompts]
+    log(f"[int8] `generate --quantize int8` equal to generate() on the quantized weights: "
+        f"{[a == b for a, b in zip(q_ids, q_ref)]}")
+    if q_ids != q_ref:
+        raise RuntimeError("generate --quantize int8 differs from generate() on its weights")
+    del q_model
+
+    # ---- (d) rolling and int8 decode caches against the windowed kernel.
+    rolling = {}
+    seq = torch.randint(0, 256, (1, WINDOW_SEQ), device=dev, generator=gen)
+    for kv_dtype in ("model", "int8"):
+        wmodel = _decode_model(cfg_path, ckpt, sliding_window=WINDOW, kv_cache_dtype=kv_dtype)
+        decoder = wmodel.for_decoding()
+        cache = decoder.init_cache(1)
+        with torch.inference_mode():
+            if kv_dtype == "model":
+                before = flash_attention_fwd.launches
+                full = wmodel(seq).float()  # the windowed flash kernel in every layer
+                window_launches = flash_attention_fwd.launches - before
+            steps = [decoder(seq[:, :WINDOW_PREFILL], cache)[:, -1].float()]
+            steps += [decoder(seq[:, i:i + 1], cache)[:, 0].float()
+                      for i in range(WINDOW_PREFILL, WINDOW_SEQ)]
+        got = torch.cat(steps)  # positions WINDOW_PREFILL - 1 .. WINDOW_SEQ - 1
+        want = full[0, WINDOW_PREFILL - 1:]
+        rolling[kv_dtype] = dict(
+            last_err=(got[-1] - want[-1]).abs().max().item(),
+            max_err=(got - want).abs().max().item(),
+            last_cos=_cosine(got[-1:], want[-1:]).item(),
+            min_cos=_cosine(got, want).min().item(),
+            slots=decoder.slots,
+        )
+        del wmodel
+    log(f"[rolling] window {WINDOW}, {WINDOW_SEQ} tokens teacher-forced ({WINDOW_PREFILL} "
+        f"prefilled, then one a call) through the rolling cache of {rolling['model']['slots']} "
+        f"slots, against the windowed flash forward ({window_launches} kernel launches): "
+        f"last-position max abs diff {rolling['model']['last_err']:.4e} (atol {LOGITS_ATOL}), "
+        f"over every decoded position {rolling['model']['max_err']:.4e}")
+    log(f"[rolling] int8 cache: last-position cosine {rolling['int8']['last_cos']:.6f} "
+        f"(> {INT8_CACHE_COSINE}), min over positions {rolling['int8']['min_cos']:.6f}; max abs "
+        f"diff {rolling['int8']['max_err']:.4e}")
+    if rolling["model"]["last_err"] > LOGITS_ATOL or window_launches != layers:
+        raise RuntimeError("rolling-cache logits disagree with the windowed flash kernel")
+    if rolling["int8"]["last_cos"] <= INT8_CACHE_COSINE:
+        raise RuntimeError("int8-cache logits do not track the full forward")
+    wmodel = _decode_model(cfg_path, ckpt, sliding_window=WINDOW)
+    n_prompts, p_len, new = WINDOW_SPEC
+    same = []
+    for i in range(n_prompts):
+        ids = seq[:, i * p_len:(i + 1) * p_len].cpu().numpy().astype(np.int32)
+        plain = generate(wmodel, ids, max_new_tokens=new, temperature=0.0)
+        out = speculative_generate(wmodel, model, ids, max_new_tokens=new, gamma=SPEC_GAMMA)
+        same.append(bool(np.array_equal(out, plain)))
+    log(f"[rolling] speculative greedy on the rolling target (ring of {WINDOW} + "
+        f"{SPEC_GAMMA + 1} slots; draft: the full-attention model), {n_prompts} prompts of "
+        f"{p_len} + {new}: equal to plain greedy: {same}")
+    if not all(same):
+        raise RuntimeError("speculative greedy on the rolling target differs from greedy")
+    del wmodel, model
+    torch.cuda.empty_cache()
+
+    # ---- (b) speculative serve-bench; (c) int8 serve-bench and its peak.
+    greedy_path = _serving_config(tmp, "gpt_pycorpus_speculative")
+    spec_block = _serve_bench(greedy_path, ckpt, smi, "speculative", "--temperature", "0",
+                              *draft_argv)
+    spec = spec_block["scheduler_stats"]["speculative"]
+    log(f"[spec] (b) {spec['mode']} speculative serving: {spec['rounds']} rounds, "
+        f"{spec['accepted']}/{spec['drafted']} drafts accepted (acceptance rate "
+        f"{spec['acceptance_rate']}); verify shapes {spec_block['compile']['verify_shapes_used']}")
+    if spec["mode"] != "batched" or not spec_block["compile"]["verify_shapes_used"]:
+        raise RuntimeError("speculative serve-bench did not verify in batch")
+    gc.collect()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    int8_block = _serve_bench(greedy_path, ckpt, smi, "int8 weights", "--temperature", "0",
+                              "--quantize", "int8")
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"[int8] device memory the int8 serving backend holds once built "
+        f"{int8_block['resident_bytes'] / 2**30:.3f} GiB (phase 14's bf16 greedy run: "
+        f"{cont['resident_bytes'] / 2**30:.3f} GiB); peak over the run "
+        f"{peak / 2**30:.3f} GiB (phase 14's two bf16 runs: "
+        f"{cont['peak_above_base'] / 2**30:.3f} GiB; both above what was allocated before, "
+        f"the load's f32 build and cast included) on {smi}")
+    counts = _read_counts()  # and end here
+    _check_counts("speculative", counts, {"flash_attention_fwd": 2 * layers + window_launches})
+    timing = phase_timing(torch, smi, (1, WINDOW_SEQ, 12, 12, 64), window=WINDOW)
+    log(f"[spec] phase 15 in {time.perf_counter() - t_phase:.1f} s")
+    return dict(counts=counts, window_launches=window_launches, window_timing=timing,
+                int8_peak=peak)
 
 
 def main() -> int:
@@ -1994,12 +2324,13 @@ def main() -> int:
         phase_train_profile(torch, smi, fused["cfg_path"])
         ce = phase_ce_train(torch, smi, Path(tmp), train["eval_batches"])
         phase_train_profile(torch, smi, ce["cfg_path"])
-        phase_continuous(torch, smi, Path(tmp), train)
-    paths = (train["counts"], fused["counts"], ce["counts"])
+        cont = phase_continuous(torch, smi, Path(tmp), train)
+        spec = phase_speculative(torch, smi, Path(tmp), train, cont)
+    paths = (train["counts"], fused["counts"], ce["counts"], spec["counts"])
     launches = {name: sum(c[name] for c in paths) for name in paths[0]}
     launches["flash_attention_fwd"] += serve_launches
-    log(f"[main path] launches over serve + generate, train, fused-norm train, CE train: "
-        f"{launches}")
+    log(f"[main path] launches over serve + generate, train, fused-norm train, CE train, "
+        f"speculative/int8/rolling: {launches}")
     for name, n in launches.items():
         if n == 0:
             raise RuntimeError(f"the main path never launched {name}")
@@ -2011,7 +2342,12 @@ def main() -> int:
              **{k: train_timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                              "library_ms")},
              serve_shape_ms=timing["ms"], serve_shape_plain_ms=timing["plain_ms"],
-             serve_shape_library_ms=timing["library_ms"], serve_shape_bound_ms=timing["bound_ms"]),
+             serve_shape_library_ms=timing["library_ms"], serve_shape_bound_ms=timing["bound_ms"],
+             window_shape_ms=spec["window_timing"]["ms"],
+             window_shape_plain_ms=spec["window_timing"]["plain_ms"],
+             window_shape_library_ms=spec["window_timing"]["library_ms"],
+             window_shape_bound_ms=spec["window_timing"]["bound_ms"],
+             window_shape_launches=spec["window_launches"]),
         dict(name="flash_attention_bwd_dq", route="cuda", source=csrc + "flash_attention_bwd.cu",
              replaces=f"{pallas}:278",
              max_abs_err=max(e["dq"] for e in bwd_errs.values()), **bwd_timing["dq"]),

@@ -7,7 +7,9 @@ Same subcommands, flags, JSON shapes and exit codes as the JAX CLI
   ``logs/``, ``checkpoints/``) → the trainer (training/trainer.py), with
   ``--run-id``, ``--dry-run``, ``--json``, ``-v``, ``--resume`` and
   ``--auto-resume``; the run summary on stdout;
-* ``generate`` — checkpoint → ``generate()`` (KV-cache or re-forward branch);
+* ``generate`` — checkpoint → ``generate()`` (KV-cache or re-forward
+  branch), or speculative decoding with ``--draft-config/--draft-from/--gamma``;
+  ``--quantize int8`` quantizes the weights (the draft's too);
 * ``serve`` — checkpoint → HTTP server (serving/http.py): simple mode, or
   ``--mode continuous`` / ``serving.mode: continuous``, the paged-KV
   continuous-batching scheduler with overload control and ``POST /reload``;
@@ -16,11 +18,13 @@ Same subcommands, flags, JSON shapes and exit codes as the JAX CLI
   failure and latency gates, and ``--verify-parity`` against ``generate()``;
 * ``validate`` / ``print-config`` — the config loader.
 
+``serve`` and ``serve-bench`` take the same draft and quantize flags: a
+draft puts the continuous backend on the speculative policy.
+
 Exit codes: 0 ok, 1 failure, 2 config error (a feature that is not yet
 ported counts as a config error). Flags whose feature is not yet ported
-(``--ema``, ``--draft-*`` and the speculative policy, ``--quantize int8``,
-the router, ``--trace-dir``) and LoRA or pipeline checkpoints exit 2 with a
-message naming the ROADMAP.md item. ``run.device`` (default ``cuda``) picks
+(``--ema``, the router, ``--trace-dir``) and LoRA or pipeline checkpoints
+exit 2 with a message naming the ROADMAP.md item. ``run.device`` (default ``cuda``) picks
 the device: ``cpu`` the CPU, ``tpu``/``cuda`` the card (an error when none
 is visible).
 """
@@ -106,17 +110,29 @@ def build_parser() -> argparse.ArgumentParser:
         "model compute dtype before decoding; 'param' keeps the "
         "checkpoint's master precision",
     )
-    gen.add_argument("--draft-config", default=None, help="speculative decoding (not yet ported)")
-    gen.add_argument("--draft-from", default=None, help="speculative decoding (not yet ported)")
-    gen.add_argument("--gamma", type=int, default=4, help="speculative lookahead (not yet ported)")
+    gen.add_argument(
+        "--draft-config", default=None,
+        help="YAML config of a DRAFT model for speculative decoding "
+        "(requires --draft-from; same tokenizer/vocab as the target)",
+    )
+    gen.add_argument(
+        "--draft-from", default=None,
+        help="checkpoint file, dir, or run id for the draft model's params",
+    )
+    gen.add_argument(
+        "--gamma", type=int, default=4,
+        help="speculative lookahead: draft tokens proposed per target forward",
+    )
     gen.add_argument(
         "--logprobs", action="store_true",
-        help="include the model's log-probability of every emitted token in the JSON output",
+        help="include the model's log-probability of every emitted token in the JSON "
+        "output (not supported with --draft-config)",
     )
     gen.add_argument("--ema", action="store_true", help="EMA shadow weights (not yet ported)")
     gen.add_argument(
         "--quantize", choices=("none", "int8"), default="none",
-        help="weight-only quantization (int8 not yet ported)",
+        help="weight-only quantization applied after checkpoint load (ops/quant.py); "
+        "applies to the draft model too under speculative decoding",
     )
     gen.add_argument("--json", action="store_true", help="emit the result as JSON")
 
@@ -143,9 +159,19 @@ def build_parser() -> argparse.ArgumentParser:
         help="override serving.mode: 'simple' decodes one request at a time, "
         "'continuous' runs the paged-KV continuous-batching scheduler",
     )
-    serve.add_argument("--draft-config", default=None, help="speculative serving (not yet ported)")
-    serve.add_argument("--draft-from", default=None, help="speculative serving (not yet ported)")
-    serve.add_argument("--gamma", type=int, default=None, help="speculative lookahead (not yet ported)")
+    serve.add_argument(
+        "--draft-config", default=None,
+        help="draft model config: switches the continuous scheduler to the "
+        "speculative policy (requires --draft-from)",
+    )
+    serve.add_argument(
+        "--draft-from", default=None,
+        help="checkpoint file, dir, or run id for the draft model's params",
+    )
+    serve.add_argument(
+        "--gamma", type=int, default=None,
+        help="speculative lookahead (default: serving.speculative_gamma)",
+    )
     serve.add_argument(
         "--decode-param-dtype", choices=("compute", "param"), default="compute",
         help="as in generate",
@@ -153,7 +179,7 @@ def build_parser() -> argparse.ArgumentParser:
     serve.add_argument("--ema", action="store_true", help="EMA shadow weights (not yet ported)")
     serve.add_argument(
         "--quantize", choices=("none", "int8"), default="none",
-        help="weight-only quantization (int8 not yet ported)",
+        help="serve weight-only int8 quantized weights (ops/quant.py)",
     )
     serve.add_argument(
         "--eos-token-id", type=int, default=None,
@@ -215,11 +241,17 @@ def build_parser() -> argparse.ArgumentParser:
     bench.add_argument("--ema", action="store_true", help="EMA shadow weights (not yet ported)")
     bench.add_argument(
         "--quantize", choices=("none", "int8"), default="none",
-        help="weight-only quantization (int8 not yet ported)",
+        help="weight-only int8 quantization of the served weights (ops/quant.py)",
     )
-    bench.add_argument("--draft-config", default=None, help="speculative policy (not yet ported)")
-    bench.add_argument("--draft-from", default=None, help="speculative policy (not yet ported)")
-    bench.add_argument("--gamma", type=int, default=None, help="speculative lookahead (not yet ported)")
+    bench.add_argument(
+        "--draft-config", default=None,
+        help="draft model config for the speculative scheduler policy",
+    )
+    bench.add_argument("--draft-from", default=None, help="draft model checkpoint/run id")
+    bench.add_argument(
+        "--gamma", type=int, default=None,
+        help="speculative lookahead (default: serving.speculative_gamma)",
+    )
     bench.add_argument("--router", action="store_true", help="replica router (not yet ported)")
     bench.add_argument("--replicas", type=int, default=None, help="router replicas (not yet ported)")
     bench.add_argument(
@@ -294,23 +326,21 @@ def _load_config(path: str):
     return cfg, None
 
 
-def _unported_inference_flags(args: argparse.Namespace, cfg) -> str | None:
-    """Message for the first requested feature this slice does not run."""
-    if args.ema:
-        return f"--ema (EMA shadow weights) {_NOT_PORTED} (ROADMAP.md queue A: slice 2 deferrals)"
-    if args.draft_config is not None or args.draft_from is not None:
-        return (
-            f"--draft-config/--draft-from (speculative decoding) {_NOT_PORTED} "
-            "(ROADMAP.md queue A: speculative decoding)"
-        )
-    if args.quantize != "none":
-        return (
-            f"--quantize {args.quantize} {_NOT_PORTED} "
-            "(ROADMAP.md queue A: int8 quantization)"
-        )
+def _lora_error(cfg) -> str | None:
     if cfg.model.extra.get("lora") is not None:
         return f"LoRA models (model.extra.lora) {_NOT_PORTED} (ROADMAP.md queue A: model zoo)"
     return None
+
+
+def _unported_inference_flags(args: argparse.Namespace, cfg) -> str | None:
+    """Message for the first requested feature this slice does not run,
+    or for unpaired draft flags (JAX's check)."""
+    if args.ema:
+        return f"--ema (EMA shadow weights) {_NOT_PORTED} (ROADMAP.md queue A: slice 2 deferrals)"
+    lora = _lora_error(cfg)
+    if lora is None and (args.draft_config is None) != (args.draft_from is None):
+        return "--draft-config and --draft-from must be given together"
+    return lora
 
 
 def _exit_code(exc: BaseException) -> int:
@@ -450,9 +480,12 @@ def prepare_decode_model(model, decode_param_dtype: str, logger):
     return model
 
 
-def _load_decode_params(cfg, model, from_spec: str, decode_param_dtype: str, logger):
-    """Checkpoint → decode-ready model: resolve the spec, load the params
-    (warning on a config mismatch), cast for decode."""
+def _load_decode_params(cfg, model, from_spec: str, decode_param_dtype: str, logger,
+                        *, quantize: str = "none", label: str = ""):
+    """Checkpoint → decode-ready model, the shared load tail of generate (and
+    its draft), serve and serve-bench: resolve the spec, load the params
+    (warning on a config mismatch), cast for decode, and with ``quantize``
+    int8 quantize the weights in place (ops/quant.py)."""
     import yaml
 
     from .training.checkpoint import load_inference_params, resolve_resume_path
@@ -460,14 +493,46 @@ def _load_decode_params(cfg, model, from_spec: str, decode_param_dtype: str, log
     ckpt_path = resolve_resume_path(from_spec, cfg.output.root_dir)
     expected_yaml = yaml.safe_dump(cfg.model_dump(), sort_keys=False)
     step = load_inference_params(ckpt_path, model, expected_config_yaml=expected_yaml)
-    logger.info("loaded checkpoint %s (step %d)", ckpt_path, step)
-    return prepare_decode_model(model, decode_param_dtype, logger), ckpt_path, step
+    logger.info("%sloaded checkpoint %s (step %d)", label, ckpt_path, step)
+    model = prepare_decode_model(model, decode_param_dtype, logger)
+    if quantize == "int8":
+        from .ops.quant import quantize_model
+
+        stats = quantize_model(model)
+        logger.info(
+            "%sint8 weight quantization: %d/%d params quantized, "
+            "%.2fx weight-byte compression",
+            label, stats["quantized_params"], stats["total_params"], stats["compression"],
+        )
+    return model, ckpt_path, step
 
 
-def _group_seed(seed: int, group: int) -> int:
-    """A distinct, reproducible generator seed per prompt-length group
-    (the JAX CLI folds the group into its key)."""
-    return int(np.random.SeedSequence([seed & 0xFFFFFFFF, group]).generate_state(1, np.uint64)[0])
+def _load_draft(draft_cfg, args: argparse.Namespace, model, device, logger):
+    """The draft model of ``--draft-config/--draft-from``, through the same
+    load tail as the target (``--quantize`` applies to it too). Raises
+    ValueError when its vocabulary is not the target's."""
+    lora = _lora_error(draft_cfg)
+    if lora is not None:
+        raise NotImplementedError(lora)
+    _, _, draft_model = _build_decode_stack(draft_cfg, device, logger)
+    draft_model, _, _ = _load_decode_params(
+        draft_cfg, draft_model, args.draft_from, args.decode_param_dtype, logger,
+        quantize=args.quantize, label="draft ",
+    )
+    if draft_model.vocab_size != model.vocab_size:
+        raise ValueError(
+            f"draft vocab_size ({draft_model.vocab_size}) != target "
+            f"vocab_size ({model.vocab_size}) — speculative decoding "
+            "needs a shared vocabulary"
+        )
+    return draft_model
+
+
+def _group_seed(seed: int, *keys: int) -> int:
+    """A distinct, reproducible generator seed per prompt-length group (and
+    per row under speculative decoding): the JAX CLI folds them into its
+    key."""
+    return int(np.random.SeedSequence([seed & 0xFFFFFFFF, *keys]).generate_state(1, np.uint64)[0])
 
 
 def _handle_generate(args: argparse.Namespace) -> int:
@@ -475,6 +540,10 @@ def _handle_generate(args: argparse.Namespace) -> int:
     if cfg is None:
         return code
     unported = _unported_inference_flags(args, cfg)
+    if unported is None and args.draft_config is not None and args.gamma < 1:
+        unported = f"--gamma must be >= 1, got {args.gamma}"
+    if unported is None and args.draft_config is not None and args.logprobs:
+        unported = "--logprobs is not supported with speculative decoding"
     if unported is not None:
         _emit_error(unported)
         return EXIT_CONFIG_ERROR
@@ -499,6 +568,7 @@ def _handle_generate(args: argparse.Namespace) -> int:
 
         from .distributed import resolve_device
         from .generation import generate
+        from .speculative import speculative_generate
 
         device = resolve_device(cfg.run.device)
         _, tokenizer, model = _build_decode_stack(cfg, device, logger)
@@ -519,10 +589,36 @@ def _handle_generate(args: argparse.Namespace) -> int:
         if any(ids.size == 0 for ids in prompt_batches):
             _emit_error("every prompt must contain at least one token")
             return EXIT_FAILURE
+        # Fail fast on a prompt that cannot fit the speculative buffer, before
+        # the checkpoint I/O of each model.
+        need = max(len(ids) for ids in prompt_batches) + args.max_new_tokens + args.gamma + 1
 
+        def too_long(label: str, block_size: int) -> bool:
+            if need <= block_size:
+                return False
+            _emit_error(f"prompt+max_new_tokens+gamma ({need}) exceeds the "
+                        f"{label} model's block_size ({block_size})")
+            return True
+
+        if args.draft_config is not None and too_long("target", cfg.model.block_size):
+            return EXIT_CONFIG_ERROR
         model, ckpt_path, step = _load_decode_params(
-            cfg, model, args.from_spec, args.decode_param_dtype, logger
+            cfg, model, args.from_spec, args.decode_param_dtype, logger, quantize=args.quantize
         )
+        draft_model = None
+        if args.draft_config is not None:
+            try:
+                draft_cfg, _, _ = load_and_validate_config(args.draft_config)
+            except ConfigLoadError as exc:
+                _emit_error(exc.message, details=exc.details, errors=exc.errors)
+                return EXIT_CONFIG_ERROR
+            if too_long("draft", draft_cfg.model.block_size):
+                return EXIT_CONFIG_ERROR
+            try:
+                draft_model = _load_draft(draft_cfg, args, model, device, logger)
+            except ValueError as exc:
+                _emit_error(str(exc))
+                return EXIT_CONFIG_ERROR
         eos_token_id = args.eos_token_id
         if eos_token_id is None and tokenizer is not None:
             eos_token_id = getattr(tokenizer, "eot_token", None)
@@ -536,18 +632,36 @@ def _handle_generate(args: argparse.Namespace) -> int:
             stacked = np.stack([prompt_batches[i] for i in idxs])
             generator = torch.Generator(device=device)
             generator.manual_seed(_group_seed(args.seed, tp))
-            gen_out = generate(
-                model,
-                stacked,
-                max_new_tokens=args.max_new_tokens,
-                generator=generator,
-                temperature=args.temperature,
-                top_k=args.top_k,  # generate() maps <=0 to "disabled"
-                top_p=args.top_p,
-                eos_token_id=eos_token_id,
-                return_logprobs=args.logprobs,
-            )
-            out, group_lps = gen_out if args.logprobs else (gen_out, None)
+            if draft_model is not None:
+                # speculative_generate is batch 1: the group's rows one at a
+                # time, each with its own stream.
+                rows = []
+                for row in range(stacked.shape[0]):
+                    generator.manual_seed(_group_seed(args.seed, tp, row))
+                    rows.append(speculative_generate(
+                        model, draft_model, stacked[row:row + 1],
+                        max_new_tokens=args.max_new_tokens,
+                        gamma=args.gamma,
+                        temperature=args.temperature,
+                        top_k=args.top_k,  # <=0 and out-of-band top_p disable
+                        top_p=args.top_p,
+                        eos_token_id=eos_token_id,
+                        generator=generator,
+                    ))
+                out, group_lps = np.concatenate(rows, axis=0), None
+            else:
+                gen_out = generate(
+                    model,
+                    stacked,
+                    max_new_tokens=args.max_new_tokens,
+                    generator=generator,
+                    temperature=args.temperature,
+                    top_k=args.top_k,  # generate() maps <=0 to "disabled"
+                    top_p=args.top_p,
+                    eos_token_id=eos_token_id,
+                    return_logprobs=args.logprobs,
+                )
+                out, group_lps = gen_out if args.logprobs else (gen_out, None)
             for row, i in enumerate(idxs):
                 output_ids = [int(t) for t in out[row]]
                 results[i] = {
@@ -593,10 +707,18 @@ def _unported_serving_flags(args: argparse.Namespace, cfg) -> str | None:
     return unported
 
 
-def _build_serving_backend(cfg, model, logger):
+def _build_serving_backend(cfg, model, logger, args: argparse.Namespace | None = None):
     """Continuous-batching scheduler + metrics registry for serve and
-    serve-bench (JAX ``_build_serving_backend``, policy ``paged``).
-    ``serving.policy: speculative`` raises NotImplementedError (exit 2)."""
+    serve-bench (JAX ``_build_serving_backend``).
+
+    Policy resolution: ``--draft-config`` forces ``speculative`` (the
+    config may select it too, and then the draft flags are required);
+    otherwise ``serving.policy``. The speculative policy drafts and
+    verifies in batch on two engines (target and draft) when both models
+    decode paged, else serves batch 1. Raises ValueError with the
+    actionable message on a bad combination (exit 2), ConfigLoadError for
+    a bad draft config. ``args`` carries the draft and quantize flags (none
+    given when it is None)."""
     from .serving import ContinuousBatchingScheduler, OverloadController, PagedDecodeEngine
     from .telemetry.registry import MetricsRegistry
 
@@ -612,15 +734,46 @@ def _build_serving_backend(cfg, model, logger):
             scfg.overload.brownout_high_ms,
             scfg.overload.brownout_low_ms,
         )
-    engine = PagedDecodeEngine(
-        model,
+    engine_kwargs = dict(
         block_tokens=scfg.block_tokens,
         num_blocks=scfg.num_blocks or None,
         max_batch_slots=scfg.max_batch_slots,
         prompt_buckets=scfg.prompt_buckets or None,
         batch_buckets=scfg.batch_buckets or None,
-        prefix_cache=scfg.prefix_cache,
-        prefill_chunk=scfg.prefill_chunk,
+    )
+    draft_config = getattr(args, "draft_config", None)
+    policy = "speculative" if draft_config is not None else scfg.policy
+    if policy == "speculative":
+        if draft_config is None or args.draft_from is None:
+            raise ValueError(
+                "the speculative serving policy needs --draft-config AND "
+                "--draft-from (serving.policy: speculative in the config "
+                "selects it; the draft checkpoint must come from the CLI)"
+            )
+        draft_cfg, _, _ = load_and_validate_config(draft_config)
+        draft_model = _load_draft(draft_cfg, args, model, model.token_embedding.weight.device,
+                                  logger)
+        engine = draft_engine = None
+        if hasattr(model, "for_paged_decoding") and hasattr(draft_model, "for_paged_decoding"):
+            engine = PagedDecodeEngine(model, **engine_kwargs)
+            draft_engine = PagedDecodeEngine(draft_model, **engine_kwargs)
+            logger.info(
+                "batched speculative serving: %d slots, gamma from %s",
+                engine.max_batch_slots, "--gamma" if args.gamma is not None else "config",
+            )
+        scheduler = ContinuousBatchingScheduler(
+            engine,
+            policy="speculative",
+            registry=registry,
+            model=model,
+            draft_model=draft_model,
+            draft_engine=draft_engine,
+            gamma=args.gamma if args.gamma is not None else scfg.speculative_gamma,
+            overload=overload,
+        )
+        return scheduler, registry
+    engine = PagedDecodeEngine(
+        model, **engine_kwargs, prefix_cache=scfg.prefix_cache, prefill_chunk=scfg.prefill_chunk
     )
     logger.info(
         "continuous batching: %d slots, %d-token blocks x %d pool blocks, "
@@ -631,9 +784,7 @@ def _build_serving_backend(cfg, model, logger):
         engine.prompt_buckets,
         engine.batch_buckets,
     )
-    scheduler = ContinuousBatchingScheduler(
-        engine, registry=registry, policy=scfg.policy, overload=overload
-    )
+    scheduler = ContinuousBatchingScheduler(engine, registry=registry, overload=overload)
     return scheduler, registry
 
 
@@ -651,6 +802,14 @@ def _handle_serve(args: argparse.Namespace) -> int:
         _emit_error(unported)
         return EXIT_CONFIG_ERROR
     mode = args.mode or cfg.serving.mode
+    if mode != "continuous" and args.draft_config is not None:
+        # Ignoring the draft flags would serve plain single-request decode
+        # while the user asked for speculative.
+        _emit_error(
+            "--draft-config/--draft-from need the continuous backend; "
+            "set serving.mode: continuous (or pass --mode continuous)"
+        )
+        return EXIT_CONFIG_ERROR
 
     from .utils.logging import configure_logging
 
@@ -664,14 +823,17 @@ def _handle_serve(args: argparse.Namespace) -> int:
         device = resolve_device(cfg.run.device)
         _, tokenizer, model = _build_decode_stack(cfg, device, logger)
         model, ckpt_path, step = _load_decode_params(
-            cfg, model, args.from_spec, args.decode_param_dtype, logger
+            cfg, model, args.from_spec, args.decode_param_dtype, logger, quantize=args.quantize
         )
         eos = args.eos_token_id
         if eos is None and tokenizer is not None:
             eos = getattr(tokenizer, "eot_token", None)
         if mode == "continuous":
             try:
-                scheduler, registry = _build_serving_backend(cfg, model, logger)
+                scheduler, registry = _build_serving_backend(cfg, model, logger, args)
+            except ConfigLoadError as exc:
+                _emit_error(exc.message, details=exc.details, errors=exc.errors)
+                return EXIT_CONFIG_ERROR
             except ValueError as exc:
                 _emit_error(str(exc))
                 return EXIT_CONFIG_ERROR
@@ -709,17 +871,21 @@ def _handle_serve(args: argparse.Namespace) -> int:
         if scheduler is not None:
             # Zero-downtime checkpoint hot swap: POST /reload re-resolves
             # the --from spec (a dir or run id resolves to the NEWEST
-            # checkpoint) into a second model (a copy of the serving one,
-            # already on the device and in the decode dtype) and swaps it
+            # checkpoint) into a second target model (a copy of the serving
+            # one, already on the device and in the decode dtype, its
+            # weights restored from their codes when quantized) and swaps it
             # in without dropping a request — in-flight sequences finish
             # on the model they were admitted under, new admissions use
-            # the new one.
+            # the new one. A draft keeps its weights.
             def _reload(body: dict) -> dict:
                 import copy
 
+                from .ops.quant import dequantize_model
+
                 spec = str(body.get("from") or args.from_spec)
                 new_model, new_ckpt, new_step = _load_decode_params(
-                    cfg, copy.deepcopy(state.model), spec, args.decode_param_dtype, logger
+                    cfg, dequantize_model(copy.deepcopy(state.model)), spec,
+                    args.decode_param_dtype, logger, quantize=args.quantize, label="reload ",
                 )
                 scheduler.hot_swap(new_model, step=new_step, checkpoint=str(new_ckpt))
                 state.model = new_model
@@ -784,8 +950,8 @@ def _bench_failures(block: dict, args: argparse.Namespace) -> list[str]:
     """serve-bench's gates (JAX ``_handle_serve_bench``): bucketed shapes,
     no failed or timed-out request, the per-token p99 and rejected bounds."""
     failures: list[str] = []
-    compile_block = block["compile"]
-    if not compile_block["within_budget"]:
+    compile_block = block.get("compile")  # none without an engine (batch-1 speculative)
+    if compile_block is not None and not compile_block["within_budget"]:
         failures.append(
             f"decode-loop shape count exceeded the bucket budget: "
             f"{compile_block['prefill_programs']} prefill + "
@@ -882,7 +1048,7 @@ def _handle_serve_bench(args: argparse.Namespace) -> int:
         device = resolve_device(cfg.run.device)
         _, _, model = _build_decode_stack(cfg, device, logger)
         model, ckpt_path, _ = _load_decode_params(
-            cfg, model, args.from_spec, args.decode_param_dtype, logger
+            cfg, model, args.from_spec, args.decode_param_dtype, logger, quantize=args.quantize
         )
         block_size = int(model.block_size)
         if args.max_new_tokens >= block_size:
@@ -905,7 +1071,10 @@ def _handle_serve_bench(args: argparse.Namespace) -> int:
             )
             return EXIT_CONFIG_ERROR
         try:
-            scheduler, _ = _build_serving_backend(cfg, model, logger)
+            scheduler, _ = _build_serving_backend(cfg, model, logger, args)
+        except ConfigLoadError as exc:
+            _emit_error(exc.message, details=exc.details, errors=exc.errors)
+            return EXIT_CONFIG_ERROR
         except ValueError as exc:
             _emit_error(str(exc))
             return EXIT_CONFIG_ERROR

@@ -5,7 +5,10 @@ Two branches, chosen as in JAX (``generation.py:297``):
 * **KV-cache decode** — the model exposes ``for_decoding()`` and prompt +
   ``max_new_tokens`` fits ``block_size``: prefill fills every layer's
   cache, then one token per step. Plain torch attention (the JAX decode
-  path runs no Pallas kernel either).
+  path runs no Pallas kernel either), over the model's decode cache: a
+  linear one spanning ``block_size``, the rolling one under a sliding
+  window shorter than that, int8 codes with ``kv_cache_dtype: int8``
+  (models/gpt.py).
 * **Sliding-window re-forward** — everything else: a fixed-size token
   buffer, one full forward per new token over a window of
   ``min(block_size, total)`` positions ending at the longest current
@@ -86,13 +89,10 @@ def _generate_cached(
     with_logprobs: bool,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     b, tp = prompt.shape
-    # The cache spans block_size, as the paged engine's window does, so a
-    # served request's attention runs at generate()'s shapes. A sliding
-    # window shorter than block_size keeps the exact length (its rolling
-    # cache is not ported, and the paged engine refuses such models).
-    window = getattr(model, "sliding_window", 0)
-    cache_len = tp + max_new_tokens if window and window < model.block_size else model.block_size
-    decoder = model.for_decoding(cache_len=cache_len)
+    # A linear cache spans block_size, as the paged engine's window and
+    # speculative decoding's cache do, so their attention runs at
+    # generate()'s shapes; a rolling cache holds the sliding window.
+    decoder = model.for_decoding(cache_len=model.block_size)
     cache = decoder.init_cache(b)
     sample = dict(temperature=temperature, top_k=top_k, top_p=top_p)
 

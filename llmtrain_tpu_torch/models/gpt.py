@@ -35,20 +35,44 @@ against the (V, d) vocab matrix, so no (B, T, V) tensor is made.
 Grouped-query attention (``n_kv_heads`` < ``n_heads``) uses ``q_proj`` +
 ``kv_proj`` in place of the fused ``qkv_proj``. Decoding, in plain torch
 as JAX's decode paths are plain XLA, goes through :meth:`GPT.for_decoding`
-(a per-layer KV cache written at a cursor, which ``generate()`` uses) or
-:meth:`GPT.for_paged_decoding` (a pool of fixed-size blocks shared by
-every sequence, addressed through per-row block tables, with per-row
-positions: the continuous-batching engine's cache). Both run
-:meth:`GPT.decode_forward`, whose row-wise ops (LayerNorm, projections,
-lm-head) always take DECODE_ROWS rows and whose attention takes each
-row's queries DECODE_ROWS at a time over a window of the same length, so
-a token's logits do not depend on the batch, the bucket or the chunk it
-was computed in.
+(a per-layer KV cache written at a cursor, which ``generate()`` and
+speculative decoding use) or :meth:`GPT.for_paged_decoding` (a pool of
+fixed-size blocks shared by every sequence, addressed through per-row
+block tables, with per-row positions: the continuous-batching engine's
+cache). Both run :meth:`GPT.decode_forward`, whose row-wise ops
+(LayerNorm, projections, lm-head) always take DECODE_ROWS rows and whose
+attention takes each row's queries DECODE_ROWS at a time over a window of
+fixed length, so a token's logits do not depend on the batch, the bucket,
+the chunk or the call it was computed in.
 
-Not yet ported, each raising: ``matmul_precision`` other than f32 and
-ring/ulysses attention (at build time), the rolling sliding-window decode
-cache and the int8 KV cache (at decode) (ROADMAP.md queue A: parallelism for
-the first two; rolling sliding-window cache and int8 quantization).
+The decode cache of :meth:`GPT.for_decoding` (JAX ``_decode_attention``):
+
+* **linear** — ``cache_len`` slots, position p in slot p; the read is
+  the whole cache, masked by col <= position;
+* **rolling** (``sliding_window`` W shorter than ``block_size``) —
+  ``min(W + ring_slack, cache_len)`` slots, position p in slot p % slots,
+  the position each slot holds in ``pos1`` (position + 1, 0 = never
+  written); a call writes only its last ``min(t, slots)`` tokens. Each
+  query reads exactly the W positions ending at its own, in position
+  order, gathered from the slots that still hold them (written, causal,
+  inside the window: JAX's liveness). So its logits do not depend on the
+  ring's size or slot order: speculative decoding, whose ring carries
+  ``ring_slack`` extra slots, computes the bits ``generate()`` does;
+* **int8** (``kv_cache_dtype: int8``, either layout) — codes plus one f32
+  scale per (batch, slot, kv-head) from ops/quant.py's
+  :func:`quantize_array` over the head dim, dequantized to the compute
+  dtype before the products.
+
+Rolling back the cursor (:meth:`KVCache.set_cursor`) is all speculative
+decoding needs: slots past the cursor are masked until rewritten.
+
+Weights quantized by ``ops/quant.quantize_model`` stay int8 on the model
+and are dequantized at each use (:func:`_weight`), then cast to the
+compute dtype as every weight is: once a call on the decode paths, not
+once a block of rows (:func:`_dense_fn`).
+
+Not yet ported, each raising at build time: ``matmul_precision`` other
+than f32 and ring/ulysses attention (ROADMAP.md queue A: parallelism).
 """
 
 from __future__ import annotations
@@ -72,6 +96,7 @@ from ..ops.fused_ce import (
     fused_ce_components,
     resolve_loss_impl,
 )
+from ..ops.quant import dequantized, quantize_array
 from ..registry.models import register_model
 from .base import Batch, ModelAdapter, lm_loss_components, validate_lm_batch
 
@@ -99,11 +124,20 @@ def apply_dropout(x: torch.Tensor, rate: float, deterministic: bool,
     return torch.where(kept, x / keep, torch.zeros_like(x))
 
 
-def _dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    """flax ``Dense(dtype=...)``: input, kernel and bias all cast to the
-    compute dtype before the product."""
+def _weight(w: Any, dtype: torch.dtype) -> torch.Tensor:
+    """A weight in the compute dtype; a quantized one is dequantized to its
+    original dtype first (JAX's ``QuantizedArray.__jax_array__``)."""
+    return dequantized(w).to(dtype)
+
+
+def _dense_fn(layer: nn.Linear, dtype: torch.dtype) -> Any:
+    """flax ``Dense(dtype=...)`` as a function of its input: input, kernel
+    and bias all cast to the compute dtype before the product. The kernel
+    is cast (and dequantized) here, once, so that the decode paths' blocks
+    of DECODE_ROWS rows share it."""
+    w = _weight(layer.weight, dtype)
     bias = layer.bias.to(dtype) if layer.bias is not None else None
-    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+    return lambda x: F.linear(x.to(dtype), w, bias)
 
 
 class LayerNorm(nn.Module):
@@ -129,12 +163,55 @@ class LayerNorm(nn.Module):
 
 @dataclass
 class LayerKVCache:
-    """One layer's decode cache: (B, capacity, Hkv, Dh) keys and values
-    in the compute dtype, and the cursor of the next write."""
+    """One layer's decode cache: (B, slots, Hkv, Dh) keys and values in the
+    compute dtype (int8 codes with ``key_scale``/``value_scale``, (B,
+    slots, Hkv, 1) f32), the absolute position of the next write, and for
+    a rolling cache ``pos1`` (slots,): position + 1 held by each slot, 0
+    for never written."""
 
     key: torch.Tensor
     value: torch.Tensor
     index: int = 0
+    key_scale: torch.Tensor | None = None
+    value_scale: torch.Tensor | None = None
+    pos1: torch.Tensor | None = None
+
+    def _store(self, at: Any, k: torch.Tensor, v: torch.Tensor) -> None:
+        if self.key_scale is None:
+            self.key[:, at] = k.to(self.key.dtype)
+            self.value[:, at] = v.to(self.value.dtype)
+            return
+        for x, codes, scales in ((k, self.key, self.key_scale),
+                                 (v, self.value, self.value_scale)):
+            qa = quantize_array(x, reduce_axes=(x.ndim - 1,))
+            codes[:, at] = qa.q
+            scales[:, at] = qa.scale
+
+    def write_read(self, k: torch.Tensor, v: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+        """Store this call's K/V (B, t, Hkv, Dh) at the cursor and return
+        (keys, values, key positions): the whole cache in k's dtype, and
+        the absolute position each slot holds (-1 for empty) for a rolling
+        cache, None for a linear one (slot j holds position j)."""
+        t, cap, idx = k.shape[1], self.key.shape[1], self.index
+        if self.pos1 is None:
+            if idx + t > cap:
+                raise ValueError(f"decode cache overflow: {idx} + {t} > capacity {cap}")
+            self._store(slice(idx, idx + t), k, v)
+        else:
+            # Only the last `cap` tokens of the call can survive the ring;
+            # writing at most `cap` keeps the slots distinct.
+            keep = min(t, cap)
+            pos = torch.arange(idx + t - keep, idx + t, device=k.device)
+            slots = pos % cap
+            self._store(slots, k[:, t - keep:], v[:, t - keep:])
+            self.pos1[slots] = pos + 1
+        self.index = idx + t
+        keys, values = self.key, self.value
+        if self.key_scale is not None:
+            keys = (keys.float() * self.key_scale).to(k.dtype)
+            values = (values.float() * self.value_scale).to(v.dtype)
+        return keys, values, None if self.pos1 is None else self.pos1 - 1
 
 
 @dataclass
@@ -144,6 +221,15 @@ class KVCache:
 
     layers: list[LayerKVCache]
     position_index: int = 0
+
+    def set_cursor(self, value: int) -> None:
+        """Cursor-only rollback (JAX ``speculative._set_cursor``): the next
+        call writes at absolute position ``value``. Slots past it keep
+        stale K/V that no query reads: a linear cache masks positions past
+        the query, a rolling one checks each slot's position."""
+        self.position_index = value
+        for layer in self.layers:
+            layer.index = value
 
 
 def dense_attention(
@@ -192,11 +278,10 @@ def cached_attention(
     values: torch.Tensor,
     positions: torch.Tensor,
     *,
-    window: int = 0,
     rows: int | None = None,
 ) -> torch.Tensor:
     """Causal attention of each row's queries over its own cached window
-    (JAX ``_decode_attention`` and ``_paged_decode_attention``).
+    (JAX ``_decode_attention``, linear cache, and ``_paged_decode_attention``).
 
     q (B, t, H, Dh); keys/values (B, S, Hkv, Dh), index j of row b holding
     position j; positions (B, t), the queries' absolute positions. Scores
@@ -230,8 +315,6 @@ def cached_attention(
         torch.bmm(qb, kts[ij // nblk], out=out_ij)
     col = torch.arange(s, device=q.device)
     dead = col[None, None, :] > positions[:n, :, None]  # (n, tq, S)
-    if window:
-        dead = dead | (positions[:n, :, None] - col[None, None, :] >= window)
     scores = (scores * (1.0 / math.sqrt(head_dim))).float()
     scores = scores.view(n, nblk, kv_width, g, r, s).masked_fill(
         dead.view(n, nblk, 1, 1, r, s), torch.finfo(torch.float32).min)
@@ -244,6 +327,77 @@ def cached_attention(
     if n != b:
         out = F.pad(out, (0, 0, 0, 0, 0, 0, 0, b - n))
     return out[:, :t]
+
+
+def window_attention(
+    q: torch.Tensor,
+    keys: torch.Tensor,
+    values: torch.Tensor,
+    key_pos: torch.Tensor,
+    positions: torch.Tensor,
+    window: int,
+    *,
+    rows: int | None = None,
+) -> torch.Tensor:
+    """Sliding-window attention over a rolling cache (JAX
+    ``_decode_attention``, rolling branch).
+
+    q (B, t, H, Dh); keys/values (B, C, Hkv, Dh), the cache's slots;
+    key_pos (C,), the absolute position each slot holds (-1 empty);
+    positions (B, t), the queries' absolute positions. The query at p
+    reads the ``window`` positions p - window + 1 .. p in that order, from
+    slot position % C, each live iff the slot holds that position (JAX:
+    written, causal and inside the window). Each row's queries go
+    DECODE_ROWS at a time (the last block padded with dead queries)
+    through one product per row and block, every query against its own
+    keys, so neither the batch, nor the call, nor the ring's size moves a
+    query's bits. Rows past ``rows`` come back zero.
+    """
+    b, t, n_heads, head_dim = q.shape
+    cap, kv_width = keys.shape[1], keys.shape[2]
+    g = n_heads // kv_width
+    r = DECODE_ROWS
+    tq = -(-t // r) * r
+    nblk = tq // r
+    if tq != t:
+        q = F.pad(q, (0, 0, 0, 0, 0, tq - t))
+        positions = F.pad(positions, (0, tq - t), value=-1)
+    n = b if rows is None else rows
+    wpos = positions[:n, :, None] + torch.arange(1 - window, 1, device=q.device)  # (n, tq, W)
+    slots = wpos.remainder(cap)
+    live = (wpos >= 0) & (key_pos[slots] == wpos)
+    row = torch.arange(n, device=q.device)[:, None, None]
+    # Each (row, block) as r x Hkv products of (G, Dh) queries against
+    # their own (Dh, W) keys and (W, Dh) values.
+    qm = q[:n].reshape(n * nblk, r * kv_width, g, head_dim).unbind(0)
+    kts = keys[row, slots].reshape(n * nblk, r, window, kv_width, head_dim).permute(
+        0, 1, 3, 4, 2).reshape(n * nblk, r * kv_width, head_dim, window).unbind(0)
+    vts = values[row, slots].reshape(n * nblk, r, window, kv_width, head_dim).permute(
+        0, 1, 3, 2, 4).reshape(n * nblk, r * kv_width, window, head_dim).unbind(0)
+    scores = q.new_empty(n * nblk, r * kv_width, g, window)
+    for qb, kb, out_ij in zip(qm, kts, scores.unbind(0)):
+        torch.bmm(qb, kb, out=out_ij)
+    scores = (scores * (1.0 / math.sqrt(head_dim))).float()
+    scores = scores.view(n, tq, kv_width, g, window).masked_fill(
+        ~live[:, :, None, None, :], torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype).view(n * nblk, r * kv_width, g, window)
+    out = q.new_empty(n * nblk, r * kv_width, g, head_dim)
+    for pb, vb, out_ij in zip(probs.unbind(0), vts, out.unbind(0)):
+        torch.bmm(pb, vb, out=out_ij)
+    out = out.view(n, tq, n_heads, head_dim)
+    if n != b:
+        out = F.pad(out, (0, 0, 0, 0, 0, 0, 0, b - n))
+    return out[:, :t]
+
+
+def _attend(q: torch.Tensor, kv: tuple, positions: torch.Tensor, window: int,
+            rows: int | None) -> torch.Tensor:
+    """Attention over what a cache's ``write_read`` returned: (keys,
+    values, key positions), the positions None for a linear layout."""
+    keys, values, key_pos = kv
+    if key_pos is None:
+        return cached_attention(q, keys, values, positions, rows=rows)
+    return window_attention(q, keys, values, key_pos, positions, window, rows=rows)
 
 
 class CausalSelfAttention(nn.Module):
@@ -329,7 +483,7 @@ class CausalSelfAttention(nn.Module):
                 "(ROADMAP.md queue A: parallelism); use 'flash' or 'dense'"
             )
 
-        out = _dense(out.reshape(b, t, h * hd), self.out_proj, self.dtype)
+        out = _dense_fn(self.out_proj, self.dtype)(out.reshape(b, t, h * hd))
         out = apply_dropout(out, self.dropout, deterministic, generator)
         if attention_mask is not None:
             # Zero padded rows (the mask may carry segment ids > 1).
@@ -340,9 +494,9 @@ class CausalSelfAttention(nn.Module):
         """The input projections, each through ``apply`` (called with the
         function of one block of rows): (qkv,) fused or (q, kv) under GQA."""
         if self.kv_heads == self.n_heads:
-            return (apply(lambda r: _dense(r, self.qkv_proj, self.dtype)),)
-        return (apply(lambda r: _dense(r, self.q_proj, self.dtype)),
-                apply(lambda r: _dense(r, self.kv_proj, self.dtype)))
+            return (apply(_dense_fn(self.qkv_proj, self.dtype)),)
+        return (apply(_dense_fn(self.q_proj, self.dtype)),
+                apply(_dense_fn(self.kv_proj, self.dtype)))
 
     def _split_qkv(self, *parts: Any) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """q (B, T, H, Dh), k and v (B, T, Hkv, Dh) from the projections of
@@ -358,22 +512,15 @@ class CausalSelfAttention(nn.Module):
         self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache: LayerKVCache
     ) -> torch.Tensor:
         """Write this call's K/V at the cursor, attend over the cache (JAX
-        ``_decode_attention``, linear cache). The cache stays at
-        n_kv_heads; queries are grouped against it at read."""
+        ``_decode_attention``). The cache stays at n_kv_heads; queries are
+        grouped against it at read."""
         batch, t = q.shape[:2]
-        cap = cache.key.shape[1]
-        idx = cache.index
-        if idx + t > cap:
-            raise ValueError(f"decode cache overflow: {idx} + {t} > capacity {cap}")
-        positions = (idx + torch.arange(t, device=q.device)).expand(batch, t)
+        positions = (cache.index + torch.arange(t, device=q.device)).expand(batch, t)
         if self.rope:
             from ..ops.rope import apply_rope
 
             q, k = apply_rope(q, k, positions, theta=self.rope_theta)
-        cache.key[:, idx : idx + t] = k.to(cache.key.dtype)
-        cache.value[:, idx : idx + t] = v.to(cache.value.dtype)
-        cache.index = idx + t
-        return cached_attention(q, cache.key, cache.value, positions, window=self.sliding_window)
+        return _attend(q, cache.write_read(k, v), positions, self.sliding_window, None)
 
     def decode_rows(
         self,
@@ -386,7 +533,8 @@ class CausalSelfAttention(nn.Module):
         """The attention sublayer on the decode paths: ``h`` holds the
         B x T tokens' normed rows, padded to a multiple of DECODE_ROWS;
         ``write_read(k, v)`` stores this call's K/V and returns every row's
-        window. Returns the output projection, padded alike."""
+        window (with the slots' positions, or None for a linear layout).
+        Returns the output projection, padded alike."""
         b, t = shape
         n = b * t
         q, k, v = self._split_qkv(
@@ -396,10 +544,9 @@ class CausalSelfAttention(nn.Module):
             from ..ops.rope import apply_rope
 
             q, k = apply_rope(q, k, positions, theta=self.rope_theta)
-        keys, values = write_read(k, v)
-        out = cached_attention(q, keys, values, positions, window=self.sliding_window, rows=rows)
+        out = _attend(q, write_read(k, v), positions, self.sliding_window, rows)
         out = F.pad(out.reshape(n, -1), (0, 0, 0, h.shape[0] - n))
-        return _row_blocks(lambda r: _dense(r, self.out_proj, self.dtype), out)
+        return _row_blocks(_dense_fn(self.out_proj, self.dtype), out)
 
 
 class TransformerBlock(nn.Module):
@@ -444,11 +591,12 @@ class TransformerBlock(nn.Module):
         else:
             x = x + self.attn(self.ln_1(x), attention_mask, **attn_kw)
             h = self.ln_2(x)
-        return x + apply_dropout(self._mlp(h), self.dropout, deterministic, generator)
+        return x + apply_dropout(self._mlp()(h), self.dropout, deterministic, generator)
 
-    def _mlp(self, h: torch.Tensor) -> torch.Tensor:
-        h = F.gelu(_dense(h, self.mlp_fc, self.dtype), approximate="none")
-        return _dense(h, self.mlp_proj, self.dtype)
+    def _mlp(self) -> Any:
+        """The MLP as a function of its input, its kernels cast once."""
+        fc, proj = _dense_fn(self.mlp_fc, self.dtype), _dense_fn(self.mlp_proj, self.dtype)
+        return lambda h: proj(F.gelu(fc(h), approximate="none"))
 
     def decode_rows(self, x: torch.Tensor, shape: tuple[int, int], positions: torch.Tensor,
                     write_read: Any, rows: int | None) -> torch.Tensor:
@@ -456,7 +604,7 @@ class TransformerBlock(nn.Module):
         DECODE_ROWS (see :meth:`CausalSelfAttention.decode_rows`)."""
         h = _row_blocks(self.ln_1, x)
         x = x + self.attn.decode_rows(h, shape, positions, write_read, rows)
-        return x + _row_blocks(self._mlp, _row_blocks(self.ln_2, x))
+        return x + _row_blocks(self._mlp(), _row_blocks(self.ln_2, x))
 
 
 class GPT(nn.Module):
@@ -567,17 +715,17 @@ class GPT(nn.Module):
             cache.position_index += seqlen
             positions = torch.arange(start, start + seqlen, device=input_ids.device)
             return self.decode_forward(input_ids, positions.expand(batch, seqlen),
-                                       _LinearWriteRead(cache, seqlen))
+                                       lambda layer: cache.layers[layer].write_read)
         pos = torch.arange(seqlen, device=input_ids.device)
-        x = (F.embedding(input_ids, self.token_embedding.weight).to(self.dtype)
-             + F.embedding(pos, self.position_embedding.weight).to(self.dtype)[None])
+        x = (F.embedding(input_ids, dequantized(self.token_embedding.weight)).to(self.dtype)
+             + F.embedding(pos, dequantized(self.position_embedding.weight)).to(self.dtype)[None])
         x = apply_dropout(x, self.dropout, deterministic, generator)
         for block in self.blocks:
             x = block(x, attention_mask, deterministic=deterministic, generator=generator)
         x = self.ln_f(x)
         if return_hidden:
             return x
-        return F.linear(x, self.vocab_matrix().to(self.dtype))
+        return F.linear(x, _weight(self.vocab_matrix(), self.dtype))
 
     def decode_forward(
         self,
@@ -590,21 +738,23 @@ class GPT(nn.Module):
         """Logits (B, T, V) of the decode paths. ``positions`` (B, T) are
         the tokens' absolute positions (a position past the model's last,
         which only a padded token has, reads the last position embedding);
-        ``write_read(layer)`` gives the layer's ``(k, v) -> (keys, values)``
-        that stores this call's K/V and returns every row's window. The
+        ``write_read(layer)`` gives the layer's ``(k, v) -> (keys, values,
+        key positions)`` that stores this call's K/V and returns every row's
+        window (key positions None for a linear layout, where index j holds
+        position j). The
         B x T token rows are padded to a multiple of DECODE_ROWS and every
         row-wise op runs DECODE_ROWS rows at a time; attention is computed
         for the first ``rows`` rows only (default all)."""
         b, t = input_ids.shape
         n = b * t
         pos = positions.clamp(max=self.block_size - 1)
-        x = (F.embedding(input_ids, self.token_embedding.weight).to(self.dtype)
-             + F.embedding(pos, self.position_embedding.weight).to(self.dtype))
+        x = (F.embedding(input_ids, dequantized(self.token_embedding.weight)).to(self.dtype)
+             + F.embedding(pos, dequantized(self.position_embedding.weight)).to(self.dtype))
         x = F.pad(x.reshape(n, -1), (0, 0, 0, -(-n // DECODE_ROWS) * DECODE_ROWS - n))
         for i, block in enumerate(self.blocks):
             x = block.decode_rows(x, (b, t), positions, write_read(i), rows)
         x = _row_blocks(self.ln_f, x)
-        w = self.vocab_matrix().to(self.dtype)
+        w = _weight(self.vocab_matrix(), self.dtype)
         return _row_blocks(lambda r: F.linear(r, w), x)[:n].view(b, t, -1)
 
     def vocab_matrix(self) -> torch.Tensor:
@@ -615,13 +765,16 @@ class GPT(nn.Module):
             return self.token_embedding.weight
         return self.lm_head.weight
 
-    def for_decoding(self, cache_len: int | None = None) -> GPTDecoder:
+    def for_decoding(self, cache_len: int | None = None, *, ring_slack: int = 0) -> GPTDecoder:
         """KV-cache decoding view of this model (JAX ``for_decoding``):
         same parameters, a cache of ``min(cache_len, block_size)``
-        positions."""
+        positions. ``ring_slack`` widens a windowed model's rolling cache
+        by that many slots, so that writes a speculative round rolls back
+        cannot evict a position a later query's window holds
+        (speculative.py passes gamma + 1)."""
         if cache_len is None:
             cache_len = self.block_size
-        return GPTDecoder(self, min(cache_len, self.block_size))
+        return GPTDecoder(self, min(cache_len, self.block_size), ring_slack)
 
     def for_paged_decoding(self, *, num_blocks: int, block_tokens: int) -> GPTPagedDecoder:
         """Paged-KV decoding view of this model (JAX ``for_paged_decoding``):
@@ -650,67 +803,60 @@ class GPT(nn.Module):
 class GPTDecoder:
     """Cached autoregressive decoding over a :class:`GPT`: prefill with
     the prompt, then one token per call, each call appending to the
-    cache from :meth:`init_cache`."""
+    cache from :meth:`init_cache`. A model whose ``sliding_window`` is
+    shorter than its ``block_size`` decodes through a rolling cache of
+    ``min(sliding_window + ring_slack, cache_len)`` slots (a longer
+    window never binds); ``kv_cache_dtype: int8`` stores int8 codes and
+    scales."""
 
     model: GPT
     cache_len: int
+    ring_slack: int = 0
 
     def __post_init__(self) -> None:
         if self.cache_len <= 0:
             raise ValueError("decoding requires cache_len > 0")
-        if self.model.kv_cache_dtype != "model":
-            raise NotImplementedError(
-                "kv_cache_dtype='int8' is not yet ported to llmtrain_tpu_torch "
-                "(ROADMAP.md queue A: int8 quantization)"
+        if self.ring_slack < 0:
+            raise ValueError(f"ring_slack must be >= 0, got {self.ring_slack}")
+        if self.model.kv_cache_dtype not in ("model", "int8"):
+            raise ValueError(
+                f"kv_cache_dtype {self.model.kv_cache_dtype!r} unknown; expected "
+                "'model' or 'int8'"
             )
+
+    @property
+    def slots(self) -> int:
+        """Cache positions per layer: the ring under a sliding window."""
         window = self.model.sliding_window
-        if window and window < self.cache_len:
-            raise NotImplementedError(
-                "the rolling sliding-window decode cache is not yet ported to "
-                "llmtrain_tpu_torch (ROADMAP.md queue A: rolling sliding-window cache)"
-            )
+        if 0 < window < self.model.block_size:
+            return min(window + self.ring_slack, self.cache_len)
+        return self.cache_len
 
     def init_cache(self, batch: int) -> KVCache:
         m = self.model
         dev = m.token_embedding.weight.device
-        head_dim = m.d_model // m.n_heads
-        shape = (batch, self.cache_len, m.n_kv_heads, head_dim)
-        return KVCache(
-            layers=[
-                LayerKVCache(
-                    torch.zeros(shape, dtype=m.dtype, device=dev),
-                    torch.zeros(shape, dtype=m.dtype, device=dev),
-                )
-                for _ in range(m.n_layers)
-            ]
-        )
+        slots = self.slots
+        shape = (batch, slots, m.n_kv_heads, m.d_model // m.n_heads)
+        quant = m.kv_cache_dtype == "int8"
+        rolling = 0 < m.sliding_window < m.block_size
+
+        def zeros(shape: tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        def layer() -> LayerKVCache:
+            store = torch.int8 if quant else m.dtype
+            scale = shape[:3] + (1,)
+            return LayerKVCache(
+                zeros(shape, store), zeros(shape, store),
+                key_scale=zeros(scale, torch.float32) if quant else None,
+                value_scale=zeros(scale, torch.float32) if quant else None,
+                pos1=zeros((slots,), torch.long) if rolling else None,
+            )
+
+        return KVCache(layers=[layer() for _ in range(m.n_layers)])
 
     def __call__(self, input_ids: torch.Tensor, cache: KVCache) -> torch.Tensor:
         return self.model(input_ids, cache=cache)
-
-
-class _LinearWriteRead:
-    """``write_read`` of :meth:`GPT.decode_forward` over a linear
-    :class:`KVCache`: K/V written at the layer's cursor."""
-
-    def __init__(self, cache: KVCache, t: int) -> None:
-        self.cache, self.t = cache, t
-
-    def __call__(self, layer: int) -> Any:
-        c = self.cache.layers[layer]
-
-        def write_read(k: torch.Tensor, v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-            idx = c.index
-            if idx + self.t > c.key.shape[1]:
-                raise ValueError(
-                    f"decode cache overflow: {idx} + {self.t} > capacity {c.key.shape[1]}"
-                )
-            c.key[:, idx : idx + self.t] = k.to(c.key.dtype)
-            c.value[:, idx : idx + self.t] = v.to(c.value.dtype)
-            c.index = idx + self.t
-            return c.key, c.value
-
-        return write_read
 
 
 @dataclass
@@ -781,11 +927,11 @@ class GPTPagedDecoder:
         def write_read(layer: int) -> Any:
             pk, pv = (p.view(-1, *p.shape[2:]) for p in (pool.key[layer], pool.value[layer]))
 
-            def wr(k: torch.Tensor, v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+            def wr(k: torch.Tensor, v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, None]:
                 pk.index_copy_(0, written, k.reshape(-1, *pk.shape[1:]).to(pk.dtype))
                 pv.index_copy_(0, written, v.reshape(-1, *pv.shape[1:]).to(pv.dtype))
                 return (pk.index_select(0, read).view(b, window, *pk.shape[1:]),
-                        pv.index_select(0, read).view(b, window, *pv.shape[1:]))
+                        pv.index_select(0, read).view(b, window, *pv.shape[1:]), None)
 
             return wr
 
@@ -971,5 +1117,6 @@ __all__ = [
     "apply_dropout",
     "cached_attention",
     "dense_attention",
+    "window_attention",
     "resolve_loss_impl",
 ]

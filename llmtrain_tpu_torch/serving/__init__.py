@@ -7,9 +7,12 @@ continuous batching.
   admission-time budget reservation, per-sequence block tables, the
   shared-prefix cache;
 * :mod:`~.engine` — bucketed prefill/decode steps over the pool, per-row
-  generate()-exact sampling, bounded-shape accounting;
+  generate()-exact sampling, the batched speculative ``verify``,
+  bounded-shape accounting;
 * :mod:`~.scheduler` — continuous (in-flight) batching: admission queue,
-  per-step join/evict, hot swap, ``serve/*`` metrics;
+  per-step join/evict, hot swap, speculative decoding as a policy
+  (batched draft-and-verify, batch 1 for sampled requests), ``serve/*``
+  metrics;
 * :mod:`~.loadgen` — seeded open-loop arrival harness emitting the
   p50/p95/p99 TTFT + per-token SLO block;
 * :mod:`~.overload` — SLO-aware overload control: bounded deadline-aware

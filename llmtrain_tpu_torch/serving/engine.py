@@ -4,15 +4,17 @@
 The execution layer of the continuous-batching server (scheduler.py owns
 WHEN sequences join/leave; this module owns HOW a step runs):
 
-* **Two steps, shape-bucketed.** ``prefill`` runs one joining sequence's
-  prompt slab (padded to a prompt-length bucket) through the paged model,
-  writing its K/V blocks and sampling its first token; ``decode`` advances
-  every in-flight sequence one token (batch padded to a batch-size
-  bucket). Eager PyTorch compiles nothing, so :meth:`compile_stats`
-  counts the distinct ``(kind, bucket)`` shapes the engine ran, against
-  the budget JAX's compile count is held to,
-  ``len(prompt_buckets) + len(batch_buckets)``: within it means the shapes
-  stayed bucketed.
+* **Three steps, shape-bucketed.** ``prefill`` runs one joining
+  sequence's prompt slab (padded to a prompt-length bucket) through the
+  paged model, writing its K/V blocks and sampling its first token;
+  ``decode`` advances every in-flight sequence one token (batch padded to
+  a batch-size bucket); ``verify`` scores every row's ``gamma + 1``-token
+  speculative slab in one call (batch bucketed, width fixed per call) and
+  returns the argmax at every position. Eager PyTorch compiles nothing, so
+  :meth:`compile_stats` counts the distinct shapes the engine ran, against
+  the budget JAX's compile count is held to, ``len(prompt_buckets) +
+  len(batch_buckets)`` plus ``len(batch_buckets)`` per verify width used:
+  within it means the shapes stayed bucketed.
 * **Per-row sampling that replays generate().** Greedy rows take the raw
   argmax and draw nothing; sampled rows draw from their own
   ``torch.Generator`` (seeded as ``serve`` seeds a request), one draw per
@@ -26,9 +28,8 @@ WHEN sequences join/leave; this module owns HOW a step runs):
   (``GPTPagedDecoder``), so every bucket reads and writes the same pool
   tensors; join/evict never copies K/V.
 
-Every step runs under ``torch.inference_mode()``. Speculative verify and
-the cost profile are not ported yet (ROADMAP.md queue A: speculative
-decoding; telemetry).
+Every step runs under ``torch.inference_mode()``. The cost profile is not
+ported yet (ROADMAP.md queue A: telemetry).
 """
 
 from __future__ import annotations
@@ -173,6 +174,7 @@ class PagedDecodeEngine:
         self.cache_epoch = 0
         self._prefill_shapes: set[int] = set()
         self._decode_shapes: set[int] = set()
+        self._verify_shapes: set[tuple[int, int]] = set()
         self._cow_used = False
 
     # --------------------------------------------------------- validation
@@ -304,11 +306,45 @@ class PagedDecodeEngine:
 
     def verify(self, rows: list[dict[str, Any]], *, width: int,
                params: Any | None = None) -> list[list[int]]:
-        """Batched speculative verify (JAX ``verify``)."""
-        raise NotImplementedError(
-            "batched speculative verify is not yet ported to llmtrain_tpu_torch "
-            "(ROADMAP.md queue A: speculative decoding)"
-        )
+        """Score a ``width``-token slab for every row in ONE bucketed call
+        (batched speculative verify, JAX ``verify``). Each row dict:
+        ``tokens`` (width ints: the last accepted token + the drafts),
+        ``position`` (tokens[0]'s absolute position), ``table``. Returns each
+        row's per-position argmax: the target's greedy continuation given
+        every draft prefix. Writes the slab's K/V; rejected positions are
+        overwritten when the corrected tokens are fed (position p maps to a
+        fixed (block, slot), and queries never see past their own
+        position)."""
+        n = len(rows)
+        if n == 0:
+            return []
+        bb = bucket_for(n, self.batch_buckets)
+        self._verify_shapes.add((bb, width))
+        tokens = np.zeros((bb, width), np.int64)
+        positions = np.zeros((bb,), np.int64)
+        tables = np.zeros((bb, self.max_blocks_per_seq), np.int64)
+        for i, r in enumerate(rows):
+            if len(r["tokens"]) != width:
+                raise ValueError(
+                    f"verify row {i} holds {len(r['tokens'])} tokens, "
+                    f"expected width {width}"
+                )
+            tokens[i] = r["tokens"]
+            positions[i] = r["position"]
+            tables[i] = r["table"]
+        try:
+            with torch.inference_mode():
+                logits = self._decoder(params)(
+                    self._tensor(tokens),
+                    self._tensor(positions),
+                    self._tensor(tables),
+                    self._cache,
+                    rows=n,
+                )
+                return torch.argmax(logits[:n].float(), dim=-1).tolist()
+        except Exception:
+            self._recover_cache_after_error()
+            raise
 
     def cow_copy(self, src: int, dst: int) -> None:
         """Device-side copy-on-write: pool block ``src`` → ``dst`` in every
@@ -346,26 +382,30 @@ class PagedDecodeEngine:
         Eager PyTorch compiles nothing: a ``*_programs`` count is the number
         of distinct bucket shapes that kind of step ran, as JAX's
         ``_note_shape`` records them, and the budget is JAX's,
-        ``len(prompt_buckets) + len(batch_buckets)`` (+1 once a COW copy
-        ran). Within budget means every step ran at a bucket shape."""
+        ``len(prompt_buckets) + len(batch_buckets)``, plus
+        ``len(batch_buckets)`` per verify width used, +1 once a COW copy
+        ran. Within budget means every step ran at a bucket shape."""
+        verify_widths = {w for _, w in self._verify_shapes}
         stats: dict[str, Any] = {
             "prompt_buckets": list(self.prompt_buckets),
             "batch_buckets": list(self.batch_buckets),
             "prefill_shapes_used": sorted(self._prefill_shapes),
             "decode_shapes_used": sorted(self._decode_shapes),
-            "verify_shapes_used": [],
+            "verify_shapes_used": sorted(self._verify_shapes),
             "budget": (
                 len(self.prompt_buckets)
                 + len(self.batch_buckets)
+                + len(self.batch_buckets) * len(verify_widths)
                 + (1 if self._cow_used else 0)
             ),
             "prefill_programs": len(self._prefill_shapes),
             "decode_programs": len(self._decode_shapes),
-            "verify_programs": 0,
+            "verify_programs": len(self._verify_shapes),
             "cow_programs": 1 if self._cow_used else 0,
         }
         stats["within_budget"] = (
-            stats["prefill_programs"] + stats["decode_programs"] + stats["cow_programs"]
+            stats["prefill_programs"] + stats["decode_programs"]
+            + stats["verify_programs"] + stats["cow_programs"]
             <= stats["budget"]
         )
         return stats
@@ -375,7 +415,7 @@ class PagedDecodeEngine:
     def set_params(self, params: Any) -> None:
         """Swap the default model between scheduler steps (checkpoint hot
         swap). Callers that pin a request to its admitted model pass it
-        explicitly to prefill/decode instead. The prefix cache must be
+        explicitly to prefill/decode/verify instead. The prefix cache must be
         invalidated by the caller (scheduler) — cached K/V is a function of
         the OLD weights."""
         self.decode_model = self._decoder(params)

@@ -1,5 +1,5 @@
 """Continuous (in-flight) batching scheduler over the paged decode engine
-(port of ``llmtrain_tpu/serving/scheduler.py``, policy ``paged``).
+(port of ``llmtrain_tpu/serving/scheduler.py``).
 
 Requests enter an admission queue from any thread (HTTP handlers, the load
 generator); a single scheduler thread runs
@@ -28,14 +28,25 @@ Policies layered on the paged path:
 * **Overload control** (overload.py) — a bounded weighted-class queue,
   deadline-aware rejection at submit, shedding and brownout.
 
+Policies:
+
+* ``paged`` (default) — the continuous-batching path above.
+* ``speculative`` — draft-and-verify decode. With a ``draft_engine``
+  attached, greedy requests are drafted and verified in batch: gamma
+  draft tokens per row come from batched one-token decodes on the draft
+  engine, and the target scores every row's (gamma+1)-token slab in ONE
+  bucketed ``verify`` call; greedy acceptance keeps a draft only when it
+  equals the target's argmax, so the emitted tokens are ``generate()``'s.
+  Sampled requests, and every request without a draft engine, are served
+  one at a time by ``speculative_generate`` (batch 1).
+
 SLO accounting is server-side and per request: submit→first-token (TTFT)
 and inter-token gaps, which the load harness (loadgen.py) aggregates.
 Metrics publish into the telemetry MetricsRegistry under ``serve/*``
 (→ ``llmtrain_serve_*`` in Prometheus).
 
-Not yet ported: the ``speculative`` policy (ROADMAP.md queue A:
-speculative decoding) and request tracing with a serving timeline
-(ROADMAP.md queue A: telemetry).
+Not yet ported: request tracing with a serving timeline (ROADMAP.md queue
+A: telemetry).
 """
 
 from __future__ import annotations
@@ -147,6 +158,8 @@ class _Row:
     # The request's sampling stream (None for a greedy row): seeded with
     # the request's seed, one draw per emitted token, as generate() draws.
     generator: torch.Generator | None = None
+    # Batched speculative only: the row's table on the DRAFT engine's pool.
+    draft_table: Any = None
 
     def sampling(self) -> dict[str, Any]:
         req = self.req
@@ -159,21 +172,19 @@ class ContinuousBatchingScheduler:
 
     def __init__(
         self,
-        engine: PagedDecodeEngine,
+        engine: PagedDecodeEngine | None,
         *,
         max_batch_slots: int | None = None,
         registry: Any | None = None,  # telemetry MetricsRegistry
         policy: str = "paged",
+        model: Any | None = None,
+        draft_model: Any | None = None,
+        draft_engine: PagedDecodeEngine | None = None,
+        gamma: int = 4,
         overload: OverloadController | None = None,
         tracer: Any | None = None,
     ) -> None:
-        if policy == "speculative":
-            raise NotImplementedError(
-                "the speculative scheduler policy (continuous serving with a draft "
-                "model) is not yet ported to llmtrain_tpu_torch "
-                "(ROADMAP.md queue A: speculative decoding)"
-            )
-        if policy != "paged":
+        if policy not in ("paged", "speculative"):
             raise ValueError(
                 f"serving policy {policy!r} unknown; expected 'paged' or "
                 "'speculative'"
@@ -183,12 +194,36 @@ class ContinuousBatchingScheduler:
                 "request tracing is not yet ported to llmtrain_tpu_torch "
                 "(ROADMAP.md queue A: telemetry)"
             )
-        if engine is None:
+        if policy == "paged" and engine is None:
             raise ValueError("policy='paged' requires a PagedDecodeEngine")
+        if policy == "speculative" and (draft_model is None or model is None):
+            raise ValueError(
+                "policy='speculative' requires model/params AND "
+                "draft_model/draft_params"
+            )
+        if draft_engine is not None and policy != "speculative":
+            raise ValueError("draft_engine only applies to policy='speculative'")
+        if draft_engine is not None and engine is None:
+            raise ValueError(
+                "batched speculative serving needs the TARGET PagedDecodeEngine "
+                "too (draft_engine alone cannot verify)"
+            )
+        if policy == "speculative" and engine is not None and engine.prefill_chunk:
+            raise ValueError(
+                "chunked prefill is a paged-policy feature; the speculative "
+                "verify slab needs the whole prompt resident before drafting"
+            )
         self.engine = engine
         self.policy = policy
         self.registry = registry
-        self.max_batch_slots = int(max_batch_slots or engine.max_batch_slots)
+        self.max_batch_slots = int(
+            max_batch_slots or (engine.max_batch_slots if engine is not None else 1)
+        )
+        # The batch-1 path's models (each carrying its weights); the target
+        # follows hot swaps.
+        self._model, self._draft_model = model, draft_model
+        self._draft_engine = draft_engine
+        self._gamma = int(gamma)
 
         self._lock = threading.Lock()
         self._wake = threading.Condition(self._lock)
@@ -211,7 +246,9 @@ class ContinuousBatchingScheduler:
         # scheduler was built with; hot_swap() appends. Old epochs stay
         # resident only while a row admitted under them is in flight.
         self._param_epoch = 0
-        self._params_by_epoch: dict[int, Any] = {0: engine.params}
+        self._params_by_epoch: dict[int, Any] = {
+            0: engine.params if engine is not None else model
+        }
         self._param_meta: dict[int, dict[str, Any]] = {
             0: {"step": None, "checkpoint": None}
         }
@@ -226,6 +263,10 @@ class ContinuousBatchingScheduler:
         self.peak_occupancy = 0
         self._occupancy_samples = 0
         self._occupancy_total = 0
+        # Batched speculative accounting.
+        self.spec_rounds = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
 
     # ----------------------------------------------------------- frontend
 
@@ -319,12 +360,16 @@ class ContinuousBatchingScheduler:
         self._param_meta[self._param_epoch] = {
             "step": step, "checkpoint": checkpoint
         }
-        self.engine.set_params(params)
-        flushed = self.engine.pool.invalidate_prefix_cache()
-        if flushed:
-            logger.info(
-                "serve: hot-swap invalidated %d cached prefix blocks", flushed
-            )
+        # Batch-1 speculative serves new admissions on the new model too;
+        # its in-flight unit is one whole request.
+        self._model = params
+        if self.engine is not None:
+            self.engine.set_params(params)
+            flushed = self.engine.pool.invalidate_prefix_cache()
+            if flushed:
+                logger.info(
+                    "serve: hot-swap invalidated %d cached prefix blocks", flushed
+                )
         self.hot_swaps += 1
         self._gc_epochs()
         logger.info(
@@ -365,6 +410,8 @@ class ContinuousBatchingScheduler:
         any work happened (False = idle)."""
         swapped = self._apply_pending_swap()
         shed = self._overload_tick()
+        if self.policy == "speculative":
+            return self._step_speculative() or swapped or shed
         return self._step_paged() or swapped or shed
 
     def _overload_tick(self) -> bool:
@@ -392,11 +439,12 @@ class ContinuousBatchingScheduler:
             self._reject(req, REASON_DEADLINE_EXCEEDED, shed=True)
         return bool(expired)
 
-    def _admit_paged(self, req: ServeRequest) -> _Row | None:
-        """Reserve one popped request and pin its epoch. None when the pool
-        is full — the caller re-queues."""
+    def _admit_paged(self, req: ServeRequest, overshoot: int = 0) -> _Row | None:
+        """Reserve one popped request (``overshoot`` tokens past its budget:
+        a verify slab's) and pin its epoch. None when the pool is full — the
+        caller re-queues."""
         tp = int(req.prompt_ids.shape[0])
-        table = self.engine.pool.try_reserve(tp + int(req.max_new_tokens))
+        table = self.engine.pool.try_reserve(tp + int(req.max_new_tokens) + int(overshoot))
         if table is None:
             return None
         row = _Row(req=req, table=table, prompt_len=tp, epoch=self._param_epoch)
@@ -613,6 +661,271 @@ class ContinuousBatchingScheduler:
         self._publish_metrics()
         return stepped or chunked or admitted > 0
 
+    # -------------------------------------------------------- speculative
+
+    def _step_speculative(self) -> bool:
+        if self._draft_engine is not None:
+            return self._step_speculative_batched()
+        return self._step_speculative_one()
+
+    def _serve_speculative_single(self, req: ServeRequest) -> None:
+        """Serve one request end to end through ``speculative_generate``
+        (batch 1), its generator seeded with the request's seed."""
+        from ..speculative import speculative_generate
+
+        req.params_step = self._param_meta[self._param_epoch].get("step")
+        generator = torch.Generator(device=next(self._model.parameters()).device)
+        generator.manual_seed(req.seed)
+        try:
+            out = speculative_generate(
+                self._model,
+                self._draft_model,
+                req.prompt_ids[None, :],
+                max_new_tokens=req.max_new_tokens,
+                gamma=self._gamma,
+                temperature=req.temperature,
+                top_k=req.top_k,
+                top_p=req.top_p,
+                eos_token_id=req.eos_token_id,
+                generator=generator,
+            )
+        except Exception as exc:  # noqa: BLE001 — fail THIS request only
+            self._fail(req, exc)
+            return
+        now = time.monotonic()
+        completion = [int(t) for t in out[0, req.prompt_ids.shape[0]:]]
+        if req.eos_token_id is not None and req.eos_token_id in completion:
+            completion = completion[: completion.index(req.eos_token_id) + 1]
+            req.finish_reason = "eos"
+        else:
+            req.finish_reason = "length"
+        # The whole request decodes in one call: TTFT and completion coincide.
+        req.first_token_t = now
+        req.token_times = [now] * len(completion)
+        req.tokens = completion
+        self.tokens_generated += len(completion)
+        self.prefill_tokens += int(req.prompt_ids.shape[0])
+        req.finished_t = now
+        self.requests_finished += 1
+        if self.registry is not None:
+            self.registry.inc("serve/requests")
+        req.done.set()
+
+    def _step_speculative_one(self) -> bool:
+        with self._lock:
+            req = self._queue.popleft() if self._queue else None
+        if req is None:
+            self._publish_metrics()
+            return False
+        if req.abandoned.is_set():
+            self._retire_abandoned(req)
+            self._publish_metrics()
+            return True
+        if (
+            self._overload is not None
+            and self._overload.shedding_active
+            and self._overload.past_deadline(req)
+        ):
+            self._reject(req, REASON_DEADLINE_EXCEEDED, shed=True)
+            self._publish_metrics()
+            return True
+        if self._overload is not None:
+            req.max_new_tokens = self._overload.clamp_new_tokens(req.max_new_tokens)
+        self.peak_occupancy = max(self.peak_occupancy, 1)
+        self._occupancy_samples += 1
+        self._occupancy_total += 1
+        self._record_queue_wait(req)
+        self._serve_speculative_single(req)
+        self._publish_metrics()
+        return True
+
+    def _step_speculative_batched(self) -> bool:
+        """Draft-and-verify for EVERY in-flight greedy sequence per step:
+        gamma+1 batched one-token decodes on the draft engine (the +1
+        re-feeds the last draft so its K/V lands before the next round),
+        then ONE bucketed target ``verify`` per param epoch. Greedy
+        acceptance — keep draft j only while it equals the target argmax
+        given drafts < j — makes the emitted stream ``generate()``'s on the
+        admitted model."""
+        engine, draft = self.engine, self._draft_engine
+        gamma = self._gamma
+        admitted = 0
+        while len(self._active) < self.max_batch_slots:
+            # Pop first, like the paged join; resource-full paths push the
+            # request back to the front of its class.
+            with self._lock:
+                req = self._queue.popleft() if self._queue else None
+            if req is None:
+                break
+            if req.abandoned.is_set():
+                self._retire_abandoned(req)
+                continue
+            if (
+                self._overload is not None
+                and self._overload.shedding_active
+                and self._overload.past_deadline(req)
+            ):
+                self._reject(req, REASON_DEADLINE_EXCEEDED, shed=True)
+                continue
+            if self._overload is not None:
+                req.max_new_tokens = self._overload.clamp_new_tokens(req.max_new_tokens)
+            if req.temperature > 0.0:
+                # Sampled: the draws are not replayable across the batched
+                # slab; serve batch 1.
+                self._record_queue_wait(req)
+                self._serve_speculative_single(req)
+                admitted += 1
+                continue
+            tp = int(req.prompt_ids.shape[0])
+            need = int(req.max_new_tokens) + gamma  # verify overshoots by gamma
+            reason = engine.validate_request(tp, need) or draft.validate_request(tp, need)
+            if reason is not None:
+                self._fail(req, ValueError(reason))
+                continue
+            row = self._admit_paged(req, overshoot=gamma)
+            if row is None:
+                with self._lock:
+                    self._queue.appendleft(req)
+                break
+            row.draft_table = draft.pool.try_reserve(tp + need)
+            if row.draft_table is None:
+                engine.pool.release(row.table)
+                self._unpin_epoch(row.epoch)
+                with self._lock:
+                    self._queue.appendleft(req)
+                break
+            engine.pool.grow(row.table, tp)
+            draft.pool.grow(row.draft_table, tp)
+            self._record_queue_wait(req)
+            try:
+                tok = engine.prefill(
+                    req.prompt_ids,
+                    row.table.padded(engine.max_blocks_per_seq),
+                    params=self._params_by_epoch[row.epoch],
+                    **row.sampling(),
+                )
+                # The draft's prefill writes the prompt's DRAFT K/V; its
+                # token is discarded.
+                draft.prefill(
+                    req.prompt_ids,
+                    row.draft_table.padded(draft.max_blocks_per_seq),
+                    temperature=0.0, top_k=None, top_p=None,
+                )
+            except Exception as exc:  # noqa: BLE001 — fail THIS request only
+                self._drop_row(row)
+                self._fail(req, exc)
+                self._fail_all_in_flight(exc)
+                continue
+            now = time.monotonic()
+            req.first_token_t = now
+            req.token_times.append(now)
+            req.tokens.append(tok)
+            self.prefill_tokens += tp
+            self.tokens_generated += 1
+            self._finish_or_activate(row)
+            admitted += 1
+
+        self._shed_abandoned_in_flight()
+
+        stepped = False
+        if self._active:
+            occupancy = len(self._active)
+            self.peak_occupancy = max(self.peak_occupancy, occupancy)
+            self._occupancy_samples += 1
+            self._occupancy_total += occupancy
+            # Brownout turns speculation off: no drafts (the one draft-feed
+            # decode still runs so the draft KV stays in step for the exit)
+            # and a width-1 verify emits one correct token per row.
+            # Reservations were taken at full gamma, so either is in budget.
+            live_gamma = (
+                0 if self._overload is not None and self._overload.in_brownout else gamma
+            )
+            rows_now = list(self._active)
+            drafts: list[list[int]] = [[] for _ in rows_now]
+            prev = [r.req.tokens[-1] for r in rows_now]
+            base = [r.prompt_len + len(r.req.tokens) - 1 for r in rows_now]
+            greedy = dict(temperature=0.0, top_k=None, top_p=None, generator=None)
+            try:
+                # Draft gamma tokens per row, batched across rows; round gamma
+                # re-feeds the last draft so its K/V is resident next step.
+                for j in range(live_gamma + 1):
+                    drows = []
+                    for i, r in enumerate(rows_now):
+                        pos = base[i] + j
+                        draft.pool.grow(r.draft_table, pos + 1)
+                        drows.append({
+                            "token": prev[i],
+                            "position": pos,
+                            "table": r.draft_table.padded(draft.max_blocks_per_seq),
+                            **greedy,
+                        })
+                    out = draft.decode(drows)
+                    if j < live_gamma:
+                        for i, t in enumerate(out):
+                            drafts[i].append(int(t))
+                        prev = [int(t) for t in out]
+            except Exception as exc:  # noqa: BLE001 — the drafts are unusable
+                self._fail_all_in_flight(exc)
+                self._publish_metrics()
+                return True
+            # One bucketed verify per param epoch.
+            by_epoch: dict[int, list[int]] = {}
+            for i, r in enumerate(rows_now):
+                by_epoch.setdefault(r.epoch, []).append(i)
+            epochs = sorted(by_epoch)
+            survivors: list[_Row] = []
+            for gi, ep in enumerate(epochs):
+                idxs = by_epoch[ep]
+                vrows = []
+                for i in idxs:
+                    r = rows_now[i]
+                    engine.pool.grow(r.table, base[i] + live_gamma + 1)
+                    vrows.append({
+                        "tokens": [r.req.tokens[-1]] + drafts[i],
+                        "position": base[i],
+                        "table": r.table.padded(engine.max_blocks_per_seq),
+                    })
+                try:
+                    outs = engine.verify(vrows, width=live_gamma + 1,
+                                         params=self._params_by_epoch[ep])
+                except Exception as exc:  # noqa: BLE001 — contain
+                    self._active = survivors + [
+                        rows_now[i] for e2 in epochs[gi:] for i in by_epoch[e2]
+                    ]
+                    self._fail_all_in_flight(exc)
+                    self._publish_metrics()
+                    return True
+                now = time.monotonic()
+                for i, a in zip(idxs, outs):
+                    r, d = rows_now[i], drafts[i]
+                    self.spec_rounds += 1
+                    self.spec_drafted += live_gamma
+                    # a[j] is the target's argmax given drafts < j: emit a[0],
+                    # then keep extending while the draft guessed it.
+                    emitted = [a[0]]
+                    acc = 0
+                    while acc < live_gamma and d[acc] == a[acc]:
+                        emitted.append(a[acc + 1])
+                        acc += 1
+                    self.spec_accepted += acc
+                    for t in emitted:
+                        if len(r.req.tokens) >= r.req.max_new_tokens:
+                            break
+                        r.req.tokens.append(int(t))
+                        r.req.token_times.append(now)
+                        self.tokens_generated += 1
+                        if r.req.eos_token_id is not None and int(t) == r.req.eos_token_id:
+                            break
+                    if self._is_finished(r):
+                        self._retire(r)
+                    else:
+                        survivors.append(r)
+            self._active = survivors
+            stepped = True
+
+        self._publish_metrics()
+        return stepped or admitted > 0
+
     # ------------------------------------------------------------ plumbing
 
     def _is_finished(self, row: _Row) -> bool:
@@ -628,6 +941,8 @@ class ContinuousBatchingScheduler:
     def _drop_row(self, row: _Row) -> None:
         """Return a row's pool resources + epoch pin (no req bookkeeping)."""
         self.engine.pool.release(row.table)
+        if row.draft_table is not None:
+            self._draft_engine.pool.release(row.draft_table)
         self._unpin_epoch(row.epoch)
 
     def _retire(self, row: _Row) -> None:
@@ -674,21 +989,26 @@ class ContinuousBatchingScheduler:
             return
         with self._lock:
             depth = len(self._queue)
-        pool = self.engine.pool.stats()
         metrics = {
             "serve/queue_depth": float(depth),
             "serve/batch_occupancy": float(len(self._active)),
             "serve/peak_batch_occupancy": float(self.peak_occupancy),
             "serve/tokens_generated": float(self.tokens_generated),
             "serve/hot_swaps": float(self.hot_swaps),
-            "serve/kv_pool_used_blocks": pool["allocated_blocks"],
-            "serve/kv_pool_utilization": pool["utilization"],
-            "serve/kv_pool_reserved_blocks": pool["reserved_blocks"],
         }
-        if "prefix_hit_rate" in pool:
-            metrics["serve/prefix_hits"] = pool["prefix_hits"]
-            metrics["serve/prefix_hit_rate"] = pool["prefix_hit_rate"]
-            metrics["serve/prefix_tokens_reused"] = pool["prefix_tokens_reused"]
+        if self.engine is not None:
+            pool = self.engine.pool.stats()
+            metrics["serve/kv_pool_used_blocks"] = pool["allocated_blocks"]
+            metrics["serve/kv_pool_utilization"] = pool["utilization"]
+            metrics["serve/kv_pool_reserved_blocks"] = pool["reserved_blocks"]
+            if "prefix_hit_rate" in pool:
+                metrics["serve/prefix_hits"] = pool["prefix_hits"]
+                metrics["serve/prefix_hit_rate"] = pool["prefix_hit_rate"]
+                metrics["serve/prefix_tokens_reused"] = pool["prefix_tokens_reused"]
+        if self._draft_engine is not None and self.spec_drafted:
+            metrics["serve/spec_acceptance_rate"] = round(
+                self.spec_accepted / self.spec_drafted, 4
+            )
         if self._overload is not None:
             # The SLO-facing overload gauges: predicted wait is what
             # admission decides on, brownout is the degraded-mode flag.
@@ -738,10 +1058,28 @@ class ContinuousBatchingScheduler:
         }
         if self._overload is not None:
             out["overload"] = self._overload.stats()
-        out["kv_pool"] = self.engine.pool.stats()
-        out["compile"] = self.engine.compile_stats()
-        if self.engine.prefill_chunk:
-            out["prefill_chunk"] = self.engine.prefill_chunk
+        if self.engine is not None:
+            out["kv_pool"] = self.engine.pool.stats()
+            out["compile"] = self.engine.compile_stats()
+            if self.engine.prefill_chunk:
+                out["prefill_chunk"] = self.engine.prefill_chunk
+        if self.policy == "speculative":
+            spec: dict[str, Any] = {
+                "gamma": self._gamma,
+                "mode": "batched" if self._draft_engine is not None else "batch-1",
+            }
+            if self._draft_engine is not None:
+                spec.update({
+                    "rounds": self.spec_rounds,
+                    "drafted": self.spec_drafted,
+                    "accepted": self.spec_accepted,
+                    "acceptance_rate": round(
+                        self.spec_accepted / max(1, self.spec_drafted), 4
+                    ),
+                    "draft_kv_pool": self._draft_engine.pool.stats(),
+                    "draft_compile": self._draft_engine.compile_stats(),
+                })
+            out["speculative"] = spec
         return out
 
     def alive(self, stale_sec: float = 30.0) -> bool:

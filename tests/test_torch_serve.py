@@ -140,17 +140,34 @@ def test_generate_cli_matches_jax_cli(trained, capsys) -> None:
     np.testing.assert_allclose(ours["logprobs"], theirs["logprobs"], atol=2e-6, rtol=0)
 
 
-@pytest.mark.parametrize(
-    "extra",
-    [["--ema"], ["--quantize", "int8"], ["--draft-config", "x.yaml", "--draft-from", "x"]],
-    ids=["ema", "quantize", "draft"],
-)
+@pytest.mark.parametrize("extra", [["--ema"]], ids=["ema"])
 def test_unported_generate_flags_exit_2(trained, capsys, extra) -> None:
     cfg_path, ckpt_path, _, _ = trained
     argv = ["generate", "--config", str(cfg_path), "--from", str(ckpt_path),
             "--prompt-ids", "1,2", *extra]
     assert run_cli(cli.main, argv) == 2
     assert "ROADMAP.md" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize(
+    "extra",
+    [["--quantize", "int8"], ["--draft-config", "{cfg}", "--draft-from", "{ckpt}"]],
+    ids=["quantize", "draft"],
+)
+def test_generate_flags_match_jax_cli(trained, capsys, extra) -> None:
+    """What the refusals of these flags became: the same generate with
+    --quantize int8, or with the checkpoint as its own draft, emits the
+    JAX CLI's ids (greedy; the draft reproduces the target's greedy)."""
+    cfg_path, ckpt_path, _, _ = trained
+    extra = [a.format(cfg=cfg_path, ckpt=ckpt_path) for a in extra]
+    argv = ["generate", "--config", str(cfg_path), "--from", str(ckpt_path),
+            "--prompt-ids", "1,2", "--max-new-tokens", "20", "--temperature", "0", "--json",
+            *extra]
+    assert run_cli(jax_cli.main, argv) == 0
+    theirs = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert run_cli(cli.main, argv) == 0
+    ours = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert ours["output_ids"] == theirs["output_ids"] and len(ours["completion_ids"]) == 20
 
 
 def test_continuous_serve_exits_2(trained, capsys) -> None:

@@ -159,16 +159,49 @@ def test_serve_bench_sampled_prefix_cache_chunked(trained, capsys) -> None:
 @pytest.mark.parametrize(
     "extra, cites",
     [(["--requests", "0"], "--requests must be >= 1"),
-     (["--router"], "replica router"),
-     (["--draft-config", "x.yaml", "--draft-from", "x"], "speculative decoding"),
-     (["--quantize", "int8"], "int8 quantization")],
-    ids=["bad-requests", "router", "draft", "int8"],
+     (["--router"], "replica router")],
+    ids=["bad-requests", "router"],
 )
 def test_serve_bench_refusals_exit_2(trained, capsys, extra, cites) -> None:
     _, cfg_path, ckpt, _, _ = trained
     argv = ["serve-bench", "--config", str(cfg_path), "--from", str(ckpt), *extra]
     assert run_cli(cli.main, argv) == 2
     assert cites in capsys.readouterr().err
+
+
+@pytest.mark.parametrize(
+    "extra",
+    [["--draft-config", "{cfg}", "--draft-from", "{ckpt}", "--gamma", "3"],
+     ["--quantize", "int8"]],
+    ids=["draft", "int8"],
+)
+def test_serve_bench_draft_and_int8_match_jax(trained, capsys, extra) -> None:
+    """What the refusals of these flags became: the speculative policy
+    (the checkpoint as its own draft, batched draft-and-verify) and int8
+    weights, each through `serve-bench --verify-parity` in a subprocess:
+    exit 0, JAX's summary keys, bitwise parity with generate() on the same
+    (quantized) weights, shapes within the budget (verify widened)."""
+    root, cfg_path, ckpt, _, _ = trained
+    extra = [a.format(cfg=cfg_path, ckpt=ckpt) for a in extra]
+    argv = ["serve-bench", "--config", str(cfg_path), "--from", str(ckpt), *_BENCH, *extra]
+    proc = subprocess.run([sys.executable, "-m", "llmtrain_tpu_torch", *argv], cwd=root,
+                          env=_port_env(), capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    ours = json.loads(proc.stdout)
+    assert run_cli(jax_cli.main, [*argv, "--out", str(root / "jax_bench_x")]) == 0
+    theirs = json.loads(capsys.readouterr().out)
+    assert set(ours) == set(theirs)
+    assert set(ours["serving"]) == set(theirs["serving"]) - {"tracing"}
+    block = ours["serving"]
+    assert block["policy"] == theirs["serving"]["policy"]
+    assert ours["ok"] and block["parity"] == {"checked": 8, "mismatched": 0,
+                                              "bitwise_identical": True}
+    assert block["compile"]["within_budget"] and block["requests"]["completed"] == 8
+    assert set(block["compile"]) == set(theirs["serving"]["compile"])
+    if "--gamma" in extra:
+        assert block["policy"] == "speculative"
+        assert [w for _, w in block["compile"]["verify_shapes_used"]] == [4] * len(
+            block["compile"]["verify_shapes_used"]) and block["compile"]["verify_programs"]
 
 
 def _request(url: str, body: object | None = None, timeout: float = 120.0):

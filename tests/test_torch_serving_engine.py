@@ -334,3 +334,160 @@ def test_hot_swap_pins_in_flight_rows(models) -> None:
     assert before.tokens == _reference(tm, before) and before.params_step is None
     assert after.tokens == _reference(other, after) and after.params_step == 7
     assert scheduler.stats()["params"]["live_epochs"] == [1]
+
+
+# ------------------------------------------------------------ speculative
+
+@pytest.fixture(scope="module")
+def drafts():
+    """A 1-layer draft with its own weights, JAX's and the port's."""
+    jd, dparams = jax_gpt(seed=27, block_size=BLOCK, n_layers=1, d_model=32, n_heads=2, d_ff=64)
+    return jd, dparams, port_gpt(jd, dparams)
+
+
+def test_verify_argmax_matches_the_jax_engine(models) -> None:
+    """Two rows prefilled at different depths, then one (gamma+1)-wide
+    verify slab each: the per-position argmax rows equal JAX's engine's."""
+    jm, params, tm = models
+    jengine, engine = JaxEngine(jm, params, **ENGINE), PagedDecodeEngine(tm, **ENGINE)
+    prompts = [seeded_ids(28, (11,), VOCAB), seeded_ids(29, (4,), VOCAB)]
+    slabs = [seeded_ids(30, (4,), VOCAB), seeded_ids(31, (4,), VOCAB)]
+    rows = {}
+    for name, eng in (("jax", jengine), ("port", engine)):
+        vrows = []
+        for prompt, slab in zip(prompts, slabs):
+            table = eng.pool.try_reserve(prompt.size + 8)
+            eng.pool.grow(table, prompt.size + 4)
+            padded = table.padded(eng.max_blocks_per_seq)
+            kw = dict(temperature=0.0, top_k=None, top_p=None)
+            if name == "jax":
+                eng.prefill(prompt, padded, seed=0, **kw)
+            else:
+                eng.prefill(prompt, padded, **kw)
+            vrows.append({"tokens": [int(t) for t in slab], "position": int(prompt.size),
+                          "table": padded})
+        rows[name] = eng.verify(vrows, width=4)
+    assert rows["port"] == rows["jax"]
+    stats = engine.compile_stats()
+    assert stats["verify_shapes_used"] == [(2, 4)] and stats["verify_programs"] == 1
+    assert stats["budget"] == len(ENGINE["prompt_buckets"]) + 2 * len(ENGINE["batch_buckets"])
+    assert stats["within_budget"]
+    with pytest.raises(ValueError, match="expected width 3"):
+        engine.verify(vrows, width=3)
+
+
+def _spec_requests(rng, n: int, eos: int | None = None) -> list[ServeRequest]:
+    out = []
+    for i in range(n):
+        prompt = rng.integers(0, VOCAB, int(rng.integers(1, 24))).astype(np.int32)
+        out.append(ServeRequest(prompt_ids=prompt, seed=200 + i, eos_token_id=eos,
+                                max_new_tokens=int(rng.integers(1, 24))))
+    return out
+
+
+def test_speculative_batched_is_bitwise_generate(models, drafts) -> None:
+    """Greedy requests drafted in batch on the draft engine and verified in
+    one bucketed call per step emit generate()'s tokens; the acceptance
+    accounting lands in stats() and the registry."""
+    _, _, tm = models
+    _, _, td = drafts
+    engine, draft = PagedDecodeEngine(tm, **ENGINE), PagedDecodeEngine(td, **ENGINE)
+    registry = MetricsRegistry()
+    scheduler = ContinuousBatchingScheduler(engine, policy="speculative", model=tm,
+                                            draft_model=td, draft_engine=draft, gamma=3,
+                                            registry=registry)
+    requests = _spec_requests(np.random.default_rng(32), 7)
+    requests[2].eos_token_id = _reference(tm, requests[2])[1]
+    for req in requests:
+        scheduler.submit(req)
+    _drain(scheduler, requests)
+    for req in requests:
+        assert req.tokens == _reference(tm, req), req.request_id
+    assert requests[2].finish_reason == "eos"
+    spec = scheduler.stats()["speculative"]
+    assert spec["mode"] == "batched" and spec["gamma"] == 3 and spec["rounds"] > 0
+    assert spec["drafted"] == 3 * spec["rounds"] and 0 <= spec["accepted"] <= spec["drafted"]
+    assert scheduler.peak_occupancy >= 2
+    compile_stats = engine.compile_stats()
+    assert compile_stats["within_budget"] and compile_stats["verify_shapes_used"]
+    assert {w for _, w in compile_stats["verify_shapes_used"]} == {4}
+    for eng in (engine, draft):
+        assert eng.pool.stats()["allocated_blocks"] == 0
+
+
+def test_speculative_self_draft_accepts_every_draft(models) -> None:
+    _, _, tm = models
+    engine, draft = PagedDecodeEngine(tm, **ENGINE), PagedDecodeEngine(tm, **ENGINE)
+    scheduler = ContinuousBatchingScheduler(engine, policy="speculative", model=tm,
+                                            draft_model=tm, draft_engine=draft, gamma=4)
+    requests = _spec_requests(np.random.default_rng(33), 4)
+    for req in requests:
+        scheduler.submit(req)
+    _drain(scheduler, requests)
+    spec = scheduler.stats()["speculative"]
+    assert spec["accepted"] == spec["drafted"] > 0 and spec["acceptance_rate"] == 1.0
+    assert all(req.tokens == _reference(tm, req) for req in requests)
+
+
+@pytest.mark.parametrize("batched", [True, False], ids=["sampled-fallback", "batch-1"])
+def test_speculative_batch_one_paths(models, drafts, batched) -> None:
+    """Sampled requests on the batched policy, and every request without a
+    draft engine, run through speculative_generate at batch 1: greedy ones
+    emit generate()'s tokens, sampled ones speculative_generate's with a
+    generator seeded by the request's seed."""
+    from llmtrain_tpu_torch.speculative import speculative_generate
+
+    _, _, tm = models
+    _, _, td = drafts
+    engine = PagedDecodeEngine(tm, **ENGINE) if batched else None
+    draft = PagedDecodeEngine(td, **ENGINE) if batched else None
+    scheduler = ContinuousBatchingScheduler(engine, policy="speculative", model=tm,
+                                            draft_model=td, draft_engine=draft, gamma=2)
+    requests = _spec_requests(np.random.default_rng(34), 4)
+    for req in requests[::2]:
+        req.temperature, req.top_k = 0.9, 7
+    for req in requests:
+        scheduler.submit(req)
+    _drain(scheduler, requests)
+    for req in requests:
+        gen = torch.Generator()
+        gen.manual_seed(req.seed)
+        want = speculative_generate(tm, td, req.prompt_ids[None, :], gamma=2,
+                                    max_new_tokens=req.max_new_tokens,
+                                    temperature=req.temperature, top_k=req.top_k,
+                                    generator=gen)[0, req.prompt_ids.size:]
+        assert req.tokens == [int(t) for t in want] and req.finish_reason == "length"
+        if req.temperature == 0.0:
+            assert req.tokens == _reference(tm, req)
+    stats = scheduler.stats()
+    assert stats["speculative"]["mode"] == ("batched" if batched else "batch-1")
+    assert ("compile" in stats) == batched
+
+
+def test_speculative_scheduler_checks_match_jax(models) -> None:
+    jm, params, tm = models
+    chunked = PagedDecodeEngine(tm, **ENGINE, prefill_chunk=8)
+    cases = [
+        (dict(policy="speculative"), dict(policy="speculative")),
+        (dict(draft_engine=PagedDecodeEngine(tm, **ENGINE)),
+         dict(draft_engine=JaxEngine(jm, params, **ENGINE))),
+        (dict(policy="speculative", model=tm, draft_model=tm,
+              draft_engine=PagedDecodeEngine(tm, **ENGINE), engine_none=True),
+         dict(policy="speculative", model=jm, params=params, draft_model=jm,
+              draft_params=params, draft_engine=JaxEngine(jm, params, **ENGINE),
+              engine_none=True)),
+        (dict(policy="speculative", model=tm, draft_model=tm, engine=chunked),
+         dict(policy="speculative", model=jm, params=params, draft_model=jm,
+              draft_params=params, engine=JaxEngine(jm, params, **ENGINE, prefill_chunk=8))),
+    ]
+    for ours_kw, theirs_kw in cases:
+        answers = []
+        for cls, kw, default in ((ContinuousBatchingScheduler, ours_kw,
+                                  PagedDecodeEngine(tm, **ENGINE)),
+                                 (JaxScheduler, theirs_kw, JaxEngine(jm, params, **ENGINE))):
+            kw = dict(kw)
+            engine = None if kw.pop("engine_none", False) else kw.pop("engine", default)
+            with pytest.raises(ValueError) as excinfo:
+                cls(engine, **kw)
+            answers.append(str(excinfo.value))
+        assert answers[0] == answers[1]

@@ -210,15 +210,9 @@ def test_refusals_cite_a_stable_roadmap_item(tmp_path, override) -> None:
     "argv, item",
     [(["serve", "--mode", "continuous", "--router"], "replica router"),
      (["serve", "--replicas", "2"], "replica router"),
-     (["serve", "--draft-config", "d.yaml", "--draft-from", "d"], "speculative decoding"),
-     (["serve", "--quantize", "int8"], "int8 quantization"),
      (["serve", "--mode", "continuous", "--trace-dir", "t"], "telemetry"),
-     (["serve-bench", "--router"], "replica router"),
-     (["serve-bench", "--quantize", "int8"], "int8 quantization"),
-     (["generate", "--prompt", "x", "--draft-config", "d.yaml", "--draft-from", "d"],
-      "speculative decoding")],
-    ids=["serve-router", "serve-replicas", "serve-draft", "serve-int8", "serve-trace-dir",
-         "bench-router", "bench-int8", "generate-draft"],
+     (["serve-bench", "--router"], "replica router")],
+    ids=["serve-router", "serve-replicas", "serve-trace-dir", "bench-router"],
 )
 def test_serving_refusals_cite_a_stable_roadmap_item(tmp_path, capsys, argv, item) -> None:
     cfg = _config(tmp_path)
@@ -228,26 +222,41 @@ def test_serving_refusals_cite_a_stable_roadmap_item(tmp_path, capsys, argv, ite
     assert _CITES_STABLE_ITEM.search(err) and f"queue A: {item})" in err, err
 
 
+@pytest.mark.parametrize(
+    "argv",
+    [["serve", "--draft-config", "d.yaml", "--draft-from", "d"],
+     ["serve", "--quantize", "int8"],
+     ["serve-bench", "--quantize", "int8"],
+     ["generate", "--prompt", "x", "--draft-config", "d.yaml", "--draft-from", "d"]],
+    ids=["serve-draft", "serve-int8", "bench-int8", "generate-draft"],
+)
+def test_serving_flags_answer_as_jax(tmp_path, capsys, argv) -> None:
+    """What the refusals of the draft and int8 flags became: the same argv
+    (a directory without a checkpoint, a draft config that does not exist,
+    a simple-mode server) answers with the JAX CLI's exit code and error."""
+    cfg = _config(tmp_path)
+    full = [argv[0], "--config", str(cfg), "--from", str(tmp_path), *argv[1:]]
+
+    def answer(main) -> tuple[int, str]:
+        code = run_cli(main, full)
+        err = capsys.readouterr().err.strip().splitlines()
+        return code, json.loads(err[-1])["error"] if err else ""
+
+    theirs, ours = answer(jax_main), answer(port_main)
+    assert ours == theirs and ours[0] != 0, (ours, theirs)
+
+
 def test_serving_module_refusals_cite_a_stable_roadmap_item() -> None:
-    """The engine's and the scheduler's refusals (speculative verify and
-    policy, the cost profile, request tracing) and the decode caches'."""
+    """The engine's and the scheduler's refusals: the cost profile and
+    request tracing."""
     from llmtrain_tpu_torch.models.gpt import GPT
     from llmtrain_tpu_torch.serving import ContinuousBatchingScheduler, PagedDecodeEngine
 
     model = GPT(vocab_size=17, block_size=16, d_model=32, n_layers=1, n_heads=2, d_ff=64)
     engine = PagedDecodeEngine(model, block_tokens=4, max_batch_slots=2)
     calls = {
-        "speculative decoding": (lambda: engine.verify([], width=2),
-                                 lambda: ContinuousBatchingScheduler(engine,
-                                                                     policy="speculative")),
         "telemetry": (engine.cost_profile,
                       lambda: ContinuousBatchingScheduler(engine, tracer=object())),
-        "int8 quantization": (lambda: GPT(vocab_size=17, block_size=16, d_model=32, n_layers=1,
-                                          n_heads=2, d_ff=64, kv_cache_dtype="int8")
-                              .for_decoding(),),
-        "rolling sliding-window cache": (lambda: GPT(vocab_size=17, block_size=16, d_model=32,
-                                                     n_layers=1, n_heads=2, d_ff=64,
-                                                     sliding_window=4).for_decoding(),),
     }
     for item, fns in calls.items():
         for fn in fns:
