@@ -155,6 +155,34 @@ Phases, each fatal on failure (exit code 1, no result line):
    shapes within the budget, the batch full, the acceptance rate printed;
    (c) the same with --quantize int8, its peak memory beside phase 14's. Then the
    windowed instance timed at (1, WINDOW_SEQ, 12, 64) beside its bound.
+16. The fleet tier and request tracing on phase 9's checkpoint, launch
+   counts reset just before and read just after (none of the eight
+   kernels runs). Four `serve` children start together: a `--router
+   --replicas 2` server, two replicas with `--trace-dir`, and a
+   `--backends` router (a closed port first, then the two replicas) with
+   `--trace-dir`. (a) `serve-bench --router --replicas 2 --verify-parity`
+   on phase 14(b)'s traffic cut to FLEET_REQUESTS: exit 0, bitwise
+   parity, every request
+   completed, each replica serving and within its bucket budget, affinity
+   routing and fleet prefix hits > 0, report.json, report.md and
+   trace.json written, and every request's spans in the `trace merge` of
+   the replicas' timelines (trace.json is the router's own track);
+   throughput, TTFT and per-token p50/p99, each replica's occupancy, the
+   affinity share and the hit rate beside 14(b)'s. (b) POST /reload to the
+   `--router` child with CONT_RELOAD_REQUESTS requests of
+   FLEET_RELOAD_NEW_TOKENS in flight:
+   200, every request 200 and complete, both replicas' epochs advanced in
+   /healthz; the child's device memory before and after the roll from its
+   log. (c) FLEET_HTTP_REQUESTS concurrent greedy requests through the
+   `--backends` child: all 200 with generate()'s tokens, failovers >= 1,
+   TTFT exemplars with trace ids on a replica's /metrics; then `trace
+   summary`, `trace slowest`, `trace merge` and `trace show` on the trace
+   dirs, every trace rebuilt as router/request -> router/http_dispatch ->
+   the replica's serve/request (through traceparent) -> serve/prefill and
+   serve/decode_phase, its critical path tiling the root. (d) Phase
+   14(a)'s traffic with telemetry.timeline false, tokens/s and per-token
+   p50 beside 14(a)'s (the timeline and tracer on) and (a)'s: a
+   measurement, not a gate.
 
 Then it prints the kernels line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
@@ -1719,15 +1747,18 @@ def _serving_config(tmp: Path, name: str, **serving) -> Path:
     return path
 
 
-def _serve_bench(cfg_path: Path, ckpt: Path, smi: str, name: str, *extra: str) -> dict:
+def _serve_bench(cfg_path: Path, ckpt: Path, smi: str, name: str, *extra: str,
+                 requests: int = CONT_REQUESTS) -> dict:
     """One in-process `serve-bench --verify-parity` run at the phase's
     population; its gates: exit 0, bitwise parity with generate(), shapes
     within the bucket budget, every request completed, the batch full
-    (mean occupancy >= CONT_MIN_OCCUPANCY). The block gains the
-    scheduler's own ``stats()`` under ``scheduler_stats`` and, under
-    ``resident_bytes``, the device memory the serving backend holds once
-    built (its weights and pools: allocated then, less allocated before
-    the command)."""
+    (mean occupancy >= CONT_MIN_OCCUPANCY; behind a router, the replicas'
+    summed). The block gains the scheduler's own ``stats()`` under
+    ``scheduler_stats`` (behind a router, the first replica's; every
+    replica's under ``replica_stats``, each held to its bucket budget) and,
+    under ``resident_bytes``, the device memory the serving backend holds
+    once built (its weights and pools: allocated then, less allocated
+    before the command)."""
     import gc
     from unittest import mock
 
@@ -1736,7 +1767,7 @@ def _serve_bench(cfg_path: Path, ckpt: Path, smi: str, name: str, *extra: str) -
     from llmtrain_tpu_torch import cli
 
     argv = ["serve-bench", "--config", str(cfg_path), "--from", str(ckpt),
-            "--requests", str(CONT_REQUESTS), "--rate-rps", str(CONT_RATE_RPS),
+            "--requests", str(requests), "--rate-rps", str(CONT_RATE_RPS),
             "--seed", "14", "--prompt-tokens-min", str(CONT_PROMPTS[0]),
             "--prompt-tokens-max", str(CONT_PROMPTS[1]),
             "--max-new-tokens", str(CONT_NEW_TOKENS), "--verify-parity", *extra]
@@ -1757,28 +1788,33 @@ def _serve_bench(cfg_path: Path, ckpt: Path, smi: str, name: str, *extra: str) -
     summary = json.loads(out)
     block = summary["serving"]
     slo, tput, occ = block["slo"], block["throughput"], block["occupancy"]
-    log(f"[continuous] {name}: exit {code}, {CONT_REQUESTS} requests at {CONT_RATE_RPS} rps "
+    log(f"[continuous] {name}: exit {code}, {requests} requests at {CONT_RATE_RPS} rps "
         f"Poisson open loop on {smi}: {tput['tokens_per_sec']} output tokens/s over "
         f"{tput['wall_sec']} s (command {wall:.1f} s with parity); TTFT p50 "
         f"{slo['ttft_ms']['p50']} p99 {slo['ttft_ms']['p99']} ms; per-token p50 "
         f"{slo['per_token_ms']['p50']} p99 {slo['per_token_ms']['p99']} ms; occupancy mean "
         f"{occ['mean']} peak {occ['peak']} of {occ['max_batch_slots']}; device memory the "
         f"backend holds once built {built[0][2] / 2**30:.3f} GiB")
+    replica_stats = [b[0].stats() for b in built]
+    shapes = block["compile"] if "compile" in block else [s["compile"] for s in replica_stats]
     log(f"[continuous] {name}: requests {block['requests']}; parity {block['parity']}; "
-        f"shapes {block['compile']}")
+        f"shapes {shapes}")
     if "prefix_cache" in block:
         log(f"[continuous] {name}: prefix cache {block['prefix_cache']}")
+    within = all(s["compile"]["within_budget"] for s in replica_stats)
     ok = (code == 0 and summary["ok"] and block["parity"]["bitwise_identical"]
-          and block["compile"]["within_budget"] and block["requests"]["failed"] == 0
+          and within and block["requests"]["failed"] == 0
           and block["requests"]["timed_out"] == 0
-          and block["requests"]["completed"] == CONT_REQUESTS)
+          and block["requests"]["completed"] == requests)
     if not ok:
         raise RuntimeError(f"serve-bench {name} failed its gates: {summary.get('failures')}")
     if occ["mean"] < CONT_MIN_OCCUPANCY:
         raise RuntimeError(f"serve-bench {name}: mean occupancy {occ['mean']} below "
                            f"{CONT_MIN_OCCUPANCY}; the rate does not fill the batch")
-    block["scheduler_stats"] = built[0][0].stats()
-    block["resident_bytes"] = built[0][2]
+    block["scheduler_stats"] = replica_stats[0]
+    block["replica_stats"] = replica_stats
+    block["resident_bytes"] = built[-1][2]
+    block["summary"] = summary
     return block
 
 
@@ -1832,14 +1868,14 @@ def _decode_profile(torch, cfg_path: Path, ckpt: Path, smi: str) -> None:
             f"{e.key[:90]}")
 
 
-def _start_server(cfg_path: Path, ckpt: Path, log_path: Path):
-    """`python -m llmtrain_tpu_torch serve --mode continuous --port 0` as a
-    child process; (process, base url) once its ready line arrives."""
+def _start_server(cfg_path: Path, ckpt: Path, log_path: Path, *extra: str):
+    """`python -m llmtrain_tpu_torch serve --mode continuous EXTRA` as a child
+    process; (process, base url) once its ready line arrives."""
     root = Path(__file__).resolve().parent
     err = open(log_path, "w")
     proc = subprocess.Popen(
         [sys.executable, "-m", "llmtrain_tpu_torch", "serve", "--config", str(cfg_path),
-         "--from", str(ckpt), "--mode", "continuous", "--port", "0"],
+         "--from", str(ckpt), "--mode", "continuous", *extra],
         cwd=root, stdout=subprocess.PIPE, stderr=err, text=True,
     )
     err.close()
@@ -1849,7 +1885,7 @@ def _start_server(cfg_path: Path, ckpt: Path, log_path: Path):
     timer.cancel()
     if not line:
         proc.kill()
-        raise RuntimeError(f"serve --mode continuous did not start: "
+        raise RuntimeError(f"serve --mode continuous {' '.join(extra)} did not start: "
                            f"{log_path.read_text()[-2000:]}")
     return proc, f"http://127.0.0.1:{json.loads(line)['port']}"
 
@@ -1864,6 +1900,29 @@ def _stop_server(proc) -> None:
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait(timeout=30)
+
+
+def _reload_under_load(base: str, bodies: list[dict]) -> tuple:
+    """POST /reload to the server at ``base`` once every one of ``bodies``
+    is in flight (its /healthz counts them active); (reload status,
+    response, ms, requests still in flight when it answered, the requests'
+    answers, the deadline for the swap to show)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(bodies)) as ex:
+        pending = [ex.submit(_post_h, f"{base}/v1/generate", b) for b in bodies]
+        deadline = time.monotonic() + 120
+        while (json.loads(_get(f"{base}/healthz")[1])["scheduler"]["active_sequences"]
+               < len(bodies)):
+            if time.monotonic() > deadline or any(f.done() for f in pending):
+                raise RuntimeError("the long requests never went in flight together")
+            time.sleep(0.01)
+        t0 = time.perf_counter()
+        code, resp, _ = _post_h(f"{base}/reload", {})
+        reload_ms = (time.perf_counter() - t0) * 1e3
+        in_flight = sum(not f.done() for f in pending)
+        answers = [f.result() for f in pending]
+    return code, resp, reload_ms, in_flight, answers, deadline
 
 
 def _http_phase(torch, tmp: Path, cfg_path: Path, ckpt: Path, smi: str) -> None:
@@ -1887,7 +1946,7 @@ def _http_phase(torch, tmp: Path, cfg_path: Path, ckpt: Path, smi: str) -> None:
     servers = []
     try:
         with ThreadPoolExecutor(2) as ex:
-            started = [ex.submit(_start_server, path, ckpt, tmp / f"{name}.log")
+            started = [ex.submit(_start_server, path, ckpt, tmp / f"{name}.log", "--port", "0")
                        for path, name in ((cfg_path, "serve"), (over_path, "overload"))]
             for f in started:
                 servers.append(f.result())
@@ -1943,19 +2002,8 @@ def _http_phase(torch, tmp: Path, cfg_path: Path, ckpt: Path, smi: str) -> None:
         long_bodies = [{"prompt_ids": [int(x) for x in rng.integers(0, 256, CONT_PROMPTS[0])],
                         "max_new_tokens": CONT_RELOAD_NEW_TOKENS, "temperature": 0}
                        for _ in range(CONT_RELOAD_REQUESTS)]
-        with ThreadPoolExecutor(CONT_RELOAD_REQUESTS) as ex:
-            pending = [ex.submit(_post_h, f"{base}/v1/generate", b) for b in long_bodies]
-            deadline = time.monotonic() + 120
-            while (json.loads(_get(f"{base}/healthz")[1])["scheduler"]["active_sequences"]
-                   < CONT_RELOAD_REQUESTS):
-                if time.monotonic() > deadline or any(f.done() for f in pending):
-                    raise RuntimeError("the long requests never went in flight together")
-                time.sleep(0.01)
-            t0 = time.perf_counter()
-            r_code, r_resp, _ = _post_h(f"{base}/reload", {})
-            reload_ms = (time.perf_counter() - t0) * 1e3
-            still_in_flight = sum(not f.done() for f in pending)
-            answers = [f.result() for f in pending]
+        r_code, r_resp, reload_ms, still_in_flight, answers, deadline = _reload_under_load(
+            base, long_bodies)
         while True:  # the swap applies between scheduler steps
             params = json.loads(_get(f"{base}/healthz")[1])["scheduler"]["params"]
             if params["hot_swaps"] or time.monotonic() > deadline:
@@ -2279,6 +2327,288 @@ def phase_speculative(torch, smi: str, tmp: Path, train: dict, cont: dict) -> di
                 int8_peak=peak)
 
 
+# Phase 16: the fleet tier and request tracing on phase 9's checkpoint.
+# (a) phase 14(b)'s traffic cut to FLEET_REQUESTS behind a router over
+# FLEET_REPLICAS in-process replicas; (b) a `serve --router` child reloaded
+# under CONT_RELOAD_REQUESTS of FLEET_RELOAD_NEW_TOKENS in flight; (c) two
+# `serve` replica children and a dead port behind a `serve --backends`
+# router child, FLEET_HTTP_REQUESTS greedy requests of FLEET_HTTP_NEW_TOKENS;
+# (d) phase 14(a)'s traffic with the timeline off. The cuts keep the whole
+# run near 800 s: with 48 requests and 496-token reload requests phase 16
+# took 156 s and the run 827 s on a slow host (a's parity pass is 48
+# sequential generate() calls).
+FLEET_REPLICAS = 2
+FLEET_REQUESTS = 24
+FLEET_RELOAD_NEW_TOKENS = 256
+FLEET_HTTP_REQUESTS = 16
+FLEET_HTTP_NEW_TOKENS = 32
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _log_messages(log_path: Path, needle: str) -> list[str]:
+    """The messages of a child's JSON log lines that contain ``needle``."""
+    out = []
+    for line in log_path.read_text().splitlines():
+        try:
+            message = json.loads(line).get("message", "")
+        except json.JSONDecodeError:
+            continue
+        if needle in message:
+            out.append(message)
+    return out
+
+
+def _fleet_bench(tmp: Path, ckpt: Path, smi: str, cont: dict) -> dict:
+    """16(a): phase 14(b)'s traffic, FLEET_REQUESTS of it, through
+    `serve-bench --router --replicas 2 --verify-parity`, its gates and the
+    report, trace.json and timelines it writes."""
+    out_dir = tmp / "bench_router"
+    block = _serve_bench(tmp / "gpt_pycorpus_continuous_prefix.yaml", ckpt, smi, "router",
+                         "--router", "--replicas", str(FLEET_REPLICAS), "--out", str(out_dir),
+                         "--temperature", "0.8", "--top-k", "40",
+                         "--shared-prefix-tokens", str(CONT_SHARED_PREFIX[0]),
+                         "--shared-prefix-count", str(CONT_SHARED_PREFIX[1]),
+                         requests=FLEET_REQUESTS)
+    fleet, summary = block["router"], block.pop("summary")
+    occ = [(s["mean_batch_occupancy"], s["peak_batch_occupancy"]) for s in block["replica_stats"]]
+    affinity = fleet["affinity_routed"] / max(1, fleet["requests_routed"])
+    slo, ref = block["slo"], cont["sampled"]
+    log(f"[fleet] (a) {FLEET_REPLICAS} in-process replicas, {FLEET_REQUESTS} requests, "
+        f"on {smi}: "
+        f"{block['throughput']['tokens_per_sec']} output tokens/s (phase 14(b), "
+        f"{CONT_REQUESTS} requests: "
+        f"{ref['throughput']['tokens_per_sec']}); TTFT p50 {slo['ttft_ms']['p50']} p99 "
+        f"{slo['ttft_ms']['p99']} ms (14(b) {ref['slo']['ttft_ms']['p50']} / "
+        f"{ref['slo']['ttft_ms']['p99']}); per-token p50 {slo['per_token_ms']['p50']} p99 "
+        f"{slo['per_token_ms']['p99']} ms (14(b) {ref['slo']['per_token_ms']['p50']} / "
+        f"{ref['slo']['per_token_ms']['p99']}); replicas' occupancy (mean, peak) {occ} of "
+        f"{block['replica_stats'][0]['max_batch_slots']} each; routed "
+        f"{[r['routed'] for r in fleet['replicas']]}; affinity share {affinity:.4f} "
+        f"({fleet['affinity_routed']}/{fleet['requests_routed']}); fleet prefix hit rate "
+        f"{fleet['fleet_prefix']['hit_rate']} (14(b) {ref['prefix_cache']['hit_rate']}); "
+        f"tracing {block.get('tracing')}")
+    if (any(r["requests_finished"] < 1 for r in fleet["replicas"])
+            or fleet["affinity_routed"] <= 0 or fleet["fleet_prefix"]["hit_rate"] <= 0):
+        raise RuntimeError(f"the router did not spread or reuse prefixes: {fleet}")
+    for key in ("report_json", "report_md", "trace_json"):
+        if not summary[key] or not Path(summary[key]).is_file():
+            raise RuntimeError(f"serve-bench --router wrote no {key}")
+    json.loads(Path(summary["trace_json"]).read_text())
+    report = json.loads(Path(summary["report_json"]).read_text())
+    # trace.json is the router's own track; in-process replicas record the
+    # requests' spans in their own timelines, which `trace merge` joins.
+    merged = out_dir / "merged_trace.json"
+    code, out = _run_cli(["trace", "merge", "--run-dir", summary["trace_dir"],
+                          "--out", str(merged), "--json"])
+    tagged = set()
+    for ev in json.loads(merged.read_text())["traceEvents"]:
+        args = ev.get("args") or {}
+        tagged.update([args["rid"]] if "rid" in args else args.get("rids", []))
+    want = {f"lg-14-{i}" for i in range(FLEET_REQUESTS)}
+    log(f"[fleet] (a) report.json serving block {sorted(report['serving'])}; trace merge exit "
+        f"{code}: {out.strip()}; requests with spans {len(want & tagged)}/{len(want)}")
+    if code != 0 or want - tagged:
+        raise RuntimeError(f"requests without spans in the merged trace: {sorted(want - tagged)}")
+    return block
+
+
+def _fleet_reload(base: str, log_path: Path, smi: str) -> dict:
+    """16(b): POST /reload of the same checkpoint to a `serve --router` child
+    while CONT_RELOAD_REQUESTS greedy requests of FLEET_RELOAD_NEW_TOKENS are
+    in flight."""
+    import numpy as np
+
+    rng = np.random.default_rng(17)
+    bodies = [{"prompt_ids": [int(x) for x in rng.integers(0, 256, CONT_PROMPTS[0])],
+               "max_new_tokens": FLEET_RELOAD_NEW_TOKENS, "temperature": 0}
+              for _ in range(CONT_RELOAD_REQUESTS)]
+    code, resp, reload_ms, in_flight, answers, deadline = _reload_under_load(base, bodies)
+    while True:  # each replica applies its swap between its own steps
+        fleet = json.loads(_get(f"{base}/healthz")[1])["scheduler"]["router"]
+        epochs = [r["param_epoch"] for r in fleet["replicas"]]
+        if all(e >= 1 for e in epochs) or time.monotonic() > deadline:
+            break
+        time.sleep(0.01)
+    memory = _log_messages(log_path, "reload: device memory")
+    log(f"[fleet] (b) POST /reload with {CONT_RELOAD_REQUESTS} requests in flight on {smi}: "
+        f"HTTP {code} in {reload_ms:.0f} ms, {in_flight} still in flight when it answered; "
+        f"replicas {resp.get('replicas')}; epochs after {epochs}; the requests: HTTP "
+        f"{[a[0] for a in answers]}, {[len(a[1].get('completion_ids', [])) for a in answers]} "
+        f"tokens; the child's log: {memory}")
+    if (code != 200 or any(e < 1 for e in epochs) or len(epochs) != FLEET_REPLICAS
+            or any(a[0] != 200 or len(a[1]["completion_ids"]) != FLEET_RELOAD_NEW_TOKENS
+                   for a in answers)):
+        raise RuntimeError("the rolling reload or the requests in flight across it failed")
+    return dict(reload_ms=reload_ms, in_flight=in_flight, memory=memory)
+
+
+def _fleet_http(cfg_path: Path, ckpt: Path, router: str, replica: str, smi: str) -> dict:
+    """16(c): FLEET_HTTP_REQUESTS greedy requests through the `serve
+    --backends` child, their tokens against generate(), failover past the
+    dead port, exemplars on a replica's /metrics."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from llmtrain_tpu_torch.generation import generate
+
+    rng = np.random.default_rng(18)
+    bodies = [{"prompt_ids": [int(x) for x in rng.integers(0, 256, n)],
+               "max_new_tokens": FLEET_HTTP_NEW_TOKENS, "temperature": 0}
+              for n in np.linspace(*CONT_PROMPTS, FLEET_HTTP_REQUESTS).astype(int)]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(FLEET_HTTP_REQUESTS) as ex:
+        answers = list(ex.map(lambda b: _post_h(f"{router}/v1/generate", b), bodies))
+    wall = time.perf_counter() - t0
+    fleet = json.loads(_get(f"{router}/healthz")[1])["scheduler"]["router"]
+    model = _decode_model(cfg_path, ckpt)
+    same = []
+    for (code, out, _), body in zip(answers, bodies):
+        prompt = np.asarray([body["prompt_ids"]], np.int32)
+        want = generate(model, prompt, max_new_tokens=FLEET_HTTP_NEW_TOKENS, temperature=0.0)
+        same.append(code == 200 and out["completion_ids"] == want[0, prompt.shape[1]:].tolist())
+    del model
+    exemplars = [line for line in _get(f"{replica}/metrics")[1].decode().splitlines()
+                 if line.startswith("llmtrain_serve_ttft_ms_bucket") and 'trace_id="' in line]
+    log(f"[fleet] (c) {FLEET_HTTP_REQUESTS} concurrent greedy requests through `serve "
+        f"--backends` (2 replicas + a dead port) on {smi}: HTTP {[a[0] for a in answers]} in "
+        f"{wall * 1e3:.0f} ms; tokens equal to generate(): {same}; failovers "
+        f"{fleet['failovers']}, healthy {fleet['replicas_healthy']}, routed "
+        f"{[r['routed'] for r in fleet['replicas']]}; TTFT exemplars on replica0 /metrics: "
+        f"{len(exemplars)}")
+    if not all(same) or fleet["failovers"] < 1 or not exemplars:
+        raise RuntimeError("the HTTP fleet failed its gates (tokens, failover or exemplars)")
+    return dict(wall_ms=wall * 1e3, failovers=fleet["failovers"])
+
+
+def _fleet_traces(fleet_dir: Path, smi: str) -> dict:
+    """16(c), read back: `trace summary`, `trace slowest` and `trace merge`
+    over the three processes' timelines, and every kept trace's tree and
+    critical path (JAX's tests/test_trace_e2e.py checks)."""
+    from llmtrain_tpu_torch.telemetry.trace_collect import (
+        collect_traces,
+        critical_path,
+        discover_sources,
+        format_tree,
+    )
+
+    outs = {}
+    for action in ("summary", "slowest", "merge"):
+        argv = ["trace", action, "--run-dir", str(fleet_dir), "--json"]
+        code, out = _run_cli(argv + (["--k", "3"] if action == "slowest" else []))
+        if code != 0:
+            raise RuntimeError(f"trace {action} exited {code}")
+        outs[action] = json.loads(out)
+    code, shown = _run_cli(["trace", "show", outs["slowest"][0]["trace_id"], "--run-dir",
+                            str(fleet_dir), "--json"])
+    traces = collect_traces(discover_sources([fleet_dir]))
+    bad = []
+    for trace in traces.values():
+        root = trace.root
+        hops = [s for s in trace.children(root.span_id) if s.name == "router/http_dispatch"]
+        served = [c for h in hops for c in trace.children(h.span_id)
+                  if c.name == "serve/request"]
+        names = {c.name for c in trace.children(served[0].span_id)} if len(served) == 1 else set()
+        cp = critical_path(trace)
+        if (root.name != "router/request" or "router" not in root.source or len(served) != 1
+                or served[0].source == root.source
+                or not {"serve/prefill", "serve/decode_phase"} <= names
+                or abs(sum(cp["breakdown"].values()) - cp["total_ms"]) > 0.05):
+            bad.append("\n".join(format_tree(trace)))
+    summary = outs["summary"]
+    log(f"[fleet] (c) trace summary on {smi}: {summary['traces']} traces, end to end "
+        f"{summary['end_to_end_ms']}; spans {sorted(summary['spans'])}; slowest "
+        f"{[(r['total_ms'], r['sampled']) for r in outs['slowest']]}; merge {outs['merge']}; "
+        f"show exit {code}, critical path {json.loads(shown)['critical_path']['breakdown']}")
+    if len(traces) != FLEET_HTTP_REQUESTS or bad or code != 0:
+        raise RuntimeError(f"{len(traces)} traces, {len(bad)} without the router → replica "
+                           f"tree: {bad[:2]}")
+    return dict(summary=summary)
+
+
+def _fleet_untraced(tmp: Path, ckpt: Path, smi: str, cont: dict, bench: dict) -> dict:
+    """16(d): phase 14(a)'s greedy traffic with telemetry.timeline false (no
+    timeline, no request tracer), beside 14(a) (JAX's default: both on) and
+    16(a). A measurement: only the command's exit is checked."""
+    import yaml
+
+    path = _serving_config(tmp, "gpt_pycorpus_untraced")
+    raw = yaml.safe_load(path.read_text())
+    raw["telemetry"] = {**raw.get("telemetry", {}), "timeline": False}
+    path.write_text(yaml.safe_dump(raw, sort_keys=False))
+    code, out = _run_cli(["serve-bench", "--config", str(path), "--from", str(ckpt),
+                          "--requests", str(CONT_REQUESTS), "--rate-rps", str(CONT_RATE_RPS),
+                          "--seed", "14", "--prompt-tokens-min", str(CONT_PROMPTS[0]),
+                          "--prompt-tokens-max", str(CONT_PROMPTS[1]),
+                          "--max-new-tokens", str(CONT_NEW_TOKENS), "--temperature", "0",
+                          "--out", str(tmp / "bench_untraced")])
+    if code != 0:
+        raise RuntimeError(f"serve-bench with the timeline off exited {code}")
+    block = json.loads(out)["serving"]
+    on = cont["greedy"]
+    log(f"[fleet] (d) phase 14(a)'s traffic, timeline and tracer off, on {smi}: "
+        f"{block['throughput']['tokens_per_sec']} output tokens/s, per-token p50 "
+        f"{block['slo']['per_token_ms']['p50']} ms, TTFT p50 {block['slo']['ttft_ms']['p50']} "
+        f"ms; on (14(a)): {on['throughput']['tokens_per_sec']}, "
+        f"{on['slo']['per_token_ms']['p50']} ms, {on['slo']['ttft_ms']['p50']} ms; 16(a) "
+        f"(router, sampled): {bench['throughput']['tokens_per_sec']}, "
+        f"{bench['slo']['per_token_ms']['p50']} ms; tracing block present: "
+        f"{'tracing' in block}")
+    return block
+
+
+def phase_fleet(torch, smi: str, tmp: Path, train: dict, cont: dict) -> dict:
+    """Phase 16: the replica router and request tracing on phase 9's
+    checkpoint (see FLEET_*). Launch counts reset just before and read just
+    after: the fleet runs none of the eight kernels."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    ckpt = train["run_dir"] / "checkpoints"
+    greedy_path = tmp / "gpt_pycorpus_continuous.yaml"
+    fleet_dir = tmp / "fleet_traces"
+    dead = _free_port()
+    ports = [_free_port() for _ in range(FLEET_REPLICAS)]
+    # The dead port first: the first placement goes to it and fails over.
+    backends = ",".join([f"http://127.0.0.1:{p}" for p in [dead, *ports]])
+    children = {
+        "reload": (tmp / "fleet_reload.log", "--router", "--replicas", str(FLEET_REPLICAS),
+                   "--port", "0"),
+        **{f"replica{i}": (tmp / f"fleet_replica{i}.log", "--port", str(p), "--trace-dir",
+                           str(fleet_dir / f"replica{i}")) for i, p in enumerate(ports)},
+        "router": (tmp / "fleet_router.log", "--backends", backends, "--port", "0",
+                   "--trace-dir", str(fleet_dir / "router")),
+    }
+    _reset_counts()  # the fleet's counts start here
+    t0 = time.perf_counter()
+    procs: dict = {}
+    try:
+        with ThreadPoolExecutor(len(children)) as ex:
+            started = {k: ex.submit(_start_server, greedy_path, ckpt, *v)
+                       for k, v in children.items()}
+            for k, f in started.items():
+                procs[k] = f.result()
+        log(f"[fleet] {len(procs)} `serve` children ready in {time.perf_counter() - t0:.1f} s")
+        bench = _fleet_bench(tmp, ckpt, smi, cont)
+        reload = _fleet_reload(procs["reload"][1], children["reload"][0], smi)
+        http = _fleet_http(greedy_path, ckpt, procs["router"][1], procs["replica0"][1], smi)
+    finally:
+        for proc, _ in procs.values():
+            _stop_server(proc)
+    traces = _fleet_traces(fleet_dir, smi)
+    untraced = _fleet_untraced(tmp, ckpt, smi, cont, bench)
+    counts = _read_counts()  # and end here
+    log(f"[fleet] phase 16 in {time.perf_counter() - t0:.1f} s on {smi}")
+    _check_counts("fleet", counts, {})  # the fleet tier runs none of the kernels
+    return dict(bench=bench, reload=reload, http=http, traces=traces, untraced=untraced)
+
+
 def main() -> int:
     import tempfile
 
@@ -2326,6 +2656,7 @@ def main() -> int:
         phase_train_profile(torch, smi, ce["cfg_path"])
         cont = phase_continuous(torch, smi, Path(tmp), train)
         spec = phase_speculative(torch, smi, Path(tmp), train, cont)
+        phase_fleet(torch, smi, Path(tmp), train, cont)
     paths = (train["counts"], fused["counts"], ce["counts"], spec["counts"])
     launches = {name: sum(c[name] for c in paths) for name in paths[0]}
     launches["flash_attention_fwd"] += serve_launches

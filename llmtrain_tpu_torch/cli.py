@@ -13,9 +13,18 @@ Same subcommands, flags, JSON shapes and exit codes as the JAX CLI
 * ``serve`` — checkpoint → HTTP server (serving/http.py): simple mode, or
   ``--mode continuous`` / ``serving.mode: continuous``, the paged-KV
   continuous-batching scheduler with overload control and ``POST /reload``;
+  ``--router [--replicas N]`` puts a replica router in front of N
+  in-process replicas, ``--backends URL,...`` / ``--discover HOST:PORT`` in
+  front of separate ``serve`` processes; ``--trace-dir D`` writes each
+  process's timeline under ``D/<name>/timeline.jsonl`` and a
+  ``metrics.prom`` snapshot;
 * ``serve-bench`` — checkpoint → a seeded open-loop load against the
-  continuous-batching scheduler, its SLO block as JSON, the bounded-shape,
-  failure and latency gates, and ``--verify-parity`` against ``generate()``;
+  continuous-batching scheduler (or, with ``--router``, the replica
+  router), its SLO block as JSON, the bounded-shape, failure and latency
+  gates, ``--verify-parity`` against ``generate()``, and ``report.json``,
+  ``report.md`` and ``trace.json`` under ``--out``;
+* ``trace slowest|show|summary|merge`` — rebuild request traces across the
+  router and replica processes from their timelines;
 * ``validate`` / ``print-config`` — the config loader.
 
 ``serve`` and ``serve-bench`` take the same draft and quantize flags: a
@@ -23,8 +32,8 @@ draft puts the continuous backend on the speculative policy.
 
 Exit codes: 0 ok, 1 failure, 2 config error (a feature that is not yet
 ported counts as a config error). Flags whose feature is not yet ported
-(``--ema``, the router, ``--trace-dir``) and LoRA or pipeline checkpoints
-exit 2 with a message naming the ROADMAP.md item. ``run.device`` (default ``cuda``) picks
+(``--ema``) and LoRA or pipeline checkpoints exit 2 with a message naming
+the ROADMAP.md item. ``run.device`` (default ``cuda``) picks
 the device: ``cpu`` the CPU, ``tpu``/``cuda`` the card (an error when none
 is visible).
 """
@@ -185,11 +194,32 @@ def build_parser() -> argparse.ArgumentParser:
         "--eos-token-id", type=int, default=None,
         help="default stop token (requests may override; default: the tokenizer's EOS, if any)",
     )
-    serve.add_argument("--router", action="store_true", help="replica router (not yet ported)")
-    serve.add_argument("--replicas", type=int, default=None, help="router replicas (not yet ported)")
-    serve.add_argument("--backends", default=None, help="router backends (not yet ported)")
-    serve.add_argument("--discover", default=None, help="router discovery (not yet ported)")
-    serve.add_argument("--trace-dir", default=None, help="request traces (not yet ported)")
+    serve.add_argument(
+        "--router", action="store_true",
+        help="run the fleet tier: a replica router placing each request by "
+        "prefix-cache affinity and load, with rolling zero-downtime POST "
+        "/reload (needs the continuous backend)",
+    )
+    serve.add_argument(
+        "--replicas", type=int, default=None,
+        help="in-process replica count for --router (default: serving.router.replicas)",
+    )
+    serve.add_argument(
+        "--backends", default=None,
+        help="comma-separated replica base URLs (http://host:port): route across "
+        "separate serve processes instead of in-process replicas (implies --router)",
+    )
+    serve.add_argument(
+        "--discover", default=None,
+        help="host[:port] DNS-resolved into one HTTP backend per address "
+        "(implies --router)",
+    )
+    serve.add_argument(
+        "--trace-dir", default=None,
+        help="write per-process timeline.jsonl files (with tail-sampled request "
+        "traces) plus a metrics.prom textfile snapshot under this dir, for "
+        "`trace` to merge; with --router each in-process replica gets its own subdir",
+    )
 
     bench = sub.add_parser(
         "serve-bench",
@@ -232,7 +262,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     bench.add_argument(
         "--out", default=None,
-        help="report directory (report.json/report.md are not yet ported)",
+        help="report directory (default: <output.root_dir>/serve_bench)",
     )
     bench.add_argument(
         "--decode-param-dtype", choices=("compute", "param"), default="compute",
@@ -252,8 +282,15 @@ def build_parser() -> argparse.ArgumentParser:
         "--gamma", type=int, default=None,
         help="speculative lookahead (default: serving.speculative_gamma)",
     )
-    bench.add_argument("--router", action="store_true", help="replica router (not yet ported)")
-    bench.add_argument("--replicas", type=int, default=None, help="router replicas (not yet ported)")
+    bench.add_argument(
+        "--router", action="store_true",
+        help="drive the replica-router tier instead of one scheduler (in-process "
+        "replicas; the report gains the fleet prefix hit rate and per-replica occupancy)",
+    )
+    bench.add_argument(
+        "--replicas", type=int, default=None,
+        help="in-process replica count for --router (default: serving.router.replicas)",
+    )
     bench.add_argument(
         "--shared-prefix-tokens", type=int, default=0,
         help="prepend one of --shared-prefix-count fixed 'system prompts' of this "
@@ -296,6 +333,37 @@ def build_parser() -> argparse.ArgumentParser:
         "--max-rejected-frac", type=float, default=None,
         help="fail the run if (rejected+shed)/submitted exceeds this bound",
     )
+
+    trace = sub.add_parser(
+        "trace",
+        help="merge per-process fleet timelines and rebuild cross-process "
+        "request traces (telemetry/trace_collect.py)",
+    )
+    trace.add_argument(
+        "action", choices=("slowest", "show", "summary", "merge"),
+        help="slowest: top-k traces by end-to-end latency; show: span tree + "
+        "critical-path breakdown of one trace; summary: per-span-kind "
+        "p50/p95/p99; merge: one Perfetto trace (track group per process, flow "
+        "arrows across the router→replica hop)",
+    )
+    trace.add_argument(
+        "trace_id", nargs="?", default=None,
+        help="trace id (or unique prefix) for 'show' — from `trace slowest`, a "
+        "response payload, or a /metrics exemplar",
+    )
+    trace.add_argument(
+        "--run-dir", action="append", required=True, dest="run_dirs",
+        help="directory (scanned recursively for *timeline*.jsonl) or a single "
+        "timeline file; repeatable — pass every fleet process's dir to stitch "
+        "the cross-process tree together",
+    )
+    trace.add_argument("--k", type=int, default=10, help="how many traces 'slowest' lists")
+    trace.add_argument(
+        "--out", default=None,
+        help="output path for 'merge' (default: merged_trace.json under the "
+        "first --run-dir; open it in ui.perfetto.dev)",
+    )
+    trace.add_argument("--json", action="store_true", help="emit machine-readable JSON")
 
     validate = sub.add_parser("validate", help="validate a config file")
     validate.add_argument("--config", required=True)
@@ -695,19 +763,8 @@ def _handle_generate(args: argparse.Namespace) -> int:
     return EXIT_OK
 
 
-def _unported_serving_flags(args: argparse.Namespace, cfg) -> str | None:
-    """The first serving feature asked for that this port does not run
-    (serve and serve-bench)."""
-    unported = _unported_inference_flags(args, cfg)
-    if unported is None and (getattr(args, "router", False) or getattr(args, "backends", None)
-                             or getattr(args, "discover", None) or args.replicas):
-        unported = f"the replica router {_NOT_PORTED} (ROADMAP.md queue A: replica router)"
-    if unported is None and getattr(args, "trace_dir", None) is not None:
-        unported = f"--trace-dir (request tracing) {_NOT_PORTED} (ROADMAP.md queue A: telemetry)"
-    return unported
-
-
-def _build_serving_backend(cfg, model, logger, args: argparse.Namespace | None = None):
+def _build_serving_backend(cfg, model, logger, args: argparse.Namespace | None = None,
+                           registry=None, trace_dir=None, name=None):
     """Continuous-batching scheduler + metrics registry for serve and
     serve-bench (JAX ``_build_serving_backend``).
 
@@ -718,12 +775,30 @@ def _build_serving_backend(cfg, model, logger, args: argparse.Namespace | None =
     decode paged, else serves batch 1. Raises ValueError with the
     actionable message on a bad combination (exit 2), ConfigLoadError for
     a bad draft config. ``args`` carries the draft and quantize flags (none
-    given when it is None)."""
+    given when it is None).
+
+    With ``telemetry.enabled`` and ``telemetry.timeline`` the scheduler gets
+    an event timeline — memory-only, or file-backed at
+    ``{trace_dir}/{name}/timeline.jsonl`` when ``trace_dir`` is given, for
+    ``trace`` to merge — and a request tracer (``telemetry.tracing``)."""
     from .serving import ContinuousBatchingScheduler, OverloadController, PagedDecodeEngine
     from .telemetry.registry import MetricsRegistry
+    from .telemetry.timeline import EventTimeline
 
     scfg = cfg.serving
-    registry = MetricsRegistry()
+    if registry is None:
+        registry = MetricsRegistry()
+    timeline = None
+    if cfg.telemetry.enabled and cfg.telemetry.timeline:
+        tl_path = (
+            Path(trace_dir) / (name or "serve") / "timeline.jsonl"
+            if trace_dir is not None else None
+        )
+        timeline = EventTimeline(
+            tl_path,
+            max_events=cfg.telemetry.max_events,
+            xprof_annotations=cfg.telemetry.xprof_annotations,
+        )
     overload = None
     if scfg.overload.enabled:
         overload = OverloadController.from_config(scfg.overload)
@@ -769,8 +844,10 @@ def _build_serving_backend(cfg, model, logger, args: argparse.Namespace | None =
             draft_model=draft_model,
             draft_engine=draft_engine,
             gamma=args.gamma if args.gamma is not None else scfg.speculative_gamma,
+            timeline=timeline,
             overload=overload,
         )
+        _configure_request_tracer(cfg, scheduler, timeline)
         return scheduler, registry
     engine = PagedDecodeEngine(
         model, **engine_kwargs, prefix_cache=scfg.prefix_cache, prefill_chunk=scfg.prefill_chunk
@@ -784,8 +861,108 @@ def _build_serving_backend(cfg, model, logger, args: argparse.Namespace | None =
         engine.prompt_buckets,
         engine.batch_buckets,
     )
-    scheduler = ContinuousBatchingScheduler(engine, registry=registry, overload=overload)
+    scheduler = ContinuousBatchingScheduler(
+        engine, registry=registry, timeline=timeline, overload=overload
+    )
+    _configure_request_tracer(cfg, scheduler, timeline)
     return scheduler, registry
+
+
+def _configure_request_tracer(cfg, backend, timeline) -> None:
+    """Replace a scheduler's or router's default request tracer with one
+    built from ``telemetry.tracing`` (tail-sampling knobs), or strip it when
+    tracing is disabled: the backends default to a tracer whenever they have
+    a timeline, so the config gate is applied here."""
+    tcfg = cfg.telemetry.tracing
+    if timeline is None or not tcfg.enabled:
+        backend.tracer = None
+        return
+    from .telemetry.tracing import TailSampler, Tracer
+
+    backend.tracer = Tracer(
+        timeline,
+        sampler=TailSampler(
+            slow_frac=tcfg.slow_keep_frac,
+            reservoir=tcfg.reservoir,
+            warmup=tcfg.warmup_keep,
+        ),
+        max_spans=tcfg.max_spans_per_trace,
+    )
+
+
+def _build_router_backend(cfg, model, logger, args: argparse.Namespace, trace_dir=None):
+    """Replica-router tier for ``serve --router`` / ``serve-bench --router``
+    (JAX ``_build_router_backend``).
+
+    Default: ``serving.router.replicas`` (or ``--replicas``) in-process
+    replicas, each a scheduler + engine with its own step thread, all
+    decoding the one ``model`` on the card. ``--backends``/``--discover``
+    route across separate serve processes over HTTP instead."""
+    from .serving import HTTPReplica, InProcessReplica, ReplicaRouter, resolve_backends
+    from .telemetry.registry import MetricsRegistry
+
+    rcfg = cfg.serving.router
+    registry = MetricsRegistry()
+    replicas: list[Any] = []
+    urls: list[str] = []
+    if getattr(args, "backends", None):
+        urls = [u.strip() for u in args.backends.split(",") if u.strip()]
+        if not urls:
+            raise ValueError("--backends must list at least one base URL")
+    elif getattr(args, "discover", None):
+        urls = resolve_backends(args.discover)
+    if urls:
+        replicas = [
+            HTTPReplica(u, timeout_sec=cfg.serving.request_timeout_sec,
+                        probe_timeout_sec=rcfg.probe_timeout_sec)
+            for u in urls
+        ]
+    else:
+        n = getattr(args, "replicas", None) or rcfg.replicas
+        for i in range(n):
+            # In-process replicas share the router's registry so the
+            # scheduler-level overload series reach the fleet /metrics
+            # scrape; counters sum across replicas, gauges are
+            # last-writer-wins.
+            sched, _ = _build_serving_backend(
+                cfg, model, logger, args, registry=registry, trace_dir=trace_dir,
+                name=f"replica{i}",
+            )
+            sched.start()
+            replicas.append(InProcessReplica(sched, f"replica{i}"))
+    # The router's own timeline: its placement/failover/hop spans land in a
+    # separate JSONL track (`{trace_dir}/router/`) that `trace` stitches to
+    # the replica tracks via traceparent.
+    router_timeline = None
+    if cfg.telemetry.enabled and cfg.telemetry.timeline:
+        from .telemetry.timeline import EventTimeline
+
+        router_timeline = EventTimeline(
+            Path(trace_dir) / "router" / "timeline.jsonl" if trace_dir is not None else None,
+            max_events=cfg.telemetry.max_events,
+            xprof_annotations=False,
+        )
+    router = ReplicaRouter(
+        replicas,
+        registry=registry,
+        affinity_weight=rcfg.affinity_weight,
+        max_affinity_entries=rcfg.max_affinity_entries,
+        fail_threshold=rcfg.fail_threshold,
+        revive_sec=rcfg.revive_sec,
+        block_tokens=cfg.serving.block_tokens,
+        retry_budget=rcfg.retry_budget,
+        retry_window_sec=rcfg.retry_window_sec,
+        timeline=router_timeline,
+    )
+    _configure_request_tracer(cfg, router, router_timeline)
+    logger.info(
+        "replica router: %d %s replicas, affinity_weight %.1f, fail_threshold %d",
+        len(replicas),
+        "HTTP" if isinstance(replicas[0], HTTPReplica) else "in-process",
+        rcfg.affinity_weight,
+        rcfg.fail_threshold,
+    )
+    return router, registry
 
 
 def _handle_serve(args: argparse.Namespace) -> int:
@@ -793,11 +970,15 @@ def _handle_serve(args: argparse.Namespace) -> int:
     (or ``--mode continuous``) swaps the one-decode-at-a-time device lock
     for the paged-KV continuous-batching scheduler: handler threads submit
     into the admission queue and in-flight sequences share each decode
-    step; ``POST /reload`` hot-swaps a checkpoint under live traffic."""
+    step; ``POST /reload`` hot-swaps a checkpoint under live traffic. With
+    ``--router``/``--backends``/``--discover`` a replica router takes the
+    scheduler's seat and ``POST /reload`` rolls one replica at a time. As in
+    JAX, the router process loads the model too (its HTTP layer validates
+    requests against it)."""
     cfg, code = _load_config(args.config)
     if cfg is None:
         return code
-    unported = _unported_serving_flags(args, cfg)
+    unported = _unported_inference_flags(args, cfg)
     if unported is not None:
         _emit_error(unported)
         return EXIT_CONFIG_ERROR
@@ -810,11 +991,23 @@ def _handle_serve(args: argparse.Namespace) -> int:
             "set serving.mode: continuous (or pass --mode continuous)"
         )
         return EXIT_CONFIG_ERROR
+    if args.backends and args.discover:
+        _emit_error("--backends and --discover are mutually exclusive")
+        return EXIT_CONFIG_ERROR
+    use_router = bool(args.router or args.backends or args.discover)
+    if use_router and mode != "continuous":
+        _emit_error(
+            "--router needs the continuous backend; set serving.mode: "
+            "continuous (or pass --mode continuous)"
+        )
+        return EXIT_CONFIG_ERROR
 
     from .utils.logging import configure_logging
 
     logger = configure_logging(level=cfg.logging.level, json_output=cfg.logging.json_output)
     scheduler = None
+    metrics_stop = None
+    metrics_thread = None
     try:
         from .distributed import resolve_device
         from .serving import ClientRateGate, ServerState, make_server
@@ -830,7 +1023,14 @@ def _handle_serve(args: argparse.Namespace) -> int:
             eos = getattr(tokenizer, "eot_token", None)
         if mode == "continuous":
             try:
-                scheduler, registry = _build_serving_backend(cfg, model, logger, args)
+                if use_router:
+                    scheduler, registry = _build_router_backend(
+                        cfg, model, logger, args, trace_dir=args.trace_dir
+                    )
+                else:
+                    scheduler, registry = _build_serving_backend(
+                        cfg, model, logger, args, trace_dir=args.trace_dir
+                    )
             except ConfigLoadError as exc:
                 _emit_error(exc.message, details=exc.details, errors=exc.errors)
                 return EXIT_CONFIG_ERROR
@@ -871,28 +1071,74 @@ def _handle_serve(args: argparse.Namespace) -> int:
         if scheduler is not None:
             # Zero-downtime checkpoint hot swap: POST /reload re-resolves
             # the --from spec (a dir or run id resolves to the NEWEST
-            # checkpoint) into a second target model (a copy of the serving
+            # checkpoint) into ONE new target model (a copy of the serving
             # one, already on the device and in the decode dtype, its
             # weights restored from their codes when quantized) and swaps it
             # in without dropping a request — in-flight sequences finish
             # on the model they were admitted under, new admissions use
-            # the new one. A draft keeps its weights.
+            # the new one. With a router the new model rolls through the
+            # replicas one at a time; the live module is never loaded into,
+            # since older epochs still decode on it. A draft keeps its weights.
             def _reload(body: dict) -> dict:
                 import copy
 
                 from .ops.quant import dequantize_model
 
+                before = _device_memory_gib(device)
                 spec = str(body.get("from") or args.from_spec)
                 new_model, new_ckpt, new_step = _load_decode_params(
                     cfg, dequantize_model(copy.deepcopy(state.model)), spec,
                     args.decode_param_dtype, logger, quantize=args.quantize, label="reload ",
                 )
-                scheduler.hot_swap(new_model, step=new_step, checkpoint=str(new_ckpt))
+                out: dict[str, Any] = {"step": new_step, "checkpoint": str(new_ckpt)}
+                if hasattr(scheduler, "rolling_reload"):
+                    out["replicas"] = scheduler.rolling_reload(
+                        params=new_model, step=new_step, checkpoint=str(new_ckpt)
+                    )
+                else:
+                    scheduler.hot_swap(new_model, step=new_step, checkpoint=str(new_ckpt))
                 state.model = new_model
                 state.step, state.checkpoint = new_step, str(new_ckpt)
-                return {"step": new_step, "checkpoint": str(new_ckpt)}
+                if before is not None:
+                    logger.info(
+                        "reload: device memory %.3f GiB before, %.3f GiB after "
+                        "(pinned requests keep the old weights resident)",
+                        before, _device_memory_gib(device),
+                    )
+                return out
 
             state.reloader = _reload
+
+        # Textfile snapshot of the /metrics text under --trace-dir (JAX's
+        # node-exporter fallback): histograms ride along, exemplar trace ids
+        # included. Rewritten every 5 s and once at exit.
+        if args.trace_dir and cfg.telemetry.enabled and cfg.telemetry.prometheus_textfile:
+            import threading
+
+            from .telemetry.prometheus import render_prometheus, write_textfile
+
+            prom_path = Path(args.trace_dir) / "metrics.prom"
+            metrics_stop = threading.Event()
+
+            def _snapshot_metrics() -> None:
+                try:
+                    write_textfile(prom_path, render_prometheus(
+                        registry.latest(), registry.counters(), {"component": "serve"},
+                        histograms=registry.histograms(),
+                    ))
+                except Exception:  # noqa: BLE001 — a snapshot must not kill serving
+                    pass
+
+            def _metrics_loop() -> None:
+                while True:
+                    _snapshot_metrics()
+                    if metrics_stop.wait(5.0):
+                        _snapshot_metrics()
+                        return
+
+            metrics_thread = threading.Thread(target=_metrics_loop, name="metrics-prom",
+                                              daemon=True)
+            metrics_thread.start()
 
         httpd = make_server(state, args.host, args.port)
         host, port = httpd.server_address[:2]
@@ -905,7 +1151,7 @@ def _handle_serve(args: argparse.Namespace) -> int:
                     "port": port,
                     "mode": mode,
                     "policy": scheduler.policy if scheduler else None,
-                    "router": None,
+                    "router": len(scheduler.replicas) if use_router else None,
                     "device": str(device),
                 }
             ),
@@ -922,8 +1168,22 @@ def _handle_serve(args: argparse.Namespace) -> int:
         _emit_error(f"serve failed: {exc}")
         return _exit_code(exc)
     finally:
+        if metrics_stop is not None:
+            metrics_stop.set()
+        if metrics_thread is not None:
+            metrics_thread.join(timeout=10.0)
         if scheduler is not None:
             scheduler.close()
+
+
+def _device_memory_gib(device) -> float | None:
+    """Memory the caching allocator holds on a CUDA ``device``, in GiB;
+    None elsewhere."""
+    if device.type != "cuda":
+        return None
+    import torch
+
+    return torch.cuda.memory_allocated(device) / 2**30
 
 
 def _serve_bench_arg_error(args: argparse.Namespace) -> str | None:
@@ -1024,13 +1284,14 @@ def _handle_serve_bench(args: argparse.Namespace) -> int:
     Exit 1 when a gate fails: shapes outside the bucket budget, a failed
     or timed-out request, the per-token p99 or rejected-fraction bounds,
     and with ``--verify-parity`` any request whose tokens differ from
-    ``generate()``'s. report.json/report.md and the Perfetto trace need the
-    telemetry report (ROADMAP.md queue A: telemetry): their keys print
-    null."""
+    ``generate()``'s. ``--router`` drives the replica router over in-process
+    replicas instead of one scheduler. ``report.json``/``report.md`` (with the
+    serving block) and the backend timeline's Perfetto ``trace.json`` land in
+    ``--out``, each process's ``timeline.jsonl`` under ``--out/telemetry``."""
     cfg, code = _load_config(args.config)
     if cfg is None:
         return code
-    unported = _unported_serving_flags(args, cfg)
+    unported = _unported_inference_flags(args, cfg)
     if unported is None:
         unported = _serve_bench_arg_error(args)
     if unported is not None:
@@ -1070,8 +1331,20 @@ def _handle_serve_bench(args: argparse.Namespace) -> int:
                 f"+ --max-new-tokens ({args.max_new_tokens}) exceeds block_size ({block_size})"
             )
             return EXIT_CONFIG_ERROR
+        # The out dir is resolved before the backend so each process's
+        # timeline JSONL lands under {out_dir}/telemetry, which `trace
+        # --run-dir {out_dir}` merges afterwards.
+        out_dir = Path(args.out or (Path(cfg.output.root_dir) / "serve_bench"))
+        bench_trace_dir = out_dir / "telemetry"
         try:
-            scheduler, _ = _build_serving_backend(cfg, model, logger, args)
+            if args.router:
+                scheduler, registry = _build_router_backend(
+                    cfg, model, logger, args, trace_dir=bench_trace_dir
+                )
+            else:
+                scheduler, registry = _build_serving_backend(
+                    cfg, model, logger, args, trace_dir=bench_trace_dir
+                )
         except ConfigLoadError as exc:
             _emit_error(exc.message, details=exc.details, errors=exc.errors)
             return EXIT_CONFIG_ERROR
@@ -1114,6 +1387,9 @@ def _handle_serve_bench(args: argparse.Namespace) -> int:
         )
         scheduler.close()
         block["checkpoint"] = str(ckpt_path)
+        tracer = getattr(scheduler, "tracer", None)
+        if tracer is not None:
+            block["tracing"] = tracer.stats()
         failures = _bench_failures(block, args)
         if args.verify_parity:
             block["parity"] = _verify_parity(model, requests, logger)
@@ -1122,12 +1398,29 @@ def _handle_serve_bench(args: argparse.Namespace) -> int:
                     f"{block['parity']['mismatched']}/{block['parity']['checked']} "
                     "requests diverged from sequential generate()"
                 )
+        # report.json / report.md with the serving block, and the backend
+        # timeline (queue_wait → prefill → decode spans) as a Perfetto trace.
+        from .telemetry.report import build_report, write_reports
+        from .telemetry.timeline import EventTimeline
+
+        timeline = getattr(scheduler, "timeline", None) or EventTimeline(None)
+        report = build_report(
+            run_id="serve-bench",
+            run_name=cfg.run.name,
+            registry=registry,
+            timeline=timeline,
+            memory=None,
+            wall_time_sec=block["throughput"]["wall_sec"],
+            serving=block,
+        )
+        json_path, md_path = write_reports(out_dir, report)
+        trace_path = timeline.export_perfetto(out_dir / "trace.json")
         summary = {
             "serving": block,
-            "report_json": None,
-            "report_md": None,
-            "trace_json": None,
-            "trace_dir": None,
+            "report_json": str(json_path) if json_path else None,
+            "report_md": str(md_path) if md_path else None,
+            "trace_json": str(trace_path) if trace_path else None,
+            "trace_dir": str(bench_trace_dir),
             "ok": not failures,
         }
         if failures:
@@ -1143,6 +1436,116 @@ def _handle_serve_bench(args: argparse.Namespace) -> int:
     finally:
         if scheduler is not None:
             scheduler.close()
+
+
+def _handle_trace(args: argparse.Namespace) -> int:
+    """Fleet-wide request-trace reassembly (telemetry/trace_collect.py), a
+    pure read of the timelines: scans every --run-dir for
+    ``*timeline*.jsonl``, rebuilds cross-process span trees from the
+    tail-sampled ``cat="trace"`` events (router root → traceparent-propagated
+    replica children) and answers slowest/show/summary/merge. Reads JAX's
+    run dirs as well as the port's."""
+    from .telemetry.trace_collect import (
+        collect_traces,
+        critical_path,
+        discover_sources,
+        format_tree,
+        merge_perfetto,
+        slowest,
+        summarize,
+    )
+
+    missing = [d for d in args.run_dirs if not Path(d).exists()]
+    if missing:
+        _emit_error(f"run dir(s) not found: {', '.join(missing)}")
+        return EXIT_CONFIG_ERROR
+    sources = discover_sources(args.run_dirs)
+    if not sources:
+        _emit_error(
+            "no *timeline*.jsonl under the given --run-dir(s) — serve with "
+            "--trace-dir (or point at a serve-bench out dir) so each process "
+            "writes its timeline"
+        )
+        return EXIT_CONFIG_ERROR
+    traces = collect_traces(sources)
+    indent = None if args.json else 2
+
+    if args.action == "merge":
+        out = Path(args.out or (Path(args.run_dirs[0]) / "merged_trace.json"))
+        merge_perfetto(sources, out, traces=traces)
+        unaligned = [s.label for s in sources if s.start_unix_time is None]
+        if unaligned and any(s.start_unix_time is not None for s in sources):
+            print(
+                "warning: timeline(s) with no segment header could not be "
+                f"time-aligned with the fleet: {', '.join(unaligned)} — their "
+                "events are rebased to the merge start, so cross-process "
+                "ordering against them is not meaningful",
+                file=sys.stderr,
+            )
+        print(json.dumps({
+            "merged": str(out),
+            "processes": [s.label for s in sources],
+            "traces": len(traces),
+            "unaligned": unaligned,
+            "viewer": "https://ui.perfetto.dev",
+        }, indent=indent))
+        return EXIT_OK
+
+    if not traces:
+        _emit_error(
+            "timelines found but no sampled request traces in them — only "
+            "slow/errored/failed-over/forced requests keep full detail (tail "
+            "sampling); force one with the `X-Trace: force` header or check "
+            "telemetry.tracing.enabled"
+        )
+        return EXIT_FAILURE
+
+    if args.action == "summary":
+        print(json.dumps(summarize(traces), indent=indent))
+        return EXIT_OK
+
+    if args.action == "slowest":
+        rows = []
+        for tr in slowest(traces, k=args.k):
+            root = tr.root
+            rows.append({
+                "trace_id": tr.trace_id,
+                "total_ms": round(tr.duration_ms, 3),
+                "root": root.name if root else None,
+                "spans": len(tr.spans),
+                "processes": tr.sources,
+                "sampled": root.args.get("sampled") if root else None,
+                "request_id": root.args.get("request_id") if root else None,
+            })
+        print(json.dumps(rows, indent=indent))
+        return EXIT_OK
+
+    if not args.trace_id:
+        _emit_error(
+            "`trace show` needs a trace id (or unique prefix) — list candidates "
+            "with `trace slowest`"
+        )
+        return EXIT_CONFIG_ERROR
+    matches = [t for t in traces.values() if t.trace_id.startswith(args.trace_id)]
+    if not matches:
+        _emit_error(f"no trace matching {args.trace_id!r} in the run dirs")
+        return EXIT_FAILURE
+    if len(matches) > 1:
+        _emit_error(
+            f"trace id prefix {args.trace_id!r} is ambiguous ({len(matches)} "
+            "matches) — give more hex digits"
+        )
+        return EXIT_CONFIG_ERROR
+    tr = matches[0]
+    path = critical_path(tr)
+    if args.json:
+        print(json.dumps({"tree": format_tree(tr), "critical_path": path}))
+    else:
+        for line in format_tree(tr):
+            print(line)
+        print()
+        print(json.dumps(path, indent=2))
+    return EXIT_OK
 
 
 def _warn_unknown_extras(cfg) -> None:
@@ -1195,6 +1598,7 @@ _HANDLERS = {
     "generate": _handle_generate,
     "serve": _handle_serve,
     "serve-bench": _handle_serve_bench,
+    "trace": _handle_trace,
     "validate": _handle_validate,
     "print-config": _handle_print_config,
 }

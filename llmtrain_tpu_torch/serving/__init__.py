@@ -17,9 +17,10 @@ continuous batching.
   p50/p95/p99 TTFT + per-token SLO block;
 * :mod:`~.overload` — SLO-aware overload control: bounded deadline-aware
   admission, priority classes with token buckets, load shedding, brownout
-  with hysteresis, the retry budget.
-
-The replica router is not yet ported (ROADMAP.md queue A: replica router).
+  with hysteresis, the retry budget;
+* :mod:`~.router` — the replica router: prefix-affinity and load-aware
+  placement over in-process or HTTP replicas, eviction, revival and
+  failover, rolling reloads, the canary split.
 """
 
 from .engine import PagedDecodeEngine, bucket_for
@@ -37,6 +38,13 @@ from .overload import (
     rejected_counter,
 )
 from .paged_kv import NULL_BLOCK, BlockTable, PagedKVPool, PrefixMatch, chain_hashes
+from .router import (
+    HTTPReplica,
+    InProcessReplica,
+    ReplicaBackpressure,
+    ReplicaRouter,
+    resolve_backends,
+)
 from .scheduler import ContinuousBatchingScheduler, ServeRequest
 
 __all__ = [
@@ -47,13 +55,17 @@ __all__ = [
     "ClientRateGate",
     "ContinuousBatchingScheduler",
     "EwmaWaitEstimator",
+    "HTTPReplica",
+    "InProcessReplica",
     "OverloadController",
+    "ReplicaBackpressure",
     "RetryBudget",
     "TokenBucket",
     "WeightedClassQueue",
     "PagedDecodeEngine",
     "PagedKVPool",
     "PrefixMatch",
+    "ReplicaRouter",
     "ServeRequest",
     "ServerState",
     "ServerStats",
@@ -63,5 +75,6 @@ __all__ = [
     "make_server",
     "percentiles",
     "rejected_counter",
+    "resolve_backends",
     "run_loadgen",
 ]

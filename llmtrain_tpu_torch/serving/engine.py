@@ -176,6 +176,20 @@ class PagedDecodeEngine:
         self._decode_shapes: set[int] = set()
         self._verify_shapes: set[tuple[int, int]] = set()
         self._cow_used = False
+        # Optional ``(kind, bucket) -> None`` hook, fired the first time a
+        # bucket shape runs (where JAX compiles a program). The scheduler
+        # wires it to a timeline instant, ``serve/compile`` as in JAX.
+        self.on_compile: Any = None
+
+    def _note_shape(self, shapes: set, key: Any, kind: str, bucket: int) -> None:
+        if key in shapes:
+            return
+        shapes.add(key)
+        if self.on_compile is not None:
+            try:
+                self.on_compile(kind, bucket)
+            except Exception:  # noqa: BLE001 — telemetry must not fail a step
+                pass
 
     # --------------------------------------------------------- validation
 
@@ -244,7 +258,7 @@ class PagedDecodeEngine:
         draws nothing from the row's generator."""
         tp = int(prompt_ids.shape[0])
         tb = bucket_for(tp, self.prompt_buckets)
-        self._prefill_shapes.add(tb)
+        self._note_shape(self._prefill_shapes, tb, "prefill", tb)
         prompt = np.zeros((1, tb), np.int64)
         prompt[0, :tp] = prompt_ids
         try:
@@ -282,7 +296,7 @@ class PagedDecodeEngine:
         if n == 0:
             return []
         bb = bucket_for(n, self.batch_buckets)
-        self._decode_shapes.add(bb)
+        self._note_shape(self._decode_shapes, bb, "decode", bb)
         tokens = np.zeros((bb, 1), np.int64)
         positions = np.zeros((bb,), np.int64)
         tables = np.zeros((bb, self.max_blocks_per_seq), np.int64)
@@ -319,7 +333,7 @@ class PagedDecodeEngine:
         if n == 0:
             return []
         bb = bucket_for(n, self.batch_buckets)
-        self._verify_shapes.add((bb, width))
+        self._note_shape(self._verify_shapes, (bb, width), "verify", bb)
         tokens = np.zeros((bb, width), np.int64)
         positions = np.zeros((bb,), np.int64)
         tables = np.zeros((bb, self.max_blocks_per_seq), np.int64)

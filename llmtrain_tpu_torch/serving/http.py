@@ -16,14 +16,21 @@
   one ``generate()`` call behind the device lock with a
   ``torch.Generator`` seeded from the request's ``seed``.
 * ``POST /reload`` — zero-downtime checkpoint hot swap through the CLI's
-  reloader (continuous mode); 404 without one.
+  reloader (continuous mode; a rolling reload with a router in the
+  scheduler seat); 404 without one.
+
+The scheduler seat holds a :class:`~.scheduler.ContinuousBatchingScheduler`
+or a :class:`~.router.ReplicaRouter` (duck-typed). Ingress tracing: a
+request carrying a ``traceparent`` header becomes a hop of that trace, and
+``X-Trace: force`` keeps its trace whatever the tail sampler says; the
+``trace_id`` comes back in the response (errors and 429s too) and tags the
+latency, TTFT and per-token histogram observations as exemplars.
 
 As in the JAX server, a request whose prompt + ``max_new_tokens`` exceeds
 ``block_size`` is answered with 400, so a served request always takes the
 KV-cache branch of ``generate()``; the sliding-window re-forward branch,
 which runs the flash kernel, is reached through ``generate()`` itself and
-the ``generate`` CLI. Request tracing is not yet ported (ROADMAP.md queue
-A: telemetry).
+the ``generate`` CLI.
 
 Thread discipline: ``ThreadingHTTPServer`` runs one handler thread per
 connection, so every cross-request mutable lives in :class:`ServerStats`
@@ -162,14 +169,15 @@ class ServerState:
     # continuous backend replaces the lock with its admission queue.
     lock: threading.Lock = field(default_factory=threading.Lock)
     stats: ServerStats = field(default_factory=ServerStats)
-    # Continuous-batching backend (serving/scheduler.py); None = simple.
+    # Continuous-batching backend (serving/scheduler.py) or a ReplicaRouter
+    # (serving/router.py) — duck-typed; None = simple.
     scheduler: Any | None = None
     # Telemetry registry served on GET /metrics (llmtrain_serve_*).
     registry: Any | None = None
     request_timeout_sec: float = 120.0
     # POST /reload calls this with the request body; it loads the
-    # checkpoint, hot-swaps the scheduler and returns the response dict
-    # (the CLI builds the closure). None = 404.
+    # checkpoint, hot-swaps the scheduler (router: rolling_reload) and
+    # returns the response dict (the CLI builds the closure). None = 404.
     reloader: Any | None = None
     # /healthz turns 503 when the scheduler loop's beacon is older than
     # this (serving.liveness_stale_sec).
@@ -192,8 +200,43 @@ def _bad_request(msg: str) -> tuple[int, dict]:
 
 
 def _header(headers: Any, name: str) -> str | None:
-    """Header lookup (``email.message.Message.get`` ignores case)."""
-    return None if headers is None else headers.get(name)
+    """Case-insensitive header lookup for the stdlib
+    ``email.message.Message`` (real requests) and plain dicts (tests)."""
+    if headers is None:
+        return None
+    get = getattr(headers, "get", None)
+    if get is None:
+        return None
+    value = get(name)
+    if value is None and isinstance(headers, dict):
+        value = {k.lower(): v for k, v in headers.items()}.get(name.lower())
+    return value
+
+
+def _attach_trace(state: ServerState, req: Any, headers: Any) -> None:
+    """Ingress tracing: adopt a propagated ``traceparent`` (the request is a
+    hop of a router-minted trace — our spans parent under the router's
+    dispatch span) or honour ``X-Trace: force``. With neither, nothing
+    happens here: the scheduler/router mints its own root on submit. Trace
+    failures never fail a request."""
+    tracer = getattr(state.scheduler, "tracer", None)
+    if tracer is None:
+        return
+    try:
+        from ..telemetry.tracing import FORCE_HEADER, TRACEPARENT_HEADER, TraceContext
+
+        parent = TraceContext.from_traceparent(_header(headers, TRACEPARENT_HEADER))
+        forced = (_header(headers, FORCE_HEADER) or "").strip().lower() == "force"
+        if parent is None and not forced:
+            return
+        root_name = (
+            "router/request"
+            if getattr(state.scheduler, "policy", "") == "router"
+            else "serve/request"
+        )
+        req.trace = tracer.start(parent=parent, forced=forced, root_name=root_name)
+    except Exception:  # noqa: BLE001 — tracing is best-effort
+        pass
 
 
 def _handle_generate_request(
@@ -313,6 +356,7 @@ def _generate_request_inner(
 
     t0 = time.monotonic()
     extra: dict[str, Any] = {}
+    trace_id: str | None = None
     if state.scheduler is not None:
         # Continuous batching: enqueue and wait; the scheduler thread
         # joins this sequence into the in-flight batch.
@@ -330,6 +374,7 @@ def _generate_request_inner(
             priority=priority,
             rid=rid,
         )
+        _attach_trace(state, req, headers)
         state.scheduler.submit(req)
         if not req.done.wait(timeout=state.request_timeout_sec):
             # Tell the scheduler this waiter is gone, so the device does
@@ -337,6 +382,7 @@ def _generate_request_inner(
             req.abandon()
             state.stats.record_error()
             return 503, {"error": "request timed out in the serving queue", **echo}
+        trace_id = req.trace_id
         if req.finish_reason in ("rejected", "shed"):
             # Overload control said no — fast 429 with the reason and a
             # Retry-After hint (do_POST lifts it into the header).
@@ -346,16 +392,23 @@ def _generate_request_inner(
                 "finish_reason": req.finish_reason,
                 **echo,
             }
+            if trace_id is not None:
+                payload["trace_id"] = trace_id
             if req.retry_after_sec is not None:
                 payload["retry_after"] = round(req.retry_after_sec, 3)
             return 429, payload
         if req.error is not None:
             state.stats.record_error()
-            return 500, {"error": f"generation failed: {req.error}", **echo}
+            payload = {"error": f"generation failed: {req.error}", **echo}
+            if trace_id is not None:
+                payload["trace_id"] = trace_id
+            return 500, payload
         completion = list(req.tokens)
         if req.ttft_ms is not None:
             extra["ttft_ms"] = round(req.ttft_ms, 3)
         extra["finish_reason"] = req.finish_reason
+        if trace_id is not None:
+            extra["trace_id"] = trace_id
     else:
         with state.lock:
             generator = torch.Generator(device=state.device)
@@ -377,7 +430,7 @@ def _generate_request_inner(
     ttft_ms = extra.get("ttft_ms")
     state.stats.record(latency_ms=latency_ms, tokens=len(completion), ttft_ms=ttft_ms)
     if state.registry is not None:
-        _observe_histograms(state.registry, latency_ms, len(completion), ttft_ms)
+        _observe_histograms(state.registry, latency_ms, len(completion), ttft_ms, trace_id)
         if state.scheduler is None:
             # The scheduler counts its own requests.
             state.registry.inc("serve/requests")
@@ -399,16 +452,24 @@ def _generate_request_inner(
 
 
 def _observe_histograms(
-    registry: Any, latency_ms: float, tokens: int, ttft_ms: float | None
+    registry: Any, latency_ms: float, tokens: int, ttft_ms: float | None,
+    trace_id: str | None,
 ) -> None:
     """Feed the /metrics histograms (latency; TTFT and per-token decode
-    latency where the backend measured a first token)."""
-    registry.observe("serve/latency_ms", latency_ms, buckets=_LATENCY_BUCKETS_MS)
-    if ttft_ms is not None:
-        registry.observe("serve/ttft_ms", ttft_ms, buckets=_TTFT_BUCKETS_MS)
-        if tokens > 1:
-            registry.observe("serve/per_token_ms", (latency_ms - ttft_ms) / (tokens - 1),
-                             buckets=_PER_TOKEN_BUCKETS_MS)
+    latency where the backend measured a first token), each observation
+    tagged with the request's trace id so its bucket carries an OpenMetrics
+    exemplar. Metrics are best-effort."""
+    try:
+        registry.observe("serve/latency_ms", latency_ms, buckets=_LATENCY_BUCKETS_MS,
+                         trace_id=trace_id)
+        if ttft_ms is not None:
+            registry.observe("serve/ttft_ms", ttft_ms, buckets=_TTFT_BUCKETS_MS,
+                             trace_id=trace_id)
+            if tokens > 1:
+                registry.observe("serve/per_token_ms", (latency_ms - ttft_ms) / (tokens - 1),
+                                 buckets=_PER_TOKEN_BUCKETS_MS, trace_id=trace_id)
+    except Exception:  # noqa: BLE001 — metrics must not fail a request
+        pass
 
 
 def _handle_reload(state: ServerState, body: Any) -> tuple[int, dict]:
@@ -431,7 +492,9 @@ def _handle_reload(state: ServerState, body: Any) -> tuple[int, dict]:
 
 
 def _handle_health(state: ServerState) -> tuple[int, dict]:
-    """Liveness + stats: a dead or wedged scheduler loop answers 503."""
+    """Liveness + stats: a dead or wedged scheduler loop answers 503; a
+    router in the scheduler seat is unhealthy when its whole fleet is
+    evicted."""
     payload: dict[str, Any] = {
         "status": "ok",
         "model": type(state.model).__name__,
@@ -442,7 +505,13 @@ def _handle_health(state: ServerState) -> tuple[int, dict]:
     }
     if state.scheduler is not None:
         payload["scheduler"] = state.scheduler.stats()
-        if not state.scheduler.alive(state.liveness_stale_sec):
+        alive_fn = getattr(state.scheduler, "alive", None)
+        if alive_fn is not None:
+            alive = bool(alive_fn(state.liveness_stale_sec))
+        else:
+            healthy = payload["scheduler"].get("router", {}).get("replicas_healthy")
+            alive = healthy is None or healthy > 0
+        if not alive:
             payload["status"] = "unhealthy"
             return 503, payload
     return 200, payload

@@ -13,8 +13,11 @@ page on:
 * tokens/s and requests/s over the run,
 * batch-occupancy and KV-pool peaks, and the bounded-shape accounting.
 
-The result feeds the ``serve-bench`` CLI's stdout summary and the
-``llmtrain_serve_*`` gauges of the MetricsRegistry. The request population
+The result feeds the ``serving`` block of ``report.json``/``report.md``
+(telemetry/report.py), the ``serve-bench`` CLI's stdout summary and the
+``llmtrain_serve_*`` gauges of the MetricsRegistry. With a router in the
+scheduler seat the block gains the fleet view (placement counters,
+per-replica occupancy, the fleet prefix hit rate). The request population
 comes from one numpy Generator, so a seed gives the same population as the
 JAX package's; everything is deterministic per (seed, rate, request count)
 except wall-clock timing itself.
@@ -260,6 +263,34 @@ def run_loadgen(
         block["compile"] = stats["compile"]
     if "params" in stats:
         block["params"] = stats["params"]
+    if "router" in stats:
+        # Fleet view: placement counters, per-replica occupancy/health,
+        # and the fleet-wide prefix hit rate.
+        r = stats["router"]
+        block["router"] = {
+            "replicas_healthy": r["replicas_healthy"],
+            "requests_routed": r["requests_routed"],
+            "affinity_routed": r["affinity_routed"],
+            "failovers": r["failovers"],
+            "fleet_prefix": r["fleet_prefix"],
+            "replicas": [
+                {
+                    "name": rep["name"],
+                    "healthy": rep["healthy"],
+                    "routed": rep["routed"],
+                    "peak_batch_occupancy": rep["stats"].get(
+                        "peak_batch_occupancy"
+                    ),
+                    "requests_finished": rep["stats"].get("requests_finished"),
+                    "prefix_hit_rate": rep["stats"]
+                    .get("kv_pool", {})
+                    .get("prefix_hit_rate"),
+                }
+                for rep in r["replicas"]
+            ],
+        }
+        block["prefix_cache"] = r["fleet_prefix"]
+
     if rejected or shed or "overload" in stats:
         # Overload-control outcomes, gateable like parity: the reason
         # taxonomy, how FAST the rejections were (a slow rejection is a
@@ -279,7 +310,7 @@ def run_loadgen(
             "rejected_by_reason": by_reason,
             "rejection_latency_ms": percentiles(rejection_latency),
         }
-        controller = stats.get("overload")
+        controller = stats.get("overload") or stats.get("router", {}).get("overload")
         if controller is not None:
             overload_block["controller"] = controller
         block["overload"] = overload_block

@@ -45,8 +45,13 @@ and inter-token gaps, which the load harness (loadgen.py) aggregates.
 Metrics publish into the telemetry MetricsRegistry under ``serve/*``
 (→ ``llmtrain_serve_*`` in Prometheus).
 
-Not yet ported: request tracing with a serving timeline (ROADMAP.md queue
-A: telemetry).
+Tracing: with a timeline (telemetry/timeline.py) every request's
+queue-wait, prefill and decode land as request-id-tagged spans, the pool's
+KV events and first-shape runs as instants, and a request tracer
+(telemetry/tracing.py) buffers each request's span tree for tail sampling.
+Spans close on the host: a prefill or decode span ends after the engine
+has copied its sampled tokens to the host, which waits for the device
+work, so no synchronization is added for tracing.
 """
 
 from __future__ import annotations
@@ -56,12 +61,14 @@ import os
 import threading
 import time
 from collections import deque
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
 import torch
 
+from ..telemetry.tracing import Tracer
 from ..utils.logging import get_logger
 from .engine import PagedDecodeEngine
 from .overload import (
@@ -97,6 +104,9 @@ class ServeRequest:
     request_id: str = field(default_factory=new_request_id)
     # Measurements (scheduler-thread writes, reader waits on `done`).
     submitted_t: float = 0.0
+    # perf_counter twin of submitted_t: EventTimeline spans are
+    # perf_counter-relative, so the queue-wait span needs this clock.
+    submitted_pc: float = 0.0
     first_token_t: float | None = None
     finished_t: float | None = None
     token_times: list[float] = field(default_factory=list)
@@ -113,6 +123,11 @@ class ServeRequest:
     deadline_ms: float | None = None
     priority: str = "interactive"
     rid: str | None = None
+    # Distributed trace (telemetry/tracing.py): the per-request span buffer
+    # + W3C-style context. Set by the ingress that minted the root (router,
+    # HTTP handler) or by the scheduler's own submit; resolved exactly once
+    # by whichever component sets ``done``.
+    trace: Any = None
     # Queue depth seen at submit — the EWMA wait estimator's x-axis.
     queue_depth_at_submit: int = 0
     # Set when the overload layer rejected/shed this request: the
@@ -128,6 +143,10 @@ class ServeRequest:
 
     def abandon(self) -> None:
         self.abandoned.set()
+
+    @property
+    def trace_id(self) -> str | None:
+        return self.trace.trace_id if self.trace is not None else None
 
     @property
     def ttft_ms(self) -> float | None:
@@ -181,18 +200,14 @@ class ContinuousBatchingScheduler:
         draft_model: Any | None = None,
         draft_engine: PagedDecodeEngine | None = None,
         gamma: int = 4,
+        timeline: Any | None = None,  # telemetry EventTimeline
         overload: OverloadController | None = None,
-        tracer: Any | None = None,
+        tracer: Tracer | None = None,
     ) -> None:
         if policy not in ("paged", "speculative"):
             raise ValueError(
                 f"serving policy {policy!r} unknown; expected 'paged' or "
                 "'speculative'"
-            )
-        if tracer is not None:
-            raise NotImplementedError(
-                "request tracing is not yet ported to llmtrain_tpu_torch "
-                "(ROADMAP.md queue A: telemetry)"
             )
         if policy == "paged" and engine is None:
             raise ValueError("policy='paged' requires a PagedDecodeEngine")
@@ -216,6 +231,21 @@ class ContinuousBatchingScheduler:
         self.engine = engine
         self.policy = policy
         self.registry = registry
+        # Serving timeline: queue-wait/prefill/decode spans tagged with
+        # request ids, so one request's life is followable in Perfetto.
+        # None = no tracing overhead.
+        self.timeline = timeline
+        # Request tracing: on whenever a timeline exists — the per-request
+        # cost is a small span buffer, and only tail-sampled traces are
+        # flushed in full detail.
+        self.tracer = tracer if tracer is not None else (
+            Tracer(timeline) if timeline is not None else None
+        )
+        if timeline is not None and engine is not None:
+            # Pool-level KV events (evictions, COW) and first-shape runs
+            # land as timeline instants.
+            engine.pool.observer = self._kv_event
+            engine.on_compile = self._compile_event
         self.max_batch_slots = int(
             max_batch_slots or (engine.max_batch_slots if engine is not None else 1)
         )
@@ -278,6 +308,11 @@ class ContinuousBatchingScheduler:
         set, ``finish_reason == "rejected"``, and a ``reject_reason`` /
         ``retry_after_sec`` the HTTP layer maps to 429 + Retry-After."""
         req.submitted_t = time.monotonic()
+        req.submitted_pc = time.perf_counter()
+        if self.tracer is not None and req.trace is None:
+            # Direct submitters (loadgen, tests) get a root minted here;
+            # router/HTTP ingress attach their own before submitting.
+            req.trace = self.tracer.start()
         verdict: tuple[str, float] | None = None
         with self._wake:
             if self._closed:
@@ -306,7 +341,7 @@ class ContinuousBatchingScheduler:
     ) -> None:
         """Finalize an overload rejection: ``rejected`` at submit time,
         ``shed`` for a queued request dropped past its deadline. Every
-        rejection lands as a labeled counter."""
+        rejection lands as a labeled counter + timeline instant."""
         req.reject_reason = reason
         if retry_after is not None:
             req.retry_after_sec = retry_after
@@ -316,6 +351,24 @@ class ContinuousBatchingScheduler:
             self._overload.note_rejection(reason, shed=shed)
         if self.registry is not None:
             self.registry.inc(rejected_counter(reason))
+        if self.timeline is not None:
+            extra = {"rid": req.rid} if req.rid else {}
+            if req.trace is not None:
+                extra["trace_id"] = req.trace.trace_id
+            self.timeline.instant(
+                "serve/rejected",
+                cat="serve",
+                reason=reason,
+                request_id=req.request_id,
+                **extra,
+            )
+        if req.trace is not None:
+            note: dict[str, Any] = {"reject_reason": reason}
+            predicted = getattr(req, "admission_predicted_wait_ms", None)
+            if predicted is not None:
+                note["predicted_wait_ms"] = predicted
+            req.trace.note(**note)
+        self._finish_trace(req)
         req.done.set()
 
     def hot_swap(
@@ -338,14 +391,122 @@ class ContinuousBatchingScheduler:
 
     # ------------------------------------------------------------- backend
 
+    def _span(self, name: str, **args: Any):
+        """Timeline span tagged for Perfetto, no-op without a timeline."""
+        if self.timeline is None:
+            return nullcontext()
+        return self.timeline.span(name, cat="serve", **args)
+
+    @contextmanager
+    def _traced_span(self, req: ServeRequest, name: str, **args: Any):
+        """Per-request span, recorded twice: live into the timeline (with a
+        ``trace_id`` correlation arg, un-treed — the always-on view) and
+        into the request's tail-sampling buffer with true perf_counter
+        stamps, flushed as part of the span TREE only if the trace is kept
+        (telemetry/tracing.py)."""
+        trace = req.trace
+        live = args if trace is None else {**args, "trace_id": trace.trace_id}
+        t0 = time.perf_counter()
+        try:
+            with self._span(name, **live):
+                yield
+        finally:
+            if trace is not None:
+                trace.add_span(name, t0=t0, t1=time.perf_counter(), **args)
+
+    def _kv_event(self, name: str, args: dict[str, Any]) -> None:
+        """PagedKVPool observer: pool-level events (prefix evictions, COW
+        copies) become serving timeline instants."""
+        if self.timeline is not None:
+            self.timeline.instant(f"serve/kv_{name}", cat="serve", **args)
+
+    def _compile_event(self, kind: str, bucket: int) -> None:
+        """Engine first-shape hook: the first run of a bucket shape lands as
+        an instant (JAX's compile instant; eager PyTorch compiles nothing,
+        but a first shape still pays its allocator and library warm-up)."""
+        if self.timeline is not None:
+            self.timeline.instant("serve/compile", cat="serve", kind=kind, bucket=bucket)
+
+    def _finish_trace(self, req: ServeRequest) -> None:
+        """Resolve the request's distributed trace: add the decode-phase
+        span, then let the tail sampler decide whether the buffered tree is
+        flushed. Called by every path that sets ``done``; idempotent (the
+        router may also sit on a request's completion path).
+
+        Best-effort: it runs BEFORE ``req.done.set()`` on the scheduler step
+        thread, so a tracer/timeline failure (an OSError flushing a
+        file-backed timeline) must not hang the client waiter or kill the
+        loop."""
+        try:
+            self._finish_trace_inner(req)
+        except Exception:  # noqa: BLE001 — tracing must never fail a request
+            logger.warning(
+                "trace finish failed for request %s", req.request_id, exc_info=True
+            )
+
+    def _finish_trace_inner(self, req: ServeRequest) -> None:
+        if self.tracer is None or req.trace is None:
+            return
+        t1 = time.perf_counter()
+        if req.submitted_pc > 0.0 and req.finished_t is not None:
+            # Map the monotonic measurement stamps onto the perf_counter
+            # timeline via the paired submit stamps.
+            off = req.submitted_pc - req.submitted_t
+            t1 = req.finished_t + off
+            if req.first_token_t is not None and req.finished_t > req.first_token_t:
+                req.trace.add_span(
+                    "serve/decode_phase",
+                    t0=req.first_token_t + off,
+                    t1=t1,
+                    request_id=req.request_id,
+                    tokens=len(req.tokens),
+                )
+        root_args: dict[str, Any] = {
+            "request_id": req.request_id,
+            "finish_reason": req.finish_reason,
+        }
+        if req.rid:
+            root_args["rid"] = req.rid
+        if req.ttft_ms is not None:
+            root_args["ttft_ms"] = round(req.ttft_ms, 3)
+        self.tracer.finish(
+            req.trace,
+            t0=req.submitted_pc if req.submitted_pc > 0.0 else t1,
+            t1=t1,
+            errored=req.error is not None or req.finish_reason == "error",
+            **root_args,
+        )
+
     def _record_queue_wait(self, req: ServeRequest) -> None:
-        """The overload estimator's learning signal: the OBSERVED wait at
-        the depth the request saw calibrates the predicted wait."""
+        """Queue-wait span from the submit stamp to now — with the
+        request_id tag it abuts the same request's prefill span. Also the
+        overload estimator's learning signal: the OBSERVED wait at the depth
+        the request saw calibrates the predicted wait."""
         if self._overload is not None and req.submitted_t > 0.0:
             self._overload.observe_queue_wait(
                 (time.monotonic() - req.submitted_t) * 1e3,
                 req.queue_depth_at_submit,
             )
+        if req.submitted_pc <= 0.0:
+            return
+        t1 = time.perf_counter()
+        if req.trace is not None:
+            req.trace.add_span(
+                "serve/queue_wait", t0=req.submitted_pc, t1=t1, request_id=req.request_id
+            )
+        if self.timeline is None:
+            return
+        extra = {"rid": req.rid} if req.rid else {}
+        if req.trace is not None:
+            extra["trace_id"] = req.trace.trace_id
+        self.timeline.record(
+            "serve/queue_wait",
+            t0=req.submitted_pc,
+            t1=t1,
+            cat="serve",
+            request_id=req.request_id,
+            **extra,
+        )
 
     # -------------------------------------------------------- param epochs
 
@@ -430,6 +591,13 @@ class ContinuousBatchingScheduler:
                 "queue depth %d)",
                 transition, ov.predicted_wait_ms(depth), depth,
             )
+            if self.timeline is not None:
+                self.timeline.instant(
+                    f"serve/brownout_{transition}",
+                    cat="serve",
+                    predicted_wait_ms=round(ov.predicted_wait_ms(depth), 3),
+                    queue_depth=depth,
+                )
         if not ov.shedding_active:
             return False
         now = time.monotonic()
@@ -472,15 +640,26 @@ class ContinuousBatchingScheduler:
         )
         final = end == row.prompt_len
         engine.pool.grow(row.table, end)
+        extra = {"rid": row.req.rid} if row.req.rid else {}
         try:
-            tok = engine.prefill(
-                row.req.prompt_ids[start:end],
-                row.table.padded(engine.max_blocks_per_seq),
+            # The span ends after the engine's host copy of the sampled
+            # token, which waits for the prefill's device work.
+            with self._traced_span(
+                row.req,
+                "serve/prefill",
+                request_id=row.req.request_id,
+                prompt_tokens=end - start,
                 offset=start,
-                params=self._params_by_epoch[row.epoch],
-                sample=final,
-                **row.sampling(),
-            )
+                **extra,
+            ):
+                tok = engine.prefill(
+                    row.req.prompt_ids[start:end],
+                    row.table.padded(engine.max_blocks_per_seq),
+                    offset=start,
+                    params=self._params_by_epoch[row.epoch],
+                    sample=final,
+                    **row.sampling(),
+                )
         except Exception as exc:  # noqa: BLE001 — fail THIS request only
             self._drop_row(row)
             self._fail(row.req, exc)
@@ -566,6 +745,16 @@ class ContinuousBatchingScheduler:
             # block match needs a private copy (COW) before its divergent
             # tail is written.
             match = engine.pool.match_prefix(req.prompt_ids)
+            if req.trace is not None:
+                # Prefix-cache verdict inside the request's trace: a miss
+                # that forces a full prefill explains a slow first token.
+                req.trace.add_event(
+                    "serve/prefix_cache",
+                    t=time.perf_counter(),
+                    hit=match.hit,
+                    matched_tokens=match.matched_tokens,
+                    prompt_tokens=int(req.prompt_ids.shape[0]),
+                )
             if match.hit:
                 engine.pool.bind_prefix(row.table, match)
                 row.prefilled = match.matched_tokens
@@ -633,8 +822,19 @@ class ContinuousBatchingScheduler:
                             **r.sampling(),
                         }
                     )
+                rids = [r.req.rid for r in group if r.req.rid]
+                extra = {"rids": rids} if rids else {}
                 try:
-                    toks = engine.decode(rows, params=self._params_by_epoch[ep])
+                    # Ends after the engine's host copy of the batch's
+                    # tokens: the span covers the decode's device work.
+                    with self._span(
+                        "serve/decode",
+                        request_ids=[r.req.request_id for r in group],
+                        batch=len(rows),
+                        param_epoch=ep,
+                        **extra,
+                    ):
+                        toks = engine.decode(rows, params=self._params_by_epoch[ep])
                 except Exception as exc:  # noqa: BLE001 — contain: a decode
                     # failure must not kill the scheduler thread (every
                     # later waiter would time out against a dead loop). The
@@ -677,18 +877,19 @@ class ContinuousBatchingScheduler:
         generator = torch.Generator(device=next(self._model.parameters()).device)
         generator.manual_seed(req.seed)
         try:
-            out = speculative_generate(
-                self._model,
-                self._draft_model,
-                req.prompt_ids[None, :],
-                max_new_tokens=req.max_new_tokens,
-                gamma=self._gamma,
-                temperature=req.temperature,
-                top_k=req.top_k,
-                top_p=req.top_p,
-                eos_token_id=req.eos_token_id,
-                generator=generator,
-            )
+            with self._traced_span(req, "serve/speculative_decode", request_id=req.request_id):
+                out = speculative_generate(
+                    self._model,
+                    self._draft_model,
+                    req.prompt_ids[None, :],
+                    max_new_tokens=req.max_new_tokens,
+                    gamma=self._gamma,
+                    temperature=req.temperature,
+                    top_k=req.top_k,
+                    top_p=req.top_p,
+                    eos_token_id=req.eos_token_id,
+                    generator=generator,
+                )
         except Exception as exc:  # noqa: BLE001 — fail THIS request only
             self._fail(req, exc)
             return
@@ -709,6 +910,7 @@ class ContinuousBatchingScheduler:
         self.requests_finished += 1
         if self.registry is not None:
             self.registry.inc("serve/requests")
+        self._finish_trace(req)
         req.done.set()
 
     def _step_speculative_one(self) -> bool:
@@ -798,12 +1000,15 @@ class ContinuousBatchingScheduler:
             draft.pool.grow(row.draft_table, tp)
             self._record_queue_wait(req)
             try:
-                tok = engine.prefill(
-                    req.prompt_ids,
-                    row.table.padded(engine.max_blocks_per_seq),
-                    params=self._params_by_epoch[row.epoch],
-                    **row.sampling(),
-                )
+                with self._traced_span(
+                    req, "serve/prefill", request_id=req.request_id, prompt_tokens=tp
+                ):
+                    tok = engine.prefill(
+                        req.prompt_ids,
+                        row.table.padded(engine.max_blocks_per_seq),
+                        params=self._params_by_epoch[row.epoch],
+                        **row.sampling(),
+                    )
                 # The draft's prefill writes the prompt's DRAFT K/V; its
                 # token is discarded.
                 draft.prefill(
@@ -848,22 +1053,23 @@ class ContinuousBatchingScheduler:
             try:
                 # Draft gamma tokens per row, batched across rows; round gamma
                 # re-feeds the last draft so its K/V is resident next step.
-                for j in range(live_gamma + 1):
-                    drows = []
-                    for i, r in enumerate(rows_now):
-                        pos = base[i] + j
-                        draft.pool.grow(r.draft_table, pos + 1)
-                        drows.append({
-                            "token": prev[i],
-                            "position": pos,
-                            "table": r.draft_table.padded(draft.max_blocks_per_seq),
-                            **greedy,
-                        })
-                    out = draft.decode(drows)
-                    if j < live_gamma:
-                        for i, t in enumerate(out):
-                            drafts[i].append(int(t))
-                        prev = [int(t) for t in out]
+                with self._span("serve/speculative_draft", batch=len(rows_now), gamma=live_gamma):
+                    for j in range(live_gamma + 1):
+                        drows = []
+                        for i, r in enumerate(rows_now):
+                            pos = base[i] + j
+                            draft.pool.grow(r.draft_table, pos + 1)
+                            drows.append({
+                                "token": prev[i],
+                                "position": pos,
+                                "table": r.draft_table.padded(draft.max_blocks_per_seq),
+                                **greedy,
+                            })
+                        out = draft.decode(drows)
+                        if j < live_gamma:
+                            for i, t in enumerate(out):
+                                drafts[i].append(int(t))
+                            prev = [int(t) for t in out]
             except Exception as exc:  # noqa: BLE001 — the drafts are unusable
                 self._fail_all_in_flight(exc)
                 self._publish_metrics()
@@ -886,8 +1092,14 @@ class ContinuousBatchingScheduler:
                         "table": r.table.padded(engine.max_blocks_per_seq),
                     })
                 try:
-                    outs = engine.verify(vrows, width=live_gamma + 1,
-                                         params=self._params_by_epoch[ep])
+                    with self._span(
+                        "serve/speculative_verify",
+                        batch=len(vrows),
+                        width=live_gamma + 1,
+                        param_epoch=ep,
+                    ):
+                        outs = engine.verify(vrows, width=live_gamma + 1,
+                                             params=self._params_by_epoch[ep])
                 except Exception as exc:  # noqa: BLE001 — contain
                     self._active = survivors + [
                         rows_now[i] for e2 in epochs[gi:] for i in by_epoch[e2]
@@ -951,6 +1163,7 @@ class ContinuousBatchingScheduler:
         self.requests_finished += 1
         if self.registry is not None:
             self.registry.inc("serve/requests")
+        self._finish_trace(row.req)
         row.req.done.set()
 
     def _retire_abandoned(self, req: ServeRequest) -> None:
@@ -961,6 +1174,11 @@ class ContinuousBatchingScheduler:
         req.finished_t = time.monotonic()
         if self.registry is not None:
             self.registry.inc("serve/requests_abandoned")
+        if req.trace is not None:
+            # An abandonment IS a latency incident (the waiter timed out):
+            # force-keep the trace so the post-mortem has the span tree.
+            req.trace.note(abandoned=True, error="abandoned by waiter")
+        self._finish_trace(req)
         req.done.set()
 
     def _fail_all_in_flight(self, cause: Exception) -> None:
@@ -982,6 +1200,7 @@ class ContinuousBatchingScheduler:
         req.finished_t = time.monotonic()
         if self.registry is not None:
             self.registry.inc("serve/request_errors")
+        self._finish_trace(req)
         req.done.set()
 
     def _publish_metrics(self) -> None:
@@ -1101,7 +1320,20 @@ class ContinuousBatchingScheduler:
         )
 
     def run_forever(self, poll_sec: float = 0.005) -> None:
-        """Scheduler loop body for the background thread."""
+        """Scheduler loop body for the background thread. The current CUDA
+        device and inference mode are per-thread state, so the loop sets
+        both for itself: several schedulers (in-process router replicas)
+        each step on their own thread."""
+        device = (
+            self.engine.device if self.engine is not None
+            else next(self._model.parameters()).device
+        )
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        with torch.inference_mode():
+            self._loop(poll_sec)
+
+    def _loop(self, poll_sec: float) -> None:
         while True:
             self._beacon = time.monotonic()
             with self._wake:
@@ -1133,6 +1365,11 @@ class ContinuousBatchingScheduler:
             self._thread.join(timeout=timeout)
             if self._thread.is_alive():
                 logger.warning("serve scheduler did not drain in %.0fs", timeout)
+        if self.timeline is not None:
+            try:
+                self.timeline.flush()
+            except Exception:  # noqa: BLE001 — teardown must not raise
+                pass
 
 
 __all__ = ["ContinuousBatchingScheduler", "ServeRequest"]

@@ -3,16 +3,22 @@
 
 Naming convention: metric names map ``serve/latency_ms`` →
 ``llmtrain_serve_latency_ms`` — one ``llmtrain_`` namespace,
-non-alphanumerics folded to ``_``. Simple-mode serving renders its
-``GET /metrics`` through :func:`render_prometheus`; the scrape endpoint,
-textfile writer and fleet federation come with later slices.
+non-alphanumerics folded to ``_``. Serving renders its ``GET /metrics``
+through :func:`render_prometheus`, and ``serve --trace-dir`` snapshots the
+same text to a textfile with :func:`write_textfile`; the scrape endpoint
+and fleet federation are not ported (ROADMAP.md queue A: telemetry).
 """
 
 from __future__ import annotations
 
 import math
 import re
+from pathlib import Path
 from typing import Any
+
+from ..utils.logging import get_logger
+
+logger = get_logger()
 
 _NAME_RE = re.compile(r"[^a-zA-Z0-9_]")
 _PREFIX = "llmtrain_"
@@ -127,4 +133,19 @@ def render_prometheus(
     return "\n".join(lines) + "\n"
 
 
-__all__ = ["prometheus_name", "render_histogram", "render_prometheus"]
+def write_textfile(path: str | Path, text: str) -> bool:
+    """Atomic write (tmp + rename) of the textfile-collector snapshot; a
+    scraper must never read a half-written file. Never raises."""
+    target = Path(path)
+    tmp = target.with_name(target.name + ".tmp")
+    try:
+        target.parent.mkdir(parents=True, exist_ok=True)
+        tmp.write_text(text, encoding="utf-8")
+        tmp.replace(target)
+        return True
+    except OSError as exc:
+        logger.warning("prometheus textfile write to %s failed (%s)", target, exc)
+        return False
+
+
+__all__ = ["prometheus_name", "render_histogram", "render_prometheus", "write_textfile"]

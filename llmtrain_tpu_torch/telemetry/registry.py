@@ -66,5 +66,13 @@ class MetricsRegistry:
         with self._lock:
             return dict(self._histograms)
 
+    # The report reads these (telemetry/report.py). With no tracker flush
+    # ported there is no per-flush history and no flush can fail — what a
+    # JAX registry holds in a serving process, which never flushes.
+    tracker_errors = 0
+
+    def history(self) -> list[tuple[int | None, dict[str, float]]]:
+        return []
+
 
 __all__ = ["MetricsRegistry"]

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_helpers  # noqa: F401 — caps torch at one CPU thread
+
 from llmtrain_tpu.ops.chunked_ce import chunked_ce_components as jax_chunked_ce_components
 from llmtrain_tpu.ops.chunked_ce import chunked_ce_per_token as jax_chunked_ce_per_token
 from llmtrain_tpu_torch.ops.chunked_ce import chunked_ce_components, chunked_ce_per_token

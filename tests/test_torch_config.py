@@ -8,6 +8,8 @@ import pytest
 import torch
 import yaml
 
+import torch_port_helpers  # noqa: F401 — caps torch at one CPU thread
+
 from llmtrain_tpu.config import ConfigLoadError as JaxConfigLoadError
 from llmtrain_tpu.config import load_and_validate_config as jax_load
 from llmtrain_tpu_torch import cli

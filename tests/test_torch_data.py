@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
+import torch_port_helpers  # noqa: F401 — caps torch at one CPU thread
+
 from llmtrain_tpu.config.schemas import RunConfig as JaxRunConfig
 from llmtrain_tpu.data.local_text import LocalTextDataModule as JaxLocalText
 from llmtrain_tpu.data.sampler import DeterministicSampler as JaxSampler

@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_helpers  # noqa: F401 — caps torch at one CPU thread
+
 from llmtrain_tpu.ops.pallas_attention import pallas_flash_attention_fwd
 from llmtrain_tpu_torch.ops import flash_attention as flash_ops
 

@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_helpers  # noqa: F401 — caps torch at one CPU thread
+
 from llmtrain_tpu.ops.flash_attention import flash_attention as jax_flash_attention
 from llmtrain_tpu.ops.pallas_attention import (
     pallas_flash_attention_bwd,

@@ -31,6 +31,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_helpers  # noqa: F401 — caps torch at one CPU thread
+
 from llmtrain_tpu.ops.pallas_attention import (
     pallas_flash_attention_bwd,
     pallas_flash_attention_fwd,

@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_helpers  # noqa: F401 — caps torch at one CPU thread
+
 from llmtrain_tpu.ops.fused_ce import fused_ce_components as jax_fused_ce_components
 from llmtrain_tpu.ops.fused_ce import fused_ce_per_token as jax_fused_ce_per_token
 from llmtrain_tpu_torch.ops import fused_ce as fc

@@ -36,6 +36,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_helpers  # noqa: F401 — caps torch at one CPU thread
+
 from llmtrain_tpu_torch.ops import fused_ce as fc
 
 CE_DW_RTOL = 1e-4

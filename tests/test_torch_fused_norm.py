@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_helpers  # noqa: F401 — caps torch at one CPU thread
+
 from llmtrain_tpu.ops.fused_norm import fused_add_layer_norm as jax_add_ln
 from llmtrain_tpu.ops.fused_norm import fused_layer_norm as jax_ln
 from llmtrain_tpu_torch.ops import fused_norm as fn

@@ -9,6 +9,8 @@ from pathlib import Path
 
 import pytest
 
+import torch_port_helpers  # noqa: F401 — caps torch at one CPU thread
+
 _ROOT = Path(__file__).resolve().parents[1]
 _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "llmtrain_tpu")
 _FILES = sorted((_ROOT / "llmtrain_tpu_torch").rglob("*.py")) + [_ROOT / "chip_smoke.py"]

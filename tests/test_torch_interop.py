@@ -19,6 +19,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_port_helpers  # noqa: E402,F401 — caps torch at one CPU thread
+
 from llmtrain_tpu.interop import (  # noqa: E402
     params_from_torch_state_dict,
     params_to_torch_state_dict,

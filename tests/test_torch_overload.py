@@ -15,6 +15,8 @@ from typing import Any
 
 import pytest
 
+import torch_port_helpers  # noqa: F401 — caps torch at one CPU thread
+
 from llmtrain_tpu.serving import overload as jax_overload
 from llmtrain_tpu_torch.serving import overload as port_overload
 

@@ -14,6 +14,8 @@ from typing import Any
 
 import pytest
 
+import torch_port_helpers  # noqa: F401 — caps torch at one CPU thread
+
 from llmtrain_tpu.serving import paged_kv as jax_paged_kv
 from llmtrain_tpu_torch.serving import paged_kv as port_paged_kv
 

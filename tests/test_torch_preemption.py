@@ -23,7 +23,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import yaml
-from torch_port_helpers import run_cli
+from torch_port_helpers import port_env, run_cli
 
 from llmtrain_tpu_torch.cli import main as port_main
 from llmtrain_tpu_torch.config import load_and_validate_config
@@ -124,7 +124,7 @@ def test_signal_in_the_last_step_completes_the_run(tmp_path, monkeypatch) -> Non
 
 def test_sigterm_to_train_subprocess_exits_zero_with_checkpoint(tmp_path) -> None:
     cfg_path = _config(tmp_path, max_steps=100_000)
-    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    env = port_env(PYTHONPATH=str(REPO))
     proc = subprocess.Popen(
         [sys.executable, "-m", "llmtrain_tpu_torch", "train", "--config", str(cfg_path),
          "--run-id", "sub", "--json"],

@@ -18,10 +18,8 @@
 from __future__ import annotations
 
 import json
-import os
 import subprocess
 import sys
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -30,7 +28,9 @@ import pytest
 import torch
 import yaml
 from flax import serialization
-from torch_port_helpers import jax_gpt, port_gpt, random_params, run_cli, seeded_ids, to_torch
+from torch_port_helpers import (
+    jax_gpt, port_env, port_gpt, random_params, run_cli, seeded_ids, to_torch,
+)
 
 from llmtrain_tpu import cli as jax_cli
 from llmtrain_tpu.config import load_and_validate_config as jax_load
@@ -55,7 +55,6 @@ from llmtrain_tpu_torch.ops.quant import (
 )
 
 ATOL = RTOL = 2e-5
-_ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.mark.parametrize("shape, axes", [((48, 96), (0,)), ((48, 96), (1,)),
@@ -179,10 +178,8 @@ def test_generate_quantized_subprocess_matches_jax_cli(tmp_path, capsys) -> None
     argv = ["generate", "--config", str(cfg_path), "--from", str(ckpt), "--prompt-ids",
             "2,7,1,8,2,8", "--max-new-tokens", "30", "--temperature", "0", "--quantize", "int8",
             "--json"]
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(_ROOT) + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run([sys.executable, "-m", "llmtrain_tpu_torch", *argv], cwd=tmp_path,
-                          env=env, capture_output=True, text=True, timeout=300)
+                          env=port_env(), capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     ours = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "int8 weight quantization" in proc.stderr

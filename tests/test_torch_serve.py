@@ -10,7 +10,11 @@ server's 400; the generate CLI covers the re-forward branch.
 from __future__ import annotations
 
 import json
+import signal
+import subprocess
+import sys
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -18,7 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 from flax import serialization
-from torch_port_helpers import random_params, run_cli
+from torch_port_helpers import port_env, random_params, run_cli
 
 from llmtrain_tpu import cli as jax_cli
 from llmtrain_tpu.config import load_and_validate_config as jax_load
@@ -170,11 +174,72 @@ def test_generate_flags_match_jax_cli(trained, capsys, extra) -> None:
     assert ours["output_ids"] == theirs["output_ids"] and len(ours["completion_ids"]) == 20
 
 
-def test_continuous_serve_exits_2(trained, capsys) -> None:
-    """Continuous mode runs (tests/test_torch_serve_bench.py); what it
-    does not run yet still exits 2: the replica router in front of it."""
+@pytest.mark.parametrize(
+    "extra",
+    [["--router"], ["--mode", "continuous", "--backends", "http://127.0.0.1:1",
+                    "--discover", "127.0.0.1:1"]],
+    ids=["router-simple-mode", "backends-and-discover"],
+)
+def test_continuous_serve_exits_2(trained, capsys, extra) -> None:
+    """The router runs (test_router_serve_subprocess); what JAX's serve
+    refuses of its flags still exits 2 with JAX's message: ``--router``
+    without the continuous backend, ``--backends`` with ``--discover``."""
     cfg_path, ckpt_path, _, _ = trained
-    argv = ["serve", "--config", str(cfg_path), "--from", str(ckpt_path), "--mode", "continuous",
-            "--router"]
-    assert run_cli(cli.main, argv) == 2
-    assert "not yet ported" in capsys.readouterr().err
+    argv = ["serve", "--config", str(cfg_path), "--from", str(ckpt_path), *extra]
+    answers = []
+    for main in (jax_cli.main, cli.main):
+        code = run_cli(main, argv)
+        answers.append((code, json.loads(capsys.readouterr().err.strip().splitlines()[-1])))
+    assert answers[0] == answers[1] and answers[0][0] == 2, answers
+
+
+def test_router_serve_subprocess(trained, tmp_path) -> None:
+    """`serve --mode continuous --router --replicas 2 --trace-dir D` in a
+    subprocess: the ready line names 2 replicas, greedy answers equal JAX's
+    generate(), POST /reload rolls both replicas (their epochs advance in
+    /healthz's router block), and D holds the router's and each replica's
+    timeline and a metrics.prom snapshot with exemplar trace ids."""
+    cfg_path, ckpt_path, jm, params = trained
+    cont = tmp_path / "router.yaml"
+    cont.write_text(cfg_path.read_text()
+                    + "serving: {mode: continuous, max_batch_slots: 2, block_tokens: 8}\n")
+    trace_dir = tmp_path / "traces"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "llmtrain_tpu_torch", "serve", "--config", str(cont), "--from",
+         str(ckpt_path), "--router", "--replicas", "2", "--port", "0", "--trace-dir",
+         str(trace_dir)],
+        env=port_env(), stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
+    )
+    try:
+        ready = json.loads(proc.stdout.readline())
+        assert ready["policy"] == "router" and ready["router"] == 2
+        base = f"http://127.0.0.1:{ready['port']}"
+        rng = np.random.default_rng(8)
+        for n in (5, 12, 20):
+            ids = rng.integers(0, 256, n).astype(np.int32)
+            code, raw = _request(f"{base}/v1/generate", json.dumps(
+                {"prompt_ids": ids.tolist(), "max_new_tokens": 6, "temperature": 0}).encode())
+            out = json.loads(raw)
+            assert code == 200 and len(out["trace_id"]) == 32
+            want = jax_generate(jm, params, ids[None], max_new_tokens=6, temperature=0.0)
+            assert out["completion_ids"] == np.asarray(want)[0, n:].tolist()
+        code, raw = _request(f"{base}/reload", b"{}")
+        reloaded = json.loads(raw)
+        assert code == 200 and [r["replica"] for r in reloaded["replicas"]] == [
+            "replica0", "replica1"]
+        deadline = time.monotonic() + 60
+        while True:  # each swap applies between its scheduler's steps
+            fleet = json.loads(_request(f"{base}/healthz")[1])["scheduler"]["router"]
+            epochs = [r["param_epoch"] for r in fleet["replicas"]]
+            if epochs == [1, 1] or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+        assert epochs == [1, 1] and fleet["replicas_healthy"] == 2
+        assert fleet["requests_routed"] == 3 and fleet["epoch_divergence"] == 0
+    finally:
+        proc.send_signal(signal.SIGINT)  # a clean stop writes the last snapshot
+        proc.wait(timeout=60)
+    for name in ("router", "replica0", "replica1"):
+        assert (trace_dir / name / "timeline.jsonl").is_file(), name
+    prom = (trace_dir / "metrics.prom").read_text()
+    assert "llmtrain_router_replicas_healthy" in prom and '# {trace_id="' in prom

@@ -22,7 +22,6 @@ load it on the CPU:
 from __future__ import annotations
 
 import json
-import os
 import subprocess
 import sys
 import threading
@@ -36,7 +35,7 @@ import numpy as np
 import pytest
 import yaml
 from flax import serialization
-from torch_port_helpers import random_params, run_cli
+from torch_port_helpers import port_env, random_params, run_cli
 
 from llmtrain_tpu import cli as jax_cli
 from llmtrain_tpu.config import load_and_validate_config as jax_load
@@ -50,7 +49,6 @@ from llmtrain_tpu_torch.distributed import resolve_device
 from llmtrain_tpu_torch.serving import ServerState, ServeRequest, build_requests, make_server
 from llmtrain_tpu_torch.utils.logging import get_logger
 
-_ROOT = Path(__file__).resolve().parents[1]
 _CONFIG = {
     "run": {"name": "sbench", "seed": 0, "device": "cpu"},
     "model": {"name": "gpt", "block_size": 64, "d_model": 64, "n_layers": 2, "n_heads": 4,
@@ -66,9 +64,10 @@ _CONFIG = {
 }
 
 
-def _write_config(root: Path, name: str, **serving) -> Path:
+def _write_config(root: Path, name: str, telemetry: dict | None = None, **serving) -> Path:
     raw = json.loads(json.dumps(_CONFIG))
     raw["serving"].update(serving)
+    raw["telemetry"].update(telemetry or {})
     raw["output"] = {"root_dir": str(root / "runs")}
     path = root / f"{name}.yaml"
     path.write_text(yaml.safe_dump(raw, sort_keys=False))
@@ -117,24 +116,33 @@ _BENCH = ["--requests", "8", "--rate-rps", "200", "--seed", "5", "--prompt-token
 
 
 def _port_env() -> dict:
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(_ROOT) + os.pathsep + env.get("PYTHONPATH", "")
-    return env
+    return port_env()
 
 
 def test_serve_bench_subprocess_matches_jax_summary(trained, capsys) -> None:
-    root, cfg_path, ckpt, _, _ = trained
+    """With telemetry on (JAX's default) both write report.json, report.md
+    and trace.json, and the serving block carries the request tracer's
+    ``tracing`` block as JAX's does."""
+    root, _, ckpt, _, _ = trained
+    cfg_path = _write_config(root, "traced", telemetry={"enabled": True})
     argv = ["serve-bench", "--config", str(cfg_path), "--from", str(ckpt), *_BENCH]
-    proc = subprocess.run([sys.executable, "-m", "llmtrain_tpu_torch", *argv], cwd=root,
-                          env=_port_env(), capture_output=True, text=True, timeout=300)
+    proc = subprocess.run([sys.executable, "-m", "llmtrain_tpu_torch", *argv, "--out",
+                           str(root / "port_bench")], cwd=root, env=_port_env(),
+                          capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     ours = json.loads(proc.stdout)
     assert run_cli(jax_cli.main, [*argv, "--out", str(root / "jax_bench")]) == 0
     theirs = json.loads(capsys.readouterr().out)
     assert set(ours) == set(theirs)
-    assert ours["report_json"] is ours["report_md"] is ours["trace_json"] is None
-    # The serving block: JAX's keys, less the request tracer's (telemetry).
-    assert set(ours["serving"]) == set(theirs["serving"]) - {"tracing"}
+    for key in ("report_json", "report_md", "trace_json"):
+        assert Path(ours[key]).is_file() and Path(ours[key]).name == Path(theirs[key]).name
+    report = json.loads(Path(ours["report_json"]).read_text())
+    assert set(report) == set(json.loads(Path(theirs["report_json"]).read_text()))
+    assert report["serving"]["parity"] == ours["serving"]["parity"]
+    assert "## Serving" in Path(ours["report_md"]).read_text()
+    assert json.loads(Path(ours["trace_json"]).read_text())["traceEvents"]
+    assert set(ours["serving"]) == set(theirs["serving"]) and "tracing" in theirs["serving"]
+    assert ours["serving"]["tracing"]["finished"] == 8
     block = ours["serving"]
     assert ours["ok"] and block["parity"] == {"checked": 8, "mismatched": 0,
                                               "bitwise_identical": True}
@@ -157,16 +165,35 @@ def test_serve_bench_sampled_prefix_cache_chunked(trained, capsys) -> None:
 
 
 @pytest.mark.parametrize(
-    "extra, cites",
-    [(["--requests", "0"], "--requests must be >= 1"),
-     (["--router"], "replica router")],
+    "extra",
+    [["--requests", "0"], [*_BENCH, "--router", "--replicas", "2"]],
     ids=["bad-requests", "router"],
 )
-def test_serve_bench_refusals_exit_2(trained, capsys, extra, cites) -> None:
-    _, cfg_path, ckpt, _, _ = trained
+def test_serve_bench_refusals_exit_2(trained, capsys, extra) -> None:
+    """serve-bench answers as JAX's: a bad argument exits 2 with JAX's
+    message, and ``--router``, once refused, drives two in-process replicas
+    behind the router with JAX's exit code and summary keys, the fleet
+    block, both replicas serving and bitwise parity."""
+    root, cfg_path, ckpt, _, _ = trained
     argv = ["serve-bench", "--config", str(cfg_path), "--from", str(ckpt), *extra]
-    assert run_cli(cli.main, argv) == 2
-    assert cites in capsys.readouterr().err
+    answers = []
+    for name, main in (("port", cli.main), ("jax", jax_cli.main)):
+        code = run_cli(main, [*argv, "--out", str(root / f"{name}_router")])
+        out, err = capsys.readouterr()
+        answers.append((code, json.loads(out) if code == 0 else
+                        json.loads(err.strip().splitlines()[-1])))
+    (code, ours), (jax_code, theirs) = answers
+    assert code == jax_code
+    if code == 2:
+        assert ours == theirs and ours["error"] == "--requests must be >= 1"
+        return
+    assert code == 0 and set(ours) == set(theirs)
+    assert set(ours["serving"]) == set(theirs["serving"])
+    fleet = ours["serving"]["router"]
+    assert set(fleet) == set(theirs["serving"]["router"])
+    assert fleet["replicas_healthy"] == 2 and fleet["requests_routed"] == 8
+    assert all(rep["routed"] >= 1 for rep in fleet["replicas"])
+    assert ours["serving"]["parity"]["bitwise_identical"]
 
 
 @pytest.mark.parametrize(

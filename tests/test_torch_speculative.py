@@ -26,7 +26,6 @@ from __future__ import annotations
 
 import json
 import math
-import os
 import subprocess
 import sys
 from pathlib import Path
@@ -37,7 +36,7 @@ import pytest
 import torch
 import yaml
 from flax import serialization
-from torch_port_helpers import jax_gpt, port_gpt, random_params, run_cli, seeded_ids
+from torch_port_helpers import jax_gpt, port_env, port_gpt, random_params, run_cli, seeded_ids
 
 from llmtrain_tpu import cli as jax_cli
 from llmtrain_tpu.config import load_and_validate_config as jax_load
@@ -49,7 +48,6 @@ from llmtrain_tpu_torch import cli
 from llmtrain_tpu_torch.generation import generate
 from llmtrain_tpu_torch.speculative import _filtered_logprobs, speculative_generate
 
-_ROOT = Path(__file__).resolve().parents[1]
 VOCAB = 61
 PROMPT = seeded_ids(50, (1, 5), VOCAB)
 DRAFT = dict(n_layers=1, d_model=32, n_heads=2, d_ff=64)
@@ -218,10 +216,8 @@ def checkpoints(tmp_path_factory):
 
 
 def _port_subprocess(argv: list[str], cwd: Path) -> subprocess.CompletedProcess:
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(_ROOT) + os.pathsep + env.get("PYTHONPATH", "")
-    return subprocess.run([sys.executable, "-m", "llmtrain_tpu_torch", *argv], cwd=cwd, env=env,
-                          capture_output=True, text=True, timeout=300)
+    return subprocess.run([sys.executable, "-m", "llmtrain_tpu_torch", *argv], cwd=cwd,
+                          env=port_env(), capture_output=True, text=True, timeout=300)
 
 
 @pytest.mark.parametrize("extra", [[], ["--quantize", "int8"]], ids=["bf", "int8"])

@@ -207,19 +207,34 @@ def test_refusals_cite_a_stable_roadmap_item(tmp_path, override) -> None:
 
 
 @pytest.mark.parametrize(
-    "argv, item",
-    [(["serve", "--mode", "continuous", "--router"], "replica router"),
-     (["serve", "--replicas", "2"], "replica router"),
-     (["serve", "--mode", "continuous", "--trace-dir", "t"], "telemetry"),
-     (["serve-bench", "--router"], "replica router")],
-    ids=["serve-router", "serve-replicas", "serve-trace-dir", "bench-router"],
+    "argv",
+    [["serve", "--mode", "continuous", "--router"],
+     ["serve", "--replicas", "2"],
+     ["serve", "--mode", "continuous", "--trace-dir", "t"],
+     ["serve-bench", "--router"],
+     ["serve", "--mode", "continuous", "--backends", "http://127.0.0.1:1",
+      "--discover", "127.0.0.1:1"],
+     ["serve", "--router"]],
+    ids=["serve-router", "serve-replicas", "serve-trace-dir", "bench-router",
+         "serve-backends-and-discover", "serve-router-simple-mode"],
 )
-def test_serving_refusals_cite_a_stable_roadmap_item(tmp_path, capsys, argv, item) -> None:
+def test_serving_refusals_cite_a_stable_roadmap_item(tmp_path, capsys, argv) -> None:
+    """The router and trace-dir flags, once refused, now run: the same argv
+    (a directory without a checkpoint) answers with the JAX CLI's exit code
+    and error, and so do JAX's own refusals of the router flags
+    (``--backends`` with ``--discover``; ``--router`` without the
+    continuous backend). No refusal cites the replica router any more."""
     cfg = _config(tmp_path)
-    assert run_cli(port_main, [argv[0], "--config", str(cfg), "--from", str(tmp_path),
-                               *argv[1:]]) == 2
-    err = capsys.readouterr().err
-    assert _CITES_STABLE_ITEM.search(err) and f"queue A: {item})" in err, err
+    full = [argv[0], "--config", str(cfg), "--from", str(tmp_path), *argv[1:]]
+
+    def answer(main) -> tuple[int, str]:
+        code = run_cli(main, full)
+        err = capsys.readouterr().err.strip().splitlines()
+        return code, json.loads(err[-1])["error"] if err else ""
+
+    theirs, ours = answer(jax_main), answer(port_main)
+    assert ours == theirs and ours[0] != 0, (ours, theirs)
+    assert "queue A: replica router" not in ours[1]
 
 
 @pytest.mark.parametrize(
@@ -247,17 +262,18 @@ def test_serving_flags_answer_as_jax(tmp_path, capsys, argv) -> None:
 
 
 def test_serving_module_refusals_cite_a_stable_roadmap_item() -> None:
-    """The engine's and the scheduler's refusals: the cost profile and
-    request tracing."""
+    """The engine's refusal: the cost profile. (The scheduler's refusal of
+    a request tracer is gone: tracing runs.)"""
     from llmtrain_tpu_torch.models.gpt import GPT
     from llmtrain_tpu_torch.serving import ContinuousBatchingScheduler, PagedDecodeEngine
+    from llmtrain_tpu_torch.telemetry.timeline import EventTimeline
+    from llmtrain_tpu_torch.telemetry.tracing import Tracer
 
     model = GPT(vocab_size=17, block_size=16, d_model=32, n_layers=1, n_heads=2, d_ff=64)
     engine = PagedDecodeEngine(model, block_tokens=4, max_batch_slots=2)
-    calls = {
-        "telemetry": (engine.cost_profile,
-                      lambda: ContinuousBatchingScheduler(engine, tracer=object())),
-    }
+    tracer = Tracer(EventTimeline(None))
+    assert ContinuousBatchingScheduler(engine, tracer=tracer).tracer is tracer
+    calls = {"telemetry": (engine.cost_profile,)}
     for item, fns in calls.items():
         for fn in fns:
             with pytest.raises(NotImplementedError) as excinfo:

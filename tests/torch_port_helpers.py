@@ -1,10 +1,19 @@
 """Shared fixtures-as-functions for the PyTorch port's CPU tests
 (tests/test_torch_*.py): a tiny JAX GPT with seeded params, and the port's
-GPT carrying the same weights over the interop function."""
+GPT carrying the same weights over the interop function.
+
+Every port test module imports this file, which caps torch at one CPU
+thread per process: under pytest-xdist each worker would otherwise start a
+full intra-op pool, and six workers oversubscribe the cores many times over.
+The port's CLI subprocesses get the same cap through :func:`port_env`, so
+in-process and subprocess runs that are compared bit for bit use the same
+thread count."""
 
 from __future__ import annotations
 
 import logging
+import os
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +25,10 @@ from flax.linen import meta as nn_meta
 from llmtrain_tpu.models.gpt import GPT as JaxGPT
 from llmtrain_tpu_torch.interop import flax_gpt_params_to_state_dict
 from llmtrain_tpu_torch.models.gpt import GPT
+
+torch.set_num_threads(1)
+
+REPO_ROOT = Path(__file__).resolve().parents[1]
 
 TINY = dict(vocab_size=61, block_size=32, d_model=64, n_layers=2, n_heads=4, d_ff=128)
 
@@ -90,3 +103,13 @@ def seeded_ids(seed: int, shape: tuple[int, ...], vocab: int) -> np.ndarray:
 
 def to_torch(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
+
+
+def port_env(**extra: str) -> dict[str, str]:
+    """Environment for a ``python -m llmtrain_tpu_torch`` child: the repo on
+    ``PYTHONPATH`` and torch's CPU threads capped at one, as here."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO_ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = "1"
+    env.update(extra)
+    return env
