@@ -184,6 +184,25 @@ Phases, each fatal on failure (exit code 1, no result line):
    p50 beside 14(a)'s (the timeline and tracer on) and (a)'s: a
    measurement, not a gate.
 
+17. The offline data path and the checkpoint tools, in the same temp root:
+   (a) `train-tokenizer` over the stdlib (TOKENIZER_MAX_BYTES, vocab
+   TOKENIZER_VOCAB): exit 0, the vocabulary loads and round-trips a stdlib
+   file; its seconds printed. (b) `train` on gpt_pycorpus_bpe_tpu at full
+   width and depth (768 x 12 layers, micro batch 64 x 512, bf16, flash)
+   with the tracked vocabulary runs/pytok8k.json, cut to BPE_STEPS steps:
+   vocab_size null resolves to 8192 and loss_impl to dense; losses finite
+   and falling by LOSS_DROP_MIN; launch counts 12 flash forward, dq and
+   dk/dv per step plus 12 forward per eval batch, none of the others
+   (reset just before the call, read just after); the corpus bytes, the
+   tokenization seconds and which BPE encoder ran (native C or Python),
+   the windows, step ms, tokens/s, MFU and peak memory printed. (c) `eval
+   --from` the final checkpoint within EVAL_ATOL of the trainer's own eval
+   at that step, and `eval --quantize int8` finite. (d) export-checkpoint
+   -> import-checkpoint -> eval bit-identical to (c); average-checkpoints
+   --last-k 2 over the two saves -> eval finite; 12 flash forwards per
+   eval batch over (c)-(d). (e) gpt_smoke and dummy_smoke trained
+   SMOKE_PRESET_STEPS steps on the card: exit 0, finite losses, no kernel.
+
 Then it prints the kernels line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -2609,6 +2628,234 @@ def phase_fleet(torch, smi: str, tmp: Path, train: dict, cont: dict) -> dict:
     return dict(bench=bench, reload=reload, http=http, traces=traces, untraced=untraced)
 
 
+# ------------------------------------------- offline data and checkpoint tools
+# Phase 17. (a) `train-tokenizer` over the running interpreter's stdlib,
+# TOKENIZER_MAX_BYTES of it at TOKENIZER_VOCAB. (b) `train` on
+# configs/presets/gpt_pycorpus_bpe_tpu.yaml at full width and depth with the
+# tracked vocabulary runs/pytok8k.json (8192 ids, so dense CE as in JAX),
+# cut like TRAIN_STEPS: BPE_STEPS steps, warmup a quarter of them, every
+# step logged, eval and a save at BPE_SAVE_EVERY and at the end, the corpus
+# glob pointed at the stdlib. (c) `eval --from` the final checkpoint, bf16
+# and --quantize int8. (d) export-checkpoint -> import-checkpoint -> eval,
+# and average-checkpoints --last-k 2 -> eval. (e) the smoke presets
+# gpt_smoke and dummy_smoke trained SMOKE_PRESET_STEPS steps on the card.
+TOKENIZER_MAX_BYTES = 4_000_000
+TOKENIZER_VOCAB = 1024
+BPE_STEPS = 20
+BPE_WARMUP = BPE_STEPS // 4
+BPE_SAVE_EVERY = BPE_STEPS // 2
+# `eval` of the final checkpoint against the trainer's own eval at that
+# step: the same params and batches through the same kernels, which are
+# bit-identical across reruns; the limit leaves room for a cuBLAS
+# algorithm picked differently in a freshly built model.
+EVAL_ATOL = 1e-4
+SMOKE_PRESET_STEPS = 5
+
+
+def _bpe_config(tmp: Path) -> Path:
+    import sysconfig
+
+    import yaml
+
+    root = Path(__file__).resolve().parent
+    raw = yaml.safe_load((root / "configs/presets/gpt_pycorpus_bpe_tpu.yaml").read_text())
+    raw["run"]["device"] = "cuda"
+    raw["model"]["extra"]["tokenizer"] = f"bpe:{root / 'runs' / 'pytok8k.json'}"
+    raw["data"]["cache_dir"] = str(tmp / "cache")
+    raw["data"]["extra"]["globs"] = [sysconfig.get_paths()["stdlib"] + "/**/*.py"]
+    raw["trainer"].update(max_steps=BPE_STEPS, warmup_steps=BPE_WARMUP, log_every_steps=1,
+                          eval_every_steps=BPE_SAVE_EVERY, save_every_steps=BPE_SAVE_EVERY)
+    raw["output"]["root_dir"] = str(tmp / "runs")
+    path = tmp / "gpt_pycorpus_bpe_smoke.yaml"
+    path.write_text(yaml.safe_dump(raw, sort_keys=False))
+    return path
+
+
+def _eval_cli(cfg_path: Path, spec: Path, *extra: str) -> float:
+    code, out = _run_cli(["eval", "--config", str(cfg_path), "--from", str(spec), "--json",
+                          *extra])
+    if code != 0:
+        raise RuntimeError(f"eval --from {spec} {' '.join(extra)} exited {code}")
+    loss = json.loads(out)["metrics"]["val/loss"]
+    if not math.isfinite(loss):
+        raise RuntimeError(f"eval --from {spec} gave a non-finite loss {loss}")
+    return loss
+
+
+def _offline_tokenizer(tmp: Path, smi: str) -> None:
+    """(a) train-tokenizer over the stdlib; the vocabulary loads and
+    round-trips one stdlib file exactly."""
+    import sysconfig
+
+    from llmtrain_tpu_torch.data.bpe import BPETokenizer
+
+    stdlib = Path(sysconfig.get_paths()["stdlib"])
+    out = tmp / "stdlib_tok.json"
+    t0 = time.perf_counter()
+    code, text = _run_cli(["train-tokenizer", "--input", str(stdlib), "--max-bytes",
+                           str(TOKENIZER_MAX_BYTES), "--vocab-size", str(TOKENIZER_VOCAB),
+                           "--output", str(out), "--json"])
+    wall = time.perf_counter() - t0
+    if code != 0:
+        raise RuntimeError(f"train-tokenizer exited {code}")
+    stats = json.loads(text)
+    tok = BPETokenizer.load(out)
+    sample = (stdlib / "argparse.py").read_text(encoding="utf-8")
+    ids = tok.encode(sample)
+    log(f"[offline] train-tokenizer: {stats['files']} files, {stats['corpus_bytes']} bytes, "
+        f"vocab {stats['vocab_size']} in {stats['train_seconds']} s of training ({wall:.1f} s "
+        f"command, the file walk included), {stats['bytes_per_token']} bytes/token; "
+        f"argparse.py -> {len(ids)} ids ({tok.encoder} encoder) on {smi}")
+    if tok.n_vocab != TOKENIZER_VOCAB or tok.decode(ids) != sample:
+        raise RuntimeError("the trained vocabulary does not round-trip a stdlib file")
+
+
+def _offline_train(torch, smi: str, cfg_path: Path) -> dict:
+    """(b) train on the BPE preset; returns its summary, steps, counts and
+    run dir."""
+    import glob
+    import os
+
+    import numpy as np
+
+    from llmtrain_tpu_torch.config import load_and_validate_config
+    from llmtrain_tpu_torch.data.local_text import LocalTextDataModule
+    from llmtrain_tpu_torch.distributed import resolve_device
+    from llmtrain_tpu_torch.registry import get_model_adapter, initialize_registries
+
+    cfg, _, _ = load_and_validate_config(cfg_path)
+    initialize_registries()
+    adapter = get_model_adapter(cfg.model.name)()
+    tok = adapter.build_tokenizer(cfg)
+    files = {f for g in cfg.data.extra["globs"] for f in glob.glob(g, recursive=True)}
+    corpus_bytes = sum(os.path.getsize(f) for f in files if os.path.isfile(f))
+    t0 = time.perf_counter()
+    dm = LocalTextDataModule()
+    dm.setup(cfg, tok)  # writes the token cache the train call reads
+    tok_s = time.perf_counter() - t0
+    n_train, n_val = len(dm.train_dataset()), len(dm.val_dataset())
+    log(f"[offline] corpus {cfg.data.extra['globs'][0]}: {corpus_bytes} bytes, tokenized by "
+        f"the {tok.encoder} BPE encoder in {tok_s:.2f} s ({corpus_bytes / tok_s / 1e6:.2f} MB/s "
+        f"on the host); {n_train} train / {n_val} val windows of {cfg.model.block_size + 1} "
+        f"tokens of vocab {tok.n_vocab}")
+    built = adapter.build_model(cfg, resolve_device(cfg.run.device))
+    resolved, vocab = built.loss_impl, built.vocab_size
+    del built
+    torch.cuda.empty_cache()
+    log(f"[offline] vocab_size null -> {vocab} from the tokenizer; loss_impl -> {resolved!r}")
+    if resolved != "dense" or vocab != tok.n_vocab:
+        raise RuntimeError(f"the BPE preset resolved loss_impl {resolved!r}, vocab {vocab}")
+    eval_batches = -(-n_val // cfg.trainer.micro_batch_size)
+
+    _reset_counts()  # the BPE training path's counts start here
+    t0 = time.perf_counter()
+    code, out = _run_cli(["train", "--config", str(cfg_path), "--run-id", "bpe", "--json"])
+    wall = time.perf_counter() - t0
+    counts = _read_counts()  # and end here
+    if code != 0:
+        raise RuntimeError(f"BPE train exited {code}")
+    summary = json.loads(out)["train_result"]
+    run_dir = Path(cfg.output.root_dir) / "bpe"
+    steps = _logged_steps(run_dir)
+    losses = [steps[i]["loss"] for i in sorted(steps)]
+    log(f"[offline] {BPE_STEPS} steps in {wall:.1f} s (command wall, model build and compile "
+        f"included); losses {' '.join(f'{x:.4f}' for x in losses)}; val "
+        f"{summary['final_val_loss']:.4f}")
+    layers = cfg.model.n_layers
+    _check_counts("bpe-train", counts, {
+        "flash_attention_fwd": layers * (BPE_STEPS + (BPE_STEPS // BPE_SAVE_EVERY) * eval_batches),
+        "flash_attention_bwd_dq": layers * BPE_STEPS,
+        "flash_attention_bwd_dkdv": layers * BPE_STEPS,
+    })
+    if len(losses) != BPE_STEPS or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"BPE losses are not {BPE_STEPS} finite values: {losses}")
+    if not losses[-1] <= losses[0] - LOSS_DROP_MIN:
+        raise RuntimeError(f"BPE loss did not fall by {LOSS_DROP_MIN}: {losses[0]} -> {losses[-1]}")
+    steady = [steps[i] for i in sorted(steps) if i > 5]
+    step_ms = float(np.median([x["step_time"] for x in steady])) * 1e3
+    tok_per_s = float(np.median([x["tokens_per_sec"] for x in steady]))
+    mfu = float(np.median([x["mfu"] for x in steady]))
+    log(f"[offline] steady state (median of steps 6-{BPE_STEPS}) on {smi}: step {step_ms:.1f} ms, "
+        f"{tok_per_s:.0f} tokens/s, MFU {mfu:.4f} (6N + 12 L T d with N at vocab {vocab}, "
+        f"989 TFLOP/s bf16 peak), peak memory {summary['peak_memory'] / 2**30:.2f} GiB")
+    return dict(summary=summary, steps=steps, counts=counts, run_dir=run_dir, step_ms=step_ms,
+                tokens_per_sec=tok_per_s, mfu=mfu, eval_batches=eval_batches,
+                corpus_bytes=corpus_bytes, tokenize_s=tok_s, encoder=tok.encoder, layers=layers)
+
+
+def phase_offline(torch, smi: str, tmp: Path) -> dict:
+    """Phase 17: the offline data path and the checkpoint tools (see
+    TOKENIZER_MAX_BYTES). Launch counts of (b) are checked around the train
+    call, of (c)-(d) around the evals: 12 flash forwards per eval batch."""
+    import yaml
+
+    t0 = time.perf_counter()
+    _offline_tokenizer(tmp, smi)
+    cfg_path = _bpe_config(tmp)
+    train = _offline_train(torch, smi, cfg_path)
+    run_dir, layers = train["run_dir"], train["layers"]
+
+    _reset_counts()  # (c)-(d)'s counts start here
+    bf16 = _eval_cli(cfg_path, run_dir)
+    int8 = _eval_cli(cfg_path, run_dir, "--quantize", "int8")
+    trainer_val = train["summary"]["final_val_loss"]
+    log(f"[offline] eval --from step {BPE_STEPS}: val/loss {bf16:.6f}, the trainer's own eval "
+        f"{trainer_val:.6f} (diff {abs(bf16 - trainer_val):.2e}, atol {EVAL_ATOL}); "
+        f"--quantize int8 {int8:.6f} ({int8 - bf16:+.6f})")
+    if abs(bf16 - trainer_val) > EVAL_ATOL:
+        raise RuntimeError("eval does not reproduce the trainer's eval")
+
+    exported, imported = tmp / "bpe_export.pt", tmp / "bpe_imported"
+    code, out = _run_cli(["export-checkpoint", "--config", str(cfg_path), "--from", str(run_dir),
+                          "--output", str(exported), "--json"])
+    if code != 0:
+        raise RuntimeError(f"export-checkpoint exited {code}")
+    export = json.loads(out)
+    code, _ = _run_cli(["import-checkpoint", "--config", str(cfg_path), "--input", str(exported),
+                        "--output", str(imported), "--json"])
+    if code != 0:
+        raise RuntimeError(f"import-checkpoint exited {code}")
+    round_trip = _eval_cli(cfg_path, imported)
+    log(f"[offline] export-checkpoint: {export['tensors']} tensors, {export['parameters']} "
+        f"parameters, {exported.stat().st_size} bytes; import -> eval {round_trip!r} against "
+        f"{bf16!r}")
+    if round_trip != bf16:
+        raise RuntimeError("export -> import -> eval is not bit-identical to eval")
+    averaged = tmp / "bpe_averaged"
+    code, out = _run_cli(["average-checkpoints", "--config", str(cfg_path), "--inputs",
+                          str(run_dir / "checkpoints"), "--last-k", "2", "--output",
+                          str(averaged), "--json"])
+    if code != 0:
+        raise RuntimeError(f"average-checkpoints exited {code}")
+    soup = _eval_cli(cfg_path, averaged)
+    log(f"[offline] average-checkpoints --last-k 2 (steps {json.loads(out)['steps']}) -> eval "
+        f"{soup:.6f}")
+    counts = _read_counts()  # and end here: four evals of the val split
+    _check_counts("offline-eval", counts, {
+        "flash_attention_fwd": 4 * layers * train["eval_batches"]})
+
+    _reset_counts()  # (e): the smoke presets run none of the kernels
+    for name in ("gpt_smoke", "dummy_smoke"):
+        root = Path(__file__).resolve().parent
+        raw = yaml.safe_load((root / "configs/presets" / f"{name}.yaml").read_text())
+        raw["run"]["device"] = "cuda"
+        raw["trainer"].update(max_steps=SMOKE_PRESET_STEPS, log_every_steps=1)
+        raw["output"]["root_dir"] = str(tmp / "runs")
+        path = tmp / f"{name}.yaml"
+        path.write_text(yaml.safe_dump(raw, sort_keys=False))
+        code, out = _run_cli(["train", "--config", str(path), "--run-id", name, "--json"])
+        if code != 0:
+            raise RuntimeError(f"{name} train on the card exited {code}")
+        losses = [v["loss"] for _, v in sorted(_logged_steps(tmp / "runs" / name).items())]
+        log(f"[offline] {name} on the card: losses {' '.join(f'{x:.4f}' for x in losses)}")
+        if len(losses) != SMOKE_PRESET_STEPS or not all(math.isfinite(x) for x in losses):
+            raise RuntimeError(f"{name}: losses are not {SMOKE_PRESET_STEPS} finite values")
+    _check_counts("smoke-presets", _read_counts(), {})
+    log(f"[offline] phase 17 in {time.perf_counter() - t0:.1f} s on {smi}")
+    return dict(train=train, counts={k: train["counts"][k] + counts[k] for k in counts},
+                eval=bf16, int8=int8, soup=soup)
+
+
 def main() -> int:
     import tempfile
 
@@ -2657,11 +2904,12 @@ def main() -> int:
         cont = phase_continuous(torch, smi, Path(tmp), train)
         spec = phase_speculative(torch, smi, Path(tmp), train, cont)
         phase_fleet(torch, smi, Path(tmp), train, cont)
-    paths = (train["counts"], fused["counts"], ce["counts"], spec["counts"])
+        offline = phase_offline(torch, smi, Path(tmp))
+    paths = (train["counts"], fused["counts"], ce["counts"], spec["counts"], offline["counts"])
     launches = {name: sum(c[name] for c in paths) for name in paths[0]}
     launches["flash_attention_fwd"] += serve_launches
     log(f"[main path] launches over serve + generate, train, fused-norm train, CE train, "
-        f"speculative/int8/rolling: {launches}")
+        f"speculative/int8/rolling, BPE train and its evals: {launches}")
     for name, n in launches.items():
         if n == 0:
             raise RuntimeError(f"the main path never launched {name}")
@@ -2711,6 +2959,12 @@ def main() -> int:
     log(f"[ce-train] step {ce['step_ms']:.1f} ms, {ce['tokens_per_sec']:.0f} tokens/s, "
         f"MFU {ce['mfu']:.4f}, peak memory {ce['summary']['peak_memory'] / 2**30:.2f} GiB "
         f"(dense {ce['dense']['peak_memory'] / 2**30:.2f} GiB)")
+    bpe = offline["train"]
+    log(f"[offline] BPE step {bpe['step_ms']:.1f} ms, {bpe['tokens_per_sec']:.0f} tokens/s, "
+        f"MFU {bpe['mfu']:.4f}, peak memory {bpe['summary']['peak_memory'] / 2**30:.2f} GiB; "
+        f"{bpe['corpus_bytes']} corpus bytes tokenized in {bpe['tokenize_s']:.2f} s "
+        f"({bpe['encoder']} encoder); eval {offline['eval']:.6f}, int8 {offline['int8']:.6f}, "
+        f"soup {offline['soup']:.6f}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -25,13 +25,27 @@ Same subcommands, flags, JSON shapes and exit codes as the JAX CLI
   ``report.md`` and ``trace.json`` under ``--out``;
 * ``trace slowest|show|summary|merge`` — rebuild request traces across the
   router and replica processes from their timelines;
+* ``eval`` — the validation loop alone on a checkpoint (``--quantize int8``
+  for the quantized serving weights);
+* ``train-tokenizer`` — an offline byte-level BPE vocabulary (data/bpe.py)
+  for ``model.extra.tokenizer: "bpe:<path>"``;
+* ``export-checkpoint`` / ``import-checkpoint`` — a checkpoint to and from
+  the reference torch GPT's state dict (interop/torch_interop.py);
+  ``average-checkpoints`` — the float64 average of several checkpoints'
+  params (``--last-k``); the last two write a resumable step-0 checkpoint;
 * ``validate`` / ``print-config`` — the config loader.
+
+The JAX CLI's ``promote``, ``fleet``, ``chaos``, ``profile``, ``goodput``,
+``plan`` and ``tune`` take any arguments and exit 2 naming the ROADMAP.md
+item that ports them.
 
 ``serve`` and ``serve-bench`` take the same draft and quantize flags: a
 draft puts the continuous backend on the speculative policy.
 
-Exit codes: 0 ok, 1 failure, 2 config error (a feature that is not yet
-ported counts as a config error). Flags whose feature is not yet ported
+Exit codes: JAX's taxonomy (resilience/exit_codes.py): 0 ok, 1 failure,
+2 config error (a feature that is not yet ported counts as a config
+error), 75 a transient infrastructure fault anywhere in the exception's
+cause chain. Flags whose feature is not yet ported
 (``--ema``) and LoRA or pipeline checkpoints exit 2 with a message naming
 the ROADMAP.md item. ``run.device`` (default ``cuda``) picks
 the device: ``cpu`` the CPU, ``tpu``/``cuda`` the card (an error when none
@@ -50,12 +64,25 @@ import numpy as np
 
 from . import __version__
 from .config import ConfigLoadError, load_and_validate_config
+from .resilience.exit_codes import exit_code_for_exception
 
 EXIT_OK = 0
 EXIT_FAILURE = 1
 EXIT_CONFIG_ERROR = 2
 
 _NOT_PORTED = "is not yet ported to llmtrain_tpu_torch"
+
+# Subcommands of the JAX CLI not ported yet: name -> (what it does, the
+# ROADMAP.md queue A item that ports it).
+_UNPORTED_COMMANDS = {
+    "promote": ("the train -> canary -> promote lifecycle", "lifecycle and fleet"),
+    "fleet": ("the multi-tenant fleet supervisor", "lifecycle and fleet"),
+    "chaos": ("the seeded chaos-recovery harness", "resilience"),
+    "profile": ("the cost-attribution profiler", "telemetry"),
+    "goodput": ("the goodput ledger", "telemetry"),
+    "plan": ("the mesh planner", "autotune"),
+    "tune": ("the auto-tuner", "autotune"),
+}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -365,6 +392,88 @@ def build_parser() -> argparse.ArgumentParser:
     )
     trace.add_argument("--json", action="store_true", help="emit machine-readable JSON")
 
+    evalp = sub.add_parser("eval", help="run the validation loop on a checkpoint, no training")
+    evalp.add_argument("--config", required=True, help="path to the YAML run config")
+    evalp.add_argument(
+        "--from", dest="from_spec", default=None,
+        help="checkpoint file, checkpoint dir, or run id to evaluate "
+        "(default: the freshly initialized model)",
+    )
+    evalp.add_argument("--ema", action="store_true", help="EMA shadow weights (not yet ported)")
+    evalp.add_argument(
+        "--quantize", choices=("none", "int8"), default="none",
+        help="evaluate under weight-only int8 quantization (ops/quant.py): the "
+        "quality cost of the quantized serving path on the validation split",
+    )
+    evalp.add_argument("--json", action="store_true", help="emit metrics as JSON")
+    evalp.add_argument("-v", "--verbose", action="store_true", help="DEBUG logging")
+
+    traintok = sub.add_parser(
+        "train-tokenizer", help="train an offline byte-level BPE vocabulary on local text"
+    )
+    traintok.add_argument(
+        "--input", required=True, action="append",
+        help="text file or directory (repeatable); directories are read "
+        "recursively for *.txt/*.md/*.py files",
+    )
+    traintok.add_argument("--vocab-size", type=int, default=8192)
+    traintok.add_argument("--output", required=True, help="vocabulary JSON path")
+    traintok.add_argument(
+        "--max-bytes", type=int, default=64_000_000, help="cap on corpus bytes read for training"
+    )
+    traintok.add_argument("--json", action="store_true", help="emit stats as JSON")
+
+    export = sub.add_parser(
+        "export-checkpoint",
+        help="export checkpoint weights as a torch state dict (gpt → reference GPT names)",
+    )
+    export.add_argument("--config", required=True, help="path to the YAML run config")
+    export.add_argument(
+        "--from", dest="from_spec", required=True,
+        help="checkpoint file, checkpoint dir, or run id to export",
+    )
+    export.add_argument("--output", required=True, help="output .pt path")
+    export.add_argument("--ema", action="store_true", help="EMA shadow weights (not yet ported)")
+    export.add_argument("--json", action="store_true", help="emit stats as JSON")
+
+    imp = sub.add_parser(
+        "import-checkpoint",
+        help="build a resumable checkpoint from a torch state dict (gpt ← reference GPT names)",
+    )
+    imp.add_argument("--config", required=True, help="path to the YAML run config")
+    imp.add_argument("--input", required=True, help="torch .pt state-dict path")
+    imp.add_argument(
+        "--output", required=True,
+        help="checkpoint directory to write step_000000.ckpt into (use with train --resume <dir>)",
+    )
+    imp.add_argument("--json", action="store_true", help="emit stats as JSON")
+
+    avg = sub.add_parser(
+        "average-checkpoints",
+        help="average the params of several checkpoints (model soup) into a "
+        "resumable step-0 checkpoint",
+    )
+    avg.add_argument("--config", required=True, help="path to the YAML run config")
+    avg.add_argument(
+        "--inputs", required=True,
+        help="comma-separated checkpoint files/dirs/run-ids (each resolved like "
+        "--resume), OR one checkpoint dir with --last-k",
+    )
+    avg.add_argument(
+        "--last-k", type=int, default=0,
+        help="average the last K step_*.ckpt files of the single --inputs dir",
+    )
+    avg.add_argument(
+        "--output", required=True,
+        help="empty checkpoint directory to write step_000000.ckpt into",
+    )
+    avg.add_argument("--json", action="store_true", help="emit stats as JSON")
+
+    # The JAX CLI's other subcommands: each takes any arguments and exits 2
+    # naming the ROADMAP.md item that ports it.
+    for name, what in _UNPORTED_COMMANDS.items():
+        sub.add_parser(name, add_help=False, help=f"not yet ported ({what[1]})")
+
     validate = sub.add_parser("validate", help="validate a config file")
     validate.add_argument("--config", required=True)
     validate.add_argument("--json", action="store_true")
@@ -409,13 +518,6 @@ def _unported_inference_flags(args: argparse.Namespace, cfg) -> str | None:
     if lora is None and (args.draft_config is None) != (args.draft_from is None):
         return "--draft-config and --draft-from must be given together"
     return lora
-
-
-def _exit_code(exc: BaseException) -> int:
-    from .training.trainer import TopologyMismatchError
-
-    config_errors = (NotImplementedError, TopologyMismatchError)
-    return EXIT_CONFIG_ERROR if isinstance(exc, config_errors) else EXIT_FAILURE
 
 
 def _handle_train(args: argparse.Namespace) -> int:
@@ -502,7 +604,7 @@ def _handle_train(args: argparse.Namespace) -> int:
         print(json.dumps(summary) if args.json else summary)
         return EXIT_OK
     except Exception as exc:  # noqa: BLE001 — CLI boundary
-        code = _exit_code(exc)
+        code = exit_code_for_exception(exc)
         logger.exception("training failed: %s", exc)
         _emit_error(f"training failed: {exc} (exit {code})")
         return code
@@ -759,7 +861,7 @@ def _handle_generate(args: argparse.Namespace) -> int:
     except Exception as exc:  # noqa: BLE001 — CLI boundary
         logger.exception("generation failed: %s", exc)
         _emit_error(f"generation failed: {exc}")
-        return _exit_code(exc)
+        return exit_code_for_exception(exc)
     return EXIT_OK
 
 
@@ -1166,7 +1268,7 @@ def _handle_serve(args: argparse.Namespace) -> int:
         return EXIT_OK
     except Exception as exc:  # noqa: BLE001 — CLI boundary
         _emit_error(f"serve failed: {exc}")
-        return _exit_code(exc)
+        return exit_code_for_exception(exc)
     finally:
         if metrics_stop is not None:
             metrics_stop.set()
@@ -1432,7 +1534,7 @@ def _handle_serve_bench(args: argparse.Namespace) -> int:
         return EXIT_OK
     except Exception as exc:  # noqa: BLE001 — CLI boundary
         _emit_error(f"serve-bench failed: {exc}")
-        return _exit_code(exc)
+        return exit_code_for_exception(exc)
     finally:
         if scheduler is not None:
             scheduler.close()
@@ -1548,6 +1650,362 @@ def _handle_trace(args: argparse.Namespace) -> int:
     return EXIT_OK
 
 
+def _handle_eval(args: argparse.Namespace) -> int:
+    """Eval-only (JAX ``_handle_eval``): load a checkpoint's params and run
+    the validation loop once; ``--quantize int8`` evaluates the quantized
+    serving weights."""
+    cfg, code = _load_config(args.config)
+    if cfg is None:
+        return code
+    unported = _lora_error(cfg)
+    if unported is None and args.ema:
+        unported = f"--ema (EMA shadow weights) {_NOT_PORTED} (ROADMAP.md queue A: slice 2 deferrals)"
+    if unported is not None:
+        _emit_error(unported)
+        return EXIT_CONFIG_ERROR
+
+    from .utils.logging import configure_logging
+
+    level = "DEBUG" if args.verbose else cfg.logging.level
+    configure_logging(level=level, json_output=cfg.logging.json_output)
+    try:
+        from .training.trainer import Trainer
+
+        metrics = Trainer(cfg, None).evaluate(
+            resume_from=args.from_spec,
+            quantize=args.quantize if args.quantize != "none" else None,
+        )
+        if metrics is None:
+            _emit_error("data module has no validation split to evaluate")
+            return EXIT_FAILURE
+        if args.json:
+            print(json.dumps({"checkpoint": args.from_spec, "metrics": metrics}))
+        else:
+            print("  ".join(f"{k}={v:.6f}" for k, v in sorted(metrics.items())))
+        return EXIT_OK
+    except Exception as exc:  # noqa: BLE001 — CLI boundary
+        from .registry import RegistryError
+
+        _emit_error(f"evaluation failed: {exc}")
+        # A model or data module the port does not have is a config error,
+        # as in `train`.
+        return EXIT_CONFIG_ERROR if isinstance(exc, RegistryError) else exit_code_for_exception(exc)
+
+
+def _handle_train_tokenizer(args: argparse.Namespace) -> int:
+    """Train an offline BPE vocabulary (data/bpe.py) on local text (JAX
+    ``_handle_train_tokenizer``): the same file walk, byte budget, training
+    and stats; pairs with ``model.extra.tokenizer: "bpe:<output>"``."""
+    import time
+
+    from .data.bpe import train_bpe
+
+    seen: set[Path] = set()
+    files: list[Path] = []
+
+    def _add(q: Path) -> None:
+        r = q.resolve()
+        if r not in seen:
+            seen.add(r)
+            files.append(q)
+
+    for spec in args.input:
+        p = Path(spec)
+        if p.is_dir():
+            for q in sorted(q for suf in ("*.txt", "*.md", "*.py") for q in p.rglob(suf)):
+                _add(q)
+        elif p.is_file():
+            _add(p)
+        else:
+            _emit_error(f"input path not found: {spec}")
+            return EXIT_CONFIG_ERROR
+    if not files:
+        _emit_error("no input files found (looked for *.txt, *.md, *.py in dirs)")
+        return EXIT_CONFIG_ERROR
+
+    budget = args.max_bytes  # enforced on UTF-8 bytes read, not characters
+    pieces: list[str] = []
+    for f in files:
+        if budget <= 0:
+            break
+        with f.open("rb") as fh:
+            raw = fh.read(budget)
+        budget -= len(raw)
+        pieces.append(raw.decode("utf-8", errors="ignore"))
+    corpus = "\n\n".join(pieces)
+
+    start = time.perf_counter()
+    tok = train_bpe(corpus, args.vocab_size)
+    elapsed = time.perf_counter() - start
+    tok.save(args.output)
+
+    n_tokens = len(tok.encode(corpus[:1_000_000]))
+    n_bytes = len(corpus[:1_000_000].encode("utf-8"))
+    stats = {
+        "output": args.output,
+        "vocab_size": tok.n_vocab,
+        "corpus_bytes": len(corpus.encode("utf-8")),
+        "files": len(files),
+        "train_seconds": round(elapsed, 2),
+        "bytes_per_token": round(n_bytes / max(n_tokens, 1), 3),
+    }
+    if args.json:
+        print(json.dumps(stats))
+    else:
+        print(
+            f"trained {stats['vocab_size']}-token BPE on {stats['corpus_bytes']} bytes "
+            f"({stats['files']} files) in {stats['train_seconds']}s -> {args.output} "
+            f"[{stats['bytes_per_token']} bytes/token]"
+        )
+    return EXIT_OK
+
+
+# ------------------------------------------------------------ checkpoint tools
+# export-checkpoint, import-checkpoint and average-checkpoints exit 1 on any
+# failure, as JAX's do, except a refusal: a part not yet ported, or a model
+# or data module the port does not have, is a config error (2).
+
+
+def _tool_exit_code(exc: BaseException) -> int:
+    from .registry import RegistryError
+
+    refused = exit_code_for_exception(exc) == EXIT_CONFIG_ERROR or isinstance(exc, RegistryError)
+    return EXIT_CONFIG_ERROR if refused else EXIT_FAILURE
+
+
+def _tool_model(cfg):
+    """The config's model on its device, freshly initialized."""
+    from .distributed import resolve_device
+    from .registry import get_model_adapter, initialize_registries
+
+    initialize_registries()
+    return get_model_adapter(cfg.model.name)().build_model(cfg, resolve_device(cfg.run.device))
+
+
+def _model_params(cfg, model):
+    """A model's parameters as the JAX param tree (CPU tensors)."""
+    from .interop import state_dict_to_flax_params
+
+    return state_dict_to_flax_params(
+        model.state_dict(), n_heads=cfg.model.n_heads,
+        n_kv_heads=int(cfg.model.extra.get("n_kv_heads", 0)),
+    )
+
+
+def _load_checkpoint_params(cfg, model, from_spec: str):
+    """The shared checkpoint load of export and average (JAX
+    ``_load_checkpoint_params`` without ``ema``): resolve the spec, load
+    the params into ``model`` (strict, so the config's shapes are checked;
+    a config mismatch warns), and return ``(ckpt_path, params, step)``
+    with the params as the JAX tree."""
+    import yaml
+
+    from .training.checkpoint import load_inference_params, resolve_resume_path
+
+    ckpt_path = resolve_resume_path(from_spec, cfg.output.root_dir)
+    expected_yaml = yaml.safe_dump(cfg.model_dump(), sort_keys=False)
+    step = load_inference_params(ckpt_path, model, expected_config_yaml=expected_yaml)
+    return ckpt_path, _model_params(cfg, model), step
+
+
+def _save_fresh_checkpoint(cfg, model, params, out_dir: Path) -> Path:
+    """``params`` (JAX tree) into ``model`` with a fresh optimizer state,
+    committed as ``step_000000.ckpt`` in ``out_dir``: what ``train
+    --resume`` takes (JAX ``create_train_state`` + ``save_host``)."""
+    from .interop import flax_params_to_state_dict
+    from .training.checkpoint import CheckpointManager
+    from .training.optimizer import build_optimizer
+
+    model.load_state_dict(flax_params_to_state_dict(params), strict=True)
+    optimizer = build_optimizer(cfg.trainer, list(model.named_parameters()))
+    host = {"params": _model_params(cfg, model), "opt_state": optimizer.state_dict()}
+    return CheckpointManager(out_dir).save_host(0, host, cfg.model_dump())
+
+
+def _tree_map(fn, tree, *rest):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def _handle_average_checkpoints(args: argparse.Namespace) -> int:
+    """Model soup (JAX ``_handle_average_checkpoints``): the uniform
+    average of several checkpoints' params, float leaves accumulated in
+    float64 and cast back, integer leaves kept from the first, written as
+    a resumable ``step_000000.ckpt`` with a fresh optimizer state."""
+    cfg, code = _load_config(args.config)
+    if cfg is None:
+        return code
+    lora = _lora_error(cfg)
+    if lora is not None:
+        _emit_error(lora)
+        return EXIT_CONFIG_ERROR
+
+    from .utils.logging import configure_logging
+
+    configure_logging(level=cfg.logging.level, json_output=cfg.logging.json_output)
+    try:
+        import torch
+
+        from .training.checkpoint import resolve_resume_path
+
+        out_dir = Path(args.output)
+        if out_dir.exists() and sorted(out_dir.glob("step_*.ckpt")):
+            _emit_error(f"output dir {out_dir} already holds checkpoints; pass an empty directory")
+            return EXIT_FAILURE
+        specs = [s.strip() for s in args.inputs.split(",") if s.strip()]
+        if args.last_k:
+            if len(specs) != 1:
+                _emit_error("--last-k needs --inputs to be ONE checkpoint dir")
+                return EXIT_CONFIG_ERROR
+            if args.last_k < 2:
+                _emit_error("averaging needs at least 2 checkpoints")
+                return EXIT_CONFIG_ERROR
+            files = sorted(Path(specs[0]).glob("step_*.ckpt"))
+            if len(files) < args.last_k:
+                _emit_error(
+                    f"{specs[0]} holds {len(files)} checkpoints, fewer than --last-k {args.last_k}"
+                )
+                return EXIT_CONFIG_ERROR
+            paths = files[-args.last_k:]
+        else:
+            if len(specs) < 2:
+                _emit_error("averaging needs at least 2 checkpoints")
+                return EXIT_CONFIG_ERROR
+            paths = [resolve_resume_path(s, cfg.output.root_dir) for s in specs]
+
+        def as64(a):
+            if a.is_floating_point():
+                return a.double().numpy()
+            return a.numpy()
+
+        model = _tool_model(cfg)
+        acc = params = None
+        steps = []
+        for p in paths:
+            _, params, step = _load_checkpoint_params(cfg, model, str(p))
+            steps.append(step)
+            host = _tree_map(as64, params)
+            acc = host if acc is None else _tree_map(
+                lambda t, x: np.add(t, x) if np.issubdtype(t.dtype, np.floating) else t, acc, host
+            )
+        # Divide in float64, then cast back to the param dtype.
+        avg = _tree_map(
+            lambda s, like: torch.from_numpy(s / len(paths)).to(like.dtype)
+            if like.is_floating_point() else torch.from_numpy(s),
+            acc, params,
+        )
+        target = _save_fresh_checkpoint(cfg, model, avg, out_dir)
+        stats = {"inputs": [str(p) for p in paths], "steps": steps, "checkpoint": str(target)}
+        if args.json:
+            print(json.dumps(stats))
+        else:
+            print(
+                f"averaged {len(paths)} checkpoints (steps {steps}) -> {target}; "
+                f"continue with: train --config {args.config} --resume {out_dir}"
+            )
+        return EXIT_OK
+    except Exception as exc:  # noqa: BLE001 — CLI boundary
+        _emit_error(f"averaging failed: {exc}")
+        return _tool_exit_code(exc)
+
+
+def _handle_export_checkpoint(args: argparse.Namespace) -> int:
+    """Export GPT weights as a reference torch GPT state dict (JAX
+    ``_handle_export_checkpoint``; interop/torch_interop.py): the same
+    keys, shapes and dtypes, ``causal_mask`` buffers and the tied
+    ``lm_head.weight`` included."""
+    cfg, code = _load_config(args.config)
+    if cfg is None:
+        return code
+    unported = _lora_error(cfg)
+    if unported is None and args.ema:
+        unported = f"--ema (EMA shadow weights) {_NOT_PORTED} (ROADMAP.md queue A: slice 2 deferrals)"
+    if unported is not None:
+        _emit_error(unported)
+        return EXIT_CONFIG_ERROR
+
+    from .utils.logging import configure_logging
+
+    configure_logging(level=cfg.logging.level, json_output=cfg.logging.json_output)
+    try:
+        import torch
+
+        from .interop import params_to_torch_state_dict
+
+        ckpt_path, params, step = _load_checkpoint_params(cfg, _tool_model(cfg), args.from_spec)
+        sd = {k: torch.from_numpy(v) for k, v in params_to_torch_state_dict(params).items()}
+        out = Path(args.output)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        torch.save(sd, out)
+        n_params = int(sum(v.numel() for v in sd.values()))
+        stats = {
+            "checkpoint": str(ckpt_path),
+            "step": step,
+            "output": str(out),
+            "tensors": len(sd),
+            "parameters": n_params,
+        }
+        if args.json:
+            print(json.dumps(stats))
+        else:
+            print(f"exported step-{step} checkpoint -> {out} "
+                  f"({len(sd)} tensors, {n_params:,} parameters)")
+        return EXIT_OK
+    except Exception as exc:  # noqa: BLE001 — CLI boundary
+        _emit_error(f"export failed: {exc}")
+        return _tool_exit_code(exc)
+
+
+def _handle_import_checkpoint(args: argparse.Namespace) -> int:
+    """Reference torch GPT state dict → ``step_000000.ckpt`` with a fresh
+    optimizer state (JAX ``_handle_import_checkpoint``); continue with
+    ``train --resume <output dir>``."""
+    cfg, code = _load_config(args.config)
+    if cfg is None:
+        return code
+    lora = _lora_error(cfg)
+    if lora is not None:
+        _emit_error(lora)
+        return EXIT_CONFIG_ERROR
+
+    from .utils.logging import configure_logging
+
+    configure_logging(level=cfg.logging.level, json_output=cfg.logging.json_output)
+    try:
+        import torch
+
+        from .interop import params_from_torch_state_dict
+
+        out_dir = Path(args.output)
+        existing = sorted(out_dir.glob("step_*.ckpt")) if out_dir.exists() else []
+        if existing:
+            # keep-last-k pruning would otherwise delete the imported step-0
+            # file (or the user's own checkpoints).
+            _emit_error(
+                f"output dir {out_dir} already holds checkpoints "
+                f"({existing[0].name}, ...); pass an empty directory"
+            )
+            return EXIT_FAILURE
+        model = _tool_model(cfg)
+        raw = torch.load(args.input, weights_only=True)
+        params = params_from_torch_state_dict(dict(raw), _model_params(cfg, model))
+        target = _save_fresh_checkpoint(cfg, model, params, out_dir)
+        n_params = int(sum(p.numel() for p in model.parameters()))
+        stats = {"input": args.input, "checkpoint": str(target), "parameters": n_params}
+        if args.json:
+            print(json.dumps(stats))
+        else:
+            print(
+                f"imported {args.input} -> {target} ({n_params:,} parameters); "
+                f"continue with: train --config {args.config} --resume {args.output}"
+            )
+        return EXIT_OK
+    except Exception as exc:  # noqa: BLE001 — CLI boundary
+        _emit_error(f"import failed: {exc}")
+        return _tool_exit_code(exc)
+
+
 def _warn_unknown_extras(cfg) -> None:
     """Typos in ``model.extra`` are warnings, never errors."""
     try:
@@ -1599,13 +2057,29 @@ _HANDLERS = {
     "serve": _handle_serve,
     "serve-bench": _handle_serve_bench,
     "trace": _handle_trace,
+    "eval": _handle_eval,
+    "train-tokenizer": _handle_train_tokenizer,
+    "export-checkpoint": _handle_export_checkpoint,
+    "import-checkpoint": _handle_import_checkpoint,
+    "average-checkpoints": _handle_average_checkpoints,
     "validate": _handle_validate,
     "print-config": _handle_print_config,
 }
 
 
+def _handle_unported(args: argparse.Namespace) -> int:
+    what, item = _UNPORTED_COMMANDS[args.command]
+    _emit_error(f"`{args.command}` ({what}) {_NOT_PORTED} (ROADMAP.md queue A: {item})")
+    return EXIT_CONFIG_ERROR
+
+
 def main(argv: list[str] | None = None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args, extra = parser.parse_known_args(argv)
+    if args.command in _UNPORTED_COMMANDS:
+        return _handle_unported(args)
+    if extra:
+        parser.error(f"unrecognized arguments: {' '.join(extra)}")
     return _HANDLERS[args.command](args)
 
 

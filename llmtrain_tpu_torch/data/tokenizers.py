@@ -1,10 +1,12 @@
 """Offline tokenizers (port of ``llmtrain_tpu/data/tokenizers.py``).
 
-This slice carries the byte-level tokenizer the headline preset uses
-(``model.extra.tokenizer: "byte"``): 256-symbol vocabulary, UTF-8 bytes
-as token ids. ``gpt2`` needs tiktoken's downloaded BPE files and raises
-here as it would offline; ``bpe:`` and ``hf:`` vocabularies are not yet
-ported (ROADMAP.md queue A: model zoo).
+The byte-level tokenizer (``model.extra.tokenizer: "byte"``: 256-symbol
+vocabulary, UTF-8 bytes as token ids) and ``bpe:<path>``, a vocabulary
+trained offline by ``train-tokenizer`` (data/bpe.py). ``gpt2`` needs
+tiktoken's downloaded BPE files and raises here as it would offline;
+``hf:<tokenizer.json>`` needs the ``tokenizers`` package, which the card's
+machine lacks, and is refused (ROADMAP.md queue A: model zoo, beside the
+HF-Llama interop it serves).
 """
 
 from __future__ import annotations
@@ -32,9 +34,9 @@ class ByteTokenizer:
 
 
 def build_tokenizer(name: str):
-    """Resolve a tokenizer by config name: ``"byte"`` here; ``"gpt2"``
-    raises (its BPE files need a download); ``bpe:``/``hf:`` raise as not
-    yet ported; anything else is unknown."""
+    """Resolve a tokenizer by config name: ``"byte"`` and ``"bpe:<path>"``;
+    ``"gpt2"`` raises (its BPE files need a download); ``"hf:"`` raises as
+    not yet ported; anything else is unknown."""
     if name == "byte":
         return ByteTokenizer()
     if name == "gpt2":
@@ -43,10 +45,15 @@ def build_tokenizer(name: str):
             "downloaded on first use; use model.extra.tokenizer: \"byte\" "
             "or set model.vocab_size and pass prompt ids"
         )
-    if name.startswith(("bpe:", "hf:")):
+    if name.startswith("bpe:"):
+        from .bpe import BPETokenizer
+
+        return BPETokenizer.load(name[len("bpe:"):])
+    if name.startswith("hf:"):
         raise NotImplementedError(
-            f"tokenizer {name!r} is not yet ported to llmtrain_tpu_torch "
-            "(ROADMAP.md queue A: model zoo); use \"byte\""
+            f"tokenizer {name!r} is not yet ported to llmtrain_tpu_torch: it needs "
+            "the tokenizers package (ROADMAP.md queue A: model zoo); use \"byte\" "
+            "or \"bpe:<path>\""
         )
     raise ValueError(
         f"unknown tokenizer {name!r}; expected 'gpt2', 'byte', 'bpe:<path>', "

@@ -1,4 +1,5 @@
-"""JAX GPT parameter tree ↔ the port's ``state_dict``.
+"""JAX parameter trees ↔ the port's ``state_dict``: the dense GPT and
+``dummy_gpt``.
 
 Input is the flax GPT's ``params`` as nested dicts of arrays — what
 ``flax.serialization.to_state_dict`` gives and what a checkpoint payload
@@ -17,6 +18,9 @@ Floating leaves keep their dtype; ``load_state_dict`` casts them into the
 model's parameter dtype. :func:`state_dict_to_flax_gpt_params` is the
 inverse: the port's trained parameters back to flax names and layout, so
 the JAX package's checkpoint readers take a checkpoint the port wrote.
+``flax_params_to_state_dict`` / ``state_dict_to_flax_params`` dispatch
+between the GPT pair and the ``dummy_gpt`` pair (flax ``_TinyLM``: the
+same Dense and Embed layouts).
 """
 
 from __future__ import annotations
@@ -150,4 +154,64 @@ def state_dict_to_flax_gpt_params(
     return params
 
 
-__all__ = ["flax_gpt_params_to_state_dict", "state_dict_to_flax_gpt_params"]
+def is_dummy_gpt_tree(params: Params) -> bool:
+    """True for the ``dummy_gpt`` param tree (flax ``_TinyLM``)."""
+    return "embed" in params and "mlp_in" in params
+
+
+def flax_dummy_gpt_params_to_state_dict(params: Params) -> dict[str, torch.Tensor]:
+    """The port's ``TinyLM`` ``state_dict`` from the JAX ``dummy_gpt`` tree
+    (``embed``, ``mlp_in``, ``mlp_out``, ``ln_f``, ``lm_head``)."""
+    sd = {
+        "embed.weight": _tensor(params["embed"]["embedding"]),
+        "ln_f.weight": _tensor(params["ln_f"]["scale"]),
+        "ln_f.bias": _tensor(params["ln_f"]["bias"]),
+        "lm_head.weight": _kernel(params["lm_head"]["kernel"]),
+    }
+    for dense in ("mlp_in", "mlp_out"):
+        sd[f"{dense}.weight"] = _kernel(params[dense]["kernel"])
+        sd[f"{dense}.bias"] = _tensor(params[dense]["bias"])
+    return sd
+
+
+def state_dict_to_flax_dummy_gpt_params(sd: dict[str, torch.Tensor]) -> Params:
+    """The inverse of :func:`flax_dummy_gpt_params_to_state_dict`."""
+    sd = {k: v.detach().cpu() for k, v in sd.items()}
+    params: dict[str, Any] = {
+        "embed": {"embedding": sd["embed.weight"].clone()},
+        "ln_f": {"scale": sd["ln_f.weight"].clone(), "bias": sd["ln_f.bias"].clone()},
+        "lm_head": {"kernel": _flax_kernel(sd["lm_head.weight"], sd["lm_head.weight"].shape[0])},
+    }
+    for dense in ("mlp_in", "mlp_out"):
+        w = sd[f"{dense}.weight"]
+        params[dense] = {"kernel": _flax_kernel(w, w.shape[0]), "bias": sd[f"{dense}.bias"].clone()}
+    return params
+
+
+def flax_params_to_state_dict(params: Params) -> dict[str, torch.Tensor]:
+    """A checkpoint's param tree → the ``state_dict`` of the model it
+    belongs to: ``dummy_gpt`` or the dense GPT, told apart by the tree."""
+    if is_dummy_gpt_tree(params):
+        return flax_dummy_gpt_params_to_state_dict(params)
+    return flax_gpt_params_to_state_dict(params)
+
+
+def state_dict_to_flax_params(
+    sd: dict[str, torch.Tensor], *, n_heads: int, n_kv_heads: int | None = None
+) -> Params:
+    """A model's ``state_dict`` → the JAX param tree a checkpoint stores:
+    ``dummy_gpt`` (told apart by its ``embed.weight``) or the dense GPT."""
+    if "embed.weight" in sd:
+        return state_dict_to_flax_dummy_gpt_params(sd)
+    return state_dict_to_flax_gpt_params(sd, n_heads=n_heads, n_kv_heads=n_kv_heads)
+
+
+__all__ = [
+    "flax_dummy_gpt_params_to_state_dict",
+    "flax_gpt_params_to_state_dict",
+    "flax_params_to_state_dict",
+    "is_dummy_gpt_tree",
+    "state_dict_to_flax_dummy_gpt_params",
+    "state_dict_to_flax_gpt_params",
+    "state_dict_to_flax_params",
+]

@@ -1,6 +1,7 @@
 """Plugin registries with deterministic initialization (port of
-``llmtrain_tpu/registry/__init__.py``): the dense GPT and the
-``local_text`` data module are ported so far."""
+``llmtrain_tpu/registry/__init__.py``): the dense GPT and ``dummy_gpt``,
+and the ``local_text``, ``mixed_text`` and ``dummy_text`` data modules
+are ported so far."""
 
 from __future__ import annotations
 
@@ -9,7 +10,13 @@ import importlib
 from .data import get_data_module, register_data_module
 from .models import RegistryError, get_model_adapter, register_model
 
-_PLUGIN_MODULES = ("llmtrain_tpu_torch.models.gpt", "llmtrain_tpu_torch.data.local_text")
+_PLUGIN_MODULES = (
+    "llmtrain_tpu_torch.models.gpt",
+    "llmtrain_tpu_torch.models.dummy_gpt",
+    "llmtrain_tpu_torch.data.local_text",
+    "llmtrain_tpu_torch.data.mixed_text",
+    "llmtrain_tpu_torch.data.dummy_text",
+)
 
 
 def initialize_registries() -> None:

@@ -25,9 +25,19 @@ def register_data_module(name: str) -> Callable[[T], T]:
 
 
 def get_data_module(name: str) -> type[DataModule]:
+    """The registered data module ``name``. JAX's ``hf_text`` is refused
+    with ``NotImplementedError`` (a config error): it reads from the
+    Hugging Face hub, a download, so no ROADMAP.md item queues it. Any
+    other unknown name raises :class:`RegistryError`."""
     try:
         return _DATA_MODULES[name]
     except KeyError:
+        if name == "hf_text":
+            raise NotImplementedError(
+                "data module 'hf_text' reads from the Hugging Face hub, a download; "
+                "it is not queued for llmtrain_tpu_torch (ROADMAP.md queue A: smoke "
+                "presets and offline data); use local_text or mixed_text over local files"
+            ) from None
         raise RegistryError(
             f"Unknown data module {name!r}. Available: {sorted(_DATA_MODULES)}"
         ) from None

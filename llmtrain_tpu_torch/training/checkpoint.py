@@ -15,7 +15,8 @@ size and digest. This module reads that layout without flax:
   newest valid, run id → ``{root}/{id}/checkpoints``) exactly as JAX does;
 * :func:`load_inference_params` verifies the payload, warns when its
   stored config differs from the current one, and loads the params into a
-  model through the weight carry-over (interop/flax_params.py).
+  model through the weight carry-over of its family (the GPT or
+  ``dummy_gpt``, interop/flax_params.py).
 
 Write side: :meth:`CheckpointManager.save_host` stages the payload and
 its sidecar (tmp write, fsync, rename), then publishes the manifest by
@@ -510,12 +511,12 @@ def load_inference_params(
 ) -> int:
     """Load a checkpoint's params (no optimizer state) into ``model``
     (strict: every parameter must be present) and return its step."""
-    from ..interop.flax_params import flax_gpt_params_to_state_dict
+    from ..interop.flax_params import flax_params_to_state_dict
 
     payload = CheckpointManager.load(path)
     if expected_config_yaml is not None:
         warn_on_config_mismatch(payload, expected_config_yaml, path)
-    model.load_state_dict(flax_gpt_params_to_state_dict(payload["params"]), strict=True)
+    model.load_state_dict(flax_params_to_state_dict(payload["params"]), strict=True)
     return int(payload["step"])
 
 

@@ -12,6 +12,7 @@ checkpoint with the config-mismatch warning and a topology check, and the
 non-finite guard with its consecutive-skip abort, and preemption: SIGTERM
 saves a checkpoint at the step it lands in and returns with
 ``preempted=True``, so ``train --auto-resume`` continues from there.
+:meth:`Trainer.evaluate` runs the validation loop alone (``eval``).
 
 A config that switches on a part of the JAX trainer the port does not run
 yet raises ``NotImplementedError`` at construction, naming the ROADMAP.md
@@ -38,7 +39,7 @@ from ..config.schemas import RunConfig
 from ..data.prefetch import BatchPrefetcher
 from ..data.sampler import DeterministicSampler
 from ..distributed import resolve_device
-from ..interop.flax_params import flax_gpt_params_to_state_dict, state_dict_to_flax_gpt_params
+from ..interop.flax_params import flax_params_to_state_dict, state_dict_to_flax_params
 from ..registry import get_data_module, get_model_adapter, initialize_registries
 from ..utils.hw import mfu as compute_mfu
 from ..utils.hw import peak_flops, peak_memory_bytes
@@ -139,6 +140,8 @@ class Trainer:
         tokenizer = None
         try:
             tokenizer = self._adapter.build_tokenizer(cfg)
+        except NotImplementedError:
+            raise  # a refusal (exit 2), not an offline environment
         except Exception as exc:  # noqa: BLE001 — offline environments: tokenizer optional
             logger.warning("build_tokenizer failed (%s); continuing without one", exc)
         self._data_module.setup(cfg, tokenizer)
@@ -211,6 +214,63 @@ class Trainer:
             examples["attention_mask"] = examples["attention_mask"].copy()
             examples["attention_mask"][len(indices) - n_pad:] = 0
         return self._to_device(examples)
+
+    # ------------------------------------------------------------------ eval only
+
+    def evaluate(
+        self,
+        resume_from: str | None = None,
+        *,
+        use_ema: bool = False,
+        quantize: str | None = None,
+    ) -> dict[str, float] | None:
+        """Eval-only pass (JAX ``Trainer.evaluate``): load ``resume_from``'s
+        params (if given) and run the full validation loop once, without
+        training. Returns ``{"val/loss": ...}``, or None when the data
+        module has no validation split. The step in the log line is the
+        checkpoint's (0 for a fresh init).
+
+        Only the params are read (no optimizer state, no topology check: an
+        eval makes no trajectory claim), so a checkpoint either package
+        wrote evaluates. ``quantize="int8"`` evaluates a copy of the model
+        under weight-only int8 (ops/quant.py), the serving path's weights,
+        so ``val/loss`` is the quality cost of quantized decode; the
+        trainer's own model keeps its weights. ``use_ema`` (the EMA shadow)
+        is not yet ported."""
+        if quantize not in (None, "int8"):
+            raise ValueError(f"unsupported quantize mode: {quantize!r}")
+        if use_ema:
+            raise NotImplementedError(
+                f"evaluating the EMA shadow weights {_NOT_PORTED} "
+                "(ROADMAP.md queue A: slice 2 deferrals)"
+            )
+        step = 0
+        if resume_from is not None:
+            from .checkpoint import load_inference_params
+
+            path = resolve_resume_path(resume_from, self._cfg.output.root_dir)
+            step = load_inference_params(
+                path, self._model,
+                expected_config_yaml=yaml.safe_dump(self._cfg.model_dump(), sort_keys=False),
+            )
+            self._state.step = step
+            logger.info("evaluating checkpoint %s (step %d)", path, step)
+        eval_fn = self._eval_step_fn
+        if quantize == "int8":
+            import copy
+
+            from ..ops.quant import quantize_model
+
+            if not hasattr(self._model, "n_heads"):
+                raise ValueError("--quantize int8 evaluates the gpt model only")
+            model = copy.deepcopy(self._model)
+            stats = quantize_model(model)
+            logger.info(
+                "int8 weight quantization: %d/%d params quantized, %.2fx weight-byte compression",
+                stats["quantized_params"], stats["total_params"], stats["compression"],
+            )
+            eval_fn = make_eval_step(self._adapter, model)
+        return self._evaluate(step, step, eval_fn)
 
     # ------------------------------------------------------------------ fit
 
@@ -464,7 +524,7 @@ class Trainer:
         m = self._cfg.model
         n_kv = int(m.extra.get("n_kv_heads", 0))
         return {
-            "params": state_dict_to_flax_gpt_params(
+            "params": state_dict_to_flax_params(
                 self._model.state_dict(), n_heads=m.n_heads, n_kv_heads=n_kv
             ),
             "opt_state": self._state.optimizer.state_dict(),
@@ -510,8 +570,7 @@ class Trainer:
             payload, yaml.safe_dump(self._cfg.model_dump(), sort_keys=False), path
         )
         step = int(payload["step"])
-        self._model.load_state_dict(flax_gpt_params_to_state_dict(payload["params"]),
-                                    strict=True)
+        self._model.load_state_dict(flax_params_to_state_dict(payload["params"]), strict=True)
         self._state.optimizer.load_state_dict(payload["opt_state"])
         self._state.step = step
         resil = payload.get("resilience") or {}
@@ -564,9 +623,12 @@ class Trainer:
 
     # ------------------------------------------------------------------ eval
 
-    def _evaluate(self, step: int, max_steps: int) -> dict[str, float] | None:
+    def _evaluate(self, step: int, max_steps: int,
+                  eval_fn: Any = None) -> dict[str, float] | None:
         """Token-weighted loss over the whole validation split; the last
-        batch is padded with zero-masked rows (exact under the weighting)."""
+        batch is padded with zero-masked rows (exact under the weighting).
+        ``eval_fn`` replaces the model's eval step (a quantized copy)."""
+        eval_fn = eval_fn or self._eval_step_fn
         val_ds = self._data_module.val_dataset()
         if val_ds is None:
             return None
@@ -578,7 +640,7 @@ class Trainer:
             real = np.arange(b * eval_bs, min((b + 1) * eval_bs, n))
             pad = eval_bs - len(real)
             indices = np.concatenate([real, np.zeros(pad, dtype=np.int64)])
-            loss_sum, tokens = self._eval_step_fn(self._eval_batch(val_ds, indices, n_pad=pad))
+            loss_sum, tokens = eval_fn(self._eval_batch(val_ds, indices, n_pad=pad))
             loss_total += loss_sum.sum()
             tok_total += tokens.sum()
         val_loss = float(loss_total) / max(float(tok_total), 1.0)

@@ -38,6 +38,10 @@ def test_walk_covers_the_package() -> None:
             "local_text.py", "sampler.py", "prefetch.py", "hw.py", "summary.py"} <= names
     assert {"fused_ce.py", "chunked_ce.py"} <= names
     assert {"engine.py", "scheduler.py", "paged_kv.py", "overload.py", "loadgen.py"} <= names
+    assert {"exit_codes.py", "dummy_text.py", "mixed_text.py", "bpe.py", "dummy_gpt.py",
+            "torch_interop.py"} <= names
+    native = _ROOT / "llmtrain_tpu_torch" / "native" / "__init__.py"
+    assert native in _FILES and (native.parent / "fastbpe.c").is_file()
 
 
 def test_kernel_modules_import_triton_only_inside_functions() -> None:

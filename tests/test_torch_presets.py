@@ -1,0 +1,88 @@
+"""The repository's presets that the port now reads, on the CPU.
+
+The ten ``gpt`` smoke presets on ``dummy_text`` and the two ``dummy_gpt``
+presets train three steps through the port's ``train`` (gpt_quant_smoke
+is refused, exit 2, citing its ROADMAP.md item); and
+``gpt_pycorpus_bpe_tpu`` at a tiny width, over a corpus of standard-library
+files with the tracked ``runs/pytok8k.json`` vocabulary, tracks the JAX
+trainer's per-step losses from the same initial params within the
+optimizer-trajectory band (atol 3e-5, rtol 1e-3). The trajectory runs in
+float32: the band is the f32 one, and bf16 compute rounds differently in
+the two frameworks.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import shutil
+import sysconfig
+from pathlib import Path
+
+import numpy as np
+import pytest
+import yaml
+from test_torch_train_cli import _CITES_STABLE_ITEM
+from torch_port_helpers import REPO_ROOT, paired_fit, run_cli
+
+from llmtrain_tpu_torch.cli import main as port_main
+
+TRAJ_ATOL, TRAJ_RTOL = 3e-5, 1e-3
+SMOKE_PRESETS = ("gpt_smoke", "gpt_serve_smoke", "gpt_router_smoke", "gpt_overload_smoke",
+                 "gpt_fusedce_smoke", "gpt_promote_smoke", "gpt_fleet_smoke", "gpt_chaos_smoke",
+                 "gpt_tune_smoke", "gpt_quant_smoke", "dummy_smoke", "example")
+
+
+def _preset(name: str) -> dict:
+    return yaml.safe_load((REPO_ROOT / "configs" / "presets" / f"{name}.yaml").read_text())
+
+
+@pytest.mark.parametrize("name", SMOKE_PRESETS)
+def test_smoke_preset_trains_three_steps(tmp_path, capsys, name: str) -> None:
+    raw = _preset(name)
+    trainer = raw["trainer"]
+    trainer.update(max_steps=3, warmup_steps=min(trainer.get("warmup_steps", 0), 3))
+    raw.setdefault("output", {})["root_dir"] = str(tmp_path / "runs")
+    raw.setdefault("data", {})["cache_dir"] = str(tmp_path / "cache")
+    assert raw["run"]["device"] == "cpu"
+    cfg = tmp_path / f"{name}.yaml"
+    cfg.write_text(yaml.safe_dump(raw, sort_keys=False))
+    code = run_cli(port_main, ["train", "--config", str(cfg), "--run-id", "r", "--json"])
+    out, err = capsys.readouterr()
+    if name == "gpt_quant_smoke":
+        assert code == 2
+        assert _CITES_STABLE_ITEM.search(err) and "queue A: parallelism)" in err, err
+        return
+    assert code == 0, err
+    result = json.loads(out)["train_result"]
+    assert result["final_step"] == 3 and math.isfinite(result["final_loss"])
+    assert (tmp_path / "runs" / "r" / "checkpoints" / "step_000003.ckpt").is_file()
+
+
+def test_bpe_preset_tracks_jax_at_a_tiny_width(tmp_path) -> None:
+    raw = _preset("gpt_pycorpus_bpe_tpu")
+    stdlib = Path(sysconfig.get_paths()["stdlib"])
+    corpus = tmp_path / "corpus"
+    corpus.mkdir()
+    for name in ("textwrap.py", "json/decoder.py", "shlex.py", "fnmatch.py"):
+        shutil.copy(stdlib / name, corpus / name.replace("/", "_"))
+    raw["run"]["device"] = "cpu"
+    raw["model"].update(block_size=32, d_model=32, n_layers=2, n_heads=2, d_ff=64,
+                        dtype="float32")
+    assert raw["model"]["vocab_size"] is None
+    raw["model"]["extra"]["tokenizer"] = f"bpe:{REPO_ROOT / 'runs' / 'pytok8k.json'}"
+    raw["data"]["cache_dir"] = str(tmp_path / "cache")
+    raw["data"]["extra"]["globs"] = [str(corpus / "*.py")]
+    raw["data"]["extra"]["val_fraction"] = 0.05
+    raw["trainer"].update(max_steps=4, warmup_steps=1, micro_batch_size=8, log_every_steps=1,
+                          eval_every_steps=4, save_every_steps=4)
+    raw["output"]["root_dir"] = str(tmp_path / "runs")
+    raw["telemetry"] = {"enabled": False}
+    jax_losses, port_losses, jax_result, port_result = paired_fit(raw, tmp_path)
+    assert len(port_losses) == len(jax_losses) == 4
+    np.testing.assert_allclose(port_losses, jax_losses, atol=TRAJ_ATOL, rtol=TRAJ_RTOL)
+    np.testing.assert_allclose(port_result.final_val_loss, jax_result.final_val_loss,
+                               atol=TRAJ_ATOL, rtol=TRAJ_RTOL)
+    # The vocabulary sized the model: tied 8192 x 32 embedding.
+    assert port_result.parameter_count == jax_result.parameter_count
+    assert port_losses[0] == pytest.approx(math.log(8192), abs=0.5)

@@ -185,7 +185,8 @@ def test_dense_checkpoint_resumes_under_fused_ce(tmp_path, capsys) -> None:
 # cites one of them, never a numbered queue item.
 STABLE_ITEMS = ("slice 2 deferrals", "continuous serving", "speculative decoding",
                 "replica router", "int8 quantization", "rolling sliding-window cache",
-                "model zoo", "parallelism", "resilience", "telemetry")
+                "model zoo", "parallelism", "resilience", "telemetry",
+                "smoke presets and offline data", "autotune", "lifecycle and fleet")
 _CITES_STABLE_ITEM = re.compile(r"\(ROADMAP\.md queue A: (" + "|".join(STABLE_ITEMS) + r")\)")
 
 

@@ -113,3 +113,60 @@ def port_env(**extra: str) -> dict[str, str]:
     env["OMP_NUM_THREADS"] = "1"
     env.update(extra)
     return env
+
+
+def paired_fit(raw: dict, directory: Path, steps: int | None = None
+               ) -> tuple[list[float], list[float], object, object]:
+    """``fit`` of the JAX trainer and of the port's on one config (a dict
+    written under ``directory``), the port's model first given the JAX
+    trainer's initial params through the carry-over: (JAX's per-step
+    losses, the port's, JAX's TrainResult, the port's). Log every step to
+    get every loss.
+
+    JAX spreads the batch over the test session's virtual CPU devices (its
+    global micro-batch is ``micro_batch_size`` x devices), so its config
+    gets ``micro_batch_size / devices``: both runs then train on the same
+    global batches, which must divide by the device count. ``steps`` stops
+    both runs early (``fit``'s ``max_steps_override``; the schedule still
+    spans ``trainer.max_steps``)."""
+    from unittest import mock
+
+    import yaml
+
+    from llmtrain_tpu.config import load_and_validate_config as jax_load_config
+    from llmtrain_tpu.registry import initialize_registries
+    from llmtrain_tpu.tracking.base import NullTracker
+    from llmtrain_tpu.training.trainer import Trainer as JaxTrainer
+    from llmtrain_tpu_torch.config import load_and_validate_config
+    from llmtrain_tpu_torch.interop import flax_params_to_state_dict
+    from llmtrain_tpu_torch.training.trainer import Trainer
+
+    devices = len(jax.devices())
+    micro = raw["trainer"]["micro_batch_size"]
+    assert micro % devices == 0, f"micro_batch_size {micro} must divide by {devices} devices"
+    jax_raw = {**raw, "trainer": {**raw["trainer"], "micro_batch_size": micro // devices}}
+    paths = []
+    for name, cfg in (("jax", jax_raw), ("port", raw)):
+        paths.append(Path(directory) / f"paired_{name}.yaml")
+        paths[-1].write_text(yaml.safe_dump(cfg, sort_keys=False))
+
+    def recording(cls, sink: list):
+        original = cls._log_train_interval
+
+        def log_interval(self, **kw):
+            sink.extend(float(x) for x in np.asarray(kw["losses_host"]))
+            return original(self, **kw)
+
+        return mock.patch.object(cls, "_log_train_interval", log_interval)
+
+    initialize_registries()
+    jax_trainer = JaxTrainer(jax_load_config(paths[0])[0], None, NullTracker())
+    port_trainer = Trainer(load_and_validate_config(paths[1])[0], None)
+    params = jax.device_get(serialization.to_state_dict(nn_meta.unbox(jax_trainer._state.params)))
+    port_trainer.model.load_state_dict(flax_params_to_state_dict(params), strict=True)
+    jax_losses: list[float] = []
+    port_losses: list[float] = []
+    with recording(JaxTrainer, jax_losses), recording(Trainer, port_losses):
+        jax_result = jax_trainer.fit(steps)
+        port_result = port_trainer.fit(steps)
+    return jax_losses, port_losses, jax_result, port_result
