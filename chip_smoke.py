@@ -202,6 +202,26 @@ Phases, each fatal on failure (exit code 1, no result line):
    --last-k 2 over the two saves -> eval finite; 12 flash forwards per
    eval batch over (c)-(d). (e) gpt_smoke and dummy_smoke trained
    SMOKE_PRESET_STEPS steps on the card: exit 0, finite losses, no kernel.
+18. The slice 2 deferrals, in the same temp root: (a) `train` on
+   gpt_pycorpus_tpu at full width and depth cut to DDP_STEPS steps, as a
+   one-rank NCCL job (distributed.enabled, RANK 0, WORLD_SIZE 1,
+   LOCAL_RANK 0, MASTER_ADDR/PORT), with trainer.extra.ema_decay DDP_EMA
+   and the step profiler over DDP_PROFILE, in-process through the CLI,
+   against the same config without them through the trainer alone: exit
+   0, the group's backend nccl, per-step losses within DDP_ATOL (the largest difference
+   printed), 12 flash forward, dq and dk/dv per step plus 12 forward per
+   eval batch and none of the others (reset just before the call, read
+   just after), and the profiler's trace holding an NCCL all-reduce
+   kernel and the flash kernels; step ms, tokens/s, MFU and peak memory
+   beside the plain run's. (b) `eval --ema` on the final checkpoint:
+   finite and not the trainer's own eval at that step; `export-checkpoint
+   --ema` -> `import-checkpoint` (the plain config) -> `eval`
+   bit-identical to `eval --ema`; 12 flash forwards per eval batch;
+   `generate --ema` answers a greedy request. (c) optimizer adamw,
+   adafactor and lion, OPT_STEPS steps each (warmup OPT_WARMUP), their
+   step ms medians over the same steps: adafactor and lion give finite
+   losses, the last below the first; each one's state bytes, step ms and
+   peak memory beside AdamW's.
 
 Then it prints the kernels line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
@@ -1383,6 +1403,13 @@ def _run_cli(argv: list[str]) -> tuple[int, str]:
 def _logged_steps(run_dir: Path) -> dict[int, dict]:
     """step -> {loss, step_time, tokens_per_sec, mfu} from the run's
     train.log (one JSON line per record)."""
+    lines = (run_dir / "logs" / "train.log").read_text().splitlines()
+    return _parse_steps(json.loads(line)["message"] for line in lines)
+
+
+def _parse_steps(messages) -> dict[int, dict]:
+    """step -> {loss, step_time, tokens_per_sec, mfu} from the trainer's
+    interval log messages."""
     import re
 
     pattern = re.compile(
@@ -1390,8 +1417,8 @@ def _logged_steps(run_dir: Path) -> dict[int, dict]:
         r"step_time=(\S+)s\s+mfu=(\S+)"
     )
     steps = {}
-    for line in (run_dir / "logs" / "train.log").read_text().splitlines():
-        m = pattern.search(json.loads(line)["message"])
+    for message in messages:
+        m = pattern.search(message)
         if m:
             steps[int(m.group(1))] = dict(loss=float(m.group(2)), tokens_per_sec=float(m.group(3)),
                                           step_time=float(m.group(4)), mfu=float(m.group(5)))
@@ -2856,6 +2883,293 @@ def phase_offline(torch, smi: str, tmp: Path) -> dict:
                 eval=bf16, int8=int8, soup=soup)
 
 
+# ------------------------------------------------------- slice 2 deferrals
+# Phase 18: a short run of the slice's path, long enough for the
+# profiler's window, a few steady steps after it, and one eval and one
+# save at the end.
+DDP_STEPS = 12
+DDP_EMA = 0.999
+DDP_PROFILE = (3, 2)  # first step, steps
+# The one-rank job against the plain run: the same data and init, and the
+# one-rank sums are the identity; only nondeterministic reductions (atomics
+# in aten's embedding backward) can separate the two.
+DDP_ATOL = 1e-3
+DDP_BACKEND = "nccl"  # run.device cuda
+# (c): the first updates at these widths raise the loss before it falls
+# (AdamW's run of (a): 5.54 -> 7.01 at step 4 -> 3.73 at step 6, after
+# 1.5e-3 of summed lr), so each optimizer gets more steps at the preset's
+# lr: the first updates of all three are sign-like steps of size lr.
+OPT_STEPS = 16
+OPT_WARMUP = 4
+
+
+def _ddp_config(tmp: Path, name: str, *, steps: int, distributed: bool = False,
+                warmup: int | None = None, **extra) -> Path:
+    """Phase 9's config cut to ``steps`` (warmup ``steps`` unless given),
+    one eval and one save at the end, ``trainer.extra`` updated."""
+    import yaml
+
+    path = _smoke_config(tmp, name)
+    raw = yaml.safe_load(path.read_text())
+    raw["trainer"].update(max_steps=steps, warmup_steps=steps if warmup is None else warmup,
+                          eval_every_steps=steps,
+                          save_every_steps=steps)
+    raw["trainer"].setdefault("extra", {}).update(extra)
+    raw["distributed"] = {"enabled": distributed, "timeout_sec": 300}
+    path.write_text(yaml.safe_dump(raw, sort_keys=False))
+    return path
+
+
+def _steady(steps: dict, skip=()) -> dict:
+    """Medians of step time, tokens/s and MFU over the logged steps but
+    the first (compiles, caches), the last (the save) and ``skip``."""
+    import numpy as np
+
+    last = max(steps)
+    rows = [v for k, v in sorted(steps.items()) if 1 < k < last and k not in skip]
+    return {key: float(np.median([r[key] for r in rows]))
+            for key in ("step_time", "tokens_per_sec", "mfu")}
+
+
+def _trace_kernels(trace: Path) -> tuple[dict[str, int], dict[str, int]]:
+    """Device kernels of a Chrome trace -> launch counts: all of them, and
+    those launched inside an ``nccl:all_reduce`` op (matched by the launch
+    call's correlation id)."""
+    events = json.loads(trace.read_text()).get("traceEvents", [])
+    spans = [(e.get("tid"), e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+             if e.get("name") == "nccl:all_reduce" and "ts" in e]
+    inside = {e["args"]["correlation"] for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})
+              and any(t == e.get("tid") and a <= e["ts"] <= b for t, a, b in spans)}
+    counts: dict[str, int] = {}
+    nccl: dict[str, int] = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            counts[e["name"]] = counts.get(e["name"], 0) + 1
+            if e.get("args", {}).get("correlation") in inside:
+                nccl[e["name"]] = nccl.get(e["name"], 0) + 1
+    return counts, nccl
+
+
+def _opt_state_bytes(ckpt: Path) -> int:
+    """Bytes of a checkpoint's optimizer state (the arrays, count aside)."""
+    from llmtrain_tpu_torch.training.checkpoint import CheckpointManager
+
+    def walk(tree) -> int:
+        if isinstance(tree, dict):
+            return sum(walk(v) for v in tree.values())
+        return int(tree.nbytes) if getattr(tree, "ndim", 0) else 0
+
+    return walk(CheckpointManager.load(ckpt)["opt_state"])
+
+
+def _ddp_train(torch, smi: str, tmp: Path, layers: int, eval_batches: int) -> dict:
+    """18(a)."""
+    import logging
+    import os
+
+    import torch.distributed as dist
+
+    from llmtrain_tpu_torch.config import load_and_validate_config
+    from llmtrain_tpu_torch.training.trainer import Trainer
+
+    # The plain run: the same config without the group, the EMA and the
+    # profiler, through the trainer alone (no run dir, no checkpoint).
+    messages: list[str] = []
+
+    class _Capture(logging.Handler):
+        def emit(self, record):
+            messages.append(record.getMessage())
+
+    capture, logger = _Capture(), logging.getLogger("llmtrain")
+    level = logger.level
+    logger.addHandler(capture)
+    logger.setLevel(logging.INFO)
+    try:
+        cfg, _, _ = load_and_validate_config(_ddp_config(tmp, "ddp_plain", steps=DDP_STEPS))
+        result = Trainer(cfg, None).fit()
+    finally:
+        logger.removeHandler(capture)
+        logger.setLevel(level)
+    plain = dict(final_val_loss=result.final_val_loss, peak_memory=result.peak_memory)
+    plain_steps = _parse_steps(messages)
+    torch.cuda.empty_cache()
+
+    cfg_path = _ddp_config(tmp, "ddp", steps=DDP_STEPS, distributed=True, ema_decay=DDP_EMA,
+                           profile_start_step=DDP_PROFILE[0], profile_num_steps=DDP_PROFILE[1])
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(_free_port())}
+    saved_env = {k: os.environ.get(k) for k in env}
+    backends: list[str] = []
+    destroy = dist.destroy_process_group
+
+    def recording_destroy(*args, **kwargs):
+        backends.append(str(dist.get_backend()))
+        return destroy(*args, **kwargs)
+
+    os.environ.update(env)
+    dist.destroy_process_group = recording_destroy
+    _reset_counts()  # the one-rank NCCL path's counts start here
+    try:
+        t0 = time.perf_counter()
+        code, out = _run_cli(["train", "--config", str(cfg_path), "--run-id", "ddp", "--json"])
+        wall = time.perf_counter() - t0
+        counts = _read_counts()  # and end here
+    finally:
+        dist.destroy_process_group = destroy
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if code != 0:
+        raise RuntimeError(f"the one-rank NCCL train exited {code}")
+    if dist.is_initialized():
+        raise RuntimeError("train left its process group behind")
+    summary = json.loads(out)["train_result"]
+    run_dir = tmp / "runs" / "ddp"
+    steps = _logged_steps(run_dir)
+    diffs = [abs(steps[i]["loss"] - plain_steps[i]["loss"]) for i in sorted(plain_steps)]
+    losses = " ".join(f"{steps[i]['loss']:.4f}" for i in sorted(steps))
+    log(f"[ddp] one-rank job over {backends}: {DDP_STEPS} steps in {wall:.1f} s (command wall, "
+        f"rendezvous, data setup and the profiler included); losses {losses}; against the "
+        f"plain run "
+        f"max |diff| {max(diffs):.3e} (atol {DDP_ATOL}), final val {summary['final_val_loss']!r} "
+        f"vs {plain['final_val_loss']!r}")
+    if backends != [DDP_BACKEND]:
+        raise RuntimeError(f"the one-rank job's process group was {backends}, not {DDP_BACKEND}")
+    if len(steps) != DDP_STEPS or max(diffs) > DDP_ATOL:
+        raise RuntimeError("the one-rank NCCL run does not follow the plain run")
+    _check_counts("ddp-train", counts, {
+        "flash_attention_fwd": layers * (DDP_STEPS + eval_batches),
+        "flash_attention_bwd_dq": layers * DDP_STEPS,
+        "flash_attention_bwd_dkdv": layers * DDP_STEPS,
+    })
+    traces = sorted((run_dir / "logs" / "profile").glob("*.json"))
+    if len(traces) != 1:
+        raise RuntimeError(f"the step profiler wrote {traces}, not one trace")
+    kernels, nccl = _trace_kernels(traces[0])
+    flash = {k: v for k, v in kernels.items() if "flash_" in k}
+    named = {k: v for k, v in kernels.items() if "nccl" in k.lower() or "onerank" in k.lower()}
+    log(f"[ddp] profiler trace {traces[0].name} ({traces[0].stat().st_size} bytes): kernels "
+        f"launched inside nccl:all_reduce {nccl}; kernels named nccl {named}; flash kernels "
+        f"{sum(flash.values())} launches over {len(flash)} names; {sum(kernels.values())} "
+        f"kernel launches in all")
+    if not nccl or not flash:
+        raise RuntimeError("the profile window's trace lacks the NCCL all-reduce kernel or the "
+                           "flash kernels")
+    # The profiled steps and the one after them (the trace's export) are
+    # left out of both runs' medians.
+    window = range(DDP_PROFILE[0], sum(DDP_PROFILE) + 1)
+    one, base = _steady(steps, skip=window), _steady(plain_steps, skip=window)
+    log(f"[ddp] steady state on {smi} (median of steps 2-{DDP_STEPS - 1} but "
+        f"{window.start}-{window.stop - 1}): one-rank NCCL step {one['step_time'] * 1e3:.1f} ms, "
+        f"{one['tokens_per_sec']:.0f} tokens/s, MFU {one['mfu']:.4f}, peak memory "
+        f"{summary['peak_memory'] / 2**30:.2f} GiB; plain step {base['step_time'] * 1e3:.1f} ms, "
+        f"{base['tokens_per_sec']:.0f} tokens/s, MFU {base['mfu']:.4f}, peak memory "
+        f"{plain['peak_memory'] / 2**30:.2f} GiB")
+    return dict(cfg_path=cfg_path, plain_cfg=tmp / "ddp_plain.yaml", run_dir=run_dir,
+                counts=counts, summary=summary, one=one, base=base, plain=plain)
+
+
+def _ddp_ema(torch, smi: str, tmp: Path, ddp: dict, layers: int, eval_batches: int) -> dict:
+    """18(b)."""
+    cfg_path, run_dir = ddp["cfg_path"], ddp["run_dir"]
+    raw = ddp["summary"]["final_val_loss"]  # the trainer's own eval of the final params
+    _reset_counts()
+    ema = _eval_cli(cfg_path, run_dir, "--ema")
+    exported, imported = tmp / "ema_export.pt", tmp / "ema_imported"
+    code, _ = _run_cli(["export-checkpoint", "--config", str(cfg_path), "--from", str(run_dir),
+                        "--output", str(exported), "--ema", "--json"])
+    if code != 0:
+        raise RuntimeError(f"export-checkpoint --ema exited {code}")
+    # Imported under the plain config: the shadow becomes the params.
+    plain_cfg = ddp["plain_cfg"]
+    code, _ = _run_cli(["import-checkpoint", "--config", str(plain_cfg), "--input",
+                        str(exported), "--output", str(imported), "--json"])
+    if code != 0:
+        raise RuntimeError(f"import-checkpoint of the EMA export exited {code}")
+    round_trip = _eval_cli(plain_cfg, imported)
+    counts = _read_counts()
+    log(f"[ema] eval at step {DDP_STEPS}: the trainer's {raw!r}, --ema {ema!r} (decay "
+        f"{DDP_EMA}); export --ema -> import -> eval {round_trip!r}")
+    if ema == raw or round_trip != ema:
+        raise RuntimeError("eval --ema equals the raw eval, or the EMA export round trip is not "
+                           "bit-identical")
+    _check_counts("ema-eval", counts, {"flash_attention_fwd": 2 * layers * eval_batches})
+    code, out = _run_cli(["generate", "--config", str(cfg_path), "--from", str(run_dir), "--ema",
+                          "--prompt", "def ", "--max-new-tokens", "16", "--temperature", "0",
+                          "--json"])
+    if code != 0:
+        raise RuntimeError(f"generate --ema exited {code}")
+    ids = json.loads(out)["completion_ids"]
+    log(f"[ema] generate --ema, greedy 'def ' + 16: {ids}")
+    if len(ids) != 16 or not all(0 <= i < 256 for i in ids):
+        raise RuntimeError(f"generate --ema returned {ids}")
+    return dict(raw=raw, ema=ema, counts=counts)
+
+
+def _ddp_optimizers(torch, smi: str, tmp: Path, ddp: dict) -> dict:
+    """18(c): AdamW runs too, at the same length and schedule, so that the
+    three step medians cover the same steps of runs alike."""
+    out_rows = {}
+    params = ddp["summary"]["parameter_count"]
+    adamw_bytes = 2 * params * 4
+    for name in ("adamw", "adafactor", "lion"):
+        cfg_path = _ddp_config(tmp, f"opt_{name}", steps=OPT_STEPS, warmup=OPT_WARMUP,
+                               optimizer=name)
+        code, out = _run_cli(["train", "--config", str(cfg_path), "--run-id", f"opt_{name}",
+                              "--json"])
+        if code != 0:
+            raise RuntimeError(f"train with optimizer {name} exited {code}")
+        summary = json.loads(out)["train_result"]
+        run_dir = tmp / "runs" / f"opt_{name}"
+        steps = _logged_steps(run_dir)
+        losses = [steps[i]["loss"] for i in sorted(steps)]
+        state = _opt_state_bytes(run_dir / "checkpoints" / f"step_{OPT_STEPS:06d}.ckpt")
+        step_ms = _steady(steps)["step_time"] * 1e3
+        against = ""
+        if name != "adamw":
+            adamw = out_rows["adamw"]
+            against = (f"; against AdamW {step_ms - adamw['step_ms']:+.1f} ms, "
+                       f"{(summary['peak_memory'] - adamw['peak_memory']) / 2**30:+.2f} GiB")
+        log(f"[optim] {name}: losses {' '.join(f'{x:.4f}' for x in losses)}; state {state} bytes "
+            f"({state / adamw_bytes:.4f} of AdamW's {adamw_bytes}); step {step_ms:.1f} ms "
+            f"(median of steps 2-{OPT_STEPS - 1}); peak memory "
+            f"{summary['peak_memory'] / 2**30:.2f} GiB{against} on {smi}")
+        if len(losses) != OPT_STEPS or not all(math.isfinite(x) for x in losses):
+            raise RuntimeError(f"{name}: losses are not finite: {losses}")
+        if name != "adamw" and not losses[-1] < losses[0]:
+            raise RuntimeError(f"{name}: losses are not falling: {losses}")
+        out_rows[name] = dict(state_bytes=state, step_ms=step_ms,
+                              peak_memory=summary["peak_memory"])
+    return out_rows
+
+
+def phase_ddp(torch, smi: str, tmp: Path) -> dict:
+    """Phase 18 (module doc): the one-rank NCCL job with the EMA and the
+    step profiler, the EMA at inference, and Adafactor and Lion."""
+    from llmtrain_tpu_torch.config import load_and_validate_config
+    from llmtrain_tpu_torch.data.local_text import LocalTextDataModule
+    from llmtrain_tpu_torch.data.tokenizers import ByteTokenizer
+
+    t0 = time.perf_counter()
+    probe = _smoke_config(tmp, "ddp_probe")
+    cfg, _, _ = load_and_validate_config(probe)
+    dm = LocalTextDataModule()
+    dm.setup(cfg, ByteTokenizer())  # the token cache every run of the phase reads
+    eval_batches = -(-len(dm.val_dataset()) // cfg.trainer.micro_batch_size)
+    layers = cfg.model.n_layers
+    ddp = _ddp_train(torch, smi, tmp, layers, eval_batches)
+    ema = _ddp_ema(torch, smi, tmp, ddp, layers, eval_batches)
+    optim = _ddp_optimizers(torch, smi, tmp, ddp)
+    seconds = time.perf_counter() - t0
+    log(f"[ddp] phase 18 in {seconds:.1f} s on {smi}")
+    return dict(counts={k: ddp["counts"][k] + ema["counts"][k] for k in ddp["counts"]},
+                ddp=ddp, ema=ema, optim=optim, seconds=seconds)
+
+
 def main() -> int:
     import tempfile
 
@@ -2905,11 +3219,14 @@ def main() -> int:
         spec = phase_speculative(torch, smi, Path(tmp), train, cont)
         phase_fleet(torch, smi, Path(tmp), train, cont)
         offline = phase_offline(torch, smi, Path(tmp))
-    paths = (train["counts"], fused["counts"], ce["counts"], spec["counts"], offline["counts"])
+        ddp = phase_ddp(torch, smi, Path(tmp))
+    paths = (train["counts"], fused["counts"], ce["counts"], spec["counts"], offline["counts"],
+             ddp["counts"])
     launches = {name: sum(c[name] for c in paths) for name in paths[0]}
     launches["flash_attention_fwd"] += serve_launches
     log(f"[main path] launches over serve + generate, train, fused-norm train, CE train, "
-        f"speculative/int8/rolling, BPE train and its evals: {launches}")
+        f"speculative/int8/rolling, BPE train and its evals, the one-rank NCCL train and its "
+        f"EMA evals: {launches}")
     for name, n in launches.items():
         if n == 0:
             raise RuntimeError(f"the main path never launched {name}")
@@ -2965,6 +3282,11 @@ def main() -> int:
         f"{bpe['corpus_bytes']} corpus bytes tokenized in {bpe['tokenize_s']:.2f} s "
         f"({bpe['encoder']} encoder); eval {offline['eval']:.6f}, int8 {offline['int8']:.6f}, "
         f"soup {offline['soup']:.6f}")
+    one, base = ddp["ddp"]["one"], ddp["ddp"]["base"]
+    log(f"[ddp] one-rank NCCL step {one['step_time'] * 1e3:.1f} ms against the plain "
+        f"{base['step_time'] * 1e3:.1f} ms; adafactor state "
+        f"{ddp['optim']['adafactor']['state_bytes']} bytes, lion "
+        f"{ddp['optim']['lion']['state_bytes']}; phase 18 {ddp['seconds']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

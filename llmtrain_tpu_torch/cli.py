@@ -6,7 +6,11 @@ Same subcommands, flags, JSON shapes and exit codes as the JAX CLI
 * ``train`` — config → run directory (``config.yaml``, ``meta.json``,
   ``logs/``, ``checkpoints/``) → the trainer (training/trainer.py), with
   ``--run-id``, ``--dry-run``, ``--json``, ``-v``, ``--resume`` and
-  ``--auto-resume``; the run summary on stdout;
+  ``--auto-resume``; the run summary on stdout. With
+  ``distributed.enabled`` every process joins the data-parallel group
+  first (distributed/__init__.py; retried, exit 2 for a topology that
+  cannot work and 75 for a rendezvous that failed) and only rank 0 writes
+  the run directory and prints the summary;
 * ``generate`` — checkpoint → ``generate()`` (KV-cache or re-forward
   branch), or speculative decoding with ``--draft-config/--draft-from/--gamma``;
   ``--quantize int8`` quantizes the weights (the draft's too);
@@ -45,9 +49,10 @@ draft puts the continuous backend on the speculative policy.
 Exit codes: JAX's taxonomy (resilience/exit_codes.py): 0 ok, 1 failure,
 2 config error (a feature that is not yet ported counts as a config
 error), 75 a transient infrastructure fault anywhere in the exception's
-cause chain. Flags whose feature is not yet ported
-(``--ema``) and LoRA or pipeline checkpoints exit 2 with a message naming
-the ROADMAP.md item. ``run.device`` (default ``cuda``) picks
+cause chain. LoRA or pipeline checkpoints exit 2 with a message naming
+the ROADMAP.md item. ``--ema`` (generate, serve, serve-bench, eval,
+export-checkpoint) loads the checkpoint's EMA shadow
+(``trainer.extra.ema_decay``). ``run.device`` (default ``cuda``) picks
 the device: ``cpu`` the CPU, ``tpu``/``cuda`` the card (an error when none
 is visible).
 """
@@ -164,7 +169,9 @@ def build_parser() -> argparse.ArgumentParser:
         help="include the model's log-probability of every emitted token in the JSON "
         "output (not supported with --draft-config)",
     )
-    gen.add_argument("--ema", action="store_true", help="EMA shadow weights (not yet ported)")
+    gen.add_argument("--ema", action="store_true",
+                     help="decode with the EMA shadow weights tracked by "
+                     "trainer.extra.ema_decay (errors if the checkpoint has none)")
     gen.add_argument(
         "--quantize", choices=("none", "int8"), default="none",
         help="weight-only quantization applied after checkpoint load (ops/quant.py); "
@@ -212,7 +219,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--decode-param-dtype", choices=("compute", "param"), default="compute",
         help="as in generate",
     )
-    serve.add_argument("--ema", action="store_true", help="EMA shadow weights (not yet ported)")
+    serve.add_argument("--ema", action="store_true",
+                       help="serve the EMA shadow weights (errors if the checkpoint has none)")
     serve.add_argument(
         "--quantize", choices=("none", "int8"), default="none",
         help="serve weight-only int8 quantized weights (ops/quant.py)",
@@ -295,7 +303,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--decode-param-dtype", choices=("compute", "param"), default="compute",
         help="as in generate/serve",
     )
-    bench.add_argument("--ema", action="store_true", help="EMA shadow weights (not yet ported)")
+    bench.add_argument("--ema", action="store_true",
+                       help="bench the EMA shadow weights (errors if the checkpoint has none)")
     bench.add_argument(
         "--quantize", choices=("none", "int8"), default="none",
         help="weight-only int8 quantization of the served weights (ops/quant.py)",
@@ -399,7 +408,9 @@ def build_parser() -> argparse.ArgumentParser:
         help="checkpoint file, checkpoint dir, or run id to evaluate "
         "(default: the freshly initialized model)",
     )
-    evalp.add_argument("--ema", action="store_true", help="EMA shadow weights (not yet ported)")
+    evalp.add_argument("--ema", action="store_true",
+                       help="evaluate the EMA shadow weights tracked by "
+                       "trainer.extra.ema_decay (errors if the checkpoint has none)")
     evalp.add_argument(
         "--quantize", choices=("none", "int8"), default="none",
         help="evaluate under weight-only int8 quantization (ops/quant.py): the "
@@ -433,7 +444,9 @@ def build_parser() -> argparse.ArgumentParser:
         help="checkpoint file, checkpoint dir, or run id to export",
     )
     export.add_argument("--output", required=True, help="output .pt path")
-    export.add_argument("--ema", action="store_true", help="EMA shadow weights (not yet ported)")
+    export.add_argument("--ema", action="store_true",
+                        help="export the EMA shadow weights tracked by "
+                        "trainer.extra.ema_decay (errors if the checkpoint has none)")
     export.add_argument("--json", action="store_true", help="emit stats as JSON")
 
     imp = sub.add_parser(
@@ -512,17 +525,92 @@ def _lora_error(cfg) -> str | None:
 def _unported_inference_flags(args: argparse.Namespace, cfg) -> str | None:
     """Message for the first requested feature this slice does not run,
     or for unpaired draft flags (JAX's check)."""
-    if args.ema:
-        return f"--ema (EMA shadow weights) {_NOT_PORTED} (ROADMAP.md queue A: slice 2 deferrals)"
     lora = _lora_error(cfg)
     if lora is None and (args.draft_config is None) != (args.draft_from is None):
         return "--draft-config and --draft-from must be given together"
     return lora
 
 
+def _setup_distributed(cfg):
+    """``distributed.enabled``: join the process group (JAX ``_handle_train``'s
+    rendezvous), retried with full-jitter backoff seeded per (seed, rank).
+    Returns ``(state, None)`` or ``(None, exit code)``: a topology that
+    cannot work (``ValueError``) is 2, any other rendezvous failure (the
+    coordinator not up, a timeout) 75, so the orchestrator restarts."""
+    from .distributed import resolve_topology, setup_distributed
+    from .resilience.exit_codes import EXIT_RETRYABLE_INFRA
+    from .resilience.faults import retry, retry_rng
+
+    try:
+        rank_hint, _, _ = resolve_topology(cfg.distributed)
+    except Exception:  # noqa: BLE001 — jitter seeding must not mask it
+        rank_hint = 0
+    try:
+        state = retry(
+            lambda: setup_distributed(cfg.distributed, cfg.run.device),
+            attempts=cfg.resilience.retry_attempts,
+            base_delay=cfg.resilience.retry_base_delay,
+            description="distributed init",
+            rng=retry_rng(cfg.run.seed, rank_hint),
+        )
+    except ValueError as exc:
+        _emit_error(f"distributed init failed: {exc}")
+        return None, EXIT_CONFIG_ERROR
+    except Exception as exc:  # noqa: BLE001 — CLI boundary
+        _emit_error(f"distributed init failed: {exc}")
+        return None, EXIT_RETRYABLE_INFRA
+    return state, None
+
+
+def _agree_run_id(candidate: str, dist_state) -> str:
+    """Rank 0's run id on every process (a generated id depends on the
+    clock and the filesystem)."""
+    if dist_state is None or dist_state.num_processes == 1:
+        return candidate
+    import torch.distributed as dist
+
+    from .distributed import collective_errors
+
+    box = [candidate]
+    with collective_errors():
+        dist.broadcast_object_list(box, src=0)
+    return str(box[0])
+
+
+def _agree_flag(local_ok: bool, dist_state) -> bool:
+    """Rank 0's boolean on every process (one process: the identity)."""
+    if dist_state is None or dist_state.num_processes == 1:
+        return local_ok
+    from .distributed import broadcast_int_from_main
+
+    return bool(broadcast_int_from_main(1 if local_ok else 0))
+
+
 def _handle_train(args: argparse.Namespace) -> int:
-    """The JAX ``_handle_train`` on one process: run dir, config copy,
-    meta.json, logging, then the trainer or the dry run, then the summary."""
+    """The JAX ``_handle_train``: the rendezvous when ``distributed.enabled``,
+    then on rank 0 only the run dir, config copy and meta.json, logging,
+    the trainer (every rank) or the dry run, and rank 0's summary."""
+    from .distributed import teardown_distributed
+
+    try:
+        cfg, _, resolved = load_and_validate_config(args.config)
+    except ConfigLoadError as exc:
+        _emit_error(exc.message, details=exc.details, errors=exc.errors)
+        return EXIT_CONFIG_ERROR
+    dist_state = None
+    if cfg.distributed.enabled:
+        dist_state, code = _setup_distributed(cfg)
+        if dist_state is None:
+            return code
+    try:
+        return _train(args, cfg, resolved, dist_state)
+    finally:
+        teardown_distributed()
+
+
+def _train(args: argparse.Namespace, cfg, resolved, dist_state) -> int:
+    """``train`` after the rendezvous: ``dist_state`` is the group's state,
+    or None without ``distributed.enabled``."""
     from .registry import RegistryError, get_data_module, get_model_adapter, initialize_registries
     from .utils.logging import configure_logging, get_logger
     from .utils.metadata import generate_meta, write_meta_json
@@ -530,11 +618,7 @@ def _handle_train(args: argparse.Namespace) -> int:
     from .utils.run_id import generate_run_id
     from .utils.summary import format_run_summary
 
-    try:
-        cfg, _, resolved = load_and_validate_config(args.config)
-    except ConfigLoadError as exc:
-        _emit_error(exc.message, details=exc.details, errors=exc.errors)
-        return EXIT_CONFIG_ERROR
+    is_main = dist_state is None or dist_state.is_main
     logger = get_logger()
     try:
         run_id = args.run_id or cfg.output.run_id
@@ -546,31 +630,46 @@ def _handle_train(args: argparse.Namespace) -> int:
             return EXIT_CONFIG_ERROR
         if run_id is None:
             run_id = generate_run_id(cfg.run.name, cfg.output.root_dir)
-        resume_spec = args.resume
-        try:
-            run_dir = create_run_directory(cfg.output.root_dir, run_id)
-        except FileExistsError:
-            if not args.auto_resume:
+        run_id = _agree_run_id(run_id, dist_state)
+        # Rank-0-only I/O; every rank agrees on the outcome, or the others
+        # would run on into the first collective and hang.
+        run_dir: Path | None = None
+        run_dir_ok = True
+        resuming_existing = False
+        if is_main:
+            try:
+                run_dir = create_run_directory(cfg.output.root_dir, run_id)
+            except FileExistsError:
+                if args.auto_resume:
+                    from .training.checkpoint import CheckpointManager
+
+                    run_dir = Path(cfg.output.root_dir) / run_id
+                    (run_dir / "logs").mkdir(parents=True, exist_ok=True)
+                    resuming_existing = (
+                        CheckpointManager(run_dir / "checkpoints").latest_checkpoint()
+                        is not None
+                    )
+                else:
+                    run_dir_ok = False
+        if not _agree_flag(run_dir_ok, dist_state):
+            if is_main:
                 _emit_error(
                     f"run directory already exists for run id {run_id!r}",
                     details="pass a fresh --run-id or let the run id be generated",
                 )
-                return EXIT_FAILURE
-            from .training.checkpoint import CheckpointManager
-
-            run_dir = Path(cfg.output.root_dir) / run_id
-            (run_dir / "logs").mkdir(parents=True, exist_ok=True)
-            if CheckpointManager(run_dir / "checkpoints").latest_checkpoint() is not None:
-                resume_spec = str(run_dir / "checkpoints")
+            return EXIT_FAILURE
+        resume_spec = args.resume
+        if _agree_flag(resuming_existing, dist_state):
+            resume_spec = str(Path(cfg.output.root_dir) / run_id / "checkpoints")
 
         log_file = None
-        if cfg.logging.log_to_file:
+        if cfg.logging.log_to_file and run_dir is not None:
             log_file = run_dir / "logs" / cfg.logging.file_name
         level = "DEBUG" if args.verbose else cfg.logging.level
         configure_logging(level=level, json_output=cfg.logging.json_output, log_file=log_file)
-        if cfg.output.save_config_copy:
+        if run_dir is not None and cfg.output.save_config_copy:
             write_resolved_config(run_dir, resolved)
-        if cfg.output.save_meta_json:
+        if run_dir is not None and cfg.output.save_meta_json:
             meta = generate_meta(
                 run_id=run_id, run_name=cfg.run.name, config_path=args.config,
                 resolved_config_path=run_dir / "config.yaml",
@@ -586,22 +685,29 @@ def _handle_train(args: argparse.Namespace) -> int:
             _emit_error(str(exc))
             return EXIT_CONFIG_ERROR
 
+        run_dir_text = str(run_dir) if run_dir is not None else None
         if args.dry_run:
             from .training.dry_run import run_dry_run
 
             summary = format_run_summary(
-                cfg, run_id=run_id, run_dir=str(run_dir), dry_run=True,
+                cfg, run_id=run_id, run_dir=run_dir_text, dry_run=True,
                 dry_run_result=run_dry_run(cfg), as_json=args.json,
             )
         else:
             from .training.trainer import Trainer
 
-            result = Trainer(cfg, run_dir).fit(resume_from=resume_spec)
+            # Every rank gets the run dir's path (reads only; writes stay
+            # rank 0's inside the trainer).
+            trainer_run_dir = run_dir
+            if run_dir is None and dist_state is not None and dist_state.num_processes > 1:
+                trainer_run_dir = Path(cfg.output.root_dir) / run_id
+            result = Trainer(cfg, trainer_run_dir).fit(resume_from=resume_spec)
             summary = format_run_summary(
-                cfg, run_id=run_id, run_dir=str(run_dir), dry_run=False,
+                cfg, run_id=run_id, run_dir=run_dir_text, dry_run=False,
                 train_result=result, as_json=args.json,
             )
-        print(json.dumps(summary) if args.json else summary)
+        if is_main:
+            print(json.dumps(summary) if args.json else summary)
         return EXIT_OK
     except Exception as exc:  # noqa: BLE001 — CLI boundary
         code = exit_code_for_exception(exc)
@@ -651,18 +757,20 @@ def prepare_decode_model(model, decode_param_dtype: str, logger):
 
 
 def _load_decode_params(cfg, model, from_spec: str, decode_param_dtype: str, logger,
-                        *, quantize: str = "none", label: str = ""):
+                        *, quantize: str = "none", label: str = "", ema: bool = False):
     """Checkpoint → decode-ready model, the shared load tail of generate (and
     its draft), serve and serve-bench: resolve the spec, load the params
-    (warning on a config mismatch), cast for decode, and with ``quantize``
-    int8 quantize the weights in place (ops/quant.py)."""
+    (``ema``: the EMA shadow; warning on a config mismatch), cast for
+    decode, and with ``quantize`` int8 quantize the weights in place
+    (ops/quant.py)."""
     import yaml
 
-    from .training.checkpoint import load_inference_params, resolve_resume_path
+    from .training.checkpoint import load_ema_params, load_inference_params, resolve_resume_path
 
     ckpt_path = resolve_resume_path(from_spec, cfg.output.root_dir)
     expected_yaml = yaml.safe_dump(cfg.model_dump(), sort_keys=False)
-    step = load_inference_params(ckpt_path, model, expected_config_yaml=expected_yaml)
+    load = load_ema_params if ema else load_inference_params
+    step = load(ckpt_path, model, expected_config_yaml=expected_yaml)
     logger.info("%sloaded checkpoint %s (step %d)", label, ckpt_path, step)
     model = prepare_decode_model(model, decode_param_dtype, logger)
     if quantize == "int8":
@@ -773,7 +881,8 @@ def _handle_generate(args: argparse.Namespace) -> int:
         if args.draft_config is not None and too_long("target", cfg.model.block_size):
             return EXIT_CONFIG_ERROR
         model, ckpt_path, step = _load_decode_params(
-            cfg, model, args.from_spec, args.decode_param_dtype, logger, quantize=args.quantize
+            cfg, model, args.from_spec, args.decode_param_dtype, logger, quantize=args.quantize,
+            ema=args.ema,
         )
         draft_model = None
         if args.draft_config is not None:
@@ -1118,7 +1227,8 @@ def _handle_serve(args: argparse.Namespace) -> int:
         device = resolve_device(cfg.run.device)
         _, tokenizer, model = _build_decode_stack(cfg, device, logger)
         model, ckpt_path, step = _load_decode_params(
-            cfg, model, args.from_spec, args.decode_param_dtype, logger, quantize=args.quantize
+            cfg, model, args.from_spec, args.decode_param_dtype, logger, quantize=args.quantize,
+            ema=args.ema,
         )
         eos = args.eos_token_id
         if eos is None and tokenizer is not None:
@@ -1191,6 +1301,7 @@ def _handle_serve(args: argparse.Namespace) -> int:
                 new_model, new_ckpt, new_step = _load_decode_params(
                     cfg, dequantize_model(copy.deepcopy(state.model)), spec,
                     args.decode_param_dtype, logger, quantize=args.quantize, label="reload ",
+                    ema=args.ema,
                 )
                 out: dict[str, Any] = {"step": new_step, "checkpoint": str(new_ckpt)}
                 if hasattr(scheduler, "rolling_reload"):
@@ -1411,7 +1522,8 @@ def _handle_serve_bench(args: argparse.Namespace) -> int:
         device = resolve_device(cfg.run.device)
         _, _, model = _build_decode_stack(cfg, device, logger)
         model, ckpt_path, _ = _load_decode_params(
-            cfg, model, args.from_spec, args.decode_param_dtype, logger, quantize=args.quantize
+            cfg, model, args.from_spec, args.decode_param_dtype, logger, quantize=args.quantize,
+            ema=args.ema,
         )
         block_size = int(model.block_size)
         if args.max_new_tokens >= block_size:
@@ -1658,8 +1770,6 @@ def _handle_eval(args: argparse.Namespace) -> int:
     if cfg is None:
         return code
     unported = _lora_error(cfg)
-    if unported is None and args.ema:
-        unported = f"--ema (EMA shadow weights) {_NOT_PORTED} (ROADMAP.md queue A: slice 2 deferrals)"
     if unported is not None:
         _emit_error(unported)
         return EXIT_CONFIG_ERROR
@@ -1673,6 +1783,7 @@ def _handle_eval(args: argparse.Namespace) -> int:
 
         metrics = Trainer(cfg, None).evaluate(
             resume_from=args.from_spec,
+            use_ema=args.ema,
             quantize=args.quantize if args.quantize != "none" else None,
         )
         if metrics is None:
@@ -1792,19 +1903,20 @@ def _model_params(cfg, model):
     )
 
 
-def _load_checkpoint_params(cfg, model, from_spec: str):
+def _load_checkpoint_params(cfg, model, from_spec: str, *, ema: bool = False):
     """The shared checkpoint load of export and average (JAX
-    ``_load_checkpoint_params`` without ``ema``): resolve the spec, load
-    the params into ``model`` (strict, so the config's shapes are checked;
-    a config mismatch warns), and return ``(ckpt_path, params, step)``
-    with the params as the JAX tree."""
+    ``_load_checkpoint_params``): resolve the spec, load the params (with
+    ``ema`` the EMA shadow) into ``model`` (strict, so the config's shapes
+    are checked; a config mismatch warns), and return ``(ckpt_path,
+    params, step)`` with the params as the JAX tree."""
     import yaml
 
-    from .training.checkpoint import load_inference_params, resolve_resume_path
+    from .training.checkpoint import load_ema_params, load_inference_params, resolve_resume_path
 
     ckpt_path = resolve_resume_path(from_spec, cfg.output.root_dir)
     expected_yaml = yaml.safe_dump(cfg.model_dump(), sort_keys=False)
-    step = load_inference_params(ckpt_path, model, expected_config_yaml=expected_yaml)
+    load = load_ema_params if ema else load_inference_params
+    step = load(ckpt_path, model, expected_config_yaml=expected_yaml)
     return ckpt_path, _model_params(cfg, model), step
 
 
@@ -1814,11 +1926,14 @@ def _save_fresh_checkpoint(cfg, model, params, out_dir: Path) -> Path:
     --resume`` takes (JAX ``create_train_state`` + ``save_host``)."""
     from .interop import flax_params_to_state_dict
     from .training.checkpoint import CheckpointManager
-    from .training.optimizer import build_optimizer
+    from .training.checkpoint import opt_state_to_host
+    from .training.optimizer import build_model_optimizer
 
     model.load_state_dict(flax_params_to_state_dict(params), strict=True)
-    optimizer = build_optimizer(cfg.trainer, list(model.named_parameters()))
-    host = {"params": _model_params(cfg, model), "opt_state": optimizer.state_dict()}
+    optimizer = build_model_optimizer(cfg, model)
+    opt_state = opt_state_to_host(optimizer.state_dict(), n_heads=cfg.model.n_heads,
+                                  n_kv_heads=int(cfg.model.extra.get("n_kv_heads", 0)))
+    host = {"params": _model_params(cfg, model), "opt_state": opt_state}
     return CheckpointManager(out_dir).save_host(0, host, cfg.model_dump())
 
 
@@ -1919,8 +2034,6 @@ def _handle_export_checkpoint(args: argparse.Namespace) -> int:
     if cfg is None:
         return code
     unported = _lora_error(cfg)
-    if unported is None and args.ema:
-        unported = f"--ema (EMA shadow weights) {_NOT_PORTED} (ROADMAP.md queue A: slice 2 deferrals)"
     if unported is not None:
         _emit_error(unported)
         return EXIT_CONFIG_ERROR
@@ -1933,7 +2046,8 @@ def _handle_export_checkpoint(args: argparse.Namespace) -> int:
 
         from .interop import params_to_torch_state_dict
 
-        ckpt_path, params, step = _load_checkpoint_params(cfg, _tool_model(cfg), args.from_spec)
+        ckpt_path, params, step = _load_checkpoint_params(cfg, _tool_model(cfg), args.from_spec,
+                                                          ema=args.ema)
         sd = {k: torch.from_numpy(v) for k, v in params_to_torch_state_dict(params).items()}
         out = Path(args.output)
         out.parent.mkdir(parents=True, exist_ok=True)

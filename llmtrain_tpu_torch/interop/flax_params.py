@@ -206,8 +206,38 @@ def state_dict_to_flax_params(
     return state_dict_to_flax_gpt_params(sd, n_heads=n_heads, n_kv_heads=n_kv_heads)
 
 
+def flax_layout_views(
+    named: list[tuple[str, torch.Tensor]], *, n_heads: int, n_kv_heads: int | None = None
+) -> dict[str, Any]:
+    """For each parameter name, a function that views a tensor of that
+    parameter's shape in the JAX package's layout, without a copy (the
+    transforms of :func:`state_dict_to_flax_params` as views): a Linear
+    weight (out, in) as its (in, *out) kernel, a fused projection's bias
+    as (qkv, head, dim). Names it does not know view as themselves."""
+    shapes = dict(named)
+    views: dict[str, Any] = {}
+    d_model = shapes["token_embedding.weight"].shape[1] if "token_embedding.weight" in shapes \
+        else None
+    head_dim = d_model // n_heads if d_model else 0
+    kv = n_kv_heads or n_heads
+    fused = {"qkv_proj": (3, n_heads, head_dim), "q_proj": (n_heads, head_dim),
+             "kv_proj": (2, kv, head_dim)}
+    for name, t in named:
+        parts = name.split(".")
+        if parts[-1] == "weight" and t.dim() == 2 and "embed" not in name:
+            out_shape = fused.get(parts[-2], (t.shape[0],))
+            if parts[-2] == "out_proj":
+                views[name] = lambda w: w.T.view(n_heads, head_dim, w.shape[0])
+            else:
+                views[name] = lambda w, s=out_shape: w.T.view(w.shape[1], *s)
+        elif parts[-1] == "bias" and parts[-2] in fused:
+            views[name] = lambda b, s=fused[parts[-2]]: b.view(*s)
+    return views
+
+
 __all__ = [
     "flax_dummy_gpt_params_to_state_dict",
+    "flax_layout_views",
     "flax_gpt_params_to_state_dict",
     "flax_params_to_state_dict",
     "is_dummy_gpt_tree",

@@ -1,7 +1,7 @@
 """Fault-tolerance layer (port of ``llmtrain_tpu/resilience/``): so far the
-exit-code taxonomy. The non-finite guard lives in the trainer; spike
-rollback, fault injection, the watchdog, elastic resume and the chaos
-harness wait for ROADMAP.md queue A: resilience."""
+exit-code taxonomy and the backoff retry. The non-finite guard lives in
+the trainer; spike rollback, fault injection, the watchdog, elastic
+resume and the chaos harness wait for ROADMAP.md queue A: resilience."""
 
 from .exit_codes import (
     EXIT_CONFIG_ERROR,
@@ -14,6 +14,7 @@ from .exit_codes import (
     exit_code_for_exception,
     is_retryable,
 )
+from .faults import retry, retry_rng
 
 __all__ = [
     "EXIT_CONFIG_ERROR",
@@ -25,4 +26,6 @@ __all__ = [
     "RetryableInfraError",
     "exit_code_for_exception",
     "is_retryable",
+    "retry",
+    "retry_rng",
 ]

@@ -27,8 +27,11 @@ flax's msgpack layout without flax, and the params go back to flax names
 and shapes (interop/flax_params.py), so the JAX package's
 ``CheckpointManager.load`` and ``load_inference_params`` read what the
 port writes. ``opt_state`` carries the port's own layout
-(training/optimizer.py). Saves are synchronous (JAX overlaps the write
-with the next steps on a thread). Selection on the read path
+(training/optimizer.py), except the EMA shadow, which is stored as JAX
+stores it: the param tree in flax names and shapes under
+``__param_ema__`` (:func:`opt_state_to_host`), so either package's
+``--ema`` reads the other's shadow (:func:`ema_from_payload`). Saves
+are synchronous (JAX overlaps the write with the next steps on a thread). Selection on the read path
 (:meth:`CheckpointManager.latest_valid_checkpoint`) writes nothing.
 """
 
@@ -520,6 +523,67 @@ def load_inference_params(
     return int(payload["step"])
 
 
+def opt_state_to_host(opt_state: dict[str, Any], *, n_heads: int,
+                      n_kv_heads: int | None = None) -> dict[str, Any]:
+    """An optimizer's ``state_dict`` as a checkpoint stores it: the EMA
+    shadow (keyed by the port's parameter names) goes to the JAX param
+    layout; everything else stays the port's."""
+    from ..interop.flax_params import state_dict_to_flax_params
+    from .optimizer import EMA_STATE_KEY
+
+    ema = opt_state.get(EMA_STATE_KEY)
+    if ema is None:
+        return opt_state
+    sd = {k: torch.from_numpy(np.asarray(v)) for k, v in ema.items()}
+    tree = state_dict_to_flax_params(sd, n_heads=n_heads, n_kv_heads=n_kv_heads)
+    return {**opt_state, EMA_STATE_KEY: tree}
+
+
+def opt_state_from_host(opt_state: dict[str, Any]) -> dict[str, Any]:
+    """The inverse of :func:`opt_state_to_host`: the stored shadow back to
+    the port's parameter names (f32)."""
+    from ..interop.flax_params import flax_params_to_state_dict
+    from .optimizer import EMA_STATE_KEY
+
+    ema = opt_state.get(EMA_STATE_KEY) if isinstance(opt_state, dict) else None
+    if ema is None:
+        return opt_state
+    return {**opt_state, EMA_STATE_KEY: flax_params_to_state_dict(ema)}
+
+
+def ema_from_payload(payload: dict[str, Any], model: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """The EMA shadow of a loaded checkpoint payload (either package's) as
+    ``model``'s ``state_dict``, each tensor cast back to the dtype of the
+    parameter it shadows. Raises ``ValueError`` (JAX's text) when the
+    payload holds no EMA state."""
+    from ..interop.flax_params import flax_params_to_state_dict
+    from .optimizer import find_ema_tree
+
+    raw = find_ema_tree(payload["opt_state"])
+    if raw is None:
+        raise ValueError(
+            "checkpoint holds no EMA state — train with "
+            "trainer.extra.ema_decay to track shadow weights"
+        )
+    dtypes = {k: v.dtype for k, v in model.state_dict().items()}
+    return {k: v.to(dtypes.get(k, v.dtype)) for k, v in flax_params_to_state_dict(raw).items()}
+
+
+def load_ema_params(
+    path: str | Path,
+    model: torch.nn.Module,
+    *,
+    expected_config_yaml: str | None = None,
+) -> int:
+    """Load a checkpoint's EMA shadow (``trainer.extra.ema_decay``) into
+    ``model`` as its weights and return the checkpoint's step."""
+    payload = CheckpointManager.load(path)
+    if expected_config_yaml is not None:
+        warn_on_config_mismatch(payload, expected_config_yaml, path)
+    model.load_state_dict(ema_from_payload(payload, model), strict=True)
+    return int(payload["step"])
+
+
 def resolve_resume_path(resume_spec: str, output_root: str | Path) -> Path:
     """Resolve a ``--from`` spec (the JAX ``resolve_resume_path``).
 
@@ -555,10 +619,14 @@ def resolve_resume_path(resume_spec: str, output_root: str | Path) -> Path:
 __all__ = [
     "CheckpointError",
     "CheckpointManager",
+    "ema_from_payload",
+    "load_ema_params",
     "load_inference_params",
     "manifest_path",
     "msgpack_restore",
     "msgpack_serialize",
+    "opt_state_from_host",
+    "opt_state_to_host",
     "read_manifest",
     "resolve_resume_path",
     "sidecar_path",

@@ -7,9 +7,19 @@ step eagerly:
   ``(A, B, T)``: each micro-batch's token-weighted mean loss is
   back-propagated into ``.grad`` (summing), and the sum is divided by A;
 * the global gradient norm (before clipping) comes back as a metric;
+* data parallel (``data_parallel``, one process per device in a
+  ``torch.distributed`` group): the loss is JAX's token-weighted mean over
+  the **global** micro-batch, so rank r back-propagates ``loss_sum_r /
+  tokens_global`` (the token counts are summed over the ranks after each
+  forward) and the accumulated gradients, with the step's losses, are
+  summed over the ranks once per step, one all-reduce over a flat buffer
+  per dtype, before the norm, the clip and the guard, so every rank makes
+  the same decision. With one rank the arithmetic is that of the
+  single-process step, all-reduce included;
 * dropout draws from a ``torch.Generator`` seeded by ``(seed, step,
-  micro-batch)``, so resume reproduces the stream without saving
-  generator state (JAX folds the same pair into its run key; the two
+  micro-batch)``, with the rank folded in past rank 0, so resume
+  reproduces the stream without saving generator state and ranks do not
+  share masks (JAX folds the same pair into its run key; the two
   frameworks draw different bits from the same seed);
 * ``nonfinite_guard``: a step whose loss or gradients are not all finite
   leaves the parameters and optimizer state as they were, still advances
@@ -28,7 +38,7 @@ import numpy as np
 import torch
 
 from ..models.base import ModelAdapter
-from .optimizer import AdamW, global_norm
+from .optimizer import _Optimizer, global_norm
 
 
 @dataclass
@@ -40,20 +50,74 @@ class TrainState:
 
     step: int
     model: torch.nn.Module
-    optimizer: AdamW
+    optimizer: _Optimizer
     nonfinite_count: int | None = None
 
 
-def dropout_generator(seed: int, step: int, micro: int, device: torch.device) -> torch.Generator:
+def dropout_generator(seed: int, step: int, micro: int, device: torch.device,
+                      rank: int = 0) -> torch.Generator:
     """The dropout stream of micro-batch ``micro`` of optimizer step
-    ``step`` (0-based count of completed steps), a pure function of the
-    three."""
-    entropy = np.random.SeedSequence([seed & 0xFFFFFFFF, step, micro]).generate_state(1)[0]
+    ``step`` (0-based count of completed steps) on data-parallel rank
+    ``rank``, a pure function of the four (rank 0's is the one-process
+    stream)."""
+    keys = [seed & 0xFFFFFFFF, step, micro] + ([rank] if rank else [])
+    entropy = np.random.SeedSequence(keys).generate_state(1)[0]
     return torch.Generator(device=device).manual_seed(int(entropy))
 
 
-def make_loss_fn(adapter: ModelAdapter, model: torch.nn.Module, *, use_dropout: bool) -> Callable:
-    """Per-micro-batch loss: (batch, generator) -> (loss, (loss_sum_B, tokens_B))."""
+def grad_reduce_op(backend: str):
+    """The reduce op of the gradient sum over ``backend``'s group: SUM, or
+    over NCCL a sum pre-multiplied by 1.0 (exact, so the same sums). The
+    one reason for the NCCL op is that NCCL launches nothing for a one-rank
+    in-place SUM, and a one-rank job on one card must still put the
+    reduction's kernel in its profiler trace, which the card's smoke run
+    checks. It goes through torch's private ``_make_nccl_premul_sum``;
+    against SUM on several cards it is not yet measured."""
+    import torch.distributed as dist
+
+    return dist._make_nccl_premul_sum(1.0) if backend == "nccl" else dist.ReduceOp.SUM
+
+
+def all_reduce_coalesced(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Sum ``tensors`` over the process group: one all-reduce over a flat
+    buffer per dtype. Returns the reduced tensors (views of the buffers)."""
+    import torch.distributed as dist
+    from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+    from ..distributed import collective_errors
+
+    op = grad_reduce_op(dist.get_backend())
+    out: list[torch.Tensor | None] = [None] * len(tensors)
+    by_dtype: dict[torch.dtype, list[int]] = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for idx in by_dtype.values():
+        group = [tensors[i] for i in idx]
+        flat = _flatten_dense_tensors(group)
+        with collective_errors():
+            dist.all_reduce(flat, op=op)
+        for i, t in zip(idx, _unflatten_dense_tensors(flat, group)):
+            out[i] = t
+    return out  # type: ignore[return-value]
+
+
+def make_loss_fn(adapter: ModelAdapter, model: torch.nn.Module, *, use_dropout: bool,
+                 data_parallel: bool = False) -> Callable:
+    """Per-micro-batch loss: (batch, generator) -> (loss, (loss_sum_B, tokens_B)).
+    With ``data_parallel`` the loss divides by the token count summed over
+    the ranks (this rank's share of the global micro-batch's mean)."""
+
+    def token_total(tokens: torch.Tensor) -> torch.Tensor:
+        total = tokens.sum()
+        if data_parallel:
+            import torch.distributed as dist
+
+            from ..distributed import collective_errors
+
+            total = total.clone()
+            with collective_errors():
+                dist.all_reduce(total)
+        return total
 
     def loss_fn(micro_batch: dict, generator: torch.Generator | None):
         comps = adapter.compute_loss_components(
@@ -69,9 +133,11 @@ def make_loss_fn(adapter: ModelAdapter, model: torch.nn.Module, *, use_dropout: 
                 tokens = torch.full((ids.shape[0],), float(ids.shape[1]), device=ids.device)
             else:
                 tokens = (mask != 0).float().sum(dim=-1)
+            if data_parallel:
+                loss = loss * (tokens.sum() / token_total(tokens))
             return loss, (loss.detach() * tokens, tokens)
         loss_sum, tokens = comps
-        loss = loss_sum.sum() / tokens.sum().clamp_min(1.0)
+        loss = loss_sum.sum() / token_total(tokens.detach()).clamp_min(1.0)
         return loss, (loss_sum, tokens)
 
     return loss_fn
@@ -85,13 +151,17 @@ def make_train_step(
     use_dropout: bool,
     seed: int,
     nonfinite_guard: bool = False,
+    data_parallel: bool = False,
+    rank: int = 0,
 ) -> Callable[[TrainState, dict], dict]:
     """The step: ``(state, batch(A, B, T)) -> metrics``, updating ``state``
     in place. Metrics: ``loss`` (mean over micro-batches of their
-    token-weighted means), ``per_example_loss_sum`` and
+    token-weighted means, over the global micro-batch under
+    ``data_parallel``), this rank's ``per_example_loss_sum`` and
     ``per_example_tokens`` (A, B), ``grad_norm``, and with the guard
     ``nonfinite_count``."""
-    loss_fn = make_loss_fn(adapter, model, use_dropout=use_dropout)
+    loss_fn = make_loss_fn(adapter, model, use_dropout=use_dropout,
+                           data_parallel=data_parallel)
 
     def train_step(state: TrainState, batch: dict) -> dict[str, Any]:
         params = state.optimizer.params
@@ -102,19 +172,20 @@ def make_train_step(
             micro = {k: v[idx] for k, v in batch.items()}
             gen = None
             if use_dropout:
-                gen = dropout_generator(seed, state.step, idx, params[0].device)
+                gen = dropout_generator(seed, state.step, idx, params[0].device, rank)
             loss, (loss_sum, tokens) = loss_fn(micro, gen)
             loss.backward()
             losses.append(loss.detach())
             loss_sums.append(loss_sum.detach())
             token_counts.append(tokens.detach())
-        grads = [
-            (p.grad if p.grad is not None else torch.zeros_like(p)) / grad_accum_steps
-            for p in params
-        ]
+        summed = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         for p in params:
             p.grad = None
         losses_t = torch.stack(losses)
+        if data_parallel:
+            *summed, losses_t = all_reduce_coalesced([*summed, losses_t])
+        grads = [g / grad_accum_steps for g in summed]
+        del summed
         metrics: dict[str, Any] = {
             "loss": losses_t.mean(),
             "per_example_loss_sum": torch.stack(loss_sums),
@@ -149,4 +220,11 @@ def make_eval_step(adapter: ModelAdapter, model: torch.nn.Module) -> Callable:
     return eval_step
 
 
-__all__ = ["TrainState", "dropout_generator", "make_eval_step", "make_loss_fn", "make_train_step"]
+__all__ = [
+    "TrainState",
+    "all_reduce_coalesced",
+    "dropout_generator",
+    "make_eval_step",
+    "make_loss_fn",
+    "make_train_step",
+]

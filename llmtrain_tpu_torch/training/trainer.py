@@ -1,5 +1,5 @@
-"""Step-based trainer on one device (port of the part of
-``llmtrain_tpu/training/trainer.py`` that single-device training reaches).
+"""Step-based trainer (port of the part of ``llmtrain_tpu/training/trainer.py``
+that training on one device, or data parallel over processes, reaches).
 
 Same loop as JAX: a 1-indexed step loop over batches from the
 deterministic sampler (assembled ahead by the prefetcher), gradient
@@ -12,7 +12,22 @@ checkpoint with the config-mismatch warning and a topology check, and the
 non-finite guard with its consecutive-skip abort, and preemption: SIGTERM
 saves a checkpoint at the step it lands in and returns with
 ``preempted=True``, so ``train --auto-resume`` continues from there.
-:meth:`Trainer.evaluate` runs the validation loop alone (``eval``).
+:meth:`Trainer.evaluate` runs the validation loop alone (``eval``), on the
+EMA shadow with ``use_ema``.
+
+Data parallel (a ``torch.distributed`` group formed by
+``distributed.setup_distributed``, one process per device): each of the
+W ranks takes its B rows of the sampler's global batch of B·W rows, and
+its share of each eval batch; the step sums the gradients over the ranks
+(training/train_step.py) and the eval sums the loss and token sums. Only
+rank 0 writes checkpoints, and the others wait at a barrier after each
+save; on resume rank 0 picks the checkpoint and broadcasts its step, so
+every rank restores the same file. SIGTERM to any rank stops every rank
+at the same step: the flags are OR-ed over the ranks at each log
+boundary. A resume at another world size (elastic resume) is refused.
+The dataset setup runs under the backoff retry, and
+``trainer.extra.profile_start_step`` traces a window of steps with
+``torch.profiler`` (:class:`_StepProfiler`).
 
 A config that switches on a part of the JAX trainer the port does not run
 yet raises ``NotImplementedError`` at construction, naming the ROADMAP.md
@@ -24,6 +39,7 @@ report, Prometheus textfile) is not written: the run directory holds
 from __future__ import annotations
 
 import math
+import re
 import signal
 import threading
 import time
@@ -38,24 +54,37 @@ import yaml
 from ..config.schemas import RunConfig
 from ..data.prefetch import BatchPrefetcher
 from ..data.sampler import DeterministicSampler
-from ..distributed import resolve_device
+from ..distributed import (
+    active_state,
+    allgather_any,
+    barrier,
+    broadcast_int_from_main,
+    collective_errors,
+    resolve_device,
+)
 from ..interop.flax_params import flax_params_to_state_dict, state_dict_to_flax_params
 from ..registry import get_data_module, get_model_adapter, initialize_registries
+from ..resilience.faults import retry, retry_rng
 from ..utils.hw import mfu as compute_mfu
 from ..utils.hw import peak_flops, peak_memory_bytes
 from ..utils.logging import get_logger
 from .checkpoint import (
     CheckpointManager,
+    ema_from_payload,
+    opt_state_from_host,
+    opt_state_to_host,
     read_manifest,
     resolve_resume_path,
     warn_on_config_mismatch,
 )
-from .optimizer import build_optimizer, lr_schedule
+from .optimizer import build_model_optimizer, find_ema_tree, lr_schedule
 from .train_step import TrainState, make_eval_step, make_train_step
 
 logger = get_logger()
 
 _NOT_PORTED = "is not yet ported to llmtrain_tpu_torch"
+_NO_EMA = ("no EMA state in the optimizer — train with trainer.extra.ema_decay to track "
+           "shadow weights")
 
 
 @dataclass(frozen=True)
@@ -85,24 +114,35 @@ class TopologyMismatchError(ValueError):
     """The checkpoint's recorded batch layout differs from this run's."""
 
 
-def refuse_unported(cfg: RunConfig) -> None:
+def _mesh_refusal(cfg: RunConfig, world_size: int) -> str | None:
+    """What of ``distributed.mesh`` the port cannot run: any axis but
+    ``data`` larger than one device, or a ``data`` axis that is not the
+    process count (``-1`` means all of them)."""
+    sizes = cfg.distributed.mesh.model_dump()
+    data = sizes.pop("data")
+    if any(v > 1 for v in sizes.values()):
+        return "distributed.mesh with an axis other than data larger than one device"
+    if data not in (-1, world_size):
+        return (f"distributed.mesh.data={data} with {world_size} process(es) (the data "
+                "axis is the process count, -1)")
+    return None
+
+
+def refuse_unported(cfg: RunConfig, world_size: int = 1) -> None:
     """Raise ``NotImplementedError`` for a config that switches on a part
-    of the JAX trainer the port does not run yet."""
+    of the JAX trainer the port does not run yet (``world_size``: the
+    processes of the data-parallel group, 1 without one)."""
     res = cfg.resilience
+    mesh = _mesh_refusal(cfg, world_size)
     checks = [
         (res.spike_detection, "resilience.spike_detection (loss-spike rollback)", "resilience"),
         (res.watchdog.enabled, "resilience.watchdog (hang watchdog)", "resilience"),
         (res.faults.model_dump() != type(res.faults)().model_dump(),
          "resilience.faults (fault injection)", "resilience"),
-        (int(cfg.trainer.extra.get("profile_start_step", 0)) > 0,
-         "trainer.extra.profile_start_step (step profiler)", "slice 2 deferrals"),
         (cfg.telemetry.prometheus, "telemetry.prometheus (metrics endpoint)", "telemetry"),
         (cfg.mlflow.enabled, "mlflow.enabled (a tracker other than the null one)",
          "telemetry"),
-        (cfg.distributed.enabled, "distributed.enabled (data parallel over NCCL)",
-         "slice 2 deferrals"),
-        (any(v > 1 for v in cfg.distributed.mesh.model_dump().values()),
-         "distributed.mesh larger than one device", "parallelism"),
+        (mesh is not None, mesh, "parallelism"),
         (cfg.trainer.zero.enabled, "trainer.zero (sharded optimizer state)", "parallelism"),
         (cfg.model.remat or cfg.model.extra.get("activation_tiers") is not None,
          "model.remat / model.extra.activation_tiers", "parallelism"),
@@ -114,23 +154,30 @@ def refuse_unported(cfg: RunConfig) -> None:
             raise NotImplementedError(f"{what} {_NOT_PORTED} (ROADMAP.md queue A: {item})")
 
 
-def _topology(cfg: RunConfig) -> dict[str, Any]:
+def _topology(cfg: RunConfig, world_size: int = 1) -> dict[str, Any]:
     """The topology block every manifest records (JAX ``describe_topology``
-    for a one-device mesh)."""
-    mesh = {k: 1 for k in cfg.distributed.mesh.model_dump()}
+    for a mesh whose data axis spans the ``world_size`` processes, one
+    device each)."""
+    mesh = {k: (world_size if k == "data" else 1) for k in cfg.distributed.mesh.model_dump()}
     return {
         "mesh": mesh,
-        "data_parallel": 1,
-        "global_micro_batch": int(cfg.trainer.micro_batch_size),
+        "data_parallel": world_size,
+        "global_micro_batch": int(cfg.trainer.micro_batch_size) * world_size,
         "micro_batch_size": int(cfg.trainer.micro_batch_size),
         "grad_accum_steps": int(cfg.trainer.grad_accum_steps),
-        "num_processes": 1,
+        "num_processes": world_size,
     }
 
 
 class Trainer:
     def __init__(self, cfg: RunConfig, run_dir: Path | None) -> None:
-        refuse_unported(cfg)
+        """The data-parallel group is the one ``setup_distributed`` formed,
+        if any. Every rank gets the run dir; only rank 0 writes to it."""
+        self._dist = active_state()
+        self._world = self._dist.num_processes if self._dist else 1
+        self._rank = self._dist.process_index if self._dist else 0
+        self._is_main = self._rank == 0
+        refuse_unported(cfg, self._world)
         self._cfg = cfg
         self._run_dir = run_dir
         self._device = resolve_device(cfg.run.device)
@@ -144,13 +191,22 @@ class Trainer:
             raise  # a refusal (exit 2), not an offline environment
         except Exception as exc:  # noqa: BLE001 — offline environments: tokenizer optional
             logger.warning("build_tokenizer failed (%s); continuing without one", exc)
-        self._data_module.setup(cfg, tokenizer)
+        # Dataset loading is the init stage that touches disks and caches:
+        # transient failures get full-jitter backoff, seeded per rank so the
+        # ranks' retries do not march in step.
+        retry(
+            lambda: self._data_module.setup(cfg, tokenizer),
+            attempts=cfg.resilience.retry_attempts,
+            base_delay=cfg.resilience.retry_base_delay,
+            description="dataset setup",
+            rng=retry_rng(cfg.run.seed, self._rank),
+        )
         self._model = self._adapter.build_model(cfg, self._device)
-        self._global_micro = cfg.trainer.micro_batch_size
-        optimizer = build_optimizer(cfg.trainer, list(self._model.named_parameters()))
+        self._global_micro = cfg.trainer.micro_batch_size * self._world
+        optimizer = build_model_optimizer(cfg, self._model)
         self._schedule = lr_schedule(cfg.trainer)
         self._ckpt_mgr: CheckpointManager | None = None
-        if run_dir is not None:
+        if run_dir is not None and self._is_main:
             keep_last_k = int(cfg.trainer.extra.get("keep_last_k", 3))
             self._ckpt_mgr = CheckpointManager(Path(run_dir) / "checkpoints",
                                                keep_last_k=keep_last_k)
@@ -163,6 +219,8 @@ class Trainer:
             use_dropout=cfg.model.dropout > 0.0,
             seed=cfg.run.seed,
             nonfinite_guard=guard,
+            data_parallel=self._dist is not None,
+            rank=self._rank,
         )
         self._eval_step_fn = make_eval_step(self._adapter, self._model)
         self._param_count = sum(p.numel() for p in self._model.parameters())
@@ -198,11 +256,32 @@ class Trainer:
                 for k, v in arrays.items()}
 
     def global_batch(self, sampler: DeterministicSampler, dataset, step: int) -> dict:
-        """The (A, B, T) batch of optimizer step ``step`` on the device."""
+        """This rank's (A, B, T) share of optimizer step ``step``'s global
+        batch on the device: rows [r·B, (r+1)·B) of each micro-batch."""
         accum = self._cfg.trainer.grad_accum_steps
         base_index = (step - 1) * accum + self._data_offset
-        rows = [dataset.get_examples(sampler.batch_indices(base_index + a)) for a in range(accum)]
+        lo = self._rank * self._cfg.trainer.micro_batch_size
+        hi = lo + self._cfg.trainer.micro_batch_size
+        rows = [dataset.get_examples(sampler.batch_indices(base_index + a)[lo:hi])
+                for a in range(accum)]
         return self._to_device({k: np.stack([r[k] for r in rows]) for k in rows[0]})
+
+    def _rank_rows(self, indices: np.ndarray, n_pad: int) -> tuple[np.ndarray, int]:
+        """This rank's equal share of a forward-only batch whose last
+        ``n_pad`` rows are padding, and the padding rows in the share."""
+        per = len(indices) // self._world
+        lo, hi = self._rank * per, (self._rank + 1) * per
+        return indices[lo:hi], max(0, hi - max(lo, len(indices) - n_pad))
+
+    def _sum_over_ranks(self, *values: torch.Tensor) -> list[float]:
+        """Host floats of device scalars, summed over the ranks."""
+        stacked = torch.stack([v.float() for v in values])
+        if self._dist is not None:
+            import torch.distributed as dist
+
+            with collective_errors():
+                dist.all_reduce(stacked)
+        return [float(v) for v in stacked.cpu()]
 
     def _eval_batch(self, dataset, indices: np.ndarray, *, n_pad: int = 0) -> dict:
         """(B, T) batch from example indices, always with an attention
@@ -235,35 +314,50 @@ class Trainer:
         wrote evaluates. ``quantize="int8"`` evaluates a copy of the model
         under weight-only int8 (ops/quant.py), the serving path's weights,
         so ``val/loss`` is the quality cost of quantized decode; the
-        trainer's own model keeps its weights. ``use_ema`` (the EMA shadow)
-        is not yet ported."""
+        trainer's own model keeps its weights. ``use_ema`` evaluates a copy
+        carrying the EMA shadow (``trainer.extra.ema_decay``): the
+        checkpoint's, or with no checkpoint the live optimizer's; it
+        composes with ``quantize`` (the shadow is quantized)."""
+        import copy
+
         if quantize not in (None, "int8"):
             raise ValueError(f"unsupported quantize mode: {quantize!r}")
-        if use_ema:
-            raise NotImplementedError(
-                f"evaluating the EMA shadow weights {_NOT_PORTED} "
-                "(ROADMAP.md queue A: slice 2 deferrals)"
-            )
         step = 0
+        shadow: dict[str, torch.Tensor] | None = None
         if resume_from is not None:
-            from .checkpoint import load_inference_params
-
             path = resolve_resume_path(resume_from, self._cfg.output.root_dir)
-            step = load_inference_params(
-                path, self._model,
-                expected_config_yaml=yaml.safe_dump(self._cfg.model_dump(), sort_keys=False),
+            payload = CheckpointManager.load(path)
+            warn_on_config_mismatch(
+                payload, yaml.safe_dump(self._cfg.model_dump(), sort_keys=False), path
             )
+            self._model.load_state_dict(flax_params_to_state_dict(payload["params"]),
+                                        strict=True)
+            if use_ema:
+                if find_ema_tree(payload["opt_state"]) is None:
+                    raise ValueError(_NO_EMA)
+                shadow = ema_from_payload(payload, self._model)
+            step = int(payload["step"])
             self._state.step = step
             logger.info("evaluating checkpoint %s (step %d)", path, step)
+        elif use_ema:
+            ema = self._state.optimizer.ema
+            if ema is None:
+                raise ValueError(_NO_EMA)
+            shadow = {n: e.to(p.dtype) for n, e, p in zip(
+                self._state.optimizer.names, ema, self._state.optimizer.params)}
         eval_fn = self._eval_step_fn
+        model = self._model
+        if shadow is not None:
+            model = copy.deepcopy(self._model)
+            model.load_state_dict(shadow, strict=False)
+            eval_fn = make_eval_step(self._adapter, model)
         if quantize == "int8":
-            import copy
-
             from ..ops.quant import quantize_model
 
             if not hasattr(self._model, "n_heads"):
                 raise ValueError("--quantize int8 evaluates the gpt model only")
-            model = copy.deepcopy(self._model)
+            if model is self._model:
+                model = copy.deepcopy(self._model)
             stats = quantize_model(model)
             logger.info(
                 "int8 weight quantization: %d/%d params quantized, %.2fx weight-byte compression",
@@ -324,12 +418,13 @@ class Trainer:
         interval_start = time.perf_counter()
         start_time = time.perf_counter()
 
-        # Preemption (the JAX trainer's single-process contract): SIGTERM only
-        # latches a flag; after the step it lands in, the loop saves a
-        # checkpoint at that step and returns cleanly, so --auto-resume
-        # continues where the evicted run stopped. A multi-process run
-        # would need JAX's all-gather consensus, which waits for data
-        # parallel (refused above).
+        # Preemption: SIGTERM only latches a flag; after the step it lands
+        # in (one process) or at the next log boundary, where the ranks OR
+        # their flags (several), the loop saves a checkpoint at that step
+        # and returns cleanly, so --auto-resume continues where the evicted
+        # run stopped. Acting on a local flag alone would leave the other
+        # ranks waiting in the next step's all-reduce.
+        multi_process = self._world > 1
         preempted = False
         # Distinct sentinel, not `old_term is None`: signal.signal() returns
         # None when the previous handler was installed by C code.
@@ -351,6 +446,8 @@ class Trainer:
                 "applies)"
             )
         final_step_override: int | None = None
+        profiler = _StepProfiler(cfg, self._run_dir, process_index=self._rank,
+                                 num_processes=self._world)
 
         prefetcher: BatchPrefetcher | None = None
         if cfg.trainer.prefetch_depth > 0 and start_step <= max_steps:
@@ -365,6 +462,7 @@ class Trainer:
             step = start_step - 1
             while step < max_steps:
                 step += 1
+                profiler.maybe_start(step)
                 t_fetch = time.perf_counter()
                 if prefetcher is not None:
                     batch = prefetcher.get(step)
@@ -373,6 +471,7 @@ class Trainer:
                 t_dispatch = time.perf_counter()
                 metrics = self._train_step_fn(self._state, batch)
                 t_done = time.perf_counter()
+                profiler.maybe_stop(step, sync=metrics["loss"])
                 interval_data_wait += t_dispatch - t_fetch
                 interval_dispatch += t_done - t_dispatch
 
@@ -384,9 +483,13 @@ class Trainer:
                 if step == 1:
                     first_step_loss = float(metrics["loss"])
 
+                if multi_process and step % log_every == 0:
+                    stop_now = allgather_any(preempted)
+                else:
+                    stop_now = preempted and not multi_process
                 # A signal during the very last step changes nothing: the
                 # run completes and reports an un-preempted result.
-                stop_now = preempted and step < max_steps
+                stop_now = stop_now and step < max_steps
                 if step % save_every == 0 or step == max_steps or stop_now:
                     self._save_checkpoint(step)
                 if stop_now:
@@ -394,6 +497,11 @@ class Trainer:
                         logger.warning(
                             "SIGTERM received: preemption checkpoint saved at step %d; "
                             "stopping cleanly (resume with --resume)", step,
+                        )
+                    elif self._run_dir is not None and multi_process:
+                        logger.warning(
+                            "SIGTERM received: stopping cleanly at step %d (preemption "
+                            "checkpoint written by the main rank)", step,
                         )
                     else:
                         logger.warning(
@@ -431,6 +539,7 @@ class Trainer:
                         final_val_metrics = val_metrics
                         final_val_loss = val_metrics.get("val/loss", final_val_loss)
         finally:
+            profiler.close(sync=step_loss_dev)
             if prefetcher is not None:
                 prefetcher.close()
             if handler_installed:
@@ -467,11 +576,11 @@ class Trainer:
         base = (step - 1) * accum
         total_loss = total_tok = 0.0
         for a in range(accum):
-            loss_sum, tokens = self._eval_step_fn(
-                self._eval_batch(dataset, sampler.batch_indices(base + a))
-            )
-            total_loss += float(loss_sum.sum())
-            total_tok += float(tokens.sum())
+            rows, _ = self._rank_rows(sampler.batch_indices(base + a), 0)
+            loss_sum, tokens = self._eval_step_fn(self._eval_batch(dataset, rows))
+            part_loss, part_tok = self._sum_over_ranks(loss_sum.sum(), tokens.sum())
+            total_loss += part_loss
+            total_tok += part_tok
         return total_loss / max(total_tok, 1.0)
 
     # ------------------------------------------------------------------ guard
@@ -509,7 +618,7 @@ class Trainer:
             "prefetch_depth": int(self._cfg.trainer.prefetch_depth),
             "prefetch_generation": 0,
         }
-        return {"topology": _topology(self._cfg), "data": data}
+        return {"topology": _topology(self._cfg, self._world), "data": data}
 
     def _resilience_payload(self) -> dict[str, Any] | None:
         out: dict[str, Any] = {}
@@ -527,28 +636,62 @@ class Trainer:
             "params": state_dict_to_flax_params(
                 self._model.state_dict(), n_heads=m.n_heads, n_kv_heads=n_kv
             ),
-            "opt_state": self._state.optimizer.state_dict(),
+            "opt_state": opt_state_to_host(self._state.optimizer.state_dict(),
+                                           n_heads=m.n_heads, n_kv_heads=n_kv),
         }
 
     def _save_checkpoint(self, step: int) -> None:
-        if self._ckpt_mgr is None:
-            return
-        self._ckpt_mgr.save_host(
-            step,
-            self.host_state(),
-            self._cfg.model_dump(),
-            resilience=self._resilience_payload(),
-            manifest_extra=self._manifest_extra(step),
-        )
+        """Rank 0 writes; with several ranks every rank then waits at a
+        barrier, so none runs ahead of a save it might restore."""
+        if self._ckpt_mgr is not None:
+            self._ckpt_mgr.save_host(
+                step,
+                self.host_state(),
+                self._cfg.model_dump(),
+                resilience=self._resilience_payload(),
+                manifest_extra=self._manifest_extra(step),
+            )
+        barrier()
+
+    def _agreed_resume_path(self, resume_spec: str) -> Path:
+        """The checkpoint every rank restores: rank 0 resolves the spec and
+        broadcasts the step; a rank whose own resolution names another step
+        takes rank 0's file in the same directory."""
+        root = self._cfg.output.root_dir
+        if self._world == 1:
+            return resolve_resume_path(resume_spec, root)
+        path: Path | None = None
+        step = -1
+        try:
+            path = resolve_resume_path(resume_spec, root)
+            match = re.match(r"^step_(\d+)\.ckpt$", path.name)
+            step = int(match.group(1)) if match else -1
+        except FileNotFoundError:
+            if self._is_main:
+                step = -2
+        agreed = broadcast_int_from_main(step if self._is_main else 0)
+        if agreed == -2 or path is None:
+            raise FileNotFoundError(f"no checkpoint to resume from for {resume_spec!r}")
+        if agreed >= 0 and agreed != step:
+            path = path.parent / f"step_{agreed:06d}.ckpt"
+        return path
 
     def _restore(self, resume_spec: str) -> int:
         """Load a checkpoint into the live model and optimizer; returns the
-        restored step. A checkpoint whose recorded batch layout differs from
-        this run's raises :class:`TopologyMismatchError`."""
-        path = resolve_resume_path(resume_spec, self._cfg.output.root_dir)
+        restored step. A checkpoint saved at another world size raises
+        ``NotImplementedError`` (elastic resume); one whose recorded batch
+        layout differs from this run's raises
+        :class:`TopologyMismatchError`."""
+        path = self._agreed_resume_path(resume_spec)
         manifest = read_manifest(path) or {}
         saved = manifest.get("topology")
-        current = _topology(self._cfg)
+        current = _topology(self._cfg, self._world)
+        if saved is not None and int(saved.get("num_processes", 1)) != self._world:
+            raise NotImplementedError(
+                f"resuming checkpoint {path.name}, saved by "
+                f"{saved.get('num_processes')} process(es), with {self._world}: "
+                f"elastic resume {_NOT_PORTED} (ROADMAP.md queue A: resilience)"
+            )
         if saved is None:
             logger.warning(
                 "checkpoint %s carries no saved topology: topology validation SKIPPED",
@@ -563,7 +706,7 @@ class Trainer:
                     + ", ".join(f"{k}={saved.get(k)}" for k in changed)
                     + f"; this run has " + ", ".join(f"{k}={current[k]}" for k in changed)
                     + " — the data stream would not continue the saved run's "
-                    "(elastic resume is not yet ported, ROADMAP.md queue A: slice 2 deferrals)"
+                    "(elastic resume is not yet ported, ROADMAP.md queue A: resilience)"
                 )
         payload = CheckpointManager.load(path)
         warn_on_config_mismatch(
@@ -571,7 +714,7 @@ class Trainer:
         )
         step = int(payload["step"])
         self._model.load_state_dict(flax_params_to_state_dict(payload["params"]), strict=True)
-        self._state.optimizer.load_state_dict(payload["opt_state"])
+        self._state.optimizer.load_state_dict(opt_state_from_host(payload["opt_state"]))
         self._state.step = step
         resil = payload.get("resilience") or {}
         if self._state.nonfinite_count is not None:
@@ -605,7 +748,7 @@ class Trainer:
         host_dispatch_ms = interval_dispatch / steps * 1e3 if steps else 0.0
         current_lr = self._schedule(step - 1)
         interval_mfu = compute_mfu(
-            tokens_per_sec,
+            tokens_per_sec / self._world,  # the tokens are the global batch's
             n_params=self._param_count,
             n_layers=self._cfg.model.n_layers,
             seq_len=self._train_seqlen,
@@ -633,21 +776,110 @@ class Trainer:
         if val_ds is None:
             return None
         n = len(val_ds)
-        eval_bs = min(max(self._global_micro, 1), n)
+        # JAX's batch: a multiple of the data-parallel degree, padded with
+        # zero-masked rows; each rank evaluates its equal share.
+        mult = self._world
+        eval_bs = min(max(self._global_micro // mult, 1) * mult, -(-n // mult) * mult)
         loss_total = torch.zeros((), dtype=torch.float32, device=self._device)
         tok_total = torch.zeros((), dtype=torch.float32, device=self._device)
         for b in range(math.ceil(n / eval_bs)):
             real = np.arange(b * eval_bs, min((b + 1) * eval_bs, n))
             pad = eval_bs - len(real)
             indices = np.concatenate([real, np.zeros(pad, dtype=np.int64)])
-            loss_sum, tokens = eval_fn(self._eval_batch(val_ds, indices, n_pad=pad))
+            rows, rows_pad = self._rank_rows(indices, pad)
+            loss_sum, tokens = eval_fn(self._eval_batch(val_ds, rows, n_pad=rows_pad))
             loss_total += loss_sum.sum()
             tok_total += tokens.sum()
-        val_loss = float(loss_total) / max(float(tok_total), 1.0)
+        total_loss, total_tok = self._sum_over_ranks(loss_total, tok_total)
+        val_loss = total_loss / max(total_tok, 1.0)
         metrics = {"val/loss": val_loss}
         parts = "  ".join(f"{k}={v:.4f}" for k, v in sorted(metrics.items()))
         logger.info("val_step=%d/%d  %s", step, max_steps, parts)
         return metrics
+
+
+class _StepProfiler:
+    """Optional ``torch.profiler`` trace over a window of training steps
+    (JAX ``_StepProfiler`` with ``jax.profiler``):
+
+        trainer:
+          extra:
+            profile_start_step: 10     # 0/absent = disabled
+            profile_num_steps: 3
+            profile_all_hosts: false   # several processes: trace every one
+
+    The Chrome trace (``steps_<first>-<last>.pt.trace.json``, CPU and, on
+    the card, CUDA activity) lands in ``{run_dir}/logs/profile``; with
+    several processes only rank 0 traces, or with ``profile_all_hosts``
+    every rank into its own ``host_{i}``. Start and stop are guarded: a
+    profiler failure never stops training. The window's edges are logged
+    (JAX also stamps them on its event timeline, which the port's trainer
+    does not write yet)."""
+
+    def __init__(self, cfg: RunConfig, run_dir: Path | None, *, process_index: int = 0,
+                 num_processes: int = 1) -> None:
+        self._start_step = int(cfg.trainer.extra.get("profile_start_step", 0))
+        self._num_steps = max(1, int(cfg.trainer.extra.get("profile_num_steps", 3)))
+        all_hosts = bool(cfg.trainer.extra.get("profile_all_hosts", False))
+        self._dir: Path | None = None
+        if run_dir is not None:
+            base = Path(run_dir) / "logs" / "profile"
+            if num_processes <= 1:
+                self._dir = base
+            elif all_hosts:
+                self._dir = base / f"host_{process_index}"
+            elif process_index == 0:
+                self._dir = base
+        self._cuda = cfg.run.device != "cpu"
+        self._prof: Any = None
+        self._begun_at: int | None = None
+        self._last = 0
+
+    @property
+    def enabled(self) -> bool:
+        return self._start_step > 0 and self._dir is not None
+
+    def maybe_start(self, step: int) -> None:
+        # ``>=``: a resumed run whose first step is past the window start
+        # still traces, from its first step.
+        if (not self.enabled or self._prof is not None or self._begun_at is not None
+                or step < self._start_step):
+            return
+        try:
+            from torch.profiler import ProfilerActivity, profile
+
+            self._dir.mkdir(parents=True, exist_ok=True)
+            activities = [ProfilerActivity.CPU]
+            if self._cuda:
+                activities.append(ProfilerActivity.CUDA)
+            prof = profile(activities=activities)
+            prof.start()
+            self._prof = prof
+            logger.info("profiler trace started at step %d -> %s", step, self._dir)
+        except Exception as exc:  # noqa: BLE001 — profiling must never kill training
+            logger.warning("profiler start failed (%s); continuing without trace", exc)
+        self._begun_at = step  # one attempt per run
+
+    def maybe_stop(self, step: int, sync: Any = None) -> None:
+        if self._prof is None:
+            return
+        self._last = step
+        if step >= self._begun_at + self._num_steps - 1:
+            self.close(sync=sync)
+
+    def close(self, sync: Any = None) -> None:
+        if self._prof is None:
+            return
+        prof, self._prof = self._prof, None
+        try:
+            if isinstance(sync, torch.Tensor) and sync.is_cuda:
+                torch.cuda.synchronize(sync.device)  # the window's queued work
+            prof.stop()
+            path = self._dir / f"steps_{self._begun_at}-{self._last}.pt.trace.json"
+            prof.export_chrome_trace(str(path))
+            logger.info("profiler trace written to %s", path)
+        except Exception as exc:  # noqa: BLE001
+            logger.warning("profiler stop failed (%s)", exc)
 
 
 __all__ = [

@@ -24,7 +24,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
-from test_torch_train_cli import _CITES_STABLE_ITEM, _config
+from test_torch_train_cli import _config
 from torch_port_helpers import run_cli
 
 from llmtrain_tpu.cli import main as jax_main
@@ -188,12 +188,25 @@ def test_average_refusals_answer_as_jax(trained, capsys, argv) -> None:
 
 @pytest.mark.parametrize("command", ["export-checkpoint", "eval"])
 def test_ema_refuses_citing_a_stable_item(trained, capsys, command: str) -> None:
-    argv = [command, "--config", trained["cfg"], "--from", str(trained["ckpts"]), "--ema"]
+    """What the refusal of ``--ema`` became: on a checkpoint without an
+    EMA shadow both CLIs answer with the same exit code and error (JAX's
+    ``eval`` restores the optimizer state, so it reads a checkpoint of its
+    own: JAX's import of the port's export)."""
+    ckpt = str(trained["ckpts"])
+    if command == "eval":
+        exported, imported = trained["root"] / "ema_src.pt", trained["root"] / "ema_src"
+        assert run_cli(port_main, ["export-checkpoint", "--config", trained["cfg"], "--from",
+                                   ckpt, "--output", str(exported)]) == 0
+        assert run_cli(jax_main, ["import-checkpoint", "--config", trained["cfg"], "--input",
+                                  str(exported), "--output", str(imported)]) == 0
+        capsys.readouterr()
+        ckpt = str(imported)
+    argv = [command, "--config", trained["cfg"], "--from", ckpt, "--ema"]
     if command == "export-checkpoint":
         argv += ["--output", str(trained["root"] / "ema.pt")]
-    assert run_cli(port_main, argv) == 2
-    err = _err(capsys)
-    assert _CITES_STABLE_ITEM.search(err) and "slice 2 deferrals" in err, err
+    answers = [(run_cli(main, argv), _err(capsys)) for main in (jax_main, port_main)]
+    assert answers[0] == answers[1] and answers[0][0] != 0, answers
+    assert "EMA state" in answers[0][1]
 
 
 def test_train_tokenizer_equals_jax(tmp_path, capsys) -> None:

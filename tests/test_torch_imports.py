@@ -1,6 +1,7 @@
 """The port stands alone: no module of llmtrain_tpu_torch, and not
-chip_smoke.py, imports jax, flax, optax or the JAX package (the card's
-machine has no JAX)."""
+chip_smoke.py or the tools that run on the card beside it (tools/chip_*.py),
+imports jax, flax, optax or the JAX package (the card's machine has no
+JAX)."""
 
 from __future__ import annotations
 
@@ -13,7 +14,8 @@ import torch_port_helpers  # noqa: F401 — caps torch at one CPU thread
 
 _ROOT = Path(__file__).resolve().parents[1]
 _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "llmtrain_tpu")
-_FILES = sorted((_ROOT / "llmtrain_tpu_torch").rglob("*.py")) + [_ROOT / "chip_smoke.py"]
+_FILES = (sorted((_ROOT / "llmtrain_tpu_torch").rglob("*.py")) + [_ROOT / "chip_smoke.py"]
+          + sorted((_ROOT / "tools").glob("chip_*.py")))
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -40,6 +42,8 @@ def test_walk_covers_the_package() -> None:
     assert {"engine.py", "scheduler.py", "paged_kv.py", "overload.py", "loadgen.py"} <= names
     assert {"exit_codes.py", "dummy_text.py", "mixed_text.py", "bpe.py", "dummy_gpt.py",
             "torch_interop.py"} <= names
+    assert {"faults.py", "chip_smoke_ddp.py", "chip_smoke_offline.py"} <= names
+    assert _ROOT / "llmtrain_tpu_torch" / "distributed" / "__init__.py" in _FILES
     native = _ROOT / "llmtrain_tpu_torch" / "native" / "__init__.py"
     assert native in _FILES and (native.parent / "fastbpe.c").is_file()
 

@@ -8,7 +8,8 @@ files with the tracked ``runs/pytok8k.json`` vocabulary, tracks the JAX
 trainer's per-step losses from the same initial params within the
 optimizer-trajectory band (atol 3e-5, rtol 1e-3). The trajectory runs in
 float32: the band is the f32 one, and bf16 compute rounds differently in
-the two frameworks.
+the two frameworks. ``example``'s commented optimizer, EMA and profiler
+keys train too, and ``ddp_smoke`` trains as two gloo processes.
 """
 
 from __future__ import annotations
@@ -86,3 +87,40 @@ def test_bpe_preset_tracks_jax_at_a_tiny_width(tmp_path) -> None:
     # The vocabulary sized the model: tied 8192 x 32 embedding.
     assert port_result.parameter_count == jax_result.parameter_count
     assert port_losses[0] == pytest.approx(math.log(8192), abs=0.5)
+
+
+@pytest.mark.parametrize(
+    "extra",
+    [{"optimizer": "adafactor", "ema_decay": 0.999},
+     {"optimizer": "lion", "profile_start_step": 2, "profile_num_steps": 1}],
+    ids=["adafactor-ema", "lion-profiler"],
+)
+def test_example_extras_train(tmp_path, capsys, extra) -> None:
+    """example.yaml's commented ``trainer.extra`` keys, switched on."""
+    raw = _preset("example")
+    raw["trainer"].update(max_steps=3, warmup_steps=1)
+    raw["trainer"].setdefault("extra", {}).update(extra)
+    raw["output"]["root_dir"] = str(tmp_path / "runs")
+    cfg = tmp_path / "example.yaml"
+    cfg.write_text(yaml.safe_dump(raw, sort_keys=False))
+    assert run_cli(port_main, ["train", "--config", str(cfg), "--run-id", "x", "--json"]) == 0
+    result = json.loads(capsys.readouterr().out)["train_result"]
+    assert result["final_step"] == 3 and math.isfinite(result["final_loss"])
+    traces = list((tmp_path / "runs" / "x" / "logs" / "profile").glob("*.json"))
+    assert len(traces) == ("profile_start_step" in extra)
+
+
+def test_ddp_smoke_trains_as_two_gloo_processes(tmp_path) -> None:
+    from test_torch_ddp import launch, wait
+
+    raw = _preset("ddp_smoke")
+    raw["output"]["root_dir"] = str(tmp_path / "runs")
+    cfg = tmp_path / "ddp_smoke.yaml"
+    cfg.write_text(yaml.safe_dump(raw, sort_keys=False))
+    outs = wait(launch(tmp_path, ["train", "--config", str(cfg), "--run-id", "d", "--json"]),
+                timeout=120)
+    for code, _, err in outs:
+        assert code == 0, err[-3000:]
+    result = json.loads(outs[0][1].strip().splitlines()[-1])["train_result"]
+    assert result["final_step"] == raw["trainer"]["max_steps"]
+    assert math.isfinite(result["final_loss"]) and result["final_loss"] < result["first_step_loss"]

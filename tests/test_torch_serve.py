@@ -146,11 +146,18 @@ def test_generate_cli_matches_jax_cli(trained, capsys) -> None:
 
 @pytest.mark.parametrize("extra", [["--ema"]], ids=["ema"])
 def test_unported_generate_flags_exit_2(trained, capsys, extra) -> None:
+    """What the refusal of ``--ema`` became: on a checkpoint trained
+    without ``trainer.extra.ema_decay`` both CLIs answer ``generate --ema``
+    with the same exit code and error."""
     cfg_path, ckpt_path, _, _ = trained
     argv = ["generate", "--config", str(cfg_path), "--from", str(ckpt_path),
             "--prompt-ids", "1,2", *extra]
-    assert run_cli(cli.main, argv) == 2
-    assert "ROADMAP.md" in capsys.readouterr().err
+    answers = []
+    for main in (jax_cli.main, cli.main):
+        code = run_cli(main, argv)
+        answers.append((code, json.loads(capsys.readouterr().err.strip().splitlines()[-1])))
+    assert answers[0] == answers[1] and answers[0][0] != 0, answers
+    assert "holds no EMA state" in answers[0][1]["error"]
 
 
 @pytest.mark.parametrize(
