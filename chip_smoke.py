@@ -222,6 +222,32 @@ Phases, each fatal on failure (exit code 1, no result line):
    step ms medians over the same steps: adafactor and lion give finite
    losses, the last below the first; each one's state bytes, step ms and
    peak memory beside AdamW's.
+19. Telemetry, in the same temp root (phases 9-13 already wrote JAX's run
+   files: telemetry is on by default): (a) phase 9's run dir (`full`)
+   holds report.json, report.md and telemetry/{timeline.jsonl, trace.json,
+   metrics.prom}; report.json's final loss equals the summary's; the
+   memory monitor's peak (mem/hbm_peak) is within 1% of the summary's
+   peak_memory with source "memory_stats"; metrics.prom carries the train
+   and memory families. (b) `goodput --run-dir` on it: the categories sum
+   to the wall (no balance error), and productive_train plus the data
+   wait, checkpoint and eval categories cover at least GOODPUT_COVERED of
+   the logged step times summed (a logged step time also holds the log
+   boundary's own host work, so productive_train alone sits below it).
+   (c) `profile --steps 3 --serve` on phase 9's config (its warmup cut to
+   the 3 steps), launch counts reset
+   just before and read just after (12 flash forward, dq and dk/dv per
+   step plus 12 forward per eval batch: the cost count launches nothing):
+   the train step's top_ops list the three flash kernels at 12 calls each,
+   the analytical MFU is <= 1 and reconciled, and the prefill and decode
+   counts are there. (d) the cost count of phase 12's CE run, from its run
+   dir's config.yaml: top_ops list the three fused-CE kernels once each,
+   and its flops equal the attribution in that run's report.json. (e)
+   TEL_STEPS steps with telemetry.enabled false and with it on plus the
+   native tracker, in the order off, on, on, off, launch counts reset
+   before and read after: the per-run medians of the step time (steps 6
+   on) with their spread, each arm's median, and each arm's wall a step by
+   the log's timestamps (which, unlike the logged step time, holds the log
+   boundary's flush); a measurement, not a gate. The phase's seconds on their own line.
 
 Then it prints the kernels line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
@@ -3170,6 +3196,230 @@ def phase_ddp(torch, smi: str, tmp: Path) -> dict:
                 ddp=ddp, ema=ema, optim=optim, seconds=seconds)
 
 
+# ---------------------------------------------------------------- telemetry
+# Phase 19. The train families every run's metrics.prom must carry.
+TEL_FAMILIES = ("llmtrain_train_loss", "llmtrain_train_mfu", "llmtrain_train_tokens_per_sec",
+                "llmtrain_train_step_time_sec", "llmtrain_mem_hbm_peak", "llmtrain_run_info")
+TEL_FILES = ("report.json", "report.md", "telemetry/timeline.jsonl", "telemetry/trace.json",
+             "telemetry/metrics.prom")
+# The memory monitor and the summary read the same allocator counter; the
+# monitor samples again at the end of the run, after the last eval.
+TEL_PEAK_RTOL = 0.01
+# Share of the logged step times (phase 9, every step logged) the ledger's
+# productive, data-wait, checkpoint and eval seconds must cover: what is
+# left is each log boundary's host work (registry flush, memory sample,
+# JSONL append, textfile write), a few ms of a 150 ms step.
+GOODPUT_COVERED = 0.9
+PROFILE_STEPS = 3
+TEL_STEPS = 20
+
+
+def _boundary_walls(run_dir: Path, first: int, last: int) -> float:
+    """Mean wall seconds a step from the train.log stamps of the step
+    lines ``first`` and ``last``: unlike the logged step time, it holds
+    each log boundary's own work (the flush to the tracker, the memory
+    sample, the files)."""
+    from datetime import datetime
+
+    stamps = {}
+    for line in (run_dir / "logs" / "train.log").read_text().splitlines():
+        record = json.loads(line)
+        step = _parse_steps([record["message"]])
+        if step:
+            stamps[next(iter(step))] = datetime.fromisoformat(record["timestamp"])
+    return (stamps[last] - stamps[first]).total_seconds() / (last - first)
+
+
+def _telemetry_config(tmp: Path, name: str, *, enabled: bool) -> Path:
+    import yaml
+
+    path = _smoke_config(tmp, name)
+    raw = yaml.safe_load(path.read_text())
+    raw["trainer"].update(max_steps=TEL_STEPS, save_every_steps=TEL_STEPS,
+                          eval_every_steps=TEL_STEPS)
+    raw["telemetry"] = {"enabled": enabled}
+    if enabled:
+        raw["mlflow"] = {"enabled": True, "backend": "native",
+                         "tracking_uri": f"sqlite:///{tmp / 'tracking.db'}"}
+    path.write_text(yaml.safe_dump(raw, sort_keys=False))
+    return path
+
+
+def phase_telemetry(torch, smi: str, tmp: Path, train: dict, ce: dict) -> dict:
+    """Phase 19 (module doc): the run files of phase 9, the goodput ledger,
+    the profile command, the CE run's cost count, and telemetry's cost on
+    the training step."""
+    import numpy as np
+
+    from llmtrain_tpu_torch.config import load_and_validate_config
+    from llmtrain_tpu_torch.telemetry import profiling
+    from llmtrain_tpu_torch.training.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    # (a) phase 9's run files.
+    run_dir, summary = train["run_dir"], train["summary"]
+    missing = [f for f in TEL_FILES if not (run_dir / f).is_file()]
+    if missing:
+        raise RuntimeError(f"phase 9's run dir lacks {missing}")
+    report = json.loads((run_dir / "report.json").read_text())
+    mem = report["memory"]
+    peak_gap = abs(mem["hbm_peak_bytes"] - summary["peak_memory"]) / summary["peak_memory"]
+    prom = (run_dir / "telemetry" / "metrics.prom").read_text()
+    absent = [f for f in TEL_FAMILIES if f not in prom]
+    log(f"[telemetry] phase 9's run files {', '.join(TEL_FILES)}: report final loss "
+        f"{report['train_result']['final_loss']:.6f} (summary {summary['final_loss']:.6f}, "
+        f"last logged {report['loss']['final']:.6f}); memory monitor peak "
+        f"{mem['hbm_peak_bytes'] / 2**30:.3f} GiB from {mem['source']} against the summary's "
+        f"{summary['peak_memory'] / 2**30:.3f} GiB ({peak_gap:.2%}); host RSS peak "
+        f"{mem['host_rss_peak_bytes'] / 2**30:.2f} GiB; opt state "
+        f"{mem.get('opt_state_bytes', 0) / 2**30:.3f} GiB; metrics.prom families missing: "
+        f"{absent or 'none'}")
+    if report["train_result"]["final_loss"] != summary["final_loss"] \
+            or abs(report["loss"]["final"] - summary["final_loss"]) > 1e-6:
+        raise RuntimeError("report.json's final loss is not the summary's")
+    if mem["source"] != "memory_stats" or peak_gap > TEL_PEAK_RTOL:
+        raise RuntimeError(f"memory monitor: source {mem['source']}, peak off by {peak_gap:.2%}")
+    if absent:
+        raise RuntimeError(f"metrics.prom lacks {absent}")
+    perf = report["perf_attribution"]
+    log(f"[telemetry] phase 9's attribution: {perf['executables'][0]['flops']:.4g} flops, "
+        f"{perf['executables'][0]['bytes_accessed']:.4g} bytes a step, counted in "
+        f"{perf['executables'][0]['lower_time_s']:.2f} s; MFU {perf['mfu']}")
+
+    # (b) the goodput ledger, read back by the command.
+    code, out = _run_cli(["goodput", "--run-dir", str(run_dir), "--json"])
+    if code != 0:
+        raise RuntimeError(f"goodput exited {code}")
+    ledger = json.loads(out)
+    cats = ledger["categories"]
+    logged = sum(x["step_time"] for x in train["steps"].values())
+    covered = sum(cats[c] for c in ("productive_train", "data_wait", "checkpoint", "eval"))
+    log(f"[goodput] phase 9: wall {ledger['wall_clock_sec']} s, goodput_frac "
+        f"{ledger['goodput_frac']}, balance error {ledger['balance_error_sec']} s; categories "
+        + ", ".join(f"{k} {v}" for k, v in cats.items())
+        + f"; logged step times summed {logged:.3f} s, productive + data wait + checkpoint + "
+        f"eval {covered:.3f} s ({covered / logged:.1%})")
+    if ledger["balance_error_sec"] != 0.0 \
+            or abs(sum(cats.values()) - ledger["wall_clock_sec"]) > 0.01:
+        raise RuntimeError("the goodput categories do not sum to the wall")
+    if ledger["num_segments"] != 1 or not covered >= GOODPUT_COVERED * logged \
+            or cats["productive_train"] > logged:
+        raise RuntimeError("the goodput ledger does not account for the logged steps")
+
+    # (c) the profile command on phase 9's config, its warmup cut to the
+    # probe's steps (a schedule's warmup may not outlast its steps).
+    import yaml
+
+    raw = yaml.safe_load(Path(train["cfg_path"]).read_text())
+    raw["trainer"]["warmup_steps"] = min(raw["trainer"]["warmup_steps"], PROFILE_STEPS)
+    profile_cfg = tmp / "gpt_pycorpus_profile.yaml"
+    profile_cfg.write_text(yaml.safe_dump(raw, sort_keys=False))
+    out_path = tmp / "profile_report.json"
+    _reset_counts()  # the profile command's counts start here
+    t0 = time.perf_counter()
+    code, _ = _run_cli(["profile", "--config", str(profile_cfg), "--steps",
+                        str(PROFILE_STEPS), "--serve", "--output", str(out_path)])
+    profile_s = time.perf_counter() - t0
+    counts = _read_counts()  # and end here
+    if code != 0:
+        raise RuntimeError(f"profile exited {code}")
+    cfg, _, _ = load_and_validate_config(train["cfg_path"])
+    layers = cfg.model.n_layers
+    _check_counts("profile", counts, {
+        "flash_attention_fwd": layers * (PROFILE_STEPS + train["eval_batches"]),
+        "flash_attention_bwd_dq": layers * PROFILE_STEPS,
+        "flash_attention_bwd_dkdv": layers * PROFILE_STEPS,
+    })
+    prof = json.loads(out_path.read_text())
+    exes = {e["name"]: e for e in prof["executables"]}
+    rows = {r["op"]: r for r in exes["train_step"]["top_ops"]}
+    mfu = prof["perf_attribution"]["mfu"]
+    log(f"[profile] `profile --steps {PROFILE_STEPS} --serve` in {profile_s:.1f} s on {smi}: "
+        f"probe step {prof['probe']['step_time_ms']} ms; executables "
+        + ", ".join(f"{n} {e['flops']:.4g} flops {e['bytes_accessed']:.4g} bytes "
+                    f"({e['roofline']['class']}, counted in {e['lower_time_s']:.2f} s)"
+                    for n, e in exes.items())
+        + f"; MFU {mfu}")
+    for row in exes["train_step"]["top_ops"]:
+        log(f"[profile]   {row['op']:28s} x{row['count']:5d} {row['flops']:.4g} flops "
+            f"{row['bytes_accessed']:.4g} bytes ({row['flops_frac']:.1%} / "
+            f"{row['bytes_frac']:.1%}, {row['class']})")
+    flash = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkdv")
+    if any(rows.get(k, {}).get("count") != layers for k in flash):
+        raise RuntimeError(f"the train step's top_ops lack the flash kernels at {layers} each")
+    if not mfu["analytical"] <= 1.0 or mfu.get("reconciled") is not True:
+        raise RuntimeError(f"the profile's MFU block is off: {mfu}")
+    serve = [n for n in exes if n.startswith(("prefill_T", "decode_B"))]
+    if len(serve) != 2:
+        raise RuntimeError(f"the serving counts are missing: {list(exes)}")
+
+    # (d) the cost count of phase 12's CE run, from its run dir.
+    ce_dir = Path(cfg.output.root_dir) / "ce"
+    ce_cfg, _, _ = load_and_validate_config(ce_dir / "config.yaml")
+    trainer = Trainer(ce_cfg, None)
+    peaks = profiling.resolve_peaks(trainer.device_kind(), ce_cfg.telemetry.device_peaks)
+    t0 = time.perf_counter()
+    ce_prof = trainer.train_step_profile(peaks=peaks, full=True)
+    count_s = time.perf_counter() - t0
+    del trainer
+    torch.cuda.empty_cache()
+    if ce_prof is None:
+        raise RuntimeError("the CE step's cost count failed")
+    ce_rows = {r["op"]: r for r in ce_prof["top_ops"]}
+    ce_report = json.loads((ce_dir / "report.json").read_text())
+    ce_flops = ce_report["perf_attribution"]["executables"][0]["flops"]
+    log(f"[profile] phase 12's CE step counted in {count_s:.2f} s: {ce_prof['flops']:.4g} flops "
+        f"(the run's report {ce_flops:.4g}), {ce_prof['bytes_accessed']:.4g} bytes; "
+        + ", ".join(f"{k} x{ce_rows[k]['count']} {ce_rows[k]['flops']:.4g} flops"
+                    for k in ("fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw")
+                    if k in ce_rows))
+    if any(ce_rows.get(k, {}).get("count") != 1
+           for k in ("fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw")):
+        raise RuntimeError("the CE step's top_ops lack the fused-CE kernels")
+    if ce_prof["flops"] != ce_flops:
+        raise RuntimeError("the CE step's count differs from its run's attribution")
+
+    # (e) telemetry's cost on the step, paired.
+    runs, walls = {}, {}
+    _reset_counts()  # the telemetry on/off path's counts start here
+    for i, enabled in enumerate((False, True, True, False)):
+        name = f"tel_{'on' if enabled else 'off'}_{i}"
+        path = _telemetry_config(tmp, name, enabled=enabled)
+        code, out = _run_cli(["train", "--config", str(path), "--run-id", name, "--json"])
+        if code != 0:
+            raise RuntimeError(f"{name} train exited {code}")
+        steps = _logged_steps(Path(cfg.output.root_dir) / name)
+        runs[name] = [steps[j]["step_time"] * 1e3 for j in sorted(steps) if j > 5]
+        # Steps 6-19 by the log's clock: step 20 also saves the checkpoint.
+        walls[name] = _boundary_walls(Path(cfg.output.root_dir) / name, 5, TEL_STEPS - 1) * 1e3
+        wrote = (Path(cfg.output.root_dir) / name / "report.json").is_file()
+        if wrote != enabled:
+            raise RuntimeError(f"{name}: report.json written {wrote}, telemetry {enabled}")
+    tel_counts = _read_counts()  # and end here
+    _check_counts("telemetry on/off", tel_counts, {
+        "flash_attention_fwd": 4 * layers * (TEL_STEPS + train["eval_batches"]),
+        "flash_attention_bwd_dq": 4 * layers * TEL_STEPS,
+        "flash_attention_bwd_dkdv": 4 * layers * TEL_STEPS,
+    })
+    for name, ms in runs.items():
+        log(f"[telemetry] {name}: step median {np.median(ms):.2f} ms over steps 6-{TEL_STEPS} "
+            f"(min {min(ms):.2f}, max {max(ms):.2f}); by the log's clock, log boundary "
+            f"included, {walls[name]:.2f} ms a step over steps 6-{TEL_STEPS - 1}")
+    arms = {arm: [x for n, ms in runs.items() if f"_{arm}_" in n for x in ms]
+            for arm in ("off", "on")}
+    med = {arm: float(np.median(v)) for arm, v in arms.items()}
+    wall = {arm: float(np.mean([w for n, w in walls.items() if f"_{arm}_" in n]))
+            for arm in ("off", "on")}
+    log(f"[telemetry] on {smi}: telemetry off {med['off']:.2f} ms, on + native tracker "
+        f"{med['on']:.2f} ms a step (medians of {len(arms['off'])} and {len(arms['on'])} "
+        f"steps; on - off {med['on'] - med['off']:+.2f} ms); with the log boundary "
+        f"{wall['off']:.2f} against {wall['on']:.2f} ms ({wall['on'] - wall['off']:+.2f} ms)")
+    seconds = time.perf_counter() - t_phase
+    log(f"[telemetry] phase 19 {seconds:.1f} s")
+    return dict(counts={k: counts[k] + tel_counts[k] for k in counts}, ledger=ledger,
+                medians=med, walls=wall, seconds=seconds)
+
+
 def main() -> int:
     import tempfile
 
@@ -3220,13 +3470,14 @@ def main() -> int:
         phase_fleet(torch, smi, Path(tmp), train, cont)
         offline = phase_offline(torch, smi, Path(tmp))
         ddp = phase_ddp(torch, smi, Path(tmp))
+        tel = phase_telemetry(torch, smi, Path(tmp), train, ce)
     paths = (train["counts"], fused["counts"], ce["counts"], spec["counts"], offline["counts"],
-             ddp["counts"])
+             ddp["counts"], tel["counts"])
     launches = {name: sum(c[name] for c in paths) for name in paths[0]}
     launches["flash_attention_fwd"] += serve_launches
     log(f"[main path] launches over serve + generate, train, fused-norm train, CE train, "
         f"speculative/int8/rolling, BPE train and its evals, the one-rank NCCL train and its "
-        f"EMA evals: {launches}")
+        f"EMA evals, and phase 19's profile and telemetry runs: {launches}")
     for name, n in launches.items():
         if n == 0:
             raise RuntimeError(f"the main path never launched {name}")
@@ -3287,6 +3538,9 @@ def main() -> int:
         f"{base['step_time'] * 1e3:.1f} ms; adafactor state "
         f"{ddp['optim']['adafactor']['state_bytes']} bytes, lion "
         f"{ddp['optim']['lion']['state_bytes']}; phase 18 {ddp['seconds']:.1f} s")
+    log(f"[telemetry] step with telemetry off {tel['medians']['off']:.2f} ms, on "
+        f"{tel['medians']['on']:.2f} ms; phase 9 goodput_frac {tel['ledger']['goodput_frac']}; "
+        f"phase 19 {tel['seconds']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

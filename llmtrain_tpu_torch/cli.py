@@ -39,9 +39,18 @@ Same subcommands, flags, JSON shapes and exit codes as the JAX CLI
   params (``--last-k``); the last two write a resumable step-0 checkpoint;
 * ``validate`` / ``print-config`` — the config loader.
 
-The JAX CLI's ``promote``, ``fleet``, ``chaos``, ``profile``, ``goodput``,
-``plan`` and ``tune`` take any arguments and exit 2 naming the ROADMAP.md
-item that ports them.
+* ``profile`` — a few probe steps, then the cost count of one train step
+  (and with ``--serve`` of the paged prefill/decode steps) written as
+  ``profile_report.json`` (telemetry/profiling.py);
+* ``goodput`` — the wall-clock goodput ledger of any past run directory
+  (telemetry/goodput.py).
+
+``train`` builds its tracker as JAX's does (tracking/: mlflow, the native
+SQLite store or TensorBoard on rank 0 when ``mlflow.enabled``, the null
+tracker otherwise) and registers ``config.yaml`` and ``meta.json`` with it.
+
+The JAX CLI's ``promote``, ``fleet``, ``chaos``, ``plan`` and ``tune`` take
+any arguments and exit 2 naming the ROADMAP.md item that ports them.
 
 ``serve`` and ``serve-bench`` take the same draft and quantize flags: a
 draft puts the continuous backend on the speculative policy.
@@ -83,8 +92,6 @@ _UNPORTED_COMMANDS = {
     "promote": ("the train -> canary -> promote lifecycle", "lifecycle and fleet"),
     "fleet": ("the multi-tenant fleet supervisor", "lifecycle and fleet"),
     "chaos": ("the seeded chaos-recovery harness", "resilience"),
-    "profile": ("the cost-attribution profiler", "telemetry"),
-    "goodput": ("the goodput ledger", "telemetry"),
     "plan": ("the mesh planner", "autotune"),
     "tune": ("the auto-tuner", "autotune"),
 }
@@ -370,6 +377,46 @@ def build_parser() -> argparse.ArgumentParser:
         help="fail the run if (rejected+shed)/submitted exceeds this bound",
     )
 
+    profile = sub.add_parser(
+        "profile",
+        help="N-step cost probe: the train step's cost count + roofline "
+        "attribution (and the paged serving buckets with --serve) written as "
+        "profile_report.json (telemetry/profiling.py)",
+    )
+    profile.add_argument("--config", required=True, help="path to the YAML run config")
+    profile.add_argument(
+        "--steps", type=int, default=3,
+        help="probe training steps to run for measured step time (default 3)",
+    )
+    profile.add_argument(
+        "--serve", action="store_true",
+        help="also count the paged prefill/decode steps at their largest shape "
+        "buckets (meta tensors; no checkpoint needed)",
+    )
+    profile.add_argument(
+        "--top-k", type=int, default=10,
+        help="op rows in each step's top-ops table (the hand-written kernels are "
+        "always listed)",
+    )
+    profile.add_argument(
+        "--output", default=None,
+        help="report path (default {output.root_dir}/profile_{run.name}/profile_report.json)",
+    )
+    profile.add_argument("--json", action="store_true",
+                         help="print the full report JSON to stdout")
+
+    goodput = sub.add_parser(
+        "goodput",
+        help="render the wall-clock goodput ledger for any past run from its durable "
+        "artifacts alone (telemetry/goodput.py)",
+    )
+    goodput.add_argument(
+        "--run-dir", required=True,
+        help="run directory holding telemetry/timeline.jsonl (+ optional checkpoints/ "
+        "and heartbeat)",
+    )
+    goodput.add_argument("--json", action="store_true", help="emit the ledger as JSON")
+
     trace = sub.add_parser(
         "trace",
         help="merge per-process fleet timelines and rebuild cross-process "
@@ -608,10 +655,33 @@ def _handle_train(args: argparse.Namespace) -> int:
         teardown_distributed()
 
 
+def _create_tracker(cfg, dist_state, run_id: str):
+    """A real tracker on the main process when ``mlflow.enabled``, the null
+    one otherwise (tracking/__init__.py ``build_tracker`` picks the
+    backend: mlflow, the native SQLite store, or TensorBoard)."""
+    from .tracking import NullTracker, build_tracker
+
+    is_main = dist_state is None or dist_state.is_main
+    if cfg.mlflow.enabled and is_main:
+        return build_tracker(cfg.mlflow, run_id)
+    return NullTracker()
+
+
+def _log_run_artifacts(tracker, run_dir: Path | None) -> None:
+    if run_dir is None:
+        return
+    for name in ("config.yaml", "meta.json"):
+        path = run_dir / name
+        if path.is_file():
+            tracker.log_artifact(str(path))
+
+
 def _train(args: argparse.Namespace, cfg, resolved, dist_state) -> int:
     """``train`` after the rendezvous: ``dist_state`` is the group's state,
-    or None without ``distributed.enabled``."""
+    or None without ``distributed.enabled``. The tracker runs from
+    ``start_run`` to ``end_run``, which reads FINISHED or FAILED."""
     from .registry import RegistryError, get_data_module, get_model_adapter, initialize_registries
+    from .tracking import NullTracker
     from .utils.logging import configure_logging, get_logger
     from .utils.metadata import generate_meta, write_meta_json
     from .utils.run_dir import create_run_directory, write_resolved_config
@@ -620,6 +690,9 @@ def _train(args: argparse.Namespace, cfg, resolved, dist_state) -> int:
 
     is_main = dist_state is None or dist_state.is_main
     logger = get_logger()
+    tracker = NullTracker()
+    tracker_started = False
+    exit_code = EXIT_FAILURE
     try:
         run_id = args.run_id or cfg.output.run_id
         if args.auto_resume and run_id is None:
@@ -685,6 +758,10 @@ def _train(args: argparse.Namespace, cfg, resolved, dist_state) -> int:
             _emit_error(str(exc))
             return EXIT_CONFIG_ERROR
 
+        tracker = _create_tracker(cfg, dist_state, run_id)
+        tracker.start_run(run_id, cfg.mlflow.run_name)
+        tracker_started = True
+
         run_dir_text = str(run_dir) if run_dir is not None else None
         if args.dry_run:
             from .training.dry_run import run_dry_run
@@ -701,19 +778,24 @@ def _train(args: argparse.Namespace, cfg, resolved, dist_state) -> int:
             trainer_run_dir = run_dir
             if run_dir is None and dist_state is not None and dist_state.num_processes > 1:
                 trainer_run_dir = Path(cfg.output.root_dir) / run_id
-            result = Trainer(cfg, trainer_run_dir).fit(resume_from=resume_spec)
+            result = Trainer(cfg, trainer_run_dir, tracker).fit(resume_from=resume_spec)
             summary = format_run_summary(
                 cfg, run_id=run_id, run_dir=run_dir_text, dry_run=False,
                 train_result=result, as_json=args.json,
             )
         if is_main:
             print(json.dumps(summary) if args.json else summary)
-        return EXIT_OK
+            _log_run_artifacts(tracker, run_dir)
+        exit_code = EXIT_OK
+        return exit_code
     except Exception as exc:  # noqa: BLE001 — CLI boundary
-        code = exit_code_for_exception(exc)
+        exit_code = exit_code_for_exception(exc)
         logger.exception("training failed: %s", exc)
-        _emit_error(f"training failed: {exc} (exit {code})")
-        return code
+        _emit_error(f"training failed: {exc} (exit {exit_code})")
+        return exit_code
+    finally:
+        if tracker_started:
+            tracker.end_run("FINISHED" if exit_code == EXIT_OK else "FAILED")
 
 
 def _build_decode_stack(cfg, device, logger):
@@ -2165,12 +2247,224 @@ def _handle_print_config(args: argparse.Namespace) -> int:
     return EXIT_OK
 
 
+def _handle_goodput(args: argparse.Namespace) -> int:
+    """Post-hoc goodput ledger for any past run directory (JAX
+    ``_handle_goodput``): a pure artifact read that works with every
+    process of the run dead. Exit 0 with the ledger, 1 when the run dir has
+    no segment-delimited timeline, 2 for a missing run dir."""
+    from .telemetry.goodput import compute_goodput, render_goodput_md
+
+    run_dir = Path(args.run_dir)
+    if not run_dir.is_dir():
+        _emit_error(f"run dir not found: {run_dir}")
+        return EXIT_CONFIG_ERROR
+    try:
+        ledger = compute_goodput(run_dir)
+    except NotImplementedError as exc:
+        _emit_error(str(exc))
+        return EXIT_CONFIG_ERROR
+    if ledger is None:
+        _emit_error(
+            f"no goodput ledger for {run_dir}: telemetry/timeline.jsonl is "
+            "missing or carries no segment headers (run predates the "
+            "ledger, or telemetry.timeline was disabled)"
+        )
+        return EXIT_FAILURE
+    if args.json:
+        print(json.dumps(ledger))
+    else:
+        print(f"# Goodput — {run_dir}\n")
+        print(render_goodput_md(ledger), end="")
+    return EXIT_OK
+
+
+def _handle_profile(args: argparse.Namespace) -> int:
+    """N-step cost probe → ``profile_report.json`` (JAX ``_handle_profile``).
+
+    Runs ``--steps`` real training steps on the config (run-dir-less, so no
+    checkpoints or reports are written), then counts one train step on
+    ``meta`` tensors (telemetry/profiling.py: the per-op table with every
+    hand-written kernel, the roofline class). ``--serve`` adds the paged
+    prefill/decode steps at their largest buckets, counted against a
+    ``meta`` copy of the model (no checkpoint needed; nothing executes).
+    Where JAX reports its compiled executable's compile time and memory
+    analysis, the port has no counterpart and leaves the keys out."""
+    import time
+
+    from .registry import RegistryError, get_data_module, get_model_adapter, initialize_registries
+    from .utils.logging import configure_logging, get_logger
+
+    cfg, code = _load_config(args.config)
+    if cfg is None:
+        return code
+    if args.steps < 1:
+        _emit_error("--steps must be >= 1")
+        return EXIT_CONFIG_ERROR
+    configure_logging(level=cfg.logging.level, json_output=cfg.logging.json_output)
+    logger = get_logger()
+    initialize_registries()
+    try:
+        get_model_adapter(cfg.model.name)
+        get_data_module(cfg.data.name)
+    except RegistryError as exc:
+        _emit_error(str(exc))
+        return EXIT_CONFIG_ERROR
+
+    # Probe config: N steps, every boundary logged, no endpoint bind, no
+    # report or attribution of its own (the profile builds its own).
+    dump = cfg.model_dump()
+    dump["trainer"]["max_steps"] = args.steps
+    dump["trainer"]["log_every_steps"] = 1
+    dump["telemetry"]["prometheus"] = False
+    dump["telemetry"]["report"] = False
+    dump["telemetry"]["perf_attribution"] = False
+    try:
+        probe_cfg = type(cfg).model_validate(dump)
+    except ValueError as exc:  # e.g. warmup_steps past --steps (JAX raises here)
+        _emit_error(f"the probe config of --steps {args.steps} does not validate: {exc}")
+        return EXIT_CONFIG_ERROR
+
+    from .telemetry import profiling
+    from .training.trainer import Trainer
+
+    try:
+        trainer = Trainer(probe_cfg, None)
+        t0 = time.perf_counter()
+        result = trainer.fit()
+        probe_wall = time.perf_counter() - t0
+    except Exception as exc:  # noqa: BLE001 — CLI boundary
+        logger.exception("profile probe run failed: %s", exc)
+        _emit_error(f"profile probe run failed: {exc}")
+        return exit_code_for_exception(exc)
+
+    peaks = profiling.resolve_peaks(trainer.device_kind(), cfg.telemetry.device_peaks)
+    telemetry = trainer._telemetry
+    latest = {k: v[0] for k, v in telemetry.metrics.latest().items()}
+    step_time_sec = latest.get("train/step_time_sec") or 0.0
+
+    executables: list[dict[str, Any]] = []
+    train_prof = trainer.train_step_profile(peaks=peaks, full=True, top_k=args.top_k)
+    if train_prof is not None:
+        executables.append(train_prof)
+    if args.serve:
+        executables += _profile_serving_buckets(cfg, trainer.model, peaks=peaks,
+                                                top_k=args.top_k, logger=logger)
+    if not executables:
+        _emit_error("no executable could be profiled (see logs)")
+        return EXIT_FAILURE
+
+    n_devices = trainer._world
+    attribution = profiling.build_perf_attribution(
+        executables=executables,
+        peaks=peaks,
+        n_chips=n_devices,
+        step_time_ms=step_time_sec * 1e3 if step_time_sec > 0 else None,
+        tokens_per_step=float(trainer._tokens_per_step) or None,
+        palm_flops_per_token=trainer.palm_flops_per_token(),
+        measured_mfu=latest.get("train/mfu"),
+        span_totals=telemetry.timeline.span_totals(),
+        steps=args.steps,
+    )
+    memory_block: dict[str, Any] = {}
+    if telemetry.memory is not None:
+        memory_block["monitor_peaks"] = dict(telemetry.memory.peaks())
+        memory_block["monitor_source"] = telemetry.memory.source
+
+    report = {
+        "schema": "llmtrain-profile-report/1",
+        "config": str(args.config),
+        "run_name": cfg.run.name,
+        "device_kind": peaks.get("device_kind", "unknown"),
+        "n_devices": n_devices,
+        "peaks": {k: peaks[k] for k in ("peak_flops", "hbm_bytes_per_sec", "ici_bytes_per_sec")},
+        "probe": {
+            "steps": args.steps,
+            "wall_time_sec": round(probe_wall, 3),
+            "step_time_ms": round(step_time_sec * 1e3, 3),
+            "tokens_per_sec": latest.get("train/tokens_per_sec"),
+            "mfu_measured": latest.get("train/mfu"),
+            "final_loss": result.final_loss,
+        },
+        "executables": executables,
+        "perf_attribution": attribution,
+        "memory": memory_block,
+    }
+    if args.output is not None:
+        out_path = Path(args.output)
+    else:
+        out_path = Path(cfg.output.root_dir) / f"profile_{cfg.run.name}" / "profile_report.json"
+    try:
+        out_path.parent.mkdir(parents=True, exist_ok=True)
+        out_path.write_text(json.dumps(report, indent=2, sort_keys=False), encoding="utf-8")
+    except (OSError, TypeError, ValueError) as exc:
+        _emit_error(f"writing {out_path} failed: {exc}")
+        return EXIT_FAILURE
+
+    if args.json:
+        print(json.dumps(report, indent=2))
+    else:
+        lines = [f"profile report: {out_path}"]
+        for exe in executables:
+            roof = exe.get("roofline") or {}
+            lines.append(
+                f"  {exe['name']}: {exe.get('flops', 0.0):.3g} flops, "
+                f"{exe.get('bytes_accessed', 0.0):.3g} bytes, "
+                f"compile {exe.get('compile_time_s', 0.0):.2f}s → "
+                f"{roof.get('class', '?')}-bound"
+            )
+            for row in profiling.render_top_ops_markdown(exe.get("top_ops") or []):
+                lines.append("    " + row)
+        mfu_block = attribution.get("mfu") or {}
+        if mfu_block:
+            lines.append(
+                f"  MFU analytical {mfu_block.get('analytical')} vs measured "
+                f"{mfu_block.get('measured')} (ratio "
+                f"{mfu_block.get('ratio_analytical_over_measured')}, "
+                f"reconciled: {mfu_block.get('reconciled')})"
+            )
+        print("\n".join(lines))
+    return EXIT_OK
+
+
+def _profile_serving_buckets(cfg, model, *, peaks: dict[str, float], top_k: int,
+                             logger) -> list[dict[str, Any]]:
+    """Counts of the paged prefill/decode steps, checkpoint-free: the engine
+    is built over a ``meta`` copy of ``model`` (the probe's), so neither its
+    weights nor its pool take memory, and nothing executes. Failures
+    degrade to an empty list (the train-step profile stands on its own)."""
+    try:
+        from .serving import PagedDecodeEngine
+        from .telemetry import profiling
+
+        if not hasattr(model, "for_paged_decoding"):
+            logger.warning(
+                "model %s has no paged-decoding support; skipping serve profiles",
+                cfg.model.name,
+            )
+            return []
+        scfg = cfg.serving
+        engine = PagedDecodeEngine(
+            profiling.meta_module(model),
+            block_tokens=scfg.block_tokens,
+            num_blocks=scfg.num_blocks or None,
+            max_batch_slots=scfg.max_batch_slots,
+            prompt_buckets=scfg.prompt_buckets or None,
+            batch_buckets=scfg.batch_buckets or None,
+        )
+        return engine.cost_profile(peaks=peaks, top_k=top_k)
+    except Exception as exc:  # noqa: BLE001 — serve profiles are additive
+        logger.warning("serving bucket profile failed: %s", exc)
+        return []
+
+
 _HANDLERS = {
     "train": _handle_train,
     "generate": _handle_generate,
     "serve": _handle_serve,
     "serve-bench": _handle_serve_bench,
     "trace": _handle_trace,
+    "profile": _handle_profile,
+    "goodput": _handle_goodput,
     "eval": _handle_eval,
     "train-tokenizer": _handle_train_tokenizer,
     "export-checkpoint": _handle_export_checkpoint,

@@ -17,10 +17,13 @@ batches, so the loop's ``get(step)`` normally returns immediately.
 * **Error transparency** — an assembly exception is re-raised in the
   consumer at the next ``get``, once the batches assembled before it are
   consumed, so the run fails at the step the synchronous path would.
+* **Telemetry** — with a ``timeline`` the producer records a
+  ``prefetch_assemble`` span per batch, so the trace shows host assembly
+  overlapping device compute; :attr:`queue_depth` feeds the
+  ``data/prefetch_queue_depth`` gauge.
 
-The JAX prefetcher's rollback ``reseek``, timeline spans and fault hooks
-serve features the port has not ported (ROADMAP.md queue A: resilience,
-telemetry) and are left out.
+The JAX prefetcher's rollback ``reseek`` and fault hooks serve features
+the port has not ported (ROADMAP.md queue A: resilience) and are left out.
 """
 
 from __future__ import annotations
@@ -57,10 +60,12 @@ class BatchPrefetcher:
         depth: int,
         start_step: int,
         name: str = "batch-prefetch",
+        timeline: Any | None = None,
     ) -> None:
         if depth < 1:
             raise ValueError("prefetch depth must be >= 1 (0 = don't construct one)")
         self._assemble = assemble
+        self._timeline = timeline
         self._queue: queue.Queue[tuple[int, Any]] = queue.Queue(maxsize=depth)
         self._next_step = start_step
         self._stop = threading.Event()
@@ -73,7 +78,11 @@ class BatchPrefetcher:
             step = self._next_step
             self._next_step += 1
             try:
-                batch = self._assemble(step)
+                if self._timeline is not None:
+                    with self._timeline.span("prefetch_assemble", cat="data", step=step):
+                        batch = self._assemble(step)
+                else:
+                    batch = self._assemble(step)
             except BaseException as exc:  # noqa: BLE001 — re-raised in consumer
                 self._error = exc
                 return
@@ -121,6 +130,12 @@ class BatchPrefetcher:
     @property
     def closed(self) -> bool:
         return self._stop.is_set()
+
+    @property
+    def queue_depth(self) -> int:
+        """Batches currently queued ahead of the consumer (approximate;
+        a telemetry gauge, never used for control flow)."""
+        return self._queue.qsize()
 
     def _drain(self) -> None:
         while True:

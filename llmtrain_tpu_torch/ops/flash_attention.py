@@ -35,6 +35,8 @@ import math
 
 import torch
 
+from .cost import flash_bwd_costs, flash_fwd_cost, record
+
 NEG_INF = -1e30  # finite, as in the Pallas kernel (pallas_attention.py:48)
 SUPPORTED_HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -269,9 +271,26 @@ def _launch_fwd(
 
 
 def _device_kind(q: torch.Tensor) -> str:
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"flash attention runs on cuda or cpu tensors, not {q.device}")
     return q.device.type
+
+
+def _count_fwd(q: torch.Tensor, k: torch.Tensor, causal: bool,
+               window: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward on ``meta`` tensors (ops/cost.py): its closed-form cost
+    recorded, empty outputs of the kernel's shapes."""
+    b, t, h, d = q.shape
+    record("flash_attention_fwd", *flash_fwd_cost(b, t, h, k.shape[2], d, q.element_size(),
+                                                  causal=causal, window=window))
+    return torch.empty_like(q), torch.empty((b * h, t), dtype=torch.float32, device=q.device)
+
+
+def _count_bwd(name: str, q: torch.Tensor, k: torch.Tensor, causal: bool, window: int) -> None:
+    b, t, h, d = q.shape
+    dq, dkdv = flash_bwd_costs(b, t, h, k.shape[2], d, q.element_size(), causal=causal,
+                               window=window)
+    record(name, *(dq if name == "flash_attention_bwd_dq" else dkdv))
 
 
 def flash_attention_fwd(
@@ -287,11 +306,15 @@ def flash_attention_fwd(
 
     CUDA tensors launch the kernel (and add one to
     ``flash_attention_fwd.launches``); CPU tensors take the plain
-    version; anything else raises. Not differentiable by itself:
-    :func:`flash_attention` carries the gradient.
+    version; ``meta`` tensors are counted (ops/cost.py); anything else
+    raises. Not differentiable by itself: :func:`flash_attention` carries
+    the gradient.
     """
-    if _device_kind(q) == "cpu":
+    kind = _device_kind(q)
+    if kind == "cpu":
         return flash_attention_fwd_reference(q, k, v, mask, causal=causal, window=window)
+    if kind == "meta":
+        return _count_fwd(q, k, causal, window)
     return _launch_fwd(q, k, v, mask, causal, window)
 
 
@@ -315,6 +338,9 @@ def flash_attention_bwd_dq(
     ``flash_attention_bwd_dq.launches``), its plain version for CPU ones."""
     if _device_kind(q) == "cpu":
         return _bwd_reference_from_delta(q, k, v, dout, lse, delta, mask, causal, window)[0]
+    if _device_kind(q) == "meta":
+        _count_bwd("flash_attention_bwd_dq", q, k, causal, window)
+        return torch.empty_like(q)
     b, t, h, hkv, d = _check_operands(q, k, v, mask, causal, window)
     seg = _check_kernel_operands(
         {"q": q, "k": k, "v": v, "dout": dout, "lse": lse, "delta": delta}, mask, q.dtype, d
@@ -355,6 +381,9 @@ def flash_attention_bwd_dkdv(
     ones."""
     if _device_kind(q) == "cpu":
         return _bwd_reference_from_delta(q, k, v, dout, lse, delta, mask, causal, window)[1:]
+    if _device_kind(q) == "meta":
+        _count_bwd("flash_attention_bwd_dkdv", q, k, causal, window)
+        return torch.empty_like(k), torch.empty_like(v)
     b, t, h, hkv, d = _check_operands(q, k, v, mask, causal, window)
     seg = _check_kernel_operands(
         {"q": q, "k": k, "v": v, "dout": dout, "lse": lse, "delta": delta}, mask, q.dtype, d

@@ -47,6 +47,8 @@ import ctypes
 
 import torch
 
+from .cost import ce_costs, record
+
 DEFAULT_BLOCK_T = 256
 DEFAULT_BLOCK_V = 512
 NEG_INF = -1e30  # finite, as in the Pallas kernel (fused_ce.py:57)
@@ -217,9 +219,16 @@ def check_kernel_operands(
 
 
 def _device_kind(h: torch.Tensor) -> str:
-    if h.device.type not in ("cpu", "cuda"):
+    if h.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"fused CE runs on cuda or cpu tensors, not {h.device}")
     return h.device.type
+
+
+def _count(kernel: int, h: torch.Tensor, w: torch.Tensor) -> None:
+    """Record kernel ``kernel`` (0 fwd, 1 dh, 2 dW) of a ``meta`` call
+    (ops/cost.py)."""
+    name = ("fused_ce_fwd", "fused_ce_bwd_dh", "fused_ce_bwd_dw")[kernel]
+    record(name, *ce_costs(h.shape[0], h.shape[1], w.shape[0], h.element_size())[kernel])
 
 
 def _raise_on_error(lib: ctypes.CDLL, rc: int, name: str) -> None:
@@ -241,6 +250,11 @@ def fused_ce_fwd(
     version for CPU tensors."""
     if _device_kind(h) == "cpu":
         return fused_ce_fwd_reference(h, w, labels, block_t=block_t, block_v=block_v)
+    if _device_kind(h) == "meta":
+        _count(0, h, w)
+        n = h.shape[0]
+        return (torch.empty(n, dtype=torch.float32, device=h.device),
+                torch.empty(n, dtype=torch.float32, device=h.device))
     n, v, d = check_kernel_operands(h, w, labels)
     lib = _library()
     lse = torch.empty(n, dtype=torch.float32, device=h.device)
@@ -276,6 +290,9 @@ def fused_ce_bwd_dh(
     if _device_kind(h) == "cpu":
         return fused_ce_bwd_reference(h, w, labels, lse, g_lse, g, block_t=block_t,
                                       block_v=block_v)[0].to(out_dtype)
+    if _device_kind(h) == "meta":
+        _count(1, h, w)
+        return torch.empty(h.shape, dtype=out_dtype, device=h.device)
     n, v, d = check_kernel_operands(h, w, labels, lse, g_lse, g)
     if out_dtype not in _DTYPE_CODES:
         raise TypeError(f"the dh kernel writes float32 or bfloat16, not {out_dtype}")
@@ -314,6 +331,9 @@ def fused_ce_bwd_dw(
     if _device_kind(h) == "cpu":
         return fused_ce_bwd_reference(h, w, labels, lse, g_lse, g, block_t=block_t,
                                       block_v=block_v)[1]
+    if _device_kind(h) == "meta":
+        _count(2, h, w)
+        return torch.empty(w.shape, dtype=torch.float32, device=h.device)
     n, v, d = check_kernel_operands(h, w, labels, lse, g_lse, g)
     lib = _library()
     dw = torch.empty((v, d), dtype=torch.float32, device=h.device)

@@ -52,6 +52,8 @@ from typing import Any
 
 import torch
 
+from .cost import norm_bwd_cost, norm_fwd_cost, record
+
 DEFAULT_EPS = 1e-6
 _KERNELS: dict[str, Any] = {}
 _KERNELS_LOCK = threading.Lock()
@@ -194,6 +196,13 @@ def fused_norm_fwd(
     a residual, ``s`` is ``x`` itself."""
     if x.device.type == "cpu":
         return fused_norm_fwd_reference(x, residual, scale, bias, eps)
+    if x.device.type == "meta":  # the cost count (ops/cost.py)
+        n, d = x.reshape(-1, x.shape[-1]).shape
+        record("fused_norm_fwd", *norm_fwd_cost(n, d, x.element_size(),
+                                                residual=residual is not None))
+        stats = torch.empty(n, dtype=torch.float32, device=x.device)
+        s = x if residual is None else torch.empty_like(x)
+        return torch.empty_like(x), s, stats, torch.empty_like(stats)
     if x.device.type != "cuda":
         raise ValueError(f"fused norm runs on cuda or cpu tensors, not {x.device}")
     n, d = _check(x, residual, scale, bias)
@@ -320,6 +329,11 @@ def fused_norm_bwd(
     bfloat16); scale is taken in f32."""
     if s.device.type == "cpu":
         return fused_norm_bwd_reference(s, scale, mean, rstd, gy, gs)
+    if s.device.type == "meta":  # the cost count (ops/cost.py)
+        n, d = s.reshape(-1, s.shape[-1]).shape
+        record("fused_norm_bwd", *norm_bwd_cost(n, d, s.element_size(), gs=gs is not None))
+        sums = torch.empty(2 * d, dtype=torch.float32, device=s.device)
+        return torch.empty_like(gy), sums[:d], sums[d:]
     if s.device.type != "cuda":
         raise ValueError(f"fused norm runs on cuda or cpu tensors, not {s.device}")
     n, d = _check(s, None, scale, None)

@@ -28,8 +28,10 @@ WHEN sequences join/leave; this module owns HOW a step runs):
   (``GPTPagedDecoder``), so every bucket reads and writes the same pool
   tensors; join/evict never copies K/V.
 
-Every step runs under ``torch.inference_mode()``. The cost profile is not
-ported yet (ROADMAP.md queue A: telemetry).
+Every step runs under ``torch.inference_mode()``. :meth:`cost_profile`
+counts the prefill and decode steps at their largest buckets on ``meta``
+tensors (telemetry/profiling.py): nothing executes and the live pool is
+untouched.
 """
 
 from __future__ import annotations
@@ -384,12 +386,58 @@ class PagedDecodeEngine:
 
     # --------------------------------------------------------- accounting
 
-    def cost_profile(self, **_: Any) -> list[dict[str, Any]]:
-        """Cost profiles of the prefill/decode steps (JAX ``cost_profile``)."""
-        raise NotImplementedError(
-            "the engine's cost profile (telemetry profiling) is not yet ported "
-            "to llmtrain_tpu_torch (ROADMAP.md queue A: telemetry)"
-        )
+    def cost_profile(
+        self,
+        *,
+        peaks: dict[str, float] | None = None,
+        full: bool = True,
+        top_k: int = 10,
+    ) -> list[dict[str, Any]]:
+        """Cost profiles of the prefill/decode steps at their LARGEST
+        buckets (worst-case per-step cost; smaller buckets are strictly
+        cheaper), counted on a ``meta`` copy of the model and of the pool
+        (telemetry/profiling.py): nothing executes, no device memory is
+        allocated, and the live pool and in-flight KV stay untouched. The
+        count covers the model's logits; the host-side sampling is not a
+        device program here. ``full=False`` gives the totals only. Failed
+        profiles are dropped, not raised."""
+        from ..telemetry import profiling
+
+        if peaks is None:
+            peaks = profiling.resolve_peaks()
+        try:
+            decoder = profiling.meta_module(self.params).for_paged_decoding(
+                num_blocks=self.num_blocks, block_tokens=self.block_tokens
+            )
+            pool = decoder.init_pool()
+        except Exception as exc:  # noqa: BLE001 — profiles are additive
+            profiling.logger.warning("serving cost count skipped: %s", exc)
+            return []
+
+        def ids(*shape: int) -> torch.Tensor:
+            return torch.empty(shape, dtype=torch.int64, device="meta")
+
+        mb = self.max_blocks_per_seq
+        tb = self.prompt_buckets[-1]
+        bb = self.batch_buckets[-1]
+
+        def prefill() -> None:
+            with torch.inference_mode():
+                decoder(ids(1, tb), ids(1), ids(1, mb), pool, true_len=ids(1))
+
+        def decode() -> None:
+            with torch.inference_mode():
+                decoder(ids(bb, 1), ids(bb), ids(bb, mb), pool, rows=bb)
+
+        profiles: list[dict[str, Any]] = []
+        for name, fn in ((f"prefill_T{tb}", prefill), (f"decode_B{bb}", decode)):
+            if full:
+                prof = profiling.count_profile(fn, name=name, peaks=peaks, top_k=top_k)
+            else:
+                prof = profiling.count_cost_profile(fn, name=name)
+            if prof is not None:
+                profiles.append(prof)
+        return profiles
 
     def compile_stats(self) -> dict[str, Any]:
         """Bucket usage against the bounded-shape budget, under JAX's keys.

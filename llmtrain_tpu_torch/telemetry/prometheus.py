@@ -1,20 +1,32 @@
-"""Prometheus exposition text (the port's copy of the renderer in
-``llmtrain_tpu/telemetry/prometheus.py``).
+"""Prometheus exposition: text rendering, stdlib HTTP endpoint, textfile
+(the port's copy of ``llmtrain_tpu/telemetry/prometheus.py``).
 
-Naming convention: metric names map ``serve/latency_ms`` →
-``llmtrain_serve_latency_ms`` — one ``llmtrain_`` namespace,
-non-alphanumerics folded to ``_``. Serving renders its ``GET /metrics``
-through :func:`render_prometheus`, and ``serve --trace-dir`` snapshots the
-same text to a textfile with :func:`write_textfile`; the scrape endpoint
-and fleet federation are not ported (ROADMAP.md queue A: telemetry).
+Two transports, both fed from the same render:
+
+* :class:`PrometheusEndpoint` — a tiny stdlib ``ThreadingHTTPServer``
+  (daemon threads, no dependencies) serving ``GET /metrics``. Config-gated
+  (``telemetry.prometheus``) and started on EVERY process of a training
+  job; processes sharing one network namespace race for the bind and the
+  loser degrades to a warning (``Telemetry.start``). Serving's own
+  ``GET /metrics`` renders through :func:`render_prometheus` too.
+* **textfile fallback** — ``{run_dir}/telemetry/metrics.prom`` rewritten
+  atomically at every flush (:func:`write_textfile`), for node-exporter's
+  textfile collector.
+
+Naming convention: metric names map ``train/loss`` → ``llmtrain_train_loss``
+— one ``llmtrain_`` namespace, non-alphanumerics folded to ``_``. Fleet
+federation (``federate_prometheus``) is not ported (ROADMAP.md queue A:
+lifecycle and fleet).
 """
 
 from __future__ import annotations
 
 import math
 import re
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
-from typing import Any
+from typing import Any, Callable
 
 from ..utils.logging import get_logger
 
@@ -148,4 +160,73 @@ def write_textfile(path: str | Path, text: str) -> bool:
         return False
 
 
-__all__ = ["prometheus_name", "render_histogram", "render_prometheus", "write_textfile"]
+class _Handler(BaseHTTPRequestHandler):
+    # the provider closure is injected per-server via the factory below
+    provider: Callable[[], str]
+
+    def do_GET(self) -> None:  # noqa: N802 - stdlib naming
+        if self.path.split("?")[0] not in ("/metrics", "/"):
+            self.send_error(404)
+            return
+        try:
+            body = self.provider().encode("utf-8")
+        except Exception as exc:  # noqa: BLE001 — a scrape must not crash training
+            self.send_error(500, explain=str(exc)[:200])
+            return
+        self.send_response(200)
+        self.send_header("Content-Type", "text/plain; version=0.0.4; charset=utf-8")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def log_message(self, fmt: str, *args: Any) -> None:
+        # Scrapes arrive every few seconds; stdout noise helps nobody.
+        pass
+
+
+class PrometheusEndpoint:
+    """Config-gated ``/metrics`` HTTP server on a daemon thread.
+
+    ``port=0`` binds an ephemeral port (tests); the bound port is readable
+    via :attr:`port`. Construction failures (port taken, no permission)
+    raise — the caller (Telemetry facade) degrades them to a warning so a
+    busy port never kills a training run.
+    """
+
+    def __init__(
+        self,
+        provider: Callable[[], str],
+        *,
+        host: str = "0.0.0.0",
+        port: int = 9200,
+    ) -> None:
+        handler = type("BoundHandler", (_Handler,), {"provider": staticmethod(provider)})
+        self._server = ThreadingHTTPServer((host, port), handler)
+        self._server.daemon_threads = True
+        self._thread = threading.Thread(
+            target=self._server.serve_forever,
+            name="prometheus-metrics",
+            daemon=True,
+        )
+        self._thread.start()
+
+    @property
+    def port(self) -> int:
+        return int(self._server.server_address[1])
+
+    def close(self) -> None:
+        try:
+            self._server.shutdown()
+            self._server.server_close()
+        except Exception:  # noqa: BLE001 — teardown must not raise
+            pass
+        self._thread.join(timeout=5.0)
+
+
+__all__ = [
+    "PrometheusEndpoint",
+    "prometheus_name",
+    "render_histogram",
+    "render_prometheus",
+    "write_textfile",
+]

@@ -1,15 +1,14 @@
 """Run report (the port's copy of ``llmtrain_tpu/telemetry/report.py``):
 one ``report.json`` + one ``report.md`` per run.
 
-``serve-bench`` writes them: the loss, throughput, memory, resilience,
-span and event sections from the registry and the timeline, and the
-``serving`` block from the load harness. The JSON and the Markdown are
-JAX's, key for key and line for line.
-
-Not ported: the goodput section (telemetry/goodput.py) and the
-performance-attribution section (telemetry/profiling.py); a report asked
-to carry either raises ``NotImplementedError`` (ROADMAP.md queue A:
-telemetry). The trainer writes no report yet.
+The trainer writes them at the end of every fit (``Telemetry.finalize``)
+and ``serve-bench`` under ``--out``. Contents: final/first/min loss and a
+bounded loss trajectory, throughput (tokens/sec, MFU), memory peaks
+(device + host RSS + estimator source), resilience event counts, the
+wall-clock breakdown by timeline span, the goodput ledger
+(telemetry/goodput.py) and the cost attribution (telemetry/profiling.py),
+and serve-bench's ``serving`` block. The JSON and the Markdown are JAX's,
+key for key and line for line.
 """
 
 from __future__ import annotations
@@ -26,13 +25,6 @@ logger = get_logger()
 # Loss-trajectory samples kept in report.json: enough to plot the run's
 # shape, bounded so a 1M-step run doesn't produce a 100 MB report.
 _TRAJECTORY_CAP = 512
-
-
-def _unported(section: str) -> str:
-    return (
-        f"the report's {section} section is not yet ported to llmtrain_tpu_torch "
-        "(ROADMAP.md queue A: telemetry)"
-    )
 
 
 def _thin(rows: list[Any], cap: int = _TRAJECTORY_CAP) -> list[Any]:
@@ -60,9 +52,6 @@ def build_report(
     goodput: dict[str, Any] | None = None,
 ) -> dict[str, Any]:
     """Aggregate the telemetry state into the report dict."""
-    for name, block in (("goodput", goodput), ("perf_attribution", perf_attribution)):
-        if block is not None:
-            raise NotImplementedError(_unported(name))
     latest = registry.latest()
     counters = registry.counters()
     history = registry.history()
@@ -165,6 +154,12 @@ def build_report(
         # TTFT/per-token percentiles, throughput, occupancy, KV-pool and
         # compile accounting — docs/serving.md documents the schema.
         report["serving"] = serving
+    if perf_attribution is not None:
+        # Cost-attribution block (telemetry/profiling.py): XLA-counted
+        # flops/bytes per executable, roofline class, MFU reconciliation,
+        # step-time split — docs/observability.md "Attribution and
+        # rooflines" documents the schema.
+        report["perf_attribution"] = perf_attribution
     if precision is not None:
         # Numerics provenance (docs/perf.md "Quantized matmul training"):
         # the EFFECTIVE dtypes/paths the run compiled with — compute and
@@ -172,6 +167,12 @@ def build_report(
         # and the capability-resolved matmul_precision — so a throughput
         # number in this report can never be quoted without its numerics.
         report["precision"] = precision
+    if goodput is not None:
+        # Cross-segment wall-clock attribution (telemetry/goodput.py):
+        # per-segment category table + run totals + goodput_frac, computed
+        # from the durable timeline/manifest artifacts — docs/
+        # observability.md "Goodput" documents the taxonomy.
+        report["goodput"] = goodput
     if train_result is not None:
         report["train_result"] = train_result
     return report
@@ -213,9 +214,6 @@ def _fmt_bytes(value: Any) -> str:
 
 def render_markdown(report: dict[str, Any]) -> str:
     """Human rendering of :func:`build_report`'s dict."""
-    for name in ("goodput", "perf_attribution"):
-        if report.get(name):
-            raise NotImplementedError(_unported(name))
     run = report["run"]
     lines = [
         f"# Run report — {run['name']} ({run['run_id']})",
@@ -304,6 +302,19 @@ def render_markdown(report: dict[str, Any]) -> str:
             lines.append(f"- tracker errors (degraded to warnings): {events['tracker_errors']}")
         if events.get("timeline_events_dropped"):
             lines.append(f"- timeline events dropped (cap): {events['timeline_events_dropped']}")
+    goodput = report.get("goodput") or {}
+    if goodput:
+        from .goodput import render_goodput_md
+
+        lines += ["", "## Goodput", ""]
+        if events.get("timeline_events_dropped"):
+            lines.append(
+                "- **warning**: the timeline dropped "
+                f"{events['timeline_events_dropped']} event(s) (retention "
+                "cap) — attribution below may undercount span categories"
+            )
+            lines.append("")
+        lines.append(render_goodput_md(goodput).rstrip("\n"))
     serving = report.get("serving") or {}
     if serving:
         lines += ["", "## Serving", ""]
@@ -353,6 +364,51 @@ def render_markdown(report: dict[str, Any]) -> str:
                 f"{_fmt(par.get('checked', 0) - par.get('mismatched', 0))}/"
                 f"{_fmt(par.get('checked'))} bitwise-identical"
             )
+    perf = report.get("perf_attribution") or {}
+    if perf:
+        lines += ["", "## Performance attribution", ""]
+        peaks = perf.get("peaks") or {}
+        lines.append(
+            f"- device: {perf.get('device_kind', '?')} × {perf.get('n_chips', 1)} "
+            f"(peak {_fmt(peaks.get('peak_flops'))} FLOP/s, "
+            f"HBM {_fmt_bytes(peaks.get('hbm_bytes_per_sec'))}/s, "
+            f"ICI {_fmt_bytes(peaks.get('ici_bytes_per_sec'))}/s)"
+        )
+        mfu_block = perf.get("mfu") or {}
+        if mfu_block:
+            line = (
+                f"- MFU: analytical {_fmt(mfu_block.get('analytical'))} vs "
+                f"measured {_fmt(mfu_block.get('measured'))}"
+            )
+            if "ratio_analytical_over_measured" in mfu_block:
+                line += (
+                    f" (flop-model ratio {_fmt(mfu_block['ratio_analytical_over_measured'])}"
+                    f", reconciled: {mfu_block.get('reconciled')})"
+                )
+            lines.append(line)
+        split = perf.get("step_time_split_ms") or {}
+        if split:
+            lines.append(
+                f"- step time {_fmt(split.get('step'))} ms = compute "
+                f"{_fmt(split.get('analytical_compute'))} + collective "
+                f"{_fmt(split.get('analytical_collective'))} + host "
+                f"{_fmt(split.get('measured_host'))} + unattributed "
+                f"{_fmt(split.get('unattributed_gap'))}"
+            )
+        for exe in perf.get("executables") or []:
+            roof = exe.get("roofline") or {}
+            lines.append(
+                f"- `{exe.get('name', '?')}`: {_fmt(exe.get('flops'))} flops, "
+                f"{_fmt_bytes(exe.get('bytes_accessed'))} accessed, "
+                f"intensity {_fmt(roof.get('arithmetic_intensity'))} "
+                f"(ridge {_fmt(roof.get('ridge_intensity'))}) → "
+                f"**{roof.get('class', '?')}-bound**"
+            )
+            rows = exe.get("top_ops") or []
+            if rows:
+                from .profiling import render_top_ops_markdown
+
+                lines += [""] + render_top_ops_markdown(rows) + [""]
     result = report.get("train_result")
     if result:
         lines += ["", "## Result", ""]

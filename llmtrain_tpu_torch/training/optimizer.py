@@ -163,6 +163,18 @@ class _Optimizer:
             torch._foreach_add_(self.ema, [p.float() for p in self.params],
                                 alpha=1.0 - self.ema_decay)
 
+    def state_tensors(self) -> Iterator[torch.Tensor]:
+        """Every tensor of the optimizer's state (moments, factored
+        moments, the EMA shadow), for the memory accounting."""
+        for key, value in vars(self).items():
+            if key == "params":
+                continue
+            items = value.values() if isinstance(value, dict) else (
+                value if isinstance(value, list) else ())
+            for t in items:
+                if isinstance(t, torch.Tensor):
+                    yield t
+
     def _state(self) -> dict[str, Any]:
         raise NotImplementedError
 

@@ -62,6 +62,10 @@ def dropout_generator(seed: int, step: int, micro: int, device: torch.device,
     stream)."""
     keys = [seed & 0xFFFFFFFF, step, micro] + ([rank] if rank else [])
     entropy = np.random.SeedSequence(keys).generate_state(1)[0]
+    if device.type == "meta":
+        # The cost count (telemetry/profiling.py): a meta draw reads no
+        # generator state, but torch has no meta generator to pass.
+        device = torch.device("cpu")
     return torch.Generator(device=device).manual_seed(int(entropy))
 
 

@@ -29,11 +29,20 @@ The dataset setup runs under the backoff retry, and
 ``trainer.extra.profile_start_step`` traces a window of steps with
 ``torch.profiler`` (:class:`_StepProfiler`).
 
+Telemetry (telemetry/, the :class:`~..telemetry.Telemetry` facade) is
+wired as in JAX: the step loop's spans and instants land on the event
+timeline, every interval metric goes through the metrics registry to the
+tracker at each log boundary, memory is sampled there, and the end of
+``fit`` writes ``telemetry/timeline.jsonl``, ``telemetry/trace.json``,
+``telemetry/metrics.prom``, ``report.json`` and ``report.md`` (with the
+goodput ledger and the cost attribution of one train step, counted on
+``meta`` tensors: telemetry/profiling.py) and registers them with the
+tracker. ``telemetry.enabled: false`` turns every span and instant into a
+no-op and writes none of these files.
+
 A config that switches on a part of the JAX trainer the port does not run
 yet raises ``NotImplementedError`` at construction, naming the ROADMAP.md
-item (:func:`refuse_unported`). The JAX trainer's telemetry (timeline,
-report, Prometheus textfile) is not written: the run directory holds
-``config.yaml``, ``meta.json``, ``logs/`` and ``checkpoints/``.
+item (:func:`refuse_unported`).
 """
 
 from __future__ import annotations
@@ -43,7 +52,7 @@ import re
 import signal
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
 from pathlib import Path
 from typing import Any
 
@@ -65,8 +74,10 @@ from ..distributed import (
 from ..interop.flax_params import flax_params_to_state_dict, state_dict_to_flax_params
 from ..registry import get_data_module, get_model_adapter, initialize_registries
 from ..resilience.faults import retry, retry_rng
+from ..telemetry import Telemetry
+from ..tracking.base import Tracker
 from ..utils.hw import mfu as compute_mfu
-from ..utils.hw import peak_flops, peak_memory_bytes
+from ..utils.hw import peak_flops, peak_memory_bytes, transformer_flops_per_token
 from ..utils.logging import get_logger
 from .checkpoint import (
     CheckpointManager,
@@ -139,9 +150,6 @@ def refuse_unported(cfg: RunConfig, world_size: int = 1) -> None:
         (res.watchdog.enabled, "resilience.watchdog (hang watchdog)", "resilience"),
         (res.faults.model_dump() != type(res.faults)().model_dump(),
          "resilience.faults (fault injection)", "resilience"),
-        (cfg.telemetry.prometheus, "telemetry.prometheus (metrics endpoint)", "telemetry"),
-        (cfg.mlflow.enabled, "mlflow.enabled (a tracker other than the null one)",
-         "telemetry"),
         (mesh is not None, mesh, "parallelism"),
         (cfg.trainer.zero.enabled, "trainer.zero (sharded optimizer state)", "parallelism"),
         (cfg.model.remat or cfg.model.extra.get("activation_tiers") is not None,
@@ -170,9 +178,12 @@ def _topology(cfg: RunConfig, world_size: int = 1) -> dict[str, Any]:
 
 
 class Trainer:
-    def __init__(self, cfg: RunConfig, run_dir: Path | None) -> None:
+    def __init__(self, cfg: RunConfig, run_dir: Path | None,
+                 tracker: Tracker | None = None) -> None:
         """The data-parallel group is the one ``setup_distributed`` formed,
-        if any. Every rank gets the run dir; only rank 0 writes to it."""
+        if any. Every rank gets the run dir; only rank 0 writes to it.
+        All tracker traffic goes through the telemetry registry, so a
+        failing tracker degrades to warnings (None: no tracker)."""
         self._dist = active_state()
         self._world = self._dist.num_processes if self._dist else 1
         self._rank = self._dist.process_index if self._dist else 0
@@ -181,6 +192,8 @@ class Trainer:
         self._cfg = cfg
         self._run_dir = run_dir
         self._device = resolve_device(cfg.run.device)
+        self._telemetry = Telemetry(cfg, run_dir, tracker, process_index=self._rank,
+                                    is_main=self._is_main, device=self._device)
         initialize_registries()
         self._adapter = get_model_adapter(cfg.model.name)()
         self._data_module = get_data_module(cfg.data.name)()
@@ -231,6 +244,10 @@ class Trainer:
         self._resume_count = 0
         self._sampler: DeterministicSampler | None = None
         self._dataset_specs: dict[int, tuple[tuple[str, ...], int]] = {}
+        # Cost-attribution inputs captured during fit (telemetry/profiling.py):
+        # the shapes and dtypes of the batch the step ran on.
+        self._batch_struct: dict[str, tuple[tuple[int, ...], torch.dtype]] | None = None
+        self._tokens_per_step = 0
 
     @property
     def state(self) -> TrainState:
@@ -392,6 +409,10 @@ class Trainer:
         resumed_from_step: int | None = None
         if resume_from is not None:
             resumed_from_step = self._restore(resume_from)
+            self._telemetry.metrics.inc("resilience/resumes")
+            self._telemetry.metrics.publish(
+                {"resilience/resume_count": float(self._resume_count)}, step=resumed_from_step
+            )
         start_step = (resumed_from_step or 0) + 1
         if start_step > max_steps:
             logger.warning(
@@ -401,8 +422,20 @@ class Trainer:
 
         self._train_seqlen = self._dataset_spec(train_ds)[1]
         tokens_per_step = accum * self._global_micro * self._train_seqlen
+        self._tokens_per_step = tokens_per_step
         if self._device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(self._device)
+        tl = self._telemetry.timeline
+        self._telemetry.start()
+        opt_mem = self._opt_state_memory()
+        self._telemetry.record_opt_state_bytes(opt_mem)
+        logger.info(
+            "optimizer state: %.1f MiB total, %.1f MiB on device 0, %.1f MiB host-resident",
+            opt_mem["opt_state_bytes"] / 2**20,
+            opt_mem["opt_state_bytes_per_device"] / 2**20,
+            opt_mem["opt_state_bytes_host"] / 2**20,
+        )
+        self._telemetry.metrics.safe_log_params(cfg.model_dump())
 
         first_step_loss: float | None = None
         final_val_loss: float | None = None
@@ -411,6 +444,7 @@ class Trainer:
         past_end_loss: float | None = None
         total_tokens = (start_step - 1) * tokens_per_step
         interval_losses: list[torch.Tensor] = []
+        interval_shard: list[tuple[torch.Tensor, torch.Tensor]] = []
         interval_tokens = 0
         interval_data_wait = 0.0
         interval_dispatch = 0.0
@@ -447,7 +481,7 @@ class Trainer:
             )
         final_step_override: int | None = None
         profiler = _StepProfiler(cfg, self._run_dir, process_index=self._rank,
-                                 num_processes=self._world)
+                                 num_processes=self._world, timeline=tl)
 
         prefetcher: BatchPrefetcher | None = None
         if cfg.trainer.prefetch_depth > 0 and start_step <= max_steps:
@@ -455,6 +489,7 @@ class Trainer:
                 lambda s: self.global_batch(sampler, train_ds, s),
                 depth=cfg.trainer.prefetch_depth,
                 start_step=start_step,
+                timeline=tl,
             )
         try:
             if start_step > max_steps and resumed_from_step:
@@ -469,15 +504,26 @@ class Trainer:
                 else:
                     batch = self.global_batch(sampler, train_ds, step)
                 t_dispatch = time.perf_counter()
-                metrics = self._train_step_fn(self._state, batch)
+                if self._batch_struct is None:
+                    self._batch_struct = {k: (tuple(v.shape), v.dtype)
+                                          for k, v in batch.items()}
+                with self._telemetry.step_annotation(step):
+                    metrics = self._train_step_fn(self._state, batch)
                 t_done = time.perf_counter()
-                profiler.maybe_stop(step, sync=metrics["loss"])
                 interval_data_wait += t_dispatch - t_fetch
                 interval_dispatch += t_done - t_dispatch
+                # The same clock reads feed the interval sums and the
+                # timeline, so the spans and train/data_wait_ms agree.
+                tl.record("data_wait", cat="data", step=step, t0=t_fetch, t1=t_dispatch)
+                tl.record("host_dispatch", step=step, t0=t_dispatch, t1=t_done)
+                profiler.maybe_stop(step, sync=metrics["loss"])
 
                 step_loss_dev = metrics["loss"]
                 nonfinite = metrics.get("nonfinite_count")
                 interval_losses.append(metrics["loss"])
+                if multi_process:
+                    interval_shard.append((metrics["per_example_loss_sum"],
+                                           metrics["per_example_tokens"]))
                 interval_tokens += tokens_per_step
                 total_tokens += tokens_per_step
                 if step == 1:
@@ -493,6 +539,11 @@ class Trainer:
                 if step % save_every == 0 or step == max_steps or stop_now:
                     self._save_checkpoint(step)
                 if stop_now:
+                    tl.instant("preempted", cat="resilience", step=step,
+                               checkpointed=self._ckpt_mgr is not None)
+                    # Flush now: the grace period may end in SIGKILL before
+                    # the unwind, and the goodput ledger reads these events.
+                    tl.flush()
                     if self._ckpt_mgr is not None:
                         logger.warning(
                             "SIGTERM received: preemption checkpoint saved at step %d; "
@@ -515,33 +566,45 @@ class Trainer:
                 if step % log_every == 0 or step == max_steps:
                     # Sync on the interval's losses before stamping the end
                     # time, so queued device work is charged to the interval.
-                    losses_host = torch.stack(interval_losses).float().cpu().numpy()
+                    with tl.span("interval_sync", step=step):
+                        losses_host = torch.stack(interval_losses).float().cpu().numpy()
                     self._check_nonfinite_guard(nonfinite, losses_host, step)
+                    interval_time = time.perf_counter() - interval_start
+                    if prefetcher is not None:
+                        self._telemetry.metrics.publish(
+                            {"data/prefetch_queue_depth": float(prefetcher.queue_depth)}, step
+                        )
                     self._log_train_interval(
                         step=step,
                         max_steps=max_steps,
                         losses_host=losses_host,
+                        interval_shard=interval_shard,
                         interval_tokens=interval_tokens,
-                        interval_time=time.perf_counter() - interval_start,
+                        interval_time=interval_time,
                         total_tokens=total_tokens,
                         interval_data_wait=interval_data_wait,
                         interval_dispatch=interval_dispatch,
                     )
                     interval_losses = []
+                    interval_shard = []
                     interval_tokens = 0
                     interval_data_wait = 0.0
                     interval_dispatch = 0.0
                     interval_start = time.perf_counter()
 
                 if step % eval_every == 0 or step == max_steps:
-                    val_metrics = self._evaluate(step, max_steps)
+                    with tl.span("eval", cat="eval", step=step):
+                        val_metrics = self._evaluate(step, max_steps)
                     if val_metrics:
                         final_val_metrics = val_metrics
                         final_val_loss = val_metrics.get("val/loss", final_val_loss)
         finally:
-            profiler.close(sync=step_loss_dev)
             if prefetcher is not None:
                 prefetcher.close()
+            # Transport teardown only (endpoint + a timeline flush so crash
+            # evidence persists); the report runs after the result is known.
+            self._telemetry.close()
+            profiler.close(sync=step_loss_dev)
             if handler_installed:
                 # SIG_DFL where the previous handler came from C code: it
                 # cannot be re-installed, and SIGTERM must stay lethal.
@@ -554,7 +617,7 @@ class Trainer:
             final_step = resumed_from_step or 0
             if past_end_loss is not None:
                 final_loss = past_end_loss
-        return TrainResult(
+        result = TrainResult(
             final_step=final_step,
             final_loss=final_loss,
             final_val_loss=final_val_loss,
@@ -568,6 +631,154 @@ class Trainer:
             total_tokens=total_tokens,
             preempted=final_step_override is not None,
         )
+        # End-of-run telemetry: report.json/report.md + the Perfetto trace,
+        # then their registration with the tracker. Best-effort.
+        try:
+            perf_attribution = self._build_perf_attribution(
+                steps=max(0, final_step - start_step + 1)
+            )
+            self._telemetry.finalize(
+                train_result=asdict(result),
+                run_id=self._run_dir.name if self._run_dir is not None else None,
+                perf_attribution=perf_attribution,
+                precision=self._precision_block(),
+            )
+            self._telemetry.register_artifacts()
+        except Exception as exc:  # noqa: BLE001 — reporting must not fail the run
+            logger.warning("telemetry finalize failed: %s", exc)
+        return result
+
+    def _precision_block(self) -> dict[str, Any]:
+        """Numerics provenance for report.json: the values the model was
+        built with (after the loss's auto-selection), read off the model."""
+        return {
+            "dtype": str(self._cfg.model.dtype),
+            "param_dtype": str(self._cfg.model.param_dtype),
+            "loss_impl": getattr(self._model, "loss_impl", "dense"),
+            "matmul_precision": getattr(self._model, "matmul_precision", "f32"),
+        }
+
+    def train_step_profile(self, *, peaks: dict[str, float], full: bool = False,
+                           top_k: int = 10) -> dict[str, Any] | None:
+        """The cost count of one train step at the batch shapes the fit ran
+        (telemetry/profiling.py): the step runs on a ``meta`` copy of the
+        model and of the optimizer, so nothing executes, no device memory
+        is allocated, and the live parameters, optimizer and generators
+        are untouched. Before any step ran, the batch is the one the
+        training set would give. It is counted on this rank's rows without
+        the gradient all-reduce (its bytes are estimated beside it) and
+        without the non-finite guard's host check. ``full`` adds the per-op
+        table and the roofline class. None on any failure."""
+        from ..telemetry import profiling
+
+        try:
+            struct = self._batch_struct or self._planned_batch_struct()
+            model = profiling.meta_module(self._model)
+            optimizer = build_model_optimizer(self._cfg, model)
+            step_fn = make_train_step(
+                self._adapter, model,
+                grad_accum_steps=self._cfg.trainer.grad_accum_steps,
+                use_dropout=self._cfg.model.dropout > 0.0,
+                seed=self._cfg.run.seed,
+                rank=self._rank,
+            )
+            state = TrainState(step=self._state.step, model=model, optimizer=optimizer)
+            batch = {k: torch.empty(shape, dtype=dtype, device="meta")
+                     for k, (shape, dtype) in struct.items()}
+        except Exception as exc:  # noqa: BLE001 — attribution must not fail the run
+            logger.warning("train step cost count skipped: %s", exc)
+            return None
+        if full:
+            return profiling.count_profile(step_fn, (state, batch), name="train_step",
+                                           peaks=peaks,
+                                           collective_bytes=self._grad_collective_bytes(),
+                                           top_k=top_k)
+        return profiling.count_cost_profile(step_fn, (state, batch), name="train_step")
+
+    def _grad_collective_bytes(self) -> float:
+        """Estimated gradient all-reduce bytes a step: a ring over the
+        ranks of the f32 gradients (JAX's estimate)."""
+        from ..telemetry.profiling import gradient_collective_bytes
+
+        return gradient_collective_bytes({"data": self._world},
+                                         float(self._trainable_count) * 4.0)
+
+    def _planned_batch_struct(self) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+        """Shapes and dtypes of this rank's (A, B, T) batch, from one
+        training example."""
+        probe = self._data_module.train_dataset().get_examples(np.asarray([0]))
+        lead = (self._cfg.trainer.grad_accum_steps, self._cfg.trainer.micro_batch_size)
+        return {k: (lead + tuple(v.shape[1:]), torch.from_numpy(np.ascontiguousarray(v)).dtype)
+                for k, v in probe.items()}
+
+    def palm_flops_per_token(self) -> float:
+        return transformer_flops_per_token(
+            n_params=self._param_count,
+            n_layers=self._cfg.model.n_layers,
+            seq_len=self._train_seqlen,
+            d_model=self._cfg.model.d_model,
+            n_trainable_params=self._trainable_count,
+        )
+
+    def device_kind(self) -> str:
+        """The card's name, or "cpu"."""
+        if self._device.type == "cuda":
+            return torch.cuda.get_device_name(self._device)
+        return "cpu"
+
+    def _build_perf_attribution(self, *, steps: int) -> dict[str, Any] | None:
+        """Cost-attribution block for report.json (telemetry/profiling.py):
+        the train step's cost count classified on the device roofline and
+        reconciled against the measured MFU. Publishes the ``perf/*``
+        gauges as a side effect. None when gated off, when no step ran, or
+        on any failure."""
+        tcfg = self._cfg.telemetry
+        if not (tcfg.enabled and tcfg.report and tcfg.perf_attribution):
+            return None
+        # Without a run dir no report.json is written: the count buys nothing.
+        if self._run_dir is None or self._batch_struct is None or steps <= 0:
+            return None
+        try:
+            from ..telemetry import profiling
+
+            peaks = profiling.resolve_peaks(self.device_kind(), tcfg.device_peaks)
+            cost = self.train_step_profile(peaks=peaks)
+            if cost is None:
+                return None
+            latest = {k: v[0] for k, v in self._telemetry.metrics.latest().items()}
+            step_time_sec = latest.get("train/step_time_sec") or 0.0
+            block = profiling.build_perf_attribution(
+                executables=[cost],
+                peaks=peaks,
+                n_chips=self._world,
+                step_time_ms=step_time_sec * 1e3 if step_time_sec > 0 else None,
+                tokens_per_step=float(self._tokens_per_step) or None,
+                palm_flops_per_token=self.palm_flops_per_token(),
+                measured_mfu=latest.get("train/mfu"),
+                collective_bytes=self._grad_collective_bytes(),
+                span_totals=self._telemetry.timeline.span_totals(),
+                steps=steps,
+            )
+            self._telemetry.metrics.publish(profiling.attribution_gauges(block))
+            return block
+        except Exception as exc:  # noqa: BLE001 — attribution must not fail the run
+            logger.warning("perf attribution skipped: %s", exc)
+            return None
+
+    def _opt_state_memory(self) -> dict[str, int]:
+        """Optimizer-state footprint: its total bytes, the bytes on the
+        run's device, and the bytes held elsewhere (the host)."""
+        total = on_device = 0
+        for t in self._state.optimizer.state_tensors():
+            nbytes = t.numel() * t.element_size()
+            total += nbytes
+            if t.device.type == self._device.type:
+                on_device += nbytes
+        return {
+            "opt_state_bytes": total,
+            "opt_state_bytes_per_device": on_device,
+            "opt_state_bytes_host": total - on_device,
+        }
 
     def _restored_step_loss(self, sampler: DeterministicSampler, dataset, step: int) -> float:
         """Token-weighted forward loss over the batch of training step
@@ -599,6 +810,10 @@ class Trainer:
                 "non-finite loss/grads: %d optimizer update(s) skipped by the "
                 "guard in the last %d step(s)", skipped, len(losses_host),
             )
+            self._telemetry.metrics.inc("resilience/nonfinite_skips", skipped)
+            self._telemetry.timeline.instant(
+                "nonfinite_skip", cat="resilience", step=step, skipped=skipped
+            )
         cap = self._cfg.resilience.max_consecutive_nonfinite
         if consecutive >= cap:
             raise NonFiniteLossError(
@@ -618,7 +833,18 @@ class Trainer:
             "prefetch_depth": int(self._cfg.trainer.prefetch_depth),
             "prefetch_generation": 0,
         }
-        return {"topology": _topology(self._cfg, self._world), "data": data}
+        # Segment provenance for the goodput ledger (telemetry/goodput.py):
+        # which process lifetime committed this step and when it started.
+        # The id is the timeline's durable header count, so manifests and
+        # timeline segments agree by construction.
+        timeline = self._telemetry.timeline
+        resilience = {
+            "segment_id": int(timeline.segment_id),
+            "process_start_unix_time": round(timeline.origin_unix_time, 3),
+            "saved_unix_time": round(time.time(), 3),
+        }
+        return {"topology": _topology(self._cfg, self._world), "data": data,
+                "resilience": resilience}
 
     def _resilience_payload(self) -> dict[str, Any] | None:
         out: dict[str, Any] = {}
@@ -642,15 +868,23 @@ class Trainer:
 
     def _save_checkpoint(self, step: int) -> None:
         """Rank 0 writes; with several ranks every rank then waits at a
-        barrier, so none runs ahead of a save it might restore."""
+        barrier, so none runs ahead of a save it might restore. The write
+        is synchronous, so the ``checkpoint_save`` span covers the host
+        gather and the commit; the commit counter and instant follow the
+        published manifest (JAX's writer-thread observer)."""
+        with self._telemetry.timeline.span("checkpoint_save", cat="ckpt", step=step):
+            if self._ckpt_mgr is not None:
+                self._ckpt_mgr.save_host(
+                    step,
+                    self.host_state(),
+                    self._cfg.model_dump(),
+                    resilience=self._resilience_payload(),
+                    manifest_extra=self._manifest_extra(step),
+                )
+                self._telemetry.metrics.inc("ckpt/saves")
         if self._ckpt_mgr is not None:
-            self._ckpt_mgr.save_host(
-                step,
-                self.host_state(),
-                self._cfg.model_dump(),
-                resilience=self._resilience_payload(),
-                manifest_extra=self._manifest_extra(step),
-            )
+            self._telemetry.metrics.inc("checkpoint/commits")
+            self._telemetry.timeline.instant("checkpoint_commit", cat="ckpt", step=step)
         barrier()
 
     def _agreed_resume_path(self, resume_spec: str) -> Path:
@@ -734,6 +968,7 @@ class Trainer:
         step: int,
         max_steps: int,
         losses_host: np.ndarray,
+        interval_shard: list[tuple[torch.Tensor, torch.Tensor]],
         interval_tokens: int,
         interval_time: float,
         total_tokens: int,
@@ -756,6 +991,45 @@ class Trainer:
             peak_flops=self._peak_flops,
             n_trainable_params=self._trainable_count,
         )
+        # Per-rank losses (several processes): each rank's interval mean of
+        # its token-weighted step means, gathered on every rank.
+        shard_losses = (self._gather_shard_means(interval_shard)
+                        if self._world > 1 else None)
+        if self._is_main:
+            # Every metric goes through the registry: buffered here, pushed
+            # to the tracker by the one flush below, where a failing tracker
+            # degrades to a warning, and kept live for Prometheus and the
+            # report.
+            registry = self._telemetry.metrics
+            if shard_losses is not None:
+                for r in range(self._world):
+                    registry.publish(
+                        {
+                            f"train/loss_rank_{r}": float(shard_losses[r]),
+                            f"train/lr_rank_{r}": current_lr,
+                            f"train/tokens_per_sec_rank_{r}": tokens_per_sec / self._world,
+                            f"train/step_time_sec_rank_{r}": avg_step_time,
+                            f"train/tokens_total_rank_{r}": float(total_tokens / self._world),
+                        },
+                        step=step,
+                    )
+            registry.publish(
+                {
+                    "train/loss": avg_loss,
+                    "train/lr": current_lr,
+                    "train/tokens_per_sec": tokens_per_sec,
+                    "train/step_time_sec": avg_step_time,
+                    "train/tokens_total": float(total_tokens),
+                    "train/mfu": interval_mfu,
+                    "train/data_wait_ms": data_wait_ms,
+                    "train/host_dispatch_ms": host_dispatch_ms,
+                },
+                step=step,
+            )
+        # The one flush point per log interval: memory sample, the tracker,
+        # the timeline's JSONL and the Prometheus textfile (every rank;
+        # only the main one writes files).
+        self._telemetry.flush(step)
         peak_mem = peak_memory_bytes(self._device)
         logger.info(
             "step=%d/%d  loss=%.4f  lr=%.6e  tokens_per_sec=%.1f  step_time=%.4fs  "
@@ -763,6 +1037,14 @@ class Trainer:
             step, max_steps, avg_loss, current_lr, tokens_per_sec, avg_step_time,
             interval_mfu, data_wait_ms, host_dispatch_ms, peak_mem / 2**30,
         )
+
+    def _gather_shard_means(self, stats: list[tuple[torch.Tensor, torch.Tensor]]) -> list[float]:
+        """Every rank's mean over the steps of ``stats`` of its
+        token-weighted loss (JAX ``_shard_means``), gathered on every rank."""
+        from ..distributed import allgather_scalar
+
+        means = [float(ls.sum() / tc.sum().clamp_min(1.0)) for ls, tc in stats]
+        return list(allgather_scalar(float(np.mean(means)) if means else 0.0))
 
     # ------------------------------------------------------------------ eval
 
@@ -782,6 +1064,7 @@ class Trainer:
         eval_bs = min(max(self._global_micro // mult, 1) * mult, -(-n // mult) * mult)
         loss_total = torch.zeros((), dtype=torch.float32, device=self._device)
         tok_total = torch.zeros((), dtype=torch.float32, device=self._device)
+        shard_stats: list[tuple[torch.Tensor, torch.Tensor]] = []
         for b in range(math.ceil(n / eval_bs)):
             real = np.arange(b * eval_bs, min((b + 1) * eval_bs, n))
             pad = eval_bs - len(real)
@@ -790,9 +1073,19 @@ class Trainer:
             loss_sum, tokens = eval_fn(self._eval_batch(val_ds, rows, n_pad=rows_pad))
             loss_total += loss_sum.sum()
             tok_total += tokens.sum()
+            if self._world > 1:
+                shard_stats.append((loss_sum, tokens))
         total_loss, total_tok = self._sum_over_ranks(loss_total, tok_total)
         val_loss = total_loss / max(total_tok, 1.0)
         metrics = {"val/loss": val_loss}
+        shard_losses = self._gather_shard_means(shard_stats) if self._world > 1 else None
+        if self._is_main:
+            registry = self._telemetry.metrics
+            if shard_losses is not None:
+                for r in range(self._world):
+                    registry.publish({f"val/loss_rank_{r}": float(shard_losses[r])}, step=step)
+            registry.publish(metrics, step=step)
+        self._telemetry.flush(step)
         parts = "  ".join(f"{k}={v:.4f}" for k, v in sorted(metrics.items()))
         logger.info("val_step=%d/%d  %s", step, max_steps, parts)
         return metrics
@@ -813,11 +1106,12 @@ class _StepProfiler:
     several processes only rank 0 traces, or with ``profile_all_hosts``
     every rank into its own ``host_{i}``. Start and stop are guarded: a
     profiler failure never stops training. The window's edges are logged
-    (JAX also stamps them on its event timeline, which the port's trainer
-    does not write yet)."""
+    and stamped on the event timeline (``profiler_start`` /
+    ``profiler_stop`` instants), so the trace aligns with the run's own
+    span record."""
 
     def __init__(self, cfg: RunConfig, run_dir: Path | None, *, process_index: int = 0,
-                 num_processes: int = 1) -> None:
+                 num_processes: int = 1, timeline: Any | None = None) -> None:
         self._start_step = int(cfg.trainer.extra.get("profile_start_step", 0))
         self._num_steps = max(1, int(cfg.trainer.extra.get("profile_num_steps", 3)))
         all_hosts = bool(cfg.trainer.extra.get("profile_all_hosts", False))
@@ -831,6 +1125,7 @@ class _StepProfiler:
             elif process_index == 0:
                 self._dir = base
         self._cuda = cfg.run.device != "cpu"
+        self._timeline = timeline
         self._prof: Any = None
         self._begun_at: int | None = None
         self._last = 0
@@ -856,6 +1151,9 @@ class _StepProfiler:
             prof.start()
             self._prof = prof
             logger.info("profiler trace started at step %d -> %s", step, self._dir)
+            if self._timeline is not None:
+                self._timeline.instant("profiler_start", cat="profile", step=step,
+                                       dir=str(self._dir))
         except Exception as exc:  # noqa: BLE001 — profiling must never kill training
             logger.warning("profiler start failed (%s); continuing without trace", exc)
         self._begun_at = step  # one attempt per run
@@ -878,6 +1176,8 @@ class _StepProfiler:
             path = self._dir / f"steps_{self._begun_at}-{self._last}.pt.trace.json"
             prof.export_chrome_trace(str(path))
             logger.info("profiler trace written to %s", path)
+            if self._timeline is not None:
+                self._timeline.instant("profiler_stop", cat="profile", dir=str(self._dir))
         except Exception as exc:  # noqa: BLE001
             logger.warning("profiler stop failed (%s)", exc)
 

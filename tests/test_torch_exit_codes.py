@@ -132,8 +132,7 @@ def test_connection_error_escaping_train_exits_75(tmp_path, capsys, monkeypatch,
 
 
 _UNPORTED = {"promote": "lifecycle and fleet", "fleet": "lifecycle and fleet",
-             "chaos": "resilience", "profile": "telemetry", "goodput": "telemetry",
-             "plan": "autotune", "tune": "autotune"}
+             "chaos": "resilience", "plan": "autotune", "tune": "autotune"}
 
 
 @pytest.mark.parametrize("command", sorted(_UNPORTED))
@@ -144,6 +143,29 @@ def test_unported_subcommand_exits_2_citing_its_item(tmp_path, capsys, command: 
     err = json.loads(capsys.readouterr().err.strip().splitlines()[-1])["error"]
     assert _CITES_STABLE_ITEM.search(err) and f"queue A: {_UNPORTED[command]})" in err, err
     assert _UNPORTED[command] in STABLE_ITEMS
+
+
+@pytest.mark.parametrize("command", ["goodput", "profile"])
+def test_ported_telemetry_subcommands_answer_as_jax(tmp_path, capsys, command: str) -> None:
+    """What the refusals of ``goodput`` and ``profile`` became: both CLIs
+    give the same exit code and error for a run dir that does not exist,
+    a config that does not load, and ``profile --steps 0``; and argparse's
+    own error for an unknown flag."""
+    cases = {
+        "goodput": [(["--run-dir", str(tmp_path / "absent")], 2),
+                    (["--run-dir", str(tmp_path)], 1)],
+        "profile": [(["--config", str(tmp_path / "absent.yaml")], 2),
+                    (["--config", str(_config(tmp_path)), "--steps", "0"], 2)],
+    }[command]
+    for extra, expected in cases:
+        answers = []
+        for main in (jax_main, port_main):
+            assert run_cli(main, [command, *extra]) == expected, (command, extra)
+            answers.append(json.loads(capsys.readouterr().err.strip().splitlines()[-1]))
+        assert answers[1] == answers[0], (command, extra)
+    with pytest.raises(SystemExit) as excinfo:
+        port_main([command, "--anything", "x"])
+    assert excinfo.value.code == 2
 
 
 def test_a_misspelt_subcommand_is_still_argparse_s_error(capsys) -> None:

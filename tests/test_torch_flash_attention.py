@@ -128,7 +128,9 @@ def test_gqa_head_mismatch_raises() -> None:
 
 
 def test_non_cpu_non_cuda_tensor_raises() -> None:
-    q = torch.empty((1, 4, 2, 64), device="meta")
+    from torch_port_helpers import foreign_device_tensor
+
+    q = foreign_device_tensor((1, 4, 2, 64))
     with pytest.raises(ValueError, match="cuda or cpu"):
         flash_ops.flash_attention_fwd(q, q, q)
 

@@ -151,11 +151,13 @@ def test_plain_version_matches_dense_logits_and_padded_rows_add_nothing() -> Non
 
 
 def test_wrappers_take_the_plain_version_only_on_the_cpu() -> None:
+    from torch_port_helpers import foreign_device_tensor
+
     p = _problem(6, 1, 4, 32, 20)
-    h = torch.from_numpy(p["h"][0]).to("meta")
-    w = torch.from_numpy(p["w"]).to("meta")
-    labels = torch.zeros(4, dtype=torch.int32, device="meta")
-    vec = torch.zeros(4, device="meta")
+    h = foreign_device_tensor(tuple(p["h"][0].shape))
+    w = foreign_device_tensor(tuple(p["w"].shape))
+    labels = foreign_device_tensor((4,), torch.int32)
+    vec = foreign_device_tensor((4,))
     for call in (lambda: fc.fused_ce_fwd(h, w, labels),
                  lambda: fc.fused_ce_bwd_dh(h, w, labels, vec, vec, vec),
                  lambda: fc.fused_ce_bwd_dw(h, w, labels, vec, vec, vec)):

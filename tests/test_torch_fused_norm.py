@@ -102,6 +102,8 @@ def test_bf16_keeps_dtypes_and_f32_statistics() -> None:
 
 
 def test_non_cpu_non_cuda_tensor_raises() -> None:
-    x = torch.empty((2, 8), device="meta")
+    from torch_port_helpers import foreign_device_tensor
+
+    x = foreign_device_tensor((2, 8))
     with pytest.raises(ValueError, match="cuda or cpu"):
-        fn.fused_norm_fwd(x, None, torch.ones(8, device="meta"), torch.zeros(8, device="meta"))
+        fn.fused_norm_fwd(x, None, foreign_device_tensor((8,)), foreign_device_tensor((8,)))

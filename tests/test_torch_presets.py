@@ -10,6 +10,9 @@ optimizer-trajectory band (atol 3e-5, rtol 1e-3). The trajectory runs in
 float32: the band is the f32 one, and bf16 compute rounds differently in
 the two frameworks. ``example``'s commented optimizer, EMA and profiler
 keys train too, and ``ddp_smoke`` trains as two gloo processes.
+``gpt_telemetry_smoke`` trains with its metrics endpoint on port 0, scraped
+once mid-run, and ``ddp_mlflow`` trains as two gloo processes with rank 0
+tracking into a native SQLite store under the test's directory.
 """
 
 from __future__ import annotations
@@ -124,3 +127,68 @@ def test_ddp_smoke_trains_as_two_gloo_processes(tmp_path) -> None:
     result = json.loads(outs[0][1].strip().splitlines()[-1])["train_result"]
     assert result["final_step"] == raw["trainer"]["max_steps"]
     assert math.isfinite(result["final_loss"]) and result["final_loss"] < result["first_step_loss"]
+
+
+def test_telemetry_smoke_trains_and_serves_metrics(tmp_path, capsys, monkeypatch) -> None:
+    """gpt_telemetry_smoke, cut to 10 steps, its endpoint on an ephemeral
+    port: one scrape at the step-5 boundary carries the train and memory
+    gauges, and the run writes the report, the trace and the textfile."""
+    import urllib.request
+
+    from llmtrain_tpu_torch.training.trainer import Trainer
+
+    raw = _preset("gpt_telemetry_smoke")
+    raw["trainer"].update(max_steps=10, eval_every_steps=10, save_every_steps=10)
+    raw["telemetry"].update(prometheus_port=0)
+    assert raw["telemetry"]["prometheus"] is True
+    assert raw["telemetry"]["prometheus_host"] == "127.0.0.1"
+    raw["output"]["root_dir"] = str(tmp_path / "runs")
+    cfg = tmp_path / "gpt_telemetry_smoke.yaml"
+    cfg.write_text(yaml.safe_dump(raw, sort_keys=False))
+    scraped: list[str] = []
+    original = Trainer._log_train_interval
+
+    def log_then_scrape(self, **kw):
+        original(self, **kw)
+        port = self._telemetry.prometheus_port
+        if kw["step"] == 5 and port is not None:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10) as r:
+                scraped.append(r.read().decode())
+
+    monkeypatch.setattr(Trainer, "_log_train_interval", log_then_scrape)
+    assert run_cli(port_main, ["train", "--config", str(cfg), "--run-id", "t", "--json"]) == 0
+    result = json.loads(capsys.readouterr().out)["train_result"]
+    assert result["final_step"] == 10 and math.isfinite(result["final_loss"])
+    (text,) = scraped
+    for family in ("llmtrain_train_loss", "llmtrain_train_mfu", "llmtrain_mem_hbm_peak",
+                   "llmtrain_run_info"):
+        assert family in text, family
+    run_dir = tmp_path / "runs" / "t"
+    for name in ("report.json", "report.md", "telemetry/trace.json",
+                 "telemetry/timeline.jsonl", "telemetry/metrics.prom"):
+        assert (run_dir / name).is_file(), name
+
+
+def test_ddp_mlflow_trains_as_two_gloo_processes(tmp_path) -> None:
+    from test_torch_ddp import launch, wait
+
+    from llmtrain_tpu_torch.tracking.sqlite import read_metrics, read_params, read_runs
+
+    raw = _preset("ddp_mlflow")
+    db = tmp_path / "mlflow.db"
+    raw["mlflow"]["tracking_uri"] = f"sqlite:///{db}"
+    raw["output"]["root_dir"] = str(tmp_path / "runs")
+    cfg = tmp_path / "ddp_mlflow.yaml"
+    cfg.write_text(yaml.safe_dump(raw, sort_keys=False))
+    outs = wait(launch(tmp_path, ["train", "--config", str(cfg), "--run-id", "m", "--json"]),
+                timeout=120)
+    for code, _, err in outs:
+        assert code == 0, err[-3000:]
+    result = json.loads(outs[0][1].strip().splitlines()[-1])["train_result"]
+    assert result["final_step"] == raw["trainer"]["max_steps"]
+    (run,) = read_runs(db)
+    assert (run["run_id"], run["run_name"], run["status"]) == ("m", "ddp-mlflow-smoke", "FINISHED")
+    keys = {m["key"] for m in read_metrics(db, "m")}
+    assert {"train/loss", "train/loss_rank_0", "train/loss_rank_1", "val/loss",
+            "val/loss_rank_1", "mem/hbm_used"} <= keys
+    assert read_params(db, "m")["distributed.enabled"] == "True"

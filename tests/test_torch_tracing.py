@@ -315,13 +315,34 @@ def test_report_matches_jax(tmp_path) -> None:
                          report.render_markdown(rep))
     assert reports["port"] == reports["jax"]
     assert "## Serving" in reports["port"][2]
-    for block in ("goodput", "perf_attribution"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue A: telemetry"):
-            port_report.build_report(run_id="r", run_name="n", registry=PortRegistry(),
-                                     timeline=port_timeline.EventTimeline(None), memory=None,
-                                     wall_time_sec=1.0, **{block: {"x": 1}})
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue A: telemetry"):
-            port_report.render_markdown({**reports["port"][0], block: {"x": 1}})
+    # What the refusals of the goodput and attribution sections became:
+    # both render as JAX's, key for key and line for line.
+    from llmtrain_tpu.telemetry.goodput import CATEGORIES
+    from llmtrain_tpu_torch.telemetry.profiling import build_perf_attribution
+
+    cats = {c: float(i) for i, c in enumerate(CATEGORIES)}
+    goodput = {"wall_clock_sec": 36.0, "goodput_frac": 0.0, "categories": cats,
+               "num_segments": 1, "final_step": 8, "balance_error_sec": 0.0,
+               "segments": [{"segment_id": 0, "duration_sec": 36.0, "steps_executed": 8,
+                             "clean_end": True, "categories": cats}]}
+    top = [{"op": "mm", "count": 19, "flops": 1.5e7, "bytes_accessed": 1.4e6,
+            "flops_frac": 0.65, "bytes_frac": 0.09, "class": "compute"}]
+    perf = build_perf_attribution(
+        executables=[{"name": "train_step", "flops": 2.3e7, "bytes_accessed": 1.6e7,
+                      "top_ops": top}],
+        peaks={"peak_flops": 2e11, "hbm_bytes_per_sec": 5e10, "ici_bytes_per_sec": 1e10},
+        step_time_ms=20.0, tokens_per_step=128.0, palm_flops_per_token=1.8e5,
+        measured_mfu=0.0058)
+    sections = []
+    for registry, timeline, report in ((PortRegistry(), port_timeline, port_report),
+                                       (JaxRegistry(None), jax_timeline, jax_report)):
+        rep = report.build_report(run_id="r", run_name="n", registry=registry,
+                                  timeline=timeline.EventTimeline(None), memory=None,
+                                  wall_time_sec=1.0, goodput=goodput, perf_attribution=perf)
+        sections.append((json.dumps(rep["goodput"]), json.dumps(rep["perf_attribution"]),
+                         report.render_markdown(rep)))
+    assert sections[0] == sections[1]
+    assert "## Goodput" in sections[0][2] and "## Performance attribution" in sections[0][2]
 
 
 def test_concurrent_recording_against_flush_loses_nothing(tmp_path) -> None:

@@ -17,6 +17,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 import yaml
 from torch_port_helpers import run_cli
 
@@ -116,9 +117,9 @@ def test_exit_codes_match_jax(tmp_path, capsys, case: str) -> None:
 
 @pytest.mark.parametrize(
     "override",
-    [{"resilience.spike_detection": True}, {"mlflow.enabled": True},
+    [{"resilience.spike_detection": True},
      {"trainer.extra": {"optimizer": "lion"}, "resilience.faults.nan_loss_at_step": 4}],
-    ids=["spike-rollback", "tracker", "lion"],
+    ids=["spike-rollback", "lion"],
 )
 def test_unported_feature_exits_2_naming_the_roadmap(tmp_path, capsys, override) -> None:
     cfg = _config(tmp_path, **override)
@@ -194,19 +195,57 @@ _CITES_STABLE_ITEM = re.compile(r"\(ROADMAP\.md queue A: (" + "|".join(STABLE_IT
     "override",
     [{"resilience.spike_detection": True}, {"resilience.watchdog.enabled": True},
      {"resilience.faults.nan_loss_at_step": 4},
-     {"trainer.extra": {"profile_start_step": 2}, "telemetry.prometheus": True},
-     {"telemetry.prometheus": True}, {"mlflow.enabled": True},
      {"distributed.enabled": True, "distributed.mesh.tensor": 2},
      {"distributed.mesh.data": 2}, {"trainer.zero.enabled": True}, {"model.remat": True},
      {"model.extra.lora": {"rank": 4}}],
-    ids=["spike-rollback", "watchdog", "faults", "profiler", "prometheus", "tracker",
-         "data-parallel", "mesh", "zero", "remat", "lora"],
+    ids=["spike-rollback", "watchdog", "faults", "data-parallel", "mesh", "zero", "remat",
+         "lora"],
 )
 def test_refusals_cite_a_stable_roadmap_item(tmp_path, override) -> None:
     cfg, _, _ = load_and_validate_config(_config(tmp_path, **override))
     with pytest.raises(NotImplementedError) as excinfo:
         refuse_unported(cfg)
     assert _CITES_STABLE_ITEM.search(str(excinfo.value)), str(excinfo.value)
+
+
+@pytest.mark.parametrize(
+    "override",
+    [{"trainer.extra": {"profile_start_step": 2}, "telemetry.prometheus": True},
+     {"telemetry.prometheus": True}, {"mlflow.enabled": True},
+     {"mlflow.enabled": True, "mlflow.backend": "tensorboard"}],
+    ids=["profiler", "prometheus", "tracker", "tensorboard-tracker"],
+)
+def test_telemetry_features_once_refused_train(tmp_path, capsys, override) -> None:
+    """What the refusals of the metrics endpoint and the tracker became:
+    ``train`` runs with them; rank 0's native store records the run as
+    FINISHED with the interval metrics (the TensorBoard backend writes its
+    event file); the step profiler's window edges land on the timeline."""
+    from llmtrain_tpu_torch.tracking.sqlite import read_metrics, read_runs
+
+    db = tmp_path / "track.db"
+    tensorboard = override.get("mlflow.backend") == "tensorboard"
+    uri = str(tmp_path / "tb") if tensorboard else f"sqlite:///{db}"
+    cfg = _config(tmp_path, **{"telemetry.enabled": True, "telemetry.prometheus_port": 0,
+                               "telemetry.prometheus_host": "127.0.0.1",
+                               "mlflow.backend": "native", "mlflow.tracking_uri": uri,
+                               **override})
+    assert not refuse_unported(load_and_validate_config(cfg)[0])
+    assert run_cli(port_main, ["train", "--config", str(cfg), "--run-id", "t", "--json"]) == 0
+    result = json.loads(capsys.readouterr().out)["train_result"]
+    assert result["final_step"] == 4
+    run_dir = tmp_path / "runs" / "t"
+    assert (run_dir / "report.json").is_file() and (run_dir / "telemetry" / "trace.json").is_file()
+    if tensorboard:
+        (event_file,) = (tmp_path / "tb" / "llm-train-k8s" / "t").iterdir()
+        assert event_file.name.startswith("events.out.tfevents.") and event_file.stat().st_size
+    elif "mlflow.enabled" in override:
+        assert [r["status"] for r in read_runs(db)] == ["FINISHED"]
+        assert {"train/loss", "val/loss", "mem/hbm_used"} <= {m["key"] for m in read_metrics(db, "t")}
+    else:
+        assert not db.exists()
+    events = [json.loads(line)["name"]
+              for line in (run_dir / "telemetry" / "timeline.jsonl").read_text().splitlines()]
+    assert ("profiler_start" in events) == ("trainer.extra" in override)
 
 
 @pytest.mark.parametrize(
@@ -265,8 +304,10 @@ def test_serving_flags_answer_as_jax(tmp_path, capsys, argv) -> None:
 
 
 def test_serving_module_refusals_cite_a_stable_roadmap_item() -> None:
-    """The engine's refusal: the cost profile. (The scheduler's refusal of
-    a request tracer is gone: tracing runs.)"""
+    """What the engine's last refusal became: the cost profile counts the
+    prefill and decode steps at their largest buckets (JAX's names and
+    keys), leaving the live pool untouched. (The scheduler's refusal of a
+    request tracer is gone too: tracing runs.)"""
     from llmtrain_tpu_torch.models.gpt import GPT
     from llmtrain_tpu_torch.serving import ContinuousBatchingScheduler, PagedDecodeEngine
     from llmtrain_tpu_torch.telemetry.timeline import EventTimeline
@@ -276,12 +317,18 @@ def test_serving_module_refusals_cite_a_stable_roadmap_item() -> None:
     engine = PagedDecodeEngine(model, block_tokens=4, max_batch_slots=2)
     tracer = Tracer(EventTimeline(None))
     assert ContinuousBatchingScheduler(engine, tracer=tracer).tracer is tracer
-    calls = {"telemetry": (engine.cost_profile,)}
-    for item, fns in calls.items():
-        for fn in fns:
-            with pytest.raises(NotImplementedError) as excinfo:
-                fn()
-            assert f"(ROADMAP.md queue A: {item})" in str(excinfo.value)
+    pool = [t.clone() for t in (*engine._cache.key, *engine._cache.value)]
+    profiles = engine.cost_profile(top_k=3)
+    assert [p["name"] for p in profiles] == ["prefill_T16", "decode_B2"]
+    for prof in profiles:
+        assert prof["flops"] > 0 and prof["roofline"]["class"] in ("compute", "memory")
+        assert {"op", "count", "flops", "bytes_accessed", "flops_frac", "bytes_frac",
+                "class"} == set(prof["top_ops"][0])
+    totals = engine.cost_profile(full=False)
+    assert [set(p) for p in totals] == [{"flops", "bytes_accessed", "transcendentals", "name",
+                                         "lower_time_s"}] * 2
+    assert all(torch.equal(a, b) for a, b in
+               zip(pool, (*engine._cache.key, *engine._cache.value)))
 
 
 def test_ema_refusal_cites_a_stable_roadmap_item(tmp_path, capsys) -> None:

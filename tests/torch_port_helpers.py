@@ -97,6 +97,25 @@ def run_cli(main, argv: list[str]) -> int:
             h.setStream(stream)
 
 
+class _ForeignDeviceTensor(torch.Tensor):
+    """A storage-free tensor on a device the port does not run on."""
+
+    @staticmethod
+    def __new__(cls, shape, dtype):
+        return torch.Tensor._make_wrapper_subclass(cls, shape, dtype=dtype,
+                                                   device=torch.device("xla"))
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError(f"{func} reached a tensor without storage")
+
+
+def foreign_device_tensor(shape: tuple[int, ...], dtype=torch.float32) -> torch.Tensor:
+    """A tensor on neither the CPU, the card nor ``meta`` (the cost count's
+    device): the kernel wrappers must refuse it before touching it."""
+    return _ForeignDeviceTensor(shape, dtype)
+
+
 def seeded_ids(seed: int, shape: tuple[int, ...], vocab: int) -> np.ndarray:
     return np.random.default_rng(seed).integers(0, vocab, shape).astype(np.int32)
 
