@@ -248,6 +248,33 @@ Phases, each fatal on failure (exit code 1, no result line):
    on) with their spread, each arm's median, and each arm's wall a step by
    the log's timestamps (which, unlike the logged step time, holds the log
    boundary's flush); a measurement, not a gate. The phase's seconds on their own line.
+20. Resilience, in the same temp root: (a) phase 9's config cut to
+   RES_STEPS steps through `train`, with the non-finite guard, a one-step
+   NaN window at RES_NAN_AT, a 100x spike of the observed loss at
+   RES_SPIKE_AT, saves every RES_SAVE_EVERY and one rollback allowed,
+   launch counts reset just before and read just after: one update
+   skipped, exactly one rollback, to the save before the spike; 12 flash
+   forward, dq and dk/dv per executed step (RES_STEPS plus the replayed
+   ones) plus 12 forward per eval batch, none of the others; the timeline
+   holds `rollback_restore`, `checkpoint_wait` and events tagged
+   rolled_back; the losses finite but the NaN step's and falling by
+   LOSS_DROP_MIN; the goodput ledger balanced; the guarded step's median
+   beside phase 9's over the same steps. (b) a `python -m
+   llmtrain_tpu_torch train` child hung at WD_HANG_AT with the watchdog
+   at WD_STALL_SEC: exit 76 with "HANG DETECTED", a hang report holding
+   the thread stacks and the device section (the allocator's bytes,
+   nvidia-smi), a heartbeat younger than the timeout plus
+   WD_EXIT_SLACK_SEC. (c) `chaos --cycles CHAOS_CYCLES` on phase 9's config
+   cut to CHAOS_STEPS steps and CHAOS_LAYERS layers at full width, each
+   segment a `train` child on the card:
+   exit 0, the kills delivered (one inside a checkpoint write), the
+   newest commit loadable after each cycle, and the loss trajectory and
+   final params and optimizer state bitwise equal to the uninterrupted
+   run's; no kernel launched in this process over (b)-(c). (d)
+   measurement only: phase 9's `checkpoint_save` spans (the gather; the
+   write runs on the manager's thread) and its ledger's checkpoint
+   seconds, and one full-width save's gather and synchronous write. The
+   phase's seconds on their own line.
 
 Then it prints the kernels line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
@@ -3420,6 +3447,248 @@ def phase_telemetry(torch, smi: str, tmp: Path, train: dict, ce: dict) -> dict:
                 medians=med, walls=wall, seconds=seconds)
 
 
+# ------------------------------------------------ resilience (phase 20)
+# (a) phase 9's config cut to RES_STEPS steps with the guard, a NaN window
+# of one step (RES_NAN_AT) inside the first interval, a 100x spike of the
+# observed loss at RES_SPIKE_AT, saves every RES_SAVE_EVERY (the spike's
+# restore point is the save before it) and one rollback allowed.
+RES_STEPS = 16
+RES_NAN_AT = 2
+RES_SPIKE_AT = 10
+RES_SAVE_EVERY = 8
+RES_MIN_HISTORY = 4
+# (b) a `train` child hung at step WD_HANG_AT with a stall timeout no eval
+# or save of its config reaches (a step takes ~0.15 s, a save's gather
+# ~1 s); the exit must come within WD_STALL_SEC + WD_EXIT_SLACK_SEC.
+WD_STEPS = 6
+WD_HANG_AT = 3
+WD_STALL_SEC = 10.0
+WD_EXIT_SLACK_SEC = 30.0
+# (c) the chaos drill: CHAOS_CYCLES killed `train` segments over
+# CHAOS_STEPS steps saved every CHAOS_SAVE_EVERY, each segment a fresh
+# process on the card; at full width, the depth cut to CHAOS_LAYERS (the
+# segments' saves, loads and the final bitwise comparison scale with it:
+# 12 layers took 119.5 s of the 1200 s limit, PR 14 call 25).
+CHAOS_CYCLES = 2
+CHAOS_LAYERS = 4
+CHAOS_STEPS = 8
+CHAOS_SAVE_EVERY = 4
+CHAOS_SEED = 1
+
+
+def _resilience_config(tmp: Path, name: str, steps: int, **resilience) -> Path:
+    import yaml
+
+    path = _smoke_config(tmp, name)
+    raw = yaml.safe_load(path.read_text())
+    raw["trainer"].update(max_steps=steps, warmup_steps=min(TRAIN_WARMUP, steps),
+                          save_every_steps=steps, eval_every_steps=steps)
+    raw["resilience"] = resilience
+    path.write_text(yaml.safe_dump(raw, sort_keys=False))
+    return path
+
+
+def _timeline(run_dir: Path) -> list[dict]:
+    return [json.loads(line) for line in
+            (run_dir / "telemetry" / "timeline.jsonl").read_text().splitlines()]
+
+
+def _resilience_rollback(torch, smi: str, tmp: Path, train: dict) -> dict:
+    """(a) the guard and the spike rollback, in-process through `train`."""
+    import numpy as np
+    import yaml
+
+    from llmtrain_tpu_torch.config import load_and_validate_config
+
+    cfg_path = _resilience_config(
+        tmp, "resilience_rollback", RES_STEPS, nonfinite_guard=True, spike_detection=True,
+        spike_min_history=RES_MIN_HISTORY, max_rollbacks=1,
+        faults={"nan_loss_at_step": RES_NAN_AT, "nan_loss_steps": 1,
+                "spike_loss_at_step": RES_SPIKE_AT, "spike_loss_scale": 100.0})
+    raw = yaml.safe_load(cfg_path.read_text())
+    raw["trainer"]["save_every_steps"] = RES_SAVE_EVERY
+    cfg_path.write_text(yaml.safe_dump(raw, sort_keys=False))
+    cfg, _, _ = load_and_validate_config(cfg_path)
+    restored_at = (RES_SPIKE_AT - 1) // RES_SAVE_EVERY * RES_SAVE_EVERY
+    replayed = RES_SPIKE_AT - restored_at
+    _reset_counts()  # the guarded training path's counts start here
+    code, out = _run_cli(["train", "--config", str(cfg_path), "--run-id", "resilient", "--json"])
+    counts = _read_counts()  # and end here
+    if code != 0:
+        raise RuntimeError(f"the guarded train exited {code}")
+    summary = json.loads(out)["train_result"]
+    run_dir = Path(cfg.output.root_dir) / "resilient"
+    layers = cfg.model.n_layers
+    executed = RES_STEPS + replayed
+    _check_counts("resilience", counts, {
+        "flash_attention_fwd": layers * (executed + train["eval_batches"]),
+        "flash_attention_bwd_dq": layers * executed,
+        "flash_attention_bwd_dkdv": layers * executed,
+    })
+    events = _timeline(run_dir)
+    instants = {}
+    for ev in events:
+        if ev.get("ph") == "i":
+            instants.setdefault(ev["name"], []).append(ev)
+    spans = {ev["name"] for ev in events if ev.get("ph") != "i"}
+    skipped = sum(ev["args"]["skipped"] for ev in instants.get("nonfinite_skip", []))
+    rollbacks = instants.get("rollback", [])
+    tagged = sum(1 for ev in events if ev.get("rolled_back"))
+    steps = _logged_steps(run_dir)
+    losses = [steps[i]["loss"] for i in sorted(steps)]
+    finite = [x for x in losses if math.isfinite(x)]
+    log(f"[resilience] guarded run of {RES_STEPS} steps ({executed} executed): nonfinite "
+        f"skips {skipped} (window 1 at step {RES_NAN_AT}); rollbacks "
+        f"{[ev['args'] for ev in rollbacks]} at step {[ev['step'] for ev in rollbacks]}; "
+        f"fault instants {sorted(k for k in instants if k.startswith('fault_'))}; "
+        f"{tagged} events tagged rolled_back; losses {' '.join(f'{x:.4f}' for x in losses)}")
+    if skipped != 1 or summary["rollbacks"] != 1 or len(rollbacks) != 1 \
+            or rollbacks[0]["args"]["restored_step"] != restored_at:
+        raise RuntimeError("the guard or the rollback did not act as configured")
+    if {"rollback_restore", "checkpoint_wait"} - spans or not tagged:
+        raise RuntimeError(f"the timeline lacks the rollback's spans or tags: {sorted(spans)}")
+    if len(finite) != RES_STEPS - 1 or not math.isfinite(summary["final_loss"]) \
+            or not finite[-1] <= finite[0] - LOSS_DROP_MIN:
+        raise RuntimeError(f"the guarded run's losses are not finite and falling: {losses}")
+    code, out = _run_cli(["goodput", "--run-dir", str(run_dir), "--json"])
+    ledger = json.loads(out) if code == 0 else {}
+    if code != 0 or ledger["balance_error_sec"] != 0.0 \
+            or abs(sum(ledger["categories"].values()) - ledger["wall_clock_sec"]) > 0.01:
+        raise RuntimeError(f"the guarded run's goodput ledger does not balance ({code})")
+    guarded_ms = float(np.median([steps[i]["step_time"] for i in sorted(steps) if i > 5])) * 1e3
+    plain_ms = float(np.median([train["steps"][i]["step_time"] for i in sorted(steps)
+                                if i > 5])) * 1e3
+    log(f"[resilience] on {smi}: guarded step median {guarded_ms:.1f} ms over steps 6-"
+        f"{RES_STEPS} against phase 9's {plain_ms:.1f} ms over the same steps; ledger "
+        f"goodput_frac {ledger['goodput_frac']}, recomputed {ledger['categories']['recomputed']} s, "
+        f"checkpoint {ledger['categories']['checkpoint']} s")
+    return dict(counts=counts, guarded_ms=guarded_ms, plain_ms=plain_ms)
+
+
+def _resilience_watchdog(tmp: Path) -> dict:
+    """(b) a `train` child hung at WD_HANG_AT: exit 76 with a hang report
+    and a fresh heartbeat."""
+    from llmtrain_tpu_torch.config import load_and_validate_config
+
+    cfg_path = _resilience_config(
+        tmp, "resilience_hang", WD_STEPS,
+        watchdog={"enabled": True, "stall_timeout_sec": WD_STALL_SEC},
+        faults={"hang_at_step": WD_HANG_AT})
+    cfg, _, _ = load_and_validate_config(cfg_path)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "llmtrain_tpu_torch", "train", "--config",
+                           str(cfg_path), "--run-id", "hung"],
+                          cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    run_dir = Path(cfg.output.root_dir) / "hung"
+    reports = sorted(run_dir.glob("hang_report_*_p0.txt"))
+    text = reports[0].read_text() if reports else ""
+    hb = run_dir / "heartbeat"
+    hb_age = time.time() - hb.stat().st_mtime if hb.is_file() else None
+    armed = [json.loads(line)["timestamp"] for line in
+             (run_dir / "logs" / "train.log").read_text().splitlines()
+             if "hang watchdog armed" in line]
+    log(f"[watchdog] `train` hung at step {WD_HANG_AT}, stall_timeout_sec {WD_STALL_SEC}: exit "
+        f"{proc.returncode} after {wall:.1f} s of child wall (start-up included); report "
+        f"{reports[0].name if reports else None} ({len(text)} bytes); heartbeat age "
+        f"{hb_age if hb_age is None else round(hb_age, 1)} s; armed at {armed}")
+    device = text[text.find("== device diagnostics =="):]
+    log("[watchdog] report's device section: " + " | ".join(device.splitlines()[1:4]))
+    if proc.returncode != 76 or "HANG DETECTED" not in proc.stderr:
+        raise RuntimeError(f"the hung child exited {proc.returncode}: {proc.stderr[-2000:]}")
+    if "== thread stacks ==" not in text or "allocated_bytes current=" not in device \
+            or "nvidia-smi" not in device:
+        raise RuntimeError("the hang report lacks the thread stacks or the device section")
+    if hb_age is None or hb_age > WD_STALL_SEC + WD_EXIT_SLACK_SEC or not armed:
+        raise RuntimeError(f"no fresh heartbeat (age {hb_age}) or the watchdog never armed")
+    return dict(wall=wall)
+
+
+def _resilience_chaos(tmp: Path) -> dict:
+    """(c) `chaos` on phase 9's config cut to CHAOS_STEPS steps and
+    CHAOS_LAYERS layers."""
+    import yaml
+
+    cfg_path = _resilience_config(tmp, "resilience_chaos", CHAOS_STEPS)
+    raw = yaml.safe_load(cfg_path.read_text())
+    raw["model"]["n_layers"] = CHAOS_LAYERS
+    cfg_path.write_text(yaml.safe_dump(raw, sort_keys=False))
+    t0 = time.perf_counter()
+    code, out = _run_cli(["chaos", "--config", str(cfg_path), "--cycles", str(CHAOS_CYCLES),
+                          "--seed", str(CHAOS_SEED), "--save-every", str(CHAOS_SAVE_EVERY),
+                          "--work-dir", str(tmp / "chaos"), "--timeout-sec", "400", "--json"])
+    wall = time.perf_counter() - t0
+    if code != 0:
+        raise RuntimeError(f"chaos exited {code}")
+    result = json.loads(out.strip().splitlines()[-1])
+    log(f"[chaos] {CHAOS_CYCLES} cycles, seed {CHAOS_SEED}, {CHAOS_LAYERS} layers of "
+        f"{raw['model']['d_model']}, "
+        f"{CHAOS_STEPS} steps saved every {CHAOS_SAVE_EVERY}, in {wall:.1f} s: cycles "
+        + "; ".join(f"{c['mode']} at {c['kill_step']} (exit {c['returncode']}, newest commit "
+                    f"{c.get('newest_committed_step')}, resumed from "
+                    f"{c.get('resumed_from_observed')})" for c in result["cycles"])
+        + f"; {result['trajectory_points_compared']} trajectory points, final loss "
+        f"{result['final_loss']!r} against {result['reference_final_loss']!r}; goodput_frac "
+        f"{(result.get('goodput') or {}).get('goodput_frac')}")
+    if not result["bitwise_match"] or result["kills_delivered"] < CHAOS_CYCLES \
+            or result["kill_during_checkpoint_cycles"] < 1 \
+            or any("newest_committed_step" not in c for c in result["cycles"]):
+        raise RuntimeError(f"the chaos drill did not prove its invariants: {result}")
+    return dict(wall=wall, result=result)
+
+
+def _resilience_saves(torch, smi: str, train: dict) -> dict:
+    """(d) phase 9's checkpoint cost: its `checkpoint_save` spans (the
+    gather alone since asynchronous writes) and its ledger's checkpoint
+    seconds; and one full-width state of phase 9's config gathered and
+    written synchronously, the step loop's cost before the writes moved
+    off it. Measurement only."""
+    from llmtrain_tpu_torch.config import load_and_validate_config
+    from llmtrain_tpu_torch.training.checkpoint import CheckpointManager
+    from llmtrain_tpu_torch.training.trainer import Trainer
+
+    events = _timeline(train["run_dir"])
+    saves = [ev["dur_us"] / 1e6 for ev in events if ev.get("name") == "checkpoint_save"]
+    code, out = _run_cli(["goodput", "--run-dir", str(train["run_dir"]), "--json"])
+    ledger_ckpt = json.loads(out)["categories"]["checkpoint"] if code == 0 else None
+    cfg, _, _ = load_and_validate_config(train["cfg_path"])
+    trainer = Trainer(cfg, None)
+    t0 = time.perf_counter()
+    state = trainer.host_state()
+    gather_s = time.perf_counter() - t0
+    mgr = CheckpointManager(train["run_dir"] / "sync_save")
+    t0 = time.perf_counter()
+    target = mgr.save_host(TRAIN_STEPS, state, cfg.model_dump())
+    write_s = time.perf_counter() - t0
+    size = target.stat().st_size
+    del trainer, state
+    torch.cuda.empty_cache()
+    log(f"[saves] phase 9 on {smi}: checkpoint_save spans {[round(s, 3) for s in saves]} s "
+        f"(the gather; the write runs on the writer thread); ledger checkpoint {ledger_ckpt} s. "
+        f"One full-width state: gather {gather_s:.3f} s, synchronous write {write_s:.3f} s of "
+        f"{size / 2**30:.3f} GiB (the loop paid both before the writes moved to a thread)")
+    return dict(spans=saves, ledger=ledger_ckpt, gather=gather_s, write=write_s)
+
+
+def phase_resilience(torch, smi: str, tmp: Path, train: dict) -> dict:
+    """Phase 20 (module doc): the guard and the spike rollback, the hang
+    watchdog, the chaos drill, and the checkpoint's cost."""
+    t_phase = time.perf_counter()
+    rollback = _resilience_rollback(torch, smi, tmp, train)
+    torch.cuda.empty_cache()
+    _reset_counts()  # (b)-(c) run in child processes: none here
+    watchdog = _resilience_watchdog(tmp)
+    chaos = _resilience_chaos(tmp)
+    _check_counts("resilience children", _read_counts(), {})
+    saves = _resilience_saves(torch, smi, train)
+    seconds = time.perf_counter() - t_phase
+    log(f"[resilience] phase 20 {seconds:.1f} s (watchdog child {watchdog['wall']:.1f} s, chaos "
+        f"{chaos['wall']:.1f} s)")
+    return dict(counts=rollback["counts"], rollback=rollback, watchdog=watchdog, chaos=chaos,
+                saves=saves, seconds=seconds)
+
+
 def main() -> int:
     import tempfile
 
@@ -3471,13 +3740,15 @@ def main() -> int:
         offline = phase_offline(torch, smi, Path(tmp))
         ddp = phase_ddp(torch, smi, Path(tmp))
         tel = phase_telemetry(torch, smi, Path(tmp), train, ce)
+        res = phase_resilience(torch, smi, Path(tmp), train)
     paths = (train["counts"], fused["counts"], ce["counts"], spec["counts"], offline["counts"],
-             ddp["counts"], tel["counts"])
+             ddp["counts"], tel["counts"], res["counts"])
     launches = {name: sum(c[name] for c in paths) for name in paths[0]}
     launches["flash_attention_fwd"] += serve_launches
     log(f"[main path] launches over serve + generate, train, fused-norm train, CE train, "
         f"speculative/int8/rolling, BPE train and its evals, the one-rank NCCL train and its "
-        f"EMA evals, and phase 19's profile and telemetry runs: {launches}")
+        f"EMA evals, phase 19's profile and telemetry runs, and phase 20's guarded run: "
+        f"{launches}")
     for name, n in launches.items():
         if n == 0:
             raise RuntimeError(f"the main path never launched {name}")
@@ -3541,6 +3812,8 @@ def main() -> int:
     log(f"[telemetry] step with telemetry off {tel['medians']['off']:.2f} ms, on "
         f"{tel['medians']['on']:.2f} ms; phase 9 goodput_frac {tel['ledger']['goodput_frac']}; "
         f"phase 19 {tel['seconds']:.1f} s")
+    log(f"[resilience] guarded step {res['rollback']['guarded_ms']:.1f} ms against phase 9's "
+        f"{res['rollback']['plain_ms']:.1f} ms; phase 20 {res['seconds']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -43,22 +43,27 @@ Same subcommands, flags, JSON shapes and exit codes as the JAX CLI
   (and with ``--serve`` of the paged prefill/decode steps) written as
   ``profile_report.json`` (telemetry/profiling.py);
 * ``goodput`` — the wall-clock goodput ledger of any past run directory
-  (telemetry/goodput.py).
+  (telemetry/goodput.py);
+* ``chaos`` — the seeded crash-recovery drill (resilience/chaos.py):
+  ``train`` child processes SIGKILLed on a schedule drawn from ``--seed``
+  (one kill inside a checkpoint write, one corrupted commit) and resumed,
+  the newest commit loadable after each, the finished trajectory and
+  final state bitwise equal to an uninterrupted run's.
 
 ``train`` builds its tracker as JAX's does (tracking/: mlflow, the native
 SQLite store or TensorBoard on rank 0 when ``mlflow.enabled``, the null
 tracker otherwise) and registers ``config.yaml`` and ``meta.json`` with it.
 
-The JAX CLI's ``promote``, ``fleet``, ``chaos``, ``plan`` and ``tune`` take
-any arguments and exit 2 naming the ROADMAP.md item that ports them.
+The JAX CLI's ``promote``, ``fleet``, ``plan`` and ``tune`` take any
+arguments and exit 2 naming the ROADMAP.md item that ports them.
 
 ``serve`` and ``serve-bench`` take the same draft and quantize flags: a
 draft puts the continuous backend on the speculative policy.
 
 Exit codes: JAX's taxonomy (resilience/exit_codes.py): 0 ok, 1 failure,
 2 config error (a feature that is not yet ported counts as a config
-error), 75 a transient infrastructure fault anywhere in the exception's
-cause chain. LoRA or pipeline checkpoints exit 2 with a message naming
+error), 75 a transient infrastructure fault (or an injected one) anywhere
+in the exception's cause chain, 76 a hang the watchdog ended. LoRA or pipeline checkpoints exit 2 with a message naming
 the ROADMAP.md item. ``--ema`` (generate, serve, serve-bench, eval,
 export-checkpoint) loads the checkpoint's EMA shadow
 (``trainer.extra.ema_decay``). ``run.device`` (default ``cuda``) picks
@@ -91,7 +96,6 @@ _NOT_PORTED = "is not yet ported to llmtrain_tpu_torch"
 _UNPORTED_COMMANDS = {
     "promote": ("the train -> canary -> promote lifecycle", "lifecycle and fleet"),
     "fleet": ("the multi-tenant fleet supervisor", "lifecycle and fleet"),
-    "chaos": ("the seeded chaos-recovery harness", "resilience"),
     "plan": ("the mesh planner", "autotune"),
     "tune": ("the auto-tuner", "autotune"),
 }
@@ -529,6 +533,34 @@ def build_parser() -> argparse.ArgumentParser:
     )
     avg.add_argument("--json", action="store_true", help="emit stats as JSON")
 
+    chaos = sub.add_parser(
+        "chaos",
+        help="seeded chaos-recovery drill: repeated SIGKILL/resume cycles "
+        "with crash-consistency invariants checked after every cycle "
+        "(resilience/chaos.py)",
+    )
+    chaos.add_argument("--config", required=True, help="path to the YAML run config")
+    chaos.add_argument(
+        "--cycles", type=int, default=5,
+        help="number of killed segments before the final uninterrupted one",
+    )
+    chaos.add_argument("--seed", type=int, default=0, help="seed for the kill-step schedule")
+    chaos.add_argument(
+        "--max-steps", type=int, default=None,
+        help="override trainer.max_steps for the drill (keep it small)",
+    )
+    chaos.add_argument(
+        "--save-every", type=int, default=None,
+        help="override trainer.save_every_steps for the drill",
+    )
+    chaos.add_argument(
+        "--work-dir", default=None,
+        help="harness working directory (default: {output.root_dir}/chaos_{run.name}_s{seed})",
+    )
+    chaos.add_argument("--timeout-sec", type=float, default=600.0,
+                       help="per-segment wall-clock budget")
+    chaos.add_argument("--json", action="store_true", help="emit the result as JSON")
+
     # The JAX CLI's other subcommands: each takes any arguments and exits 2
     # naming the ROADMAP.md item that ports it.
     for name, what in _UNPORTED_COMMANDS.items():
@@ -586,15 +618,17 @@ def _setup_distributed(cfg):
     coordinator not up, a timeout) 75, so the orchestrator restarts."""
     from .distributed import resolve_topology, setup_distributed
     from .resilience.exit_codes import EXIT_RETRYABLE_INFRA
-    from .resilience.faults import retry, retry_rng
+    from .resilience.faults import FaultPlan, retry, retry_rng
 
+    plan = FaultPlan.from_config(cfg.resilience.faults)
     try:
         rank_hint, _, _ = resolve_topology(cfg.distributed)
     except Exception:  # noqa: BLE001 — jitter seeding must not mask it
         rank_hint = 0
     try:
         state = retry(
-            lambda: setup_distributed(cfg.distributed, cfg.run.device),
+            plan.flaky("distributed_init",
+                       lambda: setup_distributed(cfg.distributed, cfg.run.device)),
             attempts=cfg.resilience.retry_attempts,
             base_delay=cfg.resilience.retry_base_delay,
             description="distributed init",
@@ -2457,8 +2491,70 @@ def _profile_serving_buckets(cfg, model, *, peaks: dict[str, float], top_k: int,
         return []
 
 
+def _handle_chaos(args: argparse.Namespace) -> int:
+    """Seeded kill/resume drill over real ``train`` subprocesses (JAX's
+    ``_handle_chaos``). Exit 0 only when every cycle's invariants held AND
+    the final trajectory is bitwise-identical to the uninterrupted
+    reference; 1 when the crash-consistency contract broke; 2 for config
+    problems."""
+    from .utils.logging import configure_logging, get_logger
+
+    cfg, code = _load_config(args.config)
+    if cfg is None:
+        return code
+    if args.cycles < 1:
+        _emit_error("--cycles must be >= 1")
+        return EXIT_CONFIG_ERROR
+    configure_logging(level=cfg.logging.level, json_output=cfg.logging.json_output)
+    logger = get_logger()
+    from .resilience.chaos import ChaosInvariantError, run_chaos
+
+    try:
+        result = run_chaos(
+            args.config,
+            cycles=args.cycles,
+            seed=args.seed,
+            max_steps=args.max_steps,
+            save_every=args.save_every,
+            work_dir=args.work_dir,
+            timeout_sec=args.timeout_sec,
+        )
+    except ChaosInvariantError as exc:
+        logger.error("chaos drill FAILED: %s", exc)
+        _emit_error(f"chaos invariant violated: {exc}")
+        return EXIT_FAILURE
+    except Exception as exc:  # noqa: BLE001 — CLI boundary
+        logger.exception("chaos drill errored: %s", exc)
+        _emit_error(f"chaos drill errored: {exc}")
+        return exit_code_for_exception(exc)
+    if args.json:
+        print(json.dumps(result))
+    else:
+        print(
+            f"chaos drill passed: {result['kills_delivered']} kill(s) "
+            f"(incl. {result['kill_during_checkpoint_cycles']} inside a "
+            f"checkpoint write) over {result['max_steps']} steps; "
+            f"{result['trajectory_points_compared']} trajectory point(s) and "
+            f"the final checkpoint are bitwise-identical to the "
+            f"uninterrupted reference (final_loss="
+            f"{result['final_loss']}); artifacts in {result['work_dir']}"
+        )
+        if result.get("goodput"):
+            gp = result["goodput"]
+            print(
+                f"goodput: {gp['goodput_frac']:.4f} of {gp['wall_clock_sec']}s "
+                f"wall-clock across {gp['num_segments']} segment(s) "
+                f"(recomputed {gp['categories']['recomputed']}s, "
+                f"restart_overhead {gp['categories']['restart_overhead']}s) — "
+                "full ledger via `llmtrain goodput --run-dir "
+                f"{result['work_dir']}/runs/chaos`"
+            )
+    return EXIT_OK
+
+
 _HANDLERS = {
     "train": _handle_train,
+    "chaos": _handle_chaos,
     "generate": _handle_generate,
     "serve": _handle_serve,
     "serve-bench": _handle_serve_bench,

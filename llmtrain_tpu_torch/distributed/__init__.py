@@ -29,6 +29,7 @@ went away :class:`ConnectionError`, so the CLI's exit-code walk gives 75
 from __future__ import annotations
 
 import os
+import time
 from contextlib import contextmanager
 from dataclasses import dataclass
 from datetime import timedelta
@@ -237,12 +238,24 @@ def _collective_device() -> torch.device:
     return torch.device("cpu")
 
 
+# Host seconds this process spent inside collective calls (blocked waiting
+# for its peers, on gloo), for the straggler telemetry's net step time.
+_COLLECTIVE_WAIT_SEC = [0.0]
+
+
+def collective_wait_seconds() -> float:
+    """Host seconds spent inside collective calls so far (process-wide)."""
+    return _COLLECTIVE_WAIT_SEC[0]
+
+
 @contextmanager
 def collective_errors() -> Iterator[None]:
     """Re-raise a collective's timeout as :class:`TimeoutError` and a lost
-    peer as :class:`ConnectionError` (exit 75 in the CLI's walk)."""
+    peer as :class:`ConnectionError` (exit 75 in the CLI's walk). The time
+    inside adds to :func:`collective_wait_seconds`."""
     import torch.distributed as dist
 
+    t0 = time.perf_counter()
     try:
         yield
     except (dist.DistError, RuntimeError) as exc:
@@ -253,6 +266,8 @@ def collective_errors() -> Iterator[None]:
                                    "broken pipe")):
             raise ConnectionError(f"collective lost a peer: {exc}") from exc
         raise
+    finally:
+        _COLLECTIVE_WAIT_SEC[0] += time.perf_counter() - t0
 
 
 def allgather_any(flag: bool) -> bool:
@@ -312,6 +327,7 @@ __all__ = [
     "barrier",
     "broadcast_int_from_main",
     "collective_errors",
+    "collective_wait_seconds",
     "resolve_device",
     "resolve_topology",
     "setup_distributed",

@@ -111,6 +111,44 @@ _INIT_STD = 0.02
 DECODE_ROWS = 64
 
 
+class _DeterministicEmbedding(torch.autograd.Function):
+    """``F.embedding`` whose backward runs under torch's deterministic
+    algorithms: aten's CUDA embedding backward otherwise accumulates the
+    rows of repeated ids with atomics, so two runs of one step differ in
+    the table's gradient (tools/grad_determinism.py), and a resumed run
+    could not repeat the bits of an uninterrupted one. Only this op's
+    backward runs in the mode; the rest of the step keeps torch's
+    defaults."""
+
+    @staticmethod
+    def forward(ctx, ids: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(ids)
+        ctx.num_weights = weight.shape[0]
+        return F.embedding(ids, weight)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (ids,) = ctx.saved_tensors
+        enabled = torch.are_deterministic_algorithms_enabled()
+        warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+        torch.use_deterministic_algorithms(True)
+        try:
+            grad_weight = torch.ops.aten.embedding_dense_backward(
+                grad, ids, ctx.num_weights, -1, False)
+        finally:
+            torch.use_deterministic_algorithms(enabled, warn_only=warn_only)
+        return None, grad_weight
+
+
+def embed(ids: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` of ``weight``: ``F.embedding``, with a backward that
+    gives the same bits on every run on the card
+    (:class:`_DeterministicEmbedding`); elsewhere aten's own."""
+    if weight.is_cuda and weight.requires_grad and torch.is_grad_enabled():
+        return _DeterministicEmbedding.apply(ids, weight)
+    return F.embedding(ids, weight)
+
+
 def apply_dropout(x: torch.Tensor, rate: float, deterministic: bool,
                   generator: torch.Generator | None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability 1 - rate and scale the
@@ -717,8 +755,8 @@ class GPT(nn.Module):
             return self.decode_forward(input_ids, positions.expand(batch, seqlen),
                                        lambda layer: cache.layers[layer].write_read)
         pos = torch.arange(seqlen, device=input_ids.device)
-        x = (F.embedding(input_ids, dequantized(self.token_embedding.weight)).to(self.dtype)
-             + F.embedding(pos, dequantized(self.position_embedding.weight)).to(self.dtype)[None])
+        x = (embed(input_ids, dequantized(self.token_embedding.weight)).to(self.dtype)
+             + embed(pos, dequantized(self.position_embedding.weight)).to(self.dtype)[None])
         x = apply_dropout(x, self.dropout, deterministic, generator)
         for block in self.blocks:
             x = block(x, attention_mask, deterministic=deterministic, generator=generator)

@@ -1,7 +1,16 @@
-"""Fault-tolerance layer (port of ``llmtrain_tpu/resilience/``): so far the
-exit-code taxonomy and the backoff retry. The non-finite guard lives in
-the trainer; spike rollback, fault injection, the watchdog, elastic
-resume and the chaos harness wait for ROADMAP.md queue A: resilience."""
+"""Fault-tolerance layer (port of ``llmtrain_tpu/resilience/``): the
+non-finite guard on the device, loss-spike rollback, fault injection,
+full-jitter retry, the hang watchdog with its heartbeat and straggler
+telemetry, the exit-code taxonomy, elastic topology-change validation
+(``elastic.py``), and the seeded chaos-recovery harness (``chaos.py``,
+``llmtrain_tpu_torch chaos``), with JAX's ``__all__``.
+
+Wired through config (``resilience:`` section), the train step, the
+trainer loop, the checkpoint manager (asynchronous writes, the atomic
+commit, ``before_step`` selection for the rollback) and the CLI's exit
+codes, with every recovery path exercised end to end by the
+config-driven fault-injection plan.
+"""
 
 from .exit_codes import (
     EXIT_CONFIG_ERROR,
@@ -14,7 +23,21 @@ from .exit_codes import (
     exit_code_for_exception,
     is_retryable,
 )
-from .faults import retry, retry_rng
+from .elastic import (
+    TopologyMismatchError,
+    classify_topology_change,
+    describe_topology,
+    resume_batch_index,
+)
+from .faults import FaultPlan, InjectedFault, retry, retry_rng
+from .guard import NonFiniteLossError, tree_all_finite
+from .spike import LossSpikeDetector, RollbackBudgetExceededError
+from .watchdog import (
+    HangWatchdog,
+    ProgressBeacon,
+    StragglerTracker,
+    heartbeat_age_seconds,
+)
 
 __all__ = [
     "EXIT_CONFIG_ERROR",
@@ -22,10 +45,24 @@ __all__ = [
     "EXIT_OK",
     "EXIT_RETRYABLE_INFRA",
     "EXIT_TRAIN_FAILURE",
+    "FaultPlan",
+    "HangWatchdog",
+    "InjectedFault",
+    "LossSpikeDetector",
+    "NonFiniteLossError",
+    "ProgressBeacon",
     "RETRYABLE_EXIT_CODES",
     "RetryableInfraError",
+    "RollbackBudgetExceededError",
+    "StragglerTracker",
+    "TopologyMismatchError",
+    "classify_topology_change",
+    "describe_topology",
     "exit_code_for_exception",
+    "heartbeat_age_seconds",
     "is_retryable",
+    "resume_batch_index",
     "retry",
     "retry_rng",
+    "tree_all_finite",
 ]

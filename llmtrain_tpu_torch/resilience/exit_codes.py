@@ -80,17 +80,19 @@ def exit_code_for_exception(exc: BaseException) -> int:
 
     The port's own convention comes first: a ``NotImplementedError``
     anywhere in the chain is a refusal of a feature not yet ported, a
-    config error (2). Then JAX's three walks over the classes the port
-    has: an incompatible topology (2), a deterministic divergence (1),
-    a transient cause (75). Unknown exceptions are fatal (1).
+    config error (2). Then JAX's three walks: an incompatible topology
+    (2), a deterministic divergence or an exhausted rollback budget (1),
+    a transient cause or an injected infra fault (75). Unknown exceptions
+    are fatal (1).
 
-    JAX also classifies ``MeshPlanError`` (2, autotune),
-    ``RollbackBudgetExceededError`` (1, spike rollback) and
-    ``InjectedFault`` (75, fault injection); the ROADMAP.md queue A items
-    that port those modules (autotune, resilience) add them here.
+    JAX also classifies ``MeshPlanError`` (2, autotune); the ROADMAP.md
+    queue A item that ports it (autotune) adds it here.
     """
-    # Local import, as JAX's: the trainer module pulls in torch.
-    from ..training.trainer import NonFiniteLossError, TopologyMismatchError
+    # Local imports, as JAX's: the constants load without the classes.
+    from .elastic import TopologyMismatchError
+    from .faults import InjectedFault
+    from .guard import NonFiniteLossError
+    from .spike import RollbackBudgetExceededError
 
     chain = list(_exception_chain(exc))
     if any(isinstance(node, NotImplementedError) for node in chain):
@@ -98,9 +100,10 @@ def exit_code_for_exception(exc: BaseException) -> int:
     if any(isinstance(node, TopologyMismatchError) for node in chain):
         return EXIT_CONFIG_ERROR
     # Deterministic divergence beats any wrapped transient error.
-    if any(isinstance(node, NonFiniteLossError) for node in chain):
+    if any(isinstance(node, (NonFiniteLossError, RollbackBudgetExceededError))
+           for node in chain):
         return EXIT_TRAIN_FAILURE
-    if any(isinstance(node, _RETRYABLE_TYPES) for node in chain):
+    if any(isinstance(node, (*_RETRYABLE_TYPES, InjectedFault)) for node in chain):
         return EXIT_RETRYABLE_INFRA
     return EXIT_TRAIN_FAILURE
 

@@ -20,9 +20,15 @@ size and digest. This module reads that layout without flax:
 
 Write side: :meth:`CheckpointManager.save_host` stages the payload and
 its sidecar (tmp write, fsync, rename), then publishes the manifest by
-atomic rename (the commit point), then prunes to the last k steps (never
-the newest verified one), sweeping dead stages and adopting complete
-unmanifested payloads as JAX does. :func:`msgpack_serialize` writes
+atomic rename (the commit point), tells the ``on_commit`` observer, then
+prunes to the last k steps (never the newest verified one), sweeping dead
+stages and adopting complete unmanifested payloads as JAX does.
+:meth:`CheckpointManager.save_host_async` runs it on a daemon thread, one
+write in flight, as JAX's does: the caller has already gathered an owned
+host copy of the state (the trainer's ``host_state``), so msgpack,
+sha-256, fsync and the publish overlap the next steps; ``poll``,
+``wait_pending(timeout)`` and ``close(timeout)`` surface its failure, and
+bound the drain on abort paths. :func:`msgpack_serialize` writes
 flax's msgpack layout without flax, and the params go back to flax names
 and shapes (interop/flax_params.py), so the JAX package's
 ``CheckpointManager.load`` and ``load_inference_params`` read what the
@@ -30,9 +36,10 @@ port writes. ``opt_state`` carries the port's own layout
 (training/optimizer.py), except the EMA shadow, which is stored as JAX
 stores it: the param tree in flax names and shapes under
 ``__param_ema__`` (:func:`opt_state_to_host`), so either package's
-``--ema`` reads the other's shadow (:func:`ema_from_payload`). Saves
-are synchronous (JAX overlaps the write with the next steps on a thread). Selection on the read path
-(:meth:`CheckpointManager.latest_valid_checkpoint`) writes nothing.
+``--ema`` reads the other's shadow (:func:`ema_from_payload`). Selection
+(:meth:`CheckpointManager.latest_valid_checkpoint`, ``before_step`` for the
+spike rollback's restore point) is JAX's, adoption of a manifest-less
+payload included.
 """
 
 from __future__ import annotations
@@ -41,8 +48,10 @@ import hashlib
 import json
 import os
 import re
+from concurrent.futures import Future
+from concurrent.futures import TimeoutError as FuturesTimeoutError
 from pathlib import Path
-from typing import Any
+from typing import Any, Callable
 
 import msgpack
 import numpy as np
@@ -251,12 +260,28 @@ def _verify_file(path: Path) -> bool:
 
 
 class CheckpointManager:
-    """A checkpoint directory in the JAX layout: save with the atomic
-    commit protocol, prune, select and load."""
+    """A checkpoint directory in the JAX layout: save (synchronously or on
+    a writer thread) with the atomic commit protocol, prune, select and
+    load."""
 
-    def __init__(self, directory: str | Path, *, keep_last_k: int = 3) -> None:
+    def __init__(
+        self,
+        directory: str | Path,
+        *,
+        keep_last_k: int = 3,
+        on_commit: Callable[[int, Path], None] | None = None,
+    ) -> None:
         self._dir = Path(directory)
         self._keep_last_k = max(1, keep_last_k)
+        self._pending: Future | None = None  # the in-flight async write
+        self._writer: Any = None  # its thread
+        # Commit observer: called (step, manifest_path) right after the
+        # manifest rename lands — from the WRITER thread on async saves, so
+        # consumers must be thread-safe (the telemetry registry is).
+        self.on_commit = on_commit
+        # Verification results keyed by (path, size, mtime_ns): pruning and
+        # rollback re-verify the same unchanged files every save.
+        self._verify_cache: dict[tuple[str, int, int], bool] = {}
 
     @property
     def directory(self) -> Path:
@@ -270,11 +295,14 @@ class CheckpointManager:
         *,
         resilience: dict[str, Any] | None = None,
         manifest_extra: dict[str, Any] | None = None,
+        inject_kill: bool = False,
     ) -> Path:
         """Stage and atomically commit one step: payload, then sidecar
         (each tmp write → fsync → rename), then the manifest publish, which
-        is the commit point; then prune. ``host_state`` holds ``params``
-        (flax tree) and ``opt_state``."""
+        is the commit point; then the ``on_commit`` observer, then prune.
+        ``host_state`` holds ``params`` (flax tree) and ``opt_state``.
+        ``inject_kill`` (``faults.kill_during_checkpoint``) SIGKILLs the
+        process between the staged files and the manifest publish."""
         import yaml
 
         self._dir.mkdir(parents=True, exist_ok=True)
@@ -290,8 +318,9 @@ class CheckpointManager:
         target = self._dir / f"step_{step:06d}.ckpt"
         blob = msgpack_serialize(payload)
         digest = hashlib.sha256(blob).hexdigest()
-        # Re-saving a step: withdraw the old one, payload first, so a crash
-        # mid-rewrite leaves the step unselectable rather than mixed.
+        # Re-saving a step (rollback replay): withdraw the old one, payload
+        # first, so a crash mid-rewrite leaves the step unselectable rather
+        # than mixed.
         target.unlink(missing_ok=True)
         sidecar_path(target).unlink(missing_ok=True)
         manifest_path(target).unlink(missing_ok=True)
@@ -304,11 +333,130 @@ class CheckpointManager:
         side_tmp.write_text(f"{digest}  {target.name}\n", encoding="utf-8")
         _fsync_file(side_tmp)
         side_tmp.replace(side)
+        if inject_kill:
+            import signal
+
+            from ..utils.logging import get_logger
+
+            get_logger().warning(
+                "fault injection: SIGKILL inside the checkpoint write at "
+                "step %d (staged files present, manifest NOT published)",
+                step,
+            )
+            os.kill(os.getpid(), signal.SIGKILL)
         self._publish_manifest(
             target, [(target.name, len(blob), digest), _file_entry(side)], manifest_extra
         )
+        stat = target.stat()
+        self._verify_cache[(str(target), stat.st_size, stat.st_mtime_ns)] = True
+        self._verify_cache[(str(manifest_path(target)), stat.st_size, stat.st_mtime_ns)] = True
+        if self.on_commit is not None:
+            try:
+                self.on_commit(step, manifest_path(target))
+            except Exception:  # noqa: BLE001 — the observer must not fail the save
+                pass
         self._prune()
         return target
+
+    def save_host_async(
+        self,
+        step: int,
+        host_state: dict[str, Any],
+        resolved_config: dict[str, Any],
+        *,
+        resilience: dict[str, Any] | None = None,
+        manifest_extra: dict[str, Any] | None = None,
+        inject_kill: bool = False,
+    ) -> None:
+        """Queue :meth:`save_host` on a background thread, one write in
+        flight: queueing first drains (and re-raises the error of) the
+        previous one. ``host_state`` must be owned by the caller and never
+        mutated afterwards (the trainer's ``host_state`` copies every
+        tensor off the device). A plain daemon thread + Future, not a
+        ThreadPoolExecutor, whose non-daemon workers are joined at exit: a
+        write wedged on dead storage must not hold the process after
+        ``close(timeout)`` abandoned it."""
+        import threading
+
+        self.wait_pending()
+        future: Future = Future()
+
+        def work() -> None:
+            # False: wait_pending cancelled the write before it started.
+            if not future.set_running_or_notify_cancel():
+                return
+            try:
+                future.set_result(self.save_host(
+                    step, host_state, resolved_config, resilience=resilience,
+                    manifest_extra=manifest_extra, inject_kill=inject_kill,
+                ))
+            except BaseException as exc:  # noqa: BLE001 — delivered via result()
+                future.set_exception(exc)
+
+        writer = threading.Thread(target=work, name="ckpt-write", daemon=True)
+        writer.start()
+        self._pending = future
+        self._writer = writer
+
+    def poll(self) -> None:
+        """Non-blocking failure check: re-raise the error of an async write
+        that has already finished with one (the trainer calls it at each
+        log boundary, so a failed write fails the run within an interval)."""
+        pending = self._pending
+        if pending is not None and pending.done():
+            self._pending = None
+            pending.result()
+
+    def wait_pending(self, timeout: float | None = None) -> bool:
+        """Block until the in-flight async write (if any) finishes and
+        re-raise its error. With a ``timeout``, give up after that many
+        seconds and return False, leaving the write in flight (a queued
+        write that has not started is withdrawn, with an error log).
+        Returns True when nothing is (any longer) pending."""
+        pending = self._pending
+        if pending is None:
+            return True
+        if timeout is not None and not pending.done() and pending.cancel():
+            from ..utils.logging import get_logger
+
+            get_logger().error(
+                "queued async checkpoint write cancelled before it started "
+                "(bounded drain); the newest on-disk checkpoint may be one "
+                "save behind"
+            )
+            self._pending = None
+            return True
+        self._pending = None
+        try:
+            pending.result(timeout)
+        except FuturesTimeoutError:
+            # Still running: keep it, so a later drain can see its outcome.
+            self._pending = pending
+            return False
+        finally:
+            if pending.done() and self._writer is not None:
+                # The writer returns right after delivering its result: let
+                # it finish, so no thread of it outlives a drained manager.
+                self._writer.join()
+                self._writer = None
+        return True
+
+    def close(self, timeout: float | None = None) -> None:
+        """Drain the pending write. A ``timeout`` bounds the drain: on
+        expiry the write is ABANDONED (logged as an error; the daemon
+        writer thread cannot block process exit)."""
+        try:
+            if not self.wait_pending(timeout):
+                from ..utils.logging import get_logger
+
+                get_logger().error(
+                    "async checkpoint write still in flight after %.1fs; "
+                    "abandoning it (the newest on-disk checkpoint may be one "
+                    "save behind)",
+                    timeout,
+                )
+        finally:
+            self._pending = None
 
     def _publish_manifest(
         self,
@@ -345,7 +493,7 @@ class CheckpointManager:
         doomed = ckpts[: -self._keep_last_k]
         if not doomed:
             return
-        newest_valid = next((p for p in reversed(ckpts) if _verify_file(p)), None)
+        newest_valid = next((p for p in reversed(ckpts) if self.verify(p)), None)
         for path in doomed:
             if path == newest_valid:
                 continue
@@ -377,13 +525,16 @@ class CheckpointManager:
             m = _STEP_RE.match(path.name)
             if not m or int(m.group(1)) in manifested:
                 continue
-            if _verify_file(path):
-                self.synthesize_manifest(path)
-                get_logger().warning(
-                    "adopted unmanifested checkpoint %s (complete payload whose commit "
-                    "was interrupted): synthesized its manifest",
-                    path.name,
-                )
+            if self.verify(path):
+                try:
+                    self.synthesize_manifest(path)
+                    get_logger().warning(
+                        "adopted unmanifested checkpoint %s (complete payload whose "
+                        "commit was interrupted): synthesized its manifest",
+                        path.name,
+                    )
+                except OSError:
+                    pass
             else:
                 get_logger().warning(
                     "garbage-collecting torn uncommitted checkpoint stage %s", path.name
@@ -427,18 +578,58 @@ class CheckpointManager:
         ]
         return [p for _, p in sorted(found)]
 
-    def verify_manifest(self, ckpt: str | Path) -> bool:
-        manifest = read_manifest(Path(ckpt))
-        return manifest is not None and _manifest_files_ok(self._dir, manifest)
+    def verify(self, path: str | Path) -> bool:
+        """True when ``path`` is a restorable checkpoint: its sha-256
+        sidecar digest matches, or without a sidecar it deep-parses.
+        Cached by (path, size, mtime_ns)."""
+        path = Path(path)
+        try:
+            stat = path.stat()
+        except OSError:
+            return False
+        key = (str(path), stat.st_size, stat.st_mtime_ns)
+        cached = self._verify_cache.get(key)
+        if cached is None:
+            cached = self._verify_cache[key] = _verify_file(path)
+        return cached
 
-    def latest_valid_checkpoint(self) -> Path | None:
+    def verify_manifest(self, ckpt: str | Path) -> bool:
+        """True when ``ckpt``'s commit manifest exists and every listed
+        file is present with its recorded size and digest. Cached by the
+        payload's (size, mtime_ns) under the manifest's path."""
+        ckpt = Path(ckpt)
+        manifest = read_manifest(ckpt)
+        if manifest is None:
+            return False
+        try:
+            stat = ckpt.stat()
+        except OSError:
+            return False
+        key = (str(manifest_path(ckpt)), stat.st_size, stat.st_mtime_ns)
+        cached = self._verify_cache.get(key)
+        if cached is None:
+            cached = self._verify_cache[key] = _manifest_files_ok(self._dir, manifest)
+        return cached
+
+    def latest_valid_checkpoint(self, *, before_step: int | None = None) -> Path | None:
         """Newest committed checkpoint whose manifest verifies, scanning
         back past damaged steps (each skip warns); directories without
-        manifests fall back to per-file verification; when nothing
-        verifies, the plain newest (whose load then fails precisely)."""
+        manifests fall back to per-file verification, and the payload
+        picked there gets a manifest synthesized in place (JAX's
+        migration); when nothing verifies, the plain newest (whose load
+        then fails precisely).
+        ``before_step`` (the spike rollback) only considers steps saved
+        strictly before it, and then None means nothing is restorable."""
         from ..utils.logging import get_logger
 
-        for path in reversed(self.all_manifests()):
+        def step_of(p: Path) -> int:
+            return int(_STEP_RE.match(p.name).group(1))
+
+        manifests = self.all_manifests()
+        candidates = manifests
+        if before_step is not None:
+            candidates = [p for p in manifests if step_of(p) < before_step]
+        for path in reversed(candidates):
             if self.verify_manifest(path):
                 return path
             get_logger().warning(
@@ -446,15 +637,30 @@ class CheckpointManager:
                 "commit manifest; falling back to the previous one",
                 path,
             )
+        if manifests and before_step is not None:
+            return None
+        # Every committed step is damaged (or none exists): the per-file scan.
         ckpts = self.all_checkpoints()
+        if before_step is not None:
+            ckpts = [p for p in ckpts if step_of(p) < before_step]
         for path in reversed(ckpts):
-            if _verify_file(path):
+            if self.verify(path):
+                if read_manifest(path) is None:
+                    # Adopt the pre-manifest (or interrupted-commit) payload,
+                    # as JAX does, so later scans see a committed step;
+                    # best-effort: a read-only directory still resolves.
+                    try:
+                        self.synthesize_manifest(path)
+                    except OSError:
+                        pass
                 return path
             get_logger().warning(
                 "checkpoint %s failed integrity verification; "
                 "falling back to the previous one",
                 path,
             )
+        if before_step is not None:
+            return None
         return ckpts[-1] if ckpts else None
 
     @staticmethod

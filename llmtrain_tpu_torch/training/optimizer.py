@@ -26,6 +26,14 @@ updates applied before this one (0 for the first). The rules
 * ``lion`` (optax ``lion(b1=0.9, b2=0.99, wd)``): ``u = sign(b1 mu +
   (1 - b1) g)``, ``mu = b2 mu + (1 - b2) g``, ``p = p - lr * (u + wd * p)``.
 
+Under the non-finite guard (``step(grads, apply=flag)``, the flag a device
+bool) every write of an update is a device-side select between the new
+value and the old one, so a skipped update leaves the parameters, the
+moments and the EMA bit-identical with no host read in the step; the
+update count (which the schedule and the bias corrections read on the
+host) then advances by the flag, read once, at the start of the next
+update, when the device has long computed it (:meth:`_Optimizer.settle`).
+
 ``trainer.extra.ema_decay`` (JAX ``_param_ema``, chained last) keeps an f32
 shadow ``ema = d * ema + (1 - d) * p`` of the updated parameters; it never
 changes an update. A (1 - d) step is below bf16's resolution, so the
@@ -106,8 +114,10 @@ def _host(tensors: list[torch.Tensor], names: list[str]) -> dict[str, Any]:
 
 
 def _host_one(t: torch.Tensor) -> Any:
-    t = t.detach().cpu()
-    return t.clone() if t.dtype == torch.bfloat16 else t.numpy()
+    """An owned host copy (one copy, on or off the card): a checkpoint
+    written on a thread must not see the next update's in-place writes."""
+    t = t.detach().to("cpu", copy=True)
+    return t if t.dtype == torch.bfloat16 else t.numpy()
 
 
 def _as_tensor(x: Any) -> torch.Tensor:
@@ -134,19 +144,63 @@ class _Optimizer:
         self.max_norm = float(cfg.max_grad_norm)
         self.weight_decay = float(cfg.weight_decay)
         self.schedule = lr_schedule(cfg)
-        self.count = 0
+        self._count = 0
         self.ema_decay = ema_decay_of(cfg)
         self.ema: list[torch.Tensor] | None = None
         if self.ema_decay is not None:
             self.ema = [p.detach().float().clone() for p in self.params]
+        # The guard's flag of the last update, not yet folded into count.
+        self._pending: torch.Tensor | None = None
+        self._apply: torch.Tensor | None = None
 
     def _update(self, grads: Iterator[torch.Tensor], lr: float) -> None:
-        """Apply the rule to the clipped gradients (in parameter order)."""
+        """Apply the rule to the clipped gradients (in parameter order),
+        writing through :meth:`_put` and :meth:`_add`."""
         raise NotImplementedError
 
+    def _put(self, dst: torch.Tensor, value: torch.Tensor) -> None:
+        """``dst = value``, or under the guard's flag the old ``dst`` where
+        the flag is false (selected into ``dst`` in one launch when the
+        dtypes agree)."""
+        if self._apply is None:
+            dst.copy_(value)
+        elif value.dtype == dst.dtype:
+            torch.where(self._apply, value, dst, out=dst)
+        else:
+            dst.copy_(torch.where(self._apply, value, dst))
+
+    def _add(self, dst: torch.Tensor, inc: torch.Tensor) -> None:
+        """``dst += inc``, under the guard's flag as :meth:`_put`."""
+        if self._apply is None:
+            dst.add_(inc)
+        else:
+            self._put(dst, dst + inc)
+
+    @property
+    def count(self) -> int:
+        """Updates applied so far (optax's count): reading it folds in the
+        last guarded update's flag (:meth:`settle`)."""
+        self.settle()
+        return self._count
+
+    @count.setter
+    def count(self, value: int) -> None:
+        self._pending = None
+        self._count = int(value)
+
+    def settle(self) -> None:
+        """Fold the last guarded update's flag into the count (one host
+        read of a device bool, long computed by the time it is called)."""
+        if self._pending is not None:
+            pending, self._pending = self._pending, None
+            self._count += int(pending)
+
     @torch.no_grad()
-    def step(self, grads: list[torch.Tensor]) -> None:
-        """One update from ``grads`` (one per parameter, in order)."""
+    def step(self, grads: list[torch.Tensor], apply: torch.Tensor | None = None) -> None:
+        """One update from ``grads`` (one per parameter, in order). With
+        ``apply`` (the non-finite guard's device bool) the update is kept
+        only where it is true, and ``count`` advances by it."""
+        self.settle()
         g_norm = global_norm(grads)
         trigger = g_norm < self.max_norm
         one = torch.ones((), dtype=torch.float32, device=g_norm.device)
@@ -154,14 +208,28 @@ class _Optimizer:
         div = torch.where(trigger, one, g_norm)
         mul = torch.where(trigger, one, torch.full_like(one, self.max_norm))
         clipped = ((g / div.to(g.dtype)) * mul.to(g.dtype) for g in grads)
-        self._update(clipped, self.schedule(self.count))
-        self.count += 1
-        if self.ema is not None:
-            # d * ema + (1 - d) * p, as multi-tensor ops (a few launches for
-            # all the parameters).
-            torch._foreach_mul_(self.ema, self.ema_decay)
-            torch._foreach_add_(self.ema, [p.float() for p in self.params],
-                                alpha=1.0 - self.ema_decay)
+        self._apply = apply
+        try:
+            self._update(clipped, self.schedule(self.count))
+            if self.ema is not None:
+                # d * ema + (1 - d) * p, as multi-tensor ops (a few launches
+                # for all the parameters).
+                if apply is None:
+                    torch._foreach_mul_(self.ema, self.ema_decay)
+                    torch._foreach_add_(self.ema, [p.float() for p in self.params],
+                                        alpha=1.0 - self.ema_decay)
+                else:
+                    new = torch._foreach_mul(self.ema, self.ema_decay)
+                    torch._foreach_add_(new, [p.float() for p in self.params],
+                                        alpha=1.0 - self.ema_decay)
+                    for e, n in zip(self.ema, new):
+                        self._put(e, n)
+        finally:
+            self._apply = None
+        if apply is None:
+            self._count += 1
+        else:
+            self._pending = apply
 
     def state_tensors(self) -> Iterator[torch.Tensor]:
         """Every tensor of the optimizer's state (moments, factored
@@ -218,11 +286,11 @@ class AdamW(_Optimizer):
         bc1 = float(1 - np.float32(_B1) ** np.float32(t))
         bc2 = float(1 - np.float32(_B2) ** np.float32(t))
         for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
-            mu.copy_((1 - _B1) * g + _B1 * mu)
-            nu.copy_((1 - _B2) * (g * g) + _B2 * nu)
+            self._put(mu, (1 - _B1) * g + _B1 * mu)
+            self._put(nu, (1 - _B2) * (g * g) + _B2 * nu)
             u = (mu / bc1) / (torch.sqrt(nu / bc2) + _EPS)
             u = u + self.weight_decay * p
-            p.add_((-lr) * u)
+            self._add(p, (-lr) * u)
 
     def _state(self):
         return {"mu": _host(self.mu, self.names), "nu": _host(self.nu, self.names)}
@@ -244,9 +312,9 @@ class Lion(_Optimizer):
     def _update(self, grads, lr):
         for p, g, mu in zip(self.params, grads, self.mu):
             u = torch.sign((1.0 - _LION_B1) * g + _LION_B1 * mu)
-            mu.copy_((1 - _LION_B2) * g + _LION_B2 * mu)
+            self._put(mu, (1 - _LION_B2) * g + _LION_B2 * mu)
             u = u + self.weight_decay * p
-            p.add_((-lr) * u)
+            self._add(p, (-lr) * u)
 
     def _state(self):
         return {"mu": _host(self.mu, self.names)}
@@ -303,13 +371,13 @@ class Adafactor(_Optimizer):
             g_sq = gv * gv + _AF_EPS
             if dims is None:
                 v = self.v[i]
-                v.copy_(keep * v.float() + add * g_sq)
+                self._put(v, keep * v.float() + add * g_sq)
                 u = gv * v.float() ** -0.5
             else:
                 d1, d0 = dims
                 vr, vc = self.v_row[i], self.v_col[i]
-                vr.copy_(keep * vr.float() + add * g_sq.mean(dim=d0))
-                vc.copy_(keep * vc.float() + add * g_sq.mean(dim=d1))
+                self._put(vr, keep * vr.float() + add * g_sq.mean(dim=d0))
+                self._put(vc, keep * vc.float() + add * g_sq.mean(dim=d1))
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
                 row_col_mean = vr.float().mean(dim=reduced_d1, keepdim=True)
                 row_factor = (vr.float() / row_col_mean) ** -0.5
@@ -321,7 +389,7 @@ class Adafactor(_Optimizer):
             pv = view(p)
             if self.weight_decay:
                 u = u - float(np.float32(lr) * np.float32(self.weight_decay)) * pv.float()
-            pv.add_(u.to(p.dtype))
+            self._add(pv, u.to(p.dtype))
 
     def _state(self):
         def pick(store: dict[int, torch.Tensor]) -> dict[str, Any]:

@@ -17,14 +17,23 @@ step eagerly:
   the same decision. With one rank the arithmetic is that of the
   single-process step, all-reduce included;
 * dropout draws from a ``torch.Generator`` seeded by ``(seed, step,
-  micro-batch)``, with the rank folded in past rank 0, so resume
-  reproduces the stream without saving generator state and ranks do not
-  share masks (JAX folds the same pair into its run key; the two
-  frameworks draw different bits from the same seed);
-* ``nonfinite_guard``: a step whose loss or gradients are not all finite
-  leaves the parameters and optimizer state as they were, still advances
-  ``step`` (the sampler moves past the bad batch), and bumps the
-  consecutive-skip counter the trainer aborts on.
+  micro-batch)``, with the rank folded in past rank 0 and the spike
+  rollbacks so far after any, so resume reproduces the stream without
+  saving generator state, ranks do not share masks, and replayed steps
+  draw fresh streams (JAX folds the same pair, and the rollback count,
+  into its run key; the two frameworks draw different bits from the same
+  seed);
+* ``nonfinite_guard``: one flag on the device over the loss and every
+  gradient (``resilience/guard.py``); the optimizer applies the update
+  under it (``training/optimizer.py``), so a step whose loss or gradients
+  are not all finite leaves the parameters and optimizer state as they
+  were with no host read in the step, still advances ``step`` (the
+  sampler moves past the bad batch), and bumps the device-side
+  consecutive-skip counter the trainer reads at log boundaries;
+* ``inject_nan_window=(first, n)`` (``resilience.faults.nan_loss_at_step``)
+  poisons the loss and the gradients of optimizer steps ``first ..
+  first+n-1`` with NaN inside the step, so the guard's recovery runs on
+  the real path.
 
 Metrics stay device tensors; the trainer reads them at log boundaries.
 """
@@ -51,16 +60,18 @@ class TrainState:
     step: int
     model: torch.nn.Module
     optimizer: _Optimizer
-    nonfinite_count: int | None = None
+    nonfinite_count: torch.Tensor | None = None
 
 
 def dropout_generator(seed: int, step: int, micro: int, device: torch.device,
-                      rank: int = 0) -> torch.Generator:
+                      rank: int = 0, rollbacks: int = 0) -> torch.Generator:
     """The dropout stream of micro-batch ``micro`` of optimizer step
     ``step`` (0-based count of completed steps) on data-parallel rank
-    ``rank``, a pure function of the four (rank 0's is the one-process
-    stream)."""
-    keys = [seed & 0xFFFFFFFF, step, micro] + ([rank] if rank else [])
+    ``rank`` after ``rollbacks`` spike rollbacks, a pure function of the
+    five (rank 0's with no rollback is the one-process stream; a rollback
+    count appends the rank too, so no two tuples coincide)."""
+    keys = [seed & 0xFFFFFFFF, step, micro] + ([rank] if rank or rollbacks else [])
+    keys += [rollbacks] if rollbacks else []
     entropy = np.random.SeedSequence(keys).generate_state(1)[0]
     if device.type == "meta":
         # The cost count (telemetry/profiling.py): a meta draw reads no
@@ -155,19 +166,22 @@ def make_train_step(
     use_dropout: bool,
     seed: int,
     nonfinite_guard: bool = False,
+    inject_nan_window: tuple[int, int] | None = None,
     data_parallel: bool = False,
     rank: int = 0,
-) -> Callable[[TrainState, dict], dict]:
-    """The step: ``(state, batch(A, B, T)) -> metrics``, updating ``state``
-    in place. Metrics: ``loss`` (mean over micro-batches of their
-    token-weighted means, over the global micro-batch under
-    ``data_parallel``), this rank's ``per_example_loss_sum`` and
-    ``per_example_tokens`` (A, B), ``grad_norm``, and with the guard
-    ``nonfinite_count``."""
+) -> Callable[..., dict]:
+    """The step: ``(state, batch(A, B, T), rollbacks=0) -> metrics``,
+    updating ``state`` in place (``rollbacks``: the run's spike rollbacks
+    so far, folded into the dropout streams). Metrics: ``loss`` (mean over
+    micro-batches of their token-weighted means, over the global
+    micro-batch under ``data_parallel``), this rank's
+    ``per_example_loss_sum`` and ``per_example_tokens`` (A, B),
+    ``grad_norm``, and with the guard ``nonfinite_count`` (a device int32
+    scalar)."""
     loss_fn = make_loss_fn(adapter, model, use_dropout=use_dropout,
                            data_parallel=data_parallel)
 
-    def train_step(state: TrainState, batch: dict) -> dict[str, Any]:
+    def train_step(state: TrainState, batch: dict, rollbacks: int = 0) -> dict[str, Any]:
         params = state.optimizer.params
         for p in params:
             p.grad = None
@@ -176,7 +190,8 @@ def make_train_step(
             micro = {k: v[idx] for k, v in batch.items()}
             gen = None
             if use_dropout:
-                gen = dropout_generator(seed, state.step, idx, params[0].device, rank)
+                gen = dropout_generator(seed, state.step, idx, params[0].device, rank,
+                                        rollbacks)
             loss, (loss_sum, tokens) = loss_fn(micro, gen)
             loss.backward()
             losses.append(loss.detach())
@@ -190,6 +205,13 @@ def make_train_step(
             *summed, losses_t = all_reduce_coalesced([*summed, losses_t])
         grads = [g / grad_accum_steps for g in summed]
         del summed
+        if inject_nan_window is not None:
+            first, length = inject_nan_window
+            # The 1-based optimizer step being taken, a host int: the
+            # window is decided without reading the device.
+            if first <= state.step + 1 < first + length:
+                grads = [g * float("nan") for g in grads]
+                losses_t = losses_t * float("nan")
         metrics: dict[str, Any] = {
             "loss": losses_t.mean(),
             "per_example_loss_sum": torch.stack(loss_sums),
@@ -197,12 +219,14 @@ def make_train_step(
             "grad_norm": global_norm(grads),
         }
         if nonfinite_guard:
-            finite = bool(torch.isfinite(losses_t).all()) and all(
-                bool(torch.isfinite(g).all()) for g in grads
-            )
-            if finite:
-                state.optimizer.step(grads)
-            state.nonfinite_count = 0 if finite else (state.nonfinite_count or 0) + 1
+            from ..resilience.guard import tree_all_finite
+
+            finite = tree_all_finite(grads, losses_t)
+            state.optimizer.step(grads, apply=finite)
+            prev = state.nonfinite_count
+            if not isinstance(prev, torch.Tensor):
+                prev = torch.tensor(prev or 0, dtype=torch.int32, device=finite.device)
+            state.nonfinite_count = torch.where(finite, torch.zeros_like(prev), prev + 1)
             metrics["nonfinite_count"] = state.nonfinite_count
         else:
             state.optimizer.step(grads)

@@ -1,19 +1,45 @@
-"""Step-based trainer (port of the part of ``llmtrain_tpu/training/trainer.py``
-that training on one device, or data parallel over processes, reaches).
+"""Step-based trainer (port of ``llmtrain_tpu/training/trainer.py`` for one
+device, or data parallel over processes, one device each).
 
 Same loop as JAX: a 1-indexed step loop over batches from the
 deterministic sampler (assembled ahead by the prefetcher), gradient
 accumulation inside the step, interval metrics logged every
 ``log_every_steps`` (loss, lr, tokens/s, step time, MFU against the H100
 peak, data wait, host dispatch, peak device memory), token-weighted eval
-every ``eval_every_steps``, checkpoints through the manifest commit
-protocol every ``save_every_steps`` and at the last step, resume from a
-checkpoint with the config-mismatch warning and a topology check, and the
-non-finite guard with its consecutive-skip abort, and preemption: SIGTERM
-saves a checkpoint at the step it lands in and returns with
-``preempted=True``, so ``train --auto-resume`` continues from there.
-:meth:`Trainer.evaluate` runs the validation loop alone (``eval``), on the
-EMA shadow with ``use_ema``.
+every ``eval_every_steps``, checkpoints every ``save_every_steps`` and at
+the last step, resume from a checkpoint with the config-mismatch warning,
+and preemption: SIGTERM saves a checkpoint at the step it lands in and
+returns with ``preempted=True``, so ``train --auto-resume`` continues
+from there. :meth:`Trainer.evaluate` runs the validation loop alone
+(``eval``), on the EMA shadow with ``use_ema``.
+
+Fault tolerance (resilience/, wired at JAX's places):
+
+* the non-finite guard: one flag on the device over the loss and the
+  gradients, the update applied under it (no host read per tensor), the
+  consecutive-skip counter read at log boundaries and its cap
+  (:class:`NonFiniteLossError`, exit 1);
+* loss-spike rollback (:meth:`Trainer._maybe_rollback`): the interval's
+  host losses feed the detector; on a spike the newest verified
+  checkpoint saved before it is restored into the live model, optimizer
+  and EMA, the sampler skips the consumed window, the prefetcher reseeks,
+  replayed steps draw fresh dropout streams, and past ``max_rollbacks``
+  the run stops (``RollbackBudgetExceededError``, exit 1); several ranks
+  agree on the spike step and rank 0's target;
+* the fault plan (``resilience.faults``): NaN windows inside the step,
+  host-side spikes, SIGTERM, SIGKILL (in the loop or inside a checkpoint
+  write), hangs of the loop or the prefetcher, checkpoint corruption, and
+  failing dataset setups (``InjectedFault``, exit 75 past the retries),
+  each stamped on the timeline as a ``fault_*`` instant;
+* the hang watchdog and heartbeat (exit 76 with a hang report), armed
+  after the first dispatched step, and straggler telemetry over the
+  ranks at log boundaries;
+* checkpoints through the manifest commit protocol, written on the
+  manager's thread from an owned host copy (``checkpoint_save`` spans the
+  gather), a failed write surfacing at the next log boundary;
+* elastic resume: a checkpoint saved at another world size with the same
+  global micro-batch continues the saved trajectory (``elastic_reshard``);
+  any other topology change raises ``TopologyMismatchError`` (exit 2).
 
 Data parallel (a ``torch.distributed`` group formed by
 ``distributed.setup_distributed``, one process per device): each of the
@@ -24,10 +50,8 @@ rank 0 writes checkpoints, and the others wait at a barrier after each
 save; on resume rank 0 picks the checkpoint and broadcasts its step, so
 every rank restores the same file. SIGTERM to any rank stops every rank
 at the same step: the flags are OR-ed over the ranks at each log
-boundary. A resume at another world size (elastic resume) is refused.
-The dataset setup runs under the backoff retry, and
-``trainer.extra.profile_start_step`` traces a window of steps with
-``torch.profiler`` (:class:`_StepProfiler`).
+boundary. ``trainer.extra.profile_start_step`` traces a window of steps
+with ``torch.profiler`` (:class:`_StepProfiler`).
 
 Telemetry (telemetry/, the :class:`~..telemetry.Telemetry` facade) is
 wired as in JAX: the step loop's spans and instants land on the event
@@ -66,14 +90,25 @@ from ..data.sampler import DeterministicSampler
 from ..distributed import (
     active_state,
     allgather_any,
+    allgather_scalar,
     barrier,
     broadcast_int_from_main,
     collective_errors,
+    collective_wait_seconds,
     resolve_device,
 )
 from ..interop.flax_params import flax_params_to_state_dict, state_dict_to_flax_params
 from ..registry import get_data_module, get_model_adapter, initialize_registries
-from ..resilience.faults import retry, retry_rng
+from ..resilience.elastic import (
+    TopologyMismatchError,
+    classify_topology_change,
+    describe_topology,
+    resume_batch_index,
+)
+from ..resilience.faults import FaultPlan, retry, retry_rng
+from ..resilience.guard import NonFiniteLossError
+from ..resilience.spike import LossSpikeDetector, RollbackBudgetExceededError
+from ..resilience.watchdog import HangWatchdog, ProgressBeacon, StragglerTracker
 from ..telemetry import Telemetry
 from ..tracking.base import Tracker
 from ..utils.hw import mfu as compute_mfu
@@ -94,6 +129,10 @@ from .train_step import TrainState, make_eval_step, make_train_step
 logger = get_logger()
 
 _NOT_PORTED = "is not yet ported to llmtrain_tpu_torch"
+# Bound on the checkpoint drain of an abort path (an exception unwinding
+# the loop, the watchdog's hook): a write wedged on dead storage is
+# abandoned instead of holding the exit.
+_ABORT_DRAIN_TIMEOUT_SEC = 30.0
 _NO_EMA = ("no EMA state in the optimizer — train with trainer.extra.ema_decay to track "
            "shadow weights")
 
@@ -117,14 +156,6 @@ class TrainResult:
     rollbacks: int = 0
 
 
-class NonFiniteLossError(RuntimeError):
-    """Raised when the guard skipped too many consecutive updates."""
-
-
-class TopologyMismatchError(ValueError):
-    """The checkpoint's recorded batch layout differs from this run's."""
-
-
 def _mesh_refusal(cfg: RunConfig, world_size: int) -> str | None:
     """What of ``distributed.mesh`` the port cannot run: any axis but
     ``data`` larger than one device, or a ``data`` axis that is not the
@@ -143,13 +174,8 @@ def refuse_unported(cfg: RunConfig, world_size: int = 1) -> None:
     """Raise ``NotImplementedError`` for a config that switches on a part
     of the JAX trainer the port does not run yet (``world_size``: the
     processes of the data-parallel group, 1 without one)."""
-    res = cfg.resilience
     mesh = _mesh_refusal(cfg, world_size)
     checks = [
-        (res.spike_detection, "resilience.spike_detection (loss-spike rollback)", "resilience"),
-        (res.watchdog.enabled, "resilience.watchdog (hang watchdog)", "resilience"),
-        (res.faults.model_dump() != type(res.faults)().model_dump(),
-         "resilience.faults (fault injection)", "resilience"),
         (mesh is not None, mesh, "parallelism"),
         (cfg.trainer.zero.enabled, "trainer.zero (sharded optimizer state)", "parallelism"),
         (cfg.model.remat or cfg.model.extra.get("activation_tiers") is not None,
@@ -162,19 +188,18 @@ def refuse_unported(cfg: RunConfig, world_size: int = 1) -> None:
             raise NotImplementedError(f"{what} {_NOT_PORTED} (ROADMAP.md queue A: {item})")
 
 
-def _topology(cfg: RunConfig, world_size: int = 1) -> dict[str, Any]:
-    """The topology block every manifest records (JAX ``describe_topology``
-    for a mesh whose data axis spans the ``world_size`` processes, one
-    device each)."""
-    mesh = {k: (world_size if k == "data" else 1) for k in cfg.distributed.mesh.model_dump()}
-    return {
-        "mesh": mesh,
-        "data_parallel": world_size,
-        "global_micro_batch": int(cfg.trainer.micro_batch_size) * world_size,
-        "micro_batch_size": int(cfg.trainer.micro_batch_size),
-        "grad_accum_steps": int(cfg.trainer.grad_accum_steps),
-        "num_processes": world_size,
-    }
+def _commit_observer(telemetry: Telemetry):
+    """The checkpoint manager's commit observer (called on the writer
+    thread): one counter tick and one timeline instant per PUBLISHED
+    manifest. It holds the telemetry, not the trainer, so a finished
+    trainer and its device tensors are freed with their last reference
+    rather than by the cycle collector."""
+
+    def on_commit(step: int, manifest: Path) -> None:
+        telemetry.metrics.inc("checkpoint/commits")
+        telemetry.timeline.instant("checkpoint_commit", cat="ckpt", step=step)
+
+    return on_commit
 
 
 class Trainer:
@@ -197,6 +222,17 @@ class Trainer:
         initialize_registries()
         self._adapter = get_model_adapter(cfg.model.name)()
         self._data_module = get_data_module(cfg.data.name)()
+        # Fault-tolerance wiring (resilience/): the fault plan is inert
+        # unless the config injects something; rollback bookkeeping lives
+        # on the instance so checkpoint saves can round-trip it.
+        self._resilience = cfg.resilience
+        self._faults = FaultPlan.from_config(cfg.resilience.faults)
+        self._rollback_count = 0
+        self._spike_detector: LossSpikeDetector | None = None
+        self._beacon: ProgressBeacon | None = None
+        self._straggler: StragglerTracker | None = None
+        self._last_restored_resilience: dict[str, Any] = {}
+        self._last_restored_manifest: dict[str, Any] | None = None
         tokenizer = None
         try:
             tokenizer = self._adapter.build_tokenizer(cfg)
@@ -208,7 +244,7 @@ class Trainer:
         # transient failures get full-jitter backoff, seeded per rank so the
         # ranks' retries do not march in step.
         retry(
-            lambda: self._data_module.setup(cfg, tokenizer),
+            self._faults.flaky("dataset_load", lambda: self._data_module.setup(cfg, tokenizer)),
             attempts=cfg.resilience.retry_attempts,
             base_delay=cfg.resilience.retry_base_delay,
             description="dataset setup",
@@ -218,20 +254,27 @@ class Trainer:
         self._global_micro = cfg.trainer.micro_batch_size * self._world
         optimizer = build_model_optimizer(cfg, self._model)
         self._schedule = lr_schedule(cfg.trainer)
+        # Every rank gets a manager over the shared run dir (the spike
+        # rollback restores on every rank); only rank 0 writes.
         self._ckpt_mgr: CheckpointManager | None = None
-        if run_dir is not None and self._is_main:
+        if run_dir is not None:
             keep_last_k = int(cfg.trainer.extra.get("keep_last_k", 3))
             self._ckpt_mgr = CheckpointManager(Path(run_dir) / "checkpoints",
-                                               keep_last_k=keep_last_k)
+                                               keep_last_k=keep_last_k,
+                                               on_commit=_commit_observer(self._telemetry))
         guard = cfg.resilience.nonfinite_guard
-        self._state = TrainState(step=0, model=self._model, optimizer=optimizer,
-                                 nonfinite_count=0 if guard else None)
+        self._state = TrainState(
+            step=0, model=self._model, optimizer=optimizer,
+            nonfinite_count=(torch.zeros((), dtype=torch.int32, device=self._device)
+                             if guard else None),
+        )
         self._train_step_fn = make_train_step(
             self._adapter, self._model,
             grad_accum_steps=cfg.trainer.grad_accum_steps,
             use_dropout=cfg.model.dropout > 0.0,
             seed=cfg.run.seed,
             nonfinite_guard=guard,
+            inject_nan_window=self._faults.nan_window(),
             data_parallel=self._dist is not None,
             rank=self._rank,
         )
@@ -403,16 +446,94 @@ class Trainer:
             shuffle=not cfg.run.deterministic,
         )
         self._sampler = sampler
+
+        res_cfg = self._resilience
+        multi_process = self._world > 1
+        self._spike_detector = (
+            LossSpikeDetector(factor=res_cfg.spike_factor, beta=res_cfg.spike_ewma_beta,
+                              min_history=res_cfg.spike_min_history)
+            if res_cfg.spike_detection else None
+        )
+        if self._spike_detector is not None and multi_process:
+            # The rollback restores the SAME file on every rank (consensus
+            # in _maybe_rollback): a rank without the run dir would desync
+            # the first collective of a spike. The flag is gathered so
+            # every rank raises together instead of leaving the others
+            # waiting in a collective.
+            if allgather_any(self._ckpt_mgr is None):
+                raise ValueError(
+                    "multi-process spike rollback requires every rank to "
+                    "see the shared run directory (checkpoints volume); "
+                    "construct the Trainer with the run-dir path on all "
+                    "ranks or disable resilience.spike_detection"
+                )
+        self._rollback_count = 0
         self._data_offset = 0
         self._resume_count = 0
 
+        # Hang watchdog + heartbeat + straggler telemetry
+        # (resilience/watchdog.py): the beacon records progress at each
+        # dispatched step; the watchdog exits 76 when nothing lands within
+        # the stall timeout.
+        wd_cfg = res_cfg.watchdog
+        self._beacon = None
+        watchdog: HangWatchdog | None = None
+        if wd_cfg.enabled:
+            hb_path = wd_cfg.heartbeat_path
+            if hb_path is None and self._run_dir is not None:
+                # The run dir is shared between ranks: past rank 0 each
+                # gets its own file, so a healthy rank cannot mask a hung
+                # one from an outside freshness check.
+                name = "heartbeat" if self._is_main else f"heartbeat.r{self._rank}"
+                hb_path = str(Path(self._run_dir) / name)
+            self._beacon = ProgressBeacon(
+                hb_path, heartbeat_interval_sec=wd_cfg.heartbeat_interval_sec
+            )
+            import tempfile
+
+            report_dir = (Path(self._run_dir) if self._run_dir is not None
+                          else Path(tempfile.gettempdir()))
+            watchdog = HangWatchdog(
+                self._beacon,
+                stall_timeout_sec=wd_cfg.stall_timeout_sec,
+                poll_interval_sec=wd_cfg.poll_interval_sec,
+                report_dir=report_dir,
+                process_index=self._rank,
+                on_hang=self._on_watchdog_hang,
+                timeline=self._telemetry.timeline,
+            )
+        self._straggler = (
+            StragglerTracker(skew_factor=wd_cfg.straggler_skew_factor,
+                             patience=wd_cfg.straggler_patience)
+            if multi_process and wd_cfg.straggler_telemetry else None
+        )
+
         resumed_from_step: int | None = None
         if resume_from is not None:
-            resumed_from_step = self._restore(resume_from)
+            # The fit path owns the identical-trajectory contract: the
+            # manifest's topology is checked (elastic over the data axis,
+            # TopologyMismatchError otherwise), and the rollback and sampler
+            # bookkeeping and the detector's trend continue where the
+            # checkpointed run left them.
+            resumed_from_step = self._restore(resume_from, validate_topology=True)
+            resil = self._last_restored_resilience
+            self._rollback_count = int(resil.get("rollback_count", 0))
+            manifest_data = (self._last_restored_manifest or {}).get("data") or {}
+            if "consumed_micro_batches" in manifest_data:
+                # The manifest's global-batch progress is the stream
+                # position on any world size.
+                self._data_offset = resume_batch_index(
+                    manifest_data, step=resumed_from_step, grad_accum_steps=accum
+                ) - resumed_from_step * accum
+            else:
+                self._data_offset = int(resil.get("data_offset", 0))
+            self._resume_count = int(resil.get("resume_count", 0)) + 1
             self._telemetry.metrics.inc("resilience/resumes")
             self._telemetry.metrics.publish(
                 {"resilience/resume_count": float(self._resume_count)}, step=resumed_from_step
             )
+            if self._spike_detector is not None:
+                self._spike_detector.load_state(resil)
         start_step = (resumed_from_step or 0) + 1
         if start_step > max_steps:
             logger.warning(
@@ -426,6 +547,12 @@ class Trainer:
         if self._device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(self._device)
         tl = self._telemetry.timeline
+        # Fired fault injections land on the event timeline, so a drill is
+        # auditable from the trace alone.
+        self._faults.observer = lambda kind, at_step: (
+            tl.instant(f"fault_{kind}", cat="fault", step=at_step),
+            self._telemetry.metrics.inc("faults/injected"),
+        )
         self._telemetry.start()
         opt_mem = self._opt_state_memory()
         self._telemetry.record_opt_state_bytes(opt_mem)
@@ -450,6 +577,7 @@ class Trainer:
         interval_dispatch = 0.0
         nonfinite = None
         interval_start = time.perf_counter()
+        interval_wait_start = collective_wait_seconds()
         start_time = time.perf_counter()
 
         # Preemption: SIGTERM only latches a flag; after the step it lands
@@ -458,7 +586,6 @@ class Trainer:
         # and returns cleanly, so --auto-resume continues where the evicted
         # run stopped. Acting on a local flag alone would leave the other
         # ranks waiting in the next step's all-reduce.
-        multi_process = self._world > 1
         preempted = False
         # Distinct sentinel, not `old_term is None`: signal.signal() returns
         # None when the previous handler was installed by C code.
@@ -480,6 +607,7 @@ class Trainer:
                 "applies)"
             )
         final_step_override: int | None = None
+        loop_completed = False
         profiler = _StepProfiler(cfg, self._run_dir, process_index=self._rank,
                                  num_processes=self._world, timeline=tl)
 
@@ -489,6 +617,7 @@ class Trainer:
                 lambda s: self.global_batch(sampler, train_ds, s),
                 depth=cfg.trainer.prefetch_depth,
                 start_step=start_step,
+                before_assemble=lambda s: self._faults.maybe_hang(s, site="prefetcher"),
                 timeline=tl,
             )
         try:
@@ -508,7 +637,7 @@ class Trainer:
                     self._batch_struct = {k: (tuple(v.shape), v.dtype)
                                           for k, v in batch.items()}
                 with self._telemetry.step_annotation(step):
-                    metrics = self._train_step_fn(self._state, batch)
+                    metrics = self._train_step_fn(self._state, batch, self._rollback_count)
                 t_done = time.perf_counter()
                 interval_data_wait += t_dispatch - t_fetch
                 interval_dispatch += t_done - t_dispatch
@@ -517,6 +646,22 @@ class Trainer:
                 tl.record("data_wait", cat="data", step=step, t0=t_fetch, t1=t_dispatch)
                 tl.record("host_dispatch", step=step, t0=t_dispatch, t1=t_done)
                 profiler.maybe_stop(step, sync=metrics["loss"])
+                if self._beacon is not None:
+                    # Progress = the step DISPATCHED. A hung card holds the
+                    # host back within a step or two (the allocator, the
+                    # log boundary's sync), so dispatch is a faithful
+                    # liveness signal. The watchdog arms after the first
+                    # dispatched step, so the kernels' first-use builds and
+                    # Triton compiles never count against the timeout.
+                    self._beacon.touch(step)
+                    if watchdog is not None:
+                        watchdog.arm()  # no-op once armed
+                # Injected preemption goes through the real OS signal path;
+                # an injected crash is a SIGKILL (nothing below runs); an
+                # injected hang BLOCKS here for real.
+                self._faults.maybe_sigterm(step)
+                self._faults.maybe_kill(step)
+                self._faults.maybe_hang(step)
 
                 step_loss_dev = metrics["loss"]
                 nonfinite = metrics.get("nonfinite_count")
@@ -538,18 +683,22 @@ class Trainer:
                 stop_now = stop_now and step < max_steps
                 if step % save_every == 0 or step == max_steps or stop_now:
                     self._save_checkpoint(step)
+                    # Only the writing rank damages the file.
+                    self._faults.maybe_corrupt_checkpoint(
+                        step, self._ckpt_mgr if self._is_main else None
+                    )
                 if stop_now:
                     tl.instant("preempted", cat="resilience", step=step,
                                checkpointed=self._ckpt_mgr is not None)
                     # Flush now: the grace period may end in SIGKILL before
                     # the unwind, and the goodput ledger reads these events.
                     tl.flush()
-                    if self._ckpt_mgr is not None:
+                    if self._ckpt_mgr is not None and self._is_main:
                         logger.warning(
                             "SIGTERM received: preemption checkpoint saved at step %d; "
                             "stopping cleanly (resume with --resume)", step,
                         )
-                    elif self._run_dir is not None and multi_process:
+                    elif self._ckpt_mgr is not None:
                         logger.warning(
                             "SIGTERM received: stopping cleanly at step %d (preemption "
                             "checkpoint written by the main rank)", step,
@@ -566,9 +715,46 @@ class Trainer:
                 if step % log_every == 0 or step == max_steps:
                     # Sync on the interval's losses before stamping the end
                     # time, so queued device work is charged to the interval.
+                    t_sync = time.perf_counter()
                     with tl.span("interval_sync", step=step):
                         losses_host = torch.stack(interval_losses).float().cpu().numpy()
+                    t_synced = time.perf_counter()
+                    first_interval_step = step - len(interval_losses) + 1
+                    losses_host = self._faults.poison_host_losses(losses_host,
+                                                                  first_interval_step)
                     self._check_nonfinite_guard(nonfinite, losses_host, step)
+                    rolled_back_to = self._maybe_rollback(losses_host, first_interval_step,
+                                                          step)
+                    if rolled_back_to is not None:
+                        # The replayed window's events are tagged, not
+                        # dropped, and the rollback is an instant; both
+                        # land before the next flush.
+                        tl.tag_rollback(rolled_back_to + 1, step)
+                        tl.instant("rollback", cat="resilience", step=step,
+                                   restored_step=rolled_back_to,
+                                   rollback_count=self._rollback_count)
+                        self._telemetry.metrics.inc("resilience/rollbacks")
+                        # Replay from the restored step with the sampler
+                        # advanced past the bad window and fresh dropout
+                        # streams; the token odometer rewinds to what a
+                        # resume from the restored step would report.
+                        total_tokens -= (step - rolled_back_to) * tokens_per_step
+                        interval_losses = []
+                        interval_shard = []
+                        interval_tokens = 0
+                        interval_data_wait = 0.0
+                        interval_dispatch = 0.0
+                        interval_start = time.perf_counter()
+                        interval_wait_start = collective_wait_seconds()
+                        step_loss_dev = None
+                        nonfinite = None
+                        step = rolled_back_to
+                        if prefetcher is not None:
+                            # Everything queued was built under the old
+                            # offset: restart the producer at the first
+                            # replayed step under the advanced one.
+                            prefetcher.reseek(step + 1)
+                        continue
                     interval_time = time.perf_counter() - interval_start
                     if prefetcher is not None:
                         self._telemetry.metrics.publish(
@@ -584,6 +770,8 @@ class Trainer:
                         total_tokens=total_tokens,
                         interval_data_wait=interval_data_wait,
                         interval_dispatch=interval_dispatch,
+                        interval_wait=(t_synced - t_sync + collective_wait_seconds()
+                                       - interval_wait_start),
                     )
                     interval_losses = []
                     interval_shard = []
@@ -591,6 +779,7 @@ class Trainer:
                     interval_data_wait = 0.0
                     interval_dispatch = 0.0
                     interval_start = time.perf_counter()
+                    interval_wait_start = collective_wait_seconds()
 
                 if step % eval_every == 0 or step == max_steps:
                     with tl.span("eval", cat="eval", step=step):
@@ -598,18 +787,34 @@ class Trainer:
                     if val_metrics:
                         final_val_metrics = val_metrics
                         final_val_loss = val_metrics.get("val/loss", final_val_loss)
+            loop_completed = True
         finally:
             if prefetcher is not None:
                 prefetcher.close()
+            self._faults.observer = None
             # Transport teardown only (endpoint + a timeline flush so crash
             # evidence persists); the report runs after the result is known.
             self._telemetry.close()
-            profiler.close(sync=step_loss_dev)
+            if watchdog is not None:
+                watchdog.disarm()
             if handler_installed:
                 # SIG_DFL where the previous handler came from C code: it
                 # cannot be re-installed, and SIGTERM must stay lethal.
                 signal.signal(signal.SIGTERM,
                               old_term if old_term is not None else signal.SIG_DFL)
+            profiler.close(sync=step_loss_dev)
+            if self._ckpt_mgr is not None:
+                # The final save must be durable; while an exception
+                # unwinds, a write failure is logged instead of masking it,
+                # and the drain is bounded.
+                if loop_completed:
+                    self._ckpt_mgr.close()
+                else:
+                    try:
+                        self._ckpt_mgr.close(timeout=_ABORT_DRAIN_TIMEOUT_SEC)
+                    except Exception as ckpt_exc:  # noqa: BLE001
+                        logger.error("async checkpoint write failed during unwind: %s",
+                                     ckpt_exc)
         total_time = time.perf_counter() - start_time
         final_loss = float(step_loss_dev) if step_loss_dev is not None else 0.0
         final_step = final_step_override or max_steps
@@ -630,6 +835,7 @@ class Trainer:
             trainable_parameter_count=self._trainable_count,
             total_tokens=total_tokens,
             preempted=final_step_override is not None,
+            rollbacks=self._rollback_count,
         )
         # End-of-run telemetry: report.json/report.md + the Perfetto trace,
         # then their registration with the tracker. Best-effort.
@@ -667,7 +873,7 @@ class Trainer:
         are untouched. Before any step ran, the batch is the one the
         training set would give. It is counted on this rank's rows without
         the gradient all-reduce (its bytes are estimated beside it) and
-        without the non-finite guard's host check. ``full`` adds the per-op
+        without the non-finite guard. ``full`` adds the per-op
         table and the roofline class. None on any failure."""
         from ..telemetry import profiling
 
@@ -794,15 +1000,18 @@ class Trainer:
             total_tok += part_tok
         return total_loss / max(total_tok, 1.0)
 
-    # ------------------------------------------------------------------ guard
+    # ------------------------------------------------------------------ resilience
 
-    def _check_nonfinite_guard(self, nonfinite: int | None, losses_host: np.ndarray,
+    def _check_nonfinite_guard(self, nonfinite: torch.Tensor | None, losses_host: np.ndarray,
                                step: int) -> None:
         """Warn about updates the guard skipped in the interval; abort once
-        the consecutive-skip cap is reached."""
+        the consecutive-skip cap is reached. Runs where the losses already
+        reached the host: one read of the device counter."""
         if nonfinite is None:
             return
         consecutive = int(nonfinite)
+        # Non-finite host losses catch mid-interval skips; the device
+        # counter catches finite losses over non-finite gradients.
         skipped = max(int(np.count_nonzero(~np.isfinite(losses_host))),
                       min(consecutive, len(losses_host)))
         if skipped:
@@ -823,15 +1032,156 @@ class Trainer:
                 "the newest checkpoint remains restorable"
             )
 
+    def _maybe_rollback(self, losses_host: np.ndarray, first_interval_step: int,
+                        step: int) -> int | None:
+        """Feed the interval's losses to the spike detector; on a spike,
+        restore the newest verified checkpoint saved BEFORE the spiking step
+        into the live model, optimizer and EMA, and advance the data stream
+        past the consumed window (JAX ``_maybe_rollback``). Returns the
+        restored step (the loop replays from there), or None."""
+        detector = self._spike_detector
+        if detector is None:
+            return None
+        spike_step = None
+        spike_loss = trend = None
+        for i, value in enumerate(np.asarray(losses_host)):
+            if detector.observe(float(value)):
+                spike_step = first_interval_step + i
+                spike_loss, trend = float(value), detector.trend
+                break
+        multi_process = self._world > 1
+        if multi_process:
+            # Consensus: ANY rank's spike rolls back EVERY rank, to before
+            # the earliest flagged step.
+            views = allgather_scalar(float(spike_step) if spike_step is not None else -1.0)
+            flagged = [int(v) for v in views if v >= 0]
+            consensus_step = min(flagged) if flagged else None
+            if consensus_step is not None and spike_step is None:
+                logger.warning(
+                    "loss spike at step %d flagged by another rank; joining "
+                    "the consensus rollback", consensus_step,
+                )
+            spike_step = consensus_step
+        if spike_step is None:
+            return None
+        if spike_loss is None:
+            # A consensus-joined rank: the spiking loss was another rank's.
+            spike_loss = float("nan")
+            if trend is None:
+                trend = detector.trend if detector.trend is not None else float("nan")
+        if multi_process and self._ckpt_mgr is None:
+            raise RuntimeError(
+                "consensus spike rollback needs a checkpoint manager on "
+                "every rank but this rank has none"
+            )
+        if self._ckpt_mgr is None:
+            logger.error(
+                "loss spike at step %d (%.4f vs trend %.4f) but no checkpoint "
+                "manager on this process; spike rollback disabled for the "
+                "rest of the run",
+                spike_step, spike_loss, trend or 0.0,
+            )
+            self._spike_detector = None
+            return None
+        if self._rollback_count >= self._resilience.max_rollbacks:
+            raise RollbackBudgetExceededError(
+                f"loss spike at step {spike_step} ({spike_loss:.4f} vs trend "
+                f"{trend:.4f}) after exhausting the rollback budget "
+                f"({self._resilience.max_rollbacks}) — the run diverges "
+                "deterministically; change the config instead of retrying"
+            )
+        # The target must PREDATE the spike: a save inside the spiking
+        # interval is valid by integrity and poisoned by value.
+        with self._telemetry.timeline.span("checkpoint_wait", cat="ckpt", step=step):
+            self._ckpt_mgr.wait_pending()
+        if multi_process:
+            # Rank 0 picks (its manager did the writes) and broadcasts the
+            # step; every rank restores that file.
+            target_step = -1
+            if self._is_main:
+                picked = self._ckpt_mgr.latest_valid_checkpoint(before_step=spike_step)
+                if picked is not None:
+                    target_step = int(picked.stem.split("_")[1])
+            target_step = broadcast_int_from_main(target_step)
+            target = (self._ckpt_mgr.directory / f"step_{target_step:06d}.ckpt"
+                      if target_step >= 0 else None)
+            if target is not None and not self._is_main:
+                # A shared filesystem's attribute cache can lag on other
+                # ranks: poll briefly before restoring.
+                deadline = time.monotonic() + 60.0
+                while not target.is_file() and time.monotonic() < deadline:
+                    time.sleep(0.5)
+                if not target.is_file():
+                    raise RuntimeError(
+                        f"rollback target {target} (broadcast by rank 0) "
+                        "never became visible on this rank's filesystem "
+                        "view — shared runs volume misconfigured?"
+                    )
+        else:
+            target = self._ckpt_mgr.latest_valid_checkpoint(before_step=spike_step)
+        if target is None:
+            # Early spike, before the first save: train through it.
+            logger.warning(
+                "loss spike at step %d (%.4f vs trend %.4f) but no verified "
+                "checkpoint predates it; continuing without rollback",
+                spike_step, spike_loss, trend or 0.0,
+            )
+            return None
+        with self._telemetry.timeline.span("rollback_restore", cat="resilience", step=step):
+            restored_step = self._restore(str(target))
+        accum = self._cfg.trainer.grad_accum_steps
+        # Onto the LIVE offset, not the checkpoint's: a second rollback to a
+        # checkpoint older than the first must keep advancing the stream.
+        self._data_offset += (step - restored_step) * accum
+        self._rollback_count += 1
+        logger.warning(
+            "loss spike at step %d (%.4f vs trend %.4f): rolled back to "
+            "checkpoint step %d (rollback %d/%d); sampler advanced %d "
+            "micro-batches past the bad window",
+            spike_step, spike_loss, trend or 0.0, restored_step,
+            self._rollback_count, self._resilience.max_rollbacks,
+            (step - restored_step) * accum,
+        )
+        return restored_step
+
+    def _on_watchdog_hang(self) -> None:
+        """Watchdog pre-exit hook: stamp the hang on the timeline and flush
+        it, then drain the checkpoint write within the abort bound. Every
+        part is best-effort: the watchdog's bounded fire window wins."""
+        try:
+            self._telemetry.timeline.instant("hang_detected", cat="resilience")
+            self._telemetry.timeline.flush()
+        except Exception:  # noqa: BLE001 — the exit must proceed
+            pass
+        if self._ckpt_mgr is not None:
+            self._ckpt_mgr.close(timeout=_ABORT_DRAIN_TIMEOUT_SEC)
+
     # ------------------------------------------------------------------ checkpoints
+
+    def _current_topology(self) -> dict[str, Any]:
+        """This run's topology block, recorded in every manifest and held
+        against a resumed checkpoint's (resilience/elastic.py): JAX's
+        ``describe_topology`` of a mesh whose data axis spans the
+        processes, one device each."""
+        world = self._world
+        mesh = {k: (world if k == "data" else 1) for k in self._cfg.distributed.mesh.model_dump()}
+        return describe_topology(
+            mesh,
+            data_parallel=world,
+            global_micro_batch=self._global_micro,
+            micro_batch_size=int(self._cfg.trainer.micro_batch_size),
+            grad_accum_steps=int(self._cfg.trainer.grad_accum_steps),
+            num_processes=world,
+        )
 
     def _manifest_extra(self, step: int) -> dict[str, Any]:
         consumed = step * self._cfg.trainer.grad_accum_steps + self._data_offset
         data = {
             **self._sampler.progress(consumed),
             "data_offset": int(self._data_offset),
+            # The prefetcher's generation: its reseeks, one per rollback.
             "prefetch_depth": int(self._cfg.trainer.prefetch_depth),
-            "prefetch_generation": 0,
+            "prefetch_generation": int(self._rollback_count),
         }
         # Segment provenance for the goodput ledger (telemetry/goodput.py):
         # which process lifetime committed this step and when it started.
@@ -843,19 +1193,29 @@ class Trainer:
             "process_start_unix_time": round(timeline.origin_unix_time, 3),
             "saved_unix_time": round(time.time(), 3),
         }
-        return {"topology": _topology(self._cfg, self._world), "data": data,
+        return {"topology": self._current_topology(), "data": data,
                 "resilience": resilience}
 
     def _resilience_payload(self) -> dict[str, Any] | None:
+        """The scalars saved beside the state, so the guard's counter, the
+        rollback bookkeeping and the detector's trend survive a resume."""
         out: dict[str, Any] = {}
         if self._state.nonfinite_count is not None:
             out["nonfinite_count"] = int(self._state.nonfinite_count)
+        if self._rollback_count:
+            out["rollback_count"] = self._rollback_count
+        if self._data_offset:
+            out["data_offset"] = self._data_offset
         if self._resume_count:
             out["resume_count"] = self._resume_count
+        if self._spike_detector is not None:
+            out.update(self._spike_detector.state())
         return out or None
 
     def host_state(self) -> dict[str, Any]:
-        """Params in the flax layout and the optimizer state, on the host."""
+        """Params in the flax layout and the optimizer state: owned host
+        copies, which later in-place updates of the live tensors do not
+        reach (a checkpoint serialises them on a thread)."""
         m = self._cfg.model
         n_kv = int(m.extra.get("n_kv_heads", 0))
         return {
@@ -867,24 +1227,23 @@ class Trainer:
         }
 
     def _save_checkpoint(self, step: int) -> None:
-        """Rank 0 writes; with several ranks every rank then waits at a
-        barrier, so none runs ahead of a save it might restore. The write
-        is synchronous, so the ``checkpoint_save`` span covers the host
-        gather and the commit; the commit counter and instant follow the
-        published manifest (JAX's writer-thread observer)."""
+        """Rank 0 gathers the state to the host and queues the write on the
+        manager's thread (msgpack, sha-256, fsync and the publish overlap
+        the next steps), so ``checkpoint_save`` spans the gather only, as
+        in JAX; the commit counter and instant follow the published
+        manifest (:func:`_commit_observer`). With several ranks every
+        rank then waits at a barrier."""
         with self._telemetry.timeline.span("checkpoint_save", cat="ckpt", step=step):
-            if self._ckpt_mgr is not None:
-                self._ckpt_mgr.save_host(
+            if self._ckpt_mgr is not None and self._is_main:
+                self._ckpt_mgr.save_host_async(
                     step,
                     self.host_state(),
                     self._cfg.model_dump(),
                     resilience=self._resilience_payload(),
                     manifest_extra=self._manifest_extra(step),
+                    inject_kill=self._faults.take_checkpoint_kill(step),
                 )
                 self._telemetry.metrics.inc("ckpt/saves")
-        if self._ckpt_mgr is not None:
-            self._telemetry.metrics.inc("checkpoint/commits")
-            self._telemetry.timeline.instant("checkpoint_commit", cat="ckpt", step=step)
         barrier()
 
     def _agreed_resume_path(self, resume_spec: str) -> Path:
@@ -910,38 +1269,43 @@ class Trainer:
             path = path.parent / f"step_{agreed:06d}.ckpt"
         return path
 
-    def _restore(self, resume_spec: str) -> int:
-        """Load a checkpoint into the live model and optimizer; returns the
-        restored step. A checkpoint saved at another world size raises
-        ``NotImplementedError`` (elastic resume); one whose recorded batch
-        layout differs from this run's raises
-        :class:`TopologyMismatchError`."""
+    def _restore(self, resume_spec: str, *, validate_topology: bool = False) -> int:
+        """Load a checkpoint into the live model, optimizer (its EMA
+        included) and guard counter; returns the restored step, and keeps
+        the payload's resilience scalars and the manifest for the caller.
+        ``validate_topology`` (the resume path) holds the manifest's
+        topology against this run's: a change over the data axis alone is
+        an elastic resume (the state is full host arrays, so re-sharding
+        is which rows each rank takes), anything else raises
+        :class:`TopologyMismatchError`. The spike rollback restores a step
+        of this run and checks nothing."""
         path = self._agreed_resume_path(resume_spec)
-        manifest = read_manifest(path) or {}
-        saved = manifest.get("topology")
-        current = _topology(self._cfg, self._world)
-        if saved is not None and int(saved.get("num_processes", 1)) != self._world:
-            raise NotImplementedError(
-                f"resuming checkpoint {path.name}, saved by "
-                f"{saved.get('num_processes')} process(es), with {self._world}: "
-                f"elastic resume {_NOT_PORTED} (ROADMAP.md queue A: resilience)"
-            )
-        if saved is None:
-            logger.warning(
-                "checkpoint %s carries no saved topology: topology validation SKIPPED",
-                path.name,
-            )
-        else:
-            changed = [k for k in ("global_micro_batch", "grad_accum_steps")
-                       if int(saved.get(k, -1)) != current[k]]
-            if changed:
-                raise TopologyMismatchError(
-                    f"checkpoint {path.name} was saved with "
-                    + ", ".join(f"{k}={saved.get(k)}" for k in changed)
-                    + f"; this run has " + ", ".join(f"{k}={current[k]}" for k in changed)
-                    + " — the data stream would not continue the saved run's "
-                    "(elastic resume is not yet ported, ROADMAP.md queue A: resilience)"
+        manifest = read_manifest(path)
+        self._last_restored_manifest = manifest
+        if validate_topology:
+            verdict = classify_topology_change((manifest or {}).get("topology"),
+                                               self._current_topology())
+            if manifest is None or manifest.get("synthesized"):
+                logger.warning(
+                    "checkpoint %s carries no saved topology (pre-manifest "
+                    "checkpoint or synthesized manifest): elastic/topology "
+                    "validation SKIPPED — if the mesh, micro_batch_size, or "
+                    "grad_accum_steps changed since it was saved, the resumed "
+                    "trajectory will not continue the saved run's",
+                    path.name,
                 )
+            if verdict["elastic"]:
+                changes = ", ".join(verdict["changes"])
+                logger.warning(
+                    "elastic resume: topology changed (%s) with the global "
+                    "micro-batch preserved — re-sharding params/optimizer "
+                    "state onto the new mesh; the loss trajectory continues "
+                    "the saved run's at matching global steps",
+                    changes,
+                )
+                self._telemetry.timeline.instant("elastic_reshard", cat="resilience",
+                                                 changes=changes)
+                self._telemetry.metrics.inc("resilience/elastic_reshard")
         payload = CheckpointManager.load(path)
         warn_on_config_mismatch(
             payload, yaml.safe_dump(self._cfg.model_dump(), sort_keys=False), path
@@ -951,12 +1315,11 @@ class Trainer:
         self._state.optimizer.load_state_dict(opt_state_from_host(payload["opt_state"]))
         self._state.step = step
         resil = payload.get("resilience") or {}
+        self._last_restored_resilience = {k: v for k, v in resil.items()}
         if self._state.nonfinite_count is not None:
-            self._state.nonfinite_count = int(resil.get("nonfinite_count", 0))
-        self._resume_count = int(resil.get("resume_count", 0)) + 1
-        consumed = (manifest.get("data") or {}).get("consumed_micro_batches")
-        if consumed is not None:
-            self._data_offset = int(consumed) - step * self._cfg.trainer.grad_accum_steps
+            self._state.nonfinite_count = torch.tensor(
+                int(resil.get("nonfinite_count", 0)), dtype=torch.int32, device=self._device
+            )
         logger.info("resumed from %s at step %d", path, step)
         return step
 
@@ -974,7 +1337,15 @@ class Trainer:
         total_tokens: int,
         interval_data_wait: float,
         interval_dispatch: float,
+        interval_wait: float = 0.0,
     ) -> None:
+        """Publish and log one interval's metrics. ``interval_wait``: the
+        host seconds of the interval spent waiting on other ranks (inside
+        collectives) or on the device (the boundary's sync)."""
+        if self._ckpt_mgr is not None:
+            # A failed async checkpoint write fails the run within one log
+            # interval, not at the next save or at close().
+            self._ckpt_mgr.poll()
         steps = len(losses_host)
         avg_loss = float(losses_host.mean())
         avg_step_time = interval_time / steps if steps else 0.0
@@ -991,6 +1362,37 @@ class Trainer:
             peak_flops=self._peak_flops,
             n_trainable_params=self._trainable_count,
         )
+        # Straggler telemetry (several processes): every rank's mean step
+        # time of the interval net of its waits, gathered at the boundary
+        # the ranks already meet at, reduced to max/median skew. Net, not
+        # wall: every step's all-reduce makes the ranks' wall times equal,
+        # the waiting ranks' included, so a slow rank shows only in what
+        # it spent outside the waits.
+        step_time_skew: float | None = None
+        if self._straggler is not None:
+            net = max(0.0, interval_time - interval_wait) / steps if steps else 0.0
+            per_host = np.asarray(allgather_scalar(net))
+            straggle = self._straggler.observe(per_host)
+            step_time_skew = straggle["skew"]
+            logger.info(
+                "stragglers: step_time max=%.4fs median=%.4fs skew=%.2fx (slowest host %d)",
+                straggle["max_sec"], straggle["median_sec"], straggle["skew"],
+                straggle["slowest_host"],
+            )
+            if straggle["persistent"]:
+                logger.warning(
+                    "persistent straggler: host %d has been the slowest with >=%.1fx skew "
+                    "for %d consecutive intervals — check that host before it stalls "
+                    "the job",
+                    straggle["slowest_host"], self._resilience.watchdog.straggler_skew_factor,
+                    straggle["streak"],
+                )
+                self._telemetry.metrics.inc("resilience/straggler_warnings")
+                self._telemetry.timeline.instant(
+                    "straggler_persistent", cat="resilience", step=step,
+                    slowest_host=straggle["slowest_host"], skew=round(straggle["skew"], 3),
+                    streak=straggle["streak"],
+                )
         # Per-rank losses (several processes): each rank's interval mean of
         # its token-weighted step means, gathered on every rank.
         shard_losses = (self._gather_shard_means(interval_shard)
@@ -1013,19 +1415,19 @@ class Trainer:
                         },
                         step=step,
                     )
-            registry.publish(
-                {
-                    "train/loss": avg_loss,
-                    "train/lr": current_lr,
-                    "train/tokens_per_sec": tokens_per_sec,
-                    "train/step_time_sec": avg_step_time,
-                    "train/tokens_total": float(total_tokens),
-                    "train/mfu": interval_mfu,
-                    "train/data_wait_ms": data_wait_ms,
-                    "train/host_dispatch_ms": host_dispatch_ms,
-                },
-                step=step,
-            )
+            global_metrics = {
+                "train/loss": avg_loss,
+                "train/lr": current_lr,
+                "train/tokens_per_sec": tokens_per_sec,
+                "train/step_time_sec": avg_step_time,
+                "train/tokens_total": float(total_tokens),
+                "train/mfu": interval_mfu,
+                "train/data_wait_ms": data_wait_ms,
+                "train/host_dispatch_ms": host_dispatch_ms,
+            }
+            if step_time_skew is not None:
+                global_metrics["train/step_time_skew"] = step_time_skew
+            registry.publish(global_metrics, step=step)
         # The one flush point per log interval: memory sample, the tracker,
         # the timeline's JSONL and the Prometheus textfile (every rank;
         # only the main one writes files).
@@ -1041,8 +1443,6 @@ class Trainer:
     def _gather_shard_means(self, stats: list[tuple[torch.Tensor, torch.Tensor]]) -> list[float]:
         """Every rank's mean over the steps of ``stats`` of its
         token-weighted loss (JAX ``_shard_means``), gathered on every rank."""
-        from ..distributed import allgather_scalar
-
         means = [float(ls.sum() / tc.sum().clamp_min(1.0)) for ls, tc in stats]
         return list(allgather_scalar(float(np.mean(means)) if means else 0.0))
 

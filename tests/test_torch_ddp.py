@@ -3,8 +3,9 @@ package, on the CPU: ``python -m llmtrain_tpu_torch train`` as two gloo
 processes on ``configs/presets/ddp_smoke.yaml`` (micro batch 4 a rank)
 against the port's one-process run at micro batch 8 and JAX's paired run
 on the same global batches, with equal and with unequal token counts per
-rank; rank-0-only artifacts; SIGTERM to one rank; resume at the same and
-at another world size; the rendezvous exit codes of both CLIs.
+rank; rank-0-only artifacts; SIGTERM to one rank; resume at the same world
+size and, elastically, at another; the rendezvous exit codes of both
+CLIs.
 
 Every child has its own timeout and a small ``distributed.timeout_sec``.
 Band: the optimizer trajectory's, atol 3e-5 and rtol 1e-3.
@@ -283,27 +284,34 @@ def test_sigterm_to_one_rank_stops_both_at_the_same_step(tmp_path) -> None:
 
 
 def test_resume_continues_at_the_same_world_size_only(tmp_path, capsys) -> None:
-    raw = _raw(tmp_path, max_steps=8, log_every_steps=2, eval_every_steps=4,
-               save_every_steps=4)
+    # max_steps 32: dummy_text's 128-example cap, so the one-process run
+    # below (micro batch 8) trains on the same examples as the two ranks.
+    raw = _raw(tmp_path, max_steps=32, log_every_steps=2, eval_every_steps=16,
+               save_every_steps=16)
     cfg = _write(tmp_path, raw, "short.yaml")
     outs = wait(launch(tmp_path, ["train", "--config", str(cfg), "--run-id", "whole",
                                   "--json"]))
     assert [o[0] for o in outs] == [0, 0], outs[0][2][-3000:]
     whole = json.loads(_summary_lines(outs[0][1])[-1])["train_result"]
-    ckpt = tmp_path / "runs" / "whole" / "checkpoints" / "step_000004.ckpt"
+    ckpt = tmp_path / "runs" / "whole" / "checkpoints" / "step_000016.ckpt"
     outs = wait(launch(tmp_path, ["train", "--config", str(cfg), "--run-id", "resumed",
                                   "--resume", str(ckpt), "--json"]))
     assert [o[0] for o in outs] == [0, 0], outs[0][2][-3000:]
     resumed = json.loads(_summary_lines(outs[0][1])[-1])["train_result"]
-    assert resumed["resumed_from_step"] == 4
+    assert resumed["resumed_from_step"] == 16
     assert resumed["final_loss"] == whole["final_loss"]
     assert resumed["final_val_loss"] == whole["final_val_loss"]
-    # One process (a one-rank group) from the two-rank checkpoint: elastic
-    # resume is refused, exit 2.
-    assert run_cli(port_main, ["train", "--config", str(cfg), "--run-id", "elastic",
-                               "--resume", str(ckpt)]) == 2
-    err = capsys.readouterr().err
-    assert "elastic resume" in err and "(ROADMAP.md queue A: resilience)" in err
+    # One process from the two-rank checkpoint at micro batch 4 x 2: the
+    # same global batch, so an elastic resume that continues the two-rank
+    # trajectory within the band (the gradient sum's order differs).
+    raw1 = {**raw, "distributed": {**raw["distributed"], "enabled": False},
+            "trainer": {**raw["trainer"], "micro_batch_size": 2 * raw["trainer"]["micro_batch_size"]}}
+    cfg1 = _write(tmp_path, raw1, "one.yaml")
+    assert run_cli(port_main, ["train", "--config", str(cfg1), "--run-id", "elastic",
+                               "--resume", str(ckpt), "--json"]) == 0
+    elastic = json.loads(_summary_lines(capsys.readouterr().out)[-1])["train_result"]
+    assert elastic["resumed_from_step"] == 16
+    assert np.isclose(elastic["final_loss"], whole["final_loss"], atol=TRAJ_ATOL, rtol=TRAJ_RTOL)
 
 
 def test_bad_rendezvous_config_exits_2_in_both_clis(tmp_path, monkeypatch, capsys) -> None:

@@ -5,7 +5,8 @@ chains, each built from the classes both packages have (the topology and
 divergence errors from each package's own module); ``train`` with the
 trainer's run method raising ``ConnectionError`` exits 75 in both CLIs;
 and the refusals that cite a ROADMAP.md item: the JAX subcommands the port
-does not have yet, the ``hf_text`` data module and the ``hf:`` tokenizer.
+does not have yet, the ``hf_text`` data module and the ``hf:`` tokenizer;
+``chaos`` rejects fewer than one cycle as JAX does.
 """
 
 from __future__ import annotations
@@ -132,7 +133,7 @@ def test_connection_error_escaping_train_exits_75(tmp_path, capsys, monkeypatch,
 
 
 _UNPORTED = {"promote": "lifecycle and fleet", "fleet": "lifecycle and fleet",
-             "chaos": "resilience", "plan": "autotune", "tune": "autotune"}
+             "plan": "autotune", "tune": "autotune"}
 
 
 @pytest.mark.parametrize("command", sorted(_UNPORTED))
@@ -143,6 +144,19 @@ def test_unported_subcommand_exits_2_citing_its_item(tmp_path, capsys, command: 
     err = json.loads(capsys.readouterr().err.strip().splitlines()[-1])["error"]
     assert _CITES_STABLE_ITEM.search(err) and f"queue A: {_UNPORTED[command]})" in err, err
     assert _UNPORTED[command] in STABLE_ITEMS
+
+
+@pytest.mark.parametrize("extra", [["--cycles", "0"], ["--cycles", "-1"]],
+                         ids=["zero", "negative"])
+def test_chaos_rejects_fewer_than_one_cycle_as_jax(tmp_path, capsys, extra) -> None:
+    """What the ``chaos`` refusal became: both CLIs give exit 2 and the
+    same error for ``--cycles`` below 1, before any segment runs."""
+    cfg = _config(tmp_path)
+    answers = []
+    for main in (jax_main, port_main):
+        assert run_cli(main, ["chaos", "--config", str(cfg), *extra]) == 2
+        answers.append(json.loads(capsys.readouterr().err.strip().splitlines()[-1]))
+    assert answers[1] == answers[0] == {"error": "--cycles must be >= 1"}
 
 
 @pytest.mark.parametrize("command", ["goodput", "profile"])

@@ -1,7 +1,8 @@
 """The repository's presets that the port now reads, on the CPU.
 
-The ten ``gpt`` smoke presets on ``dummy_text`` and the two ``dummy_gpt``
-presets train three steps through the port's ``train`` (gpt_quant_smoke
+The eleven ``gpt`` smoke presets on ``dummy_text`` (``gpt_resilient_smoke``
+with its guard, spike detection and watchdog armed) and the two
+``dummy_gpt`` presets train three steps through the port's ``train`` (gpt_quant_smoke
 is refused, exit 2, citing its ROADMAP.md item); and
 ``gpt_pycorpus_bpe_tpu`` at a tiny width, over a corpus of standard-library
 files with the tracked ``runs/pytok8k.json`` vocabulary, tracks the JAX
@@ -34,7 +35,8 @@ from llmtrain_tpu_torch.cli import main as port_main
 TRAJ_ATOL, TRAJ_RTOL = 3e-5, 1e-3
 SMOKE_PRESETS = ("gpt_smoke", "gpt_serve_smoke", "gpt_router_smoke", "gpt_overload_smoke",
                  "gpt_fusedce_smoke", "gpt_promote_smoke", "gpt_fleet_smoke", "gpt_chaos_smoke",
-                 "gpt_tune_smoke", "gpt_quant_smoke", "dummy_smoke", "example")
+                 "gpt_tune_smoke", "gpt_quant_smoke", "gpt_resilient_smoke", "dummy_smoke",
+                 "example")
 
 
 def _preset(name: str) -> dict:

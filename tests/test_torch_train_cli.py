@@ -5,8 +5,9 @@ a seeded local_text corpus, telemetry and the tracker off so the JAX run
 directory holds only what the port also writes): the same run-directory
 artifacts, the same summary keys, and the same exit codes for a bad
 config and an existing run directory. A feature the port has not ported
-exits 2 naming ROADMAP.md; ``--auto-resume`` and ``--resume`` continue
-from the run's checkpoints; ``--dry-run`` runs forward only.
+exits 2 naming ROADMAP.md; the resilience features (spike rollback, the
+watchdog, injected faults) train; ``--auto-resume`` and ``--resume``
+continue from the run's checkpoints; ``--dry-run`` runs forward only.
 """
 
 from __future__ import annotations
@@ -117,15 +118,36 @@ def test_exit_codes_match_jax(tmp_path, capsys, case: str) -> None:
 
 @pytest.mark.parametrize(
     "override",
-    [{"resilience.spike_detection": True},
-     {"trainer.extra": {"optimizer": "lion"}, "resilience.faults.nan_loss_at_step": 4}],
-    ids=["spike-rollback", "lion"],
+    [{"trainer.zero.enabled": True},
+     {"trainer.extra": {"optimizer": "lion"}, "distributed.mesh.sequence": 2}],
+    ids=["zero", "lion-sequence"],
 )
 def test_unported_feature_exits_2_naming_the_roadmap(tmp_path, capsys, override) -> None:
     cfg = _config(tmp_path, **override)
     assert run_cli(port_main, ["train", "--config", str(cfg), "--run-id", "x"]) == 2
     err = capsys.readouterr().err
     assert "not yet ported" in err and "ROADMAP.md" in err
+
+
+@pytest.mark.parametrize(
+    "override",
+    [{"resilience.spike_detection": True, "resilience.spike_min_history": 1},
+     {"resilience.watchdog.enabled": True, "resilience.watchdog.stall_timeout_sec": 60},
+     {"resilience.nonfinite_guard": True, "resilience.faults.nan_loss_at_step": 2},
+     {"trainer.extra": {"optimizer": "lion"}, "resilience.nonfinite_guard": True,
+      "resilience.faults.nan_loss_at_step": 3}],
+    ids=["spike-rollback", "watchdog", "faults", "lion"],
+)
+def test_resilience_features_train(tmp_path, capsys, override) -> None:
+    """What the resilience refusals became: spike detection, the
+    watchdog and an injected NaN window (under the guard, with AdamW and
+    with Lion) train to the end with finite final losses."""
+    cfg = _config(tmp_path, **override)
+    assert run_cli(port_main, ["train", "--config", str(cfg), "--run-id", "x", "--json"]) == 0
+    result = json.loads(capsys.readouterr().out)["train_result"]
+    assert result["final_step"] == 4 and np.isfinite(result["final_loss"])
+    if "resilience.watchdog.enabled" in override:
+        assert (tmp_path / "runs" / "x" / "heartbeat").is_file()
 
 
 def test_auto_resume_and_dry_run(tmp_path, capsys) -> None:
@@ -193,12 +215,12 @@ _CITES_STABLE_ITEM = re.compile(r"\(ROADMAP\.md queue A: (" + "|".join(STABLE_IT
 
 @pytest.mark.parametrize(
     "override",
-    [{"resilience.spike_detection": True}, {"resilience.watchdog.enabled": True},
-     {"resilience.faults.nan_loss_at_step": 4},
+    [{"distributed.mesh.sequence": 2}, {"distributed.mesh.fsdp": 2},
+     {"model.extra.activation_tiers": "full:*"},
      {"distributed.enabled": True, "distributed.mesh.tensor": 2},
      {"distributed.mesh.data": 2}, {"trainer.zero.enabled": True}, {"model.remat": True},
      {"model.extra.lora": {"rank": 4}}],
-    ids=["spike-rollback", "watchdog", "faults", "data-parallel", "mesh", "zero", "remat",
+    ids=["sequence", "fsdp", "activation-tiers", "data-parallel", "mesh", "zero", "remat",
          "lora"],
 )
 def test_refusals_cite_a_stable_roadmap_item(tmp_path, override) -> None:

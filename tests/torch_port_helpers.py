@@ -134,8 +134,8 @@ def port_env(**extra: str) -> dict[str, str]:
     return env
 
 
-def paired_fit(raw: dict, directory: Path, steps: int | None = None
-               ) -> tuple[list[float], list[float], object, object]:
+def paired_fit(raw: dict, directory: Path, steps: int | None = None, *,
+               run_dirs: bool = False) -> tuple[list[float], list[float], object, object]:
     """``fit`` of the JAX trainer and of the port's on one config (a dict
     written under ``directory``), the port's model first given the JAX
     trainer's initial params through the carry-over: (JAX's per-step
@@ -147,7 +147,9 @@ def paired_fit(raw: dict, directory: Path, steps: int | None = None
     gets ``micro_batch_size / devices``: both runs then train on the same
     global batches, which must divide by the device count. ``steps`` stops
     both runs early (``fit``'s ``max_steps_override``; the schedule still
-    spans ``trainer.max_steps``)."""
+    spans ``trainer.max_steps``). ``run_dirs`` gives the trainers the run
+    directories ``directory/jax_run`` and ``directory/port_run``
+    (checkpoints, the telemetry files), which a spike rollback needs."""
     from unittest import mock
 
     import yaml
@@ -178,9 +180,14 @@ def paired_fit(raw: dict, directory: Path, steps: int | None = None
 
         return mock.patch.object(cls, "_log_train_interval", log_interval)
 
+    dirs: list[Path | None] = [None, None]
+    if run_dirs:
+        dirs = [Path(directory) / "jax_run", Path(directory) / "port_run"]
+        for d in dirs:
+            d.mkdir(parents=True, exist_ok=True)
     initialize_registries()
-    jax_trainer = JaxTrainer(jax_load_config(paths[0])[0], None, NullTracker())
-    port_trainer = Trainer(load_and_validate_config(paths[1])[0], None)
+    jax_trainer = JaxTrainer(jax_load_config(paths[0])[0], dirs[0], NullTracker())
+    port_trainer = Trainer(load_and_validate_config(paths[1])[0], dirs[1])
     params = jax.device_get(serialization.to_state_dict(nn_meta.unbox(jax_trainer._state.params)))
     port_trainer.model.load_state_dict(flax_params_to_state_dict(params), strict=True)
     jax_losses: list[float] = []
