@@ -21,8 +21,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    instruction or spills.
 3. Kernels vs their plain versions on the card, each case with a control
    broken on purpose that must land above the tolerance:
-   a. flash forward at the serving and training shapes and around them
-      (FLASH_CASES: f32 and bf16 GQA 12q/4kv, segment mask with padding,
+   a. flash forward at the serving and training shapes, the llama
+      family's training shape (GQA_TRAIN_CASES: 12q/4kv at 64 x 512,
+      causal and with phase 21's window) and around them (FLASH_CASES: f32 and bf16 GQA 12q/4kv, segment mask with padding,
       ragged T=200; bf16 T=1, T=65, sliding window, head_dim 128 alone,
       with GQA+segments and with a window; phase 15's two shapes, the
       rolling cache's windowed reference and the int8 logits' forward).
@@ -32,8 +33,8 @@ Phases, each fatal on failure (exit code 1, no result line):
       1e-4 on every row whose query has a live key. Control: the plain
       version non-causal (window cases: window off; T=1: the other batch
       row's K/V) above the O limit. bf16 cases run twice: bit-identical;
-   b. flash backward, dq and dk/dv kernels, at the training shape and the
-      same cases (BWD_RTOL; control: delta left out, lse off by log 2;
+   b. flash backward, dq and dk/dv kernels, at the training shapes and
+      the same cases (BWD_RTOL; control: delta left out, lse off by log 2;
       bf16 dq and dk/dv run twice: bit-identical);
    c. fused add+LayerNorm forward (Triton, first compile timed) and
       backward (CUDA) over NORM_CASES: the training path's 32768 x 768
@@ -83,7 +84,10 @@ Phases, each fatal on failure (exit code 1, no result line):
    from phase 7): wall time, device kernel time and busy share, kernel
    launches per token, top kernels by device time, and the flash
    kernels' device time and share. Measurement only; the profiler's own
-   overhead inflates the wall.
+   overhead inflates the wall. Every profile of the smoke records the
+   device's activity only (kernels and runtime calls, no CPU operator
+   events): the readings are the kernels', and the host-side events
+   cost tens of seconds to collect over this generate's ~93k launches.
 9. Train: the port's `train` (in-process CLI) on gpt_pycorpus_tpu at full
    width, micro batch 64 x 512, into a temp root, with the cuts listed at
    TRAIN_STEPS: every logged loss finite and the last LOSS_DROP_MIN below
@@ -118,7 +122,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    CONT_REQUESTS requests of CONT_PROMPTS tokens + CONT_NEW_TOKENS on a
    Poisson open loop at CONT_RATE_RPS; (b) the same sampled (temperature
    0.8, top-k 40) with serving.prefix_cache, serving.prefill_chunk
-   CONT_CHUNK and CONT_SHARED_PREFIX shared prefixes. Gates: exit 0,
+   CONT_CHUNK and CONT_SHARED_PREFIX shared prefixes, at
+   CONT_SLOW_FILL_REQUESTS requests (as phase 15(b)). Gates: exit 0,
    parity bitwise_identical, shapes within the bucket budget, every
    request completed, mean occupancy >= CONT_MIN_OCCUPANCY, the prefix
    cache hit. Then torch.profiler over CONT_PROFILE_STEPS decode steps at
@@ -275,6 +280,38 @@ Phases, each fatal on failure (exit code 1, no result line):
    write runs on the manager's thread) and its ledger's checkpoint
    seconds, and one full-width save's gather and synchronous write. The
    phase's seconds on their own line.
+21. The model zoo, in the same temp root, launch counts reset just before
+   and read just after each training, generate and eval path: (a) `train`
+   on llama_pycorpus_tpu at full width and depth (768 x 12 layers, 12
+   query heads over 4 KV heads, SwiGLU d_ff 2048, RoPE, RMSNorm, byte
+   vocab, flash), micro batch 64 x 512, ZOO_STEPS steps with one eval
+   and a save: losses finite and falling by LOSS_DROP_MIN, exactly 12
+   flash forward, dq and dk/dv per step plus 12 forward per eval batch,
+   none of the others; step ms, tokens/s, MFU (6N + 12·L·T·d with the
+   counted N) and peak memory. (b) From its checkpoint: generate() greedy
+   400+160 past block_size (the re-forward branch, >= 12 x 160 GQA
+   forward launches); in-process `serve-bench --verify-parity` of
+   ZOO_REQUESTS greedy requests, bitwise equal to generate(), every one
+   completed; `eval`, `export-checkpoint` to HF Llama names, then
+   `import-checkpoint` and `eval`: bit-identical, within EVAL_ATOL of the
+   trainer's eval (12 forwards per eval batch each). (c) Qwen2 and Gemma
+   on the same config at ZOO_SMALL_LAYERS layers, ZOO_SMALL_STEPS steps
+   each (qkv biases and the 1e6 RoPE base; GeGLU, offset norms and the
+   bf16 sqrt(d) embedding scale): finite losses, the counts, a greedy
+   `generate` (the KV cache: no kernel). (d) The Mixtral layout,
+   llama_moe with 4 experts, top 2, capacity factor 2 and sliding window
+   ZOO_WINDOW, at ZOO_SMALL_LAYERS layers, ZOO_MOE_STEPS steps: losses
+   finite and falling, the windowed flash launches counted, `generate`.
+   (e) gpt_lora_ft at full width, ZOO_LORA_STEPS steps: every base leaf
+   of the checkpoint bit-identical to the seed's init, every factor B
+   moved; `export-checkpoint` (merged) imported into the config without
+   LoRA: its `eval` within EVAL_ATOL of the LoRA run's `eval` (itself
+   within EVAL_ATOL of the trainer's), and it generates the LoRA run's
+   greedy tokens. Step times are the median of the logged steps past the
+   warm-up and before the last, each listed. The phase's seconds on
+   their own line. Phase 4 also times the flash kernels at the GQA
+   training shape (64, 512, 12 over 4, 64) against SDPA with
+   enable_gqa=True, the kernels line carrying them as gqa_shape_*.
 
 Then it prints the kernels line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
@@ -284,6 +321,7 @@ from __future__ import annotations
 
 import json
 import math
+import statistics
 import subprocess
 import sys
 import threading
@@ -296,6 +334,8 @@ H100_HBM_BYTES_PER_S = 3.35e12
 H100_PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PATH_SHAPE = (1, 512, 12, 12, 64)  # B, T, H, Hkv, D at the serving path
 TRAIN_SHAPE = (64, 512, 12, 12, 64)  # B, T, H, Hkv, D at the training path
+GQA_TRAIN_SHAPE = (64, 512, 12, 4, 64)  # llama_pycorpus_tpu's training path (phase 21)
+ZOO_WINDOW = 128  # the sliding window of phase 21's Mixtral layout
 LN_TOKENS, LN_DIM = 64 * 512, 768  # tokens and width at the training path
 CUDA_SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "fused_ce.cu",
                 "fused_norm_bwd.cu")
@@ -306,6 +346,15 @@ LOGITS_ATOL = 0.1
 
 def log(*parts: object) -> None:
     print(*parts, flush=True)
+
+
+_START = time.perf_counter()
+
+
+def clock(done: str) -> None:
+    """One line of the run's timeline: the seconds since the script
+    started, at the end of each phase (the 1200 s budget's ledger)."""
+    log(f"[clock] {time.perf_counter() - _START:7.1f} s  {done}")
 
 
 def nvidia_smi_line() -> str:
@@ -493,6 +542,14 @@ FLASH_CASES = [
     ("int8 logits", (*INT8_LOGIT_IDS, 12, 12, 64), "bfloat16", False, 0),
 ]
 
+# The llama family's training shapes (phase 21): 12 query heads over 4 KV
+# heads, causal (llama_pycorpus_tpu) and with the window of ZOO_WINDOW
+# (the Mixtral layout, llama_moe).
+GQA_TRAIN_CASES = [
+    ("gqa train shape", GQA_TRAIN_SHAPE, "bfloat16", False, 0),
+    ("gqa window train", GQA_TRAIN_SHAPE, "bfloat16", False, ZOO_WINDOW),
+]
+
 
 def phase_kernel_checks(torch) -> float:
     """Kernel 1 (forward) against its plain version. Control per case: the
@@ -510,6 +567,7 @@ def phase_kernel_checks(torch) -> float:
     cases = [
         ("path shape", PATH_SHAPE, "bfloat16", False, 0),
         ("train shape", TRAIN_SHAPE, "bfloat16", False, 0),
+        *GQA_TRAIN_CASES,
         *FLASH_CASES,
     ]
     errors = {}
@@ -582,7 +640,8 @@ def flash_bound(b, t, h, hkv, d, elt_bytes, dtype_name, causal=True, window=0):
 def phase_timing(torch, smi: str, shape=PATH_SHAPE, iters: int = 100, window: int = 0) -> dict:
     """Kernel 1 against its plain version, SDPA and the bound at ``shape``,
     causal, or with a sliding ``window`` (SDPA then takes the band as a
-    boolean mask)."""
+    boolean mask); under GQA (Hkv < H) SDPA reads the narrow K/V with
+    ``enable_gqa=True``."""
     import torch.nn.functional as F
 
     from llmtrain_tpu_torch.ops.flash_attention import (
@@ -600,20 +659,22 @@ def phase_timing(torch, smi: str, shape=PATH_SHAPE, iters: int = 100, window: in
             torch, lambda: flash_attention_fwd_reference(q, k, v, causal=True, window=window),
             iters=max(5, iters // 10), warmup=2)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        gqa = {"enable_gqa": True} if hkv != h else {}
         if window:
             pos = torch.arange(t, device="cuda")
             band = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < window)
             library_ms = _time_ms(
-                torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band),
+                torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band, **gqa),
                 iters=iters)
         else:
             library_ms = _time_ms(
-                torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+                torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, **gqa),
                 iters=iters,
             )
     moved, flops, bound_ms, bound_by = flash_bound(b, t, h, hkv, d, 2, "bfloat16", window=window)
     mask = f"window {window}" if window else "causal"
-    log(f"[timing] flash_attention_fwd at (B,T,H,D)=({b},{t},{h},{d}) bf16 {mask} on {smi}:")
+    log(f"[timing] flash_attention_fwd at (B,T,H,Hkv,D)=({b},{t},{h},{hkv},{d}) bf16 {mask} "
+        f"on {smi}:")
     log(f"[timing]   kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
         f"sdpa (yardstick) {library_ms:.4f} ms")
     log(f"[timing]   bound {bound_ms:.6f} ms by {bound_by} ({moved} bytes at 3.35 TB/s, "
@@ -657,7 +718,8 @@ def phase_bwd_checks(torch) -> dict:
     from llmtrain_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(10)
-    cases = [("train shape", TRAIN_SHAPE, "bfloat16", False, 0), *FLASH_CASES]
+    cases = [("train shape", TRAIN_SHAPE, "bfloat16", False, 0), *GQA_TRAIN_CASES,
+             *FLASH_CASES]
     errors = {}
     for name, (b, t, h, hkv, d), dt_name, segmented, window in cases:
         dtype = getattr(torch, dt_name)
@@ -832,15 +894,16 @@ def bwd_bounds(b, t, h, hkv, d, elt_bytes, dtype_name):
     return out
 
 
-def phase_bwd_timing(torch, smi: str) -> dict:
-    """CUDA-event ms of kernels 2 and 3 at the training shape, the plain
-    version (all three gradients in one call), and aten's SDPA backward
-    as a yardstick (all three gradients; never called by the port)."""
+def phase_bwd_timing(torch, smi: str, shape=TRAIN_SHAPE) -> dict:
+    """CUDA-event ms of kernels 2 and 3 at ``shape`` (the training shape by
+    default), the plain version (all three gradients in one call), and
+    aten's SDPA backward as a yardstick (all three gradients, the narrow
+    K/V under GQA with ``enable_gqa=True``; never called by the port)."""
     import torch.nn.functional as F
 
     from llmtrain_tpu_torch.ops import flash_attention as fa
 
-    b, t, h, hkv, d = TRAIN_SHAPE
+    b, t, h, hkv, d = shape
     gen = torch.Generator(device="cuda").manual_seed(12)
     q, k, v = _qkv(torch, gen, b, t, h, hkv, d, torch.bfloat16)
     dout = torch.randn(b, t, h, d, device="cuda", generator=gen).to(torch.bfloat16)
@@ -855,14 +918,16 @@ def phase_bwd_timing(torch, smi: str) -> dict:
             torch, lambda: fa._bwd_reference_from_delta(q, k, v, dout, lse, delta, None, True, 0),
             iters=5, warmup=1)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
-    ref_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    gqa = {"enable_gqa": True} if hkv != h else {}
+    ref_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, **gqa)
     g = dout.transpose(1, 2)
     library_ms = _time_ms(torch, lambda: torch.autograd.grad(ref_out, (qt, kt, vt), g,
                                                              retain_graph=True),
                           iters=20, warmup=3)
     (dq_b, dq_f, dq_bound, dq_by), (kv_b, kv_f, kv_bound, kv_by) = bwd_bounds(
         b, t, h, hkv, d, 2, "bfloat16")
-    log(f"[timing] flash backward at (B,T,H,D)=({b},{t},{h},{d}) bf16 causal on {smi}:")
+    log(f"[timing] flash backward at (B,T,H,Hkv,D)=({b},{t},{h},{hkv},{d}) bf16 causal "
+        f"on {smi}:")
     log(f"[timing]   dq kernel {dq_ms:.4f} ms (bound {dq_bound:.4f} ms by {dq_by}: {dq_b} bytes, "
         f"{dq_f} flop)")
     log(f"[timing]   dk/dv kernel {dkdv_ms:.4f} ms (bound {kv_bound:.4f} ms by {kv_by}: {kv_b} "
@@ -1117,10 +1182,11 @@ def phase_ce_timing(torch, smi: str) -> dict:
                          iters=3, warmup=1)
         dw_ms = _time_ms(torch, lambda: fc.fused_ce_bwd_dw(h, w, labels, lse, g, g),
                          iters=3, warmup=1)
+        # One call each, unwarmed: a plain call takes seconds.
         plain_fwd = _time_ms(torch, lambda: fc.fused_ce_fwd_reference(h, w, labels),
-                             iters=1, warmup=1)
+                             iters=1, warmup=0)
         plain_bwd = _time_ms(torch, lambda: fc.fused_ce_bwd_reference(h, w, labels, lse, g, g),
-                             iters=1, warmup=1)
+                             iters=1, warmup=0)
         comp_fwd = _time_ms(torch, lambda: F.cross_entropy(F.linear(h, w).float(), labels.long(),
                                                            reduction="none"), iters=3, warmup=1)
     hr = h.detach().requires_grad_(True)
@@ -1371,8 +1437,7 @@ def phase_profile(torch, model, smi: str) -> None:
     prompt_len, max_new = REFORWARD
     ids = np.random.default_rng(5).integers(0, 256, (1, prompt_len)).astype(np.int32)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
         t0 = time.perf_counter()
         generate(model, ids, max_new_tokens=max_new, temperature=0.0)
         torch.cuda.synchronize()
@@ -1665,7 +1730,7 @@ def phase_fused_train(torch, smi: str, tmp: Path, train: dict) -> dict:
 # all 50257 columns. Cuts: CE_STEPS steps (warmup TRAIN_WARMUP), one eval
 # and one save, at the end.
 CE_VOCAB = 50257
-CE_STEPS = 16
+CE_STEPS = 10  # 16 until phase 21 came (PERF.md §2)
 # Per-step |fused_ce - dense| over the CE_STEPS steps, same init, batches
 # and learning rates: the dense path rounds the logits to bf16 before its
 # f32 loss, the fused path keeps them in f32, and both sum in other orders;
@@ -1792,7 +1857,7 @@ def phase_train_profile(torch, smi: str, cfg_path: Path) -> None:
         trainer._train_step_fn(trainer.state, trainer.global_batch(sampler, ds, s))
     batch = trainer.global_batch(sampler, ds, 3)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
         t0 = time.perf_counter()
         trainer._train_step_fn(trainer.state, batch)
         torch.cuda.synchronize()
@@ -1817,7 +1882,10 @@ def phase_train_profile(torch, smi: str, cfg_path: Path) -> None:
 # what 8 slots serve at this width (each request holds a slot for 64
 # decode steps of 12-27 ms on the H100, PERF.md: 5-10 requests/s), so the
 # batch stays full whatever the host's speed and the queue holds the rest.
-CONT_REQUESTS = 48
+CONT_REQUESTS = 24  # 48 until phase 21 came (PERF.md §2)
+# The sampled (prefix cache) and speculative runs keep more requests: their
+# batch fills more slowly (mean occupancy 7.02 and 6.97 at 32, PERF.md §2).
+CONT_SLOW_FILL_REQUESTS = 32
 CONT_PROMPTS = (16, 256)
 CONT_NEW_TOKENS = 64
 CONT_RATE_RPS = 16.0
@@ -1828,8 +1896,8 @@ CONT_HTTP_REQUESTS = 8
 # Requests kept in flight across POST /reload: a batch of this many, each
 # as long as the context allows after a CONT_PROMPTS[0]-token prompt.
 CONT_RELOAD_REQUESTS = 8
-CONT_RELOAD_NEW_TOKENS = 512 - CONT_PROMPTS[0]
-CONT_PROFILE_STEPS = 20
+CONT_RELOAD_NEW_TOKENS = 384  # 496 until phase 21 came (PERF.md §2)
+CONT_PROFILE_STEPS = 10  # 20 until phase 21 came
 CONT_PROFILE_PROMPT = 64
 CONT_SERVER_START_SEC = 300
 
@@ -1948,8 +2016,7 @@ def _decode_profile(torch, cfg_path: Path, ckpt: Path, smi: str) -> None:
     if scheduler.stats()["active_sequences"] != 8:
         raise RuntimeError("the profiled decode steps do not hold 8 rows")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
         t0 = time.perf_counter()
         for _ in range(CONT_PROFILE_STEPS):
             scheduler.step()
@@ -2162,7 +2229,8 @@ def phase_continuous(torch, smi: str, tmp: Path, train: dict) -> dict:
     sampled = _serve_bench(sampled_path, ckpt, smi, "sampled, prefix cache, chunked prefill",
                            "--temperature", "0.8", "--top-k", "40",
                            "--shared-prefix-tokens", str(CONT_SHARED_PREFIX[0]),
-                           "--shared-prefix-count", str(CONT_SHARED_PREFIX[1]))
+                           "--shared-prefix-count", str(CONT_SHARED_PREFIX[1]),
+                           requests=CONT_SLOW_FILL_REQUESTS)
     peak = torch.cuda.max_memory_allocated()
     _decode_profile(torch, greedy_path, ckpt, smi)
     _http_phase(torch, tmp, greedy_path, ckpt, smi)
@@ -2180,10 +2248,10 @@ def phase_continuous(torch, smi: str, tmp: Path, train: dict) -> dict:
 # phase 9's checkpoint. The draft is the preset cut to 2 layers of 256
 # (same byte vocabulary and block), trained DRAFT_STEPS steps.
 DRAFT_MODEL = dict(n_layers=2, d_model=256, n_heads=4, d_ff=1024)
-DRAFT_STEPS = 200
+DRAFT_STEPS = 100  # 200 until phase 21 came (PERF.md §2)
 SPEC_GAMMA = 4
 SPEC_PROMPTS = ("def ", "class Config:", "import numpy as np", "    for i in range(")
-SPEC_NEW_TOKENS = 128
+SPEC_NEW_TOKENS = 64  # 128 until phase 21 came (PERF.md §2)
 INT8_LOGIT_COSINE = 0.99  # JAX's band, tests/test_quant.py::test_gpt_logits_track_full_precision
 INT8_CACHE_COSINE = 0.999  # JAX's band, tests/test_quant.py::test_decode_logits_track_full_forward
 WINDOW_PREFILL = 128  # the whole ring: every prefilled key kept
@@ -2399,7 +2467,7 @@ def phase_speculative(torch, smi: str, tmp: Path, train: dict, cont: dict) -> di
     # ---- (b) speculative serve-bench; (c) int8 serve-bench and its peak.
     greedy_path = _serving_config(tmp, "gpt_pycorpus_speculative")
     spec_block = _serve_bench(greedy_path, ckpt, smi, "speculative", "--temperature", "0",
-                              *draft_argv)
+                              *draft_argv, requests=CONT_SLOW_FILL_REQUESTS)
     spec = spec_block["scheduler_stats"]["speculative"]
     log(f"[spec] (b) {spec['mode']} speculative serving: {spec['rounds']} rounds, "
         f"{spec['accepted']}/{spec['drafted']} drafts accepted (acceptance rate "
@@ -2437,7 +2505,7 @@ def phase_speculative(torch, smi: str, tmp: Path, train: dict, cont: dict) -> di
 # took 156 s and the run 827 s on a slow host (a's parity pass is 48
 # sequential generate() calls).
 FLEET_REPLICAS = 2
-FLEET_REQUESTS = 24
+FLEET_REQUESTS = 16  # 24 until phase 21 came (PERF.md §2)
 FLEET_RELOAD_NEW_TOKENS = 256
 FLEET_HTTP_REQUESTS = 16
 FLEET_HTTP_NEW_TOKENS = 32
@@ -2482,7 +2550,7 @@ def _fleet_bench(tmp: Path, ckpt: Path, smi: str, cont: dict) -> dict:
     log(f"[fleet] (a) {FLEET_REPLICAS} in-process replicas, {FLEET_REQUESTS} requests, "
         f"on {smi}: "
         f"{block['throughput']['tokens_per_sec']} output tokens/s (phase 14(b), "
-        f"{CONT_REQUESTS} requests: "
+        f"{CONT_SLOW_FILL_REQUESTS} requests: "
         f"{ref['throughput']['tokens_per_sec']}); TTFT p50 {slo['ttft_ms']['p50']} p99 "
         f"{slo['ttft_ms']['p99']} ms (14(b) {ref['slo']['ttft_ms']['p50']} / "
         f"{ref['slo']['ttft_ms']['p99']}); per-token p50 {slo['per_token_ms']['p50']} p99 "
@@ -3238,7 +3306,7 @@ TEL_PEAK_RTOL = 0.01
 # JSONL append, textfile write), a few ms of a 150 ms step.
 GOODPUT_COVERED = 0.9
 PROFILE_STEPS = 3
-TEL_STEPS = 20
+TEL_STEPS = 12  # 20 until phase 21 came (PERF.md §2)
 
 
 def _boundary_walls(run_dir: Path, first: int, last: int) -> float:
@@ -3689,6 +3757,348 @@ def phase_resilience(torch, smi: str, tmp: Path, train: dict) -> dict:
                 saves=saves, seconds=seconds)
 
 
+# ------------------------------------------------------ model zoo (phase 21)
+# Phase 21: the llama family on the card. (a) llama_pycorpus_tpu at full
+# width and depth (768 x 12 layers, 12 query heads over 4 KV heads, SwiGLU
+# d_ff 2048, byte vocab, flash), ZOO_STEPS steps with one eval and a save
+# at the end; (b) from its checkpoint `generate` past block_size (the
+# re-forward branch), ZOO_REQUESTS requests of `serve-bench
+# --verify-parity`, export to HF names -> import -> eval; (c) Qwen2 and
+# Gemma at full width and ZOO_SMALL_LAYERS layers, ZOO_SMALL_STEPS steps
+# each, and a greedy `generate`; (d) the Mixtral layout (llama_moe, top-2
+# of 4 experts, capacity factor 2, window ZOO_WINDOW) at ZOO_SMALL_LAYERS
+# layers, ZOO_MOE_STEPS steps; (e) gpt_lora_ft at full width,
+# ZOO_LORA_STEPS steps: the base bit-identical, every factor B moved, the
+# merged export generating.
+ZOO_STEPS = 16
+ZOO_WARMUP = 4
+ZOO_SMALL_LAYERS = 4
+ZOO_SMALL_STEPS = 4
+ZOO_MOE_STEPS = 8
+ZOO_LORA_STEPS = 6
+ZOO_REQUESTS = 12
+ZOO_NEW_TOKENS = 32
+
+
+def _zoo_config(tmp: Path, name: str, preset: str, *, steps: int, model: dict | None = None,
+                extra: dict | None = None, warmup: int = 2) -> Path:
+    """``configs/presets/{preset}.yaml`` on the card over the
+    interpreter's stdlib, cut to ``steps`` steps with one eval and one save
+    at the end, every step logged; ``model``/``extra`` override the
+    model's fields and its ``extra``."""
+    import sysconfig
+
+    import yaml
+
+    root = Path(__file__).resolve().parent
+    raw = yaml.safe_load((root / "configs/presets" / f"{preset}.yaml").read_text())
+    raw["run"]["device"] = "cuda"
+    raw["data"]["cache_dir"] = str(tmp / "cache")
+    raw["data"]["extra"]["globs"] = [sysconfig.get_paths()["stdlib"] + "/**/*.py"]
+    raw["model"].update(model or {})
+    raw["model"]["extra"].update(extra or {})
+    raw["trainer"].update(max_steps=steps, warmup_steps=warmup, log_every_steps=1,
+                          eval_every_steps=steps, save_every_steps=steps)
+    raw["output"]["root_dir"] = str(tmp / "runs")
+    raw.setdefault("mlflow", {})["enabled"] = False
+    path = tmp / f"{name}.yaml"
+    path.write_text(yaml.safe_dump(raw, sort_keys=False))
+    return path
+
+
+def _zoo_train(tmp: Path, cfg_path: Path, run_id: str, *, steps: int, eval_batches: int,
+               label: str) -> dict:
+    """`train` in-process with the launch counts reset just before and
+    read just after: every logged loss finite, and exactly one flash
+    forward, dq and dk/dv per layer and step plus one forward per layer
+    and eval batch, none of the other kernels."""
+    from llmtrain_tpu_torch.config import load_and_validate_config
+
+    cfg, _, _ = load_and_validate_config(cfg_path)
+    layers = cfg.model.n_layers
+    _reset_counts()
+    t0 = time.perf_counter()
+    code, out = _run_cli(["train", "--config", str(cfg_path), "--run-id", run_id, "--json"])
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    if code != 0:
+        raise RuntimeError(f"{label}: train exited {code}")
+    summary = json.loads(out)["train_result"]
+    run_dir = tmp / "runs" / run_id
+    steps_log = _logged_steps(run_dir)
+    losses = [steps_log[i]["loss"] for i in sorted(steps_log)]
+    log(f"[zoo] {label}: {steps} steps in {wall:.1f} s (command); losses "
+        f"{' '.join(f'{x:.4f}' for x in losses)}; val {summary['final_val_loss']:.4f}; "
+        f"{summary['parameter_count']} params ({summary['trainable_parameter_count']} "
+        f"trainable); peak memory {summary['peak_memory'] / 2**30:.2f} GiB")
+    _check_counts(f"zoo {label}", counts, {
+        "flash_attention_fwd": layers * (steps + eval_batches),
+        "flash_attention_bwd_dq": layers * steps,
+        "flash_attention_bwd_dkdv": layers * steps,
+    })
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"{label}: logged losses are not {steps} finite values: {losses}")
+    # Past the warm-up steps and before the last, whose interval holds the
+    # end-of-run save; the short runs keep two steps.
+    steady = [i for i in sorted(steps_log) if min(5, steps - 3) < i < steps]
+    step_ms = [steps_log[i]["step_time"] * 1e3 for i in steady]
+    span = f"median of steps {steady[0]}-{steady[-1]}: {' '.join(f'{x:.1f}' for x in step_ms)} ms"
+    log(f"[zoo] {label}: step times ({span})")
+    return dict(run_dir=run_dir, losses=losses, summary=summary, counts=counts,
+                step_ms=statistics.median(step_ms), span=span,
+                tokens_per_sec=statistics.median(steps_log[i]["tokens_per_sec"] for i in steady),
+                mfu=statistics.median(steps_log[i]["mfu"] for i in steady), layers=layers)
+
+
+def _zoo_generate(cfg_path: Path, run_dir: Path, label: str, *extra: str,
+                  new_tokens: int = 48) -> list[int]:
+    code, out = _run_cli(["generate", "--config", str(cfg_path), "--from", str(run_dir),
+                          "--prompt", "def ", "--max-new-tokens", str(new_tokens),
+                          "--temperature", "0", "--json", *extra])
+    if code != 0:
+        raise RuntimeError(f"{label}: generate exited {code}")
+    gen = json.loads(out)
+    ids = gen["completion_ids"]
+    log(f"[zoo] {label}: generate greedy 'def ' + {new_tokens}: {gen['text']!r}")
+    if len(ids) != new_tokens or not all(0 <= i < 256 for i in ids):
+        raise RuntimeError(f"{label}: generate returned {ids}")
+    return ids
+
+
+def _zoo_llama(torch, smi: str, tmp: Path, eval_batches: int) -> dict:
+    """(a) and (b): the llama cell and its serving and interop paths."""
+    import numpy as np
+
+    from llmtrain_tpu_torch.config import load_and_validate_config
+    from llmtrain_tpu_torch.generation import generate
+    from llmtrain_tpu_torch.training.checkpoint import load_inference_params
+
+    cfg_path = _zoo_config(tmp, "llama_pycorpus_zoo", "llama_pycorpus_tpu", steps=ZOO_STEPS,
+                           warmup=ZOO_WARMUP)
+    cfg, _, _ = load_and_validate_config(cfg_path)
+    torch.cuda.empty_cache()
+    run = _zoo_train(tmp, cfg_path, "llama", steps=ZOO_STEPS, eval_batches=eval_batches,
+                     label="(a) llama_pycorpus_tpu")
+    losses, layers = run["losses"], run["layers"]
+    if not losses[-1] <= losses[0] - LOSS_DROP_MIN:
+        raise RuntimeError(f"llama: loss did not fall by {LOSS_DROP_MIN}: "
+                           f"{losses[0]} -> {losses[-1]}")
+    log(f"[zoo] (a) llama steady state ({run['span']}) on {smi}: step "
+        f"{run['step_ms']:.1f} ms, {run['tokens_per_sec']:.0f} tokens/s, MFU {run['mfu']:.4f} "
+        f"(6N + 12·L·T·d with N = {run['summary']['parameter_count']}), peak memory "
+        f"{run['summary']['peak_memory'] / 2**30:.2f} GiB")
+
+    # (b) generate past block_size: the re-forward branch.
+    from llmtrain_tpu_torch.distributed import resolve_device
+    from llmtrain_tpu_torch.models.lora import build_adapter
+
+    _reset_counts()
+    model = build_adapter(cfg).build_model(cfg, resolve_device(cfg.run.device))
+    load_inference_params(run["run_dir"] / "checkpoints" / f"step_{ZOO_STEPS:06d}.ckpt", model)
+    model = model.to(torch.bfloat16)
+    model.param_dtype = torch.bfloat16
+    prompt_len, max_new = REFORWARD
+    ids = np.random.default_rng(21).integers(0, 256, (1, prompt_len)).astype(np.int32)
+    t0 = time.perf_counter()
+    out = np.asarray(generate(model, ids, max_new_tokens=max_new, temperature=0.0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = _read_counts()
+    log(f"[zoo] (b) llama generate greedy {prompt_len}+{max_new} (re-forward): "
+        f"{wall * 1e3:.1f} ms, {launched['flash_attention_fwd']} flash forward launches "
+        f"(>= {layers * max_new} required) on {smi}")
+    if out.shape != (1, prompt_len + max_new) or not np.array_equal(out[:, :prompt_len], ids):
+        raise RuntimeError(f"llama generate() returned {out.shape}")
+    if launched["flash_attention_fwd"] < layers * max_new:
+        raise RuntimeError("llama: the re-forward branch did not go through the flash kernel")
+    gen_counts = launched
+    del model
+    torch.cuda.empty_cache()
+
+    # serve-bench --verify-parity: the paged path against generate().
+    t0 = time.perf_counter()
+    code, out = _run_cli(["serve-bench", "--config", str(cfg_path), "--from", str(run["run_dir"]),
+                          "--requests", str(ZOO_REQUESTS), "--rate-rps", str(CONT_RATE_RPS),
+                          "--seed", "21", "--prompt-tokens-min", str(CONT_PROMPTS[0]),
+                          "--prompt-tokens-max", str(CONT_PROMPTS[1]),
+                          "--max-new-tokens", str(ZOO_NEW_TOKENS), "--temperature", "0",
+                          "--verify-parity"])
+    wall = time.perf_counter() - t0
+    summary = json.loads(out)
+    block = summary["serving"]
+    log(f"[zoo] (b) llama serve-bench: exit {code}, {ZOO_REQUESTS} requests in {wall:.1f} s "
+        f"(command, parity included): {block['throughput']['tokens_per_sec']} output tokens/s, "
+        f"TTFT p50 {block['slo']['ttft_ms']['p50']} ms, per-token p50 "
+        f"{block['slo']['per_token_ms']['p50']} ms; parity {block['parity']}")
+    if not (code == 0 and summary["ok"] and block["parity"]["bitwise_identical"]
+            and block["requests"]["completed"] == ZOO_REQUESTS
+            and block["requests"]["failed"] == 0):
+        raise RuntimeError(f"llama serve-bench failed its gates: {summary.get('failures')}")
+
+    # export to HF names -> import -> eval, bit-identical.
+    _reset_counts()
+    trained = _eval_cli(cfg_path, run["run_dir"])
+    exported, imported = tmp / "llama_hf.pt", tmp / "llama_imported"
+    code, out = _run_cli(["export-checkpoint", "--config", str(cfg_path), "--from",
+                          str(run["run_dir"]), "--output", str(exported), "--json"])
+    if code != 0:
+        raise RuntimeError(f"llama export-checkpoint exited {code}")
+    names = sorted(torch.load(exported, weights_only=True))
+    if "model.layers.0.self_attn.k_proj.weight" not in names or "lm_head.weight" not in names:
+        raise RuntimeError(f"llama export is not in HF Llama names: {names[:6]}")
+    code, _ = _run_cli(["import-checkpoint", "--config", str(cfg_path), "--input", str(exported),
+                        "--output", str(imported), "--json"])
+    if code != 0:
+        raise RuntimeError(f"llama import-checkpoint exited {code}")
+    round_trip = _eval_cli(cfg_path, imported)
+    eval_counts = _read_counts()
+    log(f"[zoo] (b) llama eval {trained!r}, the trainer's {run['summary']['final_val_loss']!r}; "
+        f"export ({len(names)} HF tensors) -> import -> eval {round_trip!r}")
+    if round_trip != trained or abs(trained - run["summary"]["final_val_loss"]) > EVAL_ATOL:
+        raise RuntimeError("llama export -> import -> eval is not bit-identical to eval")
+    _check_counts("zoo (b) evals", eval_counts,
+                  {"flash_attention_fwd": 2 * layers * eval_batches})
+    counts = {k: run["counts"][k] + gen_counts[k] + eval_counts[k] for k in run["counts"]}
+    return dict(run=run, counts=counts)
+
+
+def _zoo_families(torch, smi: str, tmp: Path, eval_batches: int) -> dict:
+    """(c) Qwen2 and Gemma, (d) the Mixtral layout: full width, fewer
+    layers, each with a greedy `generate` from its checkpoint."""
+    counts = {}
+    runs = {}
+    small = dict(n_layers=ZOO_SMALL_LAYERS)
+    cases = [
+        ("qwen2", dict(name="qwen2", **small), {}, ZOO_SMALL_STEPS),
+        ("gemma", dict(name="gemma", **small), {}, ZOO_SMALL_STEPS),
+        ("llama_moe", dict(name="llama_moe", **small),
+         dict(n_experts=4, router_top_k=2, capacity_factor=2.0, sliding_window=ZOO_WINDOW),
+         ZOO_MOE_STEPS),
+    ]
+    for name, model, extra, steps in cases:
+        cfg_path = _zoo_config(tmp, f"zoo_{name}", "llama_pycorpus_tpu", steps=steps,
+                               model=model, extra=extra)
+        torch.cuda.empty_cache()
+        run = _zoo_train(tmp, cfg_path, f"zoo_{name}", steps=steps, eval_batches=eval_batches,
+                         label=f"({'d' if name == 'llama_moe' else 'c'}) {name}")
+        if name == "llama_moe" and not run["losses"][-1] < run["losses"][0]:
+            raise RuntimeError(f"llama_moe: losses did not fall: {run['losses']}")
+        _reset_counts()
+        _zoo_generate(cfg_path, run["run_dir"], name)
+        _check_counts(f"zoo {name} generate", _read_counts(), {})  # the KV cache: no kernel
+        log(f"[zoo] {name}: step {run['step_ms']:.1f} ms ({run['span']}), "
+            f"{run['tokens_per_sec']:.0f} tokens/s, "
+            f"peak memory {run['summary']['peak_memory'] / 2**30:.2f} GiB on {smi}")
+        runs[name] = run
+        for k, v in run["counts"].items():
+            counts[k] = counts.get(k, 0) + v
+    return dict(runs=runs, counts=counts)
+
+
+def _zoo_lora(torch, smi: str, tmp: Path, eval_batches: int) -> dict:
+    """(e) gpt_lora_ft: the frozen base bit-identical, every B moved, the
+    merged export imported into the plain config and generating."""
+    import numpy as np
+    import yaml
+
+    from llmtrain_tpu_torch.config import load_and_validate_config
+    from llmtrain_tpu_torch.distributed import resolve_device
+    from llmtrain_tpu_torch.interop import state_dict_to_flax_params
+    from llmtrain_tpu_torch.models.lora import build_adapter
+    from llmtrain_tpu_torch.training.checkpoint import CheckpointManager
+
+    cfg_path = _zoo_config(tmp, "zoo_lora", "gpt_lora_ft", steps=ZOO_LORA_STEPS)
+    cfg, _, _ = load_and_validate_config(cfg_path)
+    torch.cuda.empty_cache()
+    run = _zoo_train(tmp, cfg_path, "zoo_lora", steps=ZOO_LORA_STEPS, eval_batches=eval_batches,
+                     label="(e) gpt_lora_ft")
+    fresh = build_adapter(cfg).build_model(cfg, resolve_device(cfg.run.device))
+    init = state_dict_to_flax_params(fresh.state_dict(), n_heads=cfg.model.n_heads)
+    del fresh
+    payload = CheckpointManager.load(
+        run["run_dir"] / "checkpoints" / f"step_{ZOO_LORA_STEPS:06d}.ckpt")
+
+    def leaves(tree, path=()):
+        for k, v in tree.items():
+            yield from (leaves(v, (*path, k)) if isinstance(v, dict) else [((*path, k), v)])
+
+    base = dict(leaves(payload["params"]["base"]))
+    changed = [p for p, v in leaves(init["base"])
+               if not torch.equal(torch.as_tensor(np.array(base[p])), v)]
+    factors = dict(leaves(payload["params"]["lora"]))
+    still = [p for p, v in factors.items() if p[-1] == "b" and not np.asarray(v).any()]
+    n_b = sum(p[-1] == "b" for p in factors)
+    log(f"[zoo] (e) lora: {len(base)} base leaves, {len(changed)} changed; {n_b} factors B, "
+        f"{n_b - len(still)} moved; trainable {run['summary']['trainable_parameter_count']} of "
+        f"{run['summary']['parameter_count']}; step {run['step_ms']:.1f} ms ({run['span']}), "
+        f"peak memory "
+        f"{run['summary']['peak_memory'] / 2**30:.2f} GiB on {smi}")
+    if changed or still or not n_b:
+        raise RuntimeError(f"lora: base leaves changed {changed[:4]}, factors B unmoved "
+                           f"{still[:4]}")
+    exported, imported = tmp / "lora_merged.pt", tmp / "lora_imported"
+    code, _ = _run_cli(["export-checkpoint", "--config", str(cfg_path), "--from",
+                        str(run["run_dir"]), "--output", str(exported), "--json"])
+    if code != 0:
+        raise RuntimeError(f"lora export-checkpoint exited {code}")
+    raw = yaml.safe_load(cfg_path.read_text())
+    raw["model"]["extra"].pop("lora")
+    plain = tmp / "zoo_lora_plain.yaml"
+    plain.write_text(yaml.safe_dump(raw, sort_keys=False))
+    code, _ = _run_cli(["import-checkpoint", "--config", str(plain), "--input", str(exported),
+                        "--output", str(imported), "--json"])
+    if code != 0:
+        raise RuntimeError(f"lora: import-checkpoint of the merged export exited {code}")
+    # The merged weights evaluate as the LoRA run does: a merge with a wrong
+    # scale or transpose moves the loss far past EVAL_ATOL (6 steps of the
+    # factors alone took it from the base's ~5.5 to ~4).
+    _reset_counts()
+    lora_eval = _eval_cli(cfg_path, run["run_dir"])
+    merged_eval = _eval_cli(plain, imported)
+    eval_counts = _read_counts()
+    trained = run["summary"]["final_val_loss"]
+    log(f"[zoo] (e) lora eval {lora_eval!r} (the trainer's {trained!r}); the merged export's "
+        f"{merged_eval!r}: |diff| {abs(merged_eval - lora_eval):.3e} (atol {EVAL_ATOL:g})"
+        f"{', bit-identical' if merged_eval == lora_eval else ''}")
+    if abs(lora_eval - trained) > EVAL_ATOL or abs(merged_eval - lora_eval) > EVAL_ATOL:
+        raise RuntimeError("lora: the merged export does not evaluate as the LoRA run")
+    _check_counts("zoo (e) evals", eval_counts,
+                  {"flash_attention_fwd": 2 * run["layers"] * eval_batches})
+    _reset_counts()
+    merged = _zoo_generate(plain, imported, "(e) merged export")
+    lora_ids = _zoo_generate(cfg_path, run["run_dir"], "(e) lora run")
+    _check_counts("zoo lora generate", _read_counts(), {})
+    if merged != lora_ids:
+        raise RuntimeError("the merged export does not generate the LoRA run's tokens")
+    counts = {k: run["counts"][k] + eval_counts[k] for k in run["counts"]}
+    return {**run, "counts": counts}
+
+
+def phase_zoo(torch, smi: str, tmp: Path) -> dict:
+    """Phase 21: the model zoo, (a)-(e) above. Returns the launch counts
+    of its training, generate and eval paths."""
+    from llmtrain_tpu_torch.config import load_and_validate_config
+    from llmtrain_tpu_torch.data.local_text import LocalTextDataModule
+    from llmtrain_tpu_torch.data.tokenizers import ByteTokenizer
+
+    t_phase = time.perf_counter()
+    cfg_path = _zoo_config(tmp, "zoo_probe", "llama_pycorpus_tpu", steps=ZOO_STEPS)
+    cfg, _, _ = load_and_validate_config(cfg_path)
+    dm = LocalTextDataModule()
+    dm.setup(cfg, ByteTokenizer())
+    eval_batches = -(-len(dm.val_dataset()) // cfg.trainer.micro_batch_size)
+    del dm
+    llama = _zoo_llama(torch, smi, tmp, eval_batches)
+    families = _zoo_families(torch, smi, tmp, eval_batches)
+    lora = _zoo_lora(torch, smi, tmp, eval_batches)
+    counts = {k: llama["counts"][k] + families["counts"][k] + lora["counts"][k]
+              for k in llama["counts"]}
+    seconds = time.perf_counter() - t_phase
+    log(f"[zoo] phase 21 in {seconds:.1f} s on {smi}; launches {counts}")
+    return dict(llama=llama["run"], families=families["runs"], lora=lora, counts=counts,
+                seconds=seconds)
+
+
 def main() -> int:
     import tempfile
 
@@ -3705,15 +4115,21 @@ def main() -> int:
         return 1
     smi = phase_device(torch)
     phase_build()
+    clock("phases 1-2: device, build")
     fwd_errs = phase_kernel_checks(torch)
     bwd_errs = phase_bwd_checks(torch)
+    clock("phase 3: flash checks")
     norm_errs = phase_norm_checks(torch)
     ce_errs = phase_ce_checks(torch)
+    clock("phase 3: norm and CE checks")
     timing = phase_timing(torch, smi)
     train_timing = phase_timing(torch, smi, TRAIN_SHAPE, iters=20)
+    gqa_timing = phase_timing(torch, smi, GQA_TRAIN_SHAPE, iters=20)
     bwd_timing = phase_bwd_timing(torch, smi)
+    gqa_bwd_timing = phase_bwd_timing(torch, smi, GQA_TRAIN_SHAPE)
     norm_timing = phase_norm_timing(torch, smi)
     ce_timing = phase_ce_timing(torch, smi)
+    clock("phase 4: timing")
     cfg, _, model = build_path_model(torch)
     phase_model(torch, model)
     from llmtrain_tpu_torch.ops.flash_attention import flash_attention_fwd
@@ -3727,28 +4143,40 @@ def main() -> int:
         raise RuntimeError("the serving path never launched the flash kernel")
     phase_profile(torch, model, smi)
     del model
+    clock("phases 5-8: model, serve, generate, profile")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         train = phase_train(torch, smi, Path(tmp))
+        clock("phase 9: train")
         fused = phase_fused_train(torch, smi, Path(tmp), train)
         phase_train_profile(torch, smi, train["cfg_path"])
         phase_train_profile(torch, smi, fused["cfg_path"])
         ce = phase_ce_train(torch, smi, Path(tmp), train["eval_batches"])
         phase_train_profile(torch, smi, ce["cfg_path"])
+        clock("phases 10-13: fused-norm and CE trains, profiles")
         cont = phase_continuous(torch, smi, Path(tmp), train)
+        clock("phase 14: continuous serving")
         spec = phase_speculative(torch, smi, Path(tmp), train, cont)
+        clock("phase 15: speculative, int8, rolling")
         phase_fleet(torch, smi, Path(tmp), train, cont)
+        clock("phase 16: fleet")
         offline = phase_offline(torch, smi, Path(tmp))
+        clock("phase 17: offline")
         ddp = phase_ddp(torch, smi, Path(tmp))
+        clock("phase 18: ddp, optimizers")
         tel = phase_telemetry(torch, smi, Path(tmp), train, ce)
+        clock("phase 19: telemetry")
         res = phase_resilience(torch, smi, Path(tmp), train)
+        clock("phase 20: resilience")
+        zoo = phase_zoo(torch, smi, Path(tmp))
+        clock("phase 21: model zoo")
     paths = (train["counts"], fused["counts"], ce["counts"], spec["counts"], offline["counts"],
-             ddp["counts"], tel["counts"], res["counts"])
+             ddp["counts"], tel["counts"], res["counts"], zoo["counts"])
     launches = {name: sum(c[name] for c in paths) for name in paths[0]}
     launches["flash_attention_fwd"] += serve_launches
     log(f"[main path] launches over serve + generate, train, fused-norm train, CE train, "
         f"speculative/int8/rolling, BPE train and its evals, the one-rank NCCL train and its "
-        f"EMA evals, phase 19's profile and telemetry runs, and phase 20's guarded run: "
-        f"{launches}")
+        f"EMA evals, phase 19's profile and telemetry runs, phase 20's guarded run and phase "
+        f"21's model zoo: {launches}")
     for name, n in launches.items():
         if n == 0:
             raise RuntimeError(f"the main path never launched {name}")
@@ -3765,14 +4193,21 @@ def main() -> int:
              window_shape_plain_ms=spec["window_timing"]["plain_ms"],
              window_shape_library_ms=spec["window_timing"]["library_ms"],
              window_shape_bound_ms=spec["window_timing"]["bound_ms"],
-             window_shape_launches=spec["window_launches"]),
+             window_shape_launches=spec["window_launches"],
+             **{f"gqa_shape_{k}": gqa_timing[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                          "library_ms")}),
         dict(name="flash_attention_bwd_dq", route="cuda", source=csrc + "flash_attention_bwd.cu",
              replaces=f"{pallas}:278",
-             max_abs_err=max(e["dq"] for e in bwd_errs.values()), **bwd_timing["dq"]),
+             max_abs_err=max(e["dq"] for e in bwd_errs.values()), **bwd_timing["dq"],
+             **{f"gqa_shape_{k}": gqa_bwd_timing["dq"][k] for k in ("ms", "plain_ms",
+                                                                    "bound_ms", "library_ms")}),
         dict(name="flash_attention_bwd_dkdv", route="cuda",
              source=csrc + "flash_attention_bwd.cu", replaces=f"{pallas}:358",
              max_abs_err=max(max(e["dk"], e["dv"]) for e in bwd_errs.values()),
-             **bwd_timing["dkdv"]),
+             **bwd_timing["dkdv"],
+             **{f"gqa_shape_{k}": gqa_bwd_timing["dkdv"][k] for k in ("ms", "plain_ms",
+                                                                      "bound_ms",
+                                                                      "library_ms")}),
         dict(name="fused_norm_fwd", route="triton", source="llmtrain_tpu_torch/ops/fused_norm.py",
              replaces="llmtrain_tpu/ops/fused_norm.py:110",
              max_abs_err=max(e["fwd"] for e in norm_errs.values()), **norm_timing["fwd"]),
@@ -3814,6 +4249,10 @@ def main() -> int:
         f"phase 19 {tel['seconds']:.1f} s")
     log(f"[resilience] guarded step {res['rollback']['guarded_ms']:.1f} ms against phase 9's "
         f"{res['rollback']['plain_ms']:.1f} ms; phase 20 {res['seconds']:.1f} s")
+    llama = zoo["llama"]
+    log(f"[zoo] llama step {llama['step_ms']:.1f} ms, {llama['tokens_per_sec']:.0f} tokens/s, "
+        f"MFU {llama['mfu']:.4f}, peak memory {llama['summary']['peak_memory'] / 2**30:.2f} GiB "
+        f"(GPT cell {train['step_ms']:.1f} ms); phase 21 {zoo['seconds']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -34,7 +34,9 @@ Same subcommands, flags, JSON shapes and exit codes as the JAX CLI
 * ``train-tokenizer`` — an offline byte-level BPE vocabulary (data/bpe.py)
   for ``model.extra.tokenizer: "bpe:<path>"``;
 * ``export-checkpoint`` / ``import-checkpoint`` — a checkpoint to and from
-  the reference torch GPT's state dict (interop/torch_interop.py);
+  the reference torch GPT's state dict (interop/torch_interop.py), or HF
+  Llama's for the llama family (interop/llama_hf.py); a LoRA run exports
+  its merged weights, and importing into a LoRA config fills its base;
   ``average-checkpoints`` — the float64 average of several checkpoints'
   params (``--last-k``); the last two write a resumable step-0 checkpoint;
 * ``validate`` / ``print-config`` — the config loader.
@@ -63,8 +65,9 @@ draft puts the continuous backend on the speculative policy.
 Exit codes: JAX's taxonomy (resilience/exit_codes.py): 0 ok, 1 failure,
 2 config error (a feature that is not yet ported counts as a config
 error), 75 a transient infrastructure fault (or an injected one) anywhere
-in the exception's cause chain, 76 a hang the watchdog ended. LoRA or pipeline checkpoints exit 2 with a message naming
-the ROADMAP.md item. ``--ema`` (generate, serve, serve-bench, eval,
+in the exception's cause chain, 76 a hang the watchdog ended. A malformed
+``model.extra.lora`` exits 2 before anything is built; pipeline
+checkpoints exit 2 naming the ROADMAP.md item. ``--ema`` (generate, serve, serve-bench, eval,
 export-checkpoint) loads the checkpoint's EMA shadow
 (``trainer.extra.ema_decay``). ``run.device`` (default ``cuda``) picks
 the device: ``cpu`` the CPU, ``tpu``/``cuda`` the card (an error when none
@@ -487,7 +490,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     export = sub.add_parser(
         "export-checkpoint",
-        help="export checkpoint weights as a torch state dict (gpt → reference GPT names)",
+        help="export checkpoint weights as a torch state dict (gpt → reference GPT names, "
+        "llama family → HF Llama names)",
     )
     export.add_argument("--config", required=True, help="path to the YAML run config")
     export.add_argument(
@@ -502,7 +506,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     imp = sub.add_parser(
         "import-checkpoint",
-        help="build a resumable checkpoint from a torch state dict (gpt ← reference GPT names)",
+        help="build a resumable checkpoint from a torch state dict (gpt ← reference GPT names, "
+        "llama family ← HF Llama names)",
     )
     imp.add_argument("--config", required=True, help="path to the YAML run config")
     imp.add_argument("--input", required=True, help="torch .pt state-dict path")
@@ -595,16 +600,18 @@ def _load_config(path: str):
     return cfg, None
 
 
-def _lora_error(cfg) -> str | None:
-    if cfg.model.extra.get("lora") is not None:
-        return f"LoRA models (model.extra.lora) {_NOT_PORTED} (ROADMAP.md queue A: model zoo)"
-    return None
+def _lora_spec_error(cfg) -> str | None:
+    """A malformed ``model.extra.lora`` is a config error (exit 2), found
+    before any model is built (JAX ``_lora_spec_error``)."""
+    from .models.lora import lora_spec_error
+
+    return lora_spec_error(cfg)
 
 
 def _unported_inference_flags(args: argparse.Namespace, cfg) -> str | None:
-    """Message for the first requested feature this slice does not run,
-    or for unpaired draft flags (JAX's check)."""
-    lora = _lora_error(cfg)
+    """Message for a malformed LoRA spec, or for unpaired draft flags
+    (JAX's checks)."""
+    lora = _lora_spec_error(cfg)
     if lora is None and (args.draft_config is None) != (args.draft_from is None):
         return "--draft-config and --draft-from must be given together"
     return lora
@@ -677,6 +684,10 @@ def _handle_train(args: argparse.Namespace) -> int:
         cfg, _, resolved = load_and_validate_config(args.config)
     except ConfigLoadError as exc:
         _emit_error(exc.message, details=exc.details, errors=exc.errors)
+        return EXIT_CONFIG_ERROR
+    lora = _lora_spec_error(cfg)
+    if lora is not None:
+        _emit_error(lora)
         return EXIT_CONFIG_ERROR
     dist_state = None
     if cfg.distributed.enabled:
@@ -833,11 +844,11 @@ def _train(args: argparse.Namespace, cfg, resolved, dist_state) -> int:
 
 
 def _build_decode_stack(cfg, device, logger):
-    """Adapter + (optional) tokenizer + model on ``device``."""
-    from .registry import get_model_adapter, initialize_registries
+    """Adapter + (optional) tokenizer + model on ``device`` (a LoRA config
+    builds its LoraModel, merged on load)."""
+    from .models.lora import build_adapter
 
-    initialize_registries()
-    adapter = get_model_adapter(cfg.model.name)()
+    adapter = build_adapter(cfg)
     tokenizer = None
     try:
         tokenizer = adapter.build_tokenizer(cfg)
@@ -881,6 +892,7 @@ def _load_decode_params(cfg, model, from_spec: str, decode_param_dtype: str, log
     (ops/quant.py)."""
     import yaml
 
+    from .models.lora import to_inference_model
     from .training.checkpoint import load_ema_params, load_inference_params, resolve_resume_path
 
     ckpt_path = resolve_resume_path(from_spec, cfg.output.root_dir)
@@ -888,7 +900,8 @@ def _load_decode_params(cfg, model, from_spec: str, decode_param_dtype: str, log
     load = load_ema_params if ema else load_inference_params
     step = load(ckpt_path, model, expected_config_yaml=expected_yaml)
     logger.info("%sloaded checkpoint %s (step %d)", label, ckpt_path, step)
-    model = prepare_decode_model(model, decode_param_dtype, logger)
+    # A LoRA run decodes its merged weights (models/lora.py).
+    model = prepare_decode_model(to_inference_model(model), decode_param_dtype, logger)
     if quantize == "int8":
         from .ops.quant import quantize_model
 
@@ -905,7 +918,7 @@ def _load_draft(draft_cfg, args: argparse.Namespace, model, device, logger):
     """The draft model of ``--draft-config/--draft-from``, through the same
     load tail as the target (``--quantize`` applies to it too). Raises
     ValueError when its vocabulary is not the target's."""
-    lora = _lora_error(draft_cfg)
+    lora = _lora_spec_error(draft_cfg)
     if lora is not None:
         raise NotImplementedError(lora)
     _, _, draft_model = _build_decode_stack(draft_cfg, device, logger)
@@ -1885,9 +1898,9 @@ def _handle_eval(args: argparse.Namespace) -> int:
     cfg, code = _load_config(args.config)
     if cfg is None:
         return code
-    unported = _lora_error(cfg)
-    if unported is not None:
-        _emit_error(unported)
+    lora = _lora_spec_error(cfg)
+    if lora is not None:
+        _emit_error(lora)
         return EXIT_CONFIG_ERROR
 
     from .utils.logging import configure_logging
@@ -2001,12 +2014,12 @@ def _tool_exit_code(exc: BaseException) -> int:
 
 
 def _tool_model(cfg):
-    """The config's model on its device, freshly initialized."""
+    """The config's model on its device, freshly initialized (a LoRA
+    config's LoraModel)."""
     from .distributed import resolve_device
-    from .registry import get_model_adapter, initialize_registries
+    from .models.lora import build_adapter
 
-    initialize_registries()
-    return get_model_adapter(cfg.model.name)().build_model(cfg, resolve_device(cfg.run.device))
+    return build_adapter(cfg).build_model(cfg, resolve_device(cfg.run.device))
 
 
 def _model_params(cfg, model):
@@ -2040,16 +2053,18 @@ def _save_fresh_checkpoint(cfg, model, params, out_dir: Path) -> Path:
     """``params`` (JAX tree) into ``model`` with a fresh optimizer state,
     committed as ``step_000000.ckpt`` in ``out_dir``: what ``train
     --resume`` takes (JAX ``create_train_state`` + ``save_host``)."""
-    from .interop import flax_params_to_state_dict
+    from .interop import flax_params_to_state_dict, is_lora_tree
     from .training.checkpoint import CheckpointManager
     from .training.checkpoint import opt_state_to_host
     from .training.optimizer import build_model_optimizer
 
     model.load_state_dict(flax_params_to_state_dict(params), strict=True)
     optimizer = build_model_optimizer(cfg, model)
+    tree = _model_params(cfg, model)
     opt_state = opt_state_to_host(optimizer.state_dict(), n_heads=cfg.model.n_heads,
-                                  n_kv_heads=int(cfg.model.extra.get("n_kv_heads", 0)))
-    host = {"params": _model_params(cfg, model), "opt_state": opt_state}
+                                  n_kv_heads=int(cfg.model.extra.get("n_kv_heads", 0)),
+                                  lora=is_lora_tree(tree))
+    host = {"params": tree, "opt_state": opt_state}
     return CheckpointManager(out_dir).save_host(0, host, cfg.model_dump())
 
 
@@ -2067,7 +2082,7 @@ def _handle_average_checkpoints(args: argparse.Namespace) -> int:
     cfg, code = _load_config(args.config)
     if cfg is None:
         return code
-    lora = _lora_error(cfg)
+    lora = _lora_spec_error(cfg)
     if lora is not None:
         _emit_error(lora)
         return EXIT_CONFIG_ERROR
@@ -2149,9 +2164,9 @@ def _handle_export_checkpoint(args: argparse.Namespace) -> int:
     cfg, code = _load_config(args.config)
     if cfg is None:
         return code
-    unported = _lora_error(cfg)
-    if unported is not None:
-        _emit_error(unported)
+    lora = _lora_spec_error(cfg)
+    if lora is not None:
+        _emit_error(lora)
         return EXIT_CONFIG_ERROR
 
     from .utils.logging import configure_logging
@@ -2160,11 +2175,24 @@ def _handle_export_checkpoint(args: argparse.Namespace) -> int:
     try:
         import torch
 
-        from .interop import params_to_torch_state_dict
+        from .interop import (
+            is_llama_tree,
+            llama_params_to_hf_state_dict,
+            params_to_torch_state_dict,
+        )
 
-        ckpt_path, params, step = _load_checkpoint_params(cfg, _tool_model(cfg), args.from_spec,
-                                                          ema=args.ema)
-        sd = {k: torch.from_numpy(v) for k, v in params_to_torch_state_dict(params).items()}
+        from .models.lora import to_inference_model
+
+        model = _tool_model(cfg)
+        ckpt_path, _, step = _load_checkpoint_params(cfg, model, args.from_spec, ema=args.ema)
+        # A LoRA run exports its merged weights, the family's full-rank
+        # state dict (JAX ``to_inference_params``).
+        params = _model_params(cfg, to_inference_model(model))
+        # Each family exports in its ecosystem's layout: llama → HF
+        # LlamaForCausalLM names, gpt → the reference torch GPT's.
+        convert = (llama_params_to_hf_state_dict if is_llama_tree(params)
+                   else params_to_torch_state_dict)
+        sd = {k: torch.from_numpy(v) for k, v in convert(params).items()}
         out = Path(args.output)
         out.parent.mkdir(parents=True, exist_ok=True)
         torch.save(sd, out)
@@ -2194,7 +2222,7 @@ def _handle_import_checkpoint(args: argparse.Namespace) -> int:
     cfg, code = _load_config(args.config)
     if cfg is None:
         return code
-    lora = _lora_error(cfg)
+    lora = _lora_spec_error(cfg)
     if lora is not None:
         _emit_error(lora)
         return EXIT_CONFIG_ERROR
@@ -2205,7 +2233,12 @@ def _handle_import_checkpoint(args: argparse.Namespace) -> int:
     try:
         import torch
 
-        from .interop import params_from_torch_state_dict
+        from .interop import (
+            is_llama_tree,
+            is_lora_tree,
+            llama_params_from_hf_state_dict,
+            params_from_torch_state_dict,
+        )
 
         out_dir = Path(args.output)
         existing = sorted(out_dir.glob("step_*.ckpt")) if out_dir.exists() else []
@@ -2219,7 +2252,17 @@ def _handle_import_checkpoint(args: argparse.Namespace) -> int:
             return EXIT_FAILURE
         model = _tool_model(cfg)
         raw = torch.load(args.input, weights_only=True)
-        params = params_from_torch_state_dict(dict(raw), _model_params(cfg, model))
+        template = _model_params(cfg, model)
+        # Importing into a LoRA config fills the frozen base; the factors
+        # keep their zero-delta init (JAX's fine-tuning entry point).
+        lora = template["lora"] if is_lora_tree(template) else None
+        template = template["base"] if lora is not None else template
+        # A llama-family config reads an HF LlamaForCausalLM state dict.
+        convert = (llama_params_from_hf_state_dict if is_llama_tree(template)
+                   else params_from_torch_state_dict)
+        params = convert(dict(raw), template)
+        if lora is not None:
+            params = {"base": params, "lora": lora}
         target = _save_fresh_checkpoint(cfg, model, params, out_dir)
         n_params = int(sum(p.numel() for p in model.parameters()))
         stats = {"input": args.input, "checkpoint": str(target), "parameters": n_params}
@@ -2239,10 +2282,10 @@ def _handle_import_checkpoint(args: argparse.Namespace) -> int:
 def _warn_unknown_extras(cfg) -> None:
     """Typos in ``model.extra`` are warnings, never errors."""
     try:
-        from .registry import get_model_adapter, initialize_registries
+        from .models.lora import build_adapter
 
-        initialize_registries()
-        known = get_model_adapter(cfg.model.name).known_extra_keys
+        # LoRA's adapter knows ``lora`` beside its family's keys.
+        known = build_adapter(cfg).known_extra_keys
     except Exception:  # noqa: BLE001 — the check must never break validation
         return
     unknown = sorted(set(cfg.model.extra) - set(known or cfg.model.extra))
@@ -2258,6 +2301,10 @@ def _handle_validate(args: argparse.Namespace) -> int:
     cfg, code = _load_config(args.config)
     if cfg is None:
         return code
+    lora = _lora_spec_error(cfg)
+    if lora is not None:
+        _emit_error(lora)
+        return EXIT_CONFIG_ERROR
     _warn_unknown_extras(cfg)
     if args.json:
         print(json.dumps({"valid": True, "config": args.config}))

@@ -1,5 +1,5 @@
-"""JAX parameter trees ↔ the port's ``state_dict``: the dense GPT and
-``dummy_gpt``.
+"""JAX parameter trees ↔ the port's ``state_dict``: the GPT and llama
+families (with their MoE variants) and ``dummy_gpt``.
 
 Input is the flax GPT's ``params`` as nested dicts of arrays — what
 ``flax.serialization.to_state_dict`` gives and what a checkpoint payload
@@ -45,58 +45,78 @@ def _kernel(x: Any) -> torch.Tensor:
     return t.reshape(t.shape[0], -1).T.contiguous()
 
 
+# Norm modules of the GPT (LayerNorm: scale and bias) and llama (RMSNorm:
+# scale only) trees.
+_NORMS = frozenset({"ln_1", "ln_2", "ln_f", "attn_norm", "mlp_norm", "norm_f"})
+
+
 def flax_gpt_params_to_state_dict(params: Params) -> dict[str, torch.Tensor]:
-    """The port's GPT ``state_dict`` from the JAX GPT's param tree."""
-    if "base" in params and "lora" in params:
-        raise NotImplementedError(
-            "LoRA checkpoints are not yet ported to llmtrain_tpu_torch "
-            "(ROADMAP.md queue A: model zoo); merge or export the base first"
-        )
+    """The port's ``state_dict`` from a JAX param tree of the GPT or llama
+    family (gpt, gpt_moe, llama, qwen2, gemma, llama_moe): embeddings,
+    norms (``scale``, and ``bias`` for LayerNorm), the attention
+    projections with their biases, the dense MLP (``mlp_fc``/``mlp_proj``
+    or ``mlp_gate``/``mlp_up``/``mlp_down``) or the experts (the router's
+    kernel transposed, the stacked expert weights as they are), and the
+    untied ``lm_head``."""
     if ("qkv_kernel" in params or "q_kernel" in params) and "block_0" not in params:
         raise NotImplementedError(
             "pipeline (stacked-layer) checkpoints are not yet ported to "
             "llmtrain_tpu_torch (ROADMAP.md queue A: parallelism)"
         )
-    for required in ("token_embedding", "position_embedding", "ln_f", "block_0"):
+    for required in ("token_embedding", "block_0"):
         if required not in params:
             raise ValueError(
-                f"params have no {required!r}; only the dense GPT tree "
-                "(llmtrain_tpu/models/gpt.py) is supported"
+                f"params have no {required!r}; only the GPT and llama family trees "
+                "(llmtrain_tpu/models/gpt.py, llama.py) are supported"
             )
     sd: dict[str, torch.Tensor] = {
         "token_embedding.weight": _tensor(params["token_embedding"]["embedding"]),
-        "position_embedding.weight": _tensor(params["position_embedding"]["embedding"]),
-        "ln_f.weight": _tensor(params["ln_f"]["scale"]),
-        "ln_f.bias": _tensor(params["ln_f"]["bias"]),
     }
+    if "position_embedding" in params:
+        sd["position_embedding.weight"] = _tensor(params["position_embedding"]["embedding"])
+    for norm in ("ln_f", "norm_f"):
+        if norm in params:
+            _norm_to_sd(sd, norm, params[norm])
     i = 0
     while f"block_{i}" in params:
         p, pre = params[f"block_{i}"], f"blocks.{i}"
-        if "moe_mlp" in p:
-            raise NotImplementedError(
-                "Mixture-of-Experts checkpoints are not yet ported to "
-                "llmtrain_tpu_torch (ROADMAP.md queue A: model zoo)"
-            )
-        for ln in ("ln_1", "ln_2"):
-            sd[f"{pre}.{ln}.weight"] = _tensor(p[ln]["scale"])
-            sd[f"{pre}.{ln}.bias"] = _tensor(p[ln]["bias"])
-        att = p["attn"]
-        for proj in ("qkv_proj", "q_proj", "kv_proj"):
-            if proj in att:
-                sd[f"{pre}.attn.{proj}.weight"] = _kernel(att[proj]["kernel"])
-                if "bias" in att[proj]:
-                    sd[f"{pre}.attn.{proj}.bias"] = _tensor(att[proj]["bias"]).reshape(-1)
-        out_k = _tensor(att["out_proj"]["kernel"])
-        sd[f"{pre}.attn.out_proj.weight"] = out_k.reshape(-1, out_k.shape[-1]).T.contiguous()
-        if "bias" in att["out_proj"]:
-            sd[f"{pre}.attn.out_proj.bias"] = _tensor(att["out_proj"]["bias"])
-        for mlp in ("mlp_fc", "mlp_proj"):
-            sd[f"{pre}.{mlp}.weight"] = _kernel(p[mlp]["kernel"])
-            sd[f"{pre}.{mlp}.bias"] = _tensor(p[mlp]["bias"])
+        for name, node in p.items():
+            if name in _NORMS:
+                _norm_to_sd(sd, f"{pre}.{name}", node)
+            elif name == "attn":
+                _attention_to_sd(sd, f"{pre}.attn", node)
+            elif name == "moe_mlp":
+                for leaf, value in node.items():
+                    if leaf == "router":
+                        sd[f"{pre}.moe_mlp.router.weight"] = _kernel(value["kernel"])
+                    else:
+                        sd[f"{pre}.moe_mlp.{leaf}"] = _tensor(value)
+            else:
+                sd[f"{pre}.{name}.weight"] = _kernel(node["kernel"])
+                if "bias" in node:
+                    sd[f"{pre}.{name}.bias"] = _tensor(node["bias"])
         i += 1
     if "lm_head" in params:
         sd["lm_head.weight"] = _kernel(params["lm_head"]["kernel"])
     return sd
+
+
+def _norm_to_sd(sd: dict[str, torch.Tensor], prefix: str, node: Params) -> None:
+    sd[f"{prefix}.weight"] = _tensor(node["scale"])
+    if "bias" in node:
+        sd[f"{prefix}.bias"] = _tensor(node["bias"])
+
+
+def _attention_to_sd(sd: dict[str, torch.Tensor], prefix: str, att: Params) -> None:
+    for proj in ("qkv_proj", "q_proj", "kv_proj"):
+        if proj in att:
+            sd[f"{prefix}.{proj}.weight"] = _kernel(att[proj]["kernel"])
+            if "bias" in att[proj]:
+                sd[f"{prefix}.{proj}.bias"] = _tensor(att[proj]["bias"]).reshape(-1)
+    out_k = _tensor(att["out_proj"]["kernel"])
+    sd[f"{prefix}.out_proj.weight"] = out_k.reshape(-1, out_k.shape[-1]).T.contiguous()
+    if "bias" in att["out_proj"]:
+        sd[f"{prefix}.out_proj.bias"] = _tensor(att["out_proj"]["bias"])
 
 
 def _flax_kernel(w: torch.Tensor, *out_shape: int) -> torch.Tensor:
@@ -107,50 +127,50 @@ def _flax_kernel(w: torch.Tensor, *out_shape: int) -> torch.Tensor:
 def state_dict_to_flax_gpt_params(
     sd: dict[str, torch.Tensor], *, n_heads: int, n_kv_heads: int | None = None
 ) -> Params:
-    """The JAX GPT's param tree (nested dicts of CPU tensors, flax shapes)
-    from the port's GPT ``state_dict``: the inverse of
+    """The JAX param tree (nested dicts of CPU tensors, flax shapes) of a
+    GPT- or llama-family ``state_dict``: the inverse of
     :func:`flax_gpt_params_to_state_dict`."""
     sd = {k: v.detach().cpu() for k, v in sd.items()}
     d_model = sd["token_embedding.weight"].shape[1]
     head_dim = d_model // n_heads
     kv = n_kv_heads or n_heads
-    params: dict[str, Any] = {
-        "token_embedding": {"embedding": sd["token_embedding.weight"].clone()},
-        "position_embedding": {"embedding": sd["position_embedding.weight"].clone()},
-        "ln_f": {"scale": sd["ln_f.weight"].clone(), "bias": sd["ln_f.bias"].clone()},
-    }
-    i = 0
-    while f"blocks.{i}.ln_1.weight" in sd:
-        pre = f"blocks.{i}"
-        block: dict[str, Any] = {
-            ln: {"scale": sd[f"{pre}.{ln}.weight"].clone(), "bias": sd[f"{pre}.{ln}.bias"].clone()}
-            for ln in ("ln_1", "ln_2")
-        }
-        att: dict[str, Any] = {}
-        shapes = {"qkv_proj": (3, n_heads, head_dim), "q_proj": (n_heads, head_dim),
-                  "kv_proj": (2, kv, head_dim)}
-        for proj, shape in shapes.items():
-            if f"{pre}.attn.{proj}.weight" in sd:
-                att[proj] = {"kernel": _flax_kernel(sd[f"{pre}.attn.{proj}.weight"], *shape)}
-                if f"{pre}.attn.{proj}.bias" in sd:
-                    att[proj]["bias"] = sd[f"{pre}.attn.{proj}.bias"].reshape(shape).clone()
-        att["out_proj"] = {
-            "kernel": _flax_kernel(sd[f"{pre}.attn.out_proj.weight"], d_model).reshape(
-                n_heads, head_dim, d_model
-            )
-        }
-        if f"{pre}.attn.out_proj.bias" in sd:
-            att["out_proj"]["bias"] = sd[f"{pre}.attn.out_proj.bias"].clone()
-        block["attn"] = att
-        for mlp in ("mlp_fc", "mlp_proj"):
-            w = sd[f"{pre}.{mlp}.weight"]
-            block[mlp] = {"kernel": _flax_kernel(w, w.shape[0]),
-                          "bias": sd[f"{pre}.{mlp}.bias"].clone()}
-        params[f"block_{i}"] = block
-        i += 1
-    if "lm_head.weight" in sd:
-        w = sd["lm_head.weight"]
-        params["lm_head"] = {"kernel": _flax_kernel(w, w.shape[0])}
+    params: dict[str, Any] = {"token_embedding": {"embedding": sd["token_embedding.weight"].clone()}}
+    if "position_embedding.weight" in sd:
+        params["position_embedding"] = {"embedding": sd["position_embedding.weight"].clone()}
+    shapes = {"qkv_proj": (3, n_heads, head_dim), "q_proj": (n_heads, head_dim),
+              "kv_proj": (2, kv, head_dim)}
+    for name, w in sd.items():
+        parts = name.split(".")
+        if parts[0] != "blocks":
+            if parts[0] in _NORMS:
+                params.setdefault(parts[0], {})["scale" if parts[1] == "weight" else "bias"] =                     w.clone()
+            elif parts[0] == "lm_head":
+                params["lm_head"] = {"kernel": _flax_kernel(w, w.shape[0])}
+            continue
+        block = params.setdefault(f"block_{parts[1]}", {})
+        module, leaf = parts[2], parts[-1]
+        if module in _NORMS:
+            block.setdefault(module, {})["scale" if leaf == "weight" else "bias"] = w.clone()
+        elif module == "attn":
+            proj = parts[3]
+            node = block.setdefault("attn", {}).setdefault(proj, {})
+            if proj == "out_proj":
+                node["kernel" if leaf == "weight" else "bias"] = (
+                    _flax_kernel(w, d_model).reshape(n_heads, head_dim, d_model)
+                    if leaf == "weight" else w.clone())
+            elif leaf == "weight":
+                node["kernel"] = _flax_kernel(w, *shapes[proj])
+            else:
+                node["bias"] = w.reshape(shapes[proj]).clone()
+        elif module == "moe_mlp":
+            moe = block.setdefault("moe_mlp", {})
+            if parts[3] == "router":
+                moe["router"] = {"kernel": _flax_kernel(w, w.shape[0])}
+            else:
+                moe[leaf] = w.clone()
+        else:
+            block.setdefault(module, {})["kernel" if leaf == "weight" else "bias"] = (
+                _flax_kernel(w, w.shape[0]) if leaf == "weight" else w.clone())
     return params
 
 
@@ -188,9 +208,51 @@ def state_dict_to_flax_dummy_gpt_params(sd: dict[str, torch.Tensor]) -> Params:
     return params
 
 
+def is_lora_tree(params: Params) -> bool:
+    """True for a LoRA run's ``{"base": ..., "lora": ...}`` tree."""
+    return isinstance(params, dict) and set(params) == {"base", "lora"}
+
+
+def _flatten_paths(tree: Params, path: tuple[str, ...] = ()) -> dict[str, torch.Tensor]:
+    out: dict[str, torch.Tensor] = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out.update(_flatten_paths(value, (*path, key)))
+        else:
+            out["/".join((*path, key))] = _tensor(value)
+    return out
+
+
+def lora_tree_to_state_dict(lora: Params) -> dict[str, torch.Tensor]:
+    """A LoRA factor tree (``block_0/attn/qkv_proj/kernel/{a,b}``) → the
+    ``lora.*`` entries of a LoraModel's ``state_dict`` (models/lora.py)."""
+    return {f"lora.{path}": t for path, t in _flatten_paths(lora).items()}
+
+
+def state_dict_to_lora_tree(sd: dict[str, torch.Tensor]) -> Params:
+    """The inverse of :func:`lora_tree_to_state_dict` (``lora.``-prefixed
+    entries; others are ignored)."""
+    tree: dict[str, Any] = {}
+    for name, t in sd.items():
+        if not name.startswith("lora."):
+            continue
+        *path, leaf = name[len("lora."):].split("/")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = t.detach().cpu().clone()
+    return tree
+
+
 def flax_params_to_state_dict(params: Params) -> dict[str, torch.Tensor]:
     """A checkpoint's param tree → the ``state_dict`` of the model it
-    belongs to: ``dummy_gpt`` or the dense GPT, told apart by the tree."""
+    belongs to: ``dummy_gpt``, a GPT/llama-family model, or a LoRA run's
+    ``{base, lora}`` (a LoraModel's ``base.*`` and ``lora.*``), told apart
+    by the tree."""
+    if is_lora_tree(params):
+        base = flax_params_to_state_dict(params["base"])
+        return {**{f"base.{k}": v for k, v in base.items()},
+                **lora_tree_to_state_dict(params["lora"])}
     if is_dummy_gpt_tree(params):
         return flax_dummy_gpt_params_to_state_dict(params)
     return flax_gpt_params_to_state_dict(params)
@@ -200,7 +262,12 @@ def state_dict_to_flax_params(
     sd: dict[str, torch.Tensor], *, n_heads: int, n_kv_heads: int | None = None
 ) -> Params:
     """A model's ``state_dict`` → the JAX param tree a checkpoint stores:
-    ``dummy_gpt`` (told apart by its ``embed.weight``) or the dense GPT."""
+    ``dummy_gpt`` (told apart by its ``embed.weight``) or a GPT/llama-family
+    model."""
+    if any(k.startswith("lora.") for k in sd):
+        base = {k[len("base."):]: v for k, v in sd.items() if k.startswith("base.")}
+        return {"base": state_dict_to_flax_params(base, n_heads=n_heads, n_kv_heads=n_kv_heads),
+                "lora": state_dict_to_lora_tree(sd)}
     if "embed.weight" in sd:
         return state_dict_to_flax_dummy_gpt_params(sd)
     return state_dict_to_flax_gpt_params(sd, n_heads=n_heads, n_kv_heads=n_kv_heads)
@@ -239,9 +306,12 @@ __all__ = [
     "flax_dummy_gpt_params_to_state_dict",
     "flax_layout_views",
     "flax_gpt_params_to_state_dict",
+    "is_lora_tree",
+    "lora_tree_to_state_dict",
     "flax_params_to_state_dict",
     "is_dummy_gpt_tree",
     "state_dict_to_flax_dummy_gpt_params",
     "state_dict_to_flax_gpt_params",
     "state_dict_to_flax_params",
+    "state_dict_to_lora_tree",
 ]

@@ -32,6 +32,11 @@ CUDA kernels of ops/fused_ce.py on the card) and ``chunked_ce`` (plain
 torch, ops/chunked_ce.py) contract ``forward(..., return_hidden=True)``
 against the (V, d) vocab matrix, so no (B, T, V) tensor is made.
 
+``moe`` (``gpt_moe``, models/gpt_moe.py) replaces every block's MLP by
+the experts of models/moe.py. The attention's ``qkv_bias`` gives the
+q/k/v projections a bias of their own (Qwen2, models/llama.py, which
+reuses this attention and the decoding views below).
+
 Grouped-query attention (``n_kv_heads`` < ``n_heads``) uses ``q_proj`` +
 ``kv_proj`` in place of the fused ``qkv_proj``. Decoding, in plain torch
 as JAX's decode paths are plain XLA, goes through :meth:`GPT.for_decoding`
@@ -99,6 +104,7 @@ from ..ops.fused_ce import (
 from ..ops.quant import dequantized, quantize_array
 from ..registry.models import register_model
 from .base import Batch, ModelAdapter, lm_loss_components, validate_lm_batch
+from .moe import MoEMLP
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _INIT_STD = 0.02
@@ -450,6 +456,7 @@ class CausalSelfAttention(nn.Module):
         n_kv_heads: int = 0,
         assume_packed: bool = False,
         use_bias: bool = True,
+        qkv_bias: bool | None = None,
         rope: bool = False,
         rope_theta: float = 10000.0,
         sliding_window: int = 0,
@@ -472,14 +479,17 @@ class CausalSelfAttention(nn.Module):
         self.sliding_window = sliding_window
         width = n_heads * self.head_dim
         kw = dict(dtype=param_dtype)
+        # Qwen2's split (JAX ``qkv_bias``): the q/k/v projections' bias on
+        # its own, out_proj's following ``use_bias``.
+        in_bias = use_bias if qkv_bias is None else qkv_bias
         if self.kv_heads == n_heads:
             # Output features ordered (3, H, Dh): the flax (D, 3, H, Dh)
             # kernel flattened in C order.
-            self.qkv_proj = nn.Linear(d_model, 3 * width, bias=use_bias, **kw)
+            self.qkv_proj = nn.Linear(d_model, 3 * width, bias=in_bias, **kw)
         else:
-            self.q_proj = nn.Linear(d_model, width, bias=use_bias, **kw)
+            self.q_proj = nn.Linear(d_model, width, bias=in_bias, **kw)
             self.kv_proj = nn.Linear(d_model, 2 * self.kv_heads * self.head_dim,
-                                     bias=use_bias, **kw)
+                                     bias=in_bias, **kw)
         self.out_proj = nn.Linear(width, d_model, bias=use_bias, **kw)
 
     def forward(
@@ -598,7 +608,7 @@ class TransformerBlock(nn.Module):
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int, *, dtype: torch.dtype,
                  param_dtype: torch.dtype, dropout: float = 0.0, fused_norm: bool = False,
-                 **attn_kw: Any) -> None:
+                 moe: dict[str, Any] | None = None, **attn_kw: Any) -> None:
         super().__init__()
         self.dtype = dtype
         self.dropout = dropout
@@ -607,8 +617,12 @@ class TransformerBlock(nn.Module):
         self.attn = CausalSelfAttention(d_model, n_heads, dtype=dtype,
                                         param_dtype=param_dtype, dropout=dropout, **attn_kw)
         self.ln_2 = LayerNorm(d_model, dtype=dtype, param_dtype=param_dtype)
-        self.mlp_fc = nn.Linear(d_model, d_ff, dtype=param_dtype)
-        self.mlp_proj = nn.Linear(d_ff, d_model, dtype=param_dtype)
+        if moe:
+            # gpt_moe: the MLP is a Mixture of Experts (models/moe.py).
+            self.moe_mlp = MoEMLP(d_model, d_ff, dtype=dtype, param_dtype=param_dtype, **moe)
+        else:
+            self.mlp_fc = nn.Linear(d_model, d_ff, dtype=param_dtype)
+            self.mlp_proj = nn.Linear(d_ff, d_model, dtype=param_dtype)
 
     def forward(
         self,
@@ -633,6 +647,8 @@ class TransformerBlock(nn.Module):
 
     def _mlp(self) -> Any:
         """The MLP as a function of its input, its kernels cast once."""
+        if hasattr(self, "moe_mlp"):
+            return self.moe_mlp
         fc, proj = _dense_fn(self.mlp_fc, self.dtype), _dense_fn(self.mlp_proj, self.dtype)
         return lambda h: proj(F.gelu(fc(h), approximate="none"))
 
@@ -642,7 +658,19 @@ class TransformerBlock(nn.Module):
         DECODE_ROWS (see :meth:`CausalSelfAttention.decode_rows`)."""
         h = _row_blocks(self.ln_1, x)
         x = x + self.attn.decode_rows(h, shape, positions, write_read, rows)
-        return x + _row_blocks(self._mlp(), _row_blocks(self.ln_2, x))
+        return x + mlp_rows(self, self._mlp(), _row_blocks(self.ln_2, x), shape)
+
+
+def mlp_rows(block: nn.Module, mlp: Any, h: torch.Tensor, shape: tuple[int, int]) -> torch.Tensor:
+    """A block's MLP on the decode paths' padded rows: a dense MLP by
+    blocks of DECODE_ROWS rows; a Mixture of Experts over the call's
+    (B, T) tokens, whose routing (capacity, queue order) is per sequence
+    as in JAX, its padding rows left zero."""
+    if not hasattr(block, "moe_mlp"):
+        return _row_blocks(mlp, h)
+    b, t = shape
+    out = mlp(h[: b * t].view(b, t, -1)).reshape(b * t, -1)
+    return F.pad(out, (0, 0, 0, h.shape[0] - b * t))
 
 
 class GPT(nn.Module):
@@ -674,6 +702,8 @@ class GPT(nn.Module):
         ce_chunk: int = DEFAULT_CHUNK,
         fused_ce_block_t: int = DEFAULT_BLOCK_T,
         fused_ce_block_v: int = DEFAULT_BLOCK_V,
+        moe: dict[str, Any] | None = None,
+        **layer_kw: Any,
     ) -> None:
         super().__init__()
         self.dropout = dropout
@@ -696,21 +726,28 @@ class GPT(nn.Module):
         self.sliding_window = sliding_window
         self.kv_cache_dtype = kv_cache_dtype
         self.token_embedding = nn.Embedding(vocab_size, d_model, dtype=param_dtype)
-        self.position_embedding = nn.Embedding(block_size, d_model, dtype=param_dtype)
-        self.blocks = nn.ModuleList(
-            TransformerBlock(
-                d_model, n_heads, d_ff, dtype=dtype, param_dtype=param_dtype,
-                attention=attention, n_kv_heads=n_kv_heads, assume_packed=assume_packed,
-                sliding_window=sliding_window, rope=rope, rope_theta=rope_theta,
-                dropout=dropout, fused_norm=fused_norm,
-            )
-            for _ in range(n_layers)
-        )
-        self.ln_f = LayerNorm(d_model, dtype=dtype, param_dtype=param_dtype)
+        block_kw = dict(dtype=dtype, param_dtype=param_dtype, dropout=dropout, moe=moe,
+                        attention=attention, n_kv_heads=n_kv_heads, assume_packed=assume_packed,
+                        sliding_window=sliding_window, rope_theta=rope_theta)
+        self._build_layers(d_ff, block_kw, rope=rope, **layer_kw)
         self.lm_head = (
             None if tie_embeddings
             else nn.Linear(d_model, vocab_size, bias=False, dtype=param_dtype)
         )
+
+    def _build_layers(self, d_ff: int, block_kw: dict[str, Any], *, rope: bool) -> None:
+        """The layers between the token embedding and the head: learned
+        position embeddings, the blocks and the final LayerNorm. A family
+        with other layers overrides this (models/llama.py); ``block_kw``
+        are the blocks' shared arguments, the keywords the family's own."""
+        d = self.d_model
+        self.position_embedding = nn.Embedding(self.block_size, d, dtype=self.param_dtype)
+        self.blocks = nn.ModuleList(
+            TransformerBlock(d, self.n_heads, d_ff, rope=rope, fused_norm=self.fused_norm,
+                             **block_kw)
+            for _ in range(self.n_layers)
+        )
+        self.ln_f = LayerNorm(d, dtype=self.dtype, param_dtype=self.param_dtype)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -719,7 +756,12 @@ class GPT(nn.Module):
         mlp_proj), zero biases, unit LayerNorm scales. Random numbers come
         from ``generator`` (on the parameters' device)."""
         residual_std = _INIT_STD / math.sqrt(2 * self.n_layers)
+        for module in self.modules():
+            if isinstance(module, MoEMLP):
+                module.init_weights(generator, self.n_layers)
         for name, p in self.named_parameters():
+            if ".moe_mlp." in name:
+                continue
             if name.endswith("bias"):
                 p.zero_()
             elif ".ln_" in name or name.startswith("ln_f"):
@@ -754,13 +796,11 @@ class GPT(nn.Module):
             positions = torch.arange(start, start + seqlen, device=input_ids.device)
             return self.decode_forward(input_ids, positions.expand(batch, seqlen),
                                        lambda layer: cache.layers[layer].write_read)
-        pos = torch.arange(seqlen, device=input_ids.device)
-        x = (embed(input_ids, dequantized(self.token_embedding.weight)).to(self.dtype)
-             + embed(pos, dequantized(self.position_embedding.weight)).to(self.dtype)[None])
+        x = self._embed(input_ids, torch.arange(seqlen, device=input_ids.device)[None])
         x = apply_dropout(x, self.dropout, deterministic, generator)
         for block in self.blocks:
             x = block(x, attention_mask, deterministic=deterministic, generator=generator)
-        x = self.ln_f(x)
+        x = self.final_norm(x)
         if return_hidden:
             return x
         return F.linear(x, _weight(self.vocab_matrix(), self.dtype))
@@ -785,15 +825,27 @@ class GPT(nn.Module):
         for the first ``rows`` rows only (default all)."""
         b, t = input_ids.shape
         n = b * t
-        pos = positions.clamp(max=self.block_size - 1)
-        x = (F.embedding(input_ids, dequantized(self.token_embedding.weight)).to(self.dtype)
-             + F.embedding(pos, dequantized(self.position_embedding.weight)).to(self.dtype))
+        x = self._embed(input_ids, positions, decode=True)
         x = F.pad(x.reshape(n, -1), (0, 0, 0, -(-n // DECODE_ROWS) * DECODE_ROWS - n))
         for i, block in enumerate(self.blocks):
             x = block.decode_rows(x, (b, t), positions, write_read(i), rows)
-        x = _row_blocks(self.ln_f, x)
+        x = _row_blocks(self.final_norm, x)
         w = _weight(self.vocab_matrix(), self.dtype)
         return _row_blocks(lambda r: F.linear(r, w), x)[:n].view(b, t, -1)
+
+    def _embed(self, input_ids: torch.Tensor, positions: torch.Tensor, *,
+               decode: bool = False) -> torch.Tensor:
+        """Token plus learned position embeddings in the compute dtype.
+        ``positions`` (1 or B, T); on the decode paths a position past the
+        model's last (only a padded token has one) reads the last row, and
+        the lookups are plain (no backward)."""
+        lookup = F.embedding if decode else embed
+        pos = positions.clamp(max=self.block_size - 1) if decode else positions
+        return (lookup(input_ids, dequantized(self.token_embedding.weight)).to(self.dtype)
+                + lookup(pos, dequantized(self.position_embedding.weight)).to(self.dtype))
+
+    def final_norm(self, x: torch.Tensor) -> torch.Tensor:
+        return self.ln_f(x)
 
     def vocab_matrix(self) -> torch.Tensor:
         """The (V, d) output-projection parameter: the tied
@@ -988,7 +1040,24 @@ class GPTAdapter(ModelAdapter):
          "fused_norm", "pallas_interpret"}
     )
 
-    def build_model(self, cfg: RunConfig, device: torch.device | None = None) -> GPT:
+    # The module class :meth:`build_model` instantiates (models/llama.py
+    # gives its own; the MoE adapters add their fields to the kwargs).
+    _model_class: type[nn.Module] = GPT
+
+    def build_model(self, cfg: RunConfig, device: torch.device | None = None) -> nn.Module:
+        """The family's module from :meth:`model_kwargs`, moved to
+        ``device`` and initialized from ``run.seed``."""
+        model = self._model_class(**self.model_kwargs(cfg))
+        if device is not None:
+            model = model.to(device)
+        generator = torch.Generator(device=model.token_embedding.weight.device)
+        generator.manual_seed(cfg.run.seed)
+        model.init_weights(generator)
+        return model.eval()
+
+    def model_kwargs(self, cfg: RunConfig) -> dict[str, Any]:
+        """The validated constructor arguments of the GPT trunk (JAX's
+        ``GPTAdapter.build_model`` checks, in its order)."""
         m = cfg.model
         vocab_size = m.vocab_size
         if vocab_size is None:
@@ -1042,7 +1111,7 @@ class GPTAdapter(ModelAdapter):
         sliding_window = int(m.extra.get("sliding_window", 0))
         if sliding_window < 0:
             raise ValueError(f"model.extra.sliding_window must be >= 0, got {sliding_window}")
-        model = GPT(
+        return dict(
             vocab_size=vocab_size,
             block_size=m.block_size,
             d_model=m.d_model,
@@ -1065,12 +1134,6 @@ class GPTAdapter(ModelAdapter):
             fused_ce_block_t=block_t,
             fused_ce_block_v=block_v,
         )
-        if device is not None:
-            model = model.to(device)
-        generator = torch.Generator(device=model.token_embedding.weight.device)
-        generator.manual_seed(cfg.run.seed)
-        model.init_weights(generator)
-        return model.eval()
 
     def build_tokenizer(self, cfg: RunConfig) -> Any | None:
         """``model.extra.tokenizer`` (default ``gpt2``, as in JAX)."""

@@ -98,6 +98,10 @@ def _quantize_leaf(name: str, a: torch.Tensor, n_heads: int) -> QuantizedArray:
         d, width = a.shape
         view = (d, n_heads, width // n_heads)
         return quantize_array(a, reduce_axes=(1 if view[1] >= view[2] else 2,), view=view)
+    if ".moe_mlp." in name and not name.endswith("router.weight"):
+        # Stacked experts keep flax's layout: the largest leading axis.
+        leading = a.shape[:-1]
+        return quantize_array(a, reduce_axes=(leading.index(max(leading)),))
     return quantize_array(a, reduce_axes=(1,))  # the (out, in) weight's input axis
 
 

@@ -1,7 +1,8 @@
 """Plugin registries with deterministic initialization (port of
-``llmtrain_tpu/registry/__init__.py``): the dense GPT and ``dummy_gpt``,
-and the ``local_text``, ``mixed_text`` and ``dummy_text`` data modules
-are ported so far."""
+``llmtrain_tpu/registry/__init__.py``): every model family of the JAX
+package but the pipelined GPT (``gpt_pipeline``, ROADMAP.md queue A:
+parallelism), and the ``local_text``, ``mixed_text`` and ``dummy_text``
+data modules."""
 
 from __future__ import annotations
 
@@ -11,8 +12,12 @@ from .data import get_data_module, register_data_module
 from .models import RegistryError, get_model_adapter, register_model
 
 _PLUGIN_MODULES = (
-    "llmtrain_tpu_torch.models.gpt",
     "llmtrain_tpu_torch.models.dummy_gpt",
+    "llmtrain_tpu_torch.models.gpt",
+    "llmtrain_tpu_torch.models.gpt_moe",
+    "llmtrain_tpu_torch.models.llama",
+    "llmtrain_tpu_torch.models.qwen2",
+    "llmtrain_tpu_torch.models.gemma",
     "llmtrain_tpu_torch.data.local_text",
     "llmtrain_tpu_torch.data.mixed_text",
     "llmtrain_tpu_torch.data.dummy_text",

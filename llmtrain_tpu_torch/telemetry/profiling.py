@@ -40,6 +40,8 @@ leaves them out.
 from __future__ import annotations
 
 import copy
+import importlib
+import sys
 import threading
 import time
 from typing import Any, Callable, Iterable, Mapping
@@ -257,7 +259,30 @@ class _CostCount(TorchDispatchMode):
         return out
 
 
+# Modules torch imports on first use, whose import keeps the importing
+# stack alive: ``torch._dynamo`` comes in on the first call of a function
+# torch marks dynamo-disabled (a step on ``meta`` tensors makes one), and
+# its import runs ``torch.fx.wrap``, whose frame holds itself in a
+# reference cycle and, through ``f_back``, every frame below it.
+_STACK_KEEPING_IMPORTS = ("torch._dynamo",)
+
+
+def import_lazy_torch_modules() -> None:
+    """Import :data:`_STACK_KEEPING_IMPORTS` on a thread of their own,
+    whose stack is the only one the cycle keeps. Imported in a step under
+    ``Trainer.fit``, they would keep ``fit``'s frame, and with it the
+    trainer, its model and its optimizer state, until the cycle collector
+    ran."""
+    missing = [name for name in _STACK_KEEPING_IMPORTS if name not in sys.modules]
+    if missing:
+        worker = threading.Thread(target=lambda: [importlib.import_module(n) for n in missing],
+                                  name="lazy-torch-imports", daemon=True)
+        worker.start()
+        worker.join()
+
+
 def _count(fn: Callable, args: tuple) -> tuple[_CostCount, float]:
+    import_lazy_torch_modules()
     counter = _CostCount()
     t0 = time.perf_counter()
     with kernel_cost.recording(counter.record_kernel), counter:

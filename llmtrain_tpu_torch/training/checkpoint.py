@@ -730,31 +730,43 @@ def load_inference_params(
 
 
 def opt_state_to_host(opt_state: dict[str, Any], *, n_heads: int,
-                      n_kv_heads: int | None = None) -> dict[str, Any]:
+                      n_kv_heads: int | None = None, lora: bool = False) -> dict[str, Any]:
     """An optimizer's ``state_dict`` as a checkpoint stores it: the EMA
     shadow (keyed by the port's parameter names) goes to the JAX param
-    layout; everything else stays the port's."""
-    from ..interop.flax_params import state_dict_to_flax_params
+    layout; with ``lora`` (the run's params are a LoRA tree,
+    :func:`~llmtrain_tpu_torch.interop.flax_params.is_lora_tree`) to the
+    factor subtree, as JAX's masked optimizer keeps it. Everything else
+    stays the port's."""
+    from ..interop.flax_params import state_dict_to_flax_params, state_dict_to_lora_tree
     from .optimizer import EMA_STATE_KEY
 
     ema = opt_state.get(EMA_STATE_KEY)
     if ema is None:
         return opt_state
     sd = {k: torch.from_numpy(np.asarray(v)) for k, v in ema.items()}
+    if lora:
+        return {**opt_state, EMA_STATE_KEY: state_dict_to_lora_tree(sd)}
     tree = state_dict_to_flax_params(sd, n_heads=n_heads, n_kv_heads=n_kv_heads)
     return {**opt_state, EMA_STATE_KEY: tree}
 
 
-def opt_state_from_host(opt_state: dict[str, Any]) -> dict[str, Any]:
+def opt_state_from_host(opt_state: dict[str, Any], *, lora: bool = False) -> dict[str, Any]:
     """The inverse of :func:`opt_state_to_host`: the stored shadow back to
     the port's parameter names (f32)."""
-    from ..interop.flax_params import flax_params_to_state_dict
     from .optimizer import EMA_STATE_KEY
 
     ema = opt_state.get(EMA_STATE_KEY) if isinstance(opt_state, dict) else None
     if ema is None:
         return opt_state
-    return {**opt_state, EMA_STATE_KEY: flax_params_to_state_dict(ema)}
+    return {**opt_state, EMA_STATE_KEY: _shadow_state_dict(ema, lora)}
+
+
+def _shadow_state_dict(tree: Any, lora: bool) -> dict[str, torch.Tensor]:
+    """A stored EMA shadow as the port's parameter names: a family tree,
+    or with ``lora`` a LoRA run's factor subtree (``lora.*``)."""
+    from ..interop.flax_params import flax_params_to_state_dict, lora_tree_to_state_dict
+
+    return lora_tree_to_state_dict(tree) if lora else flax_params_to_state_dict(tree)
 
 
 def ema_from_payload(payload: dict[str, Any], model: torch.nn.Module) -> dict[str, torch.Tensor]:
@@ -762,7 +774,7 @@ def ema_from_payload(payload: dict[str, Any], model: torch.nn.Module) -> dict[st
     ``model``'s ``state_dict``, each tensor cast back to the dtype of the
     parameter it shadows. Raises ``ValueError`` (JAX's text) when the
     payload holds no EMA state."""
-    from ..interop.flax_params import flax_params_to_state_dict
+    from ..interop.flax_params import flax_params_to_state_dict, is_lora_tree
     from .optimizer import find_ema_tree
 
     raw = find_ema_tree(payload["opt_state"])
@@ -772,7 +784,14 @@ def ema_from_payload(payload: dict[str, Any], model: torch.nn.Module) -> dict[st
             "trainer.extra.ema_decay to track shadow weights"
         )
     dtypes = {k: v.dtype for k, v in model.state_dict().items()}
-    return {k: v.to(dtypes.get(k, v.dtype)) for k, v in flax_params_to_state_dict(raw).items()}
+    lora = is_lora_tree(payload["params"])
+    shadow = _shadow_state_dict(raw, lora)
+    if lora:
+        # A LoRA run's shadow covers the factors; the frozen base loads as
+        # stored (JAX's ``_load_checkpoint_params``).
+        base = flax_params_to_state_dict(payload["params"])
+        shadow = {**{k: v for k, v in base.items() if k.startswith("base.")}, **shadow}
+    return {k: v.to(dtypes.get(k, v.dtype)) for k, v in shadow.items()}
 
 
 def load_ema_params(

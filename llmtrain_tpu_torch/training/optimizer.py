@@ -428,11 +428,12 @@ def build_optimizer(
 
 
 def build_model_optimizer(cfg: RunConfig, model: torch.nn.Module) -> _Optimizer:
-    """The run's optimizer over ``model``'s parameters, Adafactor given the
-    views of the JAX package's layout."""
+    """The run's optimizer over ``model``'s trainable parameters (a LoRA
+    run's factors; the frozen base holds no state and takes no decay),
+    Adafactor given the views of the JAX package's layout."""
     from ..interop.flax_params import flax_layout_views
 
-    named = list(model.named_parameters())
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     views = flax_layout_views(named, n_heads=cfg.model.n_heads,
                               n_kv_heads=int(cfg.model.extra.get("n_kv_heads", 0)))
     return build_optimizer(cfg.trainer, named, views=views)

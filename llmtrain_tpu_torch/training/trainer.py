@@ -97,8 +97,13 @@ from ..distributed import (
     collective_wait_seconds,
     resolve_device,
 )
-from ..interop.flax_params import flax_params_to_state_dict, state_dict_to_flax_params
-from ..registry import get_data_module, get_model_adapter, initialize_registries
+from ..interop.flax_params import (
+    flax_params_to_state_dict,
+    is_lora_tree,
+    state_dict_to_flax_params,
+)
+from ..models.lora import build_adapter
+from ..registry import get_data_module, initialize_registries
 from ..resilience.elastic import (
     TopologyMismatchError,
     classify_topology_change,
@@ -162,8 +167,11 @@ def _mesh_refusal(cfg: RunConfig, world_size: int) -> str | None:
     process count (``-1`` means all of them)."""
     sizes = cfg.distributed.mesh.model_dump()
     data = sizes.pop("data")
-    if any(v > 1 for v in sizes.values()):
-        return "distributed.mesh with an axis other than data larger than one device"
+    wide = [f"{axis}={n}" for axis, n in sizes.items() if n > 1]
+    if wide:
+        # Expert, tensor, pipeline, fsdp and sequence axes are parallelism.
+        return ("distributed.mesh with an axis other than data larger than one device ("
+                + ", ".join(wide) + ")")
     if data not in (-1, world_size):
         return (f"distributed.mesh.data={data} with {world_size} process(es) (the data "
                 "axis is the process count, -1)")
@@ -180,8 +188,6 @@ def refuse_unported(cfg: RunConfig, world_size: int = 1) -> None:
         (cfg.trainer.zero.enabled, "trainer.zero (sharded optimizer state)", "parallelism"),
         (cfg.model.remat or cfg.model.extra.get("activation_tiers") is not None,
          "model.remat / model.extra.activation_tiers", "parallelism"),
-        (cfg.model.extra.get("lora") is not None, "LoRA models (model.extra.lora)",
-         "model zoo"),
     ]
     for on, what, item in checks:
         if on:
@@ -220,7 +226,8 @@ class Trainer:
         self._telemetry = Telemetry(cfg, run_dir, tracker, process_index=self._rank,
                                     is_main=self._is_main, device=self._device)
         initialize_registries()
-        self._adapter = get_model_adapter(cfg.model.name)()
+        # The registry's adapter, wrapped for LoRA under model.extra.lora.
+        self._adapter = build_adapter(cfg)
         self._data_module = get_data_module(cfg.data.name)()
         # Fault-tolerance wiring (resilience/): the fault plan is inert
         # unless the config injects something; rollback bookkeeping lives
@@ -280,7 +287,10 @@ class Trainer:
         )
         self._eval_step_fn = make_eval_step(self._adapter, self._model)
         self._param_count = sum(p.numel() for p in self._model.parameters())
-        self._trainable_count = self._param_count
+        # A LoRA run trains its factors only; the frozen base takes no
+        # gradient.
+        self._trainable_count = sum(p.numel() for p in self._model.parameters()
+                                    if p.requires_grad)
         self._peak_flops = peak_flops(self._device)
         self._train_seqlen = cfg.model.block_size
         self._data_offset = 0
@@ -412,18 +422,23 @@ class Trainer:
             model.load_state_dict(shadow, strict=False)
             eval_fn = make_eval_step(self._adapter, model)
         if quantize == "int8":
+            from ..models.lora import inference_adapter, to_inference_model
             from ..ops.quant import quantize_model
 
-            if not hasattr(self._model, "n_heads"):
-                raise ValueError("--quantize int8 evaluates the gpt model only")
             if model is self._model:
                 model = copy.deepcopy(self._model)
+            # A LoRA run's serving weights are the merged ones (JAX
+            # quantizes ``to_inference_params``), evaluated by its family.
+            adapter = inference_adapter(self._adapter)
+            model = to_inference_model(model)
+            if not hasattr(model, "n_heads"):
+                raise ValueError("--quantize int8 evaluates the gpt and llama families only")
             stats = quantize_model(model)
             logger.info(
                 "int8 weight quantization: %d/%d params quantized, %.2fx weight-byte compression",
                 stats["quantized_params"], stats["total_params"], stats["compression"],
             )
-            eval_fn = make_eval_step(self._adapter, model)
+            eval_fn = make_eval_step(adapter, model)
         return self._evaluate(step, step, eval_fn)
 
     # ------------------------------------------------------------------ fit
@@ -431,6 +446,10 @@ class Trainer:
     def fit(
         self, max_steps_override: int | None = None, resume_from: str | None = None
     ) -> TrainResult:
+        from ..telemetry.profiling import import_lazy_torch_modules
+
+        # Before any step: a lazy import inside one would keep this frame.
+        import_lazy_torch_modules()
         cfg = self._cfg
         max_steps = max_steps_override or cfg.trainer.max_steps
         accum = cfg.trainer.grad_accum_steps
@@ -1218,12 +1237,13 @@ class Trainer:
         reach (a checkpoint serialises them on a thread)."""
         m = self._cfg.model
         n_kv = int(m.extra.get("n_kv_heads", 0))
+        params = state_dict_to_flax_params(self._model.state_dict(), n_heads=m.n_heads,
+                                           n_kv_heads=n_kv)
         return {
-            "params": state_dict_to_flax_params(
-                self._model.state_dict(), n_heads=m.n_heads, n_kv_heads=n_kv
-            ),
+            "params": params,
             "opt_state": opt_state_to_host(self._state.optimizer.state_dict(),
-                                           n_heads=m.n_heads, n_kv_heads=n_kv),
+                                           n_heads=m.n_heads, n_kv_heads=n_kv,
+                                           lora=is_lora_tree(params)),
         }
 
     def _save_checkpoint(self, step: int) -> None:
@@ -1312,7 +1332,8 @@ class Trainer:
         )
         step = int(payload["step"])
         self._model.load_state_dict(flax_params_to_state_dict(payload["params"]), strict=True)
-        self._state.optimizer.load_state_dict(opt_state_from_host(payload["opt_state"]))
+        self._state.optimizer.load_state_dict(
+            opt_state_from_host(payload["opt_state"], lora=is_lora_tree(payload["params"])))
         self._state.step = step
         resil = payload.get("resilience") or {}
         self._last_restored_resilience = {k: v for k, v in resil.items()}

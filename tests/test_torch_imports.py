@@ -43,6 +43,8 @@ def test_walk_covers_the_package() -> None:
     assert {"exit_codes.py", "dummy_text.py", "mixed_text.py", "bpe.py", "dummy_gpt.py",
             "torch_interop.py"} <= names
     assert {"faults.py", "chip_smoke_ddp.py", "chip_smoke_offline.py"} <= names
+    assert {"llama.py", "qwen2.py", "gemma.py", "moe.py", "gpt_moe.py", "lora.py",
+            "llama_hf.py", "chip_smoke_zoo.py"} <= names
     assert _ROOT / "llmtrain_tpu_torch" / "distributed" / "__init__.py" in _FILES
     native = _ROOT / "llmtrain_tpu_torch" / "native" / "__init__.py"
     assert native in _FILES and (native.parent / "fastbpe.c").is_file()

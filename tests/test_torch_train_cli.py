@@ -219,9 +219,9 @@ _CITES_STABLE_ITEM = re.compile(r"\(ROADMAP\.md queue A: (" + "|".join(STABLE_IT
      {"model.extra.activation_tiers": "full:*"},
      {"distributed.enabled": True, "distributed.mesh.tensor": 2},
      {"distributed.mesh.data": 2}, {"trainer.zero.enabled": True}, {"model.remat": True},
-     {"model.extra.lora": {"rank": 4}}],
+     {"distributed.mesh.expert": 2}],
     ids=["sequence", "fsdp", "activation-tiers", "data-parallel", "mesh", "zero", "remat",
-         "lora"],
+         "expert"],
 )
 def test_refusals_cite_a_stable_roadmap_item(tmp_path, override) -> None:
     cfg, _, _ = load_and_validate_config(_config(tmp_path, **override))
