@@ -223,7 +223,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    --ema` -> `import-checkpoint` (the plain config) -> `eval`
    bit-identical to `eval --ema`; 12 flash forwards per eval batch;
    `generate --ema` answers a greedy request. (c) optimizer adamw,
-   adafactor and lion, OPT_STEPS steps each (warmup OPT_WARMUP), their
+   adafactor and lion, OPT_STEPS steps each (warmup OPT_WARMUP) at
+   OPT_LAYERS layers, their
    step ms medians over the same steps: adafactor and lion give finite
    losses, the last below the first; each one's state bytes, step ms and
    peak memory beside AdamW's.
@@ -312,6 +313,38 @@ Phases, each fatal on failure (exit code 1, no result line):
    their own line. Phase 4 also times the flash kernels at the GQA
    training shape (64, 512, 12 over 4, 64) against SDPA with
    enable_gqa=True, the kernels line carrying them as gqa_shape_*.
+22. Parallelism on one device, in the same temp root, at phase 9's width
+   and depth, launch counts reset just before and read just after each
+   path: (a) fp8_supported() on the card; the fp8 product
+   (torch._scaled_mm, f32 accumulation) at the cell's four projection
+   shapes, 32768 tokens, against its plain version within FP8_RTOL of
+   the largest output, a control with one scale dropped above it, and its
+   time beside bf16 F.linear; then `train` with matmul_precision int8 and
+   fp8, QUANT_STEPS steps inside phase 9's warmup (so phase 9's losses are
+   the f32 trajectory step for step): losses finite, falling, within
+   PARITY_RTOL of phase 9's and not one of them bitwise phase 9's (the
+   quantized products ran), report.json's matmul_precision the mode, the
+   flash counts; a profile of the fp8 run's last step holding the e4m3
+   GEMM kernel that torch._scaled_mm launched above, the step's matmul
+   kernels listed; step ms, tokens/s, MFU and peak memory; `generate`
+   from the fp8 checkpoint. (b) The ladders none, selective:*, full:*,
+   offload:0-5,full:6-11 and, with fused_norm, none and full:*, each
+   LADDER_STEPS steps of the trainer's step on the same init and batches:
+   step 1's loss bitwise the ladder without remat's and its gradients
+   bitwise or within GRAD_ATOL/GRAD_RTOL (which held is printed); the
+   flash forward (and the LayerNorm forward) launched twice a layer and
+   step under remat, once without; a profile of the full ladder's third
+   step holding flash forwards after the backward's first dq kernel (the
+   recompute); peak memory, and the bytes allocated when step 1's
+   backward starts (what each ladder holds from its forward), strictly
+   none > selective > full > offload; under offload the pinned host
+   allocator's pool (torch.cuda.memory.host_memory_stats) grown by at
+   least the staged block inputs' bytes. (c)
+   Phase 18(a)'s one-rank NCCL job under trainer.zero, stage 1 with
+   host_offload and stage 2, DDP_STEPS steps each: every loss bitwise the
+   plain one-rank job's, report.json's opt_state_bytes_host AdamW's state
+   bytes and 0 per device under the offload, each step time beside the
+   plain job's.
 
 Then it prints the kernels line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
@@ -1606,7 +1639,8 @@ def phase_train(torch, smi: str, tmp: Path) -> dict:
 
     _reset_counts()  # the training path's counts start here
     t0 = time.perf_counter()
-    code, out = _run_cli(["train", "--config", str(cfg_path), "--run-id", "full", "--json"])
+    with _ExactLosses() as exact:  # phase 22(a) holds the quantized losses against these bits
+        code, out = _run_cli(["train", "--config", str(cfg_path), "--run-id", "full", "--json"])
     wall = time.perf_counter() - t0
     counts = _read_counts()  # and end here
     if code != 0:
@@ -1667,7 +1701,7 @@ def phase_train(torch, smi: str, tmp: Path) -> dict:
         raise RuntimeError(f"generate from the trained checkpoint returned {ids}")
     return dict(cfg_path=cfg_path, run_dir=run_dir, steps=steps, counts=counts,
                 eval_batches=eval_batches, step_ms=step_ms, tokens_per_sec=tok_s, mfu=mfu,
-                summary=summary)
+                summary=summary, exact_losses=exact.losses)
 
 
 def phase_fused_train(torch, smi: str, tmp: Path, train: dict) -> dict:
@@ -1882,7 +1916,7 @@ def phase_train_profile(torch, smi: str, cfg_path: Path) -> None:
 # what 8 slots serve at this width (each request holds a slot for 64
 # decode steps of 12-27 ms on the H100, PERF.md: 5-10 requests/s), so the
 # batch stays full whatever the host's speed and the queue holds the rest.
-CONT_REQUESTS = 24  # 48 until phase 21 came (PERF.md §2)
+CONT_REQUESTS = 16  # 48 until phase 21 came, 24 until phase 22 (PERF.md §2)
 # The sampled (prefix cache) and speculative runs keep more requests: their
 # batch fills more slowly (mean occupancy 7.02 and 6.97 at 32, PERF.md §2).
 CONT_SLOW_FILL_REQUESTS = 32
@@ -3022,6 +3056,9 @@ DDP_BACKEND = "nccl"  # run.device cuda
 # lr: the first updates of all three are sign-like steps of size lr.
 OPT_STEPS = 16
 OPT_WARMUP = 4
+# ... at OPT_LAYERS of the cell's 12 (a depth cut for phase 22's time,
+# PERF.md §2; each run's state bytes are held against the AdamW run's).
+OPT_LAYERS = 4
 
 
 def _ddp_config(tmp: Path, name: str, *, steps: int, distributed: bool = False,
@@ -3134,7 +3171,9 @@ def _ddp_train(torch, smi: str, tmp: Path, layers: int, eval_batches: int) -> di
     _reset_counts()  # the one-rank NCCL path's counts start here
     try:
         t0 = time.perf_counter()
-        code, out = _run_cli(["train", "--config", str(cfg_path), "--run-id", "ddp", "--json"])
+        with _ExactLosses() as exact:  # phase 22(c) holds ZeRO's losses to these bits
+            code, out = _run_cli(["train", "--config", str(cfg_path), "--run-id", "ddp",
+                                  "--json"])
         wall = time.perf_counter() - t0
         counts = _read_counts()  # and end here
     finally:
@@ -3191,7 +3230,8 @@ def _ddp_train(torch, smi: str, tmp: Path, layers: int, eval_batches: int) -> di
         f"{base['tokens_per_sec']:.0f} tokens/s, MFU {base['mfu']:.4f}, peak memory "
         f"{plain['peak_memory'] / 2**30:.2f} GiB")
     return dict(cfg_path=cfg_path, plain_cfg=tmp / "ddp_plain.yaml", run_dir=run_dir,
-                counts=counts, summary=summary, one=one, base=base, plain=plain)
+                counts=counts, summary=summary, one=one, base=base, plain=plain,
+                exact_losses=exact.losses, layers=layers, eval_batches=eval_batches)
 
 
 def _ddp_ema(torch, smi: str, tmp: Path, ddp: dict, layers: int, eval_batches: int) -> dict:
@@ -3234,17 +3274,23 @@ def _ddp_ema(torch, smi: str, tmp: Path, ddp: dict, layers: int, eval_batches: i
 def _ddp_optimizers(torch, smi: str, tmp: Path, ddp: dict) -> dict:
     """18(c): AdamW runs too, at the same length and schedule, so that the
     three step medians cover the same steps of runs alike."""
+    import yaml
+
     out_rows = {}
-    params = ddp["summary"]["parameter_count"]
-    adamw_bytes = 2 * params * 4
+    adamw_bytes = None
     for name in ("adamw", "adafactor", "lion"):
         cfg_path = _ddp_config(tmp, f"opt_{name}", steps=OPT_STEPS, warmup=OPT_WARMUP,
                                optimizer=name)
+        raw = yaml.safe_load(cfg_path.read_text())
+        raw["model"]["n_layers"] = OPT_LAYERS
+        cfg_path.write_text(yaml.safe_dump(raw, sort_keys=False))
         code, out = _run_cli(["train", "--config", str(cfg_path), "--run-id", f"opt_{name}",
                               "--json"])
         if code != 0:
             raise RuntimeError(f"train with optimizer {name} exited {code}")
         summary = json.loads(out)["train_result"]
+        if adamw_bytes is None:
+            adamw_bytes = 2 * summary["parameter_count"] * 4  # the AdamW run's mu and nu
         run_dir = tmp / "runs" / f"opt_{name}"
         steps = _logged_steps(run_dir)
         losses = [steps[i]["loss"] for i in sorted(steps)]
@@ -4099,6 +4145,511 @@ def phase_zoo(torch, smi: str, tmp: Path) -> dict:
                 seconds=seconds)
 
 
+# ------------------------------------------------ parallelism on one device
+# Phase 22 (module doc): quantized training matmuls, activation tiers and
+# remat, ZeRO with host offload, at phase 9's width and depth.
+# (a) Phase 9's config in int8 and fp8 for QUANT_STEPS steps, inside its
+# warmup, so phase 9's own losses are the f32 trajectory step for step.
+QUANT_STEPS = FUSED_STEPS
+# JAX's documented N-step parity band against f32 (tests/test_quant_train.py).
+PARITY_RTOL = {"int8": 0.05, "fp8": 0.10}
+# The fp8 product on the card against its plain version (the e4m3 operands
+# multiplied as f32: every product of two e4m3 values is exact), as a
+# share of the output's largest magnitude. Not the f32 summation order
+# alone: Hopper's fp8 MMA keeps about 14 mantissa bits in its accumulator
+# between the promotions to f32 that use_fast_accum=False adds (the
+# DeepSeek-V3 report measures the same on the H800); 2.69e-4 at K = 768
+# (PERF.md §6), against 4.4e3 for the control.
+FP8_RTOL = 2e-3
+FP8_TOKENS = TRAIN_SHAPE[0] * TRAIN_SHAPE[1]
+# The cell's projections, (in, out): qkv, out_proj, mlp_fc, mlp_proj.
+FP8_PROJECTIONS = {"qkv": (768, 2304), "out_proj": (768, 768), "mlp_fc": (768, 3072),
+                   "mlp_proj": (3072, 768)}
+H100_FP8_FLOPS = 1979e12  # dense e4m3 tensor-core peak of the H100 SXM
+FP8_PROFILE_ROUNDS = 10  # profiled rounds of the bare product over the four shapes
+# (b) Each ladder trains LADDER_STEPS steps from the same init and batches.
+LADDER_STEPS = 3
+LADDERS = (("none", None, False), ("selective", "selective:*", False),
+           ("full", "full:*", False), ("offload", "offload:0-5,full:6-11", False),
+           ("fused-none", None, True), ("fused-full", "full:*", True))
+GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-4  # the North star's gradient band
+# (c) The one-rank NCCL job of phase 18(a), under trainer.zero.
+ZERO_RUNS = (("zero-stage1-offload", {"stage": 1, "host_offload": True}),
+             ("zero-stage2", {"stage": 2}))
+
+
+class _ExactLosses:
+    """Records every step's loss exactly (the train log rounds to 4
+    digits) while active: the trainer's interval hook, wrapped."""
+
+    def __init__(self) -> None:
+        self.losses: list[float] = []
+
+    def __enter__(self) -> "_ExactLosses":
+        import numpy as np
+
+        from llmtrain_tpu_torch.training.trainer import Trainer
+
+        self._real = real = Trainer._log_train_interval
+        sink = self.losses
+
+        def log_interval(trainer, **kw):
+            sink.extend(float(x) for x in np.asarray(kw["losses_host"]))
+            return real(trainer, **kw)
+
+        Trainer._log_train_interval = log_interval
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from llmtrain_tpu_torch.training.trainer import Trainer
+
+        Trainer._log_train_interval = self._real
+
+
+def _fp8_products(torch, smi: str) -> dict:
+    """(a): the fp8 product at the cell's projection shapes against its
+    plain version, a broken control (the second operand's scale dropped),
+    and its time beside the bf16 F.linear it replaces."""
+    import torch.nn.functional as F
+
+    from llmtrain_tpu_torch.ops import quant
+
+    if not quant.fp8_supported("cuda"):
+        raise RuntimeError("fp8_supported() is False on the card")
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    out, operands = {}, []
+    for name, (k, n) in FP8_PROJECTIONS.items():
+        x = torch.randn(FP8_TOKENS, k, device="cuda", generator=gen).to(torch.bfloat16)
+        w = (torch.randn(n, k, device="cuda", generator=gen) * 0.02).to(torch.bfloat16)
+        a, b = x[None], w.t()[None]
+        got, plain = quant.fp8_bmm(a, b), quant.fp8_bmm_plain(a, b)
+        scale = float(plain.abs().max())
+        err = float((got - plain).abs().max()) / scale
+        a8, b8, sa, _ = quant._fp8_operands(a, b)
+        one = torch.ones((), device="cuda")
+        broken = torch._scaled_mm(a8[0], b8[0].t().contiguous().t(), scale_a=sa, scale_b=one,
+                                  out_dtype=torch.float32, use_fast_accum=False)
+        broken_err = float((broken - plain[0]).abs().max()) / scale
+        # The train path's product's operands, cast as it casts them, for
+        # the bare products profiled beside its step (_quant_train).
+        a8, b8, sa, sb = quant._fp8_operands(a, b)
+        operands.append((a8[0], b8[0].t().contiguous().t(), sa, sb))
+        fp8 = quant.quant_dot_general("fp8")
+        fp8_ms = _time_ms(torch, lambda: fp8(x, w), iters=20, warmup=3)
+        bf16_ms = _time_ms(torch, lambda: F.linear(x, w), iters=20, warmup=3)
+        gemm_bound = 2 * FP8_TOKENS * k * n / H100_FP8_FLOPS * 1e3
+        log(f"[fp8] {name} ({FP8_TOKENS}, {k}) x ({k}, {n}): max |_scaled_mm - plain| "
+            f"{err:.3e} of the largest output (limit {FP8_RTOL}); control (scale dropped) "
+            f"{broken_err:.3e}; fp8 linear (scales, casts, product) {fp8_ms:.4f} ms, bf16 "
+            f"F.linear {bf16_ms:.4f} ms, fp8 GEMM bound {gemm_bound:.4f} ms on {smi}")
+        if not err <= FP8_RTOL:
+            raise RuntimeError(f"fp8 product {name}: {err} exceeds {FP8_RTOL}")
+        if not broken_err > FP8_RTOL:
+            raise RuntimeError(f"fp8 product {name}: the broken control ({broken_err}) does not "
+                               "exceed the limit")
+        out[name] = dict(err=err, fp8_ms=fp8_ms, bf16_ms=bf16_ms)
+        del x, w, a, b, got, plain, a8, b8, broken
+    torch.cuda.empty_cache()
+    return dict(rows=out, operands=operands)
+
+
+class _ProfiledStep:
+    """Profiles the device kernels of the trainer's ``step``-th call of its
+    train step function while active (``make_train_step``, wrapped), then,
+    in the same profiler session, ``after()`` behind a marker kernel
+    (``torch.cuda._sleep``'s spin kernel): ``names`` are the step's kernels,
+    ``after_names`` those ``after()`` launched."""
+
+    def __init__(self, torch, step: int, after) -> None:
+        self.torch, self.step, self.after = torch, step, after
+        self.names: list[str] = []
+        self.after_names: list[str] = []
+
+    def __enter__(self) -> "_ProfiledStep":
+        from torch.profiler import ProfilerActivity, profile
+
+        from llmtrain_tpu_torch.training import trainer as trainer_module
+
+        self._real = real = trainer_module.make_train_step
+        torch, want, after = self.torch, self.step, self.after
+
+        def make(*args, **kwargs):
+            fn, calls = real(*args, **kwargs), [0]
+
+            def step_fn(*a, **k):
+                calls[0] += 1
+                if calls[0] != want:
+                    return fn(*a, **k)
+                with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+                    metrics = fn(*a, **k)
+                    torch.cuda.synchronize()
+                    torch.cuda._sleep(1000)
+                    after()
+                    torch.cuda.synchronize()
+                kernels = sorted((e.time_range.start, e.name) for e in prof.events()
+                                 if e.device_type.name == "CUDA")
+                mark = next((i for i, (_, n) in enumerate(kernels) if "spin_kernel" in n), None)
+                if mark is None:
+                    raise RuntimeError(f"the profile of step {want} lacks the marker kernel "
+                                       f"({len(kernels)} kernels)")
+                self.names.extend(n for _, n in kernels[:mark])
+                self.after_names.extend(n for _, n in kernels[mark + 1:])
+                return metrics
+
+            return step_fn
+
+        trainer_module.make_train_step = make
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from llmtrain_tpu_torch.training import trainer as trainer_module
+
+        trainer_module.make_train_step = self._real
+
+
+def _quant_train(torch, smi: str, tmp: Path, train: dict, operands: list) -> dict:
+    """(a): phase 9's config in int8 and fp8 through `train`, against
+    phase 9's exact f32 losses; the fp8 run's last step profiled, with
+    bare `torch._scaled_mm` products on ``operands`` (the cell's shapes,
+    cast as the train path casts them) behind it in the same session:
+    their GEMM kernels must be among the step's; the fp8 run's
+    checkpoint through `generate`."""
+    import collections
+    import contextlib
+
+    import yaml
+
+    from llmtrain_tpu_torch.config import load_and_validate_config
+
+    base = train["exact_losses"][:QUANT_STEPS]
+    rows, counts = {}, None
+    for mode in ("int8", "fp8"):
+        cfg_path = _smoke_config(tmp, f"quant_{mode}", matmul_precision=mode)
+        raw = yaml.safe_load(cfg_path.read_text())
+        raw["trainer"].update(max_steps=QUANT_STEPS, save_every_steps=QUANT_STEPS,
+                              eval_every_steps=QUANT_STEPS)
+        cfg_path.write_text(yaml.safe_dump(raw, sort_keys=False))
+        cfg, _, _ = load_and_validate_config(cfg_path)
+        profiled = None
+        if mode == "fp8":
+            def bare() -> None:
+                for _ in range(FP8_PROFILE_ROUNDS):
+                    for a8, b8, sa, sb in operands:
+                        torch._scaled_mm(a8, b8, scale_a=sa, scale_b=sb,
+                                         out_dtype=torch.bfloat16, use_fast_accum=False)
+
+            profiled = _ProfiledStep(torch, QUANT_STEPS, bare)
+        _reset_counts()
+        with _ExactLosses() as rec, profiled or contextlib.nullcontext():
+            code, out = _run_cli(["train", "--config", str(cfg_path), "--run-id",
+                                  f"quant_{mode}", "--json"])
+        got = _read_counts()
+        if code != 0:
+            raise RuntimeError(f"{mode} train exited {code}")
+        layers = cfg.model.n_layers
+        _check_counts(f"quant {mode}", got, {
+            "flash_attention_fwd": layers * (QUANT_STEPS + train["eval_batches"]),
+            "flash_attention_bwd_dq": layers * QUANT_STEPS,
+            "flash_attention_bwd_dkdv": layers * QUANT_STEPS,
+        })
+        counts = got if counts is None else {k: counts[k] + got[k] for k in got}
+        summary = json.loads(out)["train_result"]
+        run_dir = tmp / "runs" / f"quant_{mode}"
+        precision = json.loads((run_dir / "report.json").read_text())["precision"]
+        steps = _logged_steps(run_dir)
+        losses = rec.losses
+        rel = max(abs(x - b) / abs(b) for x, b in zip(losses, base))
+        same = sum(x == b for x, b in zip(losses, base))
+        s = _steady(steps)
+        log(f"[quant] {mode}: losses {' '.join(repr(x) for x in losses)}; against phase 9's "
+            f"f32 losses max rel {rel:.3e} (PARITY_RTOL {PARITY_RTOL[mode]}), {same} of "
+            f"{len(base)} bitwise equal; report.json "
+            f"matmul_precision {precision['matmul_precision']!r}; step "
+            f"{s['step_time'] * 1e3:.1f} ms, {s['tokens_per_sec']:.0f} tokens/s, MFU "
+            f"{s['mfu']:.4f} (median of steps 2-{QUANT_STEPS - 1}), peak memory "
+            f"{summary['peak_memory'] / 2**30:.2f} GiB on {smi}")
+        if precision["matmul_precision"] != mode:
+            raise RuntimeError(f"the {mode} run resolved to {precision['matmul_precision']}")
+        if len(losses) != QUANT_STEPS or not all(math.isfinite(x) for x in losses):
+            raise RuntimeError(f"{mode}: losses are not {QUANT_STEPS} finite values: {losses}")
+        if not losses[-1] < losses[0]:
+            raise RuntimeError(f"{mode}: losses are not falling: {losses}")
+        if rel > PARITY_RTOL[mode]:
+            raise RuntimeError(f"{mode}: the losses left the parity band of f32 ({rel})")
+        if same or not rel > 0:
+            raise RuntimeError(f"{mode}: {same} of the losses are phase 9's f32 losses bit for "
+                               "bit: the quantized products did not run")
+        if profiled is not None:
+            # torch._scaled_mm clears its output with a memset before the GEMM.
+            bare_kernels = [n for n in profiled.after_names
+                            if not n.startswith(("Memset", "Memcpy"))]
+            gemms = set(bare_kernels)
+            found = [n for n in profiled.names if n in gemms]
+            matmuls = collections.Counter(
+                n for n in profiled.names
+                if any(w in n.lower() for w in ("nvjet", "gemm", "xmma", "cutlass")))
+            log(f"[quant] fp8: profile of step {QUANT_STEPS}: {len(found)} launches of the "
+                f"kernels of the bare torch._scaled_mm products behind it "
+                f"({len(bare_kernels)} of {FP8_PROFILE_ROUNDS * len(operands)} launches "
+                f"profiled: {sorted(gemms)}) among its {len(profiled.names)} kernels; the "
+                f"step's matmul kernels {dict(matmuls)}")
+            if not found:
+                raise RuntimeError("the fp8 run's profiled step shows no fp8 GEMM kernel")
+        rows[mode] = dict(losses=losses, rel=rel, step_ms=s["step_time"] * 1e3,
+                          tokens_per_sec=s["tokens_per_sec"], mfu=s["mfu"],
+                          peak_memory=summary["peak_memory"], cfg_path=cfg_path,
+                          run_dir=run_dir)
+    _reset_counts()
+    ids = _zoo_generate(rows["fp8"]["cfg_path"], rows["fp8"]["run_dir"], "fp8 model",
+                        new_tokens=16)
+    got = _read_counts()
+    counts = {k: counts[k] + got[k] for k in got}
+    log(f"[quant] fp8 generate (decode rows of {64}, the KV cache): {ids}")
+    return dict(rows=rows, counts=counts)
+
+
+def _pinned_pool(torch) -> tuple[int, int]:
+    """The pinned host allocator's pool, (current, peak) bytes: blocks
+    rounded up to powers of two, cached ones included
+    (``allocated_bytes``; the card's torch 2.11 counts ``active_bytes``
+    up and never down)."""
+    stats = torch.cuda.memory.host_memory_stats()
+    return int(stats["allocated_bytes.current"]), int(stats["allocated_bytes.peak"])
+
+
+def _ladders(torch, smi: str, tmp: Path) -> dict:
+    """(b): each ladder's LADDER_STEPS steps through the trainer's step on
+    the same init and batches; step 1's loss and gradients against the
+    ladder without remat, peak memory, the recompute's launches, and a
+    profile of the full ladder's step showing the flash forward twice a
+    layer."""
+    import gc
+
+    import yaml
+    from torch.profiler import ProfilerActivity, profile
+
+    from llmtrain_tpu_torch.config import load_and_validate_config
+    from llmtrain_tpu_torch.data.sampler import DeterministicSampler
+    from llmtrain_tpu_torch.training import optimizer as optimizer_module
+    from llmtrain_tpu_torch.training.trainer import Trainer
+
+    captured: list = []
+    real_step = optimizer_module._Optimizer.step
+    held: list = []  # device bytes allocated when step 1's backward starts
+    real_backward = torch.Tensor.backward
+
+    def capturing(self, grads, apply=None):
+        if not captured:
+            captured.append([g.detach().to("cpu", copy=True) for g in grads])
+        return real_step(self, grads, apply)
+
+    def holding(self, *args, **kwargs):
+        if not held:
+            held.append(torch.cuda.memory_allocated())
+        return real_backward(self, *args, **kwargs)
+
+    rows, counts, reference = {}, None, {}
+    optimizer_module._Optimizer.step = capturing
+    torch.Tensor.backward = holding
+    try:
+        for name, spec, fused in LADDERS:
+            extra = {"fused_norm": True} if fused else {}
+            cfg_path = _smoke_config(tmp, f"ladder_{name}", **extra)
+            if spec is not None:
+                raw = yaml.safe_load(cfg_path.read_text())
+                raw["model"]["extra"]["activation_tiers"] = spec
+                cfg_path.write_text(yaml.safe_dump(raw, sort_keys=False))
+            cfg, _, _ = load_and_validate_config(cfg_path)
+            trainer = Trainer(cfg, None)
+            ds = trainer._data_module.train_dataset()
+            sampler = DeterministicSampler(len(ds), cfg.trainer.micro_batch_size, cfg.run.seed)
+            batches = [trainer.global_batch(sampler, ds, s) for s in range(1, LADDER_STEPS + 1)]
+            captured.clear()
+            held.clear()
+            torch.cuda.synchronize()
+            pool_before = _pinned_pool(torch)[0]
+            torch.cuda.memory.reset_peak_host_memory_stats()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            walls, first, kernels = [], None, None
+            for s, batch in enumerate(batches, 1):
+                t0 = time.perf_counter()
+                if name == "full" and s == LADDER_STEPS:
+                    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+                        metrics = trainer._train_step_fn(trainer.state, batch)
+                        torch.cuda.synchronize()
+                    kernels = [(e.time_range.start, e.name) for e in prof.events()
+                               if e.device_type.name == "CUDA" and "flash_" in e.name]
+                else:
+                    metrics = trainer._train_step_fn(trainer.state, batch)
+                loss = float(metrics["loss"])
+                walls.append((time.perf_counter() - t0) * 1e3)
+                if s == 1:
+                    first = loss
+            got = _read_counts()
+            peak = torch.cuda.max_memory_allocated()
+            layers = cfg.model.n_layers
+            remat = spec is not None
+            want = {"flash_attention_fwd": (2 if remat else 1) * layers * LADDER_STEPS,
+                    "flash_attention_bwd_dq": layers * LADDER_STEPS,
+                    "flash_attention_bwd_dkdv": layers * LADDER_STEPS}
+            if fused:
+                want.update(fused_norm_fwd=(4 if remat else 2) * layers * LADDER_STEPS,
+                            fused_norm_bwd=2 * layers * LADDER_STEPS)
+            _check_counts(f"ladder {name}", got, want)
+            counts = got if counts is None else {k: counts[k] + got[k] for k in got}
+            grads = captured[0]
+            ref = reference.get(fused)
+            verdict = "reference"
+            if ref is None:
+                reference[fused] = dict(loss=first, grads=grads)
+            else:
+                if first != ref["loss"]:
+                    raise RuntimeError(f"ladder {name}: step 1's loss {first!r} is not the "
+                                       f"ladder without remat's {ref['loss']!r}")
+                if all(torch.equal(g, r) for g, r in zip(grads, ref["grads"])):
+                    verdict = "gradients bitwise"
+                else:
+                    worst = max(float((g - r).abs().max()) for g, r in zip(grads, ref["grads"]))
+                    if not all(torch.allclose(g, r, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+                               for g, r in zip(grads, ref["grads"])):
+                        raise RuntimeError(f"ladder {name}: step 1's gradients left the band "
+                                           f"(max |diff| {worst:.3e})")
+                    verdict = f"gradients within the band (max |diff| {worst:.3e})"
+            pinned = _pinned_pool(torch)[1] - pool_before  # the pool's growth in this ladder
+            staged = sum(t == "offload" for t in trainer._model.layer_tiers) * (
+                cfg.trainer.micro_batch_size * cfg.model.block_size * cfg.model.d_model
+                * torch.empty((), dtype=getattr(torch, cfg.model.dtype)).element_size())
+            log(f"[ladder] {name} ({spec or 'no remat'}{', fused_norm' if fused else ''}): "
+                f"step 1 loss {first!r}, {verdict}; {held[0]} bytes allocated at the backward's "
+                f"start, peak memory {peak / 2**30:.3f} GiB; pinned host pool grew {pinned} "
+                f"bytes for {staged} bytes of block inputs staged; "
+                f"step walls {' '.join(f'{w:.1f}' for w in walls)} ms on {smi}")
+            if kernels is not None:
+                # The recompute: flash forwards that start after the
+                # backward's first dq kernel. (The exact counts are the
+                # launch counters' above; the profiler has dropped a
+                # kernel of a step.)
+                first_dq = min((t for t, n in kernels if "flash_bwd_dq" in n), default=None)
+                fwd = [t for t, n in kernels if "flash_fwd" in n]
+                in_bwd = sum(1 for t in fwd if first_dq is not None and t > first_dq)
+                log(f"[ladder] full: profile of step {LADDER_STEPS}: {len(fwd)} flash forward "
+                    f"kernels, {in_bwd} of them after the backward's first dq kernel; "
+                    f"{len(kernels)} flash kernels in all")
+                if not in_bwd:
+                    raise RuntimeError("the full ladder's profile shows no flash forward in the "
+                                       "backward")
+            if pinned < staged:
+                raise RuntimeError(f"ladder {name}: the pinned host pool grew {pinned} bytes, "
+                                   f"under the {staged} bytes of block inputs it stages")
+            rows[name] = dict(loss=first, peak=peak, held=held[0], pinned=pinned, staged=staged,
+                              step_ms=walls[1])
+            del trainer, ds, batches, metrics, grads
+            captured.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        optimizer_module._Optimizer.step = real_step
+        torch.Tensor.backward = real_backward
+    ladder = ("none", "selective", "full", "offload")
+    for what, unit in (("peak", "peak memory"), ("held", "bytes held at the backward's start")):
+        order = [rows[k][what] for k in ladder]
+        log(f"[ladder] {unit} none > selective > full > offload: "
+            f"{' > '.join(f'{p / 2**30:.3f}' for p in order)} GiB; fused_norm none "
+            f"{rows['fused-none'][what] / 2**30:.3f} > full "
+            f"{rows['fused-full'][what] / 2**30:.3f}; full - offload "
+            f"{rows['full'][what] - rows['offload'][what]} bytes")
+        if not all(a > b for a, b in zip(order, order[1:])):
+            raise RuntimeError(f"{unit} does not fall none > selective > full > offload: "
+                               f"{order}")
+    if rows["offload"]["staged"] <= 0:
+        raise RuntimeError("the offload ladder stages no block input")
+    return dict(rows=rows, counts=counts)
+
+
+def _zero(torch, smi: str, tmp: Path, ddp: dict) -> dict:
+    """(c): the one-rank NCCL job of phase 18(a) under trainer.zero, stage
+    1 with host offload and stage 2: losses bitwise the plain job's, and
+    report.json's optimizer bytes."""
+    import os
+
+    import yaml
+
+    params = ddp["summary"]["parameter_count"]
+    adamw_bytes = 2 * params * 4
+    rows = {}
+    counts = None
+    for name, zero in ZERO_RUNS:
+        cfg_path = _ddp_config(tmp, name.replace("-", "_"), steps=DDP_STEPS, distributed=True)
+        raw = yaml.safe_load(cfg_path.read_text())
+        raw["trainer"]["zero"] = {"enabled": True, **zero}
+        cfg_path.write_text(yaml.safe_dump(raw, sort_keys=False))
+        env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+               "MASTER_PORT": str(_free_port())}
+        saved_env = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        _reset_counts()
+        try:
+            with _ExactLosses() as rec:
+                code, out = _run_cli(["train", "--config", str(cfg_path), "--run-id", name,
+                                      "--json"])
+            got = _read_counts()
+        finally:
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        if code != 0:
+            raise RuntimeError(f"{name}: train exited {code}")
+        layers = ddp["layers"]
+        _check_counts(name, got, {
+            "flash_attention_fwd": layers * (DDP_STEPS + ddp["eval_batches"]),
+            "flash_attention_bwd_dq": layers * DDP_STEPS,
+            "flash_attention_bwd_dkdv": layers * DDP_STEPS,
+        })
+        counts = got if counts is None else {k: counts[k] + got[k] for k in got}
+        summary = json.loads(out)["train_result"]
+        run_dir = tmp / "runs" / name
+        memory = json.loads((run_dir / "report.json").read_text())["memory"]
+        s = _steady(_logged_steps(run_dir))
+        same = rec.losses == ddp["exact_losses"]
+        log(f"[zero] {name}: losses {' '.join(repr(x) for x in rec.losses)}; bitwise the plain "
+            f"one-rank job's: {same}; report.json opt_state_bytes "
+            f"{memory.get('opt_state_bytes')}, per device "
+            f"{memory.get('opt_state_bytes_per_device')}, host "
+            f"{memory.get('opt_state_bytes_host')} (AdamW's state {adamw_bytes}); step "
+            f"{s['step_time'] * 1e3:.1f} ms against the plain one-rank job's "
+            f"{ddp['one']['step_time'] * 1e3:.1f} ms (median of steps 2-{DDP_STEPS - 1}); "
+            f"peak memory {summary['peak_memory'] / 2**30:.2f} GiB on {smi}")
+        if not same:
+            raise RuntimeError(f"{name}: the losses are not the plain one-rank job's bit for bit")
+        if zero.get("host_offload") and (memory.get("opt_state_bytes_host") != adamw_bytes
+                                         or memory.get("opt_state_bytes_per_device") != 0):
+            raise RuntimeError(f"{name}: report.json's optimizer bytes are not AdamW's state on "
+                               f"the host and none on the card: {memory}")
+        rows[name] = dict(step_ms=s["step_time"] * 1e3, memory=memory,
+                          peak_memory=summary["peak_memory"])
+    return dict(rows=rows, counts=counts)
+
+
+def phase_parallel(torch, smi: str, tmp: Path, train: dict, ddp: dict) -> dict:
+    """Phase 22 (module doc): (a) quantized matmuls, (b) activation tiers,
+    (c) ZeRO. Returns the launch counts of its paths."""
+    t0 = time.perf_counter()
+    products = _fp8_products(torch, smi)
+    quant = _quant_train(torch, smi, tmp, train, products.pop("operands"))
+    torch.cuda.empty_cache()
+    ladders = _ladders(torch, smi, tmp)
+    zero = _zero(torch, smi, tmp, ddp["ddp"])
+    counts = {k: quant["counts"][k] + ladders["counts"][k] + zero["counts"][k]
+              for k in quant["counts"]}
+    seconds = time.perf_counter() - t0
+    log(f"[parallel] phase 22 in {seconds:.1f} s on {smi}; launches {counts}")
+    return dict(products=products["rows"], quant=quant["rows"], ladders=ladders["rows"],
+                zero=zero["rows"], counts=counts, seconds=seconds)
+
+
 def main() -> int:
     import tempfile
 
@@ -4169,14 +4720,16 @@ def main() -> int:
         clock("phase 20: resilience")
         zoo = phase_zoo(torch, smi, Path(tmp))
         clock("phase 21: model zoo")
+        par = phase_parallel(torch, smi, Path(tmp), train, ddp)
+        clock("phase 22: parallelism on one device")
     paths = (train["counts"], fused["counts"], ce["counts"], spec["counts"], offline["counts"],
-             ddp["counts"], tel["counts"], res["counts"], zoo["counts"])
+             ddp["counts"], tel["counts"], res["counts"], zoo["counts"], par["counts"])
     launches = {name: sum(c[name] for c in paths) for name in paths[0]}
     launches["flash_attention_fwd"] += serve_launches
     log(f"[main path] launches over serve + generate, train, fused-norm train, CE train, "
         f"speculative/int8/rolling, BPE train and its evals, the one-rank NCCL train and its "
-        f"EMA evals, phase 19's profile and telemetry runs, phase 20's guarded run and phase "
-        f"21's model zoo: {launches}")
+        f"EMA evals, phase 19's profile and telemetry runs, phase 20's guarded run, phase "
+        f"21's model zoo and phase 22's quantized, tiered and ZeRO runs: {launches}")
     for name, n in launches.items():
         if n == 0:
             raise RuntimeError(f"the main path never launched {name}")
@@ -4253,6 +4806,12 @@ def main() -> int:
     log(f"[zoo] llama step {llama['step_ms']:.1f} ms, {llama['tokens_per_sec']:.0f} tokens/s, "
         f"MFU {llama['mfu']:.4f}, peak memory {llama['summary']['peak_memory'] / 2**30:.2f} GiB "
         f"(GPT cell {train['step_ms']:.1f} ms); phase 21 {zoo['seconds']:.1f} s")
+    quant, ladders, zero = par["quant"], par["ladders"], par["zero"]
+    log(f"[parallel] int8 step {quant['int8']['step_ms']:.1f} ms, fp8 "
+        f"{quant['fp8']['step_ms']:.1f} ms (phase 9 {train['step_ms']:.1f} ms); ladder peaks "
+        + ", ".join(f"{k} {v['peak'] / 2**30:.3f} GiB" for k, v in ladders.items())
+        + "; ZeRO steps " + ", ".join(f"{k} {v['step_ms']:.1f} ms" for k, v in zero.items())
+        + f"; phase 22 {par['seconds']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

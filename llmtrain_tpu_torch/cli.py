@@ -2280,21 +2280,22 @@ def _handle_import_checkpoint(args: argparse.Namespace) -> int:
 
 
 def _warn_unknown_extras(cfg) -> None:
-    """Typos in ``model.extra`` are warnings, never errors."""
+    """Typos in the ``extra`` escape hatches are warnings, never errors
+    (config/extras.py): the knobs are real but plugins may take keys the
+    framework cannot know about. One line per section, JAX's words."""
     try:
-        from .models.lora import build_adapter
+        from .config.extras import unknown_extra_keys
 
-        # LoRA's adapter knows ``lora`` beside its family's keys.
-        known = build_adapter(cfg).known_extra_keys
-    except Exception:  # noqa: BLE001 — the check must never break validation
-        return
-    unknown = sorted(set(cfg.model.extra) - set(known or cfg.model.extra))
-    if unknown:
-        print(
-            f"warning: model.extra keys not recognized by '{cfg.model.name}': "
-            f"{', '.join(unknown)} (typo? they will be ignored)",
-            file=sys.stderr,
-        )
+        for section, keys in unknown_extra_keys(cfg).items():
+            owner = {"model.extra": cfg.model.name,
+                     "data.extra": cfg.data.name}.get(section, "trainer")
+            print(
+                f"warning: {section} keys not recognized by '{owner}': "
+                f"{', '.join(keys)} (typo? they will be ignored)",
+                file=sys.stderr,
+            )
+    except Exception:  # noqa: BLE001 — the check must never break a run
+        pass
 
 
 def _handle_validate(args: argparse.Namespace) -> int:

@@ -76,12 +76,24 @@ and are dequantized at each use (:func:`_weight`), then cast to the
 compute dtype as every weight is: once a call on the decode paths, not
 once a block of rows (:func:`_dense_fn`).
 
-Not yet ported, each raising at build time: ``matmul_precision`` other
-than f32 and ring/ulysses attention (ROADMAP.md queue A: parallelism).
+Quantized training matmuls (``matmul_precision``, ops/quant.py): every
+attention and MLP projection goes through :func:`_dense_fn`, which takes
+the mode's linear from ``quant_dot_general`` (``f32``: ``F.linear``, bit
+for bit as without the knob); the experts through ``expert_matmul``.
+The lm-head stays in the compute dtype, as in JAX.
+
+Activation tiers and remat (``activation_tiers``, ``remat`` with
+``remat_policy``; models/activation_policy.py): each block of the
+training forward runs under its layer's tier (:func:`run_block`); the
+decode paths and every forward without a graph run the plain blocks.
+
+Not yet ported, raising at build time: ring/ulysses attention (ROADMAP.md
+queue A: parallelism).
 """
 
 from __future__ import annotations
 
+import logging
 import math
 from dataclasses import dataclass
 from typing import Any
@@ -90,6 +102,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..config.activation_tiers import parse_activation_tiers
 from ..config.schemas import RunConfig
 from ..ops import flash_attention as flash_ops
 from ..ops import fused_norm as fused_norm_ops
@@ -101,8 +114,18 @@ from ..ops.fused_ce import (
     fused_ce_components,
     resolve_loss_impl,
 )
-from ..ops.quant import dequantized, quantize_array
+from ..ops.quant import (
+    dequantized,
+    quant_dot_general,
+    quantize_array,
+    resolve_matmul_precision,
+)
 from ..registry.models import register_model
+from .activation_policy import (
+    LEGACY_DOTS_NO_BATCH,
+    resolve_activation_tiers,
+    run_block,
+)
 from .base import Batch, ModelAdapter, lm_loss_components, validate_lm_batch
 from .moe import MoEMLP
 
@@ -115,6 +138,68 @@ _INIT_STD = 0.02
 # padded to a bucket, a decode batch of 8, a prefill chunk, all against
 # generate()'s exact lengths and batch of one.
 DECODE_ROWS = 64
+
+logger = logging.getLogger("llmtrain")
+
+# model.extra.remat_policy values -> the tier a block runs under with
+# model.remat: true (JAX ``REMAT_POLICIES``: "nothing" saves nothing, "dots"
+# the matmul outputs, "dots_no_batch" those without batch dims).
+REMAT_POLICIES = {"nothing": "full", "dots": "selective", "dots_no_batch": LEGACY_DOTS_NO_BATCH}
+# Deprecation shim: ``model.remat: true`` maps onto the tier that keeps its
+# remat_policy's semantics ("dots_no_batch" has no tier: it stays on the
+# legacy remat path).
+_REMAT_POLICY_TO_TIER = {"nothing": "full", "dots": "selective"}
+_TIER_MIGRATION_LOGGED = False
+
+
+def _log_tier_migration(remat_policy: str, spec: str) -> None:
+    """One-time (per process) log naming the remat -> tiers migration."""
+    global _TIER_MIGRATION_LOGGED
+    if not _TIER_MIGRATION_LOGGED:
+        _TIER_MIGRATION_LOGGED = True
+        logger.info(
+            "model.remat: true is deprecated; mapped remat_policy %r to "
+            "model.extra.activation_tiers: %r (set activation_tiers "
+            "directly to silence this)",
+            remat_policy,
+            spec,
+        )
+
+
+def config_device(cfg: RunConfig) -> torch.device:
+    """The device a config's entry points run on, for the capability
+    checks made at build time: the CPU for ``run.device: cpu``, else the
+    card if there is one."""
+    if cfg.run.device == "cpu" or not torch.cuda.is_available():
+        return torch.device("cpu")
+    return torch.device("cuda")
+
+
+def resolve_config_activation_tiers(cfg: RunConfig) -> tuple[str, ...] | None:
+    """Per-layer activation tiers for ``cfg``, resolved for its device
+    (JAX ``resolve_config_activation_tiers``): an explicit
+    ``model.extra.activation_tiers`` wins and conflicts with
+    ``model.remat: true``; the deprecated ``model.remat: true`` migrates to
+    the equivalent all-layers tier with a one-time INFO log. None when the
+    model uses the legacy remat fields (remat off, or remat_policy
+    ``dots_no_batch``)."""
+    spec = cfg.model.extra.get("activation_tiers")
+    if spec is not None:
+        if cfg.model.remat:
+            raise ValueError(
+                "model.remat: true conflicts with model.extra."
+                "activation_tiers; drop model.remat (tiers subsume it)"
+            )
+        tiers = parse_activation_tiers(str(spec), cfg.model.n_layers)
+        return resolve_activation_tiers(tiers, config_device(cfg))
+    if cfg.model.remat:
+        remat_policy = str(cfg.model.extra.get("remat_policy", "nothing"))
+        tier = _REMAT_POLICY_TO_TIER.get(remat_policy)
+        if tier is None:
+            return None
+        _log_tier_migration(remat_policy, f"{tier}:*")
+        return (tier,) * cfg.model.n_layers
+    return None
 
 
 class _DeterministicEmbedding(torch.autograd.Function):
@@ -174,14 +259,16 @@ def _weight(w: Any, dtype: torch.dtype) -> torch.Tensor:
     return dequantized(w).to(dtype)
 
 
-def _dense_fn(layer: nn.Linear, dtype: torch.dtype) -> Any:
+def _dense_fn(layer: nn.Linear, dtype: torch.dtype, precision: str = "f32") -> Any:
     """flax ``Dense(dtype=...)`` as a function of its input: input, kernel
-    and bias all cast to the compute dtype before the product. The kernel
-    is cast (and dequantized) here, once, so that the decode paths' blocks
-    of DECODE_ROWS rows share it."""
+    and bias all cast to the compute dtype before the product, which is
+    ``precision``'s linear (ops/quant.py ``quant_dot_general``; ``F.linear``
+    for f32). The kernel is cast (and dequantized) here, once, so that the
+    decode paths' blocks of DECODE_ROWS rows share it."""
     w = _weight(layer.weight, dtype)
     bias = layer.bias.to(dtype) if layer.bias is not None else None
-    return lambda x: F.linear(x.to(dtype), w, bias)
+    linear = quant_dot_general(precision) or F.linear
+    return lambda x: linear(x.to(dtype), w, bias)
 
 
 class LayerNorm(nn.Module):
@@ -461,9 +548,11 @@ class CausalSelfAttention(nn.Module):
         rope_theta: float = 10000.0,
         sliding_window: int = 0,
         dropout: float = 0.0,
+        matmul_precision: str = "f32",
     ) -> None:
         super().__init__()
         self.dropout = dropout
+        self.matmul_precision = matmul_precision
         self.n_heads = n_heads
         self.head_dim = d_model // n_heads
         self.kv_heads = n_kv_heads or n_heads
@@ -531,7 +620,7 @@ class CausalSelfAttention(nn.Module):
                 "(ROADMAP.md queue A: parallelism); use 'flash' or 'dense'"
             )
 
-        out = _dense_fn(self.out_proj, self.dtype)(out.reshape(b, t, h * hd))
+        out = _dense_fn(self.out_proj, self.dtype, self.matmul_precision)(out.reshape(b, t, h * hd))
         out = apply_dropout(out, self.dropout, deterministic, generator)
         if attention_mask is not None:
             # Zero padded rows (the mask may carry segment ids > 1).
@@ -541,10 +630,11 @@ class CausalSelfAttention(nn.Module):
     def _project(self, x: torch.Tensor, apply: Any) -> tuple[torch.Tensor, ...]:
         """The input projections, each through ``apply`` (called with the
         function of one block of rows): (qkv,) fused or (q, kv) under GQA."""
+        mode = self.matmul_precision
         if self.kv_heads == self.n_heads:
-            return (apply(_dense_fn(self.qkv_proj, self.dtype)),)
-        return (apply(_dense_fn(self.q_proj, self.dtype)),
-                apply(_dense_fn(self.kv_proj, self.dtype)))
+            return (apply(_dense_fn(self.qkv_proj, self.dtype, mode)),)
+        return (apply(_dense_fn(self.q_proj, self.dtype, mode)),
+                apply(_dense_fn(self.kv_proj, self.dtype, mode)))
 
     def _split_qkv(self, *parts: Any) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """q (B, T, H, Dh), k and v (B, T, Hkv, Dh) from the projections of
@@ -594,7 +684,7 @@ class CausalSelfAttention(nn.Module):
             q, k = apply_rope(q, k, positions, theta=self.rope_theta)
         out = _attend(q, write_read(k, v), positions, self.sliding_window, rows)
         out = F.pad(out.reshape(n, -1), (0, 0, 0, h.shape[0] - n))
-        return _row_blocks(_dense_fn(self.out_proj, self.dtype), out)
+        return _row_blocks(_dense_fn(self.out_proj, self.dtype, self.matmul_precision), out)
 
 
 class TransformerBlock(nn.Module):
@@ -608,18 +698,22 @@ class TransformerBlock(nn.Module):
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int, *, dtype: torch.dtype,
                  param_dtype: torch.dtype, dropout: float = 0.0, fused_norm: bool = False,
-                 moe: dict[str, Any] | None = None, **attn_kw: Any) -> None:
+                 moe: dict[str, Any] | None = None, matmul_precision: str = "f32",
+                 **attn_kw: Any) -> None:
         super().__init__()
         self.dtype = dtype
         self.dropout = dropout
         self.fused_norm = fused_norm
+        self.matmul_precision = matmul_precision
         self.ln_1 = LayerNorm(d_model, dtype=dtype, param_dtype=param_dtype)
-        self.attn = CausalSelfAttention(d_model, n_heads, dtype=dtype,
-                                        param_dtype=param_dtype, dropout=dropout, **attn_kw)
+        self.attn = CausalSelfAttention(d_model, n_heads, dtype=dtype, param_dtype=param_dtype,
+                                        dropout=dropout, matmul_precision=matmul_precision,
+                                        **attn_kw)
         self.ln_2 = LayerNorm(d_model, dtype=dtype, param_dtype=param_dtype)
         if moe:
             # gpt_moe: the MLP is a Mixture of Experts (models/moe.py).
-            self.moe_mlp = MoEMLP(d_model, d_ff, dtype=dtype, param_dtype=param_dtype, **moe)
+            self.moe_mlp = MoEMLP(d_model, d_ff, dtype=dtype, param_dtype=param_dtype,
+                                  matmul_precision=matmul_precision, **moe)
         else:
             self.mlp_fc = nn.Linear(d_model, d_ff, dtype=param_dtype)
             self.mlp_proj = nn.Linear(d_ff, d_model, dtype=param_dtype)
@@ -649,7 +743,9 @@ class TransformerBlock(nn.Module):
         """The MLP as a function of its input, its kernels cast once."""
         if hasattr(self, "moe_mlp"):
             return self.moe_mlp
-        fc, proj = _dense_fn(self.mlp_fc, self.dtype), _dense_fn(self.mlp_proj, self.dtype)
+        mode = self.matmul_precision
+        fc = _dense_fn(self.mlp_fc, self.dtype, mode)
+        proj = _dense_fn(self.mlp_proj, self.dtype, mode)
         return lambda h: proj(F.gelu(fc(h), approximate="none"))
 
     def decode_rows(self, x: torch.Tensor, shape: tuple[int, int], positions: torch.Tensor,
@@ -703,9 +799,15 @@ class GPT(nn.Module):
         fused_ce_block_t: int = DEFAULT_BLOCK_T,
         fused_ce_block_v: int = DEFAULT_BLOCK_V,
         moe: dict[str, Any] | None = None,
+        matmul_precision: str = "f32",
+        remat: bool = False,
+        remat_policy: str = "nothing",
+        activation_tiers: tuple[str, ...] | None = None,
         **layer_kw: Any,
     ) -> None:
         super().__init__()
+        self.matmul_precision = matmul_precision
+        self.layer_tiers = _layer_tiers(n_layers, remat, remat_policy, activation_tiers)
         self.dropout = dropout
         self.fused_norm = fused_norm
         self.loss_impl = loss_impl
@@ -728,7 +830,8 @@ class GPT(nn.Module):
         self.token_embedding = nn.Embedding(vocab_size, d_model, dtype=param_dtype)
         block_kw = dict(dtype=dtype, param_dtype=param_dtype, dropout=dropout, moe=moe,
                         attention=attention, n_kv_heads=n_kv_heads, assume_packed=assume_packed,
-                        sliding_window=sliding_window, rope_theta=rope_theta)
+                        sliding_window=sliding_window, rope_theta=rope_theta,
+                        matmul_precision=matmul_precision)
         self._build_layers(d_ff, block_kw, rope=rope, **layer_kw)
         self.lm_head = (
             None if tie_embeddings
@@ -798,8 +901,9 @@ class GPT(nn.Module):
                                        lambda layer: cache.layers[layer].write_read)
         x = self._embed(input_ids, torch.arange(seqlen, device=input_ids.device)[None])
         x = apply_dropout(x, self.dropout, deterministic, generator)
-        for block in self.blocks:
-            x = block(x, attention_mask, deterministic=deterministic, generator=generator)
+        for tier, block in zip(self.layer_tiers, self.blocks):
+            x = run_block(tier, block, x, attention_mask, deterministic=deterministic,
+                          generator=generator)
         x = self.final_norm(x)
         if return_hidden:
             return x
@@ -887,6 +991,23 @@ class GPT(nn.Module):
                 f"{self.kv_cache_dtype!r} yet; use for_decoding()"
             )
         return GPTPagedDecoder(self, num_blocks, block_tokens)
+
+
+def _layer_tiers(n_layers: int, remat: bool, remat_policy: str,
+                 activation_tiers: tuple[str, ...] | None) -> tuple[str, ...]:
+    """The tier each block of the training forward runs under (JAX's
+    GPT: the tiers when given, else the legacy ``remat`` with its
+    ``remat_policy``, else none)."""
+    if activation_tiers is not None:
+        if len(activation_tiers) != n_layers:
+            raise ValueError(
+                f"activation_tiers has {len(activation_tiers)} entries for a "
+                f"{n_layers}-layer model"
+            )
+        return tuple(activation_tiers)
+    if not remat:
+        return ("none",) * n_layers
+    return (REMAT_POLICIES[remat_policy],) * n_layers
 
 
 @dataclass
@@ -1077,12 +1198,6 @@ class GPTAdapter(ModelAdapter):
         z_loss = float(m.extra.get("z_loss", 0.0))
         if z_loss < 0.0:
             raise ValueError(f"model.extra.z_loss must be >= 0, got {z_loss}")
-        precision = str(m.extra.get("matmul_precision", "f32"))
-        if precision != "f32":
-            raise NotImplementedError(
-                f"model.extra.matmul_precision={precision!r} is not yet ported to "
-                "llmtrain_tpu_torch (ROADMAP.md queue A: parallelism); use 'f32'"
-            )
         n_kv_heads = int(m.extra.get("n_kv_heads", 0))
         if n_kv_heads < 0:
             raise ValueError(f"model.extra.n_kv_heads must be >= 0, got {n_kv_heads}")
@@ -1091,6 +1206,15 @@ class GPTAdapter(ModelAdapter):
                 f"model.n_heads ({m.n_heads}) must be divisible by "
                 f"model.extra.n_kv_heads ({n_kv_heads})"
             )
+        remat_policy = str(m.extra.get("remat_policy", "nothing"))
+        if remat_policy not in REMAT_POLICIES:
+            # Validated here (not only under remat: true) so a typo'd policy
+            # fails at config time even when remat is off.
+            raise ValueError(
+                f"model.extra.remat_policy {remat_policy!r} unknown; "
+                f"expected one of {sorted(REMAT_POLICIES)}"
+            )
+        activation_tiers = resolve_config_activation_tiers(cfg)
         if m.attention in ("flash", "ring", "ulysses") and m.dropout > 0.0:
             raise ValueError(
                 f"attention={m.attention!r} does not support "
@@ -1111,6 +1235,11 @@ class GPTAdapter(ModelAdapter):
         sliding_window = int(m.extra.get("sliding_window", 0))
         if sliding_window < 0:
             raise ValueError(f"model.extra.sliding_window must be >= 0, got {sliding_window}")
+        # Validated like loss_impl (unknown raises at config time), then
+        # resolved for the device: fp8 where it cannot run becomes f32 with
+        # a one-time warning (ops/quant.py).
+        matmul_precision = resolve_matmul_precision(
+            str(m.extra.get("matmul_precision", "f32")), config_device(cfg))
         return dict(
             vocab_size=vocab_size,
             block_size=m.block_size,
@@ -1133,6 +1262,10 @@ class GPTAdapter(ModelAdapter):
             ce_chunk=ce_chunk,
             fused_ce_block_t=block_t,
             fused_ce_block_v=block_v,
+            matmul_precision=matmul_precision,
+            remat=m.remat,
+            remat_policy=remat_policy,
+            activation_tiers=activation_tiers,
         )
 
     def build_tokenizer(self, cfg: RunConfig) -> Any | None:
@@ -1203,6 +1336,7 @@ class GPTAdapter(ModelAdapter):
 
 
 __all__ = [
+    "REMAT_POLICIES",
     "GPT",
     "GPTAdapter",
     "GPTDecoder",
@@ -1219,5 +1353,6 @@ __all__ = [
     "cached_attention",
     "dense_attention",
     "window_attention",
+    "resolve_config_activation_tiers",
     "resolve_loss_impl",
 ]

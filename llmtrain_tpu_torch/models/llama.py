@@ -85,8 +85,10 @@ class LlamaBlock(nn.Module):
     def __init__(self, d_model: int, n_heads: int, d_ff: int, *, dtype: torch.dtype,
                  param_dtype: torch.dtype, dropout: float = 0.0, rms_norm_eps: float = 1e-6,
                  norm_offset: bool = False, mlp_act: str = "silu", qkv_bias: bool = False,
-                 moe: dict[str, Any] | None = None, **attn_kw: Any) -> None:
+                 moe: dict[str, Any] | None = None, matmul_precision: str = "f32",
+                 **attn_kw: Any) -> None:
         super().__init__()
+        self.matmul_precision = matmul_precision
         if mlp_act not in MLP_ACTS:
             raise ValueError(f"mlp_act {mlp_act!r} unknown; expected 'silu' or 'gelu_tanh'")
         self.dtype = dtype
@@ -97,11 +99,13 @@ class LlamaBlock(nn.Module):
         self.attn_norm = RMSNorm(d_model, **norm_kw)
         self.attn = CausalSelfAttention(d_model, n_heads, dtype=dtype, param_dtype=param_dtype,
                                         dropout=dropout, use_bias=False,
-                                        qkv_bias=qkv_bias or None, rope=True, **attn_kw)
+                                        qkv_bias=qkv_bias or None, rope=True,
+                                        matmul_precision=matmul_precision, **attn_kw)
         self.mlp_norm = RMSNorm(d_model, **norm_kw)
         if moe:
             self.moe_mlp = MoEMLP(d_model, d_ff, dtype=dtype, param_dtype=param_dtype,
-                                  mlp_type="swiglu", **moe)
+                                  mlp_type="swiglu", matmul_precision=matmul_precision,
+                                  **moe)
         else:
             kw = dict(bias=False, dtype=param_dtype)
             self.mlp_gate = nn.Linear(d_model, d_ff, **kw)
@@ -112,8 +116,10 @@ class LlamaBlock(nn.Module):
         """The MLP as a function of its input, its kernels cast once."""
         if hasattr(self, "moe_mlp"):
             return self.moe_mlp
-        gate, up = _dense_fn(self.mlp_gate, self.dtype), _dense_fn(self.mlp_up, self.dtype)
-        down = _dense_fn(self.mlp_down, self.dtype)
+        mode = self.matmul_precision
+        gate = _dense_fn(self.mlp_gate, self.dtype, mode)
+        up = _dense_fn(self.mlp_up, self.dtype, mode)
+        down = _dense_fn(self.mlp_down, self.dtype, mode)
         if self.mlp_act == "silu":
             return lambda h: down(F.silu(gate(h)) * up(h))
         return lambda h: down(F.gelu(gate(h), approximate="tanh") * up(h))

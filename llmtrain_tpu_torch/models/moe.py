@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.quant import dequantized
+from ..ops.quant import dequantized, expert_matmul
 
 _INIT_STD = 0.02
 
@@ -47,8 +47,9 @@ class MoEMLP(nn.Module):
     def __init__(self, d_model: int, d_ff: int, n_experts: int, *, dtype: torch.dtype,
                  param_dtype: torch.dtype, capacity_factor: float = 1.25,
                  aux_loss_weight: float = 0.01, router_top_k: int = 1,
-                 mlp_type: str = "gelu") -> None:
+                 mlp_type: str = "gelu", matmul_precision: str = "f32") -> None:
         super().__init__()
+        self.matmul_precision = matmul_precision
         if mlp_type not in ("gelu", "swiglu"):
             raise ValueError(f"mlp_type {mlp_type!r} unknown; expected 'gelu' or 'swiglu'")
         self.n_experts = n_experts
@@ -149,14 +150,17 @@ class MoEMLP(nn.Module):
             # int8 serving weights (ops/quant.py) are dequantized at use.
             return dequantized(getattr(self, name)).to(self.dtype)
 
+        def dot(x: torch.Tensor, name: str) -> torch.Tensor:
+            # The expert products in the quantized modes (JAX _expert_matmul).
+            return expert_matmul(x, w(name), self.matmul_precision)
+
         if self.mlp_type == "swiglu":
-            gate = torch.einsum("ebcd,edf->ebcf", expert_in, w("wg"))
-            up = torch.einsum("ebcd,edf->ebcf", expert_in, w("wu"))
-            expert_out = torch.einsum("ebcf,efd->ebcd", F.silu(gate) * up, w("wo"))
+            gate, up = dot(expert_in, "wg"), dot(expert_in, "wu")
+            expert_out = dot(F.silu(gate) * up, "wo")
         else:
-            h = torch.einsum("ebcd,edf->ebcf", expert_in, w("wi"))
+            h = dot(expert_in, "wi")
             h = F.gelu(h + w("bi")[:, None, None, :], approximate="none")
-            expert_out = torch.einsum("ebcf,efd->ebcd", h, w("wo"))
+            expert_out = dot(h, "wo")
             expert_out = expert_out + w("bo")[:, None, None, :]
         return torch.einsum("btec,ebcd->btd", combine.to(x.dtype), expert_out)
 

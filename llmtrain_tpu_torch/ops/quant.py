@@ -1,5 +1,5 @@
-"""Weight-only int8 quantization for serving (port of the serving half of
-``llmtrain_tpu/ops/quant.py``).
+"""int8/fp8 quantization (port of ``llmtrain_tpu/ops/quant.py``): weight-only
+int8 for serving, and the quantized training matmuls.
 
 One recipe, :func:`quantize_array`: symmetric per-channel int8 with
 ``scale = amax / 127`` over the reduced axes (a channel that is all zero
@@ -21,16 +21,44 @@ torch layout and its scale broadcastable to a view of them.
 :func:`quantize_model` installs the quantized leaves on a GPT in place of
 its parameters; the model dequantizes each one to the original dtype at
 its use (JAX's ``__jax_array__``), so the int8 codes are what stays
-resident. The training half (``fake_quant``, the fp8 and int8 matmuls,
-``QuantDense``) is not ported yet (ROADMAP.md queue A: parallelism).
+resident.
+
+**Training** (``model.extra.matmul_precision``): :func:`quant_dot_general`
+gives the projections of the model families the linear to use, and
+:class:`QuantLinear` is the standalone ``nn.Linear`` with it. Modes:
+
+* ``int8`` — the weight quantize-dequantized per output channel over its
+  contracting axis at each step's value (:func:`fake_quant`);
+  activations stay in the compute dtype;
+* ``int8_act`` — the activations too, per row over their contracting
+  axis;
+* ``fp8`` — both operands scaled by their per-tensor amax onto e4m3's
+  range (448), cast to ``float8_e4m3fn``, multiplied with f32
+  accumulation and rescaled (:func:`fp8_bmm`: ``torch._scaled_mm`` on the
+  card, the plain product of the e4m3 values in f32 elsewhere). Where the
+  device cannot run an fp8 product (:func:`fp8_supported`),
+  :func:`resolve_matmul_precision` falls back to ``f32`` with a one-time
+  warning, JAX's config contract;
+* ``f32`` — no change: :func:`quant_dot_general` returns None and the
+  callers keep ``F.linear``, bit for bit the build without the knob.
+
+Gradients are straight-through: :func:`fake_quant`'s backward is the
+identity, and the fp8 product's backward is the exact product of the
+saved full-precision operands, so master weights, the optimizer, ZeRO and
+checkpoints never see codes.
 """
 
 from __future__ import annotations
 
-from typing import Any
+import functools
+import logging
+from typing import Any, Callable
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+logger = logging.getLogger("llmtrain")
 
 _INT8_MAX = 127.0
 
@@ -202,14 +230,272 @@ def dequantized(w: Any) -> torch.Tensor:
     return w.dequantize() if isinstance(w, QuantizedArray) else w
 
 
+# ==========================================================================
+# Training path: quantized matmuls with straight-through gradients.
+# ==========================================================================
+
+#: Accepted ``model.extra.matmul_precision`` values (``int8_act``: the
+#: activations-too variant of ``int8``).
+MATMUL_PRECISIONS = ("f32", "int8", "int8_act", "fp8")
+
+# float8_e4m3fn's largest finite value: each operand's per-tensor scale
+# maps its amax onto it, so the cast never overflows.
+_E4M3_MAX = 448.0
+# ``torch._scaled_mm`` takes dims that are multiples of 16 (the operands
+# are zero-padded up to them; zero rows and columns add nothing).
+_SCALED_MM_ALIGN = 16
+
+
+def _default_device() -> torch.device:
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+@functools.lru_cache(maxsize=None)
+def _fp8_probe(device_type: str) -> bool:
+    try:
+        dev = torch.device(device_type)
+        a = torch.ones((16, 16), device=dev).to(torch.float8_e4m3fn)
+        if dev.type == "cuda":
+            one = torch.ones((), device=dev)
+            out = torch._scaled_mm(a, a.t(), scale_a=one, scale_b=one,
+                                   out_dtype=torch.float32, use_fast_accum=False)
+            out = out[0] if isinstance(out, tuple) else out
+        else:
+            out = a.float() @ a.float()
+        return bool(out[0, 0].item() == 16.0)
+    except Exception:  # noqa: BLE001 — any rejection means "no"
+        return False
+
+
+def fp8_supported(device: torch.device | str | None = None) -> bool:
+    """True when ``device`` (default: the card if there is one, else the
+    CPU) runs an end-to-end float8_e4m3fn product: probed once per process
+    and device type with a tiny product (a dtype that exists is not
+    enough: a card before sm_89 has no fp8 tensor cores)."""
+    dev = _default_device() if device is None else torch.device(device)
+    return _fp8_probe(dev.type)
+
+
+_FALLBACK_WARNED: set[str] = set()
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in MATMUL_PRECISIONS:
+        raise ValueError(
+            f"matmul_precision {mode!r} unknown; expected one of {list(MATMUL_PRECISIONS)}"
+        )
+
+
+def resolve_matmul_precision(mode: str, device: torch.device | str | None = None) -> str:
+    """Validate a ``matmul_precision`` value and resolve it for ``device``:
+    unknown values raise (config time, like ``loss_impl``); ``fp8`` where
+    the device cannot run an fp8 product becomes ``f32`` with a one-time
+    warning (the run proceeds, the precision claim does not)."""
+    _check_mode(mode)
+    if mode == "fp8" and not fp8_supported(device):
+        if "fp8" not in _FALLBACK_WARNED:
+            _FALLBACK_WARNED.add("fp8")
+            logger.warning(
+                "matmul_precision=fp8 requested but this device cannot run "
+                "float8_e4m3fn matmuls; falling back to f32"
+            )
+        return "f32"
+    return mode
+
+
+class _FakeQuant(torch.autograd.Function):
+    """int8 quantize-dequantize forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, w: torch.Tensor, reduce_axes: tuple[int, ...]) -> torch.Tensor:
+        return quantize_array(w, reduce_axes=reduce_axes).dequantize()
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad, None
+
+
+def fake_quant(w: torch.Tensor, reduce_axes: tuple[int, ...]) -> torch.Tensor:
+    """``w`` quantized to symmetric per-channel int8 over ``reduce_axes``
+    (:func:`quantize_array`) and dequantized to its dtype, with a
+    straight-through gradient: the backward is the identity, so the
+    gradient reaches the full-precision master weight untouched."""
+    return _FakeQuant.apply(w, tuple(a % w.ndim for a in reduce_axes))
+
+
+def _fp8_cast(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(x8, scale): ``x`` divided in f32 by its per-tensor scale
+    ``max(amax, 1e-30) / 448`` (an f32 0-dim tensor on ``x``'s device, no
+    host read) and cast to float8_e4m3fn, JAX ``_fp8_dot_impl``'s
+    arithmetic. The amax comes from ``aminmax`` of ``x`` itself (the
+    largest magnitude is exact in any float dtype), with no f32 or
+    ``abs`` copy."""
+    lo, hi = torch.aminmax(x)
+    scale = torch.clamp_min(torch.maximum(-lo, hi).float(), 1e-30) / _E4M3_MAX
+    return x.to(torch.float32, copy=True).div_(scale).to(torch.float8_e4m3fn), scale
+
+
+def _fp8_operands(a: torch.Tensor, b: torch.Tensor):
+    """(a8, b8, sa, sb): both operands through :func:`_fp8_cast`."""
+    a8, sa = _fp8_cast(a)
+    b8, sb = _fp8_cast(b)
+    return a8, b8, sa, sb
+
+
+def fp8_bmm_plain(a: torch.Tensor, b: torch.Tensor,
+                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The plain version of :func:`fp8_bmm`: the e4m3 operands multiplied
+    as f32 (every product of two e4m3 values is exact in f32), rescaled by
+    ``sa * sb`` and rounded once to ``out_dtype``; (E, M, N)."""
+    a8, b8, sa, sb = _fp8_operands(a, b)
+    return (torch.bmm(a8.float(), b8.float()) * (sa * sb)).to(out_dtype)
+
+
+def _pad_to(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    return F.pad(x, (0, cols - x.shape[-1], 0, rows - x.shape[-2]))
+
+
+def _fp8_bmm_scaled_mm(a: torch.Tensor, b: torch.Tensor,
+                       out_dtype: torch.dtype) -> torch.Tensor:
+    """:func:`fp8_bmm` on the card: one ``torch._scaled_mm`` per batch
+    entry (f32 accumulation, ``use_fast_accum=False``), the scales applied
+    and the one rounding to ``out_dtype`` made in its epilogue."""
+    e, m, k = a.shape
+    n = b.shape[-1]
+    up = lambda x: -(-x // _SCALED_MM_ALIGN) * _SCALED_MM_ALIGN  # noqa: E731
+    mp, kp, np_ = up(m), up(k), up(n)
+    if (mp, kp, np_) != (m, k, n):
+        # Zero rows/columns: the scales (amax) and the products are the
+        # unpadded operands'.
+        a, b = _pad_to(a, mp, kp), _pad_to(b, kp, np_)
+    a8, b8, sa, sb = _fp8_operands(a, b)
+    # The second operand column-major, as cuBLASLt's fp8 path takes it (a
+    # linear's transposed weight already is: no copy then).
+    b8 = b8.transpose(1, 2).contiguous().transpose(1, 2)
+    outs = []
+    for i in range(e):
+        r = torch._scaled_mm(a8[i], b8[i], scale_a=sa, scale_b=sb, out_dtype=out_dtype,
+                             use_fast_accum=False)
+        outs.append(r[0] if isinstance(r, tuple) else r)
+    out = outs[0][None] if e == 1 else torch.stack(outs)
+    return out if (mp, np_) == (m, n) else out[:, :m, :n]
+
+
+def fp8_bmm(a: torch.Tensor, b: torch.Tensor,
+            out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(E, M, K) x (E, K, N) -> (E, M, N) in ``out_dtype`` through
+    float8_e4m3fn with per-tensor scales over the whole of each operand:
+    ``torch._scaled_mm`` for a tensor on the card, :func:`fp8_bmm_plain`
+    elsewhere."""
+    if a.is_cuda:
+        return _fp8_bmm_scaled_mm(a, b, out_dtype)
+    return fp8_bmm_plain(a, b, out_dtype)
+
+
+class _Fp8Dot(torch.autograd.Function):
+    """fp8 forward (:func:`fp8_bmm`, cast to the operands' dtype), exact
+    backward: the products of the incoming gradient with the saved
+    full-precision operands (JAX ``_fp8_dot``: differentiating through the
+    casts would hand the backward fp8 operands)."""
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(a, b)
+        return fp8_bmm(a, b, torch.promote_types(a.dtype, b.dtype))
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.bmm(grad.to(a.dtype), b.to(a.dtype).transpose(1, 2))
+        if ctx.needs_input_grad[1]:
+            gb = torch.bmm(a.to(b.dtype).transpose(1, 2), grad.to(b.dtype))
+        return ga, gb
+
+
+def fp8_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(E, M, K) x (E, K, N) in fp8 with the exact backward (:class:`_Fp8Dot`)."""
+    return _Fp8Dot.apply(a, b)
+
+
+def quant_dot_general(mode: str) -> Callable[..., torch.Tensor] | None:
+    """The linear ``(x, w, bias=None) -> x @ w.T + bias`` of ``mode`` (``w``
+    an ``nn.Linear`` weight, (out, in)), or None for ``f32``, so callers
+    keep ``F.linear`` and f32 stays bit-identical to a build without the
+    knob. ``mode`` must already be resolved
+    (:func:`resolve_matmul_precision`). JAX's contracting axes map to
+    ``w``'s input axis and ``x``'s last: one weight scale per output unit,
+    one activation scale per row."""
+    _check_mode(mode)
+    if mode == "f32":
+        return None
+
+    def linear(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
+        if mode == "fp8":
+            out = fp8_dot(x.reshape(1, -1, x.shape[-1]), w.t().unsqueeze(0))
+            out = out.reshape(*x.shape[:-1], w.shape[0])
+            return out if bias is None else out + bias
+        if mode == "int8_act":
+            x = fake_quant(x, (x.ndim - 1,))
+        return F.linear(x, fake_quant(w, (1,)), bias)
+
+    return linear
+
+
+def expert_matmul(x: torch.Tensor, w: torch.Tensor, mode: str) -> torch.Tensor:
+    """The MoE expert product ``ebcd,edf->ebcf`` in ``mode`` (JAX
+    ``moe._expert_matmul``: batch axis e, contracting d; int8 scales per
+    (expert, output unit) on the weight, per (e, b, c) row on the
+    activations; fp8 per tensor over all the experts)."""
+    _check_mode(mode)
+    if mode == "fp8":
+        e, bsz, cap, d = x.shape
+        return fp8_dot(x.reshape(e, bsz * cap, d), w).reshape(e, bsz, cap, w.shape[-1])
+    if mode != "f32":
+        w = fake_quant(w, (1,))
+        if mode == "int8_act":
+            x = fake_quant(x, (3,))
+    return torch.einsum("ebcd,edf->ebcf", x, w)
+
+
+class QuantLinear(nn.Linear):
+    """Drop-in ``nn.Linear`` with the quantized training matmul: the same
+    parameters (``weight`` (out, in), ``bias``), f32 master weights,
+    straight-through gradients, so its state dict loads into ``nn.Linear``
+    and back (JAX ``QuantDense``). The model families route their own
+    projections through :func:`quant_dot_general` instead."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, *,
+                 matmul_precision: str = "int8", **kwargs: Any) -> None:
+        super().__init__(in_features, out_features, bias, **kwargs)
+        self.matmul_precision = matmul_precision
+        self._linear = quant_dot_general(matmul_precision)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self._linear is None:
+            return F.linear(x, self.weight, self.bias)
+        return self._linear(x, self.weight, self.bias)
+
+
 __all__ = [
+    "MATMUL_PRECISIONS",
+    "QuantLinear",
     "QuantizedArray",
     "dequantize_model",
     "dequantize_tree",
     "dequantized",
+    "expert_matmul",
+    "fake_quant",
+    "fp8_bmm",
+    "fp8_bmm_plain",
+    "fp8_dot",
+    "fp8_supported",
     "model_tree",
     "quant_stats",
     "quantize_array",
     "quantize_model",
     "quantize_tree",
+    "quant_dot_general",
+    "resolve_matmul_precision",
 ]

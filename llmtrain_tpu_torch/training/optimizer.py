@@ -44,6 +44,21 @@ Optimizer state (the port's own layout; checkpoints carry it as
 by the port's parameter names, ``mu``/``nu`` (adamw), ``mu`` (lion), or
 ``v_row``/``v_col`` for factored and ``v`` for unfactored tensors
 (adafactor), and the shadow under :data:`EMA_STATE_KEY`.
+
+ZeRO (``trainer.zero``, a :class:`~..parallel.zero.ZeroPartition`): every
+state leaf is split along its first dim divisible by the world size and
+each rank keeps only its slice. AdamW, Lion and the EMA are elementwise,
+so each rank updates its slices of the moments and of the parameters (views
+into them) and all-gathers the parameters; Adafactor's row and column
+means and its block RMS span whole tensors, so it gathers its factored
+state (and, under stage 2, its gradient slices) for the update, which
+every rank makes in full, and keeps its slices. Stage 1 receives whole
+gradients, stage 2 this rank's slices (the global norm then comes from
+the ranks' sums). With ``host_offload`` the state lives in host tensors
+between steps and is copied in and out around the update. A checkpoint's
+state is always whole: :meth:`_Optimizer.state_dict` gathers it (every
+rank must call it), :meth:`_Optimizer.load_state_dict` takes this rank's
+slices, so a checkpoint resumes under ZeRO on or off at any world size.
 """
 
 from __future__ import annotations
@@ -137,10 +152,30 @@ class _Optimizer:
     model's named parameters, updating them in place under no_grad."""
 
 
+    # The rule's state attributes (lists in parameter order or dicts keyed
+    # by parameter index), and whether its update is elementwise, so that
+    # under ZeRO it runs on this rank's slices alone.
+    _STATE: tuple[str, ...] = ()
+    _ELEMENTWISE = True
+
     def __init__(self, named_params: list[tuple[str, torch.nn.Parameter]],
-                 cfg: TrainerConfig) -> None:
+                 cfg: TrainerConfig, zero: Any = None) -> None:
         self.names = [n for n, _ in named_params]
         self.params = [p for _, p in named_params]
+        self.zero = zero if zero is not None and (zero.shards or zero.host_offload) else None
+        sharded = self.zero is not None and self.zero.shards
+        # Each parameter's split dim under ZeRO; ``local`` this rank's
+        # slices (views into the parameters); ``targets`` what the rule
+        # updates: the slices of an elementwise rule, else whole tensors.
+        self.split_dims = [self.zero.dim(tuple(p.shape), n) if sharded else None
+                           for n, p in named_params]
+        self.local = [self.zero.local(p.detach(), d) if d is not None else p
+                      for p, d in zip(self.params, self.split_dims)]
+        self.targets = self.local if self._ELEMENTWISE else self.params
+        self._leaf_dims: dict[tuple[str, Any], int | None] = {}
+        self._leaf_shapes: dict[tuple[str, Any], tuple[int, ...]] = {}
+        self._host: dict[tuple[str, Any], torch.Tensor] | None = None
+        self._host_ready: Any = None
         self.max_norm = float(cfg.max_grad_norm)
         self.weight_decay = float(cfg.weight_decay)
         self.schedule = lr_schedule(cfg)
@@ -148,7 +183,7 @@ class _Optimizer:
         self.ema_decay = ema_decay_of(cfg)
         self.ema: list[torch.Tensor] | None = None
         if self.ema_decay is not None:
-            self.ema = [p.detach().float().clone() for p in self.params]
+            self.ema = [p.detach().float().clone() for p in self.local]
         # The guard's flag of the last update, not yet folded into count.
         self._pending: torch.Tensor | None = None
         self._apply: torch.Tensor | None = None
@@ -195,20 +230,49 @@ class _Optimizer:
             pending, self._pending = self._pending, None
             self._count += int(pending)
 
+    @property
+    def stage2(self) -> bool:
+        """Gradients arrive as this rank's slices (ZeRO stage 2 over
+        several ranks)."""
+        return self.zero is not None and self.zero.shards and self.zero.stage == 2
+
+    def grad_norm(self, grads: list[torch.Tensor]) -> torch.Tensor:
+        """The global norm of ``grads`` as :meth:`step` receives them."""
+        if self.stage2:
+            return self.zero.global_norm(grads, self.split_dims)
+        return global_norm(grads)
+
+    def _update_grads(self, grads: list[torch.Tensor]) -> list[torch.Tensor]:
+        """``grads`` in the layout the rule updates (:attr:`targets`)."""
+        if self.zero is None or not self.zero.shards:
+            return grads
+        if self._ELEMENTWISE:
+            if self.stage2:
+                return grads
+            return [self.zero.local(g, d) for g, d in zip(grads, self.split_dims)]
+        if not self.stage2:
+            return grads
+        whole = [g if d is None else torch.empty(p.shape, dtype=g.dtype, device=g.device)
+                 for g, d, p in zip(grads, self.split_dims, self.params)]
+        self.zero.gather(grads, self.split_dims, whole)
+        return whole
+
     @torch.no_grad()
     def step(self, grads: list[torch.Tensor], apply: torch.Tensor | None = None) -> None:
-        """One update from ``grads`` (one per parameter, in order). With
-        ``apply`` (the non-finite guard's device bool) the update is kept
-        only where it is true, and ``count`` advances by it."""
+        """One update from ``grads`` (one per parameter, in order: whole
+        tensors, or under ZeRO stage 2 this rank's slices). With ``apply``
+        (the non-finite guard's device bool) the update is kept only where
+        it is true, and ``count`` advances by it."""
         self.settle()
-        g_norm = global_norm(grads)
+        g_norm = self.grad_norm(grads)
         trigger = g_norm < self.max_norm
         one = torch.ones((), dtype=torch.float32, device=g_norm.device)
         # Unclipped: g / 1 * 1 (exact); clipped: (g / n) * max_norm.
         div = torch.where(trigger, one, g_norm)
         mul = torch.where(trigger, one, torch.full_like(one, self.max_norm))
-        clipped = ((g / div.to(g.dtype)) * mul.to(g.dtype) for g in grads)
+        clipped = ((g / div.to(g.dtype)) * mul.to(g.dtype) for g in self._update_grads(grads))
         self._apply = apply
+        self._enter()
         try:
             self._update(clipped, self.schedule(self.count))
             if self.ema is not None:
@@ -216,32 +280,161 @@ class _Optimizer:
                 # for all the parameters).
                 if apply is None:
                     torch._foreach_mul_(self.ema, self.ema_decay)
-                    torch._foreach_add_(self.ema, [p.float() for p in self.params],
+                    torch._foreach_add_(self.ema, [p.float() for p in self.local],
                                         alpha=1.0 - self.ema_decay)
                 else:
                     new = torch._foreach_mul(self.ema, self.ema_decay)
-                    torch._foreach_add_(new, [p.float() for p in self.params],
+                    torch._foreach_add_(new, [p.float() for p in self.local],
                                         alpha=1.0 - self.ema_decay)
                     for e, n in zip(self.ema, new):
                         self._put(e, n)
         finally:
             self._apply = None
+            self._leave()
+        if self.zero is not None and self.zero.shards and self._ELEMENTWISE:
+            # Every rank updated its slices: put them in every rank's
+            # parameters.
+            self.zero.gather(self.local, self.split_dims, self.params)
         if apply is None:
             self._count += 1
         else:
             self._pending = apply
 
+    # ------------------------------------------------------------------ ZeRO
+
+    def _slots(self, ema: bool = True) -> Iterator[tuple[Any, Any, tuple[str, Any]]]:
+        """(container, key, leaf id) of every state tensor: the rule's
+        (:attr:`_STATE`) and with ``ema`` the shadow's."""
+        attrs = self._STATE + (("ema",) if ema and self.ema is not None else ())
+        for attr in attrs:
+            store = getattr(self, attr)
+            for key in (range(len(store)) if isinstance(store, list) else list(store)):
+                yield store, key, (attr, key)
+
+    def _leaf_name(self, leaf: tuple[str, Any]) -> str:
+        attr, key = leaf
+        return f"{attr}/{self.names[key]}"
+
+    def shard_state(self) -> None:
+        """Lay the freshly built state out as ZeRO keeps it: a rule that is
+        not elementwise keeps its own slice of each state leaf (the
+        elementwise ones were built on slices); with host offload every
+        state tensor moves to the host."""
+        if self.zero is None:
+            return
+        if self.zero.shards and not self._ELEMENTWISE:
+            for store, key, leaf in self._slots(ema=False):
+                t = store[key]
+                d = self.zero.dim(tuple(t.shape), self._leaf_name(leaf))
+                self._leaf_dims[leaf] = d
+                self._leaf_shapes[leaf] = tuple(t.shape)
+                store[key] = self.zero.local(t, d).clone()
+        if self.zero.host_offload:
+            self._host = {}
+            for store, key, leaf in self._slots():
+                self._host[leaf] = self.zero.to_host(store[key])
+                store[key] = self._host[leaf]
+            self._mark_host_ready()
+
+    def _mark_host_ready(self) -> None:
+        """After the copies into the host tensors were queued: the event
+        the host waits on before it reads them (:meth:`_sync_host`)."""
+        if self.zero.device.type == "cuda":
+            self._host_ready = torch.cuda.Event()
+            self._host_ready.record()
+
+    def _sync_host(self) -> None:
+        if self._host_ready is not None:
+            self._host_ready.synchronize()
+
+    def _enter(self) -> None:
+        """Working state for an update: the host tensors' device copies,
+        and for a rule that is not elementwise the whole leaves gathered
+        from the ranks' slices."""
+        if self.zero is None:
+            return
+        if self._host is not None:
+            for store, key, leaf in self._slots():
+                store[key] = self.zero.to_device(self._host[leaf])
+        if self.zero.shards and not self._ELEMENTWISE:
+            slots = list(self._slots(ema=False))
+            pieces = [store[key] for store, key, _ in slots]
+            wholes = [torch.empty(self._leaf_shapes[leaf], dtype=p.dtype, device=p.device)
+                      for (_, _, leaf), p in zip(slots, pieces)]
+            dims = [self._leaf_dims[leaf] for _, _, leaf in slots]
+            for w, p, d in zip(wholes, pieces, dims):
+                if d is None:
+                    w.copy_(p)
+            self.zero.gather(pieces, dims, wholes)
+            for (store, key, _), w in zip(slots, wholes):
+                store[key] = w
+
+    def _leave(self) -> None:
+        """Back to the state at rest: this rank's slices, in the host
+        tensors under host offload."""
+        if self.zero is None:
+            return
+        if self.zero.shards and not self._ELEMENTWISE:
+            for store, key, leaf in self._slots(ema=False):
+                store[key] = self.zero.local(store[key], self._leaf_dims[leaf]).clone()
+        if self._host is not None:
+            for store, key, leaf in self._slots():
+                self.zero.write_back(self._host[leaf], store[key])
+                store[key] = self._host[leaf]
+            self._mark_host_ready()
+
+    def _whole(self, tensors: list[torch.Tensor], dims: list[int | None],
+               shapes: list[tuple[int, ...]]) -> list[torch.Tensor]:
+        """Whole tensors from this rank's slices (a collective under ZeRO
+        over several ranks; on the run's device)."""
+        if self.zero is None or not self.zero.shards:
+            return list(tensors)
+        dev = self.params[0].device
+        work = [t.to(dev) for t in tensors]
+        wholes = [w if d is None else torch.empty(s, dtype=w.dtype, device=dev)
+                  for w, d, s in zip(work, dims, shapes)]
+        self.zero.gather(work, dims, wholes)
+        return wholes
+
+    def _state_dims(self, store: Any, key: Any, leaf: tuple[str, Any]
+                    ) -> tuple[int | None, tuple[int, ...]]:
+        """A state leaf's split dim and whole shape."""
+        if leaf[0] == "ema" or self._ELEMENTWISE:
+            return self.split_dims[key], tuple(self.params[key].shape)
+        if leaf in self._leaf_dims:
+            return self._leaf_dims[leaf], self._leaf_shapes[leaf]
+        return None, tuple(store[key].shape)
+
+    def full_ema(self) -> list[torch.Tensor] | None:
+        """The EMA shadow as whole tensors (a collective under ZeRO over
+        several ranks)."""
+        if self.ema is None:
+            return None
+        if self.zero is not None:
+            self._sync_host()
+        return self._whole(self.ema, self.split_dims, [tuple(p.shape) for p in self.params])
+
+    def memory(self) -> dict[str, int]:
+        """The state's bytes: whole (every leaf's full size), on this
+        rank's device (its slices, none under host offload) and on the
+        host (JAX's accounting: the whole state when offloaded)."""
+        total = on_device = 0
+        for store, key, leaf in self._slots():
+            t = store[key]
+            _, shape = self._state_dims(store, key, leaf)
+            total += math.prod(shape) * t.element_size()
+            on_device += t.numel() * t.element_size()
+        if self._host is not None:
+            return {"opt_state_bytes": total, "opt_state_bytes_per_device": 0,
+                    "opt_state_bytes_host": total}
+        return {"opt_state_bytes": total, "opt_state_bytes_per_device": on_device,
+                "opt_state_bytes_host": 0}
+
     def state_tensors(self) -> Iterator[torch.Tensor]:
         """Every tensor of the optimizer's state (moments, factored
-        moments, the EMA shadow), for the memory accounting."""
-        for key, value in vars(self).items():
-            if key == "params":
-                continue
-            items = value.values() if isinstance(value, dict) else (
-                value if isinstance(value, list) else ())
-            for t in items:
-                if isinstance(t, torch.Tensor):
-                    yield t
+        moments, the EMA shadow) as this rank keeps it."""
+        for store, key, _ in self._slots():
+            yield store[key]
 
     def _state(self) -> dict[str, Any]:
         raise NotImplementedError
@@ -250,7 +443,25 @@ class _Optimizer:
         raise NotImplementedError
 
     def state_dict(self) -> dict[str, Any]:
-        """The state as host numpy, keyed by parameter name (module doc)."""
+        """The state as host numpy, keyed by parameter name (module doc):
+        whole tensors, gathered under ZeRO (every rank calls it then)."""
+        if self.zero is None:
+            return self._state_dict()
+        self._sync_host()
+        slots = list(self._slots())
+        dims_shapes = [self._state_dims(store, key, leaf) for store, key, leaf in slots]
+        wholes = self._whole([store[key] for store, key, _ in slots],
+                             [d for d, _ in dims_shapes], [s for _, s in dims_shapes])
+        saved = [(store, key, store[key]) for store, key, _ in slots]
+        for (store, key, _), w in zip(slots, wholes):
+            store[key] = w
+        try:
+            return self._state_dict()
+        finally:
+            for store, key, t in saved:
+                store[key] = t
+
+    def _state_dict(self) -> dict[str, Any]:
         out = {"count": np.int32(self.count), **self._state()}
         if self.ema is not None:
             out[EMA_STATE_KEY] = _host(self.ema, self.names)
@@ -258,15 +469,32 @@ class _Optimizer:
 
     @torch.no_grad()
     def load_state_dict(self, state: dict[str, Any]) -> None:
-        """Restore :meth:`state_dict`'s layout (every parameter present)."""
+        """Restore :meth:`state_dict`'s layout (every parameter present,
+        whole tensors: under ZeRO each rank keeps its slices)."""
+        if self.ema is not None and EMA_STATE_KEY not in state:
+            raise ValueError(
+                "checkpoint holds no EMA state — train with "
+                "trainer.extra.ema_decay to track shadow weights"
+            )
+        if self.zero is None:
+            self._load(state)
+            if self.ema is not None:
+                _load_into(self.ema, self.names, state[EMA_STATE_KEY], "the EMA shadow")
+            self.count = int(state["count"])
+            return
+        self._sync_host()
+        slots = list(self._slots())
+        saved = []
+        for store, key, leaf in slots:
+            d, shape = self._state_dims(store, key, leaf)
+            saved.append((store, key, store[key], d))
+            store[key] = torch.empty(shape, dtype=store[key].dtype)
         self._load(state)
         if self.ema is not None:
-            if EMA_STATE_KEY not in state:
-                raise ValueError(
-                    "checkpoint holds no EMA state — train with "
-                    "trainer.extra.ema_decay to track shadow weights"
-                )
             _load_into(self.ema, self.names, state[EMA_STATE_KEY], "the EMA shadow")
+        for store, key, target, d in saved:
+            target.copy_(self.zero.local(store[key], d))
+            store[key] = target
         self.count = int(state["count"])
 
 
@@ -274,18 +502,21 @@ class _Optimizer:
 class AdamW(_Optimizer):
     """optax ``adamw`` (module doc)."""
 
+    _STATE = ("mu", "nu")
 
-    def __init__(self, named_params, cfg: TrainerConfig) -> None:
-        super().__init__(named_params, cfg)
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
+    def __init__(self, named_params, cfg: TrainerConfig, zero: Any = None) -> None:
+        super().__init__(named_params, cfg, zero)
+        self.mu = [torch.zeros_like(p, memory_format=torch.contiguous_format)
+                   for p in self.targets]
+        self.nu = [torch.zeros_like(p, memory_format=torch.contiguous_format)
+                   for p in self.targets]
 
     def _update(self, grads, lr):
         t = self.count + 1
         # 1 - b^t in float32, as optax computes it.
         bc1 = float(1 - np.float32(_B1) ** np.float32(t))
         bc2 = float(1 - np.float32(_B2) ** np.float32(t))
-        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
+        for p, g, mu, nu in zip(self.targets, grads, self.mu, self.nu):
             self._put(mu, (1 - _B1) * g + _B1 * mu)
             self._put(nu, (1 - _B2) * (g * g) + _B2 * nu)
             u = (mu / bc1) / (torch.sqrt(nu / bc2) + _EPS)
@@ -304,13 +535,15 @@ class AdamW(_Optimizer):
 class Lion(_Optimizer):
     """optax ``lion(b1=0.9, b2=0.99, weight_decay)`` (module doc)."""
 
+    _STATE = ("mu",)
 
-    def __init__(self, named_params, cfg: TrainerConfig) -> None:
-        super().__init__(named_params, cfg)
-        self.mu = [torch.zeros_like(p) for p in self.params]
+    def __init__(self, named_params, cfg: TrainerConfig, zero: Any = None) -> None:
+        super().__init__(named_params, cfg, zero)
+        self.mu = [torch.zeros_like(p, memory_format=torch.contiguous_format)
+                   for p in self.targets]
 
     def _update(self, grads, lr):
-        for p, g, mu in zip(self.params, grads, self.mu):
+        for p, g, mu in zip(self.targets, grads, self.mu):
             u = torch.sign((1.0 - _LION_B1) * g + _LION_B1 * mu)
             self._put(mu, (1 - _LION_B2) * g + _LION_B2 * mu)
             u = u + self.weight_decay * p
@@ -342,9 +575,13 @@ class Adafactor(_Optimizer):
     absent)."""
 
 
+    _STATE = ("v_row", "v_col", "v")
+    # Row and column means and the block RMS span whole tensors.
+    _ELEMENTWISE = False
+
     def __init__(self, named_params, cfg: TrainerConfig,
-                 views: dict[str, View] | None = None) -> None:
-        super().__init__(named_params, cfg)
+                 views: dict[str, View] | None = None, zero: Any = None) -> None:
+        super().__init__(named_params, cfg, zero)
         identity: View = lambda t: t  # noqa: E731
         self.views = [(views or {}).get(n, identity) for n in self.names]
         self.dims: list[tuple[int, int] | None] = []
@@ -409,34 +646,41 @@ def build_optimizer(
     named_params: list[tuple[str, torch.nn.Parameter]],
     *,
     views: dict[str, View] | None = None,
+    zero: Any = None,
 ) -> _Optimizer:
     """``trainer.extra.optimizer`` (default ``adamw``) → the optimizer, with
     the EMA when ``trainer.extra.ema_decay`` is set (JAX's ``ValueError``
-    outside (0, 1), and for an unknown name)."""
+    outside (0, 1), and for an unknown name); ``zero`` a
+    :class:`~..parallel.zero.ZeroPartition` to shard its state."""
     name = str(cfg.extra.get("optimizer", "adamw"))
     ema_decay_of(cfg)
     if name == "adamw":
-        return AdamW(named_params, cfg)
-    if name == "adafactor":
-        return Adafactor(named_params, cfg, views=views)
-    if name == "lion":
-        return Lion(named_params, cfg)
-    raise ValueError(
-        f"trainer.extra.optimizer {name!r} unknown; expected 'adamw', "
-        "'adafactor', or 'lion'"
-    )
+        opt: _Optimizer = AdamW(named_params, cfg, zero)
+    elif name == "adafactor":
+        opt = Adafactor(named_params, cfg, views=views, zero=zero)
+    elif name == "lion":
+        opt = Lion(named_params, cfg, zero)
+    else:
+        raise ValueError(
+            f"trainer.extra.optimizer {name!r} unknown; expected 'adamw', "
+            "'adafactor', or 'lion'"
+        )
+    opt.shard_state()
+    return opt
 
 
-def build_model_optimizer(cfg: RunConfig, model: torch.nn.Module) -> _Optimizer:
+def build_model_optimizer(cfg: RunConfig, model: torch.nn.Module,
+                          zero: Any = None) -> _Optimizer:
     """The run's optimizer over ``model``'s trainable parameters (a LoRA
     run's factors; the frozen base holds no state and takes no decay),
-    Adafactor given the views of the JAX package's layout."""
+    Adafactor given the views of the JAX package's layout, its state
+    sharded by ``zero`` when given."""
     from ..interop.flax_params import flax_layout_views
 
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     views = flax_layout_views(named, n_heads=cfg.model.n_heads,
                               n_kv_heads=int(cfg.model.extra.get("n_kv_heads", 0)))
-    return build_optimizer(cfg.trainer, named, views=views)
+    return build_optimizer(cfg.trainer, named, views=views, zero=zero)
 
 
 def find_ema_tree(opt_state: Any) -> Any:

@@ -15,7 +15,11 @@ step eagerly:
   summed over the ranks once per step, one all-reduce over a flat buffer
   per dtype, before the norm, the clip and the guard, so every rank makes
   the same decision. With one rank the arithmetic is that of the
-  single-process step, all-reduce included;
+  single-process step, all-reduce included. Under ZeRO stage 2 over
+  several ranks (``zero``, parallel/zero.py) the split gradients are
+  reduce-scattered instead, each rank receiving its slices, and the
+  replicated ones and the losses all-reduced; the optimizer then takes
+  the slices, and the guard's flag is agreed over the ranks;
 * dropout draws from a ``torch.Generator`` seeded by ``(seed, step,
   micro-batch)``, with the rank folded in past rank 0 and the spike
   rollbacks so far after any, so resume reproduces the stream without
@@ -47,7 +51,7 @@ import numpy as np
 import torch
 
 from ..models.base import ModelAdapter
-from .optimizer import _Optimizer, global_norm
+from .optimizer import _Optimizer
 
 
 @dataclass
@@ -201,7 +205,16 @@ def make_train_step(
         for p in params:
             p.grad = None
         losses_t = torch.stack(losses)
-        if data_parallel:
+        opt = state.optimizer
+        if data_parallel and opt.stage2:
+            dims = opt.split_dims
+            shards = opt.zero.reduce_scatter(summed, dims)
+            replicated = [i for i, d in enumerate(dims) if d is None]
+            *whole, losses_t = all_reduce_coalesced([summed[i] for i in replicated] + [losses_t])
+            for i, g in zip(replicated, whole):
+                shards[i] = g
+            summed = shards
+        elif data_parallel:
             *summed, losses_t = all_reduce_coalesced([*summed, losses_t])
         grads = [g / grad_accum_steps for g in summed]
         del summed
@@ -216,12 +229,14 @@ def make_train_step(
             "loss": losses_t.mean(),
             "per_example_loss_sum": torch.stack(loss_sums),
             "per_example_tokens": torch.stack(token_counts),
-            "grad_norm": global_norm(grads),
+            "grad_norm": opt.grad_norm(grads),
         }
         if nonfinite_guard:
             from ..resilience.guard import tree_all_finite
 
             finite = tree_all_finite(grads, losses_t)
+            if opt.stage2:
+                finite = opt.zero.all_true(finite)
             state.optimizer.step(grads, apply=finite)
             prev = state.nonfinite_count
             if not isinstance(prev, torch.Tensor):

@@ -183,15 +183,8 @@ def refuse_unported(cfg: RunConfig, world_size: int = 1) -> None:
     of the JAX trainer the port does not run yet (``world_size``: the
     processes of the data-parallel group, 1 without one)."""
     mesh = _mesh_refusal(cfg, world_size)
-    checks = [
-        (mesh is not None, mesh, "parallelism"),
-        (cfg.trainer.zero.enabled, "trainer.zero (sharded optimizer state)", "parallelism"),
-        (cfg.model.remat or cfg.model.extra.get("activation_tiers") is not None,
-         "model.remat / model.extra.activation_tiers", "parallelism"),
-    ]
-    for on, what, item in checks:
-        if on:
-            raise NotImplementedError(f"{what} {_NOT_PORTED} (ROADMAP.md queue A: {item})")
+    if mesh is not None:
+        raise NotImplementedError(f"{mesh} {_NOT_PORTED} (ROADMAP.md queue A: parallelism)")
 
 
 def _commit_observer(telemetry: Telemetry):
@@ -259,7 +252,8 @@ class Trainer:
         )
         self._model = self._adapter.build_model(cfg, self._device)
         self._global_micro = cfg.trainer.micro_batch_size * self._world
-        optimizer = build_model_optimizer(cfg, self._model)
+        self._zero = self._zero_partition()
+        optimizer = build_model_optimizer(cfg, self._model, zero=self._zero)
         self._schedule = lr_schedule(cfg.trainer)
         # Every rank gets a manager over the shared run dir (the spike
         # rollback restores on every rank); only rank 0 writes.
@@ -301,6 +295,23 @@ class Trainer:
         # the shapes and dtypes of the batch the step ran on.
         self._batch_struct: dict[str, tuple[tuple[int, ...], torch.dtype]] | None = None
         self._tokens_per_step = 0
+
+    def _zero_partition(self):
+        """``trainer.zero`` over the data-parallel group (parallel/zero.py),
+        or None. One process shards nothing; host offload still acts."""
+        zero = self._cfg.trainer.zero
+        if not zero.enabled:
+            return None
+        from ..parallel.zero import ZeroPartition
+
+        part = ZeroPartition(stage=zero.stage, host_offload=zero.host_offload,
+                             world=self._world, rank=self._rank, device=self._device)
+        logger.info(
+            "ZeRO optimizer-state sharding enabled: stage %d over %d-way data parallel%s",
+            part.stage, self._world,
+            ", host offload" if part.host_offload else "",
+        )
+        return part
 
     @property
     def state(self) -> TrainState:
@@ -410,7 +421,7 @@ class Trainer:
             self._state.step = step
             logger.info("evaluating checkpoint %s (step %d)", path, step)
         elif use_ema:
-            ema = self._state.optimizer.ema
+            ema = self._state.optimizer.full_ema()
             if ema is None:
                 raise ValueError(_NO_EMA)
             shadow = {n: e.to(p.dtype) for n, e, p in zip(
@@ -560,6 +571,11 @@ class Trainer:
                 start_step - 1, max_steps,
             )
 
+        # Per-step host throttle (trainer.extra.step_delay_sec): a testing
+        # knob that stretches the wall clock without touching the math, so
+        # an eviction delivered from outside lands while a tiny model is
+        # mid-run (the fleet's preemption drills).
+        step_delay = float(cfg.trainer.extra.get("step_delay_sec", 0.0) or 0.0)
         self._train_seqlen = self._dataset_spec(train_ds)[1]
         tokens_per_step = accum * self._global_micro * self._train_seqlen
         self._tokens_per_step = tokens_per_step
@@ -681,6 +697,8 @@ class Trainer:
                 self._faults.maybe_sigterm(step)
                 self._faults.maybe_kill(step)
                 self._faults.maybe_hang(step)
+                if step_delay > 0.0:
+                    time.sleep(step_delay)
 
                 step_loss_dev = metrics["loss"]
                 nonfinite = metrics.get("nonfinite_count")
@@ -991,19 +1009,10 @@ class Trainer:
             return None
 
     def _opt_state_memory(self) -> dict[str, int]:
-        """Optimizer-state footprint: its total bytes, the bytes on the
-        run's device, and the bytes held elsewhere (the host)."""
-        total = on_device = 0
-        for t in self._state.optimizer.state_tensors():
-            nbytes = t.numel() * t.element_size()
-            total += nbytes
-            if t.device.type == self._device.type:
-                on_device += nbytes
-        return {
-            "opt_state_bytes": total,
-            "opt_state_bytes_per_device": on_device,
-            "opt_state_bytes_host": total - on_device,
-        }
+        """Optimizer-state footprint (JAX ``_opt_state_memory``): its whole
+        bytes, the bytes resident on this rank's device (~total/W under
+        ZeRO, 0 under host offload) and the bytes held on the host."""
+        return self._state.optimizer.memory()
 
     def _restored_step_loss(self, sampler: DeterministicSampler, dataset, step: int) -> float:
         """Token-weighted forward loss over the batch of training step
@@ -1231,18 +1240,20 @@ class Trainer:
             out.update(self._spike_detector.state())
         return out or None
 
-    def host_state(self) -> dict[str, Any]:
+    def host_state(self, opt_state: dict[str, Any] | None = None) -> dict[str, Any]:
         """Params in the flax layout and the optimizer state: owned host
         copies, which later in-place updates of the live tensors do not
-        reach (a checkpoint serialises them on a thread)."""
+        reach (a checkpoint serialises them on a thread). ``opt_state``:
+        the optimizer's ``state_dict`` when the caller already gathered it."""
         m = self._cfg.model
         n_kv = int(m.extra.get("n_kv_heads", 0))
         params = state_dict_to_flax_params(self._model.state_dict(), n_heads=m.n_heads,
                                            n_kv_heads=n_kv)
+        if opt_state is None:
+            opt_state = self._state.optimizer.state_dict()
         return {
             "params": params,
-            "opt_state": opt_state_to_host(self._state.optimizer.state_dict(),
-                                           n_heads=m.n_heads, n_kv_heads=n_kv,
+            "opt_state": opt_state_to_host(opt_state, n_heads=m.n_heads, n_kv_heads=n_kv,
                                            lora=is_lora_tree(params)),
         }
 
@@ -1254,10 +1265,15 @@ class Trainer:
         manifest (:func:`_commit_observer`). With several ranks every
         rank then waits at a barrier."""
         with self._telemetry.timeline.span("checkpoint_save", cat="ckpt", step=step):
+            opt_state = None
+            if self._zero is not None and self._zero.shards:
+                # The whole state comes from every rank's slices: each rank
+                # takes part in the gather, rank 0 writes.
+                opt_state = self._state.optimizer.state_dict()
             if self._ckpt_mgr is not None and self._is_main:
                 self._ckpt_mgr.save_host_async(
                     step,
-                    self.host_state(),
+                    self.host_state(opt_state),
                     self._cfg.model_dump(),
                     resilience=self._resilience_payload(),
                     manifest_extra=self._manifest_extra(step),

@@ -1,11 +1,12 @@
 """The repository's presets that the port now reads, on the CPU.
 
-The eleven ``gpt`` smoke presets on ``dummy_text`` (``gpt_resilient_smoke``
-with its guard, spike detection and watchdog armed), the two
-``dummy_gpt`` presets and the five llama-family ones (llama, Mistral,
-Qwen2, Gemma, the Mixtral layout) train three steps through the port's
-``train`` (gpt_quant_smoke and gpt_moe_smoke, for its expert mesh, are
-refused, exit 2, citing their ROADMAP.md item); and
+The thirteen ``gpt`` smoke presets on ``dummy_text`` (``gpt_resilient_smoke``
+with its guard, spike detection and watchdog armed; ``gpt_quant_smoke``'s
+int8 matmuls, ``gpt_offload_smoke``'s tier ladder and ``gpt_zero_smoke``'s
+ZeRO), the two ``dummy_gpt`` presets and the five llama-family ones
+(llama, Mistral, Qwen2, Gemma, the Mixtral layout) train three steps
+through the port's ``train`` (gpt_moe_smoke, for its expert mesh, is
+refused, exit 2, citing its ROADMAP.md item); and
 ``gpt_pycorpus_bpe_tpu`` at a tiny width, over a corpus of standard-library
 files with the tracked ``runs/pytok8k.json`` vocabulary, tracks the JAX
 trainer's per-step losses from the same initial params within the
@@ -37,14 +38,15 @@ from llmtrain_tpu_torch.cli import main as port_main
 TRAJ_ATOL, TRAJ_RTOL = 3e-5, 1e-3
 SMOKE_PRESETS = ("gpt_smoke", "gpt_serve_smoke", "gpt_router_smoke", "gpt_overload_smoke",
                  "gpt_fusedce_smoke", "gpt_promote_smoke", "gpt_fleet_smoke", "gpt_chaos_smoke",
-                 "gpt_tune_smoke", "gpt_quant_smoke", "gpt_resilient_smoke", "dummy_smoke",
-                 "example", "llama_smoke", "mistral_smoke", "qwen2_smoke", "gemma_smoke",
-                 "llama_moe_smoke", "gpt_moe_smoke")
+                 "gpt_tune_smoke", "gpt_quant_smoke", "gpt_offload_smoke", "gpt_zero_smoke",
+                 "gpt_resilient_smoke", "dummy_smoke", "example", "llama_smoke",
+                 "mistral_smoke", "qwen2_smoke", "gemma_smoke", "llama_moe_smoke",
+                 "gpt_moe_smoke")
 # Refused for a part of the JAX package the port does not run yet, and the
-# item each refusal cites: gpt_quant_smoke's matmul_precision, and
-# gpt_moe_smoke's mesh (its {expert: 4, data: 2} is expert parallelism;
-# its model trains with the mesh cleared, tests/test_torch_moe.py).
-REFUSED = {"gpt_quant_smoke": "parallelism", "gpt_moe_smoke": "parallelism"}
+# item each refusal cites: gpt_moe_smoke's mesh (its {expert: 4, data: 2}
+# is expert parallelism; its model trains with the mesh cleared,
+# tests/test_torch_moe.py).
+REFUSED = {"gpt_moe_smoke": "parallelism"}
 
 
 def _preset(name: str) -> dict:
