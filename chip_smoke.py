@@ -150,8 +150,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    prompt); (c) int8 weights: quant_stats, the per-position cosine of
    int8 against bf16 logits on 4 prompts > INT8_LOGIT_COSINE, `generate
    --quantize int8` equal to generate() on the same quantized weights;
-   (d) phase 9's weights with sliding_window WINDOW: WINDOW_SEQ tokens
-   teacher-forced through the rolling cache, last-position logits within
+   (d) phase 9's weights with sliding_window WINDOW: WINDOW_PREFILL +
+   WINDOW_DECODED tokens teacher-forced through the rolling cache (the
+   ring turned over once), last-position logits within
    LOGITS_ATOL of the windowed flash forward (the kernel, one launch per
    layer), the same with kv_cache_dtype int8 at a cosine > INT8_CACHE_COSINE,
    and speculative greedy on the rolling target equal to plain greedy;
@@ -193,11 +194,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    (a) `train-tokenizer` over the stdlib (TOKENIZER_MAX_BYTES, vocab
    TOKENIZER_VOCAB): exit 0, the vocabulary loads and round-trips a stdlib
    file; its seconds printed. (b) `train` on gpt_pycorpus_bpe_tpu at full
-   width and depth (768 x 12 layers, micro batch 64 x 512, bf16, flash)
+   width cut to BPE_LAYERS layers (768 wide, micro batch 64 x 512, bf16, flash)
    with the tracked vocabulary runs/pytok8k.json, cut to BPE_STEPS steps:
    vocab_size null resolves to 8192 and loss_impl to dense; losses finite
-   and falling by LOSS_DROP_MIN; launch counts 12 flash forward, dq and
-   dk/dv per step plus 12 forward per eval batch, none of the others
+   and falling by LOSS_DROP_MIN; launch counts one flash forward, dq and
+   dk/dv per layer and step plus one forward per layer and eval batch, none of the others
    (reset just before the call, read just after); the corpus bytes, the
    tokenization seconds and which BPE encoder ran (native C or Python),
    the windows, step ms, tokens/s, MFU and peak memory printed. (c) `eval
@@ -266,7 +267,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    rolled_back; the losses finite but the NaN step's and falling by
    LOSS_DROP_MIN; the goodput ledger balanced; the guarded step's median
    beside phase 9's over the same steps. (b) a `python -m
-   llmtrain_tpu_torch train` child hung at WD_HANG_AT with the watchdog
+   llmtrain_tpu_torch train` child (run beside (c)'s children since
+   phase 23 came; PERF.md §2) hung at WD_HANG_AT with the watchdog
    at WD_STALL_SEC: exit 76 with "HANG DETECTED", a hang report holding
    the thread stacks and the device section (the allocator's bytes,
    nvidia-smi), a heartbeat younger than the timeout plus
@@ -303,7 +305,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    llama_moe with 4 experts, top 2, capacity factor 2 and sliding window
    ZOO_WINDOW, at ZOO_SMALL_LAYERS layers, ZOO_MOE_STEPS steps: losses
    finite and falling, the windowed flash launches counted, `generate`.
-   (e) gpt_lora_ft at full width, ZOO_LORA_STEPS steps: every base leaf
+   (e) gpt_lora_ft at full width and ZOO_SMALL_LAYERS layers (12 until
+   phase 23 came), ZOO_LORA_STEPS steps: every base leaf
    of the checkpoint bit-identical to the seed's init, every factor B
    moved; `export-checkpoint` (merged) imported into the config without
    LoRA: its `eval` within EVAL_ATOL of the LoRA run's `eval` (itself
@@ -345,6 +348,30 @@ Phases, each fatal on failure (exit code 1, no result line):
    plain one-rank job's, report.json's opt_state_bytes_host AdamW's state
    bytes and 0 per device under the offload, each step time beside the
    plain job's.
+
+23. Meshes at one rank, in the same temp root (the mesh code on the card:
+   distributed/mesh.py, autotune/plan.py, parallel/mesh_params.py, the
+   sequence-parallel attention): (a) phase 18(a)'s one-rank NCCL job with
+   every axis of distributed.mesh spelled out at 1 (MESH_ONE), DDP_STEPS
+   steps: every loss bitwise phase 18(a)'s, its checkpoint manifest's
+   topology that mesh over one process, the flash counts. (b) The
+   blockwise attention that ring and ulysses run with no sequence axis,
+   in f32 against the dense plain version at SEQ_CHECK_SHAPE: the
+   attention of ring_or_blockwise, then ulysses_or_blockwise, forward
+   within SEQ_FWD_ATOL, dq, dk and dv within SEQ_GRAD_ATOL +
+   SEQ_GRAD_RTOL; one attention layer of the cell's width under each
+   against the same layer under dense attention (output, input gradient,
+   and the projections' gradients normwise: _seq_one_layer); the ring's
+   own turns (ops/ring_attention.py ring_turns_on_one_device: SEQ_SHARDS
+   shards, each a rank, in lockstep) forward and gradients within the
+   same bands, and its control, the same loop with every shard's
+   kv_offset forced to 0, above SEQ_FWD_ATOL. Then phase 9's
+   config at SEQ_LAYERS layers with block_size SEQ_BLOCK, micro batch
+   SEQ_MICRO (the cell's tokens a step), SEQ_STEPS steps under ring,
+   ulysses and flash: losses finite and falling, no flash launch under
+   ring and ulysses (blockwise is plain torch) and the flash counts
+   under flash; each step time and peak memory printed beside flash's.
+   The phase's seconds on its [clock] line.
 
 Then it prints the kernels line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
@@ -1926,11 +1953,11 @@ CONT_RATE_RPS = 16.0
 CONT_MIN_OCCUPANCY = 6.0
 CONT_SHARED_PREFIX = (128, 4)  # tokens, distinct prefixes
 CONT_CHUNK = 64
-CONT_HTTP_REQUESTS = 8
+CONT_HTTP_REQUESTS = 4  # 8 until phase 23 came (PERF.md §2)
 # Requests kept in flight across POST /reload: a batch of this many, each
 # as long as the context allows after a CONT_PROMPTS[0]-token prompt.
 CONT_RELOAD_REQUESTS = 8
-CONT_RELOAD_NEW_TOKENS = 384  # 496 until phase 21 came (PERF.md §2)
+CONT_RELOAD_NEW_TOKENS = 320  # 496 until phase 21 came, 384 until phase 23 (PERF.md §2)
 CONT_PROFILE_STEPS = 10  # 20 until phase 21 came
 CONT_PROFILE_PROMPT = 64
 CONT_SERVER_START_SEC = 300
@@ -2285,11 +2312,15 @@ DRAFT_MODEL = dict(n_layers=2, d_model=256, n_heads=4, d_ff=1024)
 DRAFT_STEPS = 100  # 200 until phase 21 came (PERF.md §2)
 SPEC_GAMMA = 4
 SPEC_PROMPTS = ("def ", "class Config:", "import numpy as np", "    for i in range(")
-SPEC_NEW_TOKENS = 64  # 128 until phase 21 came (PERF.md §2)
+SPEC_NEW_TOKENS = 32  # 128 until phase 21 came, 64 until phase 23 (PERF.md §2)
 INT8_LOGIT_COSINE = 0.99  # JAX's band, tests/test_quant.py::test_gpt_logits_track_full_precision
 INT8_CACHE_COSINE = 0.999  # JAX's band, tests/test_quant.py::test_decode_logits_track_full_forward
 WINDOW_PREFILL = 128  # the whole ring: every prefilled key kept
-WINDOW_SPEC = (2, 64, 128)  # prompts, prompt tokens, new tokens: the ring wraps
+# Tokens decoded one a call after the prefill: the ring turns over once
+# (WINDOW_SEQ - WINDOW_PREFILL, two turns, until phase 23 came; PERF.md §2).
+WINDOW_DECODED = WINDOW
+
+WINDOW_SPEC = (2, 64, 96)  # prompts, prompt tokens, new tokens: the ring wraps (128 new until phase 23)
 
 
 def _draft_config(tmp: Path) -> Path:
@@ -2447,7 +2478,8 @@ def phase_speculative(torch, smi: str, tmp: Path, train: dict, cont: dict) -> di
 
     # ---- (d) rolling and int8 decode caches against the windowed kernel.
     rolling = {}
-    seq = torch.randint(0, 256, (1, WINDOW_SEQ), device=dev, generator=gen)
+    seq = torch.randint(0, 256, (1, WINDOW_PREFILL + WINDOW_DECODED), device=dev,
+                        generator=gen)
     for kv_dtype in ("model", "int8"):
         wmodel = _decode_model(cfg_path, ckpt, sliding_window=WINDOW, kv_cache_dtype=kv_dtype)
         decoder = wmodel.for_decoding()
@@ -2459,8 +2491,8 @@ def phase_speculative(torch, smi: str, tmp: Path, train: dict, cont: dict) -> di
                 window_launches = flash_attention_fwd.launches - before
             steps = [decoder(seq[:, :WINDOW_PREFILL], cache)[:, -1].float()]
             steps += [decoder(seq[:, i:i + 1], cache)[:, 0].float()
-                      for i in range(WINDOW_PREFILL, WINDOW_SEQ)]
-        got = torch.cat(steps)  # positions WINDOW_PREFILL - 1 .. WINDOW_SEQ - 1
+                      for i in range(WINDOW_PREFILL, seq.shape[1])]
+        got = torch.cat(steps)  # positions WINDOW_PREFILL - 1 .. the last
         want = full[0, WINDOW_PREFILL - 1:]
         rolling[kv_dtype] = dict(
             last_err=(got[-1] - want[-1]).abs().max().item(),
@@ -2470,7 +2502,7 @@ def phase_speculative(torch, smi: str, tmp: Path, train: dict, cont: dict) -> di
             slots=decoder.slots,
         )
         del wmodel
-    log(f"[rolling] window {WINDOW}, {WINDOW_SEQ} tokens teacher-forced ({WINDOW_PREFILL} "
+    log(f"[rolling] window {WINDOW}, {seq.shape[1]} tokens teacher-forced ({WINDOW_PREFILL} "
         f"prefilled, then one a call) through the rolling cache of {rolling['model']['slots']} "
         f"slots, against the windowed flash forward ({window_launches} kernel launches): "
         f"last-position max abs diff {rolling['model']['last_err']:.4e} (atol {LOGITS_ATOL}), "
@@ -2539,10 +2571,10 @@ def phase_speculative(torch, smi: str, tmp: Path, train: dict, cont: dict) -> di
 # took 156 s and the run 827 s on a slow host (a's parity pass is 48
 # sequential generate() calls).
 FLEET_REPLICAS = 2
-FLEET_REQUESTS = 16  # 24 until phase 21 came (PERF.md §2)
-FLEET_RELOAD_NEW_TOKENS = 256
-FLEET_HTTP_REQUESTS = 16
-FLEET_HTTP_NEW_TOKENS = 32
+FLEET_REQUESTS = 12  # 24 until phase 21 came, 16 until phase 23 (PERF.md §2)
+FLEET_RELOAD_NEW_TOKENS = 128  # 256 until phase 23 came (PERF.md §2)
+FLEET_HTTP_REQUESTS = 8  # 16 until phase 23 came (PERF.md §2)
+FLEET_HTTP_NEW_TOKENS = 16  # 32 until phase 23 came (PERF.md §2)
 
 
 def _free_port() -> int:
@@ -2813,7 +2845,7 @@ def phase_fleet(torch, smi: str, tmp: Path, train: dict, cont: dict) -> dict:
 # ------------------------------------------- offline data and checkpoint tools
 # Phase 17. (a) `train-tokenizer` over the running interpreter's stdlib,
 # TOKENIZER_MAX_BYTES of it at TOKENIZER_VOCAB. (b) `train` on
-# configs/presets/gpt_pycorpus_bpe_tpu.yaml at full width and depth with the
+# configs/presets/gpt_pycorpus_bpe_tpu.yaml at full width, BPE_LAYERS deep, with the
 # tracked vocabulary runs/pytok8k.json (8192 ids, so dense CE as in JAX),
 # cut like TRAIN_STEPS: BPE_STEPS steps, warmup a quarter of them, every
 # step logged, eval and a save at BPE_SAVE_EVERY and at the end, the corpus
@@ -2821,9 +2853,11 @@ def phase_fleet(torch, smi: str, tmp: Path, train: dict, cont: dict) -> dict:
 # and --quantize int8. (d) export-checkpoint -> import-checkpoint -> eval,
 # and average-checkpoints --last-k 2 -> eval. (e) the smoke presets
 # gpt_smoke and dummy_smoke trained SMOKE_PRESET_STEPS steps on the card.
-TOKENIZER_MAX_BYTES = 4_000_000
+TOKENIZER_MAX_BYTES = 2_000_000  # 4_000_000 until phase 23 came (PERF.md §2)
 TOKENIZER_VOCAB = 1024
 BPE_STEPS = 20
+# A depth cut for phase 23's time (PERF.md §2): 12 layers until then.
+BPE_LAYERS = 4
 BPE_WARMUP = BPE_STEPS // 4
 BPE_SAVE_EVERY = BPE_STEPS // 2
 # `eval` of the final checkpoint against the trainer's own eval at that
@@ -2845,6 +2879,7 @@ def _bpe_config(tmp: Path) -> Path:
     raw["model"]["extra"]["tokenizer"] = f"bpe:{root / 'runs' / 'pytok8k.json'}"
     raw["data"]["cache_dir"] = str(tmp / "cache")
     raw["data"]["extra"]["globs"] = [sysconfig.get_paths()["stdlib"] + "/**/*.py"]
+    raw["model"]["n_layers"] = BPE_LAYERS
     raw["trainer"].update(max_steps=BPE_STEPS, warmup_steps=BPE_WARMUP, log_every_steps=1,
                           eval_every_steps=BPE_SAVE_EVERY, save_every_steps=BPE_SAVE_EVERY)
     raw["output"]["root_dir"] = str(tmp / "runs")
@@ -3584,7 +3619,7 @@ WD_EXIT_SLACK_SEC = 30.0
 # segments' saves, loads and the final bitwise comparison scale with it:
 # 12 layers took 119.5 s of the 1200 s limit, PR 14 call 25).
 CHAOS_CYCLES = 2
-CHAOS_LAYERS = 4
+CHAOS_LAYERS = 2  # 4 until phase 23 came (PERF.md §2)
 CHAOS_STEPS = 8
 CHAOS_SAVE_EVERY = 4
 CHAOS_SEED = 1
@@ -3679,9 +3714,10 @@ def _resilience_rollback(torch, smi: str, tmp: Path, train: dict) -> dict:
     return dict(counts=counts, guarded_ms=guarded_ms, plain_ms=plain_ms)
 
 
-def _resilience_watchdog(tmp: Path) -> dict:
-    """(b) a `train` child hung at WD_HANG_AT: exit 76 with a hang report
-    and a fresh heartbeat."""
+def _start_watchdog_child(tmp: Path) -> dict:
+    """(b), started: a `train` child that hangs at WD_HANG_AT. It runs
+    beside (c)'s children; a thread waits for it and reads its heartbeat's
+    age the moment it exits (:func:`_resilience_watchdog` checks them)."""
     from llmtrain_tpu_torch.config import load_and_validate_config
 
     cfg_path = _resilience_config(
@@ -3689,17 +3725,36 @@ def _resilience_watchdog(tmp: Path) -> dict:
         watchdog={"enabled": True, "stall_timeout_sec": WD_STALL_SEC},
         faults={"hang_at_step": WD_HANG_AT})
     cfg, _, _ = load_and_validate_config(cfg_path)
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "llmtrain_tpu_torch", "train", "--config",
-                           str(cfg_path), "--run-id", "hung"],
-                          cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
-                          timeout=600)
-    wall = time.perf_counter() - t0
     run_dir = Path(cfg.output.root_dir) / "hung"
+    child = dict(run_dir=run_dir, t0=time.perf_counter())
+    child["proc"] = subprocess.Popen(
+        [sys.executable, "-m", "llmtrain_tpu_torch", "train", "--config", str(cfg_path),
+         "--run-id", "hung"], cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+    def wait() -> None:
+        try:
+            child["stderr"] = child["proc"].communicate(timeout=600)[1]
+        except subprocess.TimeoutExpired:
+            child["proc"].kill()
+            child["stderr"] = child["proc"].communicate()[1]
+        child["wall"] = time.perf_counter() - child["t0"]
+        hb = run_dir / "heartbeat"
+        child["hb_age"] = time.time() - hb.stat().st_mtime if hb.is_file() else None
+
+    child["waiter"] = threading.Thread(target=wait, daemon=True)
+    child["waiter"].start()
+    return child
+
+
+def _resilience_watchdog(child: dict) -> dict:
+    """(b) the hung `train` child: exit 76 with a hang report and a fresh
+    heartbeat."""
+    child["waiter"].join()
+    proc, stderr, wall, hb_age = child["proc"], child["stderr"], child["wall"], child["hb_age"]
+    run_dir = child["run_dir"]
     reports = sorted(run_dir.glob("hang_report_*_p0.txt"))
     text = reports[0].read_text() if reports else ""
-    hb = run_dir / "heartbeat"
-    hb_age = time.time() - hb.stat().st_mtime if hb.is_file() else None
     armed = [json.loads(line)["timestamp"] for line in
              (run_dir / "logs" / "train.log").read_text().splitlines()
              if "hang watchdog armed" in line]
@@ -3709,8 +3764,8 @@ def _resilience_watchdog(tmp: Path) -> dict:
         f"{hb_age if hb_age is None else round(hb_age, 1)} s; armed at {armed}")
     device = text[text.find("== device diagnostics =="):]
     log("[watchdog] report's device section: " + " | ".join(device.splitlines()[1:4]))
-    if proc.returncode != 76 or "HANG DETECTED" not in proc.stderr:
-        raise RuntimeError(f"the hung child exited {proc.returncode}: {proc.stderr[-2000:]}")
+    if proc.returncode != 76 or "HANG DETECTED" not in stderr:
+        raise RuntimeError(f"the hung child exited {proc.returncode}: {stderr[-2000:]}")
     if "== thread stacks ==" not in text or "allocated_bytes current=" not in device \
             or "nvidia-smi" not in device:
         raise RuntimeError("the hang report lacks the thread stacks or the device section")
@@ -3792,8 +3847,12 @@ def phase_resilience(torch, smi: str, tmp: Path, train: dict) -> dict:
     rollback = _resilience_rollback(torch, smi, tmp, train)
     torch.cuda.empty_cache()
     _reset_counts()  # (b)-(c) run in child processes: none here
-    watchdog = _resilience_watchdog(tmp)
-    chaos = _resilience_chaos(tmp)
+    # The hung child waits out its stall beside the chaos drill's children.
+    hung = _start_watchdog_child(tmp)
+    try:
+        chaos = _resilience_chaos(tmp)
+    finally:
+        watchdog = _resilience_watchdog(hung)
     _check_counts("resilience children", _read_counts(), {})
     saves = _resilience_saves(torch, smi, train)
     seconds = time.perf_counter() - t_phase
@@ -3822,7 +3881,7 @@ ZOO_SMALL_LAYERS = 4
 ZOO_SMALL_STEPS = 4
 ZOO_MOE_STEPS = 8
 ZOO_LORA_STEPS = 6
-ZOO_REQUESTS = 12
+ZOO_REQUESTS = 8  # 12 until phase 23 came (PERF.md §2)
 ZOO_NEW_TOKENS = 32
 
 
@@ -4053,7 +4112,8 @@ def _zoo_lora(torch, smi: str, tmp: Path, eval_batches: int) -> dict:
     from llmtrain_tpu_torch.models.lora import build_adapter
     from llmtrain_tpu_torch.training.checkpoint import CheckpointManager
 
-    cfg_path = _zoo_config(tmp, "zoo_lora", "gpt_lora_ft", steps=ZOO_LORA_STEPS)
+    cfg_path = _zoo_config(tmp, "zoo_lora", "gpt_lora_ft", steps=ZOO_LORA_STEPS,
+                           model={"n_layers": ZOO_SMALL_LAYERS})
     cfg, _, _ = load_and_validate_config(cfg_path)
     torch.cuda.empty_cache()
     run = _zoo_train(tmp, cfg_path, "zoo_lora", steps=ZOO_LORA_STEPS, eval_batches=eval_batches,
@@ -4650,6 +4710,276 @@ def phase_parallel(torch, smi: str, tmp: Path, train: dict, ddp: dict) -> dict:
                 zero=zero["rows"], counts=counts, seconds=seconds)
 
 
+# ---------------------------------------------------------------- meshes
+# Phase 23. (a): every axis of distributed.mesh spelled out at one device.
+MESH_ONE = {"data": 1, "fsdp": 1, "tensor": 1, "sequence": 1, "pipeline": 1, "expert": 1}
+# (b): the byte cell's width at block 2048, cut to SEQ_LAYERS layers; a
+# micro batch of SEQ_MICRO x SEQ_BLOCK is the cell's 64 x 512 tokens.
+SEQ_BLOCK = 2048
+SEQ_LAYERS = 4
+SEQ_MICRO = 16
+SEQ_STEPS = 8
+SEQ_WARMUP = 2
+SEQ_CHECK_SHAPE = (2, 2048, 12, 64)  # B, T, H, D of the f32 checks
+SEQ_SHARDS = 4
+SEQ_LAYER_SEED = 23
+# The North star's bands (ROADMAP.md): outputs 2e-5; gradients atol 1e-5,
+# rtol 1e-4.
+SEQ_FWD_ATOL = 2e-5
+SEQ_GRAD_ATOL, SEQ_GRAD_RTOL = 1e-5, 1e-4
+
+
+def _one_rank_env() -> dict:
+    return {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+            "MASTER_PORT": str(_free_port())}
+
+
+def _mesh_one_rank(torch, smi: str, tmp: Path, ddp: dict) -> dict:
+    """23(a)."""
+    import os
+
+    import yaml
+
+    from llmtrain_tpu_torch.training.checkpoint import read_manifest
+
+    cfg_path = _ddp_config(tmp, "mesh_one", steps=DDP_STEPS, distributed=True)
+    raw = yaml.safe_load(cfg_path.read_text())
+    raw["distributed"]["mesh"] = dict(MESH_ONE)
+    cfg_path.write_text(yaml.safe_dump(raw, sort_keys=False))
+    env = _one_rank_env()
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    _reset_counts()  # the one-rank mesh path's counts start here
+    try:
+        with _ExactLosses() as rec:
+            code, out = _run_cli(["train", "--config", str(cfg_path), "--run-id", "mesh_one",
+                                  "--json"])
+        counts = _read_counts()  # and end here
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if code != 0:
+        raise RuntimeError(f"23(a): train exited {code}")
+    layers = ddp["layers"]
+    _check_counts("mesh one rank", counts, {
+        "flash_attention_fwd": layers * (DDP_STEPS + ddp["eval_batches"]),
+        "flash_attention_bwd_dq": layers * DDP_STEPS,
+        "flash_attention_bwd_dkdv": layers * DDP_STEPS,
+    })
+    run_dir = tmp / "runs" / "mesh_one"
+    topology = (read_manifest(run_dir / "checkpoints" / f"step_{DDP_STEPS:06d}.ckpt")
+                or {}).get("topology", {})
+    same = rec.losses == ddp["exact_losses"]
+    s = _steady(_logged_steps(run_dir))
+    log(f"[mesh] (a) distributed.mesh {MESH_ONE} over one NCCL rank: losses "
+        f"{' '.join(repr(x) for x in rec.losses)}; bitwise phase 18(a)'s: {same}; manifest "
+        f"topology mesh {topology.get('mesh')}, processes {topology.get('num_processes')}; step "
+        f"{s['step_time'] * 1e3:.1f} ms against phase 18(a)'s {ddp['one']['step_time'] * 1e3:.1f} "
+        f"ms on {smi}")
+    if not same:
+        raise RuntimeError("23(a): the mesh run's losses are not phase 18(a)'s bit for bit")
+    if topology.get("mesh") != MESH_ONE or topology.get("num_processes") != 1:
+        raise RuntimeError(f"23(a): the manifest records the topology {topology}")
+    return dict(counts=counts, step_ms=s["step_time"] * 1e3)
+
+
+def _close(torch, got, want, atol: float, rtol: float = 0.0) -> tuple[bool, float]:
+    """(every |got - want| <= atol + rtol |want|, the largest |got - want|)."""
+    diff = (got.double() - want.double()).abs()
+    return bool((diff <= atol + rtol * want.double().abs()).all()), float(diff.max())
+
+
+def _seq_layer_checks(torch, smi: str, device: str = "cuda") -> dict:
+    """23(b)'s f32 checks (module doc)."""
+    from llmtrain_tpu_torch.models.gpt import dense_attention
+    from llmtrain_tpu_torch.ops import ring_attention
+    from llmtrain_tpu_torch.ops.ring_attention import ring_or_blockwise
+    from llmtrain_tpu_torch.ops.ulysses_attention import ulysses_or_blockwise
+
+    b, t, h, d = SEQ_CHECK_SHAPE
+    gen = torch.Generator(device=device).manual_seed(23)
+    rows = {}
+
+    def grads_of(attend, inputs, w):
+        leaves = [x.clone().requires_grad_() for x in inputs]
+        out = attend(*leaves)
+        (out * w).sum().backward()
+        return out.detach(), [x.grad for x in leaves]
+
+    for scheme, fn in (("ring", ring_or_blockwise), ("ulysses", ulysses_or_blockwise)):
+        q, k, v, w = (torch.randn(b, t, h, d, device=device, generator=gen) for _ in range(4))
+        out, grads = grads_of(lambda a, b_, c: fn(a, b_, c, causal=True), (q, k, v), w)
+        ref, ref_grads = grads_of(lambda a, b_, c: dense_attention(a, b_, c, attention_mask=None),
+                                  (q, k, v), w)
+        ok_f, err_f = _close(torch, out, ref, SEQ_FWD_ATOL)
+        checks = [_close(torch, g, r, SEQ_GRAD_ATOL, SEQ_GRAD_RTOL)
+                  for g, r in zip(grads, ref_grads)]
+        ok_g, err_g = all(c[0] for c in checks), max(c[1] for c in checks)
+        log(f"[mesh] (b) {scheme} attention at {SEQ_CHECK_SHAPE} f32 (blockwise: no sequence "
+            f"axis) against the dense plain version: out max |diff| {err_f:.3e} (atol "
+            f"{SEQ_FWD_ATOL}); dq, dk, dv max |diff| "
+            + ", ".join(f"{c[1]:.3e}" for c in checks)
+            + f" (atol {SEQ_GRAD_ATOL} + rtol {SEQ_GRAD_RTOL})")
+        if not (ok_f and ok_g):
+            raise RuntimeError(f"23(b): {scheme} attention is off the dense plain version")
+        rows[scheme] = dict(fwd_err=err_f, grad_err=err_g)
+        rows[f"{scheme}_layer"] = _seq_one_layer(torch, scheme, gen, device)
+    # The ring's own turns (ops/ring_attention.py), SEQ_SHARDS shards each
+    # a rank, run in lockstep on the card; the control is the same loop
+    # with every visiting shard's kv_offset forced to 0.
+    q, k, v, w = (torch.randn(b, t, h, d, device=device, generator=gen) for _ in range(4))
+    ref, ref_grads = grads_of(lambda a, b_, c: dense_attention(a, b_, c, attention_mask=None),
+                              (q, k, v), w)
+    out, *grads = ring_attention.ring_turns_on_one_device(q, k, v, w, SEQ_SHARDS)
+    ok_f, err = _close(torch, out, ref, SEQ_FWD_ATOL)
+    checks = [_close(torch, g, r, SEQ_GRAD_ATOL, SEQ_GRAD_RTOL) for g, r in zip(grads, ref_grads)]
+    real = ring_attention.chunk_scan
+    ring_attention.chunk_scan = lambda *a, kv_offset, **kw: real(*a, kv_offset=0, **kw)
+    try:
+        broken = ring_attention.ring_turns_on_one_device(q, k, v, w, SEQ_SHARDS)[0]
+    finally:
+        ring_attention.chunk_scan = real
+    bad_ok, bad_err = _close(torch, broken, ref, SEQ_FWD_ATOL)
+    log(f"[mesh] (b) the ring's turns (ops/ring_attention.py) over {SEQ_SHARDS} shards of "
+        f"{t // SEQ_SHARDS} in lockstep on the card against dense: out max |diff| {err:.3e} "
+        f"(atol {SEQ_FWD_ATOL}); dq, dk, dv max |diff| "
+        + ", ".join(f"{c[1]:.3e}" for c in checks)
+        + f" (atol {SEQ_GRAD_ATOL} + rtol {SEQ_GRAD_RTOL}); control, the same loop with "
+        f"kv_offset forced to 0: out max |diff| {bad_err:.3e}")
+    if not (ok_f and all(c[0] for c in checks)):
+        raise RuntimeError("23(b): the ring's turns are off the dense plain version")
+    if bad_ok:
+        raise RuntimeError("23(b): the kv_offset control passed the check")
+    rows["ring_turns"] = dict(err=err, grad_err=max(c[1] for c in checks), control_err=bad_err)
+    return rows
+
+
+def _seq_one_layer(torch, scheme: str, gen, device: str) -> dict:
+    """23(b): one attention layer of the cell's width under ``scheme``
+    against the same layer (same weights) under dense attention, in f32:
+    the output within SEQ_FWD_ATOL, the input's gradient within
+    SEQ_GRAD_ATOL + SEQ_GRAD_RTOL elementwise, each projection parameter's
+    gradient within SEQ_GRAD_ATOL + SEQ_GRAD_RTOL x its largest element
+    (their f32 sums over B x T tokens near cancellation missed the
+    elementwise band by 1.3-2.4e-5 on 5 of qkv_proj's 1.77M weight
+    gradients, PERF.md §6; the count outside it is printed)."""
+    from llmtrain_tpu_torch.models.gpt import CausalSelfAttention
+
+    b, t, h, d = SEQ_CHECK_SHAPE
+    layers = []
+    for attention in (scheme, "dense"):
+        torch.manual_seed(SEQ_LAYER_SEED)
+        layers.append(CausalSelfAttention(h * d, h, dtype=torch.float32,
+                                          param_dtype=torch.float32,
+                                          attention=attention).to(device))
+    layers[1].load_state_dict(layers[0].state_dict())
+    x, w = (torch.randn(b, t, h * d, device=device, generator=gen) for _ in range(2))
+    results = []
+    for layer in layers:
+        xi = x.clone().requires_grad_()
+        out = layer(xi)
+        (out * w).sum().backward()
+        results.append((out.detach(), xi.grad, {n: p.grad for n, p in layer.named_parameters()}))
+    (out, dx, pg), (ref, ref_dx, ref_pg) = results
+    ok, err_f = _close(torch, out, ref, SEQ_FWD_ATOL)
+    ok_x, err_x = _close(torch, dx, ref_dx, SEQ_GRAD_ATOL, SEQ_GRAD_RTOL)
+    ok = ok and ok_x
+    parts = [f"out {err_f:.3e}", f"dx {err_x:.3e}"]
+    for name, g in pg.items():
+        want = ref_pg[name]
+        band = SEQ_GRAD_ATOL + SEQ_GRAD_RTOL * float(want.abs().max())
+        good, err = _close(torch, g, want, band)
+        elementwise = int(((g - want).abs() > SEQ_GRAD_ATOL + SEQ_GRAD_RTOL * want.abs()).sum())
+        parts.append(f"{name} {err:.3e} (band {band:.3e}; {elementwise} of {g.numel()} outside "
+                     f"the elementwise band)")
+        ok = ok and good
+    log(f"[mesh] (b) one {scheme} attention layer ({h * d} wide, {h} heads) at B={b}, T={t} f32 "
+        f"against the same layer under dense attention: max |diff| " + "; ".join(parts))
+    if not ok:
+        raise RuntimeError(f"23(b): the {scheme} attention layer is off the dense one")
+    return dict(out_err=err_f, dx_err=err_x)
+
+
+def _eval_batches(cfg_path: Path) -> int:
+    """The eval batches of a config's one validation pass on one rank."""
+    from llmtrain_tpu_torch.config import load_and_validate_config
+    from llmtrain_tpu_torch.data.local_text import LocalTextDataModule
+    from llmtrain_tpu_torch.data.tokenizers import ByteTokenizer
+
+    cfg, _, _ = load_and_validate_config(cfg_path)
+    dm = LocalTextDataModule()
+    dm.setup(cfg, ByteTokenizer())
+    return -(-len(dm.val_dataset()) // cfg.trainer.micro_batch_size)
+
+
+def _seq_train(torch, smi: str, tmp: Path) -> dict:
+    """23(b)'s trainings."""
+    import yaml
+
+    runs = {}
+    counts = None
+    for attention in ("ring", "ulysses", "flash"):
+        path = _smoke_config(tmp, f"seq_{attention}")
+        raw = yaml.safe_load(path.read_text())
+        raw["model"].update(block_size=SEQ_BLOCK, n_layers=SEQ_LAYERS, attention=attention)
+        raw["trainer"].update(max_steps=SEQ_STEPS, warmup_steps=SEQ_WARMUP,
+                              micro_batch_size=SEQ_MICRO, eval_every_steps=SEQ_STEPS,
+                              save_every_steps=SEQ_STEPS)
+        path.write_text(yaml.safe_dump(raw, sort_keys=False))
+        torch.cuda.empty_cache()
+        _reset_counts()
+        code, out = _run_cli(["train", "--config", str(path), "--run-id", f"seq_{attention}",
+                              "--json"])
+        got = _read_counts()
+        if code != 0:
+            raise RuntimeError(f"23(b): {attention} train exited {code}")
+        summary = json.loads(out)["train_result"]
+        steps = _logged_steps(tmp / "runs" / f"seq_{attention}")
+        losses = [steps[i]["loss"] for i in sorted(steps)]
+        s = _steady(steps)
+        if attention == "flash":
+            _check_counts("seq flash", got, {
+                "flash_attention_fwd": SEQ_LAYERS * (SEQ_STEPS + _eval_batches(path)),
+                "flash_attention_bwd_dq": SEQ_LAYERS * SEQ_STEPS,
+                "flash_attention_bwd_dkdv": SEQ_LAYERS * SEQ_STEPS,
+            })
+        else:
+            _check_counts(f"seq {attention}", got, {})
+        counts = got if counts is None else {k: counts[k] + got[k] for k in got}
+        log(f"[mesh] (b) {attention} at block {SEQ_BLOCK}, {SEQ_LAYERS} layers of the cell, micro "
+            f"batch {SEQ_MICRO}: losses {' '.join(f'{x:.4f}' for x in losses)}; step "
+            f"{s['step_time'] * 1e3:.1f} ms (median of steps 2-{SEQ_STEPS - 1}), "
+            f"{s['tokens_per_sec']:.0f} tokens/s, peak memory "
+            f"{summary['peak_memory'] / 2**30:.2f} GiB on {smi}")
+        if (len(losses) != SEQ_STEPS or not all(math.isfinite(x) for x in losses)
+                or not losses[-1] < losses[0]):
+            raise RuntimeError(f"23(b): {attention}'s losses are not finite and falling")
+        runs[attention] = dict(step_ms=s["step_time"] * 1e3, peak=summary["peak_memory"],
+                               losses=losses)
+    return dict(runs=runs, counts=counts)
+
+
+def phase_mesh(torch, smi: str, tmp: Path, ddp: dict) -> dict:
+    """Phase 23 (module doc): (a) the one-rank mesh, (b) ring and ulysses
+    at one device. Returns the launch counts of its paths."""
+    t0 = time.perf_counter()
+    one = _mesh_one_rank(torch, smi, tmp, ddp)
+    checks = _seq_layer_checks(torch, smi)
+    seq = _seq_train(torch, smi, tmp)
+    runs = seq["runs"]
+    counts = {k: one["counts"][k] + seq["counts"][k] for k in one["counts"]}
+    seconds = time.perf_counter() - t0
+    log(f"[mesh] phase 23 in {seconds:.1f} s on {smi}; blockwise against flash at block "
+        f"{SEQ_BLOCK}: ring {runs['ring']['step_ms']:.1f} ms, {runs['ring']['peak'] / 2**30:.2f} "
+        f"GiB; ulysses {runs['ulysses']['step_ms']:.1f} ms, "
+        f"{runs['ulysses']['peak'] / 2**30:.2f} GiB; flash {runs['flash']['step_ms']:.1f} ms, "
+        f"{runs['flash']['peak'] / 2**30:.2f} GiB; launches {counts}")
+    return dict(one=one, checks=checks, runs=runs, counts=counts, seconds=seconds)
+
+
 def main() -> int:
     import tempfile
 
@@ -4722,14 +5052,18 @@ def main() -> int:
         clock("phase 21: model zoo")
         par = phase_parallel(torch, smi, Path(tmp), train, ddp)
         clock("phase 22: parallelism on one device")
+        mesh = phase_mesh(torch, smi, Path(tmp), ddp["ddp"])
+        clock("phase 23: meshes at one rank")
     paths = (train["counts"], fused["counts"], ce["counts"], spec["counts"], offline["counts"],
-             ddp["counts"], tel["counts"], res["counts"], zoo["counts"], par["counts"])
+             ddp["counts"], tel["counts"], res["counts"], zoo["counts"], par["counts"],
+             mesh["counts"])
     launches = {name: sum(c[name] for c in paths) for name in paths[0]}
     launches["flash_attention_fwd"] += serve_launches
     log(f"[main path] launches over serve + generate, train, fused-norm train, CE train, "
         f"speculative/int8/rolling, BPE train and its evals, the one-rank NCCL train and its "
         f"EMA evals, phase 19's profile and telemetry runs, phase 20's guarded run, phase "
-        f"21's model zoo and phase 22's quantized, tiered and ZeRO runs: {launches}")
+        f"21's model zoo, phase 22's quantized, tiered and ZeRO runs and phase 23's mesh "
+        f"runs: {launches}")
     for name, n in launches.items():
         if n == 0:
             raise RuntimeError(f"the main path never launched {name}")
@@ -4812,6 +5146,10 @@ def main() -> int:
         + ", ".join(f"{k} {v['peak'] / 2**30:.3f} GiB" for k, v in ladders.items())
         + "; ZeRO steps " + ", ".join(f"{k} {v['step_ms']:.1f} ms" for k, v in zero.items())
         + f"; phase 22 {par['seconds']:.1f} s")
+    runs = mesh["runs"]
+    log(f"[mesh] one-rank mesh step {mesh['one']['step_ms']:.1f} ms; at block {SEQ_BLOCK} ring "
+        f"{runs['ring']['step_ms']:.1f} ms, ulysses {runs['ulysses']['step_ms']:.1f} ms, flash "
+        f"{runs['flash']['step_ms']:.1f} ms; phase 23 {mesh['seconds']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

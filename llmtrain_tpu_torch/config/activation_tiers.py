@@ -80,4 +80,24 @@ def parse_activation_tiers(spec: str, n_layers: int) -> tuple[str, ...]:
     return tuple(t if t is not None else "none" for t in out)
 
 
-__all__ = ["TIERS", "parse_activation_tiers"]
+def canonical_tier_spec(tiers: tuple[str, ...] | list[str]) -> str:
+    """The compact canonical spelling of a per-layer tier tuple
+    (``('full','full') -> 'full:*'``, ``('offload','full','full') ->
+    'offload:0,full:1-2'``), so two spellings of one ladder compare equal."""
+    if not tiers:
+        raise ValueError("tiers must be non-empty")
+    for t in tiers:
+        if t not in TIERS:
+            raise ValueError(f"unknown tier {t!r}; expected one of {list(TIERS)}")
+    if len(set(tiers)) == 1:
+        return f"{tiers[0]}:*"
+    runs: list[tuple[str, int, int]] = []
+    for i, t in enumerate(tiers):
+        if runs and runs[-1][0] == t and runs[-1][2] == i - 1:
+            runs[-1] = (t, runs[-1][1], i)
+        else:
+            runs.append((t, i, i))
+    return ",".join(f"{t}:{lo}" if lo == hi else f"{t}:{lo}-{hi}" for t, lo, hi in runs)
+
+
+__all__ = ["TIERS", "canonical_tier_spec", "parse_activation_tiers"]

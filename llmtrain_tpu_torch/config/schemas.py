@@ -120,7 +120,7 @@ class DataConfig(BaseModel):
 
 class ZeroConfig(BaseModel):
     """ZeRO-style cross-replica optimizer-state sharding
-    (parallel/sharding.py:opt_state_shardings, docs/perf.md "Sharded
+    (parallel/sharding.py:mesh_opt_state_shardings, docs/perf.md "Sharded
     optimizer state").
 
     With ``enabled`` the AdamW/adafactor state leaves are partitioned

@@ -319,8 +319,23 @@ def barrier() -> None:
     allgather_any(False)
 
 
+from .mesh import (  # noqa: E402 — the mesh module imports nothing of this one
+    MESH_AXES,
+    DeviceMesh,
+    active_mesh,
+    build_mesh,
+    resolve_mesh_axes,
+    set_active_mesh,
+)
+
 __all__ = [
+    "MESH_AXES",
+    "DeviceMesh",
     "DistState",
+    "active_mesh",
+    "build_mesh",
+    "resolve_mesh_axes",
+    "set_active_mesh",
     "active_state",
     "allgather_any",
     "allgather_scalar",

@@ -87,8 +87,19 @@ Activation tiers and remat (``activation_tiers``, ``remat`` with
 training forward runs under its layer's tier (:func:`run_block`); the
 decode paths and every forward without a graph run the plain blocks.
 
-Not yet ported, raising at build time: ring/ulysses attention (ROADMAP.md
-queue A: parallelism).
+The mesh (distributed/mesh.py; the trainer builds the rank's module
+through parallel/mesh_params.py): under ``tensor`` each rank holds its
+heads and its slice of the mlp dim (column-parallel input projections
+behind Megatron's ``f``, row-parallel output projections followed by the
+all-reduce ``g``, their biases added once), and the vocabulary where it
+divides (each rank looks up its rows; the dense head's logits are
+gathered, the streamed losses gather the vocab matrix); under
+``sequence`` each rank holds a slice of the length, with global positions
+for RoPE and the position embedding: ``ring`` and ``ulysses`` attention
+are sequence-parallel (ops/ring_attention.py, ops/ulysses_attention.py;
+blockwise attention with no sequence axis), ``flash`` and ``dense`` run
+on the gathered sequence, each rank keeping its rows. Dropout masks are
+drawn whole and sliced, so a mesh run draws the masks one device draws.
 """
 
 from __future__ import annotations
@@ -127,7 +138,7 @@ from .activation_policy import (
     run_block,
 )
 from .base import Batch, ModelAdapter, lm_loss_components, validate_lm_batch
-from .moe import MoEMLP
+from .moe import MoEMLP, fill_constant, fill_normal
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _INIT_STD = 0.02
@@ -241,16 +252,53 @@ def embed(ids: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
 
 
 def apply_dropout(x: torch.Tensor, rate: float, deterministic: bool,
-                  generator: torch.Generator | None) -> torch.Tensor:
+                  generator: torch.Generator | None,
+                  split: tuple[int, int, int] | None = None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability 1 - rate and scale the
-    kept values by 1/(1 - rate), drawing from ``generator``."""
+    kept values by 1/(1 - rate), drawing from ``generator``. ``split``
+    ``(dim, index, count)`` says ``x`` is slice ``index`` of ``count``
+    along ``dim`` of a tensor split over a mesh axis: the mask is drawn
+    whole and sliced, so every rank of the axis draws what one device
+    draws and keeps its part."""
     if rate == 0.0 or deterministic:
         return x
     if generator is None:
         raise ValueError("dropout with deterministic=False needs a torch.Generator")
     keep = 1.0 - rate
-    kept = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape = list(x.shape)
+    if split is not None:
+        dim, index, count = split
+        shape[dim] *= count
+    kept = torch.rand(shape, generator=generator, device=x.device) < keep
+    if split is not None:
+        kept = kept.narrow(dim, index * x.shape[dim], x.shape[dim])
     return torch.where(kept, x / keep, torch.zeros_like(x))
+
+
+def _axis_split(dim: int, axis: str, size: int) -> tuple[int, int, int] | None:
+    """:func:`apply_dropout`'s ``split`` for a tensor split ``size`` ways
+    over mesh ``axis`` along ``dim`` (None for one way)."""
+    if size <= 1:
+        return None
+    from ..distributed import active_mesh
+
+    return dim, active_mesh().index(axis), size
+
+
+def _group(axis: str, size: int) -> Any:
+    """The active mesh's group over ``axis`` for a module split ``size``
+    ways over it, or None (not split)."""
+    if size <= 1:
+        return None
+    from ..distributed import active_mesh
+
+    mesh = active_mesh()
+    if mesh is None or mesh.size(axis) != size:
+        raise RuntimeError(
+            f"a module split {size} ways over the mesh axis {axis!r} runs only under a "
+            "mesh with that axis (distributed.mesh)"
+        )
+    return mesh.group(axis)
 
 
 def _weight(w: Any, dtype: torch.dtype) -> torch.Tensor:
@@ -269,6 +317,26 @@ def _dense_fn(layer: nn.Linear, dtype: torch.dtype, precision: str = "f32") -> A
     bias = layer.bias.to(dtype) if layer.bias is not None else None
     linear = quant_dot_general(precision) or F.linear
     return lambda x: linear(x.to(dtype), w, bias)
+
+
+def _row_parallel_fn(layer: nn.Linear, dtype: torch.dtype, precision: str, group: Any) -> Any:
+    """A row-parallel projection (Megatron's output half): this rank's
+    rows of the kernel against its slice of the input, summed over the
+    tensor group (all-reduce forward, identity backward), then the bias
+    once. With no group it is :func:`_dense_fn`."""
+    if group is None:
+        return _dense_fn(layer, dtype, precision)
+    from ..parallel.collectives import reduce_from
+
+    w = _weight(layer.weight, dtype)
+    bias = layer.bias.to(dtype) if layer.bias is not None else None
+    linear = quant_dot_general(precision) or F.linear
+
+    def fn(x: torch.Tensor) -> torch.Tensor:
+        out = reduce_from(linear(x.to(dtype), w, None), group)
+        return out if bias is None else out + bias
+
+    return fn
 
 
 class LayerNorm(nn.Module):
@@ -373,10 +441,13 @@ def dense_attention(
     dropout_rate: float = 0.0,
     deterministic: bool = True,
     generator: torch.Generator | None = None,
+    head_split: tuple[int, int, int] | None = None,
 ) -> torch.Tensor:
     """Full-matrix causal attention (the JAX ``dense_attention``): scores
     in the compute dtype, softmax in f32, segment-id masking, dropout on
-    the probabilities. q/k/v are (B, T, H, Dh) at full head width."""
+    the probabilities. q/k/v are (B, T, H, Dh) at full head width
+    (``head_split``: the heads are a tensor-parallel slice, whose dropout
+    mask is the slice of the whole one)."""
     head_dim, seqlen = q.shape[-1], q.shape[1]
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(head_dim))
     scores = scores.float()
@@ -391,7 +462,7 @@ def dense_attention(
         seg_live = (seg != 0)[:, None, None, :] & (seg[:, None, :, None] == seg[:, None, None, :])
         scores = scores.masked_fill(~seg_live, big_neg)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    probs = apply_dropout(probs, dropout_rate, deterministic, generator)
+    probs = apply_dropout(probs, dropout_rate, deterministic, generator, head_split)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
@@ -549,29 +620,41 @@ class CausalSelfAttention(nn.Module):
         sliding_window: int = 0,
         dropout: float = 0.0,
         matmul_precision: str = "f32",
+        tensor_parallel: int = 1,
+        sequence_parallel: int = 1,
     ) -> None:
         super().__init__()
         self.dropout = dropout
         self.matmul_precision = matmul_precision
-        self.n_heads = n_heads
         self.head_dim = d_model // n_heads
-        self.kv_heads = n_kv_heads or n_heads
-        if n_heads % self.kv_heads != 0:
+        kv_heads = n_kv_heads or n_heads
+        if n_heads % kv_heads != 0:
             raise ValueError(
-                f"n_heads ({n_heads}) must be divisible by n_kv_heads ({self.kv_heads})"
+                f"n_heads ({n_heads}) must be divisible by n_kv_heads ({kv_heads})"
             )
+        if sliding_window and attention in ("ring", "ulysses"):
+            raise ValueError(
+                f"sliding_window is not supported with attention={attention!r}; "
+                "use 'flash' or 'dense'"
+            )
+        # Under a tensor axis the module holds this rank's heads (the plan
+        # makes both head counts divide it); the input is copied into the
+        # group (Megatron's f) and out_proj is row-parallel (its g).
+        self.tp, self.sp = tensor_parallel, sequence_parallel
+        self.n_heads = n_heads // tensor_parallel
+        self.kv_heads = kv_heads // tensor_parallel
         self.dtype = dtype
         self.attention = attention
         self.assume_packed = assume_packed
         self.rope = rope
         self.rope_theta = rope_theta
         self.sliding_window = sliding_window
-        width = n_heads * self.head_dim
+        width = self.n_heads * self.head_dim
         kw = dict(dtype=param_dtype)
         # Qwen2's split (JAX ``qkv_bias``): the q/k/v projections' bias on
         # its own, out_proj's following ``use_bias``.
         in_bias = use_bias if qkv_bias is None else qkv_bias
-        if self.kv_heads == n_heads:
+        if kv_heads == n_heads:
             # Output features ordered (3, H, Dh): the flax (D, 3, H, Dh)
             # kernel flattened in C order.
             self.qkv_proj = nn.Linear(d_model, 3 * width, bias=in_bias, **kw)
@@ -591,47 +674,81 @@ class CausalSelfAttention(nn.Module):
         generator: torch.Generator | None = None,
     ) -> torch.Tensor:
         b, t, _ = x.shape
-        h, hd, hkv = self.n_heads, self.head_dim, self.kv_heads
+        h, hd = self.n_heads, self.head_dim
+        tp_group = _group("tensor", self.tp)
+        if tp_group is not None:
+            from ..parallel.collectives import copy_to
+
+            x = copy_to(x, tp_group)
         q, k, v = self._split_qkv(*self._project(x, lambda f: f(x)), b, t)
         if self.rope and cache is None:
             from ..ops.rope import apply_rope
 
-            q, k = apply_rope(q, k, torch.arange(t, device=x.device), theta=self.rope_theta)
+            # Global positions: a sequence shard starts at its offset.
+            start = t * _axis_split(1, "sequence", self.sp)[1] if self.sp > 1 else 0
+            q, k = apply_rope(q, k, torch.arange(start, start + t, device=x.device),
+                              theta=self.rope_theta)
 
+        mask = None if self.assume_packed else attention_mask
         if cache is not None:
             out = self._decode_attention(q, k, v, cache)
-        elif self.attention == "flash":
-            out = flash_ops.flash_attention(
-                q.contiguous(), k.contiguous(), v.contiguous(),
-                attention_mask=None if self.assume_packed else attention_mask,
-                causal=True,
-                window=self.sliding_window,
-            )
-        elif self.attention == "dense":
-            if hkv != h:
-                k = k.repeat_interleave(h // hkv, dim=2)
-                v = v.repeat_interleave(h // hkv, dim=2)
-            out = dense_attention(q, k, v, attention_mask=attention_mask,
-                                  window=self.sliding_window, dropout_rate=self.dropout,
-                                  deterministic=deterministic, generator=generator)
-        else:
-            raise NotImplementedError(
-                f"attention={self.attention!r} is not yet ported to llmtrain_tpu_torch "
-                "(ROADMAP.md queue A: parallelism); use 'flash' or 'dense'"
-            )
+        elif self.attention == "ring":
+            from ..ops.ring_attention import ring_or_blockwise
 
-        out = _dense_fn(self.out_proj, self.dtype, self.matmul_precision)(out.reshape(b, t, h * hd))
-        out = apply_dropout(out, self.dropout, deterministic, generator)
+            out = ring_or_blockwise(q, k, v, causal=True, key_mask=mask)
+        elif self.attention == "ulysses":
+            from ..ops.ulysses_attention import ulysses_or_blockwise
+
+            out = ulysses_or_blockwise(q, k, v, causal=True, key_mask=mask)
+        elif self.attention in ("flash", "dense"):
+            attend = self._flash if self.attention == "flash" else (
+                lambda q, k, v, m: self._dense(q, k, v, m, deterministic, generator))
+            if self.attention == "dense":
+                mask = attention_mask
+            if self.sp > 1:
+                # flash or dense on a sequence axis: the whole sequence on
+                # every rank of the group, each keeping its rows (GSPMD's
+                # gather around an attention it cannot shard).
+                from ..distributed import active_mesh
+                from ..ops.ring_attention import gathered_attention
+
+                out = gathered_attention(attend, q, k, v, mask, active_mesh())
+            else:
+                out = attend(q, k, v, mask)
+        else:
+            raise ValueError(f"unknown attention {self.attention!r}")
+
+        out = _row_parallel_fn(self.out_proj, self.dtype, self.matmul_precision,
+                               tp_group)(out.reshape(b, t, h * hd))
+        out = apply_dropout(out, self.dropout, deterministic, generator,
+                            _axis_split(1, "sequence", self.sp))
         if attention_mask is not None:
             # Zero padded rows (the mask may carry segment ids > 1).
             out = out * (attention_mask != 0)[:, :, None].to(out.dtype)
         return out
 
+    def _flash(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               mask: torch.Tensor | None) -> torch.Tensor:
+        return flash_ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                         attention_mask=mask, causal=True,
+                                         window=self.sliding_window)
+
+    def _dense(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               mask: torch.Tensor | None, deterministic: bool,
+               generator: torch.Generator | None) -> torch.Tensor:
+        if self.kv_heads != self.n_heads:
+            k = k.repeat_interleave(self.n_heads // self.kv_heads, dim=2)
+            v = v.repeat_interleave(self.n_heads // self.kv_heads, dim=2)
+        return dense_attention(q, k, v, attention_mask=mask, window=self.sliding_window,
+                               dropout_rate=self.dropout, deterministic=deterministic,
+                               generator=generator,
+                               head_split=_axis_split(1, "tensor", self.tp))
+
     def _project(self, x: torch.Tensor, apply: Any) -> tuple[torch.Tensor, ...]:
         """The input projections, each through ``apply`` (called with the
         function of one block of rows): (qkv,) fused or (q, kv) under GQA."""
         mode = self.matmul_precision
-        if self.kv_heads == self.n_heads:
+        if hasattr(self, "qkv_proj"):
             return (apply(_dense_fn(self.qkv_proj, self.dtype, mode)),)
         return (apply(_dense_fn(self.q_proj, self.dtype, mode)),
                 apply(_dense_fn(self.kv_proj, self.dtype, mode)))
@@ -641,7 +758,7 @@ class CausalSelfAttention(nn.Module):
         B x T rows."""
         *proj, b, t = parts
         h, hd, hkv = self.n_heads, self.head_dim, self.kv_heads
-        if hkv == h:
+        if len(proj) == 1:
             return proj[0].reshape(b, t, 3, h, hd).unbind(dim=2)
         k, v = proj[1].reshape(b, t, 2, hkv, hd).unbind(dim=2)
         return proj[0].reshape(b, t, h, hd), k, v
@@ -699,24 +816,33 @@ class TransformerBlock(nn.Module):
     def __init__(self, d_model: int, n_heads: int, d_ff: int, *, dtype: torch.dtype,
                  param_dtype: torch.dtype, dropout: float = 0.0, fused_norm: bool = False,
                  moe: dict[str, Any] | None = None, matmul_precision: str = "f32",
-                 **attn_kw: Any) -> None:
+                 tensor_parallel: int = 1, sequence_parallel: int = 1,
+                 expert_parallel: int = 1, **attn_kw: Any) -> None:
         super().__init__()
         self.dtype = dtype
         self.dropout = dropout
         self.fused_norm = fused_norm
         self.matmul_precision = matmul_precision
+        self.sp = sequence_parallel
         self.ln_1 = LayerNorm(d_model, dtype=dtype, param_dtype=param_dtype)
         self.attn = CausalSelfAttention(d_model, n_heads, dtype=dtype, param_dtype=param_dtype,
                                         dropout=dropout, matmul_precision=matmul_precision,
-                                        **attn_kw)
+                                        tensor_parallel=tensor_parallel,
+                                        sequence_parallel=sequence_parallel, **attn_kw)
         self.ln_2 = LayerNorm(d_model, dtype=dtype, param_dtype=param_dtype)
         if moe:
             # gpt_moe: the MLP is a Mixture of Experts (models/moe.py).
             self.moe_mlp = MoEMLP(d_model, d_ff, dtype=dtype, param_dtype=param_dtype,
-                                  matmul_precision=matmul_precision, **moe)
+                                  matmul_precision=matmul_precision,
+                                  tensor_parallel=tensor_parallel,
+                                  expert_parallel=expert_parallel,
+                                  sequence_parallel=sequence_parallel, **moe)
         else:
-            self.mlp_fc = nn.Linear(d_model, d_ff, dtype=param_dtype)
-            self.mlp_proj = nn.Linear(d_ff, d_model, dtype=param_dtype)
+            # The mlp dim splits over the tensor axis where it divides
+            # (column-parallel fc, row-parallel proj), else stays whole.
+            self.mlp_tp = tensor_parallel if d_ff % tensor_parallel == 0 else 1
+            self.mlp_fc = nn.Linear(d_model, d_ff // self.mlp_tp, dtype=param_dtype)
+            self.mlp_proj = nn.Linear(d_ff // self.mlp_tp, d_model, dtype=param_dtype)
 
     def forward(
         self,
@@ -737,16 +863,23 @@ class TransformerBlock(nn.Module):
         else:
             x = x + self.attn(self.ln_1(x), attention_mask, **attn_kw)
             h = self.ln_2(x)
-        return x + apply_dropout(self._mlp()(h), self.dropout, deterministic, generator)
+        return x + apply_dropout(self._mlp()(h), self.dropout, deterministic, generator,
+                                 _axis_split(1, "sequence", self.sp))
 
     def _mlp(self) -> Any:
-        """The MLP as a function of its input, its kernels cast once."""
+        """The MLP as a function of its input, its kernels cast once (under
+        a tensor axis: copied into the group, column- then row-parallel)."""
         if hasattr(self, "moe_mlp"):
             return self.moe_mlp
         mode = self.matmul_precision
+        group = _group("tensor", self.mlp_tp)
         fc = _dense_fn(self.mlp_fc, self.dtype, mode)
-        proj = _dense_fn(self.mlp_proj, self.dtype, mode)
-        return lambda h: proj(F.gelu(fc(h), approximate="none"))
+        proj = _row_parallel_fn(self.mlp_proj, self.dtype, mode, group)
+        if group is None:
+            return lambda h: proj(F.gelu(fc(h), approximate="none"))
+        from ..parallel.collectives import copy_to
+
+        return lambda h: proj(F.gelu(fc(copy_to(h, group)), approximate="none"))
 
     def decode_rows(self, x: torch.Tensor, shape: tuple[int, int], positions: torch.Tensor,
                     write_read: Any, rows: int | None) -> torch.Tensor:
@@ -803,9 +936,18 @@ class GPT(nn.Module):
         remat: bool = False,
         remat_policy: str = "nothing",
         activation_tiers: tuple[str, ...] | None = None,
+        tensor_parallel: int = 1,
+        sequence_parallel: int = 1,
+        expert_parallel: int = 1,
         **layer_kw: Any,
     ) -> None:
         super().__init__()
+        # Mesh axes (distributed/mesh.py) this module is a rank's part of:
+        # heads and the mlp dim split over ``tensor``, the vocabulary too
+        # where it divides, experts over ``expert``; the sequence splits
+        # over ``sequence``. All 1 outside a mesh run.
+        self.sp = sequence_parallel
+        self.vocab_tp = tensor_parallel if vocab_size % tensor_parallel == 0 else 1
         self.matmul_precision = matmul_precision
         self.layer_tiers = _layer_tiers(n_layers, remat, remat_policy, activation_tiers)
         self.dropout = dropout
@@ -827,15 +969,17 @@ class GPT(nn.Module):
         self.attention = attention
         self.sliding_window = sliding_window
         self.kv_cache_dtype = kv_cache_dtype
-        self.token_embedding = nn.Embedding(vocab_size, d_model, dtype=param_dtype)
+        local_vocab = vocab_size // self.vocab_tp
+        self.token_embedding = nn.Embedding(local_vocab, d_model, dtype=param_dtype)
         block_kw = dict(dtype=dtype, param_dtype=param_dtype, dropout=dropout, moe=moe,
                         attention=attention, n_kv_heads=n_kv_heads, assume_packed=assume_packed,
                         sliding_window=sliding_window, rope_theta=rope_theta,
-                        matmul_precision=matmul_precision)
+                        matmul_precision=matmul_precision, tensor_parallel=tensor_parallel,
+                        sequence_parallel=sequence_parallel, expert_parallel=expert_parallel)
         self._build_layers(d_ff, block_kw, rope=rope, **layer_kw)
         self.lm_head = (
             None if tie_embeddings
-            else nn.Linear(d_model, vocab_size, bias=False, dtype=param_dtype)
+            else nn.Linear(d_model, local_vocab, bias=False, dtype=param_dtype)
         )
 
     def _build_layers(self, d_ff: int, block_kw: dict[str, Any], *, rope: bool) -> None:
@@ -852,26 +996,39 @@ class GPT(nn.Module):
         )
         self.ln_f = LayerNorm(d, dtype=self.dtype, param_dtype=self.param_dtype)
 
-    @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> None:
-        """The JAX initialization: N(0, 0.02) embeddings and projections,
+    def init_plan(self) -> list[tuple[str, Any]]:
+        """The JAX initialization as (parameter name, fill) in the order of
+        the random draws: N(0, 0.02) embeddings and projections,
         N(0, 0.02/sqrt(2·n_layers)) residual projections (out_proj,
-        mlp_proj), zero biases, unit LayerNorm scales. Random numbers come
-        from ``generator`` (on the parameters' device)."""
+        mlp_proj), zero biases, unit LayerNorm scales, the experts first
+        (:meth:`MoEMLP.init_plan`). :meth:`init_weights` applies it; a
+        model built for a mesh applies it a parameter at a time
+        (parallel/mesh_params.py)."""
         residual_std = _INIT_STD / math.sqrt(2 * self.n_layers)
-        for module in self.modules():
+        plan = []
+        for mod_name, module in self.named_modules():
             if isinstance(module, MoEMLP):
-                module.init_weights(generator, self.n_layers)
-        for name, p in self.named_parameters():
+                plan += [(f"{mod_name}.{n}", fill)
+                         for n, fill in module.init_plan(self.n_layers)]
+        for name, _ in self.named_parameters():
             if ".moe_mlp." in name:
                 continue
             if name.endswith("bias"):
-                p.zero_()
+                plan.append((name, fill_constant(0.0)))
             elif ".ln_" in name or name.startswith("ln_f"):
-                p.fill_(1.0)
+                plan.append((name, fill_constant(1.0)))
             else:
                 std = residual_std if ("out_proj" in name or "mlp_proj" in name) else _INIT_STD
-                nn.init.normal_(p, 0.0, std, generator=generator)
+                plan.append((name, fill_normal(std)))
+        return plan
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """:meth:`init_plan` applied, random numbers from ``generator`` (on
+        the parameters' device)."""
+        params = dict(self.named_parameters())
+        for name, fill in self.init_plan():
+            fill(params[name], generator)
 
     def forward(
         self,
@@ -899,14 +1056,25 @@ class GPT(nn.Module):
             positions = torch.arange(start, start + seqlen, device=input_ids.device)
             return self.decode_forward(input_ids, positions.expand(batch, seqlen),
                                        lambda layer: cache.layers[layer].write_read)
-        x = self._embed(input_ids, torch.arange(seqlen, device=input_ids.device)[None])
-        x = apply_dropout(x, self.dropout, deterministic, generator)
+        seq_split = _axis_split(1, "sequence", self.sp)
+        # Global positions: a sequence shard starts at its offset.
+        start = seqlen * seq_split[1] if seq_split else 0
+        x = self._embed(input_ids,
+                        torch.arange(start, start + seqlen, device=input_ids.device)[None])
+        x = apply_dropout(x, self.dropout, deterministic, generator, seq_split)
         for tier, block in zip(self.layer_tiers, self.blocks):
             x = run_block(tier, block, x, attention_mask, deterministic=deterministic,
                           generator=generator)
         x = self.final_norm(x)
         if return_hidden:
             return x
+        if self.vocab_tp > 1:
+            # Vocabulary-parallel head: this rank's logits, gathered.
+            from ..parallel.collectives import copy_to, gather
+
+            group = _group("tensor", self.vocab_tp)
+            w = _weight(self._vocab_param(), self.dtype)
+            return gather(F.linear(copy_to(x, group), w), -1, group)
         return F.linear(x, _weight(self.vocab_matrix(), self.dtype))
 
     def decode_forward(
@@ -945,19 +1113,44 @@ class GPT(nn.Module):
         the lookups are plain (no backward)."""
         lookup = F.embedding if decode else embed
         pos = positions.clamp(max=self.block_size - 1) if decode else positions
-        return (lookup(input_ids, dequantized(self.token_embedding.weight)).to(self.dtype)
+        return (self._token_embed(input_ids, lookup)
                 + lookup(pos, dequantized(self.position_embedding.weight)).to(self.dtype))
+
+    def _token_embed(self, input_ids: torch.Tensor, lookup: Any) -> torch.Tensor:
+        """Token embeddings in the compute dtype. Split by vocabulary over
+        the tensor axis, each rank looks up the ids in its rows (zero
+        elsewhere) and the group sums them."""
+        w = dequantized(self.token_embedding.weight)
+        if self.vocab_tp == 1:
+            return lookup(input_ids, w).to(self.dtype)
+        from ..parallel.collectives import reduce_from
+
+        group = _group("tensor", self.vocab_tp)
+        n = w.shape[0]
+        local = input_ids - n * _axis_split(0, "tensor", self.vocab_tp)[1]
+        inside = (local >= 0) & (local < n)
+        rows = lookup(torch.where(inside, local, 0), w) * inside[..., None].to(w.dtype)
+        return reduce_from(rows, group).to(self.dtype)
 
     def final_norm(self, x: torch.Tensor) -> torch.Tensor:
         return self.ln_f(x)
 
+    def _vocab_param(self) -> torch.Tensor:
+        return self.token_embedding.weight if self.tie_embeddings else self.lm_head.weight
+
     def vocab_matrix(self) -> torch.Tensor:
         """The (V, d) output-projection parameter: the tied
         ``token_embedding.weight`` or the untied ``lm_head.weight`` (torch
-        keeps both as (V, d); JAX transposes its untied kernel)."""
-        if self.tie_embeddings:
-            return self.token_embedding.weight
-        return self.lm_head.weight
+        keeps both as (V, d); JAX transposes its untied kernel). Split by
+        vocabulary over the tensor axis, it is gathered whole (its
+        gradient sliced back), as GSPMD gathers an operand around a
+        kernel that does not know the axis (the fused CE)."""
+        w = self._vocab_param()
+        if self.vocab_tp > 1:
+            from ..parallel.collectives import gather
+
+            return gather(w, 0, _group("tensor", self.vocab_tp))
+        return w
 
     def for_decoding(self, cache_len: int | None = None, *, ring_slack: int = 0) -> GPTDecoder:
         """KV-cache decoding view of this model (JAX ``for_decoding``):
@@ -1168,13 +1361,38 @@ class GPTAdapter(ModelAdapter):
     def build_model(self, cfg: RunConfig, device: torch.device | None = None) -> nn.Module:
         """The family's module from :meth:`model_kwargs`, moved to
         ``device`` and initialized from ``run.seed``."""
-        model = self._model_class(**self.model_kwargs(cfg))
+        from ..distributed import active_mesh
+
+        def init(model: nn.Module) -> None:
+            generator = torch.Generator(device=model.token_embedding.weight.device)
+            generator.manual_seed(cfg.run.seed)
+            model.init_weights(generator)
+
+        kwargs = self.model_kwargs(cfg)
+        mesh = active_mesh()
+        if mesh is not None and mesh.model_parallel:
+            # The rank's part of the model on the mesh (parallel/mesh_params.py).
+            from ..parallel.mesh_params import build_for_mesh
+
+            return build_for_mesh(self._model_class, kwargs, mesh, moe=bool(kwargs.get("moe")),
+                                  device=device, seed=cfg.run.seed).eval()
+        model = self._model_class(**kwargs)
         if device is not None:
             model = model.to(device)
-        generator = torch.Generator(device=model.token_embedding.weight.device)
-        generator.manual_seed(cfg.run.seed)
-        model.init_weights(generator)
+        init(model)
         return model.eval()
+
+    def validate_mesh(self, cfg: RunConfig, axes: dict[str, int]) -> None:
+        """Mesh checks before the build (JAX ``validate_mesh``): grouped-query
+        K/V heads split over the tensor axis like the query heads do."""
+        n_kv_heads = int(cfg.model.extra.get("n_kv_heads", 0))
+        tp = int(axes.get("tensor", 1))
+        if n_kv_heads and tp > 1 and n_kv_heads % tp != 0:
+            raise ValueError(
+                f"model.extra.n_kv_heads ({n_kv_heads}) must be divisible "
+                f"by the mesh tensor axis ({tp}) — K/V heads shard over "
+                "tensor parallelism like query heads do"
+            )
 
     def model_kwargs(self, cfg: RunConfig) -> dict[str, Any]:
         """The validated constructor arguments of the GPT trunk (JAX's
@@ -1220,11 +1438,6 @@ class GPTAdapter(ModelAdapter):
                 f"attention={m.attention!r} does not support "
                 "attention-probability dropout; set model.dropout to 0.0 or "
                 "use attention='dense'"
-            )
-        if m.attention in ("ring", "ulysses"):
-            raise NotImplementedError(
-                f"attention={m.attention!r} is not yet ported to llmtrain_tpu_torch "
-                "(ROADMAP.md queue A: parallelism); use 'flash' or 'dense'"
             )
         kv_cache_dtype = str(m.extra.get("kv_cache_dtype", "model"))
         if kv_cache_dtype not in ("model", "int8"):

@@ -7,8 +7,9 @@ Config knobs ride ``model.extra``: ``n_experts`` (required, >= 2),
 ``router_top_k`` (1; 2 is GShard's second choice). The objective is CE
 plus the layers' load-balance loss, folded into the per-example loss sums
 in proportion to their token counts, so the trainer's token-weighted mean
-is exactly ``CE + aux``. The mesh's ``expert`` axis (expert parallelism)
-is refused with the other mesh axes (training/trainer.py)."""
+is exactly ``CE + aux``. On a mesh with an ``expert`` axis each rank
+holds its slice of the experts, their inputs crossing the axis by
+all-to-all (models/moe.py)."""
 
 from __future__ import annotations
 

@@ -41,14 +41,16 @@ from .gpt import (
     CausalSelfAttention,
     GPT,
     GPTAdapter,
+    _axis_split,
     _dense_fn,
+    _group,
     _row_blocks,
+    _row_parallel_fn,
     apply_dropout,
     embed,
     mlp_rows,
 )
-from .moe import MoEMLP
-from ..ops.quant import dequantized
+from .moe import MoEMLP, fill_constant, fill_normal
 
 MLP_ACTS = ("silu", "gelu_tanh")
 
@@ -86,9 +88,11 @@ class LlamaBlock(nn.Module):
                  param_dtype: torch.dtype, dropout: float = 0.0, rms_norm_eps: float = 1e-6,
                  norm_offset: bool = False, mlp_act: str = "silu", qkv_bias: bool = False,
                  moe: dict[str, Any] | None = None, matmul_precision: str = "f32",
-                 **attn_kw: Any) -> None:
+                 tensor_parallel: int = 1, sequence_parallel: int = 1,
+                 expert_parallel: int = 1, **attn_kw: Any) -> None:
         super().__init__()
         self.matmul_precision = matmul_precision
+        self.sp = sequence_parallel
         if mlp_act not in MLP_ACTS:
             raise ValueError(f"mlp_act {mlp_act!r} unknown; expected 'silu' or 'gelu_tanh'")
         self.dtype = dtype
@@ -100,29 +104,42 @@ class LlamaBlock(nn.Module):
         self.attn = CausalSelfAttention(d_model, n_heads, dtype=dtype, param_dtype=param_dtype,
                                         dropout=dropout, use_bias=False,
                                         qkv_bias=qkv_bias or None, rope=True,
-                                        matmul_precision=matmul_precision, **attn_kw)
+                                        matmul_precision=matmul_precision,
+                                        tensor_parallel=tensor_parallel,
+                                        sequence_parallel=sequence_parallel, **attn_kw)
         self.mlp_norm = RMSNorm(d_model, **norm_kw)
         if moe:
             self.moe_mlp = MoEMLP(d_model, d_ff, dtype=dtype, param_dtype=param_dtype,
                                   mlp_type="swiglu", matmul_precision=matmul_precision,
-                                  **moe)
+                                  tensor_parallel=tensor_parallel,
+                                  expert_parallel=expert_parallel,
+                                  sequence_parallel=sequence_parallel, **moe)
         else:
+            # The mlp dim splits over the tensor axis where it divides.
+            self.mlp_tp = tensor_parallel if d_ff % tensor_parallel == 0 else 1
             kw = dict(bias=False, dtype=param_dtype)
-            self.mlp_gate = nn.Linear(d_model, d_ff, **kw)
-            self.mlp_up = nn.Linear(d_model, d_ff, **kw)
-            self.mlp_down = nn.Linear(d_ff, d_model, **kw)
+            self.mlp_gate = nn.Linear(d_model, d_ff // self.mlp_tp, **kw)
+            self.mlp_up = nn.Linear(d_model, d_ff // self.mlp_tp, **kw)
+            self.mlp_down = nn.Linear(d_ff // self.mlp_tp, d_model, **kw)
 
     def _mlp(self) -> Any:
         """The MLP as a function of its input, its kernels cast once."""
         if hasattr(self, "moe_mlp"):
             return self.moe_mlp
         mode = self.matmul_precision
+        group = _group("tensor", self.mlp_tp)
         gate = _dense_fn(self.mlp_gate, self.dtype, mode)
         up = _dense_fn(self.mlp_up, self.dtype, mode)
-        down = _dense_fn(self.mlp_down, self.dtype, mode)
+        down = _row_parallel_fn(self.mlp_down, self.dtype, mode, group)
         if self.mlp_act == "silu":
-            return lambda h: down(F.silu(gate(h)) * up(h))
-        return lambda h: down(F.gelu(gate(h), approximate="tanh") * up(h))
+            mlp = lambda h: down(F.silu(gate(h)) * up(h))  # noqa: E731
+        else:
+            mlp = lambda h: down(F.gelu(gate(h), approximate="tanh") * up(h))  # noqa: E731
+        if group is None:
+            return mlp
+        from ..parallel.collectives import copy_to
+
+        return lambda h: mlp(copy_to(h, group))
 
     def forward(
         self,
@@ -135,7 +152,8 @@ class LlamaBlock(nn.Module):
         x = x + self.attn(self.attn_norm(x), attention_mask, deterministic=deterministic,
                           generator=generator)
         h = self._mlp()(self.mlp_norm(x))
-        return x + apply_dropout(h, self.dropout, deterministic, generator)
+        return x + apply_dropout(h, self.dropout, deterministic, generator,
+                                 _axis_split(1, "sequence", self.sp))
 
     def decode_rows(self, x: torch.Tensor, shape: tuple[int, int], positions: torch.Tensor,
                     write_read: Any, rows: int | None) -> torch.Tensor:
@@ -177,26 +195,29 @@ class Llama(GPT):
         self.norm_f = RMSNorm(d, dtype=self.dtype, param_dtype=self.param_dtype,
                               eps=rms_norm_eps, offset=norm_offset)
 
-    @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> None:
-        """The JAX initialization: N(0, 0.02) embeddings and projections,
+    def init_plan(self) -> list[tuple[str, Any]]:
+        """The JAX initialization as (parameter name, fill) in draw order
+        (``GPT.init_plan``): N(0, 0.02) embeddings and projections,
         N(0, 0.02/sqrt(2·n_layers)) for ``out_proj`` and ``mlp_down``, zero
         q/k/v biases, norm scales at one (zero under ``norm_offset``); the
-        experts by :meth:`MoEMLP.init_weights`."""
+        experts by :meth:`MoEMLP.init_plan`."""
         residual_std = _INIT_STD / math.sqrt(2 * self.n_layers)
-        for module in self.modules():
+        plan = []
+        for mod_name, module in self.named_modules():
             if isinstance(module, MoEMLP):
-                module.init_weights(generator, self.n_layers)
+                plan += [(f"{mod_name}.{n}", fill)
+                         for n, fill in module.init_plan(self.n_layers)]
             elif isinstance(module, RMSNorm):
-                module.weight.fill_(0.0 if module.offset else 1.0)
-        for name, p in self.named_parameters():
+                plan.append((f"{mod_name}.weight", fill_constant(0.0 if module.offset else 1.0)))
+        for name, _ in self.named_parameters():
             if ".moe_mlp." in name or "norm" in name.split(".")[-2]:
                 continue
             if name.endswith("bias"):
-                p.zero_()
+                plan.append((name, fill_constant(0.0)))
             else:
                 std = residual_std if ("out_proj" in name or "mlp_down" in name) else _INIT_STD
-                nn.init.normal_(p, 0.0, std, generator=generator)
+                plan.append((name, fill_normal(std)))
+        return plan
 
     def _embed(self, input_ids: torch.Tensor, positions: torch.Tensor, *,
                decode: bool = False) -> torch.Tensor:
@@ -204,8 +225,7 @@ class Llama(GPT):
         RoPE inside attention), times sqrt(d_model) under ``embed_scale``:
         the factor is cast to the activation dtype before the product, as
         HF Gemma and JAX do."""
-        lookup = F.embedding if decode else embed
-        x = lookup(input_ids, dequantized(self.token_embedding.weight)).to(self.dtype)
+        x = self._token_embed(input_ids, F.embedding if decode else embed)
         if self.embed_scale:
             x = x * torch.tensor(self.d_model**0.5, dtype=x.dtype, device=x.device)
         return x

@@ -23,11 +23,28 @@ Each choice is ``argmax`` over the probabilities not yet chosen, as JAX
 takes it: ties go to the first index (``torch.argmax`` and
 ``jnp.argmax`` agree), where ``torch.topk`` promises no order. The
 router runs in f32.
+
+Under a mesh (distributed/mesh.py; JAX's ``expert``, ``act_expert`` and
+``act_expert_group`` rules):
+
+* ``expert_parallel`` x: each rank holds the weights of ``E/x`` experts;
+  the router stays whole, every rank routes its own tokens over all E
+  experts (so the capacity, the tokens dropped and the aux loss are
+  JAX's), and the (E, B, C, d) expert inputs cross the expert group by
+  all-to-all: each rank receives its experts' slots from every rank,
+  runs them, and sends the outputs back by the inverse exchange;
+* ``tensor_parallel`` t: the experts' mlp dim splits over the tensor
+  axis (their input copied into the group, their outputs summed over it
+  before the output bias);
+* ``sequence_parallel`` s: routing sees whole sequences (the capacity is
+  per sequence), so the layer runs on the gathered sequence and each rank
+  keeps its rows.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Any
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +53,24 @@ from torch import nn
 from ..ops.quant import dequantized, expert_matmul
 
 _INIT_STD = 0.02
+
+
+def fill_constant(value: float) -> Any:
+    """An init-plan fill: every element ``value`` (draws nothing)."""
+
+    def fill(p: torch.Tensor, generator: torch.Generator) -> None:
+        p.fill_(value)
+
+    return fill
+
+
+def fill_normal(std: float) -> Any:
+    """An init-plan fill: N(0, ``std``) drawn from the generator."""
+
+    def fill(p: torch.Tensor, generator: torch.Generator) -> None:
+        nn.init.normal_(p, 0.0, std, generator=generator)
+
+    return fill
 
 
 class MoEMLP(nn.Module):
@@ -47,8 +82,13 @@ class MoEMLP(nn.Module):
     def __init__(self, d_model: int, d_ff: int, n_experts: int, *, dtype: torch.dtype,
                  param_dtype: torch.dtype, capacity_factor: float = 1.25,
                  aux_loss_weight: float = 0.01, router_top_k: int = 1,
-                 mlp_type: str = "gelu", matmul_precision: str = "f32") -> None:
+                 mlp_type: str = "gelu", matmul_precision: str = "f32",
+                 tensor_parallel: int = 1, expert_parallel: int = 1,
+                 sequence_parallel: int = 1) -> None:
         super().__init__()
+        self.ep = expert_parallel
+        self.tp = tensor_parallel if d_ff % tensor_parallel == 0 else 1
+        self.sp = sequence_parallel
         self.matmul_precision = matmul_precision
         if mlp_type not in ("gelu", "swiglu"):
             raise ValueError(f"mlp_type {mlp_type!r} unknown; expected 'gelu' or 'swiglu'")
@@ -63,27 +103,30 @@ class MoEMLP(nn.Module):
         def stacked(*shape: int) -> nn.Parameter:
             return nn.Parameter(torch.zeros(shape, dtype=param_dtype))
 
+        local, ff = n_experts // expert_parallel, d_ff // self.tp
         if mlp_type == "swiglu":
-            self.wg = stacked(n_experts, d_model, d_ff)
-            self.wu = stacked(n_experts, d_model, d_ff)
+            self.wg = stacked(local, d_model, ff)
+            self.wu = stacked(local, d_model, ff)
         else:
-            self.wi = stacked(n_experts, d_model, d_ff)
-            self.bi = stacked(n_experts, d_ff)
-        self.wo = stacked(n_experts, d_ff, d_model)
+            self.wi = stacked(local, d_model, ff)
+            self.bi = stacked(local, ff)
+        self.wo = stacked(local, ff, d_model)
         if mlp_type == "gelu":
-            self.bo = stacked(n_experts, d_model)
+            self.bo = stacked(local, d_model)
         self.aux_loss: torch.Tensor | None = None
 
-    @torch.no_grad()
-    def init_weights(self, generator: torch.Generator, n_layers: int) -> None:
-        """JAX's initializers: N(0, 0.02) router and input experts,
-        N(0, 0.02/sqrt(2 n_layers)) ``wo``, zero biases."""
-        for name, p in self.named_parameters():
+    def init_plan(self, n_layers: int) -> list[tuple[str, Any]]:
+        """JAX's initializers as (parameter name, fill) in draw order:
+        N(0, 0.02) router and input experts, N(0, 0.02/sqrt(2 n_layers))
+        ``wo``, zero biases (models/gpt.py ``GPT.init_plan``)."""
+        plan = []
+        for name, _ in self.named_parameters():
             if name in ("bi", "bo"):
-                p.zero_()
+                plan.append((name, fill_constant(0.0)))
             else:
                 std = _INIT_STD / math.sqrt(2 * n_layers) if name == "wo" else _INIT_STD
-                nn.init.normal_(p, 0.0, std, generator=generator)
+                plan.append((name, fill_normal(std)))
+        return plan
 
     def capacity(self, seqlen: int) -> int:
         return max(1, int(math.ceil(self.capacity_factor * self.router_top_k * seqlen
@@ -142,9 +185,27 @@ class MoEMLP(nn.Module):
         return dispatch, combine, aux
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.sp > 1:
+            from ..distributed import active_mesh
+            from ..parallel.collectives import gather_rs, slice_dim
+
+            group = active_mesh().group("sequence")
+            return slice_dim(self._forward(gather_rs(x, 1, group)), 1, group)
+        return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        from ..distributed import active_mesh
+        from ..parallel.collectives import all_to_all, copy_to, reduce_from
+
+        mesh = active_mesh() if self.ep > 1 or self.tp > 1 else None
+        ep_group = mesh.group("expert") if self.ep > 1 else None
+        tp_group = mesh.group("tensor") if self.tp > 1 else None
         dispatch, combine, aux = self.route(x)
         self.aux_loss = aux
-        expert_in = torch.einsum("btec,btd->ebcd", dispatch.to(x.dtype), x)
+        expert_in = torch.einsum("btec,btd->ebcd", dispatch.to(x.dtype), copy_to(x, tp_group))
+        # Expert parallelism: (E, B, C, d) -> this rank's E/x experts for
+        # every rank's rows, (E/x, x·B, C, d).
+        expert_in = all_to_all(expert_in, 0, 1, ep_group)
 
         def w(name: str) -> torch.Tensor:
             # int8 serving weights (ops/quant.py) are dequantized at use.
@@ -156,12 +217,13 @@ class MoEMLP(nn.Module):
 
         if self.mlp_type == "swiglu":
             gate, up = dot(expert_in, "wg"), dot(expert_in, "wu")
-            expert_out = dot(F.silu(gate) * up, "wo")
+            expert_out = reduce_from(dot(F.silu(gate) * up, "wo"), tp_group)
         else:
             h = dot(expert_in, "wi")
             h = F.gelu(h + w("bi")[:, None, None, :], approximate="none")
-            expert_out = dot(h, "wo")
+            expert_out = reduce_from(dot(h, "wo"), tp_group)
             expert_out = expert_out + w("bo")[:, None, None, :]
+        expert_out = all_to_all(expert_out, 1, 0, ep_group)
         return torch.einsum("btec,ebcd->btd", combine.to(x.dtype), expert_out)
 
 

@@ -11,9 +11,17 @@ collective coalesced into one flat buffer per dtype:
   state gathered for a checkpoint or for Adafactor's update);
 * :meth:`~ZeroPartition.reduce_scatter` — stage 2's gradient sum, each
   rank receiving only its slice;
-* :meth:`~ZeroPartition.global_norm` and :meth:`~ZeroPartition.all_true`
-  — the clip's norm from an all-reduce of the slices' sums, and the
-  non-finite guard's flag agreed over the ranks.
+* :meth:`~ZeroPartition.global_norm` — the clip's norm from an
+  all-reduce of the slices' sums.
+
+Every leaf is split as JAX splits it (parallel/sharding.py ``zero_split``,
+JAX's ``opt_state_shardings``): in its flax layout (parallel/sharding.py
+``param_layout``), along the first dim that takes the batch axes (data x
+fsdp x expert) its parameter's stored split leaves free. A :class:`Split`
+names that dim, those axes and the view of a port tensor in the flax
+layout; each collective runs over the group of its leaves' axes. So a
+rank holds the elements of JAX's device of the same mesh coordinates, on
+a mesh (parallel/mesh_params.py ``MeshLayout``) as on a data axis alone.
 
 Host offload keeps the state in owned host tensors between steps
 (parallel/sharding.py's ``host_copy``: pinned ones on the card, copied in
@@ -23,21 +31,40 @@ on the CPU), never an alias of the working tensors.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Any, Callable
+
 import torch
 
-from .sharding import host_copy, zero_partition_dim
+from .sharding import host_copy, zero_split
+
+
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+@dataclass(frozen=True)
+class Split:
+    """A state leaf's ZeRO split: along ``dim`` of its ``view`` (the flax
+    layout, a view of the port tensor) over the mesh ``axes``."""
+
+    dim: int
+    axes: tuple[str, ...]
+    view: Callable[[torch.Tensor], torch.Tensor] = _same
 
 
 class ZeroPartition:
-    """One rank's view of ZeRO at ``stage`` over ``world`` ranks on
-    ``device``. With one rank nothing is sharded (JAX's single-device
-    identity) and only the host offload acts."""
+    """One rank's view of ZeRO at ``stage`` on ``device``, the parameters
+    laid out by ``layout`` (a :class:`~.mesh_params.MeshLayout`; None: one
+    process, nothing sharded, JAX's single-device identity, and only the
+    host offload acts)."""
 
-    def __init__(self, *, stage: int, host_offload: bool, world: int, rank: int,
+    def __init__(self, *, stage: int, host_offload: bool, layout: Any,
                  device: torch.device) -> None:
         self.stage = int(stage)
-        self.world = int(world)
-        self.rank = int(rank)
+        self.layout = layout
+        self.mesh = layout.mesh if layout is not None else None
+        self.world = self.mesh.world if self.mesh is not None else 1
         self.device = torch.device(device)
         self.host_offload = bool(host_offload)
 
@@ -46,31 +73,54 @@ class ZeroPartition:
         """True when the state is split (more than one rank)."""
         return self.world > 1
 
+    def _ranks(self, split: Split) -> tuple[int, int]:
+        """(ranks, this rank's index) of a split's group."""
+        return self.mesh.size(*split.axes), self.mesh.index(*split.axes)
+
     def dim(self, shape: tuple[int, ...], name: str = "",
-            subject: str = "optimizer-state") -> int | None:
-        return zero_partition_dim(tuple(shape), self.world, name=name, subject=subject)
+            subject: str = "optimizer-state", param: str | None = None) -> Split | None:
+        """The split of a leaf of ``shape`` (``param``: the parameter whose
+        state it is, default ``name``), or None (as its parameter is
+        stored). A leaf of the parameter's stored shape splits in the
+        parameter's flax layout; one of its own shape (Adafactor's
+        factored moments) as it is."""
+        if not self.shards:
+            return None
+        leaf = self.layout.leaves[param or name]
+        if tuple(shape) == leaf.local_shape:
+            view, whole, stored = leaf.layout.to_flax, leaf.flax_shape, leaf.stored
+        else:
+            view, whole, stored = _same, tuple(shape), ()
+        found = zero_split(self.mesh.sizes, whole, stored, name=name, subject=subject)
+        return None if found is None else Split(found[0], found[1], view)
 
-    def chunk(self, t: torch.Tensor, dim: int | None, rank: int) -> torch.Tensor:
-        """Rank ``rank``'s slice of ``t`` along ``dim`` (a view; ``t``
-        itself for a replicated leaf)."""
-        if dim is None:
+    def chunk(self, t: torch.Tensor, split: Split | None, rank: int) -> torch.Tensor:
+        """Rank ``rank``'s slice of ``t`` (its index in the split's group;
+        a view in the split's layout, ``t`` itself for a replicated leaf)."""
+        if split is None:
             return t
-        n = t.shape[dim] // self.world
-        return t.narrow(dim, rank * n, n)
+        t = split.view(t)
+        n = t.shape[split.dim] // self._ranks(split)[0]
+        return t.narrow(split.dim, rank * n, n)
 
-    def local(self, t: torch.Tensor, dim: int | None) -> torch.Tensor:
+    def local(self, t: torch.Tensor, split: Split | None) -> torch.Tensor:
         """This rank's slice of ``t`` (a view)."""
-        return self.chunk(t, dim, self.rank)
+        if split is None:
+            return t
+        return self.chunk(t, split, self._ranks(split)[1])
 
     @staticmethod
-    def _by_dtype(idx: list[int], tensors: list[torch.Tensor]) -> dict[torch.dtype, list[int]]:
-        groups: dict[torch.dtype, list[int]] = {}
+    def _by_dtype(idx: list[int], tensors: list[torch.Tensor],
+                  dims: list[Split | None]) -> dict[Any, list[int]]:
+        """Leaf indices grouped by (split axes, dtype): one flat buffer and
+        one collective each."""
+        groups: dict[Any, list[int]] = {}
         for i in idx:
-            groups.setdefault(tensors[i].dtype, []).append(i)
+            groups.setdefault((dims[i].axes, tensors[i].dtype), []).append(i)
         return groups
 
     @torch.no_grad()
-    def gather(self, pieces: list[torch.Tensor], dims: list[int | None],
+    def gather(self, pieces: list[torch.Tensor], dims: list[Split | None],
                outs: list[torch.Tensor]) -> None:
         """All-gather: every whole tensor ``outs[i]`` with a split dim
         receives every rank's slice, ``pieces[i]`` being this rank's
@@ -82,72 +132,56 @@ class ZeroPartition:
         idx = [i for i, d in enumerate(dims) if d is not None]
         if not idx or self.world == 1:
             return
-        for group in self._by_dtype(idx, pieces).values():
-            moved = [pieces[i].movedim(dims[i], 0) for i in group]
+        for group in self._by_dtype(idx, pieces, dims).values():
+            n, _ = self._ranks(dims[group[0]])
+            pg = self.mesh.group(*dims[group[0]].axes)
+            moved = [pieces[i].movedim(dims[i].dim, 0) for i in group]
             flat = torch.cat([m.reshape(-1) for m in moved])
-            out = flat.new_empty(self.world * flat.numel())
+            out = flat.new_empty(n * flat.numel())
             with collective_errors():
-                dist.all_gather_into_tensor(out, flat)
-            out = out.view(self.world, -1)
-            for r in range(self.world):
+                dist.all_gather_into_tensor(out, flat, group=pg)
+            out = out.view(n, -1)
+            for r in range(n):
                 off = 0
                 for i, m in zip(group, moved):
                     seg = out[r, off:off + m.numel()].view(m.shape)
-                    self.chunk(outs[i], dims[i], r).copy_(seg.movedim(0, dims[i]))
+                    self.chunk(outs[i], dims[i], r).copy_(seg.movedim(0, dims[i].dim))
                     off += m.numel()
 
     @torch.no_grad()
     def reduce_scatter(self, fulls: list[torch.Tensor],
-                       dims: list[int | None]) -> list[torch.Tensor | None]:
-        """Stage 2: each whole tensor with a split dim summed over the ranks,
-        this rank receiving only its slice (None for replicated entries)."""
+                       dims: list[Split | None]) -> list[torch.Tensor | None]:
+        """Stage 2: each whole tensor with a split dim summed over its
+        split's ranks, this rank receiving only its slice (None for
+        replicated entries)."""
         import torch.distributed as dist
 
         from ..distributed import collective_errors
 
         out: list[torch.Tensor | None] = [None] * len(fulls)
         idx = [i for i, d in enumerate(dims) if d is not None]
-        for group in self._by_dtype(idx, fulls).values():
-            flat = torch.cat([self.chunk(fulls[i], dims[i], r).movedim(dims[i], 0).reshape(-1)
-                              for r in range(self.world) for i in group])
-            mine = flat.new_empty(flat.numel() // self.world)
+        for group in self._by_dtype(idx, fulls, dims).values():
+            n, _ = self._ranks(dims[group[0]])
+            pg = self.mesh.group(*dims[group[0]].axes)
+            flat = torch.cat([self.chunk(fulls[i], dims[i], r).movedim(dims[i].dim, 0)
+                              .reshape(-1) for r in range(n) for i in group])
+            mine = flat.new_empty(flat.numel() // n)
             with collective_errors():
-                dist.reduce_scatter_tensor(mine, flat)
+                dist.reduce_scatter_tensor(mine, flat, group=pg)
             off = 0
             for i in group:
-                moved = self.local(fulls[i], dims[i]).movedim(dims[i], 0)
-                out[i] = mine[off:off + moved.numel()].view(moved.shape).movedim(0, dims[i])
+                moved = self.local(fulls[i], dims[i]).movedim(dims[i].dim, 0)
+                out[i] = mine[off:off + moved.numel()].view(moved.shape).movedim(0, dims[i].dim)
                 off += moved.numel()
         return out
 
-    def global_norm(self, grads: list[torch.Tensor], dims: list[int | None]) -> torch.Tensor:
-        """The global norm of gradients held as this rank's slices (split
-        entries) and whole tensors (replicated ones): each rank sums the
-        squares of its slices, rank 0 adds the replicated ones, and one
-        all-reduce adds the ranks' sums (a reassociation of the replicated
-        path's sum)."""
-        import torch.distributed as dist
-
-        from ..distributed import collective_errors
-
-        total = torch.zeros((), dtype=torch.float32, device=grads[0].device)
-        for g, d in zip(grads, dims):
-            if d is not None or self.rank == 0:
-                total = total + torch.sum(g.float() * g.float())
-        with collective_errors():
-            dist.all_reduce(total)
-        return torch.sqrt(total)
-
-    def all_true(self, flag: torch.Tensor) -> torch.Tensor:
-        """A device bool true on every rank iff it is true on all of them."""
-        import torch.distributed as dist
-
-        from ..distributed import collective_errors
-
-        t = flag.to(torch.int32)
-        with collective_errors():
-            dist.all_reduce(t, op=dist.ReduceOp.MIN)
-        return t.bool()
+    def global_norm(self, names: list[str], grads: list[torch.Tensor],
+                    dims: list[Split | None]) -> torch.Tensor:
+        """The global norm of stage 2's gradients (this rank's slices of
+        the split leaves, whole replicated ones): each element counted
+        once over the ranks (``MeshLayout.global_norm``)."""
+        return self.layout.global_norm(names, grads,
+                                       [d.axes if d is not None else () for d in dims])
 
     # ------------------------------------------------------------ host offload
 
@@ -166,4 +200,4 @@ class ZeroPartition:
         host.copy_(t, non_blocking=t.is_cuda)
 
 
-__all__ = ["ZeroPartition"]
+__all__ = ["Split", "ZeroPartition"]

@@ -85,10 +85,11 @@ def exit_code_for_exception(exc: BaseException) -> int:
     a transient cause or an injected infra fault (75). Unknown exceptions
     are fatal (1).
 
-    JAX also classifies ``MeshPlanError`` (2, autotune); the ROADMAP.md
-    queue A item that ports it (autotune) adds it here.
+    A ``MeshPlanError`` (autotune/plan.py: a mesh layout that cannot
+    run) is a config error (2), as in JAX.
     """
     # Local imports, as JAX's: the constants load without the classes.
+    from ..autotune.plan import MeshPlanError
     from .elastic import TopologyMismatchError
     from .faults import InjectedFault
     from .guard import NonFiniteLossError
@@ -97,7 +98,7 @@ def exit_code_for_exception(exc: BaseException) -> int:
     chain = list(_exception_chain(exc))
     if any(isinstance(node, NotImplementedError) for node in chain):
         return EXIT_CONFIG_ERROR
-    if any(isinstance(node, TopologyMismatchError) for node in chain):
+    if any(isinstance(node, (TopologyMismatchError, MeshPlanError)) for node in chain):
         return EXIT_CONFIG_ERROR
     # Deterministic divergence beats any wrapped transient error.
     if any(isinstance(node, (NonFiniteLossError, RollbackBudgetExceededError))

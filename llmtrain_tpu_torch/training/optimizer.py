@@ -46,8 +46,9 @@ by the port's parameter names, ``mu``/``nu`` (adamw), ``mu`` (lion), or
 (adafactor), and the shadow under :data:`EMA_STATE_KEY`.
 
 ZeRO (``trainer.zero``, a :class:`~..parallel.zero.ZeroPartition`): every
-state leaf is split along its first dim divisible by the world size and
-each rank keeps only its slice. AdamW, Lion and the EMA are elementwise,
+state leaf is split as JAX splits it (parallel/zero.py: in its flax
+layout, along the first dim that takes the batch axes its parameter's
+stored split leaves free) and each rank keeps only its slice. AdamW, Lion and the EMA are elementwise,
 so each rank updates its slices of the moments and of the parameters (views
 into them) and all-gathers the parameters; Adafactor's row and column
 means and its block RMS span whole tensors, so it gathers its factored
@@ -187,6 +188,9 @@ class _Optimizer:
         # The guard's flag of the last update, not yet folded into count.
         self._pending: torch.Tensor | None = None
         self._apply: torch.Tensor | None = None
+        # On a mesh: ``(grads, split_dims) -> norm`` counting every element
+        # of the split parameters once (training/trainer.py sets it).
+        self.norm_fn: Callable[..., torch.Tensor] | None = None
 
     def _update(self, grads: Iterator[torch.Tensor], lr: float) -> None:
         """Apply the rule to the clipped gradients (in parameter order),
@@ -238,8 +242,10 @@ class _Optimizer:
 
     def grad_norm(self, grads: list[torch.Tensor]) -> torch.Tensor:
         """The global norm of ``grads`` as :meth:`step` receives them."""
+        if self.norm_fn is not None:
+            return self.norm_fn(grads, self.split_dims)
         if self.stage2:
-            return self.zero.global_norm(grads, self.split_dims)
+            return self.zero.global_norm(self.names, grads, self.split_dims)
         return global_norm(grads)
 
     def _update_grads(self, grads: list[torch.Tensor]) -> list[torch.Tensor]:
@@ -325,7 +331,8 @@ class _Optimizer:
         if self.zero.shards and not self._ELEMENTWISE:
             for store, key, leaf in self._slots(ema=False):
                 t = store[key]
-                d = self.zero.dim(tuple(t.shape), self._leaf_name(leaf))
+                d = self.zero.dim(tuple(t.shape), self._leaf_name(leaf),
+                                  param=self.names[key])
                 self._leaf_dims[leaf] = d
                 self._leaf_shapes[leaf] = tuple(t.shape)
                 store[key] = self.zero.local(t, d).clone()

@@ -20,6 +20,16 @@ step eagerly:
   reduce-scattered instead, each rank receiving its slices, and the
   replicated ones and the losses all-reduced; the optimizer then takes
   the slices, and the guard's flag is agreed over the ranks;
+* on a mesh (``layout``, parallel/mesh_params.py): the loss divides by
+  the tokens summed over the batch and sequence axes, the forward runs on
+  the parameters' compute tensors (fsdp dims gathered), and each
+  gradient is summed over the axes its layout leaves it partial on (the
+  batch axes and ``sequence`` its split has not summed, the axes it was
+  sliced over; never ``tensor``, where the ranks hold whole gradients),
+  one coalesced all-reduce per group of axes; under ZeRO stage 2 the
+  batch axes of that sum become a reduce-scatter. The losses are summed
+  over the batch and sequence axes, and the guard's flag is agreed over
+  every rank;
 * dropout draws from a ``torch.Generator`` seeded by ``(seed, step,
   micro-batch)``, with the rank folded in past rank 0 and the spike
   rollbacks so far after any, so resume reproduces the stream without
@@ -97,14 +107,16 @@ def grad_reduce_op(backend: str):
     return dist._make_nccl_premul_sum(1.0) if backend == "nccl" else dist.ReduceOp.SUM
 
 
-def all_reduce_coalesced(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
-    """Sum ``tensors`` over the process group: one all-reduce over a flat
-    buffer per dtype. Returns the reduced tensors (views of the buffers)."""
+def all_reduce_coalesced(tensors: list[torch.Tensor], group: Any = None) -> list[torch.Tensor]:
+    """Sum ``tensors`` over the process group (``group``: a sub-group):
+    one all-reduce over a flat buffer per dtype. Returns the reduced
+    tensors (views of the buffers)."""
     import torch.distributed as dist
     from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
     from ..distributed import collective_errors
 
+    pg = group
     op = grad_reduce_op(dist.get_backend())
     out: list[torch.Tensor | None] = [None] * len(tensors)
     by_dtype: dict[torch.dtype, list[int]] = {}
@@ -114,17 +126,28 @@ def all_reduce_coalesced(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
         group = [tensors[i] for i in idx]
         flat = _flatten_dense_tensors(group)
         with collective_errors():
-            dist.all_reduce(flat, op=op)
+            dist.all_reduce(flat, op=op, group=pg)
         for i, t in zip(idx, _unflatten_dense_tensors(flat, group)):
             out[i] = t
     return out  # type: ignore[return-value]
 
 
+def token_group(layout: Any) -> Any:
+    """The group whose ranks hold distinct tokens: the batch and sequence
+    axes on a mesh, else the whole process group (None)."""
+    if layout is None:
+        return None
+    return layout.mesh.group("data", "fsdp", "sequence", "expert")
+
+
 def make_loss_fn(adapter: ModelAdapter, model: torch.nn.Module, *, use_dropout: bool,
-                 data_parallel: bool = False) -> Callable:
+                 data_parallel: bool = False, layout: Any = None) -> Callable:
     """Per-micro-batch loss: (batch, generator) -> (loss, (loss_sum_B, tokens_B)).
     With ``data_parallel`` the loss divides by the token count summed over
-    the ranks (this rank's share of the global micro-batch's mean)."""
+    the ranks (this rank's share of the global micro-batch's mean); on a
+    mesh (``layout``) over the ranks of :func:`token_group`, the forward
+    on the parameters' compute tensors."""
+    group = token_group(layout)
 
     def token_total(tokens: torch.Tensor) -> torch.Tensor:
         total = tokens.sum()
@@ -134,14 +157,21 @@ def make_loss_fn(adapter: ModelAdapter, model: torch.nn.Module, *, use_dropout: 
             from ..distributed import collective_errors
 
             total = total.clone()
-            with collective_errors():
-                dist.all_reduce(total)
+            if layout is None or group is not None:
+                with collective_errors():
+                    dist.all_reduce(total, group=group)
         return total
 
+    def components(micro_batch: dict, generator: torch.Generator | None):
+        if layout is None:
+            return adapter.compute_loss_components(
+                model, micro_batch, generator=generator, deterministic=not use_dropout)
+        with layout.materialized(model):
+            return adapter.compute_loss_components(
+                model, micro_batch, generator=generator, deterministic=not use_dropout)
+
     def loss_fn(micro_batch: dict, generator: torch.Generator | None):
-        comps = adapter.compute_loss_components(
-            model, micro_batch, generator=generator, deterministic=not use_dropout
-        )
+        comps = components(micro_batch, generator)
         if comps is None:
             loss, _ = adapter.compute_loss(
                 model, micro_batch, generator=generator, deterministic=not use_dropout
@@ -173,6 +203,7 @@ def make_train_step(
     inject_nan_window: tuple[int, int] | None = None,
     data_parallel: bool = False,
     rank: int = 0,
+    layout: Any = None,
 ) -> Callable[..., dict]:
     """The step: ``(state, batch(A, B, T), rollbacks=0) -> metrics``,
     updating ``state`` in place (``rollbacks``: the run's spike rollbacks
@@ -181,9 +212,10 @@ def make_train_step(
     micro-batch under ``data_parallel``), this rank's
     ``per_example_loss_sum`` and ``per_example_tokens`` (A, B),
     ``grad_norm``, and with the guard ``nonfinite_count`` (a device int32
-    scalar)."""
+    scalar). ``rank`` is the rank's index over the batch axes (its
+    dropout stream); ``layout`` the parameters' layout on a mesh."""
     loss_fn = make_loss_fn(adapter, model, use_dropout=use_dropout,
-                           data_parallel=data_parallel)
+                           data_parallel=data_parallel, layout=layout)
 
     def train_step(state: TrainState, batch: dict, rollbacks: int = 0) -> dict[str, Any]:
         params = state.optimizer.params
@@ -206,7 +238,9 @@ def make_train_step(
             p.grad = None
         losses_t = torch.stack(losses)
         opt = state.optimizer
-        if data_parallel and opt.stage2:
+        if layout is not None:
+            summed, losses_t = reduce_on_mesh(layout, opt, summed, losses_t)
+        elif data_parallel and opt.stage2:
             dims = opt.split_dims
             shards = opt.zero.reduce_scatter(summed, dims)
             replicated = [i for i, d in enumerate(dims) if d is None]
@@ -235,8 +269,9 @@ def make_train_step(
             from ..resilience.guard import tree_all_finite
 
             finite = tree_all_finite(grads, losses_t)
-            if opt.stage2:
-                finite = opt.zero.all_true(finite)
+            if layout is not None or opt.stage2:
+                # Each rank holds part of the gradients: agree on the flag.
+                finite = _all_true(finite)
             state.optimizer.step(grads, apply=finite)
             prev = state.nonfinite_count
             if not isinstance(prev, torch.Tensor):
@@ -251,9 +286,54 @@ def make_train_step(
     return train_step
 
 
-def make_eval_step(adapter: ModelAdapter, model: torch.nn.Module) -> Callable:
-    """Forward only: batch(B, T) -> (loss_sum_B, tokens_B)."""
-    loss_fn = make_loss_fn(adapter, model, use_dropout=False)
+def _all_true(flag: torch.Tensor) -> torch.Tensor:
+    """A device bool true on every rank iff it is on all of them."""
+    import torch.distributed as dist
+
+    from ..distributed import collective_errors
+
+    t = flag.to(torch.int32)
+    with collective_errors():
+        dist.all_reduce(t, op=dist.ReduceOp.MIN)
+    return t.bool()
+
+
+def reduce_on_mesh(layout: Any, opt: Any, grads: list[torch.Tensor],
+                   losses: torch.Tensor) -> tuple[list[torch.Tensor | None], torch.Tensor]:
+    """Each gradient summed over its layout's axes (module docstring):
+    the leaves grouped by those axes, one coalesced all-reduce a group;
+    under ZeRO stage 2 a leaf's ZeRO axes reduce-scatter first (this rank
+    keeping its slice) and the rest of its axes all-reduce. The losses are
+    summed over the batch and sequence axes."""
+    mesh = layout.mesh
+    out: list[torch.Tensor | None] = list(grads)
+    rest: dict[tuple[str, ...], list[int]] = {}
+    if opt.stage2:
+        dims = opt.split_dims
+        shards = opt.zero.reduce_scatter(grads, dims)
+        for i, d in enumerate(dims):
+            if d is not None:
+                out[i] = shards[i]
+    for i, name in enumerate(opt.names):
+        axes = layout.reduce_axes(name)
+        if opt.stage2 and opt.split_dims[i] is not None:
+            axes = tuple(a for a in axes if a not in opt.split_dims[i].axes)
+        if axes:
+            rest.setdefault(axes, []).append(i)
+    for axes, idx in rest.items():
+        for i, g in zip(idx, all_reduce_coalesced([out[i] for i in idx], mesh.group(*axes))):
+            out[i] = g
+    group = token_group(layout)
+    if group is not None:
+        (losses,) = all_reduce_coalesced([losses], group)
+    return out, losses
+
+
+def make_eval_step(adapter: ModelAdapter, model: torch.nn.Module, *,
+                   layout: Any = None) -> Callable:
+    """Forward only: batch(B, T) -> (loss_sum_B, tokens_B) (on a mesh, on
+    the parameters' compute tensors)."""
+    loss_fn = make_loss_fn(adapter, model, use_dropout=False, layout=layout)
 
     @torch.no_grad()
     def eval_step(batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
@@ -270,4 +350,6 @@ __all__ = [
     "make_eval_step",
     "make_loss_fn",
     "make_train_step",
+    "reduce_on_mesh",
+    "token_group",
 ]

@@ -41,11 +41,21 @@ Fault tolerance (resilience/, wired at JAX's places):
   global micro-batch continues the saved trajectory (``elastic_reshard``);
   any other topology change raises ``TopologyMismatchError`` (exit 2).
 
-Data parallel (a ``torch.distributed`` group formed by
-``distributed.setup_distributed``, one process per device): each of the
-W ranks takes its B rows of the sampler's global batch of B·W rows, and
-its share of each eval batch; the step sums the gradients over the ranks
-(training/train_step.py) and the eval sums the loss and token sums. Only
+The mesh (a ``torch.distributed`` group formed by
+``distributed.setup_distributed``, one process per device, laid out as
+``distributed.mesh`` by distributed/mesh.py after autotune/plan.py's
+``plan_from_config`` checked it, ``MeshPlanError`` exit 2 otherwise):
+the global micro-batch is ``micro_batch_size`` times the data-parallel
+degree D (data x fsdp x expert); the rank with index d over those axes
+takes rows [d·B, (d+1)·B) of the sampler's global batch, the same rows on
+every rank of its tensor and sequence groups, split along the length
+over ``sequence``, and its share of each eval batch. On a plain data
+axis D is the world size and d the rank. The model holds this rank's
+slices of the parameters (parallel/mesh_params.py); the step sums each
+gradient over the axes its layout leaves it partial on
+(training/train_step.py) and the eval sums the loss and token sums over
+the batch and sequence axes. Checkpoints hold whole arrays, gathered
+from every rank's slices at save and sliced at load. Only
 rank 0 writes checkpoints, and the others wait at a barrier after each
 save; on resume rank 0 picks the checkpoint and broadcasts its step, so
 every rank restores the same file. SIGTERM to any rank stops every rank
@@ -93,9 +103,11 @@ from ..distributed import (
     allgather_scalar,
     barrier,
     broadcast_int_from_main,
+    build_mesh,
     collective_errors,
     collective_wait_seconds,
     resolve_device,
+    set_active_mesh,
 )
 from ..interop.flax_params import (
     flax_params_to_state_dict,
@@ -103,6 +115,7 @@ from ..interop.flax_params import (
     state_dict_to_flax_params,
 )
 from ..models.lora import build_adapter
+from ..parallel.sharding import batch_sharding, data_parallel_degree, mesh_axis_sizes
 from ..registry import get_data_module, initialize_registries
 from ..resilience.elastic import (
     TopologyMismatchError,
@@ -161,30 +174,36 @@ class TrainResult:
     rollbacks: int = 0
 
 
-def _mesh_refusal(cfg: RunConfig, world_size: int) -> str | None:
-    """What of ``distributed.mesh`` the port cannot run: any axis but
-    ``data`` larger than one device, or a ``data`` axis that is not the
-    process count (``-1`` means all of them)."""
-    sizes = cfg.distributed.mesh.model_dump()
-    data = sizes.pop("data")
-    wide = [f"{axis}={n}" for axis, n in sizes.items() if n > 1]
-    if wide:
-        # Expert, tensor, pipeline, fsdp and sequence axes are parallelism.
-        return ("distributed.mesh with an axis other than data larger than one device ("
-                + ", ".join(wide) + ")")
-    if data not in (-1, world_size):
-        return (f"distributed.mesh.data={data} with {world_size} process(es) (the data "
-                "axis is the process count, -1)")
-    return None
+def mesh_plan(cfg: RunConfig, world_size: int = 1):
+    """``plan_from_config`` over the ``world_size`` ranks (one device
+    each): ``MeshPlanError`` (exit 2) for a mesh that cannot run."""
+    from ..autotune.plan import plan_from_config
+
+    return plan_from_config(cfg, world_size)
 
 
 def refuse_unported(cfg: RunConfig, world_size: int = 1) -> None:
-    """Raise ``NotImplementedError`` for a config that switches on a part
-    of the JAX trainer the port does not run yet (``world_size``: the
-    processes of the data-parallel group, 1 without one)."""
-    mesh = _mesh_refusal(cfg, world_size)
-    if mesh is not None:
-        raise NotImplementedError(f"{mesh} {_NOT_PORTED} (ROADMAP.md queue A: parallelism)")
+    """Raise for a config the port cannot run (``world_size``: the ranks
+    of the process group, 1 without one): ``NotImplementedError`` for a
+    part of the JAX trainer not ported yet (a pipeline axis, ROADMAP item
+    6c; LoRA or Adafactor on a mesh that splits parameters), and the
+    plan's ``MeshPlanError`` for a mesh that does not fit the ranks or
+    the model."""
+    mesh = cfg.distributed.mesh
+    if mesh.pipeline > 1:
+        raise NotImplementedError(
+            f"distributed.mesh.pipeline={mesh.pipeline} {_NOT_PORTED}: the pipeline is item 6c "
+            "(ROADMAP.md queue A: parallelism)")
+    split = any(getattr(mesh, a) > 1 for a in ("fsdp", "tensor", "sequence", "expert"))
+    if split and cfg.model.extra.get("lora"):
+        raise NotImplementedError(
+            f"model.extra.lora on a mesh with fsdp, tensor, sequence or expert axes "
+            f"{_NOT_PORTED} (ROADMAP.md queue A: parallelism)")
+    if split and cfg.trainer.extra.get("optimizer") == "adafactor":
+        raise NotImplementedError(
+            f"trainer.extra.optimizer adafactor on a mesh with fsdp, tensor, sequence or "
+            f"expert axes {_NOT_PORTED} (ROADMAP.md queue A: parallelism)")
+    mesh_plan(cfg, world_size)
 
 
 def _commit_observer(telemetry: Telemetry):
@@ -213,6 +232,21 @@ class Trainer:
         self._rank = self._dist.process_index if self._dist else 0
         self._is_main = self._rank == 0
         refuse_unported(cfg, self._world)
+        self._plan = mesh_plan(cfg, self._world)
+        # The mesh over the process group (one device per rank); without a
+        # group every axis is 1. The models read it as the active mesh.
+        self._mesh = (build_mesh(cfg.distributed.mesh, self._world, self._rank)
+                      if self._dist is not None else None)
+        set_active_mesh(self._mesh)
+        split = self._mesh is not None and self._mesh.model_parallel
+        # The batch layout (parallel/sharding.py): rows over the batch
+        # axes, the length over the sequence axis; their shard counts and
+        # this rank's index over each.
+        rows, length = batch_sharding()
+        self._dp = data_parallel_degree(self._plan.axes)
+        self._dp_index = self._mesh.index(*rows) if self._mesh is not None else self._rank
+        self._sp = math.prod(self._plan.axes[a] for a in length)
+        self._sp_index = self._mesh.index(*length) if self._mesh is not None else 0
         self._cfg = cfg
         self._run_dir = run_dir
         self._device = resolve_device(cfg.run.device)
@@ -250,10 +284,30 @@ class Trainer:
             description="dataset setup",
             rng=retry_rng(cfg.run.seed, self._rank),
         )
+        validate_mesh = getattr(self._adapter, "validate_mesh", None)
+        if validate_mesh is not None:
+            validate_mesh(cfg, self._plan.axes)
         self._model = self._adapter.build_model(cfg, self._device)
-        self._global_micro = cfg.trainer.micro_batch_size * self._world
-        self._zero = self._zero_partition()
+        # The parameters' layout on the mesh (parallel/mesh_params.py).
+        # The step runs the mesh path where an axis other than data splits
+        # (``self._layout``); on a data axis alone every parameter is
+        # replicated and the layout serves ZeRO's split.
+        mesh_layout = None
+        if self._mesh is not None:
+            from ..parallel.mesh_params import model_layout
+
+            mesh_layout = model_layout(self._model, self._mesh,
+                                       cfg.model.d_model // cfg.model.n_heads)
+        self._layout = mesh_layout if split else None
+        self._global_micro = cfg.trainer.micro_batch_size * self._dp
+        self._zero = self._zero_partition(mesh_layout)
         optimizer = build_model_optimizer(cfg, self._model, zero=self._zero)
+        if self._layout is not None:
+            layout, stage2 = self._layout, optimizer.stage2
+            # Each element of every split parameter counted once.
+            optimizer.norm_fn = lambda grads, dims: layout.global_norm(
+                optimizer.names, grads,
+                [d.axes if d is not None and stage2 else () for d in dims])
         self._schedule = lr_schedule(cfg.trainer)
         # Every rank gets a manager over the shared run dir (the spike
         # rollback restores on every rank); only rank 0 writes.
@@ -277,9 +331,10 @@ class Trainer:
             nonfinite_guard=guard,
             inject_nan_window=self._faults.nan_window(),
             data_parallel=self._dist is not None,
-            rank=self._rank,
+            rank=self._dp_index,
+            layout=self._layout,
         )
-        self._eval_step_fn = make_eval_step(self._adapter, self._model)
+        self._eval_step_fn = make_eval_step(self._adapter, self._model, layout=self._layout)
         self._param_count = sum(p.numel() for p in self._model.parameters())
         # A LoRA run trains its factors only; the frozen base takes no
         # gradient.
@@ -296,19 +351,20 @@ class Trainer:
         self._batch_struct: dict[str, tuple[tuple[int, ...], torch.dtype]] | None = None
         self._tokens_per_step = 0
 
-    def _zero_partition(self):
-        """``trainer.zero`` over the data-parallel group (parallel/zero.py),
-        or None. One process shards nothing; host offload still acts."""
+    def _zero_partition(self, layout: Any):
+        """``trainer.zero`` over the parameters' ``layout`` on the mesh
+        (parallel/zero.py; None: one process, nothing sharded, host
+        offload still acts), or None."""
         zero = self._cfg.trainer.zero
         if not zero.enabled:
             return None
         from ..parallel.zero import ZeroPartition
 
         part = ZeroPartition(stage=zero.stage, host_offload=zero.host_offload,
-                             world=self._world, rank=self._rank, device=self._device)
+                             layout=layout, device=self._device)
         logger.info(
             "ZeRO optimizer-state sharding enabled: stage %d over %d-way data parallel%s",
-            part.stage, self._world,
+            part.stage, self._dp,
             ", host offload" if part.host_offload else "",
         )
         return part
@@ -336,32 +392,51 @@ class Trainer:
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self._device)
                 for k, v in arrays.items()}
 
+    def _seq_cols(self, arrays: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+        """This rank's columns of (.., T) token arrays under a sequence
+        axis: the s-th of S equal slices along the length."""
+        if self._sp == 1:
+            return arrays
+        out = {}
+        for k, v in arrays.items():
+            t = v.shape[-1] // self._sp
+            out[k] = v[..., self._sp_index * t:(self._sp_index + 1) * t]
+        return out
+
     def global_batch(self, sampler: DeterministicSampler, dataset, step: int) -> dict:
         """This rank's (A, B, T) share of optimizer step ``step``'s global
-        batch on the device: rows [r·B, (r+1)·B) of each micro-batch."""
+        batch on the device: rows [d·B, (d+1)·B) of each micro-batch (d:
+        the rank's index over the batch axes), its slice of the length
+        under a sequence axis."""
         accum = self._cfg.trainer.grad_accum_steps
         base_index = (step - 1) * accum + self._data_offset
-        lo = self._rank * self._cfg.trainer.micro_batch_size
+        lo = self._dp_index * self._cfg.trainer.micro_batch_size
         hi = lo + self._cfg.trainer.micro_batch_size
         rows = [dataset.get_examples(sampler.batch_indices(base_index + a)[lo:hi])
                 for a in range(accum)]
-        return self._to_device({k: np.stack([r[k] for r in rows]) for k in rows[0]})
+        return self._to_device(self._seq_cols({k: np.stack([r[k] for r in rows])
+                                               for k in rows[0]}))
 
     def _rank_rows(self, indices: np.ndarray, n_pad: int) -> tuple[np.ndarray, int]:
         """This rank's equal share of a forward-only batch whose last
         ``n_pad`` rows are padding, and the padding rows in the share."""
-        per = len(indices) // self._world
-        lo, hi = self._rank * per, (self._rank + 1) * per
+        per = len(indices) // self._dp
+        lo, hi = self._dp_index * per, (self._dp_index + 1) * per
         return indices[lo:hi], max(0, hi - max(lo, len(indices) - n_pad))
 
     def _sum_over_ranks(self, *values: torch.Tensor) -> list[float]:
-        """Host floats of device scalars, summed over the ranks."""
+        """Host floats of device scalars, summed over the ranks that hold
+        distinct tokens (the batch and sequence axes)."""
         stacked = torch.stack([v.float() for v in values])
         if self._dist is not None:
             import torch.distributed as dist
 
-            with collective_errors():
-                dist.all_reduce(stacked)
+            from .train_step import token_group
+
+            group = token_group(self._layout)
+            if self._layout is None or group is not None:
+                with collective_errors():
+                    dist.all_reduce(stacked, group=group)
         return [float(v) for v in stacked.cpu()]
 
     def _eval_batch(self, dataset, indices: np.ndarray, *, n_pad: int = 0) -> dict:
@@ -373,7 +448,7 @@ class Trainer:
         if n_pad:
             examples["attention_mask"] = examples["attention_mask"].copy()
             examples["attention_mask"][len(indices) - n_pad:] = 0
-        return self._to_device(examples)
+        return self._to_device(self._seq_cols(examples))
 
     # ------------------------------------------------------------------ eval only
 
@@ -411,8 +486,11 @@ class Trainer:
             warn_on_config_mismatch(
                 payload, yaml.safe_dump(self._cfg.model_dump(), sort_keys=False), path
             )
-            self._model.load_state_dict(flax_params_to_state_dict(payload["params"]),
-                                        strict=True)
+            whole = flax_params_to_state_dict(payload["params"])
+            if self._layout is not None:
+                self._layout.load_whole(self._model, whole)
+            else:
+                self._model.load_state_dict(whole, strict=True)
             if use_ema:
                 if find_ema_tree(payload["opt_state"]) is None:
                     raise ValueError(_NO_EMA)
@@ -914,6 +992,10 @@ class Trainer:
         table and the roofline class. None on any failure."""
         from ..telemetry import profiling
 
+        if self._layout is not None:
+            # The count runs one rank's step without its collectives; on a
+            # mesh that splits parameters the step is not one rank's alone.
+            return None
         try:
             struct = self._batch_struct or self._planned_batch_struct()
             model = profiling.meta_module(self._model)
@@ -1191,15 +1273,13 @@ class Trainer:
         against a resumed checkpoint's (resilience/elastic.py): JAX's
         ``describe_topology`` of a mesh whose data axis spans the
         processes, one device each."""
-        world = self._world
-        mesh = {k: (world if k == "data" else 1) for k in self._cfg.distributed.mesh.model_dump()}
         return describe_topology(
-            mesh,
-            data_parallel=world,
+            mesh_axis_sizes(self._plan.axes),
+            data_parallel=self._dp,
             global_micro_batch=self._global_micro,
             micro_batch_size=int(self._cfg.trainer.micro_batch_size),
             grad_accum_steps=int(self._cfg.trainer.grad_accum_steps),
-            num_processes=world,
+            num_processes=self._world,
         )
 
     def _manifest_extra(self, step: int) -> dict[str, Any]:
@@ -1240,15 +1320,19 @@ class Trainer:
             out.update(self._spike_detector.state())
         return out or None
 
-    def host_state(self, opt_state: dict[str, Any] | None = None) -> dict[str, Any]:
+    def host_state(self, opt_state: dict[str, Any] | None = None,
+                   params_sd: dict[str, torch.Tensor] | None = None) -> dict[str, Any]:
         """Params in the flax layout and the optimizer state: owned host
         copies, which later in-place updates of the live tensors do not
         reach (a checkpoint serialises them on a thread). ``opt_state``:
-        the optimizer's ``state_dict`` when the caller already gathered it."""
+        the optimizer's ``state_dict`` when the caller already gathered it;
+        ``params_sd`` the model's whole state dict when the caller gathered
+        it from a mesh."""
         m = self._cfg.model
         n_kv = int(m.extra.get("n_kv_heads", 0))
-        params = state_dict_to_flax_params(self._model.state_dict(), n_heads=m.n_heads,
-                                           n_kv_heads=n_kv)
+        if params_sd is None:
+            params_sd = self._model.state_dict()
+        params = state_dict_to_flax_params(params_sd, n_heads=m.n_heads, n_kv_heads=n_kv)
         if opt_state is None:
             opt_state = self._state.optimizer.state_dict()
         return {
@@ -1265,15 +1349,18 @@ class Trainer:
         manifest (:func:`_commit_observer`). With several ranks every
         rank then waits at a barrier."""
         with self._telemetry.timeline.span("checkpoint_save", cat="ckpt", step=step):
-            opt_state = None
-            if self._zero is not None and self._zero.shards:
+            opt_state = params_sd = None
+            if self._zero is not None and self._zero.shards or self._layout is not None:
                 # The whole state comes from every rank's slices: each rank
                 # takes part in the gather, rank 0 writes.
                 opt_state = self._state.optimizer.state_dict()
+            if self._layout is not None:
+                params_sd = self._layout.whole_state_dict(self._model)
+                opt_state = self._opt_state_map(opt_state, self._layout.whole)
             if self._ckpt_mgr is not None and self._is_main:
                 self._ckpt_mgr.save_host_async(
                     step,
-                    self.host_state(opt_state),
+                    self.host_state(opt_state, params_sd),
                     self._cfg.model_dump(),
                     resilience=self._resilience_payload(),
                     manifest_extra=self._manifest_extra(step),
@@ -1281,6 +1368,27 @@ class Trainer:
                 )
                 self._telemetry.metrics.inc("ckpt/saves")
         barrier()
+
+    def _opt_state_map(self, state: dict[str, Any], fn: Any) -> dict[str, Any]:
+        """The optimizer's ``state_dict`` with ``fn(name, tensor)`` applied
+        to every leaf keyed by a parameter name (the moments and the EMA
+        shadow: the parameter's shape), host arrays in and out."""
+        names = set(self._state.optimizer.names)
+
+        def walk(node: Any) -> Any:
+            if not isinstance(node, dict):
+                return node
+            out = {}
+            for k, v in node.items():
+                if k in names and not isinstance(v, dict):
+                    t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))
+                    r = fn(k, t.to(self._device)).detach().cpu()
+                    out[k] = r if r.dtype == torch.bfloat16 else r.numpy()
+                else:
+                    out[k] = walk(v)
+            return out
+
+        return walk(state)
 
     def _agreed_resume_path(self, resume_spec: str) -> Path:
         """The checkpoint every rank restores: rank 0 resolves the spec and
@@ -1347,9 +1455,15 @@ class Trainer:
             payload, yaml.safe_dump(self._cfg.model_dump(), sort_keys=False), path
         )
         step = int(payload["step"])
-        self._model.load_state_dict(flax_params_to_state_dict(payload["params"]), strict=True)
-        self._state.optimizer.load_state_dict(
-            opt_state_from_host(payload["opt_state"], lora=is_lora_tree(payload["params"])))
+        whole = flax_params_to_state_dict(payload["params"])
+        opt_state = opt_state_from_host(payload["opt_state"], lora=is_lora_tree(payload["params"]))
+        if self._layout is not None:
+            # Whole arrays in the checkpoint: this rank keeps its slices.
+            self._layout.load_whole(self._model, whole)
+            opt_state = self._opt_state_map(opt_state, self._layout.local)
+        else:
+            self._model.load_state_dict(whole, strict=True)
+        self._state.optimizer.load_state_dict(opt_state)
         self._state.step = step
         resil = payload.get("resilience") or {}
         self._last_restored_resilience = {k: v for k, v in resil.items()}
@@ -1497,7 +1611,7 @@ class Trainer:
         n = len(val_ds)
         # JAX's batch: a multiple of the data-parallel degree, padded with
         # zero-masked rows; each rank evaluates its equal share.
-        mult = self._world
+        mult = self._dp
         eval_bs = min(max(self._global_micro // mult, 1) * mult, -(-n // mult) * mult)
         loss_total = torch.zeros((), dtype=torch.float32, device=self._device)
         tok_total = torch.zeros((), dtype=torch.float32, device=self._device)

@@ -224,14 +224,17 @@ def test_the_nccl_gradient_op_sums_as_gloo_does(dtype) -> None:
 @pytest.mark.parametrize(
     "mesh,world,refused",
     [({"data": -1}, 2, False), ({"data": 2}, 2, False), ({"data": 1}, 1, False),
-     ({"data": 3}, 2, True), ({"data": 1}, 2, True), ({"data": -1, "tensor": 2}, 2, True),
+     ({"data": 3}, 2, True), ({"data": 1}, 2, True), ({"data": -1, "tensor": 2}, 2, False),
      ({"data": 1, "fsdp": -1}, 1, False)],
     ids=["wildcard", "process-count", "one", "other-size", "one-of-two", "tensor-axis",
          "wildcard-elsewhere-one-process"],
 )
 def test_the_data_axis_is_the_process_count(mesh, world, refused) -> None:
-    """``distributed.mesh.data`` of -1 or of the process count is the data
-    axis; any other layout is refused citing parallelism."""
+    """The mesh's axes tile the processes, one device each: ``data`` of -1
+    fills what the other axes leave (a tensor axis of 2 over 2 processes
+    leaves data 1); a layout that does not tile them raises the plan's
+    ``MeshPlanError`` naming the device count (exit 2)."""
+    from llmtrain_tpu_torch.autotune.plan import MeshPlanError
     from llmtrain_tpu_torch.config.schemas import RunConfig
     from llmtrain_tpu_torch.training.trainer import refuse_unported
 
@@ -240,7 +243,7 @@ def test_the_data_axis_is_the_process_count(mesh, world, refused) -> None:
         "data": {"name": "dummy_text"}, "trainer": {"max_steps": 2, "warmup_steps": 0},
         "mlflow": {"enabled": False}, "distributed": {"enabled": True, "mesh": mesh}})
     if refused:
-        with pytest.raises(NotImplementedError, match=r"queue A: parallelism\)"):
+        with pytest.raises(MeshPlanError, match=f"but {world} devices are available"):
             refuse_unported(cfg, world)
     else:
         refuse_unported(cfg, world)

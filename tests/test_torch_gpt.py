@@ -178,13 +178,22 @@ def test_unported_options_raise() -> None:
         "data": {"name": "dummy_text"},
         "trainer": {"max_steps": 1, "warmup_steps": 0},
     }
+    # ring and ulysses were refused here until they were ported: with no
+    # sequence axis they run blockwise attention, the dense model's logits.
+    dense = GPTAdapter().build_model(RunConfig.model_validate(base))
+    ids = to_torch(seeded_ids(3, (2, 16), 17)).long()
     for model_over in (
         {"attention": "ulysses"},
         {"attention": "ring"},
     ):
         cfg = RunConfig.model_validate({**base, "model": {**base["model"], **model_over}})
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            GPTAdapter().build_model(cfg)
+        model = GPTAdapter().build_model(cfg)
+        model.load_state_dict(dense.state_dict())
+        with torch.no_grad():
+            np.testing.assert_allclose(model(ids).numpy(), dense(ids).numpy(), atol=2e-5)
+        windowed = {**base["model"], **model_over, "extra": {"sliding_window": 4}}
+        with pytest.raises(ValueError, match="sliding_window is not supported"):
+            GPTAdapter().build_model(RunConfig.model_validate({**base, "model": windowed}))
     # Quantized training matmuls were refused here until they were ported.
     cfg = RunConfig.model_validate(
         {**base, "model": {**base["model"], "extra": {"matmul_precision": "int8"}}})

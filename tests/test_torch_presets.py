@@ -5,8 +5,9 @@ with its guard, spike detection and watchdog armed; ``gpt_quant_smoke``'s
 int8 matmuls, ``gpt_offload_smoke``'s tier ladder and ``gpt_zero_smoke``'s
 ZeRO), the two ``dummy_gpt`` presets and the five llama-family ones
 (llama, Mistral, Qwen2, Gemma, the Mixtral layout) train three steps
-through the port's ``train`` (gpt_moe_smoke, for its expert mesh, is
-refused, exit 2, citing its ROADMAP.md item); and
+through the port's ``train`` (gpt_moe_smoke's ``{expert: 4, data: 2}``
+mesh needs 8 devices: in one process it exits 2 naming the device count,
+and it trains as 8 gloo ranks); and
 ``gpt_pycorpus_bpe_tpu`` at a tiny width, over a corpus of standard-library
 files with the tracked ``runs/pytok8k.json`` vocabulary, tracks the JAX
 trainer's per-step losses from the same initial params within the
@@ -43,10 +44,11 @@ SMOKE_PRESETS = ("gpt_smoke", "gpt_serve_smoke", "gpt_router_smoke", "gpt_overlo
                  "mistral_smoke", "qwen2_smoke", "gemma_smoke", "llama_moe_smoke",
                  "gpt_moe_smoke")
 # Refused for a part of the JAX package the port does not run yet, and the
-# item each refusal cites: gpt_moe_smoke's mesh (its {expert: 4, data: 2}
-# is expert parallelism; its model trains with the mesh cleared,
-# tests/test_torch_moe.py).
-REFUSED = {"gpt_moe_smoke": "parallelism"}
+# item each refusal cites (none left).
+REFUSED: dict[str, str] = {}
+# Presets whose mesh spans more devices than one process has: in one
+# process the plan's MeshPlanError (exit 2) names the device count.
+NEEDS_RANKS = {"gpt_moe_smoke": 8}
 
 
 def _preset(name: str) -> dict:
@@ -68,6 +70,10 @@ def test_smoke_preset_trains_three_steps(tmp_path, capsys, name: str) -> None:
     if name in REFUSED:
         assert code == 2
         assert _CITES_STABLE_ITEM.search(err) and f"queue A: {REFUSED[name]})" in err, err
+        return
+    if name in NEEDS_RANKS:
+        assert code == 2
+        assert f"{NEEDS_RANKS[name]} but 1 devices are available" in err, err
         return
     assert code == 0, err
     result = json.loads(out)["train_result"]
@@ -139,6 +145,28 @@ def test_ddp_smoke_trains_as_two_gloo_processes(tmp_path) -> None:
     result = json.loads(outs[0][1].strip().splitlines()[-1])["train_result"]
     assert result["final_step"] == raw["trainer"]["max_steps"]
     assert math.isfinite(result["final_loss"]) and result["final_loss"] < result["first_step_loss"]
+
+
+def test_moe_smoke_trains_on_its_mesh_as_eight_gloo_ranks(tmp_path) -> None:
+    """gpt_moe_smoke on its own {expert: 4, data: 2} mesh: 8 ranks, each
+    holding one of the 4 experts' quarter (two ranks an expert slice),
+    cut to 3 steps."""
+    from test_torch_ddp import launch, wait
+
+    raw = _preset("gpt_moe_smoke")
+    raw["distributed"]["enabled"] = True
+    raw["trainer"].update(max_steps=3, warmup_steps=1, log_every_steps=1, eval_every_steps=3,
+                          save_every_steps=3)
+    raw["output"]["root_dir"] = str(tmp_path / "runs")
+    cfg = tmp_path / "gpt_moe_smoke.yaml"
+    cfg.write_text(yaml.safe_dump(raw, sort_keys=False))
+    outs = wait(launch(tmp_path, ["train", "--config", str(cfg), "--run-id", "m", "--json"],
+                       world=8), timeout=240)
+    for code, _, err in outs:
+        assert code == 0, err[-3000:]
+    result = json.loads(outs[0][1].strip().splitlines()[-1])["train_result"]
+    assert result["final_step"] == 3 and math.isfinite(result["final_loss"])
+    assert (tmp_path / "runs" / "m" / "checkpoints" / "step_000003.ckpt").is_file()
 
 
 def test_telemetry_smoke_trains_and_serves_metrics(tmp_path, capsys, monkeypatch) -> None:

@@ -117,17 +117,25 @@ def test_exit_codes_match_jax(tmp_path, capsys, case: str) -> None:
 
 
 @pytest.mark.parametrize(
-    "override",
-    # ZeRO trains since it was ported; over an fsdp mesh it is still refused.
-    [{"trainer.zero.enabled": True, "distributed.mesh.fsdp": 2},
-     {"trainer.extra": {"optimizer": "lion"}, "distributed.mesh.sequence": 2}],
-    ids=["zero", "lion-sequence"],
+    "override,needle",
+    # ZeRO and the fsdp and sequence axes train since they were ported (a
+    # mesh of 2 devices as 2 ranks: in one process it exits 2 naming the
+    # device count); Adafactor over an fsdp mesh is still refused.
+    [({"trainer.zero.enabled": True, "distributed.mesh.fsdp": 2}, "device count 1"),
+     ({"trainer.extra": {"optimizer": "lion"}, "distributed.mesh.sequence": 2},
+      "device count 1"),
+     ({"trainer.extra": {"optimizer": "adafactor"}, "distributed.mesh.fsdp": 2},
+      "not yet ported")],
+    ids=["zero", "lion-sequence", "adafactor-fsdp"],
 )
-def test_unported_feature_exits_2_naming_the_roadmap(tmp_path, capsys, override) -> None:
+def test_unported_feature_exits_2_naming_the_roadmap(tmp_path, capsys, override,
+                                                     needle) -> None:
     cfg = _config(tmp_path, **override)
     assert run_cli(port_main, ["train", "--config", str(cfg), "--run-id", "x"]) == 2
     err = capsys.readouterr().err
-    assert "not yet ported" in err and "ROADMAP.md" in err
+    assert needle in err
+    if needle == "not yet ported":
+        assert _CITES_STABLE_ITEM.search(err), err
 
 
 @pytest.mark.parametrize(
@@ -216,23 +224,33 @@ _CITES_STABLE_ITEM = re.compile(r"\(ROADMAP\.md queue A: (" + "|".join(STABLE_IT
 
 @pytest.mark.parametrize(
     "override",
-    # Activation tiers, remat and ZeRO train since they were ported: their
-    # cases pair them with the mesh axes that are still refused.
+    # The mesh axes train since they were ported (as many ranks as the mesh
+    # has devices): in one process each layout below is the plan's
+    # MeshPlanError naming the device count; the pipeline axis is still
+    # refused, citing its item.
     [{"distributed.mesh.sequence": 2}, {"distributed.mesh.fsdp": 2},
      {"model.extra.activation_tiers": "full:*", "distributed.mesh.sequence": 2},
      {"distributed.enabled": True, "distributed.mesh.tensor": 2},
      {"distributed.mesh.data": 2},
      {"trainer.zero.enabled": True, "distributed.mesh.fsdp": 2},
      {"model.remat": True, "distributed.mesh.tensor": 2},
-     {"distributed.mesh.expert": 2}],
+     {"distributed.mesh.expert": 2},
+     {"distributed.mesh.data": 1, "distributed.mesh.pipeline": 2}],
     ids=["sequence", "fsdp", "activation-tiers", "data-parallel", "mesh", "zero", "remat",
-         "expert"],
+         "expert", "pipeline"],
 )
 def test_refusals_cite_a_stable_roadmap_item(tmp_path, override) -> None:
+    from llmtrain_tpu_torch.autotune.plan import MeshPlanError
+
     cfg, _, _ = load_and_validate_config(_config(tmp_path, **override))
-    with pytest.raises(NotImplementedError) as excinfo:
+    if "distributed.mesh.pipeline" in override:
+        with pytest.raises(NotImplementedError) as excinfo:
+            refuse_unported(cfg)
+        assert _CITES_STABLE_ITEM.search(str(excinfo.value)), str(excinfo.value)
+        assert "item 6c" in str(excinfo.value)
+        return
+    with pytest.raises(MeshPlanError, match="device count 1 |but 1 devices are available"):
         refuse_unported(cfg)
-    assert _CITES_STABLE_ITEM.search(str(excinfo.value)), str(excinfo.value)
 
 
 @pytest.mark.parametrize(

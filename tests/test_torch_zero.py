@@ -42,7 +42,6 @@ from llmtrain_tpu.distributed import build_mesh
 from llmtrain_tpu.parallel.sharding import opt_state_shardings as jax_opt_state_shardings
 from llmtrain_tpu_torch.parallel.sharding import (
     host_memory_kind,
-    opt_state_shardings,
     zero_partition_dim,
 )
 
@@ -139,7 +138,7 @@ def test_partition_rule_matches_jax(shape, world) -> None:
     mesh = build_mesh(MeshConfig(data=world), jax.devices("cpu")[:world])
     jax_sh = jax_opt_state_shardings(mesh, {"leaf": jax.ShapeDtypeStruct(shape, jnp.float32)})
     want = tuple(jax_sh["leaf"].shard_shape(shape))
-    dim = opt_state_shardings({"leaf": shape}, world)["leaf"]
+    dim = zero_partition_dim(shape, world)
     assert shard_shape(shape, dim, world) == want
 
 
