@@ -80,8 +80,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    server call, greedy 400+160 (total 560 > 512): the re-forward branch,
    >= 12 x 160 kernel launches. Kernel launch counts are reset just
    before phase 6 and read just after phase 7: the serving path.
-8. Profile: torch.profiler over one more greedy 400+160 generate() (warm
-   from phase 7): wall time, device kernel time and busy share, kernel
+8. Profile: torch.profiler over one more greedy generate() of 400 +
+   PROFILE_NEW_TOKENS (warm from phase 7): wall time, device kernel time and busy share, kernel
    launches per token, top kernels by device time, and the flash
    kernels' device time and share. Measurement only; the profiler's own
    overhead inflates the wall. Every profile of the smoke records the
@@ -123,7 +123,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    Poisson open loop at CONT_RATE_RPS; (b) the same sampled (temperature
    0.8, top-k 40) with serving.prefix_cache, serving.prefill_chunk
    CONT_CHUNK and CONT_SHARED_PREFIX shared prefixes, at
-   CONT_SLOW_FILL_REQUESTS requests (as phase 15(b)). Gates: exit 0,
+   CONT_SLOW_FILL_REQUESTS requests (phase 15(b): SPEC_BENCH_REQUESTS). Gates: exit 0,
    parity bitwise_identical, shapes within the bucket budget, every
    request completed, mean occupancy >= CONT_MIN_OCCUPANCY, the prefix
    cache hit. Then torch.profiler over CONT_PROFILE_STEPS decode steps at
@@ -185,10 +185,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    summary`, `trace slowest`, `trace merge` and `trace show` on the trace
    dirs, every trace rebuilt as router/request -> router/http_dispatch ->
    the replica's serve/request (through traceparent) -> serve/prefill and
-   serve/decode_phase, its critical path tiling the root. (d) Phase
-   14(a)'s traffic with telemetry.timeline false, tokens/s and per-token
-   p50 beside 14(a)'s (the timeline and tracer on) and (a)'s: a
-   measurement, not a gate.
+   serve/decode_phase, its critical path tiling the root. (The traffic
+   untraced against traced, a measurement phase 16(d) made until phase 24
+   came, is tools/serve_fleet_costs.py's, in turns.)
 
 17. The offline data path and the checkpoint tools, in the same temp root:
    (a) `train-tokenizer` over the stdlib (TOKENIZER_MAX_BYTES, vocab
@@ -250,7 +249,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    dir's config.yaml: top_ops list the three fused-CE kernels once each,
    and its flops equal the attribution in that run's report.json. (e)
    TEL_STEPS steps with telemetry.enabled false and with it on plus the
-   native tracker, in the order off, on, on, off, launch counts reset
+   native tracker (TEL_ARMS: off, then on), launch counts reset
    before and read after: the per-run medians of the step time (steps 6
    on) with their spread, each arm's median, and each arm's wall a step by
    the log's timestamps (which, unlike the logged step time, holds the log
@@ -281,7 +280,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    run's; no kernel launched in this process over (b)-(c). (d)
    measurement only: phase 9's `checkpoint_save` spans (the gather; the
    write runs on the manager's thread) and its ledger's checkpoint
-   seconds, and one full-width save's gather and synchronous write. The
+   seconds. Phase 25's `tune` child runs beside (b)-(c)'s children. The
    phase's seconds on their own line.
 21. The model zoo, in the same temp root, launch counts reset just before
    and read just after each training, generate and eval path: (a) `train`
@@ -372,6 +371,39 @@ Phases, each fatal on failure (exit code 1, no result line):
    ring and ulysses (blockwise is plain torch) and the flash counts
    under flash; each step time and peak memory printed beside flash's.
    The phase's seconds on its [clock] line.
+
+24. The pipeline, in the same temp root: (a) phase 9's initial weights,
+   written as the reference torch GPT file, `import-checkpoint` into phase
+   9's config as `gpt_pipeline` (the cell's width and depth, bf16 over f32
+   params, flash, one rank: the whole stack on the card) and `train
+   --resume` from it, PIPE_STEPS steps with an eval and a save at the end,
+   launch counts reset just before and read just after: losses finite and
+   falling, step 1's within FUSED_ATOL (the twin band: the pipeline's
+   two-pass LayerNorm and einsum projections against the GPT's) of phase
+   9's step 1, 12 flash forward, dq and dk/dv per step plus 12 forward
+   per eval batch; step ms, tokens/s, MFU and peak memory beside phase
+   9's. (b) The schedule of parallel/pipeline.py on the card, its stages
+   in lockstep in one process (gpipe_on_one_device): GPipe as 4 stages of
+   3 layers and the interleaved one as 2 stages x 2 chunks, PIPE_MICRO
+   microbatches of PIPE_CHECK_BATCH rows of the cell, f32, the stages'
+   flash kernels and remat_stage: the forward and the gradients of every
+   stacked parameter and of the input against the sequential stack within
+   PIPE_FWD_RTOL and PIPE_GRAD_RTOL (normwise), the control with every
+   hop two stages on (the stages' layer rows rotated by two stages) at
+   least PIPE_CONTROL_FACTOR x the forward band, the flash launches the
+   schedules imply. (c) `generate` greedy from (a)'s checkpoint against
+   generate() of the same weights saved as gpt (`export-checkpoint`'s
+   reference torch GPT file loaded into phase 9's GPT, cast for decoding
+   as `generate` casts them): bitwise the same tokens. The phase's
+   seconds on its [clock] line.
+25. Autotune, in the same temp root: `plan` on phase 9's config exits 0,
+   its predicted memory printed beside phase 9's measured peak; `plan` at
+   micro batch PLAN_OVER_LIMIT_MICRO exits 2 (over the card's memory);
+   `tune` on gpt_tune_smoke on the card at its own budget (two probes of
+   three steps, each a `train` child) as a child process started beside
+   phase 20's children (start_tune): the baseline probed, the winner's
+   measured MFU at least the baseline's, the emitted config trained one
+   step.
 
 Then it prints the kernels line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
@@ -1442,6 +1474,10 @@ def phase_serve(torch, cfg, model, smi: str) -> None:
 
 
 REFORWARD = (400, 160)  # prompt, new tokens: total 560 > block_size 512
+# Phase 8 profiles the re-forward branch over this many new tokens (160,
+# REFORWARD's, until phase 24 came; PERF.md §2): 400 + 120 passes
+# block_size, so every one of them re-forwards.
+PROFILE_NEW_TOKENS = 120
 
 
 def phase_generate(torch, model, smi: str) -> None:
@@ -1494,7 +1530,7 @@ def phase_profile(torch, model, smi: str) -> None:
 
     from llmtrain_tpu_torch.generation import generate
 
-    prompt_len, max_new = REFORWARD
+    prompt_len, max_new = REFORWARD[0], PROFILE_NEW_TOKENS
     ids = np.random.default_rng(5).integers(0, 256, (1, prompt_len)).astype(np.int32)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
@@ -1945,8 +1981,12 @@ def phase_train_profile(torch, smi: str, cfg_path: Path) -> None:
 # batch stays full whatever the host's speed and the queue holds the rest.
 CONT_REQUESTS = 16  # 48 until phase 21 came, 24 until phase 22 (PERF.md §2)
 # The sampled (prefix cache) and speculative runs keep more requests: their
-# batch fills more slowly (mean occupancy 7.02 and 6.97 at 32, PERF.md §2).
-CONT_SLOW_FILL_REQUESTS = 32
+# batch fills more slowly. The sampled run's mean occupancy was 6.98-7.12
+# at 32 and 6.90 at 24 (32 until phase 24 came, PERF.md §2); the
+# speculative run drains its batch fastest (6.88-7.09 at 32, 5.35 at 24:
+# it keeps 32).
+CONT_SLOW_FILL_REQUESTS = 24
+SPEC_BENCH_REQUESTS = 32
 CONT_PROMPTS = (16, 256)
 CONT_NEW_TOKENS = 64
 CONT_RATE_RPS = 16.0
@@ -2533,7 +2573,7 @@ def phase_speculative(torch, smi: str, tmp: Path, train: dict, cont: dict) -> di
     # ---- (b) speculative serve-bench; (c) int8 serve-bench and its peak.
     greedy_path = _serving_config(tmp, "gpt_pycorpus_speculative")
     spec_block = _serve_bench(greedy_path, ckpt, smi, "speculative", "--temperature", "0",
-                              *draft_argv, requests=CONT_SLOW_FILL_REQUESTS)
+                              *draft_argv, requests=SPEC_BENCH_REQUESTS)
     spec = spec_block["scheduler_stats"]["speculative"]
     log(f"[spec] (b) {spec['mode']} speculative serving: {spec['rounds']} rounds, "
         f"{spec['accepted']}/{spec['drafted']} drafts accepted (acceptance rate "
@@ -2566,7 +2606,8 @@ def phase_speculative(torch, smi: str, tmp: Path, train: dict, cont: dict) -> di
 # under CONT_RELOAD_REQUESTS of FLEET_RELOAD_NEW_TOKENS in flight; (c) two
 # `serve` replica children and a dead port behind a `serve --backends`
 # router child, FLEET_HTTP_REQUESTS greedy requests of FLEET_HTTP_NEW_TOKENS;
-# (d) phase 14(a)'s traffic with the timeline off. The cuts keep the whole
+# (d), phase 14(a)'s traffic with the timeline off, went with phase 24
+# (tools/serve_fleet_costs.py measures it in turns). The cuts keep the whole
 # run near 800 s: with 48 requests and 496-token reload requests phase 16
 # took 156 s and the run 827 s on a slow host (a's parity pass is 48
 # sequential generate() calls).
@@ -2766,37 +2807,6 @@ def _fleet_traces(fleet_dir: Path, smi: str) -> dict:
     return dict(summary=summary)
 
 
-def _fleet_untraced(tmp: Path, ckpt: Path, smi: str, cont: dict, bench: dict) -> dict:
-    """16(d): phase 14(a)'s greedy traffic with telemetry.timeline false (no
-    timeline, no request tracer), beside 14(a) (JAX's default: both on) and
-    16(a). A measurement: only the command's exit is checked."""
-    import yaml
-
-    path = _serving_config(tmp, "gpt_pycorpus_untraced")
-    raw = yaml.safe_load(path.read_text())
-    raw["telemetry"] = {**raw.get("telemetry", {}), "timeline": False}
-    path.write_text(yaml.safe_dump(raw, sort_keys=False))
-    code, out = _run_cli(["serve-bench", "--config", str(path), "--from", str(ckpt),
-                          "--requests", str(CONT_REQUESTS), "--rate-rps", str(CONT_RATE_RPS),
-                          "--seed", "14", "--prompt-tokens-min", str(CONT_PROMPTS[0]),
-                          "--prompt-tokens-max", str(CONT_PROMPTS[1]),
-                          "--max-new-tokens", str(CONT_NEW_TOKENS), "--temperature", "0",
-                          "--out", str(tmp / "bench_untraced")])
-    if code != 0:
-        raise RuntimeError(f"serve-bench with the timeline off exited {code}")
-    block = json.loads(out)["serving"]
-    on = cont["greedy"]
-    log(f"[fleet] (d) phase 14(a)'s traffic, timeline and tracer off, on {smi}: "
-        f"{block['throughput']['tokens_per_sec']} output tokens/s, per-token p50 "
-        f"{block['slo']['per_token_ms']['p50']} ms, TTFT p50 {block['slo']['ttft_ms']['p50']} "
-        f"ms; on (14(a)): {on['throughput']['tokens_per_sec']}, "
-        f"{on['slo']['per_token_ms']['p50']} ms, {on['slo']['ttft_ms']['p50']} ms; 16(a) "
-        f"(router, sampled): {bench['throughput']['tokens_per_sec']}, "
-        f"{bench['slo']['per_token_ms']['p50']} ms; tracing block present: "
-        f"{'tracing' in block}")
-    return block
-
-
 def phase_fleet(torch, smi: str, tmp: Path, train: dict, cont: dict) -> dict:
     """Phase 16: the replica router and request tracing on phase 9's
     checkpoint (see FLEET_*). Launch counts reset just before and read just
@@ -2835,11 +2845,10 @@ def phase_fleet(torch, smi: str, tmp: Path, train: dict, cont: dict) -> dict:
         for proc, _ in procs.values():
             _stop_server(proc)
     traces = _fleet_traces(fleet_dir, smi)
-    untraced = _fleet_untraced(tmp, ckpt, smi, cont, bench)
     counts = _read_counts()  # and end here
     log(f"[fleet] phase 16 in {time.perf_counter() - t0:.1f} s on {smi}")
     _check_counts("fleet", counts, {})  # the fleet tier runs none of the kernels
-    return dict(bench=bench, reload=reload, http=http, traces=traces, untraced=untraced)
+    return dict(bench=bench, reload=reload, http=http, traces=traces)
 
 
 # ------------------------------------------- offline data and checkpoint tools
@@ -3388,6 +3397,8 @@ TEL_PEAK_RTOL = 0.01
 GOODPUT_COVERED = 0.9
 PROFILE_STEPS = 3
 TEL_STEPS = 12  # 20 until phase 21 came (PERF.md §2)
+# Telemetry off, then on (off, on, on, off until phase 24 came; PERF.md §2).
+TEL_ARMS = (False, True)
 
 
 def _boundary_walls(run_dir: Path, first: int, last: int) -> float:
@@ -3558,7 +3569,7 @@ def phase_telemetry(torch, smi: str, tmp: Path, train: dict, ce: dict) -> dict:
     # (e) telemetry's cost on the step, paired.
     runs, walls = {}, {}
     _reset_counts()  # the telemetry on/off path's counts start here
-    for i, enabled in enumerate((False, True, True, False)):
+    for i, enabled in enumerate(TEL_ARMS):
         name = f"tel_{'on' if enabled else 'off'}_{i}"
         path = _telemetry_config(tmp, name, enabled=enabled)
         code, out = _run_cli(["train", "--config", str(path), "--run-id", name, "--json"])
@@ -3573,9 +3584,9 @@ def phase_telemetry(torch, smi: str, tmp: Path, train: dict, ce: dict) -> dict:
             raise RuntimeError(f"{name}: report.json written {wrote}, telemetry {enabled}")
     tel_counts = _read_counts()  # and end here
     _check_counts("telemetry on/off", tel_counts, {
-        "flash_attention_fwd": 4 * layers * (TEL_STEPS + train["eval_batches"]),
-        "flash_attention_bwd_dq": 4 * layers * TEL_STEPS,
-        "flash_attention_bwd_dkdv": 4 * layers * TEL_STEPS,
+        "flash_attention_fwd": len(TEL_ARMS) * layers * (TEL_STEPS + train["eval_batches"]),
+        "flash_attention_bwd_dq": len(TEL_ARMS) * layers * TEL_STEPS,
+        "flash_attention_bwd_dkdv": len(TEL_ARMS) * layers * TEL_STEPS,
     })
     for name, ms in runs.items():
         log(f"[telemetry] {name}: step median {np.median(ms):.2f} ms over steps 6-{TEL_STEPS} "
@@ -3810,43 +3821,27 @@ def _resilience_chaos(tmp: Path) -> dict:
 def _resilience_saves(torch, smi: str, train: dict) -> dict:
     """(d) phase 9's checkpoint cost: its `checkpoint_save` spans (the
     gather alone since asynchronous writes) and its ledger's checkpoint
-    seconds; and one full-width state of phase 9's config gathered and
-    written synchronously, the step loop's cost before the writes moved
-    off it. Measurement only."""
-    from llmtrain_tpu_torch.config import load_and_validate_config
-    from llmtrain_tpu_torch.training.checkpoint import CheckpointManager
-    from llmtrain_tpu_torch.training.trainer import Trainer
-
+    seconds. Measurement only. (One full-width state gathered and written
+    synchronously, measured here until phase 24 came, PERF.md §2.)"""
     events = _timeline(train["run_dir"])
     saves = [ev["dur_us"] / 1e6 for ev in events if ev.get("name") == "checkpoint_save"]
     code, out = _run_cli(["goodput", "--run-dir", str(train["run_dir"]), "--json"])
     ledger_ckpt = json.loads(out)["categories"]["checkpoint"] if code == 0 else None
-    cfg, _, _ = load_and_validate_config(train["cfg_path"])
-    trainer = Trainer(cfg, None)
-    t0 = time.perf_counter()
-    state = trainer.host_state()
-    gather_s = time.perf_counter() - t0
-    mgr = CheckpointManager(train["run_dir"] / "sync_save")
-    t0 = time.perf_counter()
-    target = mgr.save_host(TRAIN_STEPS, state, cfg.model_dump())
-    write_s = time.perf_counter() - t0
-    size = target.stat().st_size
-    del trainer, state
-    torch.cuda.empty_cache()
     log(f"[saves] phase 9 on {smi}: checkpoint_save spans {[round(s, 3) for s in saves]} s "
-        f"(the gather; the write runs on the writer thread); ledger checkpoint {ledger_ckpt} s. "
-        f"One full-width state: gather {gather_s:.3f} s, synchronous write {write_s:.3f} s of "
-        f"{size / 2**30:.3f} GiB (the loop paid both before the writes moved to a thread)")
-    return dict(spans=saves, ledger=ledger_ckpt, gather=gather_s, write=write_s)
+        f"(the gather; the write runs on the writer thread); ledger checkpoint {ledger_ckpt} s")
+    return dict(spans=saves, ledger=ledger_ckpt)
 
 
-def phase_resilience(torch, smi: str, tmp: Path, train: dict) -> dict:
+def phase_resilience(torch, smi: str, tmp: Path, train: dict, beside=None) -> dict:
     """Phase 20 (module doc): the guard and the spike rollback, the hang
-    watchdog, the chaos drill, and the checkpoint's cost."""
+    watchdog, the chaos drill, and the checkpoint's cost. ``beside`` starts
+    another phase's child process to run beside (b)-(c)'s children; what it
+    returns is the result's ``beside``."""
     t_phase = time.perf_counter()
     rollback = _resilience_rollback(torch, smi, tmp, train)
     torch.cuda.empty_cache()
     _reset_counts()  # (b)-(c) run in child processes: none here
+    started = beside() if beside is not None else None
     # The hung child waits out its stall beside the chaos drill's children.
     hung = _start_watchdog_child(tmp)
     try:
@@ -3859,7 +3854,7 @@ def phase_resilience(torch, smi: str, tmp: Path, train: dict) -> dict:
     log(f"[resilience] phase 20 {seconds:.1f} s (watchdog child {watchdog['wall']:.1f} s, chaos "
         f"{chaos['wall']:.1f} s)")
     return dict(counts=rollback["counts"], rollback=rollback, watchdog=watchdog, chaos=chaos,
-                saves=saves, seconds=seconds)
+                saves=saves, seconds=seconds, beside=started)
 
 
 # ------------------------------------------------------ model zoo (phase 21)
@@ -4980,6 +4975,375 @@ def phase_mesh(torch, smi: str, tmp: Path, ddp: dict) -> dict:
     return dict(one=one, checks=checks, runs=runs, counts=counts, seconds=seconds)
 
 
+PIPE_STEPS = 6
+PIPE_WARMUP = PIPE_STEPS
+PIPE_CHECK_BATCH = 8  # rows of 24(b)'s schedule checks (4 microbatches of 2)
+PIPE_SCHEDULES = (("gpipe", 4, 1), ("interleaved", 2, 2))  # name, stages, chunks a stage
+PIPE_MICRO = 4
+# 24(b)'s band, f32 with TF32 off, the schedule against the sequential
+# stack on the card (PERF.md §6, written before the first call): the
+# forward within PIPE_FWD_RTOL of the output's largest element, every
+# gradient (each stacked parameter and the input) within 1e-5 +
+# PIPE_GRAD_RTOL x its largest element (23(b)'s normwise rule). The two
+# sides differ in the GEMMs' row counts (a microbatch against the whole
+# batch) and in the order the backward sums the microbatches.
+PIPE_FWD_RTOL = 1e-5
+PIPE_GRAD_RTOL = 1e-4
+# The broken control (every hop two stages on) must miss the forward band
+# by this factor or more.
+PIPE_CONTROL_FACTOR = 100.0
+PIPE_PROMPT = "def "
+PIPE_NEW_TOKENS = 48
+PLAN_OVER_LIMIT_MICRO = 4096  # micro batch whose predicted memory is over the card's
+TUNE_PRESET = "gpt_tune_smoke"
+
+
+def _pipe_config(tmp: Path, name: str, *, steps: int) -> Path:
+    """Phase 9's config as ``gpt_pipeline`` (one rank: the whole stack on
+    the card), cut to ``steps`` steps with an eval and a save at the end."""
+    import yaml
+
+    path = _smoke_config(tmp, name)
+    raw = yaml.safe_load(path.read_text())
+    raw["model"]["name"] = "gpt_pipeline"
+    raw["trainer"].update(max_steps=steps, warmup_steps=PIPE_WARMUP, eval_every_steps=steps,
+                          save_every_steps=steps)
+    path.write_text(yaml.safe_dump(raw, sort_keys=False))
+    return path
+
+
+def _pipe_train(torch, smi: str, tmp: Path, train: dict | None) -> dict:
+    """24(a) and (c)."""
+    from llmtrain_tpu_torch.config import load_and_validate_config
+    from llmtrain_tpu_torch.interop import params_to_torch_state_dict, state_dict_to_flax_params
+    from llmtrain_tpu_torch.registry import get_model_adapter, initialize_registries
+
+    t0 = time.perf_counter()
+    gpt_path = train["cfg_path"] if train else _smoke_config(tmp, "gpt_pycorpus_smoke")
+    pipe_path = _pipe_config(tmp, "pipe", steps=PIPE_STEPS)
+    gpt_cfg, _, _ = load_and_validate_config(gpt_path)
+    initialize_registries()
+    # Phase 9's initial weights, as the reference torch GPT file
+    # export-checkpoint writes, imported into the pipeline config.
+    gpt = get_model_adapter("gpt")().build_model(gpt_cfg, torch.device("cuda"))
+    init = {k: torch.from_numpy(v) for k, v in params_to_torch_state_dict(
+        state_dict_to_flax_params(gpt.state_dict(), n_heads=gpt_cfg.model.n_heads)).items()}
+    del gpt
+    torch.save(init, tmp / "pipe_init.pt")
+    # Without phase 9 the GPT's first step runs here, from the same file.
+    imports = [(pipe_path, "pipe_init")] + ([] if train else [(gpt_path, "gpt_init")])
+    for cfg_path, out in imports:
+        code, _ = _run_cli(["import-checkpoint", "--config", str(cfg_path), "--input",
+                            str(tmp / "pipe_init.pt"), "--output", str(tmp / out)])
+        if code != 0:
+            raise RuntimeError(f"24(a): import-checkpoint into {cfg_path.name} exited {code}")
+    if train:
+        gpt_first = train["steps"][1]["loss"]
+    else:
+        code, _ = _run_cli(["train", "--config", str(gpt_path), "--run-id", "gpt_first",
+                            "--resume", str(tmp / "gpt_init"), "--json"])
+        if code != 0:
+            raise RuntimeError(f"24(a): the GPT's first step exited {code}")
+        gpt_first = _logged_steps(tmp / "runs" / "gpt_first")[1]["loss"]
+    t_setup = time.perf_counter() - t0
+    eval_batches = _eval_batches(pipe_path)
+    torch.cuda.empty_cache()
+    _reset_counts()  # the pipeline run's counts start here
+    code, out = _run_cli(["train", "--config", str(pipe_path), "--run-id", "pipe",
+                          "--resume", str(tmp / "pipe_init"), "--json"])
+    counts = _read_counts()  # and end here
+    t_train = time.perf_counter() - t0 - t_setup
+    if code != 0:
+        raise RuntimeError(f"24(a): gpt_pipeline train exited {code}")
+    summary = json.loads(out)["train_result"]
+    run_dir = tmp / "runs" / "pipe"
+    steps = _logged_steps(run_dir)
+    losses = [steps[i]["loss"] for i in sorted(steps)]
+    layers = gpt_cfg.model.n_layers
+    _check_counts("pipe train", counts, {
+        "flash_attention_fwd": layers * (PIPE_STEPS + eval_batches),
+        "flash_attention_bwd_dq": layers * PIPE_STEPS,
+        "flash_attention_bwd_dkdv": layers * PIPE_STEPS,
+    })
+    s = _steady(steps)
+    first_diff = abs(losses[0] - gpt_first)
+    beside = (f"phase 9's GPT cell {train['step_ms']:.1f} ms, "
+              f"{train['summary']['peak_memory'] / 2**30:.2f} GiB" if train
+              else "phase 9 not run")
+    log(f"[pipe] (a) gpt_pipeline at the cell's width and depth, one rank, from phase 9's "
+        f"init: losses {' '.join(f'{x:.4f}' for x in losses)}; step 1 {losses[0]:.6f} against "
+        f"the GPT's {gpt_first:.6f} (diff {first_diff:.2e}, band {FUSED_ATOL}); step "
+        f"{s['step_time'] * 1e3:.1f} ms (median of steps 2-{PIPE_STEPS - 1}), "
+        f"{s['tokens_per_sec']:.0f} tokens/s, MFU {s['mfu']:.4f}, peak memory "
+        f"{summary['peak_memory'] / 2**30:.2f} GiB ({beside}) on {smi}")
+    if (len(losses) != PIPE_STEPS or not all(math.isfinite(x) for x in losses)
+            or not losses[-1] < losses[0]):
+        raise RuntimeError(f"24(a): the losses are not finite and falling: {losses}")
+    if first_diff > FUSED_ATOL:
+        raise RuntimeError(f"24(a): step 1's loss misses the GPT's by {first_diff}")
+
+    # (c) `generate` from the pipeline checkpoint against generate() of the
+    # same weights saved as gpt: export-checkpoint's reference torch GPT
+    # file, loaded into phase 9's GPT.
+    code, _ = _run_cli(["export-checkpoint", "--config", str(pipe_path), "--from", str(run_dir),
+                        "--output", str(tmp / "pipe_final.pt")])
+    if code != 0:
+        raise RuntimeError(f"24(c): export-checkpoint exited {code}")
+    code, out = _run_cli(["generate", "--config", str(pipe_path), "--from", str(run_dir),
+                          "--prompt", PIPE_PROMPT, "--max-new-tokens", str(PIPE_NEW_TOKENS),
+                          "--temperature", "0", "--json"])
+    if code != 0:
+        raise RuntimeError(f"24(c): generate from {run_dir} exited {code}")
+    completions = [json.loads(out)["completion_ids"],
+                   _exported_generate(torch, gpt_cfg, tmp / "pipe_final.pt")]
+    same = completions[0] == completions[1] and len(completions[0]) == PIPE_NEW_TOKENS
+    log(f"[pipe] (c) generate {PIPE_PROMPT!r} + {PIPE_NEW_TOKENS} greedy from the pipeline "
+        f"checkpoint and from its weights saved as gpt: bitwise {same}; seconds: the init's "
+        f"import {t_setup:.1f}, train {t_train:.1f}, (c) "
+        f"{time.perf_counter() - t0 - t_setup - t_train:.1f}")
+    if not same:
+        raise RuntimeError(f"24(c): the completions differ: {completions}")
+    return dict(counts=counts, step_ms=s["step_time"] * 1e3, peak=summary["peak_memory"],
+                losses=losses, first_diff=first_diff, pipe_path=pipe_path)
+
+
+def _exported_generate(torch, cfg, path: Path) -> list[int]:
+    """generate() greedy of PIPE_PROMPT on the GPT of ``cfg`` holding a
+    reference torch GPT file's weights, cast for decoding as `generate`
+    casts them."""
+    import logging
+
+    import numpy as np
+
+    from llmtrain_tpu_torch.cli import prepare_decode_model
+    from llmtrain_tpu_torch.data.tokenizers import ByteTokenizer
+    from llmtrain_tpu_torch.generation import generate
+    from llmtrain_tpu_torch.interop import (
+        flax_params_to_state_dict,
+        params_from_torch_state_dict,
+        state_dict_to_flax_params,
+    )
+    from llmtrain_tpu_torch.registry import get_model_adapter
+
+    model = get_model_adapter("gpt")().build_model(cfg, torch.device("cuda"))
+    template = state_dict_to_flax_params(model.state_dict(), n_heads=cfg.model.n_heads)
+    raw = {k: v.float().numpy() for k, v in torch.load(path, weights_only=True).items()}
+    model.load_state_dict(flax_params_to_state_dict(params_from_torch_state_dict(raw, template)))
+    model = prepare_decode_model(model, "compute", logging.getLogger("llmtrain"))
+    tokenizer = ByteTokenizer()
+    ids = np.asarray([tokenizer.encode(PIPE_PROMPT)], np.int32)
+    out = generate(model, ids, max_new_tokens=PIPE_NEW_TOKENS, temperature=0.0,
+                   eos_token_id=getattr(tokenizer, "eot_token", None))
+    return [int(t) for t in np.asarray(out)[0, ids.shape[1]:]]
+
+
+def _pipe_schedules(torch, smi: str, pipe_path: Path) -> dict:
+    """24(b): the schedule's stages in lockstep on the card against the
+    sequential stack, and its broken control."""
+    from llmtrain_tpu_torch.config import load_and_validate_config
+    from llmtrain_tpu_torch.models.gpt_pipeline import make_stage_fn
+    from llmtrain_tpu_torch.parallel import pipeline
+    from llmtrain_tpu_torch.registry import get_model_adapter
+
+    cfg, _, _ = load_and_validate_config(pipe_path)
+    model = get_model_adapter("gpt_pipeline")().build_model(cfg, torch.device("cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    blocks = {n: p.detach().float().requires_grad_() for n, p in model.blocks().items()}
+    ids = torch.randint(0, cfg.model.vocab_size or 256, (PIPE_CHECK_BATCH, cfg.model.block_size),
+                        generator=gen, device="cuda")
+    with torch.no_grad():
+        x0 = (model.token_embedding.weight[ids]
+              + model.position_embedding.weight[:cfg.model.block_size]).float()
+    cot = torch.randn(x0.shape, generator=gen, device="cuda")
+    del model
+    stage_fn = make_stage_fn(attention="flash", dtype=torch.float32)
+    names = list(blocks)
+    layers = cfg.model.n_layers
+
+    def run(fn):
+        x = x0.clone().requires_grad_()
+        y = fn(x)
+        grads = torch.autograd.grad((y * cot).sum(), [x, *blocks.values()])
+        return y.detach(), dict(zip(["x", *names], grads))
+
+    _reset_counts()  # the schedules' counts start here
+    ref_y, ref_g = run(lambda x: stage_fn(blocks, x))
+    results, expect = {}, {"flash_attention_fwd": layers, "flash_attention_bwd_dq": layers,
+                           "flash_attention_bwd_dkdv": layers}
+    for name, stages, chunks in PIPE_SCHEDULES:
+        y, g = run(lambda x: pipeline.gpipe_on_one_device(
+            stage_fn, blocks, x, stages, n_microbatches=PIPE_MICRO, virtual_chunks=chunks))
+        fwd = float((y - ref_y).abs().max())
+        fwd_band = PIPE_FWD_RTOL * float(ref_y.abs().max())
+        worst = {}
+        for k, want in ref_g.items():
+            diff = float((g[k] - want).abs().max())
+            worst[k] = (diff, 1e-5 + PIPE_GRAD_RTOL * float(want.abs().max()))
+        results[name] = dict(fwd=fwd, fwd_band=fwd_band, grads=worst)
+        # Each layer once a microbatch forward, again in the backward's
+        # recompute (remat_stage), and once a microbatch in the backward.
+        expect = {k: v + layers * PIPE_MICRO * (2 if k == "flash_attention_fwd" else 1)
+                  for k, v in expect.items()}
+        log(f"[pipe] (b) {name} ({stages} stages x {chunks} chunk(s), {PIPE_MICRO} microbatches, "
+            f"{PIPE_CHECK_BATCH}x{cfg.model.block_size} tokens, f32) against the sequential "
+            f"stack: forward {fwd:.2e} (band {fwd_band:.2e}); gradients "
+            + ", ".join(f"{k} {d:.2e}/{b:.2e}" for k, (d, b) in worst.items()) + f" on {smi}")
+        if fwd > fwd_band or any(d > b for d, b in worst.values()):
+            raise RuntimeError(f"24(b): the {name} schedule misses its band: {results[name]}")
+    # The broken control: every hop two stages on. Each stage's layer rows
+    # rotated by two stages do to the activations what such hops would:
+    # they visit the stages in the order 2, 3, 0, 1.
+    shift = 2 * layers // 4
+    with torch.no_grad():
+        broken = pipeline.gpipe_on_one_device(
+            stage_fn, {n: p.roll(shift, 0) for n, p in blocks.items()}, x0, 4,
+            n_microbatches=PIPE_MICRO)
+    expect["flash_attention_fwd"] += layers * PIPE_MICRO
+    control = float((broken - ref_y).abs().max())
+    band = results["gpipe"]["fwd_band"]
+    counts = _read_counts()  # and end here
+    log(f"[pipe] (b) control, every hop two stages on: forward {control:.2e} against the "
+        f"band {band:.2e} ({control / band:.1e}x)")
+    if not control > PIPE_CONTROL_FACTOR * band:
+        raise RuntimeError(f"24(b): the broken control lands at {control}, within "
+                           f"{PIPE_CONTROL_FACTOR}x the band {band}")
+    _check_counts("pipe schedules", counts, expect)
+    return dict(results=results, control=control, counts=counts)
+
+
+def phase_pipeline(torch, smi: str, tmp: Path, train: dict | None) -> dict:
+    """Phase 24 (module doc): gpt_pipeline on the card, the schedules
+    against the sequential stack, generate from its checkpoint. Returns
+    its paths' launch counts."""
+    t0 = time.perf_counter()
+    trained = _pipe_train(torch, smi, tmp, train)
+    sched = _pipe_schedules(torch, smi, trained["pipe_path"])
+    counts = {k: trained["counts"][k] + sched["counts"][k] for k in trained["counts"]}
+    seconds = time.perf_counter() - t0
+    log(f"[pipe] phase 24 in {seconds:.1f} s on {smi}; launches {counts}")
+    return dict(trained=trained, sched=sched, counts=counts, seconds=seconds)
+
+
+TUNE_TIMEOUT_SEC = 600
+
+
+def start_tune(tmp: Path) -> dict:
+    """Phase 25's `tune` on gpt_tune_smoke as a child process in its own
+    session (its probes are its children), so it can run beside other
+    phases' children (PERF.md §2)."""
+    import yaml
+
+    root = Path(__file__).resolve().parent
+    raw = yaml.safe_load((root / "configs" / "presets" / f"{TUNE_PRESET}.yaml").read_text())
+    raw["run"]["device"] = "cuda"
+    raw["output"]["root_dir"] = str(tmp / "runs")
+    cfg = tmp / "tune.yaml"
+    cfg.write_text(yaml.safe_dump(raw, sort_keys=False))
+    out, err = open(tmp / "tune.out", "w"), open(tmp / "tune.err", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "llmtrain_tpu_torch", "tune", "--config", str(cfg), "--workdir",
+         str(tmp / "tune"), "--output", str(tmp / "tuned.yaml"), "--json"],
+        cwd=root, stdout=out, stderr=err, text=True, start_new_session=True)
+    out.close()
+    err.close()
+    return dict(proc=proc, tmp=tmp, raw=raw, t0=time.perf_counter())
+
+
+def stop_tune(tune: dict | None) -> None:
+    """Stop the tune child and its probes if still running."""
+    import os
+    import signal
+
+    if tune is not None and tune["proc"].poll() is None:
+        os.killpg(tune["proc"].pid, signal.SIGKILL)
+        tune["proc"].wait(timeout=30)
+
+
+def _finish_tune(tune: dict, smi: str) -> dict:
+    """25's gates on the tune child's report: the baseline probed, the
+    winner's MFU at least the baseline's, the emitted config training one
+    step."""
+    import yaml
+
+    tmp, raw = tune["tmp"], tune["raw"]
+    try:
+        code = tune["proc"].wait(timeout=TUNE_TIMEOUT_SEC)
+    finally:
+        stop_tune(tune)
+    if code != 0:
+        raise RuntimeError(f"25: tune exited {code}: {(tmp / 'tune.err').read_text()[-2000:]}")
+    report = json.loads((tmp / "tune.out").read_text())
+    baseline, winner = report["baseline"], report["winner"]
+    log(f"[autotune] tune {TUNE_PRESET} (max_probes {raw['tune']['max_probes']}, probe_steps "
+        f"{raw['tune']['probe_steps']}): {report['enumerated']} candidates, "
+        f"{len(report['pruned'])} pruned, probes "
+        + ", ".join(f"{m['key']} {m['status']}" + (f" mfu {m['mfu']:.3e}" if "mfu" in m else "")
+                    for m in report["measured"])
+        + f"; winner {winner['key']} in {report['elapsed_sec']:.1f} s on {smi} (child wall "
+        f"{time.perf_counter() - tune['t0']:.1f} s)")
+    if baseline.get("status") != "ok" or winner.get("status") != "ok" \
+            or winner["mfu"] < baseline["mfu"]:
+        raise RuntimeError(f"25: tune's winner {winner} is not at least the baseline {baseline}")
+    raw = yaml.safe_load((tmp / "tuned.yaml").read_text())
+    raw["trainer"].update(max_steps=1, warmup_steps=0)
+    one = tmp / "tuned_one.yaml"
+    one.write_text(yaml.safe_dump(raw, sort_keys=False))
+    code, out = _run_cli(["train", "--config", str(one), "--run-id", "tuned", "--json"])
+    if code != 0 or not math.isfinite(json.loads(out)["train_result"]["final_loss"]):
+        raise RuntimeError(f"25: the emitted config's one step exited {code}")
+    log("[autotune] the emitted config trained one step")
+    return report
+
+
+def phase_autotune(torch, smi: str, tmp: Path, train: dict | None,
+                   tune: dict | None = None) -> dict:
+    """Phase 25 (module doc): plan on the byte cell, plan over the card's
+    memory, and the tune (``tune``: started earlier by start_tune, else
+    here) with the emitted config trained."""
+    t0 = time.perf_counter()
+    own = tune is None
+    tune = tune or start_tune(tmp)
+    try:
+        predicted = _plan_checks(tmp, train)
+        report = _finish_tune(tune, smi)
+    finally:
+        if own:
+            stop_tune(tune)
+    seconds = time.perf_counter() - t0
+    log(f"[autotune] phase 25 in {seconds:.1f} s")
+    return dict(predicted=predicted, winner=report["winner"], seconds=seconds)
+
+
+def _plan_checks(tmp: Path, train: dict | None) -> float:
+    """25's `plan` on the byte cell (exit 0) and over the card's memory
+    (exit 2); the cell's predicted bytes."""
+    import yaml
+
+    cell = train["cfg_path"] if train else _smoke_config(tmp, "gpt_pycorpus_smoke")
+    code, out = _run_cli(["plan", "--config", str(cell), "--json"])
+    if code != 0:
+        raise RuntimeError(f"25: plan on the byte cell exited {code}")
+    payload = json.loads(out)
+    predicted = payload["predicted_hbm"]["total_bytes"]
+    measured = (f"phase 9's measured peak {train['summary']['peak_memory'] / 2**30:.2f} GiB"
+                if train else "phase 9 not run")
+    log(f"[autotune] plan {payload['plan']['key']} on {payload['device_kind']}: predicted "
+        f"{predicted / 2**30:.2f} GiB (activations "
+        f"{payload['predicted_hbm']['activation_bytes'] / 2**30:.2f}, logits "
+        f"{payload['predicted_hbm']['logits_bytes'] / 2**30:.2f}) against the limit "
+        f"{payload['hbm_limit_bytes'] / 2**30:.1f} GiB, {measured}; roofline "
+        f"{payload['roofline']['class']}")
+    raw = yaml.safe_load(cell.read_text())
+    raw["trainer"]["micro_batch_size"] = PLAN_OVER_LIMIT_MICRO
+    over = tmp / "plan_over.yaml"
+    over.write_text(yaml.safe_dump(raw, sort_keys=False))
+    code, _ = _run_cli(["plan", "--config", str(over), "--json"])
+    log(f"[autotune] plan at micro batch {PLAN_OVER_LIMIT_MICRO}: exit {code}")
+    if code != 2:
+        raise RuntimeError(f"25: plan over the card's memory exited {code}, not 2")
+    return predicted
+
+
 def main() -> int:
     import tempfile
 
@@ -5046,24 +5410,35 @@ def main() -> int:
         clock("phase 18: ddp, optimizers")
         tel = phase_telemetry(torch, smi, Path(tmp), train, ce)
         clock("phase 19: telemetry")
-        res = phase_resilience(torch, smi, Path(tmp), train)
-        clock("phase 20: resilience")
-        zoo = phase_zoo(torch, smi, Path(tmp))
-        clock("phase 21: model zoo")
-        par = phase_parallel(torch, smi, Path(tmp), train, ddp)
-        clock("phase 22: parallelism on one device")
-        mesh = phase_mesh(torch, smi, Path(tmp), ddp["ddp"])
-        clock("phase 23: meshes at one rank")
+        tune = None
+        try:
+            # Phase 25's tune runs beside phase 20's children (PERF.md §2).
+            res = phase_resilience(torch, smi, Path(tmp), train,
+                                   beside=lambda: start_tune(Path(tmp)))
+            tune = res["beside"]
+            clock("phase 20: resilience")
+            zoo = phase_zoo(torch, smi, Path(tmp))
+            clock("phase 21: model zoo")
+            par = phase_parallel(torch, smi, Path(tmp), train, ddp)
+            clock("phase 22: parallelism on one device")
+            mesh = phase_mesh(torch, smi, Path(tmp), ddp["ddp"])
+            clock("phase 23: meshes at one rank")
+            pipe = phase_pipeline(torch, smi, Path(tmp), train)
+            clock("phase 24: the pipeline")
+            tuned = phase_autotune(torch, smi, Path(tmp), train, tune)
+            clock("phase 25: autotune")
+        finally:
+            stop_tune(tune)
     paths = (train["counts"], fused["counts"], ce["counts"], spec["counts"], offline["counts"],
              ddp["counts"], tel["counts"], res["counts"], zoo["counts"], par["counts"],
-             mesh["counts"])
+             mesh["counts"], pipe["counts"])
     launches = {name: sum(c[name] for c in paths) for name in paths[0]}
     launches["flash_attention_fwd"] += serve_launches
     log(f"[main path] launches over serve + generate, train, fused-norm train, CE train, "
         f"speculative/int8/rolling, BPE train and its evals, the one-rank NCCL train and its "
         f"EMA evals, phase 19's profile and telemetry runs, phase 20's guarded run, phase "
-        f"21's model zoo, phase 22's quantized, tiered and ZeRO runs and phase 23's mesh "
-        f"runs: {launches}")
+        f"21's model zoo, phase 22's quantized, tiered and ZeRO runs, phase 23's mesh "
+        f"runs and phase 24's pipeline run and schedules: {launches}")
     for name, n in launches.items():
         if n == 0:
             raise RuntimeError(f"the main path never launched {name}")
@@ -5150,6 +5525,13 @@ def main() -> int:
     log(f"[mesh] one-rank mesh step {mesh['one']['step_ms']:.1f} ms; at block {SEQ_BLOCK} ring "
         f"{runs['ring']['step_ms']:.1f} ms, ulysses {runs['ulysses']['step_ms']:.1f} ms, flash "
         f"{runs['flash']['step_ms']:.1f} ms; phase 23 {mesh['seconds']:.1f} s")
+    trained = pipe["trained"]
+    log(f"[pipe] gpt_pipeline step {trained['step_ms']:.1f} ms, peak memory "
+        f"{trained['peak'] / 2**30:.2f} GiB (GPT cell {train['step_ms']:.1f} ms); step 1 "
+        f"{trained['first_diff']:.2e} off the GPT's; phase 24 {pipe['seconds']:.1f} s")
+    log(f"[autotune] plan predicts {tuned['predicted'] / 2**30:.2f} GiB against phase 9's "
+        f"{train['summary']['peak_memory'] / 2**30:.2f} GiB; tune winner {tuned['winner']['key']}"
+        f"; phase 25 {tuned['seconds']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

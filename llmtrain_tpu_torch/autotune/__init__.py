@@ -1,3 +1,3 @@
-"""Mesh planning (port of the part of ``llmtrain_tpu/autotune/`` the
-trainer calls: :mod:`.plan`). The HBM model, the search and the tuner
-are not ported yet (ROADMAP.md queue A: autotune)."""
+"""Mesh planning and auto-tuning (port of ``llmtrain_tpu/autotune/``):
+:mod:`.plan` (the validated layout and its memory model), :mod:`.search`
+(candidates and the analytic pruning) and :mod:`.tune` (the probe fits)."""

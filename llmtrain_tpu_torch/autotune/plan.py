@@ -1,5 +1,5 @@
-"""One validated object per parallelism layout (port of the fail-fast
-part of ``llmtrain_tpu/autotune/plan.py``).
+"""One validated object per parallelism layout, and its analytic memory
+model (port of ``llmtrain_tpu/autotune/plan.py``).
 
 :func:`plan_from_config` resolves ``distributed.mesh`` against the device
 count (in the port: the ranks of the process group, one device each) and
@@ -15,7 +15,11 @@ checks every rule that would otherwise fail deep inside the trainer:
 * the ZeRO stage and the activation-tier rules.
 
 Every violation raises :class:`MeshPlanError`, which the CLI maps to exit
-code 2 (resilience/exit_codes.py). Dict math only: no torch import.
+code 2 (resilience/exit_codes.py). :func:`predict_hbm_bytes` is the
+per-device memory of a training step under a plan (parameters, gradients,
+AdamW's moments, activations by tier, the logits buffer): the feasibility
+half of ``plan`` and ``tune`` and the trainer's activation-byte gauges.
+Dict math only: no torch import.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ from dataclasses import dataclass
 from typing import Any, Mapping
 
 from ..config.activation_tiers import canonical_tier_spec, parse_activation_tiers
-from ..resilience.elastic import ELASTIC_AXES, MODEL_AXES
+from ..resilience.elastic import ELASTIC_AXES, MODEL_AXES, describe_topology
 
 # Canonical axis order: data outermost. A rank's mesh coordinates are its
 # index unravelled row-major over these sizes (distributed/mesh.py).
@@ -115,6 +119,68 @@ class MeshPlan:
     attention: str = "dense"
     model_name: str = ""
     activation_tiers: str = ""
+
+    @property
+    def data_parallel(self) -> int:
+        """The batch-sharding degree (data x fsdp x expert)."""
+        return math.prod(self.axes[a] for a in ELASTIC_AXES)
+
+    @property
+    def model_parallel(self) -> int:
+        return math.prod(self.axes[a] for a in MODEL_AXES)
+
+    @property
+    def global_micro_batch(self) -> int:
+        return self.micro_batch_size * self.data_parallel
+
+    def mesh_axis_sizes(self) -> dict[str, int]:
+        """The axis sizes a checkpoint manifest records, in mesh order."""
+        return {axis: int(self.axes[axis]) for axis in MESH_AXES}
+
+    def describe_topology(self, *, num_processes: int = 1) -> dict[str, Any]:
+        """The manifest topology block (resilience/elastic.py) this plan
+        produces; resume validation consumes exactly this dict."""
+        return describe_topology(
+            self.mesh_axis_sizes(),
+            data_parallel=self.data_parallel,
+            global_micro_batch=self.global_micro_batch,
+            micro_batch_size=self.micro_batch_size,
+            grad_accum_steps=self.grad_accum_steps,
+            num_processes=num_processes,
+        )
+
+    def key(self) -> str:
+        """Compact stable identity, e.g. ``d2.f2.t1.s1.p1.e2|mb4|remat0|zero1``
+        (``|act=<spec>`` appended when a tier ladder is set)."""
+        mesh = ".".join(f"{a[0]}{self.axes[a]}" for a in MESH_AXES)
+        base = f"{mesh}|mb{self.micro_batch_size}|remat{int(self.remat)}|zero{self.zero_stage}"
+        if self.activation_tiers:
+            return f"{base}|act={self.activation_tiers}"
+        return base
+
+    def config_overrides(self) -> dict[str, Any]:
+        """The config fields this plan pins, as a nested dict that
+        deep-merges into a ``RunConfig.model_dump()``: the probe configs and
+        the emitted tuned YAML are both built through it."""
+        overrides: dict[str, Any] = {
+            "distributed": {"mesh": self.mesh_axis_sizes()},
+            "trainer": {
+                "micro_batch_size": self.micro_batch_size,
+                "zero": {
+                    "enabled": self.zero_stage > 0,
+                    "stage": self.zero_stage if self.zero_stage > 0 else 1,
+                },
+            },
+            "model": {"remat": self.remat},
+        }
+        if self.activation_tiers:
+            # Tiers subsume remat; remat pinned off passes the schema's
+            # mutual-exclusion check.
+            overrides["model"] = {
+                "remat": False,
+                "extra": {"activation_tiers": self.activation_tiers},
+            }
+        return overrides
 
 
 def resolve_plan(
@@ -239,13 +305,151 @@ def plan_from_config(cfg: Any, device_count: int, *, adapter: Any | None = None)
     )
 
 
+# --------------------------------------------------------------------------
+# the analytic memory model (per-device prediction)
+# --------------------------------------------------------------------------
+
+# Device-resident activation copies of [tokens, d_model] per layer by tier:
+# none 14, selective ~6 saved matmul outputs, full 2 (block boundaries),
+# offload ~1 (the in-flight staging buffer; the boundary parks on the host).
+TIER_ACT_COPIES: dict[str, float] = {
+    "none": 14.0,
+    "selective": 6.0,
+    "full": 2.0,
+    "offload": 1.0,
+}
+
+# Host-RAM copies of [tokens, d_model] per offload layer: the block-input
+# residual, double-buffered so the copy of layer i overlaps layer i+1.
+OFFLOAD_HOST_COPIES = 2.0
+
+
+def plan_layer_tiers(plan: MeshPlan, n_layers: int) -> tuple[str, ...]:
+    """The per-layer tiers a plan implies: the parsed spec when set, else
+    the remat flag as all ``full`` or all ``none``."""
+    if plan.activation_tiers:
+        return parse_activation_tiers(plan.activation_tiers, n_layers)
+    return ("full",) * n_layers if plan.remat else ("none",) * n_layers
+
+
+def estimate_param_count(
+    *,
+    d_model: int,
+    n_layers: int,
+    d_ff: int,
+    vocab_size: int,
+    block_size: int,
+    tie_embeddings: bool = True,
+    n_experts: int = 0,
+) -> int:
+    """Analytic GPT-shaped parameter count (QKVO + MLP + norms +
+    embeddings), for ranking: MoE multiplies the MLP by ``n_experts``
+    (plus the router)."""
+    attn = 4 * d_model * d_model + 4 * d_model
+    mlp = 2 * d_model * d_ff + d_model + d_ff
+    if n_experts > 0:
+        mlp = mlp * n_experts + d_model * n_experts
+    norms = 4 * d_model
+    per_layer = attn + mlp + norms
+    embed = vocab_size * d_model + block_size * d_model + 2 * d_model
+    head = 0 if tie_embeddings else vocab_size * d_model
+    return int(n_layers * per_layer + embed + head)
+
+
+def config_loss_impl(cfg: Any) -> tuple[str, int]:
+    """``(loss_impl, ce_chunk)`` the planner assumes for ``cfg``: what the
+    port's GPT family resolves at build time (ops/fused_ce.py
+    ``resolve_loss_impl``), so a verdict charges the logits buffer the run
+    pays. An invalid explicit value resolves to ``dense`` here: config
+    validation owns that error."""
+    extra = dict(getattr(cfg.model, "extra", {}) or {})
+    from ..ops.fused_ce import resolve_loss_impl
+
+    try:
+        impl = resolve_loss_impl(
+            extra.get("loss_impl"),
+            vocab_size=int(cfg.model.vocab_size or 50257),
+            ce_auto_vocab=int(extra.get("ce_auto_vocab", 32768) or 32768),
+        )
+    except ValueError:
+        impl = "dense"
+    return impl, int(extra.get("ce_chunk", 8192) or 8192)
+
+
+def predict_hbm_bytes(
+    plan: MeshPlan,
+    *,
+    n_params: int,
+    d_model: int,
+    n_layers: int,
+    vocab_size: int,
+    block_size: int,
+    dtype_bytes: int = 4,
+    param_dtype_bytes: int = 4,
+    loss_impl: str = "dense",
+    ce_chunk: int = 8192,
+) -> dict[str, float]:
+    """Predicted per-device memory of a training step under ``plan``:
+    parameters and gradients split over the model axes x fsdp; AdamW's two
+    f32 moments, split further over every device under ZeRO; activations
+    by tier over the device's tokens (batch / dp, context / sequence), the
+    offload tier's boundary counted on the host; the logits buffer: the
+    whole ``tokens x V`` f32 under ``dense``, one ``tokens x min(ce_chunk,
+    V)`` block under ``chunked_ce``, nothing under ``fused_ce`` (the kernel
+    streams its tiles)."""
+    model_shard = plan.axes["tensor"] * plan.axes["pipeline"] * plan.axes["fsdp"]
+    if plan.axes["expert"] > 1:
+        model_shard *= plan.axes["expert"]
+    params_b = n_params * param_dtype_bytes / max(model_shard, 1)
+    grads_b = n_params * dtype_bytes / max(model_shard, 1)
+    opt_shard = plan.device_count if plan.zero_stage > 0 else max(model_shard, 1)
+    opt_b = 2 * n_params * 4.0 / max(opt_shard, 1)
+    tokens = plan.micro_batch_size * (block_size / max(plan.axes["sequence"], 1))
+    try:
+        tiers = plan_layer_tiers(plan, n_layers)
+    except ValueError as exc:
+        raise MeshPlanError(f"activation_tiers: {exc}") from exc
+    per_copy = tokens * d_model * dtype_bytes
+    by_tier: dict[str, float] = {}
+    host_b = 0.0
+    for tier in tiers:
+        by_tier[tier] = by_tier.get(tier, 0.0) + per_copy * TIER_ACT_COPIES[tier]
+        if tier == "offload":
+            host_b += per_copy * OFFLOAD_HOST_COPIES
+    acts_b = sum(by_tier.values())
+    if loss_impl == "fused_ce":
+        logits_b = 0.0
+    elif loss_impl == "chunked_ce":
+        logits_b = tokens * min(ce_chunk, vocab_size) * 4.0
+    else:
+        logits_b = tokens * vocab_size * 4.0
+    total = params_b + grads_b + opt_b + acts_b + logits_b
+    return {
+        "loss_impl": loss_impl,
+        "params_bytes": round(params_b),
+        "grads_bytes": round(grads_b),
+        "opt_state_bytes": round(opt_b),
+        "activation_bytes": round(acts_b),
+        "activation_bytes_by_tier": {t: round(v) for t, v in by_tier.items()},
+        "activation_host_bytes": round(host_b),
+        "logits_bytes": round(logits_b),
+        "total_bytes": round(total),
+    }
+
+
 __all__ = [
     "MESH_AXES",
     "MeshPlan",
     "MeshPlanError",
     "ModelCaps",
+    "OFFLOAD_HOST_COPIES",
+    "TIER_ACT_COPIES",
     "caps_from_config",
+    "config_loss_impl",
+    "estimate_param_count",
     "plan_from_config",
+    "plan_layer_tiers",
+    "predict_hbm_bytes",
     "resolve_axis_sizes",
     "resolve_plan",
 ]

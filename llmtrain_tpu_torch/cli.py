@@ -99,8 +99,6 @@ _NOT_PORTED = "is not yet ported to llmtrain_tpu_torch"
 _UNPORTED_COMMANDS = {
     "promote": ("the train -> canary -> promote lifecycle", "lifecycle and fleet"),
     "fleet": ("the multi-tenant fleet supervisor", "lifecycle and fleet"),
-    "plan": ("the mesh planner", "autotune"),
-    "tune": ("the auto-tuner", "autotune"),
 }
 
 
@@ -566,6 +564,36 @@ def build_parser() -> argparse.ArgumentParser:
                        help="per-segment wall-clock budget")
     chaos.add_argument("--json", action="store_true", help="emit the result as JSON")
 
+    plan = sub.add_parser(
+        "plan",
+        help="dry-run the mesh planner: resolve the config's MeshPlan, "
+        "predict its roofline class and per-device memory, run nothing "
+        "(autotune/plan.py; exit 2 on an infeasible plan)",
+    )
+    plan.add_argument("--config", required=True, help="path to the YAML run config")
+    plan.add_argument(
+        "--devices", type=int, default=None,
+        help="plan against this many devices instead of the locally visible count",
+    )
+    plan.add_argument("--json", action="store_true", help="emit the plan as JSON")
+
+    tune = sub.add_parser(
+        "tune",
+        help="auto-tune mesh shape x microbatch x activation tiers x zero stage: "
+        "analytic roofline/memory pruning, then short probe fits scored by "
+        "measured MFU; emits the winner as a loadable config (autotune/)",
+    )
+    tune.add_argument("--config", required=True, help="path to the YAML run config")
+    tune.add_argument(
+        "--output", default=None,
+        help="emitted config path (default {output.root_dir}/tune_{run.name}/tuned.yaml)",
+    )
+    tune.add_argument(
+        "--workdir", default=None,
+        help="probe-run scratch dir (default {output.root_dir}/tune_{run.name})",
+    )
+    tune.add_argument("--json", action="store_true", help="print the full tune report JSON")
+
     # The JAX CLI's other subcommands: each takes any arguments and exits 2
     # naming the ROADMAP.md item that ports it.
     for name, what in _UNPORTED_COMMANDS.items():
@@ -897,6 +925,13 @@ def _load_decode_params(cfg, model, from_spec: str, decode_param_dtype: str, log
 
     ckpt_path = resolve_resume_path(from_spec, cfg.output.root_dir)
     expected_yaml = yaml.safe_dump(cfg.model_dump(), sort_keys=False)
+    if getattr(model, "stacks_layers", False):
+        # A pipeline run decodes through the plain GPT with its weights
+        # (interop/pipeline_convert.py: same math), which has the KV cache;
+        # the window and the decode-cache dtype carry over.
+        model = model.to_gpt()
+        logger.info("%spipeline checkpoint converted to the gpt tree for KV-cache decoding",
+                    label)
     load = load_ema_params if ema else load_inference_params
     step = load(ckpt_path, model, expected_config_yaml=expected_yaml)
     logger.info("%sloaded checkpoint %s (step %d)", label, ckpt_path, step)
@@ -2177,8 +2212,10 @@ def _handle_export_checkpoint(args: argparse.Namespace) -> int:
 
         from .interop import (
             is_llama_tree,
+            is_pipeline_tree,
             llama_params_to_hf_state_dict,
             params_to_torch_state_dict,
+            pipeline_params_to_gpt,
         )
 
         from .models.lora import to_inference_model
@@ -2188,6 +2225,9 @@ def _handle_export_checkpoint(args: argparse.Namespace) -> int:
         # A LoRA run exports its merged weights, the family's full-rank
         # state dict (JAX ``to_inference_params``).
         params = _model_params(cfg, to_inference_model(model))
+        if is_pipeline_tree(params):
+            # A pipeline run exports the per-layer gpt tree (same math).
+            params = pipeline_params_to_gpt(params)
         # Each family exports in its ecosystem's layout: llama → HF
         # LlamaForCausalLM names, gpt → the reference torch GPT's.
         convert = (llama_params_to_hf_state_dict if is_llama_tree(params)
@@ -2234,10 +2274,13 @@ def _handle_import_checkpoint(args: argparse.Namespace) -> int:
         import torch
 
         from .interop import (
+            gpt_params_to_pipeline,
             is_llama_tree,
             is_lora_tree,
+            is_pipeline_tree,
             llama_params_from_hf_state_dict,
             params_from_torch_state_dict,
+            pipeline_params_to_gpt,
         )
 
         out_dir = Path(args.output)
@@ -2260,7 +2303,13 @@ def _handle_import_checkpoint(args: argparse.Namespace) -> int:
         # A llama-family config reads an HF LlamaForCausalLM state dict.
         convert = (llama_params_from_hf_state_dict if is_llama_tree(template)
                    else params_from_torch_state_dict)
-        params = convert(dict(raw), template)
+        if is_pipeline_tree(template):
+            # A gpt_pipeline config: the torch per-layer weights through the
+            # gpt-shaped template, then restacked.
+            params = gpt_params_to_pipeline(
+                params_from_torch_state_dict(dict(raw), pipeline_params_to_gpt(template)))
+        else:
+            params = convert(dict(raw), template)
         if lora is not None:
             params = {"base": params, "lora": lora}
         target = _save_fresh_checkpoint(cfg, model, params, out_dir)
@@ -2600,7 +2649,158 @@ def _handle_chaos(args: argparse.Namespace) -> int:
     return EXIT_OK
 
 
+def _handle_plan(args: argparse.Namespace) -> int:
+    """The analytic half of the tuner (JAX ``_handle_plan``): resolve,
+    predict, print; nothing runs, no parameters materialize. Exit 2 for an
+    infeasible plan or a prediction over the device's memory."""
+    cfg, code = _load_config(args.config)
+    if cfg is None:
+        return code
+
+    from .autotune.plan import (
+        MeshPlanError,
+        config_loss_impl,
+        plan_from_config,
+        predict_hbm_bytes,
+    )
+    from .autotune.search import analytic_candidate_cost, resolve_hbm_limit
+    from .autotune.tune import local_device_count
+    from .registry import RegistryError, get_model_adapter, initialize_registries
+    from .telemetry.profiling import classify_roofline, resolve_peaks
+
+    initialize_registries()
+    try:
+        adapter = get_model_adapter(cfg.model.name)
+    except RegistryError as exc:
+        _emit_error(str(exc))
+        return EXIT_CONFIG_ERROR
+    device_count = args.devices if args.devices is not None else local_device_count(cfg)
+    try:
+        mesh_plan = plan_from_config(cfg, device_count, adapter=adapter)
+    except MeshPlanError as exc:
+        _emit_error(f"infeasible plan: {exc}")
+        return EXIT_CONFIG_ERROR
+
+    peaks = resolve_peaks(None, cfg.telemetry.device_peaks)
+    cost = analytic_candidate_cost(mesh_plan, cfg)
+    roofline = classify_roofline(
+        flops=cost["flops"],
+        bytes_accessed=cost["bytes_accessed"],
+        collective_bytes=cost["collective_bytes"],
+        peaks=peaks,
+    )
+    # The loss the run would build decides the logits buffer charged.
+    loss_impl, ce_chunk = config_loss_impl(cfg)
+    hbm = predict_hbm_bytes(
+        mesh_plan,
+        n_params=int(cost["n_params"]),
+        d_model=cfg.model.d_model,
+        n_layers=cfg.model.n_layers,
+        vocab_size=int(cfg.model.vocab_size or 50257),
+        block_size=cfg.model.block_size,
+        dtype_bytes=2 if cfg.model.dtype == "bfloat16" else 4,
+        param_dtype_bytes=2 if cfg.model.param_dtype == "bfloat16" else 4,
+        loss_impl=loss_impl,
+        ce_chunk=ce_chunk,
+    )
+    hbm_limit = resolve_hbm_limit(str(peaks.get("device_kind", "cpu")),
+                                  cfg.tune.hbm_limit_bytes)
+    feasible = hbm["total_bytes"] <= hbm_limit
+    payload = {
+        "plan": {
+            "key": mesh_plan.key(),
+            "mesh": mesh_plan.axes,
+            "device_count": device_count,
+            "data_parallel": mesh_plan.data_parallel,
+            "global_micro_batch": mesh_plan.global_micro_batch,
+            "micro_batch_size": mesh_plan.micro_batch_size,
+            "grad_accum_steps": mesh_plan.grad_accum_steps,
+            "remat": mesh_plan.remat,
+            "zero_stage": mesh_plan.zero_stage,
+            "activation_tiers": mesh_plan.activation_tiers,
+            "loss_impl": loss_impl,
+            "topology": mesh_plan.describe_topology(),
+        },
+        "roofline": roofline,
+        "predicted_hbm": hbm,
+        "hbm_limit_bytes": hbm_limit,
+        "device_kind": peaks.get("device_kind", "unknown"),
+        "feasible": feasible,
+    }
+    if args.json:
+        print(json.dumps(payload, indent=2))
+    else:
+        print(f"plan      {mesh_plan.key()}")
+        print(f"mesh      {mesh_plan.axes}")
+        print(f"batch     micro={mesh_plan.micro_batch_size} "
+              f"global_micro={mesh_plan.global_micro_batch} "
+              f"accum={mesh_plan.grad_accum_steps}")
+        print(f"roofline  {roofline['class']} (analytical ms: {roofline['analytical_ms']})")
+        print(f"hbm       {hbm['total_bytes'] / 2**30:.3f} GiB predicted vs "
+              f"{hbm_limit / 2**30:.1f} GiB limit [{payload['device_kind']}]")
+        print(f"loss      {loss_impl} (logits buffer {hbm['logits_bytes'] / 2**20:.1f} MiB)")
+        by_tier = hbm.get("activation_bytes_by_tier", {})
+        if by_tier:
+            breakdown = " ".join(f"{tier}={v / 2**30:.3f}GiB"
+                                 for tier, v in sorted(by_tier.items()))
+            line = f"acts      {breakdown}"
+            if hbm.get("activation_host_bytes", 0):
+                line += f" host_offload={hbm['activation_host_bytes'] / 2**30:.3f}GiB"
+            print(line)
+    if not feasible:
+        _emit_error(
+            "infeasible plan: predicted per-device HBM "
+            f"{hbm['total_bytes'] / 2**30:.3f} GiB exceeds the "
+            f"{hbm_limit / 2**30:.1f} GiB limit for "
+            f"{payload['device_kind']} (override with tune.hbm_limit_bytes)"
+        )
+        return EXIT_CONFIG_ERROR
+    return EXIT_OK
+
+
+def _handle_tune(args: argparse.Namespace) -> int:
+    """JAX ``_handle_tune``: enumerate, prune, probe, emit the winner."""
+    try:
+        cfg, _, resolved = load_and_validate_config(args.config)
+    except ConfigLoadError as exc:
+        _emit_error(exc.message, details=exc.details, errors=exc.errors)
+        return EXIT_CONFIG_ERROR
+
+    from .autotune.plan import MeshPlanError
+    from .autotune.tune import run_tune
+
+    workdir = Path(args.workdir or Path(cfg.output.root_dir) / f"tune_{cfg.run.name}")
+    output_path = Path(args.output or workdir / "tuned.yaml")
+    try:
+        report = run_tune(cfg, resolved, workdir=workdir, output_path=output_path)
+    except MeshPlanError as exc:
+        _emit_error(f"infeasible plan: {exc}")
+        return EXIT_CONFIG_ERROR
+    if args.json:
+        print(json.dumps(report, indent=2))
+    else:
+        print(f"tune      {report['enumerated']} candidates enumerated, "
+              f"{len(report['pruned'])} pruned analytically, "
+              f"{len(report['measured'])} probed "
+              f"({report['elapsed_sec']:.1f}s of {report['budget_sec']:.0f}s budget)")
+        for record in report["measured"]:
+            status = record.get("status")
+            if status == "ok":
+                marker = "*" if record["key"] == report["winner"]["key"] else " "
+                print(f"  {marker} {record['key']}: mfu={record['mfu']:.4f} "
+                      f"step={record.get('step_time_sec') or 0:.4f}s"
+                      + (" (baseline)" if record.get("baseline") else ""))
+            else:
+                print(f"    {record['key']}: {status} ({record.get('reason', '')})")
+        print(f"winner    {report['winner']['key']}")
+        print(f"emitted   {report['output_config']}")
+        print(f"report    {workdir / 'tune_report.json'}")
+    return EXIT_OK
+
+
 _HANDLERS = {
+    "plan": _handle_plan,
+    "tune": _handle_tune,
     "train": _handle_train,
     "chaos": _handle_chaos,
     "generate": _handle_generate,

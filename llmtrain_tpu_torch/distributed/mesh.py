@@ -9,7 +9,7 @@ holds the coordinates of JAX's device ``r``. :func:`build_mesh` creates a
 sub-group for every product of the axes larger than one (every rank calls
 ``new_group`` for every group, in one order), so a collective over any
 set of axes (the tensor group, the sequence ring, the data x fsdp x
-expert batch group) has its group ready. A one-rank mesh has no groups:
+expert batch group, the pipeline stages) has its group ready. A one-rank mesh has no groups:
 every axis is 1 and nothing is split.
 
 The trainer sets the run's mesh with :func:`set_active_mesh`; the models
@@ -83,8 +83,8 @@ class DeviceMesh:
     @property
     def model_parallel(self) -> bool:
         """True when an axis other than data splits parameters or
-        activations (fsdp, tensor, sequence, expert)."""
-        return self.size("fsdp", "tensor", "sequence", "expert") > 1
+        activations (fsdp, tensor, sequence, pipeline, expert)."""
+        return self.size("fsdp", "tensor", "sequence", "pipeline", "expert") > 1
 
     def axis_sizes(self) -> dict[str, int]:
         return dict(self.sizes)
@@ -117,15 +117,8 @@ def _group_ranks(sizes: dict[str, int], coords: dict[str, int],
 
 def build_mesh(mesh_cfg: Any, world: int, rank: int) -> DeviceMesh:
     """The mesh of ``distributed.mesh`` over the ``world`` ranks of the
-    process group (``MeshPlanError`` when the axes do not tile it). A
-    ``pipeline`` axis larger than one is refused: the pipeline is ROADMAP
-    item 6c (parallelism)."""
+    process group (``MeshPlanError`` when the axes do not tile it)."""
     sizes = resolve_mesh_axes(mesh_cfg, world)
-    if sizes["pipeline"] > 1:
-        raise NotImplementedError(
-            f"distributed.mesh.pipeline={sizes['pipeline']} is not yet ported to "
-            "llmtrain_tpu_torch: the pipeline is item 6c (ROADMAP.md queue A: parallelism)"
-        )
     wide = [a for a in MESH_AXES if sizes[a] > 1]
     groups: dict[tuple[str, ...], Any] = {}
     if wide:

@@ -1,5 +1,6 @@
 """JAX parameter trees ↔ the port's ``state_dict``: the GPT and llama
-families (with their MoE variants) and ``dummy_gpt``.
+families (with their MoE variants), the stacked-layer ``gpt_pipeline``
+and ``dummy_gpt``.
 
 Input is the flax GPT's ``params`` as nested dicts of arrays — what
 ``flax.serialization.to_state_dict`` gives and what a checkpoint payload
@@ -30,6 +31,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from .pipeline_convert import is_pipeline_tree
+
 Params = Any  # nested dict of numpy arrays or torch tensors
 
 
@@ -58,11 +61,8 @@ def flax_gpt_params_to_state_dict(params: Params) -> dict[str, torch.Tensor]:
     or ``mlp_gate``/``mlp_up``/``mlp_down``) or the experts (the router's
     kernel transposed, the stacked expert weights as they are), and the
     untied ``lm_head``."""
-    if ("qkv_kernel" in params or "q_kernel" in params) and "block_0" not in params:
-        raise NotImplementedError(
-            "pipeline (stacked-layer) checkpoints are not yet ported to "
-            "llmtrain_tpu_torch (ROADMAP.md queue A: parallelism)"
-        )
+    if is_pipeline_tree(params):
+        return flax_pipeline_params_to_state_dict(params)
     for required in ("token_embedding", "block_0"):
         if required not in params:
             raise ValueError(
@@ -174,6 +174,37 @@ def state_dict_to_flax_gpt_params(
     return params
 
 
+def flax_pipeline_params_to_state_dict(params: Params) -> dict[str, torch.Tensor]:
+    """The port's ``PipelineGPT`` ``state_dict`` from the JAX ``gpt_pipeline``
+    tree: the stacked leaves and ``ln_f_scale``/``ln_f_bias`` under their
+    own names and layouts, the embeddings' tables, the untied head's kernel
+    transposed."""
+    sd = {
+        "token_embedding.weight": _tensor(params["token_embedding"]["embedding"]),
+        "position_embedding.weight": _tensor(params["position_embedding"]["embedding"]),
+    }
+    for name, value in params.items():
+        if not isinstance(value, dict):
+            sd[name] = _tensor(value)
+    if "lm_head" in params:
+        sd["lm_head.weight"] = _kernel(params["lm_head"]["kernel"])
+    return sd
+
+
+def state_dict_to_flax_pipeline_params(sd: dict[str, torch.Tensor]) -> Params:
+    """The inverse of :func:`flax_pipeline_params_to_state_dict`."""
+    params: dict[str, Any] = {}
+    for name, w in sd.items():
+        w = w.detach().cpu()
+        if name == "lm_head.weight":
+            params["lm_head"] = {"kernel": _flax_kernel(w, w.shape[0])}
+        elif name.endswith("_embedding.weight"):
+            params[name.split(".")[0]] = {"embedding": w.clone()}
+        else:
+            params[name] = w.clone()
+    return params
+
+
 def is_dummy_gpt_tree(params: Params) -> bool:
     """True for the ``dummy_gpt`` param tree (flax ``_TinyLM``)."""
     return "embed" in params and "mlp_in" in params
@@ -270,6 +301,8 @@ def state_dict_to_flax_params(
                 "lora": state_dict_to_lora_tree(sd)}
     if "embed.weight" in sd:
         return state_dict_to_flax_dummy_gpt_params(sd)
+    if "ln_f_scale" in sd:  # a PipelineGPT's
+        return state_dict_to_flax_pipeline_params(sd)
     return state_dict_to_flax_gpt_params(sd, n_heads=n_heads, n_kv_heads=n_kv_heads)
 
 
@@ -306,6 +339,7 @@ __all__ = [
     "flax_dummy_gpt_params_to_state_dict",
     "flax_layout_views",
     "flax_gpt_params_to_state_dict",
+    "flax_pipeline_params_to_state_dict",
     "is_lora_tree",
     "lora_tree_to_state_dict",
     "flax_params_to_state_dict",
@@ -313,5 +347,6 @@ __all__ = [
     "state_dict_to_flax_dummy_gpt_params",
     "state_dict_to_flax_gpt_params",
     "state_dict_to_flax_params",
+    "state_dict_to_flax_pipeline_params",
     "state_dict_to_lora_tree",
 ]

@@ -33,7 +33,7 @@ from typing import Any, Iterator
 
 import torch
 
-from .collectives import gather_dim, gather_rs
+from .collectives import gather, gather_dim, gather_rs
 from .sharding import ParamLayout, Spec, param_layout, state_shardings
 
 _BATCH_AND_SEQUENCE = ("data", "fsdp", "sequence", "expert")
@@ -99,7 +99,8 @@ class MeshLayout:
                 if whole == part:
                     compute.append(None)
                 else:
-                    axis = "expert" if layout.names and layout.names[d] == "expert" else "tensor"
+                    name_d = layout.names[d] if layout.names else None
+                    axis = {"expert": "expert", "layers": "pipeline"}.get(name_d, "tensor")
                     if whole != part * mesh.size(axis):
                         raise ValueError(f"{name}: dim {d} of {whole} is not split into "
                                          f"{part} by the {axis} axis")
@@ -143,7 +144,12 @@ class MeshLayout:
         t = leaf.layout.to_flax(stored)
         for d in range(t.dim()):
             if leaf.gather[d]:
-                t = gather_rs(t, d, self.mesh.group(*leaf.gather[d]))
+                # A dim stored split over ``tensor`` that the module uses
+                # whole feeds the same computation on every rank of the
+                # group: each takes its slice of the gradient. Split over a
+                # batch axis, the ranks' gradients differ and are summed.
+                gather_fn = gather if leaf.gather[d] == ("tensor",) else gather_rs
+                t = gather_fn(t, d, self.mesh.group(*leaf.gather[d]))
             if leaf.slice[d]:
                 n = self.mesh.size(*leaf.slice[d])
                 size = t.shape[d] // n
@@ -254,7 +260,8 @@ def build_for_mesh(model_class: type, kwargs: dict[str, Any], mesh: Any, *, moe:
                    device: torch.device | None, seed: int) -> torch.nn.Module:
     """A GPT- or llama-family module for this rank of ``mesh`` (heads, mlp
     dim and vocabulary over ``tensor``, experts over ``expert``, the
-    sequence over ``sequence``), holding its stored slices of the weights
+    sequence over ``sequence``, a stacked model's layer rows over
+    ``pipeline``), holding its stored slices of the weights
     the one-device model draws from ``seed``; the layout is attached
     (:func:`layout_of`). The whole model and the rank's are built on the
     meta device, and each parameter is drawn whole on ``device`` in the
@@ -262,11 +269,13 @@ def build_for_mesh(model_class: type, kwargs: dict[str, Any], mesh: Any, *, moe:
     slice before the next: the peak is one whole parameter beside the
     rank's slices, and the weights are the one-device model's bit for bit."""
     device = torch.device(device) if device is not None else torch.device("cpu")
+    split = dict(tensor_parallel=mesh.sizes["tensor"], sequence_parallel=mesh.sizes["sequence"],
+                 expert_parallel=mesh.sizes["expert"] if moe else 1)
+    if getattr(model_class, "stacks_layers", False):
+        split["pipeline_parallel"] = mesh.sizes["pipeline"]
     with torch.device("meta"):
         whole = model_class(**kwargs)
-        local = model_class(**kwargs, tensor_parallel=mesh.sizes["tensor"],
-                            sequence_parallel=mesh.sizes["sequence"],
-                            expert_parallel=mesh.sizes["expert"] if moe else 1)
+        local = model_class(**kwargs, **split)
     params = dict(whole.named_parameters())
     layout = MeshLayout(mesh, {n: tuple(p.shape) for n, p in params.items()}, local,
                         head_dim=kwargs["d_model"] // kwargs["n_heads"])

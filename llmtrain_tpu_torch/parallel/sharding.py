@@ -17,7 +17,8 @@ gets the split JAX gives that leaf:
 * tensor parallel: ``heads``/``mlp``/``vocab`` split over ``tensor``;
 * sequence parallel: the activations' ``length`` splits over
   ``sequence``;
-* experts: a MoE layer's ``expert`` dim over ``expert``.
+* experts: a MoE layer's ``expert`` dim over ``expert``;
+* pipeline: a stacked leaf's ``layers`` dim over ``pipeline``.
 
 :func:`state_shardings` repairs a spec as JAX's does: longer than the
 leaf's rank, or a split dim that its axes do not divide, gives a
@@ -66,6 +67,9 @@ DEFAULT_LOGICAL_AXIS_RULES: tuple[tuple[str, Any], ...] = (
     ("position", None),
     ("norm", None),
     ("expert", "expert"),
+    # Stacked-layer params (models/gpt_pipeline.py): the leading layer dim
+    # over the pipeline stages; the per-layer dims reuse the names above.
+    ("layers", "pipeline"),
 )
 # fmt: on
 
@@ -249,6 +253,21 @@ def _dense_back(t: torch.Tensor) -> torch.Tensor:
 
 
 _GPT_NORMS = frozenset({"ln_1", "ln_2", "ln_f"})
+# models/gpt_pipeline.py's leaves, stored in their flax layout: the logical
+# names of each dim (a stacked leaf's ``layers`` first).
+_PIPELINE_NAMES: dict[str, tuple[str, ...]] = {
+    "ln1_scale": ("layers", "embed"), "ln1_bias": ("layers", "embed"),
+    "qkv_kernel": ("layers", "embed", "qkv", "heads", "kv"),
+    "qkv_bias": ("layers", "qkv", "heads", "kv"),
+    "q_kernel": ("layers", "embed", "heads", "kv"), "q_bias": ("layers", "heads", "kv"),
+    "kv_kernel": ("layers", "embed", "qkv", "heads", "kv"),
+    "kv_bias": ("layers", "qkv", "heads", "kv"),
+    "out_kernel": ("layers", "heads", "kv", "embed"), "out_bias": ("layers", "embed"),
+    "ln2_scale": ("layers", "embed"), "ln2_bias": ("layers", "embed"),
+    "fc_kernel": ("layers", "embed", "mlp"), "fc_bias": ("layers", "mlp"),
+    "proj_kernel": ("layers", "mlp", "embed"), "proj_bias": ("layers", "embed"),
+    "ln_f_scale": ("embed",), "ln_f_bias": ("embed",),
+}
 _RMS_NORMS = frozenset({"attn_norm", "mlp_norm", "norm_f"})
 _EXPERT_NAMES = {"wi": ("expert", "embed", "mlp"), "wg": ("expert", "embed", "mlp"),
                  "wu": ("expert", "embed", "mlp"), "bi": ("expert", "mlp"),
@@ -257,12 +276,14 @@ _EXPERT_NAMES = {"wi": ("expert", "embed", "mlp"), "wg": ("expert", "embed", "ml
 
 def param_layout(name: str, head_dim: int) -> ParamLayout:
     """The flax leaf of a GPT- or llama-family parameter (models/gpt.py,
-    llama.py, moe.py): its logical names and the views between the
+    llama.py, moe.py, gpt_pipeline.py): its logical names and the views between the
     layouts (interop/flax_params.py's transforms, for any split).
     Parameters of other models have no names (replicated)."""
     parts = name.split(".")
     leaf, module = parts[-1], parts[-2] if len(parts) > 1 else ""
     plain = ParamLayout
+    if name in _PIPELINE_NAMES:
+        return plain(_PIPELINE_NAMES[name], _same, _contig)
     if module in ("qkv_proj", "kv_proj", "q_proj"):
         lead = () if module == "q_proj" else ("qkv",)
         n = {"qkv_proj": 3, "kv_proj": 2}.get(module)

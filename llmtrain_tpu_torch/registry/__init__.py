@@ -1,8 +1,7 @@
 """Plugin registries with deterministic initialization (port of
 ``llmtrain_tpu/registry/__init__.py``): every model family of the JAX
-package but the pipelined GPT (``gpt_pipeline``, ROADMAP.md queue A:
-parallelism), and the ``local_text``, ``mixed_text`` and ``dummy_text``
-data modules."""
+package, and the ``local_text``, ``mixed_text`` and ``dummy_text`` data
+modules."""
 
 from __future__ import annotations
 
@@ -15,6 +14,7 @@ _PLUGIN_MODULES = (
     "llmtrain_tpu_torch.models.dummy_gpt",
     "llmtrain_tpu_torch.models.gpt",
     "llmtrain_tpu_torch.models.gpt_moe",
+    "llmtrain_tpu_torch.models.gpt_pipeline",
     "llmtrain_tpu_torch.models.llama",
     "llmtrain_tpu_torch.models.qwen2",
     "llmtrain_tpu_torch.models.gemma",

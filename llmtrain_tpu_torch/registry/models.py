@@ -31,20 +31,12 @@ def register_model(name: str) -> Callable[[T], T]:
     return decorator
 
 
-# Families of the JAX package the port does not build yet, by the item
-# that brings them.
-_UNPORTED = {"gpt_pipeline": "parallelism"}
-
-
 def get_model_adapter(name: str) -> type[ModelAdapter]:
     try:
         return _MODEL_ADAPTERS[name]
     except KeyError:
-        item = _UNPORTED.get(name)
-        hint = (f" ({name!r} is not yet ported to llmtrain_tpu_torch, ROADMAP.md queue A: "
-                f"{item})" if item else "")
         raise RegistryError(
             f"Unknown model adapter {name!r}. Available in llmtrain_tpu_torch: "
-            f"{sorted(_MODEL_ADAPTERS)}{hint}"
+            f"{sorted(_MODEL_ADAPTERS)}"
         ) from None
 

@@ -725,8 +725,19 @@ def load_inference_params(
     payload = CheckpointManager.load(path)
     if expected_config_yaml is not None:
         warn_on_config_mismatch(payload, expected_config_yaml, path)
-    model.load_state_dict(flax_params_to_state_dict(payload["params"]), strict=True)
+    tree = _tree_for(payload["params"], model)
+    model.load_state_dict(flax_params_to_state_dict(tree), strict=True)
     return int(payload["step"])
+
+
+def _tree_for(tree: Any, model: torch.nn.Module) -> Any:
+    """A stored param tree in ``model``'s layout: a ``gpt_pipeline`` tree
+    loads into the plain GPT its decode paths run (interop/pipeline_convert.py)."""
+    from ..interop.pipeline_convert import is_pipeline_tree, pipeline_params_to_gpt
+
+    if is_pipeline_tree(tree) and not getattr(model, "stacks_layers", False):
+        return pipeline_params_to_gpt(tree)
+    return tree
 
 
 def opt_state_to_host(opt_state: dict[str, Any], *, n_heads: int,
@@ -785,7 +796,7 @@ def ema_from_payload(payload: dict[str, Any], model: torch.nn.Module) -> dict[st
         )
     dtypes = {k: v.dtype for k, v in model.state_dict().items()}
     lora = is_lora_tree(payload["params"])
-    shadow = _shadow_state_dict(raw, lora)
+    shadow = _shadow_state_dict(raw if lora else _tree_for(raw, model), lora)
     if lora:
         # A LoRA run's shadow covers the factors; the frozen base loads as
         # stored (JAX's ``_load_checkpoint_params``).

@@ -176,33 +176,37 @@ class TrainResult:
 
 def mesh_plan(cfg: RunConfig, world_size: int = 1):
     """``plan_from_config`` over the ``world_size`` ranks (one device
-    each): ``MeshPlanError`` (exit 2) for a mesh that cannot run."""
+    each), against the model's capabilities (a pipeline axis needs a model
+    that stacks its layers): ``MeshPlanError`` (exit 2) for a mesh that
+    cannot run."""
     from ..autotune.plan import plan_from_config
+    from ..registry import RegistryError, get_model_adapter
 
-    return plan_from_config(cfg, world_size)
+    initialize_registries()
+    try:
+        adapter = get_model_adapter(cfg.model.name)
+    except RegistryError:
+        adapter = None  # the build names the unknown family
+    return plan_from_config(cfg, world_size, adapter=adapter)
 
 
 def refuse_unported(cfg: RunConfig, world_size: int = 1) -> None:
     """Raise for a config the port cannot run (``world_size``: the ranks
     of the process group, 1 without one): ``NotImplementedError`` for a
-    part of the JAX trainer not ported yet (a pipeline axis, ROADMAP item
-    6c; LoRA or Adafactor on a mesh that splits parameters), and the
-    plan's ``MeshPlanError`` for a mesh that does not fit the ranks or
-    the model."""
+    part of the JAX trainer not ported yet (LoRA or Adafactor on a mesh
+    that splits parameters), and the plan's ``MeshPlanError`` for a mesh
+    that does not fit the ranks or the model."""
     mesh = cfg.distributed.mesh
-    if mesh.pipeline > 1:
-        raise NotImplementedError(
-            f"distributed.mesh.pipeline={mesh.pipeline} {_NOT_PORTED}: the pipeline is item 6c "
-            "(ROADMAP.md queue A: parallelism)")
-    split = any(getattr(mesh, a) > 1 for a in ("fsdp", "tensor", "sequence", "expert"))
+    split = any(getattr(mesh, a) > 1
+                for a in ("fsdp", "tensor", "sequence", "pipeline", "expert"))
     if split and cfg.model.extra.get("lora"):
         raise NotImplementedError(
-            f"model.extra.lora on a mesh with fsdp, tensor, sequence or expert axes "
+            f"model.extra.lora on a mesh with fsdp, tensor, sequence, pipeline or expert axes "
             f"{_NOT_PORTED} (ROADMAP.md queue A: parallelism)")
     if split and cfg.trainer.extra.get("optimizer") == "adafactor":
         raise NotImplementedError(
-            f"trainer.extra.optimizer adafactor on a mesh with fsdp, tensor, sequence or "
-            f"expert axes {_NOT_PORTED} (ROADMAP.md queue A: parallelism)")
+            f"trainer.extra.optimizer adafactor on a mesh with fsdp, tensor, sequence, "
+            f"pipeline or expert axes {_NOT_PORTED} (ROADMAP.md queue A: parallelism)")
     mesh_plan(cfg, world_size)
 
 
@@ -287,6 +291,11 @@ class Trainer:
         validate_mesh = getattr(self._adapter, "validate_mesh", None)
         if validate_mesh is not None:
             validate_mesh(cfg, self._plan.axes)
+        # Rows every applied batch must divide by (a pipelined model: data
+        # shards x microbatches); eval pads to lcm(dp, this).
+        divisor_fn = getattr(self._adapter, "batch_divisor", None)
+        self._batch_divisor = (int(divisor_fn(cfg, self._plan.axes))
+                               if divisor_fn is not None else 1)
         self._model = self._adapter.build_model(cfg, self._device)
         # The parameters' layout on the mesh (parallel/mesh_params.py).
         # The step runs the mesh path where an axis other than data splits
@@ -335,10 +344,15 @@ class Trainer:
             layout=self._layout,
         )
         self._eval_step_fn = make_eval_step(self._adapter, self._model, layout=self._layout)
-        self._param_count = sum(p.numel() for p in self._model.parameters())
-        # A LoRA run trains its factors only; the frozen base takes no
-        # gradient.
-        self._trainable_count = sum(p.numel() for p in self._model.parameters()
+        # The whole model's counts, as JAX counts its global arrays: on a
+        # mesh that splits parameters a rank holds slices, so the layout's
+        # whole shapes are counted. A LoRA run trains its factors only; the
+        # frozen base takes no gradient.
+        whole = ({n: math.prod(leaf.flax_shape) for n, leaf in self._layout.leaves.items()}
+                 if self._layout is not None else
+                 {n: p.numel() for n, p in self._model.named_parameters()})
+        self._param_count = sum(whole.values())
+        self._trainable_count = sum(whole[n] for n, p in self._model.named_parameters()
                                     if p.requires_grad)
         self._peak_flops = peak_flops(self._device)
         self._train_seqlen = cfg.model.block_size
@@ -675,6 +689,18 @@ class Trainer:
             opt_mem["opt_state_bytes_per_device"] / 2**20,
             opt_mem["opt_state_bytes_host"] / 2**20,
         )
+        # The analytic activation footprint under the run's tier ladder (the
+        # number ``plan`` checks), static for the fit: report.json's memory
+        # block and the mem/* gauges.
+        act_mem = self._activation_memory()
+        if act_mem is not None:
+            self._telemetry.record_activation_bytes(act_mem)
+            logger.info(
+                "activations (analytic): %.1f MiB on-device, %.1f MiB "
+                "host-offloaded per device",
+                act_mem["activation_bytes"] / 2**20,
+                act_mem["activation_bytes_offloaded"] / 2**20,
+            )
         self._telemetry.metrics.safe_log_params(cfg.model_dump())
 
         first_step_loss: float | None = None
@@ -1095,6 +1121,37 @@ class Trainer:
         bytes, the bytes resident on this rank's device (~total/W under
         ZeRO, 0 under host offload) and the bytes held on the host."""
         return self._state.optimizer.memory()
+
+    def _activation_memory(self) -> dict[str, float] | None:
+        """The analytic per-device activation bytes under the run's tier
+        ladder (autotune/plan.py ``predict_hbm_bytes``, JAX's
+        ``_activation_memory``): device-resident, and staged on the host by
+        the offload tier. None when the plan cannot be resolved (the
+        accounting never stops the fit it measures)."""
+        from ..autotune.plan import config_loss_impl, predict_hbm_bytes
+
+        cfg = self._cfg
+        try:
+            loss_impl, ce_chunk = config_loss_impl(cfg)
+            hbm = predict_hbm_bytes(
+                mesh_plan(cfg, self._world),
+                n_params=int(self._param_count),
+                d_model=cfg.model.d_model,
+                n_layers=cfg.model.n_layers,
+                vocab_size=int(cfg.model.vocab_size or 50257),
+                block_size=cfg.model.block_size,
+                dtype_bytes=2 if cfg.model.dtype == "bfloat16" else 4,
+                param_dtype_bytes=2 if cfg.model.param_dtype == "bfloat16" else 4,
+                loss_impl=loss_impl,
+                ce_chunk=ce_chunk,
+            )
+        except Exception as exc:  # noqa: BLE001 — accounting must not stop the run
+            logger.debug("activation memory accounting skipped: %s", exc)
+            return None
+        return {
+            "activation_bytes": float(hbm["activation_bytes"]),
+            "activation_bytes_offloaded": float(hbm["activation_host_bytes"]),
+        }
 
     def _restored_step_loss(self, sampler: DeterministicSampler, dataset, step: int) -> float:
         """Token-weighted forward loss over the batch of training step
@@ -1609,9 +1666,10 @@ class Trainer:
         if val_ds is None:
             return None
         n = len(val_ds)
-        # JAX's batch: a multiple of the data-parallel degree, padded with
-        # zero-masked rows; each rank evaluates its equal share.
-        mult = self._dp
+        # JAX's batch: a multiple of the data-parallel degree and of the
+        # model's batch divisor, padded with zero-masked rows; each rank
+        # evaluates its equal share.
+        mult = math.lcm(self._dp, self._batch_divisor)
         eval_bs = min(max(self._global_micro // mult, 1) * mult, -(-n // mult) * mult)
         loss_total = torch.zeros((), dtype=torch.float32, device=self._device)
         tok_total = torch.zeros((), dtype=torch.float32, device=self._device)

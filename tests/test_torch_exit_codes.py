@@ -132,12 +132,21 @@ def test_connection_error_escaping_train_exits_75(tmp_path, capsys, monkeypatch,
     assert "(exit 75)" in capsys.readouterr().err
 
 
-_UNPORTED = {"promote": "lifecycle and fleet", "fleet": "lifecycle and fleet",
-             "plan": "autotune", "tune": "autotune"}
+_UNPORTED = {"promote": "lifecycle and fleet", "fleet": "lifecycle and fleet"}
+# Ported since (autotune): they exit 2 for a plan that cannot run, as
+# JAX's do, and no longer refuse.
+_PORTED = {"plan": "autotune", "tune": "autotune"}
 
 
-@pytest.mark.parametrize("command", sorted(_UNPORTED))
+@pytest.mark.parametrize("command", sorted({**_UNPORTED, **_PORTED}))
 def test_unported_subcommand_exits_2_citing_its_item(tmp_path, capsys, command: str) -> None:
+    if command in _PORTED:
+        cfg = _config(tmp_path, **{"distributed.mesh.tensor": 3})
+        assert run_cli(port_main, [command, "--config", str(cfg), "--json"]) == 2
+        err = json.loads(capsys.readouterr().err.strip().splitlines()[-1])["error"]
+        assert err.startswith("infeasible plan: ") and "not yet ported" not in err, err
+        assert _PORTED[command] in STABLE_ITEMS
+        return
     cfg = _config(tmp_path)
     argv = [command, "--config", str(cfg), "--json", "-h", "--anything", "x"]
     assert run_cli(port_main, argv) == 2

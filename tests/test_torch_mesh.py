@@ -4,12 +4,13 @@
 * ``plan_from_config`` raises in exactly the cases JAX's raises, with
   its message, and otherwise resolves the same axes; the port's CLI
   exits 2 for a mesh that does not fit its processes, naming the device
-  count, and for a pipeline axis cites the ROADMAP item.
+  count (a pipeline axis too, since the pipeline is ported).
 * The split of every parameter (the spec of its flax leaf through the
   port's layouts, repairs included) equals JAX's ``NamedSharding`` spec,
-  for the GPT, GQA llama and ``gpt_moe`` trees on ``{fsdp: 2, tensor:
-  2}``, ``{tensor: 4}``, ``{sequence: 2, data: 2}`` and ``{expert: 4,
-  data: 2}``.
+  for the GPT, GQA llama, ``gpt_moe`` and ``gpt_pipeline`` trees on
+  ``{fsdp: 2, tensor: 2}``, ``{tensor: 4}``, ``{sequence: 2, data: 2}``,
+  ``{expert: 4, data: 2}``, ``{pipeline: 4, data: 2}`` and ``{pipeline: 2,
+  tensor: 2, data: 2}``.
 * ZeRO's partition over data x fsdp x expert, as the trainer takes it on
   each rank, holds the elements of JAX's ``opt_state_shardings`` on the
   same trees and meshes.
@@ -134,7 +135,7 @@ def test_cli_exits_2_for_a_mesh_one_process_cannot_hold(tmp_path, capsys) -> Non
 
     for name, mesh, needle in (("moe", {"expert": 4, "data": 2}, "but 1 devices are available"),
                                ("pipe", {"data": 1, "pipeline": 2},
-                                "item 6c (ROADMAP.md queue A: parallelism)")):
+                                "but 1 devices are available")):
         raw = _raw({"extra": {"tokenizer": "byte"}}, mesh)
         raw["output"] = {"root_dir": str(tmp_path / "runs")}
         cfg = tmp_path / f"{name}.yaml"
@@ -164,12 +165,15 @@ TREES = {
     "gpt": {"name": "gpt", "vocab_size": 62},
     "gqa_llama": {"name": "llama", "extra": {"n_kv_heads": 2}},
     "gpt_moe": {"name": "gpt_moe", "extra": {"n_experts": 4}},
+    "gpt_pipeline": {"name": "gpt_pipeline", "n_layers": 4, "extra": {"n_kv_heads": 2}},
 }
 MESHES = {
     "fsdp2-tensor2": {"data": 2, "fsdp": 2, "tensor": 2},
     "tensor4": {"data": 2, "tensor": 4},
     "sequence2-data2": {"data": 4, "sequence": 2},
     "expert4-data2": {"data": 2, "expert": 4},
+    "pipeline4-data2": {"data": 2, "pipeline": 4},
+    "pipeline2-tensor2-data2": {"data": 2, "tensor": 2, "pipeline": 2},
 }
 
 
@@ -263,7 +267,8 @@ def test_every_leaf_splits_as_jax(tree: str, mesh: str) -> None:
 
 
 @pytest.mark.parametrize("tree,mesh", list(itertools.product(
-    sorted(TREES), ["fsdp2-tensor2", "expert4-data2", "data8", "data2-fsdp2-sequence2"])))
+    sorted(TREES), ["fsdp2-tensor2", "expert4-data2", "data8", "data2-fsdp2-sequence2",
+                    "pipeline4-data2", "pipeline2-tensor2-data2"])))
 def test_zero_partition_over_the_batch_axes_is_jax(tree: str, mesh: str) -> None:
     """Each rank's ZeRO slice of every parameter, as the trainer takes it
     (the rank's model and its layout on the mesh, ``ZeroPartition``, the
@@ -277,7 +282,8 @@ def test_zero_partition_over_the_batch_axes_is_jax(tree: str, mesh: str) -> None
 
     sizes = {"fsdp2-tensor2": {"data": 2, "fsdp": 2, "tensor": 2},
              "expert4-data2": {"data": 2, "expert": 4}, "data8": {"data": 8},
-             "data2-fsdp2-sequence2": {"data": 2, "fsdp": 2, "sequence": 2}}[mesh]
+             "data2-fsdp2-sequence2": {"data": 2, "fsdp": 2, "sequence": 2},
+             **MESHES}[mesh]
     raw, abstract, jmesh = _jax_tree(tree, sizes)
     want = _jax_shardings(jax_opt_state_shardings(jmesh, abstract, subject="gradient"))
     paths: dict[str, str] = {}

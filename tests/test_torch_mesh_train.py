@@ -53,6 +53,7 @@ from llmtrain_tpu_torch.config.schemas import RunConfig
 from llmtrain_tpu_torch.distributed import setup_distributed, teardown_distributed
 from llmtrain_tpu_torch.interop import flax_params_to_state_dict
 from llmtrain_tpu_torch.resilience.exit_codes import exit_code_for_exception
+from llmtrain_tpu_torch.training.train_step import make_loss_fn, reduce_on_mesh
 from llmtrain_tpu_torch.training.trainer import Trainer
 
 spec = json.loads(sys.argv[1])
@@ -77,6 +78,26 @@ def unflat(arrays):
         node[leaf] = value
     return tree
 
+def probe(trainer, run):
+    # One micro-batch's gradients after the step's reduction, on this rank,
+    # of the leaves named (gathered whole).
+    batch = dict(np.load(run["probe"]))
+    b = trainer._cfg.trainer.micro_batch_size
+    rows = {k: torch.from_numpy(v[trainer._dp_index * b:(trainer._dp_index + 1) * b])
+            for k, v in batch.items()}
+    opt = trainer.state.optimizer
+    loss_fn = make_loss_fn(trainer._adapter, trainer.model, use_dropout=False,
+                           data_parallel=True, layout=trainer._layout)
+    loss, _ = loss_fn(rows, None)
+    loss.backward()
+    grads, _ = reduce_on_mesh(trainer._layout, opt, [p.grad for p in opt.params],
+                              loss.detach()[None])
+    for p in opt.params:
+        p.grad = None
+    np.savez(out / f"{run['name']}_grads_{rank}.npz",
+             **{n: trainer._layout.whole(n, g).numpy() for n, g in zip(opt.names, grads)
+                if n in run["probe_leaves"]})
+
 setup_distributed(RunConfig.model_validate(spec["runs"][0]["raw"]).distributed, "cpu")
 summary = {}
 for run in spec["runs"]:
@@ -93,6 +114,8 @@ for run in spec["runs"]:
                 trainer._layout.load_whole(trainer.model, whole)
             else:
                 trainer.model.load_state_dict(whole)
+        if run.get("probe"):
+            probe(trainer, run)
         trainer.fit(run["steps"], resume_from=run.get("resume"))
     except Exception as exc:
         if not run.get("expect_error"):
@@ -104,10 +127,12 @@ for run in spec["runs"]:
     whole = layout.whole_state_dict(model) if layout is not None else model.state_dict()
     stored = sum(p.numel() * p.element_size() for p in model.parameters())
     opt_bytes = trainer._opt_state_memory()["opt_state_bytes_per_device"]
+    val = trainer._evaluate(run["steps"], run["steps"])["val/loss"] if run.get("val") else None
     if rank == 0:
         np.savez(out / f"{run['name']}.npz", **{k: v.detach().numpy() for k, v in whole.items()})
         summary[run["name"]] = {"losses": list(losses), "stored_bytes": stored,
-                                "opt_bytes": opt_bytes}
+                                "opt_bytes": opt_bytes, "val": val,
+                                "param_count": trainer._param_count}
 if rank == 0:
     (out / "summary.json").write_text(json.dumps(summary))
 torch.distributed.barrier()  # no rank leaves while another still holds the group
@@ -149,6 +174,7 @@ def _launch(tmp: Path, runs: list[dict], world: int) -> dict:
     for name, entry in summary.items():
         if "losses" in entry:
             entry["params"] = dict(np.load(out / f"{name}.npz"))
+        entry["grads"] = [dict(np.load(g)) for g in sorted(out.glob(f"{name}_grads_*.npz"))]
     return summary
 
 
@@ -189,10 +215,11 @@ def _dp(mesh: dict) -> int:
     return mesh.get("data", 1) * mesh.get("fsdp", 1) * mesh.get("expert", 1)
 
 
-def _jax_fit(raw: dict, tmp: Path, steps: int = STEPS) -> dict:
+def _jax_fit(raw: dict, tmp: Path, steps: int = STEPS, *, with_val: bool = False) -> dict:
     """JAX's trainer on the port's mesh (data widened) at the same global
     batch: its initial params (as an npz of flat flax paths), per-step
-    losses, final params and per-device parameter bytes."""
+    losses, final params and per-device parameter bytes (``with_val``:
+    and the val loss after the fit)."""
     from unittest import mock
 
     from llmtrain_tpu.config import load_and_validate_config
@@ -236,8 +263,9 @@ def _jax_fit(raw: dict, tmp: Path, steps: int = STEPS) -> dict:
     with mock.patch.object(JaxTrainer, "_log_train_interval", log_interval):
         trainer.fit(steps)
     final = jax.device_get(serialization.to_state_dict(nn_meta.unbox(trainer._state.params)))
+    val = trainer._evaluate(steps, steps)["val/loss"] if with_val else None
     return {"init": str(init_path), "losses": losses, "per_device": per_device,
-            "opt_bytes": opt_bytes,
+            "opt_bytes": opt_bytes, "val": val,
             "params": {k: v.numpy() for k, v in flax_params_to_state_dict(final).items()}}
 
 

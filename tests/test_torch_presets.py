@@ -6,8 +6,9 @@ int8 matmuls, ``gpt_offload_smoke``'s tier ladder and ``gpt_zero_smoke``'s
 ZeRO), the two ``dummy_gpt`` presets and the five llama-family ones
 (llama, Mistral, Qwen2, Gemma, the Mixtral layout) train three steps
 through the port's ``train`` (gpt_moe_smoke's ``{expert: 4, data: 2}``
-mesh needs 8 devices: in one process it exits 2 naming the device count,
-and it trains as 8 gloo ranks); and
+and gpt_pipeline_smoke's ``{pipeline: 4, data: 2}`` meshes need 8
+devices: in one process each exits 2 naming the device count, and each
+trains as 8 gloo ranks); and
 ``gpt_pycorpus_bpe_tpu`` at a tiny width, over a corpus of standard-library
 files with the tracked ``runs/pytok8k.json`` vocabulary, tracks the JAX
 trainer's per-step losses from the same initial params within the
@@ -42,13 +43,13 @@ SMOKE_PRESETS = ("gpt_smoke", "gpt_serve_smoke", "gpt_router_smoke", "gpt_overlo
                  "gpt_tune_smoke", "gpt_quant_smoke", "gpt_offload_smoke", "gpt_zero_smoke",
                  "gpt_resilient_smoke", "dummy_smoke", "example", "llama_smoke",
                  "mistral_smoke", "qwen2_smoke", "gemma_smoke", "llama_moe_smoke",
-                 "gpt_moe_smoke")
+                 "gpt_moe_smoke", "gpt_pipeline_smoke")
 # Refused for a part of the JAX package the port does not run yet, and the
 # item each refusal cites (none left).
 REFUSED: dict[str, str] = {}
 # Presets whose mesh spans more devices than one process has: in one
 # process the plan's MeshPlanError (exit 2) names the device count.
-NEEDS_RANKS = {"gpt_moe_smoke": 8}
+NEEDS_RANKS = {"gpt_moe_smoke": 8, "gpt_pipeline_smoke": 8}
 
 
 def _preset(name: str) -> dict:
@@ -167,6 +168,32 @@ def test_moe_smoke_trains_on_its_mesh_as_eight_gloo_ranks(tmp_path) -> None:
     result = json.loads(outs[0][1].strip().splitlines()[-1])["train_result"]
     assert result["final_step"] == 3 and math.isfinite(result["final_loss"])
     assert (tmp_path / "runs" / "m" / "checkpoints" / "step_000003.ckpt").is_file()
+
+
+def test_pipeline_smoke_trains_on_its_mesh_as_eight_gloo_ranks(tmp_path) -> None:
+    """gpt_pipeline_smoke on its own {pipeline: 4, data: 2} mesh: 8 ranks,
+    each stage holding 2 of the 8 layers, cut to 3 steps; its checkpoint
+    holds the whole stacked tree."""
+    from test_torch_ddp import launch, wait
+
+    from llmtrain_tpu_torch.training.checkpoint import CheckpointManager
+
+    raw = _preset("gpt_pipeline_smoke")
+    raw["distributed"]["enabled"] = True
+    raw["trainer"].update(max_steps=3, warmup_steps=1, log_every_steps=1, eval_every_steps=3,
+                          save_every_steps=3)
+    raw["output"]["root_dir"] = str(tmp_path / "runs")
+    cfg = tmp_path / "gpt_pipeline_smoke.yaml"
+    cfg.write_text(yaml.safe_dump(raw, sort_keys=False))
+    outs = wait(launch(tmp_path, ["train", "--config", str(cfg), "--run-id", "p", "--json"],
+                       world=8), timeout=240)
+    for code, _, err in outs:
+        assert code == 0, err[-3000:]
+    result = json.loads(outs[0][1].strip().splitlines()[-1])["train_result"]
+    assert result["final_step"] == 3 and math.isfinite(result["final_loss"])
+    params = CheckpointManager.load(
+        tmp_path / "runs" / "p" / "checkpoints" / "step_000003.ckpt")["params"]
+    assert tuple(params["qkv_kernel"].shape) == (8, 64, 3, 4, 16)
 
 
 def test_telemetry_smoke_trains_and_serves_metrics(tmp_path, capsys, monkeypatch) -> None:

@@ -225,9 +225,8 @@ _CITES_STABLE_ITEM = re.compile(r"\(ROADMAP\.md queue A: (" + "|".join(STABLE_IT
 @pytest.mark.parametrize(
     "override",
     # The mesh axes train since they were ported (as many ranks as the mesh
-    # has devices): in one process each layout below is the plan's
-    # MeshPlanError naming the device count; the pipeline axis is still
-    # refused, citing its item.
+    # has devices): in one process each layout below, the pipeline axis
+    # too, is the plan's MeshPlanError naming the device count.
     [{"distributed.mesh.sequence": 2}, {"distributed.mesh.fsdp": 2},
      {"model.extra.activation_tiers": "full:*", "distributed.mesh.sequence": 2},
      {"distributed.enabled": True, "distributed.mesh.tensor": 2},
@@ -243,12 +242,6 @@ def test_refusals_cite_a_stable_roadmap_item(tmp_path, override) -> None:
     from llmtrain_tpu_torch.autotune.plan import MeshPlanError
 
     cfg, _, _ = load_and_validate_config(_config(tmp_path, **override))
-    if "distributed.mesh.pipeline" in override:
-        with pytest.raises(NotImplementedError) as excinfo:
-            refuse_unported(cfg)
-        assert _CITES_STABLE_ITEM.search(str(excinfo.value)), str(excinfo.value)
-        assert "item 6c" in str(excinfo.value)
-        return
     with pytest.raises(MeshPlanError, match="device count 1 |but 1 devices are available"):
         refuse_unported(cfg)
 
