@@ -284,19 +284,20 @@ Phases, each fatal on failure (exit code 1, no result line):
    phase's seconds on their own line.
 21. The model zoo, in the same temp root, launch counts reset just before
    and read just after each training, generate and eval path: (a) `train`
-   on llama_pycorpus_tpu at full width and depth (768 x 12 layers, 12
-   query heads over 4 KV heads, SwiGLU d_ff 2048, RoPE, RMSNorm, byte
-   vocab, flash), micro batch 64 x 512, ZOO_STEPS steps with one eval
-   and a save: losses finite and falling by LOSS_DROP_MIN, exactly 12
-   flash forward, dq and dk/dv per step plus 12 forward per eval batch,
-   none of the others; step ms, tokens/s, MFU (6N + 12·L·T·d with the
-   counted N) and peak memory. (b) From its checkpoint: generate() greedy
-   400+160 past block_size (the re-forward branch, >= 12 x 160 GQA
-   forward launches); in-process `serve-bench --verify-parity` of
-   ZOO_REQUESTS greedy requests, bitwise equal to generate(), every one
-   completed; `eval`, `export-checkpoint` to HF Llama names, then
+   on llama_pycorpus_tpu at full width, ZOO_LLAMA_LAYERS deep (768 x 6
+   of the cell's 12 layers, 12 query heads over 4 KV heads, SwiGLU d_ff
+   2048, RoPE, RMSNorm, byte vocab, flash), micro batch 64 x 512,
+   ZOO_STEPS steps with one eval and a save: losses finite and falling by
+   LOSS_DROP_MIN, exactly one flash forward, dq and dk/dv per layer and
+   step plus one forward per layer and eval batch, none of the others;
+   step ms, tokens/s, MFU (6N + 12·L·T·d with the counted N) and peak
+   memory. (b) From its checkpoint: generate() greedy 400+160 past
+   block_size (the re-forward branch, >= layers x 160 GQA forward
+   launches); in-process `serve-bench --verify-parity` of ZOO_REQUESTS
+   greedy requests, bitwise equal to generate(), every one completed;
+   `eval`, `export-checkpoint` to HF Llama names, then
    `import-checkpoint` and `eval`: bit-identical, within EVAL_ATOL of the
-   trainer's eval (12 forwards per eval batch each). (c) Qwen2 and Gemma
+   trainer's eval (one forward per layer and eval batch each). (c) Qwen2 and Gemma
    on the same config at ZOO_SMALL_LAYERS layers, ZOO_SMALL_STEPS steps
    each (qkv biases and the 1e6 RoPE base; GeGLU, offset norms and the
    bf16 sqrt(d) embedding scale): finite losses, the counts, a greedy
@@ -404,6 +405,25 @@ Phases, each fatal on failure (exit code 1, no result line):
    phase 20's children (start_tune): the baseline probed, the winner's
    measured MFU at least the baseline's, the emitted config trained one
    step.
+26. Lifecycle and fleet, in the same temp root: (a) `promote` at full
+   width on a copy of phase 9's run: a poisoned step 30 committed into
+   its stream through the port's CheckpointManager (the model as the
+   run's seed initialises it), step 40 and report.json held back and
+   released once the ledger holds step 30's rollback, a heartbeat kept
+   fresh meanwhile; `promote --from <step 20> --max-promotions 0` on
+   phase 9's config with gpt_promote_smoke's serving (2 in-process
+   replicas) and promote sections: exit 0, status training_finished, the
+   ledger canary_start 30, rollback 30 (eval_regression), canary_start
+   40, promote 40, no soak request failed, both replicas at step 40, the
+   flash forward launched n_layers x eval_batches per evaluation the
+   controller ran and no other kernel, and `goodput --json` on the copy
+   with 1 promoted and 1 rolled back; (b) `fleet --storm --seed
+   STORM_SEED` on gpt_fleet_smoke on the card (the byte cell's widths and
+   flash attention at STORM_LAYERS layers, micro batch STORM_MICRO, both
+   tenants fixed at one rank, tenant-b a LoRA fine-tune) as a child
+   process started with phase 20 (start_storm): exit 0,
+   every tenant completed with bitwise parity, an eviction, the
+   mid-checkpoint kill, a capacity change, fleet_report.json written.
 
 Then it prints the kernels line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
@@ -1762,7 +1782,7 @@ def phase_train(torch, smi: str, tmp: Path) -> dict:
         f"{gen['text']!r}")
     if len(ids) != 48 or not all(0 <= i < 256 for i in ids):
         raise RuntimeError(f"generate from the trained checkpoint returned {ids}")
-    return dict(cfg_path=cfg_path, run_dir=run_dir, steps=steps, counts=counts,
+    return dict(cfg_path=cfg_path, run_dir=run_dir, steps=steps, counts=counts, layers=layers,
                 eval_batches=eval_batches, step_ms=step_ms, tokens_per_sec=tok_s, mfu=mfu,
                 summary=summary, exact_losses=exact.losses)
 
@@ -3859,8 +3879,8 @@ def phase_resilience(torch, smi: str, tmp: Path, train: dict, beside=None) -> di
 
 # ------------------------------------------------------ model zoo (phase 21)
 # Phase 21: the llama family on the card. (a) llama_pycorpus_tpu at full
-# width and depth (768 x 12 layers, 12 query heads over 4 KV heads, SwiGLU
-# d_ff 2048, byte vocab, flash), ZOO_STEPS steps with one eval and a save
+# width, ZOO_LLAMA_LAYERS deep (768 wide, 12 query heads over 4 KV heads,
+# SwiGLU d_ff 2048, byte vocab, flash), ZOO_STEPS steps with one eval and a save
 # at the end; (b) from its checkpoint `generate` past block_size (the
 # re-forward branch), ZOO_REQUESTS requests of `serve-bench
 # --verify-parity`, export to HF names -> import -> eval; (c) Qwen2 and
@@ -3871,6 +3891,7 @@ def phase_resilience(torch, smi: str, tmp: Path, train: dict, beside=None) -> di
 # ZOO_LORA_STEPS steps: the base bit-identical, every factor B moved, the
 # merged export generating.
 ZOO_STEPS = 16
+ZOO_LLAMA_LAYERS = 6  # the cell's 12 until phase 26 came (PERF.md §2)
 ZOO_WARMUP = 4
 ZOO_SMALL_LAYERS = 4
 ZOO_SMALL_STEPS = 4
@@ -3974,7 +3995,7 @@ def _zoo_llama(torch, smi: str, tmp: Path, eval_batches: int) -> dict:
     from llmtrain_tpu_torch.training.checkpoint import load_inference_params
 
     cfg_path = _zoo_config(tmp, "llama_pycorpus_zoo", "llama_pycorpus_tpu", steps=ZOO_STEPS,
-                           warmup=ZOO_WARMUP)
+                           model=dict(n_layers=ZOO_LLAMA_LAYERS), warmup=ZOO_WARMUP)
     cfg, _, _ = load_and_validate_config(cfg_path)
     torch.cuda.empty_cache()
     run = _zoo_train(tmp, cfg_path, "llama", steps=ZOO_STEPS, eval_batches=eval_batches,
@@ -5249,14 +5270,15 @@ def start_tune(tmp: Path) -> dict:
     return dict(proc=proc, tmp=tmp, raw=raw, t0=time.perf_counter())
 
 
-def stop_tune(tune: dict | None) -> None:
-    """Stop the tune child and its probes if still running."""
+def stop_child(child: dict | None) -> None:
+    """Stop a phase's child process (tune, the storm) and its own children
+    if still running."""
     import os
     import signal
 
-    if tune is not None and tune["proc"].poll() is None:
-        os.killpg(tune["proc"].pid, signal.SIGKILL)
-        tune["proc"].wait(timeout=30)
+    if child is not None and child["proc"].poll() is None:
+        os.killpg(child["proc"].pid, signal.SIGKILL)
+        child["proc"].wait(timeout=30)
 
 
 def _finish_tune(tune: dict, smi: str) -> dict:
@@ -5269,7 +5291,7 @@ def _finish_tune(tune: dict, smi: str) -> dict:
     try:
         code = tune["proc"].wait(timeout=TUNE_TIMEOUT_SEC)
     finally:
-        stop_tune(tune)
+        stop_child(tune)
     if code != 0:
         raise RuntimeError(f"25: tune exited {code}: {(tmp / 'tune.err').read_text()[-2000:]}")
     report = json.loads((tmp / "tune.out").read_text())
@@ -5308,7 +5330,7 @@ def phase_autotune(torch, smi: str, tmp: Path, train: dict | None,
         report = _finish_tune(tune, smi)
     finally:
         if own:
-            stop_tune(tune)
+            stop_child(tune)
     seconds = time.perf_counter() - t0
     log(f"[autotune] phase 25 in {seconds:.1f} s")
     return dict(predicted=predicted, winner=report["winner"], seconds=seconds)
@@ -5342,6 +5364,289 @@ def _plan_checks(tmp: Path, train: dict | None) -> float:
     if code != 2:
         raise RuntimeError(f"25: plan over the card's memory exited {code}, not 2")
     return predicted
+
+
+# -------------------------------------------- lifecycle and fleet (phase 26)
+# Phase 26: (a) `promote` on a copy of phase 9's stream at full width: a
+# poisoned step 30 (the model's seeded initialisation, committed through
+# the port's CheckpointManager) canaried and rolled back by the eval gate,
+# then step 40 (held back until the rollback lands) promoted to both
+# replicas; (b) `fleet --storm` on the card over gpt_fleet_smoke at the
+# byte cell's widths, a child process started with phase 20.
+PROMOTE_POISON_STEP = 30
+# gpt_promote_smoke polls every 2.0 s; the stream here is the smoke's own
+# (0.5 s until phase 26's first whole run, PERF.md §2).
+PROMOTE_POLL_SEC = 0.25
+PROMOTE_TIMEOUT_SEC = 300
+STORM_PRESET = "gpt_fleet_smoke"
+STORM_LAYERS = 2  # the byte cell's 12
+STORM_MICRO = 2  # gpt_fleet_smoke's global micro batch (the byte cell's 64)
+STORM_SEED = 1
+STORM_TIMEOUT_SEC = 600
+
+
+def _promote_config(tmp: Path, train: dict) -> Path:
+    """Phase 9's config with gpt_promote_smoke's serving and promote
+    sections."""
+    import yaml
+
+    root = Path(__file__).resolve().parent
+    raw = yaml.safe_load(Path(train["cfg_path"]).read_text())
+    preset = yaml.safe_load((root / "configs/presets/gpt_promote_smoke.yaml").read_text())
+    raw["serving"] = preset["serving"]
+    raw["promote"] = {**preset["promote"], "poll_sec": PROMOTE_POLL_SEC}
+    path = tmp / "promote.yaml"
+    path.write_text(yaml.safe_dump(raw, sort_keys=False))
+    return path
+
+
+def _poison(torch, cfg_path: Path, ckpt_dir: Path) -> None:
+    """Commit step PROMOTE_POISON_STEP into ``ckpt_dir``: the model as the
+    run's seed initialises it (on the card, as the trainer does). Loadable
+    by `eval` and the decode path, which read the params alone (its
+    optimizer state is empty: the base's 0.65 GB cost a read and a write),
+    finite, and far worse than the steps around it."""
+    from llmtrain_tpu_torch.config import load_and_validate_config
+    from llmtrain_tpu_torch.interop.flax_params import state_dict_to_flax_params
+    from llmtrain_tpu_torch.models.lora import build_adapter
+    from llmtrain_tpu_torch.training.checkpoint import CheckpointManager
+
+    cfg, _, resolved = load_and_validate_config(cfg_path)
+    model = build_adapter(cfg).build_model(cfg, torch.device("cuda"))
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    del model
+    params = state_dict_to_flax_params(sd, n_heads=cfg.model.n_heads, n_kv_heads=0)
+    CheckpointManager(ckpt_dir, keep_last_k=10).save_host(
+        PROMOTE_POISON_STEP, {"params": params, "opt_state": {}}, resolved)
+
+
+class _LiveStream(threading.Thread):
+    """The training run that `promote` watches, played from files: a fresh
+    heartbeat every PROMOTE_POLL_SEC; once the ledger holds the poisoned step's
+    rollback, the held-back commit (payload first, manifest last) and then
+    report.json."""
+
+    def __init__(self, run_dir: Path, held: list[Path], report: bytes) -> None:
+        super().__init__(name="promote-stream", daemon=True)
+        self.run_dir, self.held, self.report = run_dir, held, report
+        self.stop = threading.Event()
+        self.released_at: float | None = None
+        self.error: BaseException | None = None
+
+    def _rolled_back(self) -> bool:
+        try:
+            lines = (self.run_dir / "promotions.jsonl").read_text().splitlines()
+        except OSError:
+            return False
+        for line in lines:
+            try:
+                e = json.loads(line)
+            except ValueError:
+                continue
+            if e.get("decision") == "rollback" and e.get("step") == PROMOTE_POISON_STEP:
+                return True
+        return False
+
+    def run(self) -> None:
+        import shutil
+
+        try:
+            while not self.stop.is_set():
+                (self.run_dir / "heartbeat").write_text(str(time.time()))
+                if self.released_at is None and self._rolled_back():
+                    ckpt_dir = self.run_dir / "checkpoints"
+                    for path in self.held:  # the manifest is the last of them
+                        shutil.move(str(path), str(ckpt_dir / path.name))
+                    (self.run_dir / "report.json").write_bytes(self.report)
+                    self.released_at = time.perf_counter()
+                self.stop.wait(PROMOTE_POLL_SEC)
+        except BaseException as exc:  # noqa: BLE001 — reported by the phase
+            self.error = exc
+
+
+class _TimedEvaluate:
+    """Times each `Trainer.evaluate` in this process (the promote
+    controller's evaluator): (checkpoint, seconds) per call."""
+
+    def __enter__(self):
+        from llmtrain_tpu_torch.training import trainer
+
+        self.cls, self.calls = trainer.Trainer, []
+        self.orig = self.cls.evaluate
+
+        def evaluate(trainer_self, resume_from=None, **kw):
+            t0 = time.perf_counter()
+            try:
+                return self.orig(trainer_self, resume_from, **kw)
+            finally:
+                self.calls.append((Path(str(resume_from)).name, time.perf_counter() - t0))
+
+        self.cls.evaluate = evaluate
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.cls.evaluate = self.orig
+
+
+def _promote_phase(torch, smi: str, tmp: Path, train: dict) -> dict:
+    """26(a): `promote --from <step 20> --watch <copy of phase 9's run>`
+    (a copy of hard links: nothing here writes into phase 9's files)."""
+    import os
+    import shutil
+
+    t0 = time.perf_counter()
+    run_dir = tmp / "promote_run"
+    shutil.copytree(train["run_dir"], run_dir, copy_function=os.link)
+    ckpt_dir = run_dir / "checkpoints"
+    base = ckpt_dir / f"step_{TRAIN_SAVE_EVERY:06d}.ckpt"
+    last = TRAIN_STEPS
+    # Step 40 and report.json wait outside the stream until step 30 is judged.
+    aside = tmp / "promote_held"
+    aside.mkdir()
+    held = []
+    for suffix in (".ckpt", ".ckpt.sha256", ".manifest.json"):
+        src = ckpt_dir / f"step_{last:06d}{suffix}"
+        if src.exists():
+            held.append(Path(shutil.move(str(src), str(aside / src.name))))
+    report = (run_dir / "report.json").read_bytes()
+    (run_dir / "report.json").unlink()
+    for stale in run_dir.glob("heartbeat*"):
+        stale.unlink()
+    cfg_path = _promote_config(tmp, train)
+    _poison(torch, cfg_path, ckpt_dir)
+    torch.cuda.empty_cache()
+    stream = _LiveStream(run_dir, held, report)
+    stream.start()
+    _reset_counts()  # the promote path's counts start here
+    try:
+        with _TimedEvaluate() as evals:
+            code, out = _run_cli(["promote", "--config", str(cfg_path), "--watch", str(run_dir),
+                                  "--from", str(base), "--max-promotions", "0",
+                                  "--idle-timeout-sec", str(PROMOTE_TIMEOUT_SEC), "--json"])
+    finally:
+        stream.stop.set()
+        stream.join(timeout=30)
+    counts = _read_counts()  # and end here
+    if stream.error is not None:
+        raise RuntimeError(f"26(a): the stream's thread failed: {stream.error!r}")
+    if code != 0:
+        raise RuntimeError(f"26(a): promote exited {code}")
+    result = json.loads(out.strip().splitlines()[-1])
+    ledger = [json.loads(line) for line in
+              (run_dir / "promotions.jsonl").read_text().splitlines()]
+    decisions = [(e["decision"], e["step"]) for e in ledger]
+    reasons = [(d, s, e["reason"]) for (d, s), e in zip(decisions, ledger)]
+    log(f"[promote] {result}; ledger {reasons}")
+    want = [("canary_start", PROMOTE_POISON_STEP), ("rollback", PROMOTE_POISON_STEP),
+            ("canary_start", last), ("promote", last)]
+    if result["status"] != "training_finished" or decisions != want \
+            or not (ledger[1]["reason"] or "").startswith("eval_regression"):
+        raise RuntimeError(f"26(a): the ledger reads {decisions} (status {result['status']}), "
+                           f"not {want} with an eval regression")
+    for e in ledger:
+        for side in ("canary", "reference"):
+            soak = e["scores"].get(side)
+            if soak:
+                log(f"[promote] step {e['step']} {e['decision']} {side} soak: "
+                    f"{soak['completed']}/{soak['requests']} completed, TTFT p50 "
+                    f"{soak['ttft_p50_ms']} ms p95 {soak['ttft_p95_ms']} ms, per-token p50 "
+                    f"{soak['per_token_p50_ms']} ms p99 {soak['per_token_p99_ms']} ms")
+                if soak["failed"] or soak["timed_out"]:
+                    raise RuntimeError(f"26(a): a soak request failed: {soak}")
+    swap = ledger[-1]["scores"]["fleet_swap"]
+    if len(swap) != 2 or any(r.get("step") != last or "error" in r for r in swap):
+        raise RuntimeError(f"26(a): the replicas did not both end at step {last}: {swap}")
+    scores = {e["step"]: e["scores"].get("eval_loss") for e in ledger if e["scores"]}
+    log(f"[promote] evals {[(name, round(s, 2)) for name, s in evals.calls]} s; eval losses "
+        f"{scores}, baseline {ledger[1]['scores'].get('baseline_eval_loss')}")
+    _check_counts("promote", counts, {
+        "flash_attention_fwd": train["layers"] * train["eval_batches"] * len(evals.calls)})
+    code, out = _run_cli(["goodput", "--run-dir", str(run_dir), "--json"])
+    block = json.loads(out).get("promotions") if code == 0 else None
+    if block is None or block["decisions"]["promote"] != 1 or block["decisions"]["rollback"] != 1:
+        raise RuntimeError(f"26(a): goodput's promotions block is {block} (exit {code})")
+    seconds = time.perf_counter() - t0
+    log(f"[promote] on {smi}: {len(evals.calls)} evaluations, phase 26(a) {seconds:.1f} s")
+    return dict(counts=counts, ledger=ledger, evals=evals.calls, seconds=seconds)
+
+
+def start_storm(tmp: Path) -> dict:
+    """26(b)'s `fleet --storm` as a child process in its own session (its
+    tenants' ranks are its children), so it runs beside other phases'
+    children: gpt_fleet_smoke on the card, the byte cell's widths at
+    STORM_LAYERS layers, both tenants fixed at one rank."""
+    import yaml
+
+    root = Path(__file__).resolve().parent
+    raw = yaml.safe_load((root / "configs/presets" / f"{STORM_PRESET}.yaml").read_text())
+    cell = yaml.safe_load((root / "configs/presets/gpt_pycorpus_tpu.yaml").read_text())["model"]
+    raw["run"]["device"] = "cuda"
+    raw["model"] = {**cell, "n_layers": STORM_LAYERS}
+    raw["trainer"]["micro_batch_size"] = STORM_MICRO
+    for tenant in raw["fleet"]["tenants"]:
+        tenant["max_devices"] = tenant["min_devices"] = 1  # one card holds one rank
+    raw["output"]["root_dir"] = str(tmp / "runs")
+    cfg = tmp / "storm.yaml"
+    cfg.write_text(yaml.safe_dump(raw, sort_keys=False))
+    out, err = open(tmp / "storm.out", "w"), open(tmp / "storm.err", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "llmtrain_tpu_torch", "fleet", "--config", str(cfg), "--storm",
+         "--seed", str(STORM_SEED), "--work-dir", str(tmp / "storm"), "--timeout-sec",
+         str(STORM_TIMEOUT_SEC), "--json"],
+        cwd=root, stdout=out, stderr=err, text=True, start_new_session=True)
+    out.close()
+    err.close()
+    return dict(proc=proc, tmp=tmp, raw=raw, t0=time.perf_counter())
+
+
+def _finish_storm(storm: dict, smi: str) -> dict:
+    """26(b)'s gates on the storm child's result: exit 0, every tenant
+    completed with bitwise parity, an eviction, the mid-checkpoint kill, a
+    capacity change, fleet_report.json written."""
+    tmp = storm["tmp"]
+    try:
+        code = storm["proc"].wait(timeout=STORM_TIMEOUT_SEC + 60)
+    finally:
+        stop_child(storm)
+    waited = time.perf_counter() - storm["t0"]
+    if code != 0:
+        raise RuntimeError(f"26(b): fleet --storm exited {code}: "
+                           f"{(tmp / 'storm.err').read_text()[-3000:]}")
+    result = json.loads((tmp / "storm.out").read_text().strip().splitlines()[-1])
+    report = json.loads(Path(result["fleet_report_json"]).read_text())
+    model = storm["raw"]["model"]
+    log(f"[storm] {len(result['tenants'])} tenants at {model['d_model']} x "
+        f"{model['n_layers']} layers ({model['attention']} attention) on {smi}: "
+        f"{result['total_evictions']} evictions, {result['total_respawns']} respawns, "
+        f"{result['capacity_changes']} capacity changes, mid-checkpoint kill on "
+        f"{result['mid_checkpoint_kill_tenant']}; parity "
+        f"{ {n: r['parity'] for n, r in result['tenants'].items()} }; storm "
+        f"{result['wall_time_sec']} s (child {waited:.1f} s since its start)")
+    states = {n: v["state"] for n, v in report["tenants"].items()}
+    if not result["bitwise_match"] or result["total_evictions"] < 1 \
+            or not result["mid_checkpoint_kill_tenant"] or result["capacity_changes"] < 1 \
+            or any(s != "completed" for s in states.values()) \
+            or any(r["parity"] != "bitwise" for r in result["tenants"].values()):
+        raise RuntimeError(f"26(b): the storm did not prove its invariants: {result}, {states}")
+    return dict(result=result, seconds=result["wall_time_sec"], waited=waited)
+
+
+def phase_lifecycle(torch, smi: str, tmp: Path, train: dict, storm: dict | None) -> dict:
+    """Phase 26 (module doc): the storm (started earlier by start_storm,
+    else here) collected first, so that its children do not share the host
+    with the soaks' latency gates; then `promote` on phase 9's stream."""
+    t0 = time.perf_counter()
+    own = storm is None
+    storm = storm or start_storm(tmp)
+    try:
+        fleet = _finish_storm(storm, smi)
+    finally:
+        if own:
+            stop_child(storm)
+    promote = _promote_phase(torch, smi, tmp, train)
+    seconds = time.perf_counter() - t0
+    log(f"[lifecycle] phase 26 in {seconds:.1f} s")
+    return dict(counts=promote["counts"], promote=promote, storm=fleet, seconds=seconds)
 
 
 def main() -> int:
@@ -5410,11 +5715,19 @@ def main() -> int:
         clock("phase 18: ddp, optimizers")
         tel = phase_telemetry(torch, smi, Path(tmp), train, ce)
         clock("phase 19: telemetry")
-        tune = None
-        try:
+        children: list[dict] = []  # stopped whatever happens
+
+        def beside() -> dict:
             # Phase 25's tune runs beside phase 20's children (PERF.md §2).
-            res = phase_resilience(torch, smi, Path(tmp), train,
-                                   beside=lambda: start_tune(Path(tmp)))
+            children.append(start_tune(Path(tmp)))
+            return children[-1]
+
+        try:
+            # Phase 26's storm starts with phase 20, before its guarded run:
+            # the longest child gets the whole phase to hide in (PERF.md §2).
+            storm = start_storm(Path(tmp))
+            children.append(storm)
+            res = phase_resilience(torch, smi, Path(tmp), train, beside=beside)
             tune = res["beside"]
             clock("phase 20: resilience")
             zoo = phase_zoo(torch, smi, Path(tmp))
@@ -5427,18 +5740,22 @@ def main() -> int:
             clock("phase 24: the pipeline")
             tuned = phase_autotune(torch, smi, Path(tmp), train, tune)
             clock("phase 25: autotune")
+            life = phase_lifecycle(torch, smi, Path(tmp), train, storm)
+            clock("phase 26: lifecycle and fleet")
         finally:
-            stop_tune(tune)
+            for child in children:
+                stop_child(child)
     paths = (train["counts"], fused["counts"], ce["counts"], spec["counts"], offline["counts"],
              ddp["counts"], tel["counts"], res["counts"], zoo["counts"], par["counts"],
-             mesh["counts"], pipe["counts"])
+             mesh["counts"], pipe["counts"], life["counts"])
     launches = {name: sum(c[name] for c in paths) for name in paths[0]}
     launches["flash_attention_fwd"] += serve_launches
     log(f"[main path] launches over serve + generate, train, fused-norm train, CE train, "
         f"speculative/int8/rolling, BPE train and its evals, the one-rank NCCL train and its "
         f"EMA evals, phase 19's profile and telemetry runs, phase 20's guarded run, phase "
         f"21's model zoo, phase 22's quantized, tiered and ZeRO runs, phase 23's mesh "
-        f"runs and phase 24's pipeline run and schedules: {launches}")
+        f"runs, phase 24's pipeline run and schedules and phase 26's promote evaluations: "
+        f"{launches}")
     for name, n in launches.items():
         if n == 0:
             raise RuntimeError(f"the main path never launched {name}")
@@ -5532,6 +5849,11 @@ def main() -> int:
     log(f"[autotune] plan predicts {tuned['predicted'] / 2**30:.2f} GiB against phase 9's "
         f"{train['summary']['peak_memory'] / 2**30:.2f} GiB; tune winner {tuned['winner']['key']}"
         f"; phase 25 {tuned['seconds']:.1f} s")
+    storm_result = life["storm"]["result"]
+    log(f"[lifecycle] promote: step {PROMOTE_POISON_STEP} rolled back, step {TRAIN_STEPS} "
+        f"promoted, {len(life['promote']['evals'])} evaluations; storm: "
+        f"{storm_result['total_evictions']} evictions, {storm_result['total_respawns']} "
+        f"respawns in {life['storm']['seconds']} s; phase 26 {life['seconds']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -34,7 +34,7 @@ import time
 from pathlib import Path
 from typing import Any
 
-from ..resilience.harness import deep_merge
+from ..resilience.harness import deep_merge, pin_child_topology, run_rank_group
 from .plan import MeshPlan, caps_from_config, plan_from_config
 from .search import enumerate_candidates, prune_candidates, resolve_hbm_limit
 
@@ -68,53 +68,6 @@ def _probe_overrides(
             "output": {"root_dir": workdir, "run_id": run_id},
         },
     )
-
-
-def _free_port() -> int:
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _pin_child_topology(env: dict[str, str], device_count: int) -> list[dict[str, str]]:
-    """The plan was resolved against ``device_count`` devices: one child
-    environment per rank, the rank and world pinned (any inherited ones
-    replaced) and, for several ranks, one rendezvous on this host; the
-    package found from this checkout."""
-    base = {k: v for k, v in env.items()
-            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
-                         "JAX_PROCESS_ID", "JAX_NUM_PROCESSES", "JAX_COORDINATOR_ADDRESS")}
-    # The children import this package from the same checkout.
-    root = str(Path(__file__).resolve().parents[2])
-    base["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
-    if device_count == 1:
-        return [base]
-    port = str(_free_port())
-    return [{**base, "RANK": str(r), "WORLD_SIZE": str(device_count), "LOCAL_RANK": str(r),
-             "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": port} for r in range(device_count)]
-
-
-def _run_children(cmd: list[str], envs: list[dict[str, str]],
-                  timeout_sec: float) -> subprocess.CompletedProcess:
-    """The probe's ranks; rank 0's result, or the first failing rank's.
-    Every child is stopped before this returns."""
-    procs = [subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True) for env in envs]
-    deadline = time.monotonic() + timeout_sec
-    results = []
-    try:
-        for proc in procs:
-            out, err = proc.communicate(timeout=max(deadline - time.monotonic(), 0.001))
-            results.append(subprocess.CompletedProcess(proc.args, proc.returncode, out, err))
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
-    failed = [r for r in results if r.returncode != 0]
-    return failed[0] if failed else results[0]
 
 
 def _run_probe(
@@ -157,7 +110,7 @@ def _run_probe(
     cfg_path = workdir / f"{run_id}.yaml"
     cfg_path.write_text(yaml.safe_dump(dump, sort_keys=False))
 
-    envs = _pin_child_topology(dict(os.environ), device_count)
+    envs = pin_child_topology(dict(os.environ), device_count)
     cmd = [
         sys.executable,
         "-m",
@@ -169,7 +122,7 @@ def _run_probe(
     ]
     start = time.monotonic()
     try:
-        proc = _run_children(cmd, envs, timeout_sec)
+        proc = run_rank_group(cmd, envs, timeout_sec)
     except subprocess.TimeoutExpired:
         record.update(
             status="timeout",

@@ -56,8 +56,14 @@ Same subcommands, flags, JSON shapes and exit codes as the JAX CLI
 SQLite store or TensorBoard on rank 0 when ``mlflow.enabled``, the null
 tracker otherwise) and registers ``config.yaml`` and ``meta.json`` with it.
 
-The JAX CLI's ``promote``, ``fleet``, ``plan`` and ``tune`` take any
-arguments and exit 2 naming the ROADMAP.md item that ports them.
+* ``promote`` — the train -> canary -> promote lifecycle (lifecycle/): watch a
+  run's checkpoint stream, canary each commit on one replica of an
+  in-process router fleet, score it (eval loss, soak SLOs) and promote it
+  fleet-wide or roll it back, every decision in ``promotions.jsonl``;
+* ``fleet`` — the multi-tenant fleet supervisor (fleet/): tenants as groups
+  of ``train --auto-resume`` ranks on a bounded pool, with ``--storm`` the
+  seeded preemption-storm drill;
+* ``plan`` / ``tune`` — the mesh planner and the auto-tuner (autotune/).
 
 ``serve`` and ``serve-bench`` take the same draft and quantize flags: a
 draft puts the continuous backend on the speculative policy.
@@ -86,20 +92,11 @@ import numpy as np
 
 from . import __version__
 from .config import ConfigLoadError, load_and_validate_config
-from .resilience.exit_codes import exit_code_for_exception
+from .resilience.exit_codes import EXIT_TRAIN_FAILURE, exit_code_for_exception
 
 EXIT_OK = 0
 EXIT_FAILURE = 1
 EXIT_CONFIG_ERROR = 2
-
-_NOT_PORTED = "is not yet ported to llmtrain_tpu_torch"
-
-# Subcommands of the JAX CLI not ported yet: name -> (what it does, the
-# ROADMAP.md queue A item that ports it).
-_UNPORTED_COMMANDS = {
-    "promote": ("the train -> canary -> promote lifecycle", "lifecycle and fleet"),
-    "fleet": ("the multi-tenant fleet supervisor", "lifecycle and fleet"),
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -594,10 +591,132 @@ def build_parser() -> argparse.ArgumentParser:
     )
     tune.add_argument("--json", action="store_true", help="print the full tune report JSON")
 
-    # The JAX CLI's other subcommands: each takes any arguments and exits 2
-    # naming the ROADMAP.md item that ports it.
-    for name, what in _UNPORTED_COMMANDS.items():
-        sub.add_parser(name, add_help=False, help=f"not yet ported ({what[1]})")
+    promote = sub.add_parser(
+        "promote",
+        help="continuous train→canary→promote lifecycle: watch a training "
+        "run's manifest stream, canary each new commit on one replica, "
+        "score it (eval loss + TTFT/per-token SLO soak), then promote "
+        "fleet-wide or auto-roll-back (lifecycle/, docs/robustness.md "
+        "'Canary, promote, rollback')",
+    )
+    promote.add_argument(
+        "--config", required=True, help="path to the YAML run config"
+    )
+    promote.add_argument(
+        "--watch",
+        required=True,
+        help="training run dir (or its checkpoints/ dir) whose manifest "
+        "stream to watch; promotions.jsonl is written next to the run's "
+        "other durable artifacts",
+    )
+    promote.add_argument(
+        "--from",
+        dest="from_spec",
+        default=None,
+        help="initial baseline checkpoint to serve (default: the last "
+        "promoted entry in promotions.jsonl, else the stream's newest "
+        "commit — promote waits for the first one if needed)",
+    )
+    promote.add_argument(
+        "--replicas",
+        type=int,
+        default=None,
+        help="in-process fleet size (default: serving.router.replicas)",
+    )
+    promote.add_argument(
+        "--max-promotions",
+        type=int,
+        default=None,
+        help="stop after this many promotions (default: promote.max_promotions; "
+        "0 = run until the stream ends)",
+    )
+    promote.add_argument(
+        "--idle-timeout-sec",
+        type=float,
+        default=None,
+        help="exit after this long with no new commit and no training "
+        "heartbeat (default: promote.idle_timeout_sec)",
+    )
+    promote.add_argument(
+        "--no-eval",
+        action="store_true",
+        help="skip the held-out eval-loss gate (soak/SLO gates still run)",
+    )
+    promote.add_argument("--json", action="store_true", help="emit the result as JSON")
+    # Decode-stack flags shared with serve's loaders (promote keeps the
+    # defaults; the flags exist so _load_decode_params is reused as-is).
+    promote.set_defaults(
+        draft_config=None,
+        draft_from=None,
+        gamma=None,
+        backends=None,
+        discover=None,
+        decode_param_dtype="compute",
+        quantize="none",
+        ema=False,
+        mode="continuous",
+        router=True,
+    )
+
+    fleet = sub.add_parser(
+        "fleet",
+        help="multi-tenant fleet supervisor: schedule fleet.tenants onto a "
+        "bounded pool of ranks (CPU or card) with preemption-aware scheduling, "
+        "quotas, and the SIGTERM->SIGKILL escalation ladder (fleet/, "
+        "docs/robustness.md)",
+    )
+    fleet.add_argument("--config", required=True, help="path to the YAML run config")
+    fleet.add_argument(
+        "--storm",
+        action="store_true",
+        help="run the seeded preemption-storm acceptance drill instead of "
+        "a plain fleet run: capacity drop + seeded evictions + one "
+        "mid-checkpoint kill, then per-tenant bitwise parity against "
+        "uninterrupted references (fleet/chaos.py)",
+    )
+    fleet.add_argument(
+        "--seed", type=int, default=0, help="seed for the storm schedule "
+        "and the per-tenant respawn-backoff streams"
+    )
+    fleet.add_argument(
+        "--max-steps",
+        type=int,
+        default=None,
+        help="override trainer.max_steps for every tenant (keep it small)",
+    )
+    fleet.add_argument(
+        "--save-every",
+        type=int,
+        default=None,
+        help="override trainer.save_every_steps for every tenant",
+    )
+    fleet.add_argument(
+        "--work-dir",
+        default=None,
+        help="supervisor working directory (default: "
+        "{output.root_dir}/fleet_{run.name} or fleet_storm_{run.name}_s{seed})",
+    )
+    fleet.add_argument(
+        "--timeout-sec",
+        type=float,
+        default=900.0,
+        help="whole-fleet wall-clock budget",
+    )
+    fleet.add_argument(
+        "--step-delay-sec",
+        type=float,
+        default=0.15,
+        help="storm only: per-step tenant throttle so external evictions "
+        "land mid-run (trainer.extra.step_delay_sec)",
+    )
+    fleet.add_argument(
+        "--fresh",
+        action="store_true",
+        help="wipe the work dir's runs tree before starting (default: a "
+        "restarted supervisor auto-resumes every tenant from its newest "
+        "commit; --storm always starts fresh)",
+    )
+    fleet.add_argument("--json", action="store_true", help="emit the result as JSON")
 
     validate = sub.add_parser("validate", help="validate a config file")
     validate.add_argument("--config", required=True)
@@ -2798,7 +2917,339 @@ def _handle_tune(args: argparse.Namespace) -> int:
     return EXIT_OK
 
 
+def _resolve_watch_dirs(watch: str) -> tuple[Path, Path]:
+    """``--watch`` path → (run_dir, ckpt_dir). Accepts the run dir (the
+    conventional layout puts checkpoints in ``{run_dir}/checkpoints``)
+    or the checkpoints dir itself."""
+    path = Path(watch)
+    if path.name == "checkpoints":
+        return path.parent, path
+    if (path / "checkpoints").is_dir() or not any(
+        p.name.startswith("step_") for p in (path.glob("step_*") if path.is_dir() else [])
+    ):
+        return path, path / "checkpoints"
+    # A dir holding step_* files directly IS the checkpoint dir.
+    return path.parent, path
+
+
+def _handle_promote(args: argparse.Namespace) -> int:
+    """Continuous train→canary→promote lifecycle (lifecycle/controller.py;
+    JAX ``_handle_promote``).
+
+    Watches the training run's manifest stream (durable artifacts only),
+    serves an in-process replica fleet from the promoted baseline,
+    canaries each new commit on one replica, scores it over a soak window
+    (held-out eval loss + TTFT/per-token percentiles, optional A/B traffic
+    split), then promotes fleet-wide via rolling reload or rolls the
+    canary back. Every decision is a durable ``promotions.jsonl`` entry
+    the goodput ledger attributes.
+
+    Every candidate loads into a FRESH decode module: the replicas' hot
+    swap keeps in-flight requests on the module they were admitted under,
+    so a module an older epoch still reads is never written; a rollback
+    hands the replica back the baseline's own module.
+
+    Exit taxonomy: training finished (report.json) or the promotion budget
+    spent → 0; the training run dying mid-stream (stale heartbeat, no
+    report) → 1 (EXIT_TRAIN_FAILURE).
+    """
+    import time
+
+    cfg, code = _load_config(args.config)
+    if cfg is None:
+        return code
+    lora_err = _lora_spec_error(cfg)
+    if lora_err is not None:
+        _emit_error(lora_err)
+        return EXIT_CONFIG_ERROR
+    pcfg = cfg.promote
+    overrides: dict[str, Any] = {}
+    if args.max_promotions is not None:
+        overrides["max_promotions"] = args.max_promotions
+    if args.idle_timeout_sec is not None:
+        overrides["idle_timeout_sec"] = args.idle_timeout_sec
+    if overrides:
+        pcfg = pcfg.model_copy(update=overrides)
+
+    run_dir, ckpt_dir = _resolve_watch_dirs(args.watch)
+    if not run_dir.is_dir():
+        _emit_error(f"--watch run dir not found: {run_dir}")
+        return EXIT_CONFIG_ERROR
+
+    from .utils.logging import configure_logging
+
+    logger = configure_logging(level=cfg.logging.level, json_output=cfg.logging.json_output)
+    router = None
+    timeline = None
+    try:
+        from .distributed import resolve_device
+        from .lifecycle import (
+            CheckpointWatcher,
+            PromotionController,
+            PromotionLedger,
+            RouterFleet,
+        )
+
+        ledger = PromotionLedger(run_dir / "promotions.jsonl")
+        watcher = CheckpointWatcher(ckpt_dir, run_dir=run_dir)
+
+        # Baseline: the last promoted checkpoint (ledger replay — a
+        # SIGKILLed promote resumes where it decided, never re-promotes),
+        # else --from, else the stream's first commit (waited for).
+        spec = None
+        promoted = ledger.last_promoted()
+        if promoted and promoted.get("checkpoint") and Path(promoted["checkpoint"]).exists():
+            spec = promoted["checkpoint"]
+            logger.info(
+                "promote: resuming from ledger — step %d is the baseline", promoted["step"]
+            )
+        elif args.from_spec:
+            spec = args.from_spec
+        else:
+            deadline = time.monotonic() + pcfg.idle_timeout_sec
+            while spec is None:
+                polled = watcher.poll(after_step=-1)
+                if polled is not None:
+                    spec = str(polled[0])
+                    break
+                if time.monotonic() > deadline:
+                    _emit_error(
+                        f"promote: no committed checkpoint appeared in "
+                        f"{ckpt_dir} within {pcfg.idle_timeout_sec:.0f}s"
+                    )
+                    return EXIT_FAILURE
+                time.sleep(pcfg.poll_sec)
+
+        device = resolve_device(cfg.run.device)
+
+        def load_module(ckpt: str, label: str):
+            _, _, fresh = _build_decode_stack(cfg, device, logger)
+            return _load_decode_params(
+                cfg, fresh, ckpt, args.decode_param_dtype, logger, quantize=args.quantize,
+                ema=args.ema, label=label,
+            )
+
+        model, ckpt_path, step = load_module(str(spec), "promote ")
+        router, registry = _build_router_backend(cfg, model, logger, args)
+        if len(router.replicas) < 2:
+            logger.warning(
+                "promote: a 1-replica fleet has no reference replica — the SLO "
+                "A/B gate is skipped (only failures and eval loss gate promotion)"
+            )
+
+        def load_params(ckpt: Path):
+            return load_module(str(ckpt), "candidate ")[0]
+
+        evaluator = None
+        if not args.no_eval:
+            from .training.trainer import Trainer
+
+            eval_trainer = Trainer(cfg, None)
+
+            def evaluator(ckpt: Path) -> float | None:
+                metrics = eval_trainer.evaluate(resume_from=str(ckpt))
+                if metrics is None:
+                    return None
+                return float(metrics["val/loss"])
+
+        if cfg.telemetry.enabled and cfg.telemetry.timeline:
+            from .telemetry.timeline import EventTimeline
+
+            tdir = run_dir / "telemetry"
+            tdir.mkdir(parents=True, exist_ok=True)
+            # Separate file: appending promote segments into the trainer's
+            # timeline.jsonl would corrupt the goodput ledger's segment
+            # accounting.
+            timeline = EventTimeline(
+                tdir / "promote_timeline.jsonl",
+                max_events=cfg.telemetry.max_events,
+                xprof_annotations=False,
+            )
+
+        fleet = RouterFleet(
+            router,
+            vocab_size=model.vocab_size,
+            max_new_tokens=min(8, cfg.serving.max_new_tokens_cap),
+        )
+        try:
+            controller = PromotionController(
+                cfg=pcfg,
+                watcher=watcher,
+                fleet=fleet,
+                ledger=ledger,
+                baseline_params=model,
+                baseline_step=step,
+                baseline_checkpoint=str(ckpt_path),
+                load_params=load_params,
+                evaluator=evaluator,
+                registry=registry,
+                timeline=timeline,
+            )
+        except ValueError as exc:
+            _emit_error(str(exc))
+            return EXIT_CONFIG_ERROR
+        result = controller.run()
+
+        payload = {
+            "status": result.status,
+            "promotions": result.promotions,
+            "rollbacks": result.rollbacks,
+            "aborts": result.aborts,
+            "last_promoted_step": result.last_promoted_step,
+            "ledger": str(ledger.path),
+        }
+        if args.json:
+            print(json.dumps(payload))
+        else:
+            print(
+                f"promote: {result.status} — {result.promotions} promoted, "
+                f"{result.rollbacks} rolled back, {result.aborts} aborted "
+                f"(serving step {result.last_promoted_step}); ledger {ledger.path}"
+            )
+        if result.status == "training_dead":
+            # The watched run died mid-stream: surface it on the exit
+            # taxonomy so a supervisor treats promote like the trainer.
+            return EXIT_TRAIN_FAILURE
+        return EXIT_OK
+    except Exception as exc:  # noqa: BLE001 — CLI boundary
+        _emit_error(f"promote failed: {exc}")
+        return exit_code_for_exception(exc)
+    finally:
+        if timeline is not None:
+            try:
+                timeline.flush()
+            except Exception:  # noqa: BLE001 — best-effort telemetry
+                pass
+        if router is not None:
+            try:
+                from .telemetry.prometheus import render_prometheus
+
+                tdir = run_dir / "telemetry"
+                tdir.mkdir(parents=True, exist_ok=True)
+                (tdir / "promote_metrics.prom").write_text(
+                    render_prometheus(
+                        dict(router.registry.latest()),
+                        router.registry.counters(),
+                        {"component": "promote"},
+                    ),
+                    encoding="utf-8",
+                )
+            except Exception:  # noqa: BLE001 — best-effort telemetry
+                pass
+            router.close()
+
+
+def _handle_fleet(args: argparse.Namespace) -> int:
+    """Multi-tenant fleet supervisor / preemption-storm drill (JAX
+    ``_handle_fleet``): tenants are groups of ranks on the CPU
+    (``run.device: cpu``) or on the card.
+
+    Exit 0 when every tenant completed (and, under --storm, every parity
+    and scheduling invariant held); exit 1 when a tenant failed or an
+    invariant broke; exit 2 for config problems."""
+    try:
+        cfg, _, resolved = load_and_validate_config(args.config)
+    except ConfigLoadError as exc:
+        _emit_error(exc.message, details=exc.details, errors=exc.errors)
+        return EXIT_CONFIG_ERROR
+    from .resilience.harness import DrillInvariantError
+    from .utils.logging import configure_logging
+
+    logger = configure_logging(level=cfg.logging.level, json_output=cfg.logging.json_output)
+
+    try:
+        if args.storm:
+            from .fleet.chaos import run_fleet_storm
+
+            result = run_fleet_storm(
+                args.config,
+                seed=args.seed,
+                max_steps=args.max_steps,
+                save_every=args.save_every,
+                work_dir=args.work_dir,
+                timeout_sec=args.timeout_sec,
+                step_delay_sec=args.step_delay_sec,
+            )
+            if args.json:
+                print(json.dumps(result))
+            else:
+                parities = {
+                    n: r["parity"] for n, r in result["tenants"].items()
+                }
+                print(
+                    f"fleet storm passed: {result['total_evictions']} "
+                    f"eviction(s) (mid-checkpoint kill on "
+                    f"{result['mid_checkpoint_kill_tenant']}), "
+                    f"{result['total_respawns']} respawn(s), "
+                    f"{result['capacity_changes']} capacity change(s) across "
+                    f"{len(result['tenants'])} tenant(s); per-tenant parity "
+                    f"{parities}; artifacts in {result['work_dir']}"
+                )
+            return EXIT_OK
+
+        from .fleet.supervisor import FleetSupervisor
+
+        work_dir = args.work_dir or str(
+            Path(cfg.output.root_dir) / f"fleet_{cfg.run.name}"
+        )
+        try:
+            sup = FleetSupervisor(
+                cfg,
+                resolved,
+                work_dir=work_dir,
+                seed=args.seed,
+                max_steps=args.max_steps,
+                save_every=args.save_every,
+                fresh=args.fresh,
+            )
+        except ValueError as exc:
+            # Constructor-time validation only (no tenants, wrong device,
+            # infeasible world sizes): deterministic config problems. A
+            # ValueError INSIDE the run is a runtime failure and takes the
+            # taxonomy path below.
+            _emit_error(str(exc))
+            return EXIT_CONFIG_ERROR
+        try:
+            report = sup.run(timeout_sec=args.timeout_sec)
+        except DrillInvariantError:
+            raise  # the outer handler maps it to EXIT_FAILURE
+        except Exception as exc:  # noqa: BLE001 — run-time, NOT config
+            # Includes ValueError: past construction, nothing about the
+            # config is in question — route through the taxonomy instead
+            # of the outer config-error mapping.
+            logger.exception("fleet run errored: %s", exc)
+            _emit_error(f"fleet run errored: {exc}")
+            return exit_code_for_exception(exc)
+        if args.json:
+            print(json.dumps(report))
+        else:
+            print(
+                f"fleet run finished: {report['totals']['completed']}/"
+                f"{len(report['tenants'])} tenant(s) completed, "
+                f"{report['totals']['evictions']} eviction(s), "
+                f"{report['totals']['respawns']} respawn(s); report in "
+                f"{sup.work_dir / 'fleet_report.json'}"
+            )
+        return EXIT_OK if report["totals"]["failed"] == 0 else EXIT_FAILURE
+    except DrillInvariantError as exc:
+        logger.error("fleet invariant violated: %s", exc)
+        _emit_error(f"fleet invariant violated: {exc}")
+        return EXIT_FAILURE
+    except ValueError as exc:
+        # Storm pre-run validation (tenant count, infeasible fault
+        # windows, supervisor construction) raises ValueError before any
+        # subprocess launches — deterministic config problems.
+        _emit_error(str(exc))
+        return EXIT_CONFIG_ERROR
+    except Exception as exc:  # noqa: BLE001 — CLI boundary
+        logger.exception("fleet run errored: %s", exc)
+        _emit_error(f"fleet run errored: {exc}")
+        return exit_code_for_exception(exc)
+
+
 _HANDLERS = {
+    "promote": _handle_promote,
+    "fleet": _handle_fleet,
     "plan": _handle_plan,
     "tune": _handle_tune,
     "train": _handle_train,
@@ -2819,19 +3270,8 @@ _HANDLERS = {
 }
 
 
-def _handle_unported(args: argparse.Namespace) -> int:
-    what, item = _UNPORTED_COMMANDS[args.command]
-    _emit_error(f"`{args.command}` ({what}) {_NOT_PORTED} (ROADMAP.md queue A: {item})")
-    return EXIT_CONFIG_ERROR
-
-
 def main(argv: list[str] | None = None) -> int:
-    parser = build_parser()
-    args, extra = parser.parse_known_args(argv)
-    if args.command in _UNPORTED_COMMANDS:
-        return _handle_unported(args)
-    if extra:
-        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = build_parser().parse_args(argv)
     return _HANDLERS[args.command](args)
 
 

@@ -28,12 +28,12 @@ and after the final (uninterrupted) cycle:
   uninterrupted reference run's at every overlapping step, and the final
   checkpoints' params/opt_state are bitwise-identical tree-wide.
 
-The segment/invariant machinery lives in ``resilience/harness.py``. The
-multi-tenant fleet storm (``fleet/chaos.py``) that shares it in the JAX
-package is not ported yet; this module keeps the single-job drill and its
-``llmtrain_tpu_torch chaos`` CLI contract. Every segment runs on the device
-the config names (``run.device``): on the card the drill also proves the
-kernels give the same bits in a fresh process.
+The segment/invariant machinery lives in ``resilience/harness.py``, shared
+with the multi-tenant fleet storm (``fleet/chaos.py``). The uninterrupted
+reference runs beside the killed segments (its own run dir; nothing of it
+depends on them), as the storm runs its references. Every segment runs on
+the device the config names (``run.device``): on the card the drill also
+proves the kernels give the same bits in a fresh process.
 """
 
 from __future__ import annotations
@@ -41,6 +41,7 @@ from __future__ import annotations
 import json
 import random
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Any
 
@@ -136,81 +137,18 @@ def _next_save_boundary(last_step: int, save_every: int, max_steps: int) -> int 
     return next_save_boundary(last_step, save_every, max_steps)
 
 
-def run_chaos(
-    config_path: str | Path,
-    *,
-    cycles: int = 5,
-    seed: int = 0,
-    max_steps: int | None = None,
-    save_every: int | None = None,
-    work_dir: str | Path | None = None,
-    timeout_sec: float = 600.0,
-) -> dict[str, Any]:
-    """Run the seeded kill/resume schedule; returns the result record.
-
-    ``cycles`` is the number of KILLED segments (≥1; a final uninterrupted
-    segment always follows). The schedule is a pure function of ``seed``
-    and the observed commit progress. Raises :class:`ChaosInvariantError`
-    the moment any invariant breaks.
-    """
-    from ..config import load_and_validate_config
-    from ..training.checkpoint import CheckpointManager
-
-    cfg, _, resolved = load_and_validate_config(str(config_path))
-    steps = int(max_steps or cfg.trainer.max_steps)
-    save = int(save_every or min(cfg.trainer.save_every_steps, max(1, steps // 3)))
-    save = max(1, min(save, steps))
-    # Interval means are only comparable when every resume point (a save
-    # boundary) is also a log boundary: pick the largest log cadence that
-    # divides the save cadence.
-    log_every = aligned_log_every(save, cfg.trainer.log_every_steps)
-    work = Path(work_dir) if work_dir is not None else Path(cfg.output.root_dir) / (
-        f"chaos_{cfg.run.name}_s{seed}"
-    )
-    work.mkdir(parents=True, exist_ok=True)
-    runs_root = work / "runs"
-    if runs_root.exists():
-        # The runs tree is this harness's own scratch: a rerun with the
-        # same seed must start from zero, not --auto-resume last drill's
-        # completed runs (which would execute 0 steps, log an empty
-        # trajectory, and falsely fail the bitwise comparison).
-        import shutil
-
-        shutil.rmtree(runs_root)
-
-    def write_cfg(name: str, faults: dict[str, Any] | None) -> Path:
-        payload = _derive_config(
-            resolved,
-            root_dir=str(runs_root),
-            max_steps=steps,
-            save_every=save,
-            log_every=log_every,
-            faults=faults,
-        )
-        path = work / name
-        path.write_text(yaml.safe_dump(payload, sort_keys=False), encoding="utf-8")
-        return path
-
-    # ---------------------------------------------------------- reference
-    ref_cfg = write_cfg("reference.yaml", None)
-    started = time.perf_counter()
-    ref_proc = _run_segment(
-        ref_cfg, "reference", timeout_sec=timeout_sec, label="reference"
-    )
-    if ref_proc.returncode != 0:
-        raise ChaosInvariantError(
-            f"uninterrupted reference run failed (exit {ref_proc.returncode}): "
-            f"{(ref_proc.stderr or '')[-2000:]}"
-        )
-    ref_summary = _summary_of(ref_proc, "reference")
-    ref_dir = runs_root / "reference"
-
-    # ------------------------------------------------------- kill schedule
+def _kill_cycles(cfg, steps: int, save: int, seed: int, cycles: int, runs_root: Path,
+                 write_cfg, timeout_sec: float) -> tuple[list[dict[str, Any]], Any, bool]:
+    """The seeded kill schedule: ``cycles`` killed segments of the "chaos"
+    run, each checked for restorability and resume selection. Returns the
+    cycle records, the last segment's process and whether a segment
+    completed the run."""
     rng = random.Random(f"llmtrain-chaos:{seed}")
     chaos_dir = runs_root / "chaos"
     ckpt_dir = chaos_dir / "checkpoints"
     cycle_records: list[dict[str, Any]] = []
     completed_early = False
+    proc = None
     for i in range(max(1, cycles)):
         last = _newest_committed_step(ckpt_dir) if ckpt_dir.is_dir() else 0
         if last >= steps:
@@ -283,6 +221,87 @@ def run_chaos(
                 "checkpoint it should not have"
             )
         cycle_records.append(record)
+
+    return cycle_records, proc, completed_early
+
+
+def run_chaos(
+    config_path: str | Path,
+    *,
+    cycles: int = 5,
+    seed: int = 0,
+    max_steps: int | None = None,
+    save_every: int | None = None,
+    work_dir: str | Path | None = None,
+    timeout_sec: float = 600.0,
+) -> dict[str, Any]:
+    """Run the seeded kill/resume schedule; returns the result record.
+
+    ``cycles`` is the number of KILLED segments (≥1; a final uninterrupted
+    segment always follows). The schedule is a pure function of ``seed``
+    and the observed commit progress. Raises :class:`ChaosInvariantError`
+    the moment any invariant breaks.
+    """
+    from ..config import load_and_validate_config
+    from ..training.checkpoint import CheckpointManager
+
+    cfg, _, resolved = load_and_validate_config(str(config_path))
+    steps = int(max_steps or cfg.trainer.max_steps)
+    save = int(save_every or min(cfg.trainer.save_every_steps, max(1, steps // 3)))
+    save = max(1, min(save, steps))
+    # Interval means are only comparable when every resume point (a save
+    # boundary) is also a log boundary: pick the largest log cadence that
+    # divides the save cadence.
+    log_every = aligned_log_every(save, cfg.trainer.log_every_steps)
+    work = Path(work_dir) if work_dir is not None else Path(cfg.output.root_dir) / (
+        f"chaos_{cfg.run.name}_s{seed}"
+    )
+    work.mkdir(parents=True, exist_ok=True)
+    runs_root = work / "runs"
+    if runs_root.exists():
+        # The runs tree is this harness's own scratch: a rerun with the
+        # same seed must start from zero, not --auto-resume last drill's
+        # completed runs (which would execute 0 steps, log an empty
+        # trajectory, and falsely fail the bitwise comparison).
+        import shutil
+
+        shutil.rmtree(runs_root)
+
+    def write_cfg(name: str, faults: dict[str, Any] | None) -> Path:
+        payload = _derive_config(
+            resolved,
+            root_dir=str(runs_root),
+            max_steps=steps,
+            save_every=save,
+            log_every=log_every,
+            faults=faults,
+        )
+        path = work / name
+        path.write_text(yaml.safe_dump(payload, sort_keys=False), encoding="utf-8")
+        return path
+
+    # ---------------------------------------------------------- reference
+    # The uninterrupted reference runs beside the kill schedule below and is
+    # collected after the final segment.
+    ref_cfg = write_cfg("reference.yaml", None)
+    started = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        ref_future = pool.submit(
+            _run_segment, ref_cfg, "reference", timeout_sec=timeout_sec, label="reference"
+        )
+        cycle_records, proc, completed_early = _kill_cycles(
+            cfg, steps, save, seed, cycles, runs_root, write_cfg, timeout_sec
+        )
+        ref_proc = ref_future.result()
+    if ref_proc.returncode != 0:
+        raise ChaosInvariantError(
+            f"uninterrupted reference run failed (exit {ref_proc.returncode}): "
+            f"{(ref_proc.stderr or '')[-2000:]}"
+        )
+    ref_summary = _summary_of(ref_proc, "reference")
+    ref_dir = runs_root / "reference"
+    chaos_dir = runs_root / "chaos"
+    ckpt_dir = chaos_dir / "checkpoints"
 
     # ----------------------------------------------------------- final run
     final_summary: dict[str, Any]

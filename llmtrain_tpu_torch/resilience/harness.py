@@ -3,7 +3,7 @@
 
 The single-job chaos drill (``resilience/chaos.py``, ``llmtrain chaos``)
 and the multi-tenant fleet storm (``fleet/chaos.py``, ``llmtrain fleet
---storm``; not yet ported) prove the same crash-consistency contract at different scales:
+--storm``) prove the same crash-consistency contract at different scales:
 run REAL ``python -m llmtrain_tpu_torch train`` subprocesses, interrupt them,
 and machine-check that every restart resumed from the newest valid
 commit and that the completed trajectory is bitwise-identical to an
@@ -21,9 +21,11 @@ harness raises its own loud, named error type (``ChaosInvariantError``,
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 from typing import Any
 
@@ -284,6 +286,54 @@ def run_train_segment(
         ) from exc
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def pin_child_topology(env: dict[str, str], device_count: int) -> list[dict[str, str]]:
+    """One child environment per rank of a ``device_count``-rank group (a
+    tune probe, a fleet tenant's segment): the rank and world pinned (any
+    inherited ones replaced; ``LOCAL_RANK`` r is card r) and, for several
+    ranks, one rendezvous on this host; the package found from this
+    checkout."""
+    base = {k: v for k, v in env.items()
+            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
+                         "JAX_PROCESS_ID", "JAX_NUM_PROCESSES", "JAX_COORDINATOR_ADDRESS")}
+    # The children import this package from the same checkout.
+    root = str(Path(__file__).resolve().parents[2])
+    base["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
+    if device_count == 1:
+        return [base]
+    port = str(free_port())
+    return [{**base, "RANK": str(r), "WORLD_SIZE": str(device_count), "LOCAL_RANK": str(r),
+             "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": port} for r in range(device_count)]
+
+
+def run_rank_group(cmd: list[str], envs: list[dict[str, str]],
+                   timeout_sec: float) -> subprocess.CompletedProcess:
+    """Run one group of ranks to its end: rank 0's result, or the first
+    failing rank's. Every child is stopped before this returns."""
+    procs = [subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for env in envs]
+    deadline = time.monotonic() + timeout_sec
+    results = []
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=max(deadline - time.monotonic(), 0.001))
+            results.append(subprocess.CompletedProcess(proc.args, proc.returncode, out, err))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    failed = [r for r in results if r.returncode != 0]
+    return failed[0] if failed else results[0]
+
+
 def summary_of(
     stdout: str,
     *,
@@ -322,10 +372,13 @@ __all__ = [
     "assert_newest_loadable",
     "deep_merge",
     "derive_segment_config",
+    "free_port",
     "log_size",
     "newest_committed_step",
     "newest_committed_step_live",
     "next_save_boundary",
+    "pin_child_topology",
+    "run_rank_group",
     "run_train_segment",
     "segment_resumed_step",
     "summary_of",

@@ -32,9 +32,8 @@ rendered for any past run by ``llmtrain goodput --run-dir`` with every
 process dead. The invariant the tests pin: the categories sum to the
 total wall-clock exactly (residual is a category, not an error term).
 
-``promotions.jsonl`` (the promote lifecycle's ledger) is not read yet: a
-run dir holding one raises ``NotImplementedError`` (ROADMAP.md queue A:
-lifecycle and fleet).
+``promotions.jsonl`` (the promote lifecycle's ledger, lifecycle/ledger.py)
+adds a ``promotions`` block: the ledger's summary and its events.
 """
 
 from __future__ import annotations
@@ -304,17 +303,28 @@ def compute_goodput(
 
 
 def _promotions_block(run_dir: Path) -> dict[str, Any] | None:
-    """Promotion-lifecycle attribution from ``promotions.jsonl``, which
-    ``llmtrain promote`` writes beside the run. The lifecycle ledger's
-    reader is not ported: a run dir holding the file is refused rather than
-    given a ledger without its promotions block."""
+    """Promotion-lifecycle attribution: when ``llmtrain promote`` watched
+    this run, its ``promotions.jsonl`` is one more durable artifact —
+    the ledger reports which committed steps were canaried and what was
+    decided, on the run's own wall-clock timeline."""
     path = run_dir / "promotions.jsonl"
     if not path.is_file():
         return None
-    raise NotImplementedError(
-        f"{path}: the goodput ledger's promotions block (lifecycle/ledger.py) is not "
-        "yet ported to llmtrain_tpu_torch (ROADMAP.md queue A: lifecycle and fleet)"
-    )
+    from ..lifecycle.ledger import PromotionLedger
+
+    ledger = PromotionLedger(path)
+    summary = ledger.summary()
+    events = [
+        {
+            "ts_unix": round(float(e.get("ts_unix", 0.0)), 3),
+            "decision": e["decision"],
+            "step": e["step"],
+            "reason": e.get("reason"),
+        }
+        for e in ledger.entries()
+    ]
+    summary["events"] = events
+    return summary
 
 
 def render_goodput_md(ledger: dict[str, Any]) -> str:

@@ -14,9 +14,9 @@ Two transports, both fed from the same render:
   textfile collector.
 
 Naming convention: metric names map ``train/loss`` → ``llmtrain_train_loss``
-— one ``llmtrain_`` namespace, non-alphanumerics folded to ``_``. Fleet
-federation (``federate_prometheus``) is not ported (ROADMAP.md queue A:
-lifecycle and fleet).
+— one ``llmtrain_`` namespace, non-alphanumerics folded to ``_``.
+:func:`federate_prometheus` merges the fleet's per-tenant texts into one
+scrape (fleet/supervisor.py).
 """
 
 from __future__ import annotations
@@ -145,6 +145,78 @@ def render_prometheus(
     return "\n".join(lines) + "\n"
 
 
+# Quote-aware label block: a `}` or `#` inside a quoted label value
+# (escapes included) doesn't terminate it, so a value that happens to
+# contain ` # {` still parses as one label set.
+_LABELS_PAT = r"\{(?:[^\"{}]|\"(?:[^\"\\]|\\.)*\")*\}"
+_SAMPLE_RE = re.compile(
+    r"^(?P<name>[a-zA-Z_:][a-zA-Z0-9_:]*)"
+    rf"(?P<labels>{_LABELS_PAT})?"
+    r"\s+(?P<value>\S+)"
+    # Optional OpenMetrics exemplar suffix — ` # {trace_id="..."} 212.4`
+    # (see render_histogram) — anchored AFTER the sample value so it can
+    # only ever match a real exemplar, never label-value content.
+    rf"(?:\s+#\s+{_LABELS_PAT}\s+\S+(?:\s+\S+)?)?"
+    r"\s*$"
+)
+_TYPE_RE = re.compile(r"^#\s*TYPE\s+(?P<name>\S+)\s+(?P<type>\S+)\s*$")
+
+
+def federate_prometheus(sources: dict[str, str]) -> str:
+    """Merge per-tenant exposition texts into ONE scrape payload.
+
+    The fleet supervisor runs tenants as subprocesses whose own
+    ``/metrics`` ports are ephemeral (or textfile-only); a cluster
+    scraper should not have to discover N moving targets. This re-emits
+    every tenant series with a ``tenant="<name>"`` label injected (merged
+    in front of any existing labels) and additionally rolls counters up
+    into an unlabeled fleet-wide sum, so ``llmtrain_*_total`` without a
+    selector reads as "the whole fleet".
+
+    ``sources`` maps tenant name → that tenant's exposition text (e.g.
+    the content of its ``telemetry/metrics.prom`` textfile). Unparseable
+    lines are dropped, not propagated — one corrupt tenant file must not
+    poison the fleet scrape.
+    """
+    types: dict[str, str] = {}
+    series: dict[str, list[str]] = {}
+    counter_sums: dict[str, float] = {}
+    for tenant in sorted(sources):
+        tenant_label = f'tenant="{_escape_label(tenant)}"'
+        for line in sources[tenant].splitlines():
+            line = line.strip()
+            if not line:
+                continue
+            if line.startswith("#"):
+                m = _TYPE_RE.match(line)
+                if m:
+                    types.setdefault(m.group("name"), m.group("type"))
+                continue
+            # Exemplar suffixes (`... # {trace_id="..."} 1.2`) are valid
+            # OpenMetrics but not part of the sample proper — _SAMPLE_RE
+            # accepts-and-ignores them so histogram buckets federate
+            # (without the exemplar) instead of being dropped.
+            m = _SAMPLE_RE.match(line)
+            if m is None:
+                continue
+            name, labels, value = m.group("name"), m.group("labels"), m.group("value")
+            inner = (labels or "{}")[1:-1].strip()
+            merged = tenant_label + ("," + inner if inner else "")
+            series.setdefault(name, []).append(f"{name}{{{merged}}} {value}")
+            if types.get(name) == "counter":
+                try:
+                    counter_sums[name] = counter_sums.get(name, 0.0) + float(value)
+                except ValueError:
+                    pass
+    lines: list[str] = []
+    for name in sorted(series):
+        lines.append(f"# TYPE {name} {types.get(name, 'gauge')}")
+        lines.extend(series[name])
+        if name in counter_sums:
+            lines.append(f"{name} {_fmt_value(counter_sums[name])}")
+    return "\n".join(lines) + "\n" if lines else ""
+
+
 def write_textfile(path: str | Path, text: str) -> bool:
     """Atomic write (tmp + rename) of the textfile-collector snapshot; a
     scraper must never read a half-written file. Never raises."""
@@ -225,6 +297,7 @@ class PrometheusEndpoint:
 
 __all__ = [
     "PrometheusEndpoint",
+    "federate_prometheus",
     "prometheus_name",
     "render_histogram",
     "render_prometheus",

@@ -136,14 +136,16 @@ def _schedule(module, tmp_path: Path, seed: int, monkeypatch) -> list:
     """``run_chaos``'s kill schedule with the segments simulated: a kill at
     step k leaves the newest save before k committed; a kill inside a
     checkpoint write leaves that save adopted; a corrupted boundary is
-    skipped. Returns each cycle's label and faults in order."""
+    skipped. Returns each cycle's label and faults in order, the reference
+    first (the port runs it beside the killed segments, on a thread)."""
     save = 6
     state = {"newest": 0}
     plan: list = []
+    reference: list = []
 
     def run_segment(cfg_path, run_id, *, timeout_sec, label):
         faults = yaml.safe_load(Path(cfg_path).read_text())["resilience"]["faults"]
-        plan.append((label, faults))
+        (reference if label == "reference" else plan).append((label, faults))
         if label == "final":
             raise _Stop
         if label == "reference":
@@ -165,7 +167,7 @@ def _schedule(module, tmp_path: Path, seed: int, monkeypatch) -> list:
     with pytest.raises(_Stop):
         module.run_chaos(CHAOS_PRESET, cycles=4, seed=seed, save_every=save,
                          work_dir=tmp_path / module.__name__.split(".")[0] / str(seed))
-    return plan
+    return reference + plan
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])

@@ -4,8 +4,9 @@
 chains, each built from the classes both packages have (the topology and
 divergence errors from each package's own module); ``train`` with the
 trainer's run method raising ``ConnectionError`` exits 75 in both CLIs;
-and the refusals that cite a ROADMAP.md item: the JAX subcommands the port
-does not have yet, the ``hf_text`` data module and the ``hf:`` tokenizer;
+the refusals that cite a ROADMAP.md item (the ``hf_text`` data module and
+the ``hf:`` tokenizer); the subcommands once refused (``plan``, ``tune``,
+``promote``, ``fleet``) answering a config they cannot run as JAX's do;
 ``chaos`` rejects fewer than one cycle as JAX does.
 """
 
@@ -132,27 +133,65 @@ def test_connection_error_escaping_train_exits_75(tmp_path, capsys, monkeypatch,
     assert "(exit 75)" in capsys.readouterr().err
 
 
-_UNPORTED = {"promote": "lifecycle and fleet", "fleet": "lifecycle and fleet"}
-# Ported since (autotune): they exit 2 for a plan that cannot run, as
-# JAX's do, and no longer refuse.
-_PORTED = {"plan": "autotune", "tune": "autotune"}
+# Once refused citing their ROADMAP.md item, ported since: ``plan`` and
+# ``tune`` (autotune) exit 2 for a plan that cannot run, ``promote`` and
+# ``fleet`` (lifecycle and fleet) for a config they cannot run, each with
+# JAX's exit code and error.
+_PORTED = {"plan": "autotune", "tune": "autotune", "promote": "lifecycle and fleet",
+           "fleet": "lifecycle and fleet"}
 
 
-@pytest.mark.parametrize("command", sorted({**_UNPORTED, **_PORTED}))
+def _both_cli(argv: list[str], capsys) -> list[tuple[int, str]]:
+    """(exit code, JSON error) of JAX's CLI and of the port's on ``argv``."""
+    out = []
+    for main in (jax_main, port_main):
+        code = run_cli(main, argv)
+        out.append((code, json.loads(capsys.readouterr().err.strip().splitlines()[-1])["error"]))
+    return out
+
+
+@pytest.mark.parametrize("command", sorted(_PORTED))
 def test_unported_subcommand_exits_2_citing_its_item(tmp_path, capsys, command: str) -> None:
-    if command in _PORTED:
+    assert _PORTED[command] in STABLE_ITEMS
+    if command in ("plan", "tune"):
         cfg = _config(tmp_path, **{"distributed.mesh.tensor": 3})
         assert run_cli(port_main, [command, "--config", str(cfg), "--json"]) == 2
         err = json.loads(capsys.readouterr().err.strip().splitlines()[-1])["error"]
         assert err.startswith("infeasible plan: ") and "not yet ported" not in err, err
-        assert _PORTED[command] in STABLE_ITEMS
         return
     cfg = _config(tmp_path)
-    argv = [command, "--config", str(cfg), "--json", "-h", "--anything", "x"]
-    assert run_cli(port_main, argv) == 2
-    err = json.loads(capsys.readouterr().err.strip().splitlines()[-1])["error"]
-    assert _CITES_STABLE_ITEM.search(err) and f"queue A: {_UNPORTED[command]})" in err, err
-    assert _UNPORTED[command] in STABLE_ITEMS
+    extra = ["--watch", str(tmp_path / "no-run")] if command == "promote" else []
+    (jax_code, jax_err), (code, err) = _both_cli([command, "--config", str(cfg), *extra],
+                                                 capsys)
+    assert code == jax_code == 2 and err == jax_err, (err, jax_err)
+    assert not _CITES_STABLE_ITEM.search(err) and "not yet ported" not in err, err
+
+
+@pytest.mark.parametrize(
+    "command,case",
+    [("fleet", "fleetless"), ("fleet", "unloadable"), ("fleet", "one-tenant-storm"),
+     ("promote", "missing-watch"), ("promote", "unloadable"), ("promote", "bad-lora")],
+)
+def test_promote_and_fleet_config_errors_match_jax(tmp_path, capsys, command, case) -> None:
+    """``promote`` and ``fleet`` answer a config they cannot run as JAX's
+    do: the same exit code (2) and the same error."""
+    run_dir = tmp_path / "run"
+    run_dir.mkdir()
+    overrides = {}
+    if case == "bad-lora":
+        overrides["model.extra.lora"] = {"rank": 0}
+    if case == "one-tenant-storm":
+        overrides["fleet.tenants"] = [{"name": "solo"}]
+    cfg = _config(tmp_path, **overrides)
+    if case == "unloadable":
+        cfg.write_text("run: [this is not a mapping\n")
+    argv = [command, "--config", str(cfg)]
+    if command == "promote":
+        argv += ["--watch", str(run_dir if case != "missing-watch" else tmp_path / "gone")]
+    if case == "one-tenant-storm":
+        argv += ["--storm"]
+    (jax_code, jax_err), (code, err) = _both_cli(argv, capsys)
+    assert code == jax_code == 2 and err == jax_err, (err, jax_err)
 
 
 @pytest.mark.parametrize("extra", [["--cycles", "0"], ["--cycles", "-1"]],

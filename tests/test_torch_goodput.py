@@ -10,7 +10,8 @@
   run dir, in each package's CLI: two segments, the same categories, and
   no balance error; each package's ledger of either run dir is the same.
 * ``goodput`` exits 0 with the ledger, 1 without a timeline and 2 for a
-  missing run dir, in both CLIs, printing the same ledger.
+  missing run dir, in both CLIs, printing the same ledger; a run dir with
+  a ``promotions.jsonl`` gets the same promotions block.
 """
 
 from __future__ import annotations
@@ -145,14 +146,32 @@ def test_final_committed_step_matches_jax(tmp_path) -> None:
 
 
 def test_a_promotions_ledger_is_refused_citing_its_item(tmp_path, capsys) -> None:
-    """JAX reads ``promotions.jsonl`` through its lifecycle ledger, which
-    the port does not have yet: the port refuses rather than drop it."""
+    """What the refusal of ``promotions.jsonl`` became: both packages read
+    it through their lifecycle ledgers (either package's file), and the
+    ledger's promotions block, markdown, gauges and ``goodput --json``
+    output are JAX's, torn tail line included."""
+    from llmtrain_tpu.lifecycle import PromotionLedger as JaxLedger
+    from llmtrain_tpu_torch.lifecycle import PromotionLedger
+
     run_dir, _ = _case(tmp_path, "one-clean-segment")
-    (run_dir / "promotions.jsonl").write_text("")
-    with pytest.raises(NotImplementedError, match=r"queue A: lifecycle and fleet\)"):
-        port_goodput.compute_goodput(run_dir)
-    assert run_cli(port_main, ["goodput", "--run-dir", str(run_dir)]) == 2
-    assert "lifecycle and fleet" in capsys.readouterr().err
+    path = run_dir / "promotions.jsonl"
+    JaxLedger(path).append("canary_start", step=4, checkpoint="s4.ckpt")
+    PromotionLedger(path).append("rollback", step=4, reason="eval_regression: 0.5")
+    JaxLedger(path).append("canary_start", step=8, checkpoint="s8.ckpt")
+    PromotionLedger(path).append("promote", step=8, checkpoint="s8.ckpt")
+    with path.open("a") as f:
+        f.write('{"seq": 4, "decision": "prom')
+    theirs = jax_goodput.compute_goodput(run_dir)
+    ours = port_goodput.compute_goodput(run_dir)
+    assert ours == theirs and ours["promotions"]["decisions"]["rollback"] == 1
+    assert [e["seq"] for e in PromotionLedger(path).entries()] == [0, 1, 2, 3]
+    assert port_goodput.render_goodput_md(ours) == jax_goodput.render_goodput_md(theirs)
+    assert port_goodput.goodput_gauges(ours) == jax_goodput.goodput_gauges(theirs)
+    printed = []
+    for main in (jax_main, port_main):
+        assert run_cli(main, ["goodput", "--run-dir", str(run_dir), "--json"]) == 0
+        printed.append(json.loads(capsys.readouterr().out))
+    assert printed[0] == printed[1] and printed[1]["promotions"]["last_promoted_step"] == 8
 
 
 # ---------------------------------------------------------------- end to end
